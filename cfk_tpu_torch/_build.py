@@ -1,0 +1,124 @@
+"""Builds the port's CUDA kernels and loads them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles, with nvcc for ``sm_90a``, into its own
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds), under ``cfk_tpu_torch/_build/``.  The first kernel call of a
+process builds every library that is missing — one nvcc per source, all
+started at once — and later calls reuse them.  A library's file name carries
+a hash of its sources and flags, so an edited source is rebuilt.  Wrappers
+pass tensor pointers and PyTorch's current stream as ``c_void_p``; every C
+entry returns ``cudaGetLastError()`` and the wrapper raises on non-zero.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+SOURCES = ("reg_solve", "gram_gather", "gram_solve_dense")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+_funcs: dict[str, ctypes._CFuncPtr] = {}
+
+
+def nvcc_path() -> str:
+    """nvcc from PATH, else from the CUDA toolkit PyTorch finds."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError(
+        "nvcc not found (PATH or CUDA_HOME): the port's CUDA kernels are "
+        "built from cfk_tpu_torch/csrc on first use"
+    )
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for p in sorted(CSRC_DIR.glob("*.cuh")) + [CSRC_DIR / f"{name}.cu"]:
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names=SOURCES) -> dict[str, Path]:
+    """Compile every library of ``names`` not yet built, in parallel.
+
+    Returns name → library path.  Raises with nvcc's output if any build
+    fails.  nvcc's ``-Xptxas=-v`` report (registers, shared memory, spills)
+    is kept beside each library as ``<name>.ptxas.txt``.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {n: library_path(n) for n in names}
+    pending = {}
+    for n, out in paths.items():
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+               str(CSRC_DIR / f"{n}.cu")]
+        pending[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, out)
+    errors = []
+    for n, (proc, tmp, out) in pending.items():
+        log, _ = proc.communicate()
+        (BUILD_DIR / f"{n}.ptxas.txt").write_text(log)
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for csrc/{n}.cu "
+                          f"(exit {proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return paths
+
+
+def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry ``symbol`` of library ``name`` (building every missing
+    library first), with ``argtypes`` set and an int return."""
+    key = f"{name}:{symbol}"
+    with _lock:
+        fn = _funcs.get(key)
+        if fn is None:
+            lib = _libs.get(name)
+            if lib is None:
+                paths = build_all()
+                lib = _libs[name] = ctypes.CDLL(str(paths[name]))
+            fn = getattr(lib, symbol)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+            _funcs[key] = fn
+    return fn
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a C entry of library ``name`` reported a CUDA error."""
+    if rc != 0:
+        describe = function(name, "cfk_error_string", [ctypes.c_int])
+        describe.restype = ctypes.c_char_p
+        raise RuntimeError(
+            f"{name} kernel launch failed: CUDA error {rc} "
+            f"({describe(rc).decode()})"
+        )
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr()) if t is not None else ctypes.c_void_p(None)

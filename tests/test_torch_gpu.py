@@ -1,0 +1,167 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+CUDA kernels have no CPU mode, so every test here is marked ``gpu`` and
+skips without an NVIDIA GPU.  The repo's ``tests/conftest.py`` imports jax,
+which a GPU machine need not have; run these there with
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
+
+Tolerances, relative to the largest |value|: float32 on both sides with
+different summation orders (the kernels accumulate each Gram entry row by
+row, the plain versions per tile and then across tiles) — 1e-5 for Gram
+sums, 1e-4 for K1's batches.  K3's solutions are held to the plain (A, b)
+by their backward error, ||(A+R)x − b||∞ / (||A+R||∞·||x||∞ + ||b||∞)
+< 1e-5 in float64, per segment: a segment with fewer rows than k has a
+rank-deficient Gram held up only by the λ·n ridge (condition numbers up to
+~3e3 at k = 128), so two float32 Cholesky solves may differ forwards by
+~1e-3 while both solve the system to rounding.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from cfk_tpu_torch.data.blocks import build_tiled_blocks, index_entities
+from cfk_tpu_torch.data.synthetic import synthetic_netflix_coo
+from cfk_tpu_torch.models.als import _tiled_to_device
+from cfk_tpu_torch.ops.kernels.gram_kernel import (
+    _gram_dense_plain,
+    gram_gather,
+    gram_gather_plain,
+    gram_solve_dense,
+    gram_solve_dense_plain,
+)
+from cfk_tpu_torch.ops.kernels.solve_kernel import (
+    add_ridge_plain,
+    reg_solve,
+    reg_solve_plain,
+)
+from cfk_tpu_torch.ops.tiled import accum_chunk, dense_chunk
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rel_err(got, want):
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def _backward_err(x, a, b, reg, lam, reg_mode):
+    """Max over systems of ||(A+R)x − b||∞ / (||A+R||∞·||x||∞ + ||b||∞)."""
+    m = add_ridge_plain(a.double(), reg.double(), lam=lam, reg_mode=reg_mode)
+    x, b = x.double(), b.double()
+    r = (torch.einsum("skl,sl->sk", m, x) - b).abs().amax(1)
+    scale = (m.abs().sum(2).amax(1) * x.abs().amax(1) + b.abs().amax(1))
+    return float((r / scale.clamp_min(1e-300)).max())
+
+
+def _spd_batch(e, k, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand((e, 2 * k, k), generator=g)
+    a = torch.einsum("enk,enl->ekl", x, x)
+    b = torch.rand((e, k), generator=g)
+    cnt = torch.randint(0, 50, (e,), generator=g).to(torch.int32)
+    return a.to(device), b.to(device), cnt.to(device)
+
+
+@pytest.mark.parametrize("k", [8, 64, 100, 128])
+def test_reg_solve_matches_plain(cuda, k):
+    a, b, cnt = _spd_batch(300, k, k, cuda)
+    got = reg_solve(a, b, cnt, lam=0.05)
+    torch.cuda.synchronize()
+    want = reg_solve_plain(a, b, cnt, lam=0.05)
+    assert _rel_err(got, want) < 1e-4
+    r = torch.eye(k, device=cuda) * 0.3
+    got = reg_solve(a, b, r, lam=0.0, reg_mode="matrix")
+    want = reg_solve_plain(a, b, r, lam=0.0, reg_mode="matrix")
+    assert _rel_err(got, want) < 1e-4
+
+
+def _tiled_side(k, tile_rows, chunk_elems, device, accum):
+    coo = synthetic_netflix_coo(3000, 400, 60_000, seed=1)
+    mm, m_dense = index_entities(coo.movie_raw)
+    um, u_dense = index_entities(coo.user_raw)
+    nm, nu = mm.num_entities, um.num_entities
+    if accum:  # movies solved against a sliced user table
+        blocks = build_tiled_blocks(m_dense, u_dense, coo.rating, nm, nu,
+                                    tile_rows=tile_rows,
+                                    chunk_elems=chunk_elems, slice_rows=1000)
+        fixed_rows = nu
+    else:
+        blocks = build_tiled_blocks(u_dense, m_dense, coo.rating, nu, nm,
+                                    tile_rows=tile_rows,
+                                    chunk_elems=chunk_elems,
+                                    accum_max_entities=16)
+        fixed_rows = nm
+    rng = np.random.default_rng(k)
+    table = torch.as_tensor(
+        rng.standard_normal((fixed_rows, k), dtype=np.float32), device=device)
+    blk = _tiled_to_device(blocks, device, fixed_rows)
+    return blocks, blk, table
+
+
+@pytest.mark.parametrize("k,tile_rows", [(8, 16), (64, 128), (100, 32)])
+def test_gram_gather_matches_plain(cuda, k, tile_rows):
+    blocks, blk, table = _tiled_side(k, tile_rows, 4096, cuda, accum=True)
+    assert blocks.mode == "accum" and blocks.num_slices > 1
+    g = torch.Generator().manual_seed(0)
+    carry = (torch.rand((k, k), generator=g).to(cuda),
+             torch.rand((k,), generator=g).to(cuda),
+             torch.ones((1,), device=cuda))
+    for c in range(blocks.num_chunks):
+        args = accum_chunk(blk, blocks.statics, c)
+        a, b = gram_gather(table, **args, carry=carry)
+        torch.cuda.synchronize()
+        wa, wb = gram_gather_plain(table, **args, carry=carry)
+        assert _rel_err(a, wa) < 1e-5 and _rel_err(b, wb) < 1e-5
+
+
+@pytest.mark.parametrize("k,tile_rows,weighted", [
+    (8, 16, False), (64, 128, False), (100, 32, False), (128, 16, False),
+    (64, 128, True)])
+def test_gram_solve_dense_matches_plain(cuda, k, tile_rows, weighted):
+    blocks, blk, table = _tiled_side(k, tile_rows, 4096, cuda, accum=False)
+    assert blocks.mode == "dstream" and blocks.num_chunks > 2
+    a0 = torch.zeros((k, k), device=cuda)
+    b0 = torch.zeros((k,), device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    cap = blocks.statics[1]
+    wt_all = torch.rand(blocks.num_chunks * cap, generator=g, device=cuda)
+    ridge = torch.eye(k, device=cuda) * 2.0
+    for c in range(blocks.num_chunks):
+        args = dense_chunk(blk, blocks.statics, c)
+        cin = args.pop("cin")
+        reg_mode = "diag"
+        if weighted:  # the iALS form: weight stream + shared ridge
+            args["wt"] = wt_all[c * cap:(c + 1) * cap]
+            args["reg"], reg_mode = ridge, "matrix"
+        x, ca, cb = gram_solve_dense(table, **args, lam=0.05,
+                                     reg_mode=reg_mode, carry=(a0, b0, cin))
+        torch.cuda.synchronize()
+        wx, wca, wcb = gram_solve_dense_plain(table, **args, lam=0.05,
+                                              reg_mode=reg_mode,
+                                              carry=(a0, b0, cin))
+        a, b = _gram_dense_plain(
+            table, args["nb"], args["wt"], args["rt"], args["meta"],
+            num_segments=args["num_segments"], tile_rows=args["tile_rows"],
+            num_tiles=args["num_tiles"], num_groups=args["num_groups"],
+            block_rows=args["block_rows"], carry=(a0, b0, cin))
+        assert _backward_err(x, a, b, args["reg"], 0.05, reg_mode) < 1e-5
+        assert _rel_err(x, wx) < 1e-2
+        assert _rel_err(ca, wca) < 1e-5 and _rel_err(cb, wcb) < 1e-5
+        a0, b0 = wca, wcb
+
+
+def test_launch_counters_count_kernel_calls_only(cuda):
+    a, b, cnt = _spd_batch(10, 8, 0, cuda)
+    before = reg_solve.launches
+    reg_solve(a, b, cnt, lam=0.05)
+    reg_solve(a.cpu(), b.cpu(), cnt.cpu(), lam=0.05)  # plain route
+    assert reg_solve.launches == before + 1
