@@ -23,7 +23,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("reg_solve", "gram_gather", "gram_solve_dense")
+SOURCES = ("reg_solve", "gram_gather", "gram_solve_dense", "topk_scores")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -10,8 +10,13 @@
   ``cfk_tpu/cli.py:63-79``), rank, λ, iterations, seed, chunk budget,
   solver route, device and prediction-CSV output.
 - ``evaluate`` — offline MSE/RMSE of a prediction CSV against a ratings file.
+- ``recommend`` — top-K movies for given users from checkpointed factors
+  (``train --checkpoint-dir``, or the JAX package's checkpoint directory).
+- ``predict`` — the prediction CSV from checkpointed factors, no training.
+- ``serve`` — the top-K request server over an in-memory log, driven by the
+  built-in open-loop load generator; prints one JSON row (QPS, p50, p99).
 
-Training runs on CUDA unless ``--device cpu`` is given.
+Everything runs on CUDA unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -108,6 +113,13 @@ def _train(args) -> int:
     train_s = time.perf_counter() - t0
     mse, rmse = mse_rmse_from_model(model, ds)
     _eprint(f"train MSE={mse:.4f} RMSE={rmse:.4f}")
+    if args.checkpoint_dir:
+        from cfk_tpu_torch.transport.checkpoint import CheckpointManager
+
+        step = CheckpointManager(args.checkpoint_dir).save(
+            args.iterations, model.user_factors, model.movie_factors,
+            meta={"rank": args.rank, "model": "als", "num_shards": 1})
+        _eprint(f"factors checkpointed to {step}")
     if args.output != "none":
         path = _save_predictions(
             model, None if args.output == "auto" else args.output)
@@ -141,6 +153,120 @@ def _evaluate(args) -> int:
     print(f"MSE: {mse}")
     print(f"RMSE: {rmse}")
     return 0
+
+
+def _serving_model(args):
+    """(RatingsIndex of --data, ALSModel from --checkpoint-dir on --device,
+    the step's iteration).  Only the id maps and seen lists are built —
+    never training blocks."""
+    from cfk_tpu_torch.data.blocks import RatingsIndex
+    from cfk_tpu_torch.data.netflix import parse_netflix
+    from cfk_tpu_torch.transport.checkpoint import CheckpointManager
+    from cfk_tpu_torch.weights import model_from_state
+
+    ds = RatingsIndex.from_coo(parse_netflix(args.data))
+    state = CheckpointManager(args.checkpoint_dir).restore()
+    model = model_from_state(state, num_users=ds.user_map.num_entities,
+                             num_movies=ds.movie_map.num_entities,
+                             device=args.device)
+    return ds, model, state.iteration
+
+
+def _recommend(args) -> int:
+    """Top-K from checkpointed factors, printing raw ids:
+    ``<user>\\t<movie>:<score>,...``."""
+    import numpy as np
+
+    ds, model, _ = _serving_model(args)
+    if args.users == "all":
+        rows = np.arange(ds.user_map.num_entities)
+    else:
+        raw = np.asarray([int(u) for u in args.users.split(",")], np.int64)
+        rows = ds.user_map.to_dense(raw).astype(np.int64)
+    scores, movie_rows = model.recommend_top_k(
+        rows, args.k, dataset=None if args.include_seen else ds)
+    raw_movies = ds.movie_map.raw_ids[movie_rows]
+    for i, u in enumerate(ds.user_map.raw_ids[rows]):
+        pairs = ",".join(f"{mid}:{s:.3f}"
+                         for mid, s in zip(raw_movies[i], scores[i]))
+        print(f"{u}\t{pairs}")
+    return 0
+
+
+def _predict(args) -> int:
+    """The prediction CSV from checkpointed factors, without training (the
+    reference's final collection, ``processors/FeatureCollector.java``)."""
+    ds, model, iteration = _serving_model(args)
+    path = _save_predictions(
+        model, None if args.output == "auto" else args.output)
+    if path is None:
+        return 1
+    _eprint(f"predictions from iteration-{iteration} checkpoint written to "
+            f"{path}")
+    return 0
+
+
+def _serve(args) -> int:
+    """The request server over an in-memory log, driven by the open-loop
+    load generator at --loadgen-qps for --loadgen-requests requests; prints
+    one JSON row of the measured QPS and latency."""
+    import json
+
+    from cfk_tpu_torch.serving import (
+        RecommendServer,
+        ServeClient,
+        engine_from_model,
+        ensure_serve_topics,
+        run_open_loop,
+        warm_serve_programs,
+        zipf_user_rows,
+    )
+    from cfk_tpu_torch.transport.broker import InMemoryBroker
+
+    ds, model, _ = _serving_model(args)
+    engine = engine_from_model(
+        model, None if args.include_seen else ds,
+        table_dtype=args.table_dtype, tile_m=args.tile_m,
+        serve_mode=args.serve_mode, clusters=args.clusters or None,
+        probe_clusters=args.probe_clusters or None)
+    if engine.serve_mode == "two_stage":
+        _eprint(f"two-stage retrieval: {engine.clusters} clusters, "
+                f"{engine.probe_clusters} probed per user (the exact scan "
+                "stays the fault fallback)")
+    warm = engine.prewarm(args.k, max_batch=args.max_batch)
+    _eprint(f"prewarmed {warm['programs']} batch sizes in "
+            f"{warm['prewarm_s']:.2f}s")
+    transport = InMemoryBroker()
+    ensure_serve_topics(transport)
+    server = RecommendServer(engine, transport, max_batch=args.max_batch)
+    client = ServeClient(transport)
+    pool = zipf_user_rows(ds.user_map.num_entities, args.loadgen_requests,
+                          seed=args.seed)
+    warm_serve_programs(client, server, pool, args.k,
+                        min(args.max_batch, pool.shape[0]))
+    report = run_open_loop(
+        client, rate_qps=args.loadgen_qps,
+        num_requests=args.loadgen_requests, user_rows=pool, k=args.k,
+        server=server, drive_server=True)
+    print(json.dumps({
+        "users": ds.user_map.num_entities,
+        "movies": ds.movie_map.num_entities,
+        "k": args.k,
+        "table_dtype": engine.table_dtype,
+        "serve_mode": engine.serve_mode,
+        "device": str(engine.device),
+        **report.as_row(),
+    }))
+    return 0
+
+
+def _serving_args(p, *, data_help: str) -> None:
+    p.add_argument("--checkpoint-dir", required=True,
+                   help="checkpoint directory (train --checkpoint-dir, or "
+                   "the JAX package's); its newest valid step is served")
+    p.add_argument("--data", required=True, help=data_help)
+    p.add_argument("--format", choices=["netflix"], default="netflix")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -187,12 +313,65 @@ def build_parser() -> argparse.ArgumentParser:
         "--output", default="auto",
         help="'auto' = predictions/prediction_matrix_<ts>, 'none', or a path",
     )
+    t.add_argument("--checkpoint-dir", default=None,
+                   help="save the trained factors here as one checkpoint "
+                   "step (for recommend / predict / serve)")
     t.set_defaults(fn=_train)
 
     e = sub.add_parser("evaluate", help="offline MSE/RMSE of a prediction CSV")
     e.add_argument("ratings_file")
     e.add_argument("prediction_csv")
     e.set_defaults(fn=_evaluate)
+
+    rc = sub.add_parser(
+        "recommend", help="top-K recommendations from checkpointed factors")
+    _serving_args(rc, data_help="training data file (raw-id mapping + "
+                  "exclude-seen)")
+    rc.add_argument("--users", required=True,
+                    help="comma-separated raw user ids, or 'all'")
+    rc.add_argument("-k", type=int, default=10)
+    rc.add_argument("--include-seen", action="store_true",
+                    help="do not exclude already-rated movies")
+    rc.set_defaults(fn=_recommend)
+
+    pd = sub.add_parser(
+        "predict", help="the prediction CSV from checkpointed factors")
+    _serving_args(pd, data_help="training data file (raw-id mapping / "
+                  "matrix shape)")
+    pd.add_argument(
+        "--output", default="auto",
+        help="'auto' = predictions/prediction_matrix_<ts>, or a path")
+    pd.set_defaults(fn=_predict)
+
+    sv = sub.add_parser(
+        "serve", help="top-K request server (score + top-K kernel) over an "
+        "in-memory log, measured by the open-loop load generator")
+    _serving_args(sv, data_help="training data file (raw-id mapping + "
+                  "exclude-seen)")
+    sv.add_argument("-k", type=int, default=10, help="top-K per request")
+    sv.add_argument("--include-seen", action="store_true",
+                    help="do not exclude already-rated movies")
+    sv.add_argument("--table-dtype", choices=["float32", "bfloat16", "int8"],
+                    default="float32",
+                    help="item-table quantization: bf16 halves the bytes "
+                    "read per batch, int8 + per-row scale quarters them")
+    sv.add_argument("--tile-m", type=int, default=2048,
+                    help="movie rows per tile of the seen-mask rectangle")
+    sv.add_argument("--serve-mode", choices=["exact", "two_stage"],
+                    default="exact",
+                    help="two_stage probes a k-means centroid index and "
+                    "rescores only the probed clusters' rows exactly")
+    sv.add_argument("--clusters", type=int, default=0,
+                    help="two_stage cluster count (0 = ~sqrt(movies))")
+    sv.add_argument("--probe-clusters", type=int, default=0,
+                    help="clusters probed per user (0 = the smallest count "
+                    "the recall model puts at 0.95)")
+    sv.add_argument("--max-batch", type=int, default=256,
+                    help="max requests coalesced into one scoring batch")
+    sv.add_argument("--loadgen-qps", type=float, default=100.0)
+    sv.add_argument("--loadgen-requests", type=int, default=256)
+    sv.add_argument("--seed", type=int, default=0)
+    sv.set_defaults(fn=_serve)
     return p
 
 

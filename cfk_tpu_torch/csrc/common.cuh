@@ -1,6 +1,7 @@
-// Device code shared by the port's three kernels: the in-shared-memory
+// Device code shared by the port's training kernels: the in-shared-memory
 // Cholesky solve (reg_solve.cu, gram_solve_dense.cu) and the gathered-row
-// Gram accumulator (gram_gather.cu, gram_solve_dense.cu).
+// Gram accumulator (gram_gather.cu, gram_solve_dense.cu); every kernel
+// library takes its error-string export from here.
 //
 // Everything is plain FP32 FMA on the CUDA cores: the JAX package pins its
 // Gram and solve contractions to full float32 (precision="highest",

@@ -621,6 +621,34 @@ def _concat_aranges(lengths: np.ndarray) -> np.ndarray:
 
 
 @dataclasses.dataclass(frozen=True)
+class RatingsIndex:
+    """Id maps + dense-index COO without any solve-block build.
+
+    The subset of ``Dataset`` that serving needs (raw↔dense id mapping and
+    exclude-seen lists), so a full-corpus ``recommend`` or ``serve`` never
+    pays for the training layout.
+    """
+
+    movie_map: IdMap
+    user_map: IdMap
+    coo_dense: RatingsCOO
+
+    @classmethod
+    def from_coo(cls, coo: RatingsCOO) -> "RatingsIndex":
+        movie_map, m_dense = index_entities(coo.movie_raw)
+        user_map, u_dense = index_entities(coo.user_raw)
+        return cls(
+            movie_map=movie_map,
+            user_map=user_map,
+            coo_dense=RatingsCOO(
+                movie_raw=m_dense.astype(np.int64),
+                user_raw=u_dense.astype(np.int64),
+                rating=coo.rating.astype(np.float32),
+            ),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
 class Dataset:
     """A fully indexed rating dataset: id maps + both solve-side block sets."""
 

@@ -48,6 +48,48 @@ def synthetic_netflix_coo(
     return RatingsCOO(movie_raw=movie, user_raw=user, rating=rating)
 
 
+def serve_factors(num_users: int, num_movies: int, rank: int,
+                  rng: np.random.Generator) -> tuple[np.ndarray, np.ndarray]:
+    """(U [num_users, rank], M [num_movies, rank]) float32 serving factors.
+
+    Mixture-of-Gaussians item factors, with user vectors drawn near the
+    components under a Zipf(1.2) popularity law and sorted, so low user rows
+    (which Zipf traffic hits most) share the heavy components: trained CF
+    tables cluster, which two-stage retrieval relies on.  The same ``rng``
+    state gives the same arrays as the JAX package's serving bench
+    (``bench.py::_serve_factors``)."""
+    ncomp = min(64, max(num_movies // 16, 1))
+    comp = rng.standard_normal((ncomp, rank)).astype(np.float32) * 0.3
+    m = (comp[rng.integers(0, ncomp, size=num_movies)]
+         + rng.standard_normal((num_movies, rank), dtype=np.float32) * 0.05)
+    w = 1.0 / np.arange(1, ncomp + 1, dtype=np.float64) ** 1.2
+    u_comp = np.sort(rng.choice(ncomp, size=num_users, p=w / w.sum()))
+    u = (comp[u_comp]
+         + rng.standard_normal((num_users, rank), dtype=np.float32) * 0.05)
+    return u, m
+
+
+def serve_seen_csr(num_users: int, num_movies: int, nnz: int, pool,
+                   rng: np.random.Generator) -> tuple[np.ndarray, np.ndarray]:
+    """(seen movie rows int32, indptr [num_users+1] int64): a seen list for
+    each user of ``pool`` (Poisson widths at the mean ``nnz / num_users``,
+    at least 1, movies sorted and distinct), empty for everyone else — the
+    rows traffic will touch get realistic exclusion widths.  Same ``rng``
+    state, same arrays as ``bench.py::_serve_seen_csr``."""
+    mean_seen = max(1, nnz // num_users)
+    pool = np.unique(pool)
+    counts = np.zeros(num_users, np.int64)
+    counts[pool] = rng.poisson(mean_seen, pool.shape[0]).clip(1)
+    indptr = np.zeros(num_users + 1, np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    seen = np.empty(indptr[-1], np.int32)
+    for row in pool:
+        lo, hi = indptr[row], indptr[row + 1]
+        seen[lo:hi] = np.sort(rng.choice(num_movies, size=hi - lo,
+                                         replace=False)).astype(np.int32)
+    return seen, indptr
+
+
 def planted_factor_coo(
     num_users: int,
     num_movies: int,

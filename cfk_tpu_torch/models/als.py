@@ -68,6 +68,14 @@ class ALSModel:
         u, m = self.host_factors()
         return u @ m.T
 
+    def recommend_top_k(self, user_rows, k: int = 10, *, dataset=None,
+                        chunk: int = 8192):
+        """Top-K movie rows per user row; see ``eval.recommend``."""
+        from cfk_tpu_torch.eval.recommend import recommend_top_k
+
+        return recommend_top_k(self, user_rows, k, dataset=dataset,
+                               chunk=chunk)
+
 
 def _blocks_to_device(blocks: PaddedBlocks, device) -> dict[str, torch.Tensor]:
     return {

@@ -4,7 +4,7 @@
 
 Phases, each of which must pass:
 
-1. build   — compile the three CUDA kernels from cfk_tpu_torch/csrc (one nvcc
+1. build   — compile the four CUDA kernels from cfk_tpu_torch/csrc (one nvcc
              per source, in parallel);
 2. main    — train explicit ALS-WR with ``train_als`` at the Netflix Prize
              shape (480,189 users x 17,770 movies x 100,480,507 synthetic
@@ -25,11 +25,25 @@ Phases, each of which must pass:
              each kernel's device time per chunk beside the rows of the
              chunk's largest segment and the summed bound, and a
              torch.profiler pass over one iteration;
-5. small   — ``train_als`` on small padded and tiled datasets, kernels on the
+5. serve   — top-K serving at the repo's serving configuration (``bench.py
+             --serve``: 162,541 users x 59,047 movies, the ML-25M shape,
+             rank 128, K = 100, tile_m 2048, seen lists at the ML-25M mean;
+             factors and seen CSR from ``serve_factors``/``serve_seen_csr``,
+             seed 0): exact mode at batches 16, 64, 256 with an f32 table,
+             bf16 and int8 tables at 256, two-stage at 256 (1024 clusters).
+             Per configuration K4's count is zeroed, ``ServeEngine.topk`` and
+             an open-loop run through ``RecommendServer`` (70% of the
+             measured capacity, 256 requests) drive it, and the count must be
+             > 0; then K4 on that batch's own arguments against its plain
+             version, exact-mode ids against the dense route, no [B, M]
+             allocation during a K4 call, times, and two-stage recall@100 vs
+             the same engine's exact scan (>= 0.95, no fallback);
+6. small   — ``train_als`` on small padded and tiled datasets, kernels on the
              card against the plain versions on the CPU;
-6. cli     — ``python -m cfk_tpu_torch train --layout auto`` on a small
-             Netflix-format file (padded is chosen), then ``evaluate`` on its
-             prediction CSV.
+7. cli     — ``python -m cfk_tpu_torch train --layout auto --checkpoint-dir``
+             on a small Netflix-format file (padded is chosen), then
+             ``recommend``, ``predict``, ``evaluate`` on predict's CSV (the
+             train MSE again) and ``serve`` (every request answered).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and,
 as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero without
@@ -55,12 +69,22 @@ RANK, LAM, ITERS = 64, 0.05, 3
 # Kernel vs plain, max |difference| over max |plain|: float32 on both sides
 # in different summation orders.  Gram sums 1e-4; solves 1e-3 (the Cholesky
 # solves of systems with condition numbers up to ~1e3 amplify the rounding).
-TOL = {"reg_solve": 1e-3, "gram_gather": 1e-4, "gram_solve_dense": 1e-3}
+# K4: scores within 1e-5 of the largest |score|, ids equal except at
+# near-ties (``compare_topk``) — float32 dot products in another order.
+TOL = {"reg_solve": 1e-3, "gram_gather": 1e-4, "gram_solve_dense": 1e-3,
+       "topk_scores": 1e-5}
 REPLACES = {
     "reg_solve": "cfk_tpu/ops/pallas/solve_kernel.py:287",
     "gram_gather": "cfk_tpu/ops/pallas/gram_kernel.py:1422",
     "gram_solve_dense": "cfk_tpu/ops/pallas/gram_kernel.py:1764",
+    "topk_scores": "cfk_tpu/serving/topk_kernel.py:215",
 }
+# bench.py --serve's configuration (bench.py:3236-3262).
+SERVE = dict(num_users=162_541, num_movies=59_047, nnz=25_000_095,
+             rank=128, k=100, tile_m=2048, requests=256, clusters=1024)
+SERVE_CONFIGS = (("exact", "float32", 16), ("exact", "float32", 64),
+                 ("exact", "float32", 256), ("exact", "bfloat16", 256),
+                 ("exact", "int8", 256), ("two_stage", "float32", 256))
 
 
 def log(msg: str) -> None:
@@ -152,6 +176,94 @@ def gram_solve_dense_work(table, args) -> tuple[float, float, dict]:
             n_win * (k * k + 3 * k) + s * (k ** 3 / 3 + 2 * k * k + k),
             dict(chunk_rows=nb.numel(), window_rows=n_win,
                  distinct_table_rows=rows, segments=s))
+
+
+def topk_scores_work(args, kw, n: int) -> tuple[float, float, dict]:
+    """(bytes, flops, counts) of K4 on one batch of ``n`` real users: only
+    the live table rows (global id ``row_offset + row`` below ``num_movies``
+    — padding rows cannot change the result) at the table's row bytes
+    (``serve_batch_cost``: the int8 scale included), the [n, k] batch in, the
+    [n, K] result out and the batch's real seen entries (in-tile columns
+    below ``tile_m``) once each; 2·n·rows·k flops."""
+    from cfk_tpu_torch.utils.roofline import serve_batch_cost
+
+    _, table, _, seen = args
+    m_pad, rank = table.shape
+    live = min(max(kw["num_movies"] - kw.get("row_offset", 0), 0), m_pad)
+    td = {"torch.float32": "float32", "torch.bfloat16": "bfloat16",
+          "torch.int8": "int8"}[str(table.dtype)]
+    cost = serve_batch_cost(live, rank, n, kw["k_top"], table_dtype=td,
+                            m_pad=live)
+    seen_cells = 0 if seen is None else int((seen[:, :n] < kw["tile_m"]).sum())
+    return (cost.hbm_bytes + 4 * seen_cells, cost.model_flops,
+            dict(live_rows=live, padded_rows=m_pad, seen_cells=seen_cells))
+
+
+def profile_calls(fn, n: int) -> dict:
+    """Where ``n`` calls of ``fn`` spend their time (measurement only):
+    host wall ms per call, device-busy ms per call from torch.profiler's
+    kernel rows, the idle share, and the top device rows.  Returns
+    ``{"error": ...}`` if the profiler cannot trace the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / n
+        rows = []
+        for evt in prof.key_averages():
+            dev_us = getattr(evt, "self_device_time_total", 0) or 0
+            if dev_us > 0 and not evt.key.startswith("aten::"):
+                rows.append((evt.key[:60], dev_us / 1e3 / n, evt.count / n))
+        rows.sort(key=lambda r: -r[1])
+        busy = sum(r[1] for r in rows)
+        return dict(wall_ms=wall_ms, device_busy_ms=busy,
+                    idle_share=1 - busy / wall_ms, top=rows[:8])
+    except Exception:  # measurement only: keep the smoke's verdict
+        return {"error": traceback.format_exc()[-400:]}
+
+
+def dense_route(args, kw):
+    """The library yardstick for K4's arguments: [B, M_pad] 0/−inf mask
+    bias for padding and seen rows, the operands as K4 scores them
+    (dequantized table, u rounded to bf16 for a bf16 table), and the two
+    calls ``torch.topk(torch.addmm(bias, u, tableᵀ), K)`` — which write the
+    [B, M_pad] matrix K4 never does."""
+    import torch
+
+    from cfk_tpu_torch.ops.quant import dequantize_table
+    from cfk_tpu_torch.serving.topk_kernel import serve_compute_dtype
+
+    u, table, scale, seen = args
+    b, m_pad, tile_m = u.shape[0], table.shape[0], kw["tile_m"]
+    bias = torch.zeros((b, m_pad + 1), device=u.device)
+    gid = kw.get("row_offset", 0) + torch.arange(m_pad, device=u.device)
+    bias[:, :m_pad].masked_fill_((gid >= kw["num_movies"])[None, :],
+                                 float("-inf"))
+    if seen is not None:
+        c = seen.long()
+        col = torch.where(
+            c < tile_m,
+            c + tile_m * torch.arange(c.shape[0], device=u.device)[:, None,
+                                                                   None],
+            m_pad)
+        bias.scatter_(1, col.permute(1, 0, 2).reshape(b, -1),
+                      float("-inf"))
+    bias = bias[:, :m_pad].contiguous()
+    uf = u.to(serve_compute_dtype(table.dtype)).float()
+    tf = dequantize_table(table, scale).float()
+
+    def call(k_top=kw["k_top"]):
+        return torch.topk(torch.addmm(bias, uf, tf.T), k_top, dim=1)
+
+    return call
 
 
 class Smoke:
@@ -465,6 +577,181 @@ class Smoke:
         self.check(row["rel_err"] < TOL["gram_solve_dense"],
                    f"gram_solve_dense rel err {row['rel_err']}")
 
+    def serve(self):
+        import numpy as np
+        import torch
+
+        from cfk_tpu_torch.data.synthetic import serve_factors, serve_seen_csr
+        from cfk_tpu_torch.serving import (
+            RecommendServer,
+            ServeClient,
+            ServeEngine,
+            default_two_stage_params,
+            ensure_serve_topics,
+            recall_at_k,
+            run_open_loop,
+            warm_serve_programs,
+            zipf_user_rows,
+        )
+        from cfk_tpu_torch.serving import engine as engine_mod
+        from cfk_tpu_torch.serving import twostage as twostage_mod
+        from cfk_tpu_torch.serving.topk_kernel import (
+            topk_scores,
+            topk_scores_plain,
+        )
+        from cfk_tpu_torch.transport.broker import InMemoryBroker
+
+        sys.path.insert(0, str(ROOT / "tests"))
+        from _torch_topk import compare_topk
+
+        s = SERVE
+        nu, nm, k = s["num_users"], s["num_movies"], s["k"]
+        t0 = time.perf_counter()
+        # bench.py run_serve's seeds at --seed 0: traffic 3, pool 1, data 2
+        traffic = zipf_user_rows(nu, s["requests"], seed=3)
+        pool = np.concatenate([zipf_user_rows(nu, 4096, seed=1), traffic])
+        rng = np.random.default_rng(2)
+        u, m = serve_factors(nu, nm, s["rank"], rng)
+        seen, indptr = serve_seen_csr(nu, nm, s["nnz"], pool, rng)
+        _, probe = default_two_stage_params(nm, clusters=s["clusters"])
+        self.report["serve_setup"] = dict(
+            generate_s=time.perf_counter() - t0, seen_cells=int(indptr[-1]),
+            probe_clusters=probe, **s)
+        # Record K4's arguments inside engine.topk: the parity, memory and
+        # timing checks below run K4 on exactly what the engine gave it.
+        captured = {}
+
+        def recording(*a, **kw):
+            captured["call"] = (a, kw)
+            return topk_scores(*a, **kw)
+
+        engine_mod.topk_scores = twostage_mod.topk_scores = recording
+        engines, rows, launches_total = {}, [], 0
+        try:
+            for mode, td, b in SERVE_CONFIGS:
+                key = (mode, td)
+                if key not in engines:
+                    t1 = time.perf_counter()
+                    engines[key] = ServeEngine(
+                        u, m, num_users=nu, num_movies=nm, seen_movies=seen,
+                        seen_indptr=indptr, table_dtype=td,
+                        tile_m=s["tile_m"], serve_mode=mode,
+                        clusters=s["clusters"] if mode == "two_stage" else None,
+                        probe_clusters=probe if mode == "two_stage" else None,
+                        device="cuda")
+                    warm = engines[key].prewarm(k, max_batch=256,
+                                                user_rows=pool)
+                    log(f"serve engine {key}: built + prewarmed in "
+                        f"{time.perf_counter() - t1:.1f} s ({warm})")
+                eng = engines[key]
+                qrows = pool[:b]
+                # -- the main path: engine + request server, counted --------
+                topk_scores.launches = 0
+                vals, ids = eng.topk(qrows, k)
+                call = captured["call"]
+                scan = dict(eng.last_scan)
+                times = []
+                for _ in range(5):
+                    t1 = time.perf_counter()
+                    eng.topk(qrows, k)
+                    times.append(time.perf_counter() - t1)
+                batch_s = min(times)
+                broker = InMemoryBroker()
+                ensure_serve_topics(broker)
+                server = RecommendServer(eng, broker, max_batch=b)
+                client = ServeClient(broker)
+                warm_serve_programs(client, server, pool, k, b)
+                report = run_open_loop(
+                    client, rate_qps=max(0.7 * b / batch_s, 1.0),
+                    num_requests=s["requests"], user_rows=traffic, k=k,
+                    server=server, drive_server=True)
+                launches = topk_scores.launches
+                launches_total += launches
+                name = f"{mode}/{td}/B{b}"
+                self.check(launches > 0, f"serve {name}: K4 launched "
+                           f"{launches} times")
+                self.check(report.answered == report.num_requests,
+                           f"serve {name}: answered {report.answered} of "
+                           f"{report.num_requests}")
+                self.check(bool(np.isfinite(vals).all())
+                           and vals.shape == (b, k) and (ids >= 0).all(),
+                           f"serve {name}: non-finite or short results")
+                # -- K4 against its plain version on the same arguments -----
+                a, kw = call
+                got = topk_scores(*a, **kw)
+                torch.cuda.synchronize()
+                want = topk_scores_plain(*a, **kw)
+                ext = topk_scores_plain(*a, **dict(kw, k_top=k + 1))
+                par = compare_topk(*got, *want, ext[0], tol=TOL["topk_scores"])
+                self.check(par["ok"], f"serve {name}: K4 vs plain {par}")
+                row = dict(mode=mode, table_dtype=td, batch=b,
+                           k4_rows=int(a[1].shape[0]),
+                           seen_width=0 if a[3] is None else int(a[3].shape[2]),
+                           max_abs_err=par["max_abs_err"],
+                           rel_err=par["rel_err"],
+                           id_mismatches_vs_plain=par["id_mismatches"])
+                dense = dense_route(a, kw)
+                if mode == "exact":  # the engine's ids against the dense route
+                    dv, di = dense(k + 1)
+                    dr = compare_topk(vals, ids, dv[:, :k], di[:, :k], dv,
+                                      tol=TOL["topk_scores"])
+                    row["id_mismatches_vs_dense"] = dr["id_mismatches"]
+                    self.check(dr["ok"], f"serve {name}: engine vs dense {dr}")
+                # -- no [B, M] score matrix during one K4 call --------------
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                topk_scores(*a, **kw)
+                torch.cuda.synchronize()
+                growth = torch.cuda.max_memory_allocated() - base
+                dense_bytes = b * a[1].shape[0] * 4
+                row.update(k4_alloc_bytes=growth, dense_bytes=dense_bytes)
+                self.check(growth < dense_bytes, f"serve {name}: K4 allocated "
+                           f"{growth} B >= B·M_pad·4 = {dense_bytes}")
+                # -- times and the bound ------------------------------------
+                nbytes, flops, counts = topk_scores_work(a, kw, b)
+                b_ms, by = bound(nbytes, flops)
+                row.update(**counts)
+                row.update(
+                    ms=time_ms(lambda: topk_scores(*a, **kw), 20),
+                    plain_ms=time_ms(lambda: topk_scores_plain(*a, **kw), 3),
+                    library_ms=time_ms(dense, 10), bound_ms=b_ms, bound_by=by,
+                    launches=launches, engine_batch_ms=batch_s * 1e3,
+                    capacity_qps=b / batch_s, open_loop=report.as_row(),
+                    bytes_scanned_per_batch=scan["bytes_scanned_per_batch"])
+                if mode == "two_stage":
+                    self.check(scan["serve_mode"] == "two_stage",
+                               f"serve {name}: ran {scan['serve_mode']}")
+                    _, oracle = eng.topk(qrows, k, force_exact=True)
+                    recall = recall_at_k(ids, oracle)
+                    row.update(
+                        recall_at_k=recall,
+                        fallbacks=eng.two_stage_fallbacks,
+                        shortlist_rows=scan.get("shortlist_rows"),
+                        shortlist_rows_padded=scan.get(
+                            "shortlist_rows_padded"),
+                        exact_bytes_scanned_per_batch=eng.last_scan[
+                            "bytes_scanned_per_batch"])
+                    self.check(recall >= 0.95 and eng.two_stage_fallbacks == 0,
+                               f"serve {name}: recall@{k} {recall}, "
+                               f"{eng.two_stage_fallbacks} fallbacks")
+                if b == 256 and td == "float32":
+                    row["profile"] = profile_calls(lambda: eng.topk(qrows, k),
+                                                   5)
+                log(f"serve {name}: {row}")
+                rows.append(row)
+        finally:
+            engine_mod.topk_scores = twostage_mod.topk_scores = topk_scores
+        self.report["serve"] = rows
+        head = next(r for r in rows if (r["mode"], r["table_dtype"],
+                                        r["batch"]) == ("exact", "float32",
+                                                        256))
+        self.kernels.setdefault("topk_scores", {}).update(
+            {key: head[key] for key in ("ms", "plain_ms", "library_ms",
+                                        "bound_ms", "bound_by")},
+            launches=launches_total,
+            max_abs_err=max(r["max_abs_err"] for r in rows))
+
     def small_parity(self):
         import numpy as np
         import torch
@@ -508,10 +795,12 @@ class Smoke:
                 for uid, r in zip(coo.user_raw[sel], coo.rating[sel]):
                     f.write(f"{uid},{int(r)},2005-01-01\n")
         preds = work / "predictions.csv"
+        ckpt = work / "checkpoints"
         train = subprocess.run(
             [sys.executable, "-m", "cfk_tpu_torch", "train", "--data",
              str(data), "--layout", "auto", "--rank", "8", "--iterations",
-             "3", "--device", "cuda", "--output", str(preds)],
+             "3", "--device", "cuda", "--output", str(preds),
+             "--checkpoint-dir", str(ckpt)],
             cwd=ROOT, capture_output=True, text=True, timeout=300)
         log(f"cli train rc={train.returncode}: {train.stdout.strip()} | "
             f"{train.stderr.strip()[-400:]}")
@@ -530,8 +819,43 @@ class Smoke:
         mse_train = float(fields["mse"])
         self.check(abs(mse_eval - mse_train) <= 1e-4 * mse_train,
                    f"evaluate MSE {mse_eval} != train MSE {mse_train}")
+        # The serving verbs over the checkpoint train just wrote.
+        serving = ["--checkpoint-dir", str(ckpt), "--data", str(data),
+                   "--device", "cuda"]
+        users = [str(x) for x in np.unique(coo.user_raw)[:3]]
+
+        def verb(*argv):
+            out = subprocess.run([sys.executable, "-m", "cfk_tpu_torch",
+                                  *argv, *serving], cwd=ROOT,
+                                 capture_output=True, text=True, timeout=300)
+            log(f"cli {argv[0]} rc={out.returncode}: "
+                f"{out.stdout.strip()[-300:]} | {out.stderr.strip()[-300:]}")
+            self.check(out.returncode == 0, f"cli {argv[0]} failed")
+            return out.stdout
+
+        rec = verb("recommend", "--users", ",".join(users), "-k", "5")
+        self.check([ln.split("\t")[0] for ln in rec.strip().splitlines()]
+                   == users, "cli recommend: wrong users")
+        preds2 = work / "predictions_from_checkpoint.csv"
+        verb("predict", "--output", str(preds2))
+        ev2 = subprocess.run(
+            [sys.executable, "-m", "cfk_tpu_torch", "evaluate", str(data),
+             str(preds2)], cwd=ROOT, capture_output=True, text=True,
+            timeout=300)
+        self.check(ev2.returncode == 0, "cli evaluate (predict CSV) failed")
+        mse_pred = float(ev2.stdout.split("MSE:")[1].split()[0])
+        self.check(abs(mse_pred - mse_train) <= 1e-4 * mse_train,
+                   f"predict CSV MSE {mse_pred} != train MSE {mse_train}")
+        row = json.loads(verb("serve", "-k", "10", "--tile-m", "64",
+                              "--max-batch", "32", "--loadgen-requests",
+                              "128", "--loadgen-qps", "400")
+                         .strip().splitlines()[-1])
+        self.check(row["answered"] == row["requests"] == 128,
+                   f"cli serve answered {row['answered']} of "
+                   f"{row['requests']}")
         self.report["cli"] = dict(train=train.stdout.strip(),
-                                  evaluate_mse=mse_eval)
+                                  evaluate_mse=mse_eval,
+                                  predict_mse=mse_pred, serve=row)
 
 
 def main() -> int:
@@ -549,20 +873,24 @@ def main() -> int:
     smoke = Smoke()
     t_start = time.perf_counter()
     smoke.phase("build", smoke.build)
+    built = not smoke.failures
     main_out = None
-    if not smoke.failures:
+    if built:
         main_out = smoke.phase("main", smoke.main_path)
     if main_out is not None:
         smoke.phase("kernels", smoke.kernel_checks, *main_out)
         smoke.phase("breakdown", smoke.breakdown, *main_out)
         del main_out
         torch.cuda.empty_cache()
+    if built:
+        smoke.phase("serve", smoke.serve)
+        torch.cuda.empty_cache()
     smoke.phase("small", smoke.small_parity)
     smoke.phase("cli", smoke.cli)
     smoke.report["total_s"] = time.perf_counter() - t_start
     smoke.report["card"] = card
     kernels = []
-    for name in ("reg_solve", "gram_gather", "gram_solve_dense"):
+    for name in REPLACES:
         row = smoke.kernels.get(name, {})
         kernels.append({
             "name": name, "route": "cuda",

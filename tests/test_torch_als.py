@@ -233,6 +233,14 @@ def test_import_pulls_in_no_jax_and_no_cfk_tpu():
     code = (
         "import sys, cfk_tpu_torch, cfk_tpu_torch.cli, cfk_tpu_torch.weights\n"
         "import cfk_tpu_torch.ops.tiled, cfk_tpu_torch.eval.metrics\n"
+        "import cfk_tpu_torch.serving, cfk_tpu_torch.serving.engine\n"
+        "import cfk_tpu_torch.serving.twostage, cfk_tpu_torch.serving.cluster\n"
+        "import cfk_tpu_torch.serving.server, cfk_tpu_torch.serving.loadgen\n"
+        "import cfk_tpu_torch.serving.topk_kernel, cfk_tpu_torch.ops.quant\n"
+        "import cfk_tpu_torch.transport, cfk_tpu_torch.transport.serdes\n"
+        "import cfk_tpu_torch.transport.checkpoint, cfk_tpu_torch.telemetry\n"
+        "import cfk_tpu_torch.utils.roofline, cfk_tpu_torch.eval.recommend\n"
+        "import cfk_tpu_torch.data.synthetic, cfk_tpu_torch.data.blocks\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'cfk_tpu' or m.startswith('cfk_tpu.')]\n"
         "print(bad)\n"

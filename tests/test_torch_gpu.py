@@ -36,7 +36,15 @@ from cfk_tpu_torch.ops.kernels.solve_kernel import (
     reg_solve,
     reg_solve_plain,
 )
+from cfk_tpu_torch.ops.quant import quantize_table
 from cfk_tpu_torch.ops.tiled import accum_chunk, dense_chunk
+from cfk_tpu_torch.serving.topk_kernel import (
+    build_seen_tiles,
+    topk_scores,
+    topk_scores_plain,
+)
+
+from _torch_topk import compare_topk
 
 pytestmark = pytest.mark.gpu
 
@@ -165,3 +173,91 @@ def test_launch_counters_count_kernel_calls_only(cuda):
     reg_solve(a, b, cnt, lam=0.05)
     reg_solve(a.cpu(), b.cpu(), cnt.cpu(), lam=0.05)  # plain route
     assert reg_solve.launches == before + 1
+    u = torch.zeros((4, 8), device=cuda)
+    t = torch.ones((32, 8), device=cuda)
+    before = topk_scores.launches
+    topk_scores(u, t, None, None, k_top=3, num_movies=30, tile_m=16)
+    topk_scores(u.cpu(), t.cpu(), None, None, k_top=3, num_movies=30,
+                tile_m=16)
+    assert topk_scores.launches == before + 2  # candidates + merge
+
+
+# K4 topk_scores: the kernel against its plain version on the card, over
+# the CPU tests' matrix (table dtype x seen mask x padding / row_offset / −1
+# tail) plus planted exact ties and serving-sized shapes.  Scores within
+# 1e-5 of the largest |score|, ids equal except at near-ties
+# (``compare_topk``); exact ties give identical ids.
+
+
+def _topk_problem(seed, b, m, k, tile, seen_max, table_dtype, device,
+                  integer=False):
+    rng = np.random.default_rng(seed)
+    if integer:
+        u = rng.integers(-3, 4, (b, k)).astype(np.float32)
+        mf = rng.integers(-3, 4, (m, k)).astype(np.float32)
+        mf[:, 0] = 127.0
+    else:
+        u = rng.standard_normal((b, k)).astype(np.float32)
+        mf = rng.standard_normal((m, k)).astype(np.float32)
+    m_pad = -(-m // tile) * tile
+    tbl = np.zeros((m_pad, k), np.float32)
+    tbl[:m] = mf
+    seen = [np.sort(rng.choice(m, size=int(rng.integers(0, seen_max)),
+                               replace=False)) for _ in range(b)]
+    indptr = np.zeros(b + 1, np.int64)
+    indptr[1:] = np.cumsum([s.size for s in seen])
+    movies = np.concatenate(seen).astype(np.int32)
+    st = build_seen_tiles(movies, indptr, np.arange(b), num_movies=m_pad,
+                          tile_m=tile)
+    data, scale = quantize_table(torch.as_tensor(tbl, device=device),
+                                 table_dtype)
+    return (torch.as_tensor(u, device=device), data, scale,
+            torch.as_tensor(st, device=device))
+
+
+def _check_topk(u, data, scale, st, exact=False, **kw):
+    got_v, got_i = topk_scores(u, data, scale, st, **kw)
+    torch.cuda.synchronize()
+    want_v, want_i = topk_scores_plain(u, data, scale, st, **kw)
+    if exact:
+        assert torch.equal(got_v, want_v) and torch.equal(got_i, want_i)
+        return
+    ext_v, _ = topk_scores_plain(u, data, scale, st,
+                                 **dict(kw, k_top=kw["k_top"] + 1))
+    report = compare_topk(got_v, got_i, want_v, want_i, ext_v)
+    assert report["ok"], report
+
+
+@pytest.mark.parametrize("table_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("with_seen", [False, True])
+@pytest.mark.parametrize("case", ["padded", "offset_tail", "ties", "serving",
+                                  "odd"])
+def test_topk_scores_matches_plain(cuda, table_dtype, with_seen, case):
+    if case == "serving":  # B not a multiple of 8, many splits, K = 100
+        args = _topk_problem(3, 37, 3000, 128, 256, 300, table_dtype, cuda)
+        kw = dict(k_top=100, num_movies=3000, tile_m=256)
+    elif case == "odd":  # rank 5, 48-row tiles straddling 256-row steps
+        args = _topk_problem(7, 13, 700, 5, 48, 60, table_dtype, cuda)
+        kw = dict(k_top=9, num_movies=690, tile_m=48, row_offset=3)
+    else:
+        args = _topk_problem(11, 8, 60 if case == "ties" else 50, 16, 16,
+                             12, table_dtype, cuda, integer=case == "ties")
+        kw = dict(k_top=5, num_movies=50, tile_m=16)
+        if case == "offset_tail":
+            kw = dict(k_top=40, num_movies=40, tile_m=16, row_offset=7)
+        elif case == "ties":
+            kw = dict(k_top=20, num_movies=60, tile_m=16)
+    u, data, scale, st = args
+    _check_topk(u, data, scale, st if with_seen else None,
+                exact=case == "ties", **kw)
+
+
+@pytest.mark.parametrize("k_top", [1, 257, 1024])
+def test_topk_scores_large_k_and_wide_seen(cuda, k_top):
+    # K up to the kernel's limit; heavy users (W = 512) loop over W
+    u, data, scale, st = _topk_problem(5, 12, 5000, 64, 512, 3000,
+                                       "float32", cuda)
+    _check_topk(u, data, scale, st, k_top=k_top, num_movies=4990, tile_m=512)
+    with pytest.raises(ValueError, match="k_top <= 1024"):
+        topk_scores(u, data, scale, st, k_top=1025, num_movies=4990,
+                    tile_m=512)
