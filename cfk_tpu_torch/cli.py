@@ -5,10 +5,13 @@
   NUM_USERS``.  Entity counts come from the data (the passed ones are
   cross-checked and warned about); NUM_PARTITIONS has no meaning on one
   device and is ignored with a warning.
-- ``train`` — full-flag training of explicit ALS-WR on a Netflix-format
-  file: layout (``auto`` = padded below 2M ratings, tiled above, as
-  ``cfk_tpu/cli.py:63-79``), rank, λ, iterations, seed, chunk budget,
-  solver route, device and prediction-CSV output.
+- ``train`` — full-flag training on a Netflix-format or MovieLens CSV file:
+  explicit ALS-WR, or implicit iALS with ``--implicit`` (``--alpha``,
+  leave-one-out Recall@K / MPR with ``--eval-ranking K``); the full solves
+  or the subspace sweeps (``--algorithm als++`` / ``ials++``); layout
+  (``auto`` = padded below 2M ratings, above it tiled — bucketed for a
+  subspace optimizer — as ``cfk_tpu/cli.py:66-79``), rank, λ, iterations,
+  seed, chunk budget, solver route, device and prediction-CSV output.
 - ``evaluate`` — offline MSE/RMSE of a prediction CSV against a ratings file.
 - ``recommend`` — top-K movies for given users from checkpointed factors
   (``train --checkpoint-dir``, or the JAX package's checkpoint directory).
@@ -32,10 +35,26 @@ def _eprint(*args) -> None:
     print(*args, file=sys.stderr)
 
 
-def resolve_auto_layout(num_ratings: int) -> str:
-    """layout='auto': one padded rectangle for small data, the tiled layout
-    (accum + dense stream) once the data is big enough for it to matter."""
-    return "tiled" if num_ratings >= AUTO_LAYOUT_TILED_NNZ else "padded"
+def resolve_auto_layout(num_ratings: int, algorithm: str = "als") -> str:
+    """layout='auto': one padded rectangle for small data; once the data is
+    big enough for it to matter, the tiled layout (accum + dense stream),
+    or for a subspace optimizer (als++/ials++), which needs padded or
+    bucketed, the bucketed layout."""
+    if num_ratings < AUTO_LAYOUT_TILED_NNZ:
+        return "padded"
+    return "tiled" if algorithm == "als" else "bucketed"
+
+
+def _parse_ratings(path: str, fmt: str, min_rating: float):
+    """The COO of a Netflix-format file or a MovieLens CSV (``min_rating``
+    drops MovieLens rows below it; Netflix files take every row)."""
+    if fmt == "movielens":
+        from cfk_tpu_torch.data.movielens import parse_movielens_csv
+
+        return parse_movielens_csv(path, min_rating=min_rating)
+    from cfk_tpu_torch.data.netflix import parse_netflix
+
+    return parse_netflix(path)
 
 
 def _save_predictions(model, output) -> str | None:
@@ -90,45 +109,85 @@ def _train(args) -> int:
 
     from cfk_tpu_torch.config import ALSConfig
     from cfk_tpu_torch.data.blocks import Dataset
-    from cfk_tpu_torch.data.netflix import parse_netflix
     from cfk_tpu_torch.device import resolve_device
     from cfk_tpu_torch.eval.metrics import mse_rmse_from_model
     from cfk_tpu_torch.models.als import train_als
+    from cfk_tpu_torch.models.ials import IALSConfig, train_ials
 
+    if args.eval_ranking and not args.implicit:
+        _eprint("error: --eval-ranking requires --implicit (it is a "
+                "top-K ranking protocol, not a rating-error one)")
+        return 1
     dev = resolve_device(args.device)
     t0 = time.perf_counter()
-    coo = parse_netflix(args.data)
-    layout = (resolve_auto_layout(coo.num_ratings) if args.layout == "auto"
-              else args.layout)
+    coo = _parse_ratings(args.data, args.format, args.min_rating)
+    layout = (resolve_auto_layout(coo.num_ratings, args.algorithm)
+              if args.layout == "auto" else args.layout)
+    common = dict(rank=args.rank, lam=args.lam,
+                  num_iterations=args.iterations, seed=args.seed,
+                  layout=layout, solver=args.solver,
+                  hbm_chunk_elems=args.chunk_elems, algorithm=args.algorithm,
+                  block_size=args.block_size, sweeps=args.sweeps)
+    # Validate the flags before the (possibly long) block build.
+    config = (IALSConfig(alpha=args.alpha, **common) if args.implicit
+              else ALSConfig(**common))
     ds = Dataset.from_coo(coo, layout=layout, chunk_elems=args.chunk_elems)
+    heldout = train_coo = None
+    if args.eval_ranking:
+        from cfk_tpu_torch.eval.ranking import leave_one_out_split
+
+        d = ds.coo_dense
+        train_coo, heldout = leave_one_out_split(
+            d.movie_raw, d.user_raw, d.rating, seed=args.seed)
+        before = (ds.movie_map.num_entities, ds.user_map.num_entities)
+        ds = Dataset.from_coo(train_coo, layout=layout,
+                              chunk_elems=args.chunk_elems)
+        if (ds.movie_map.num_entities, ds.user_map.num_entities) != before:
+            _eprint(
+                "error: the leave-one-out split removed some entity's only "
+                "interaction; ranking eval needs every movie to keep >= 1 — "
+                "use a denser dataset"
+            )
+            return 1
     prep_s = time.perf_counter() - t0
-    config = ALSConfig(rank=args.rank, lam=args.lam,
-                       num_iterations=args.iterations, seed=args.seed,
-                       layout=layout, solver=args.solver,
-                       hbm_chunk_elems=args.chunk_elems)
     t0 = time.perf_counter()
-    model = train_als(ds, config, device=dev)
+    trainer = train_ials if args.implicit else train_als
+    model = trainer(ds, config, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     train_s = time.perf_counter() - t0
-    mse, rmse = mse_rmse_from_model(model, ds)
-    _eprint(f"train MSE={mse:.4f} RMSE={rmse:.4f}")
+    gauges = []
+    if not args.implicit:
+        mse, rmse = mse_rmse_from_model(model, ds)
+        _eprint(f"train MSE={mse:.4f} RMSE={rmse:.4f}")
+        gauges += [f"mse={mse:.6f}", f"rmse={rmse:.6f}"]
+    if heldout is not None:
+        from cfk_tpu_torch.eval.ranking import ranking_metrics_from_model
+
+        rec, mpr = ranking_metrics_from_model(model, train_coo, heldout,
+                                              k=args.eval_ranking)
+        _eprint(f"leave-one-out Recall@{args.eval_ranking}={rec:.4f} "
+                f"MPR={mpr:.4f}")
+        gauges += [f"recall_at_{args.eval_ranking}={rec:.6f}",
+                   f"mpr={mpr:.6f}"]
     if args.checkpoint_dir:
         from cfk_tpu_torch.transport.checkpoint import CheckpointManager
 
         step = CheckpointManager(args.checkpoint_dir).save(
             args.iterations, model.user_factors, model.movie_factors,
-            meta={"rank": args.rank, "model": "als", "num_shards": 1})
+            meta={"rank": args.rank,
+                  "model": "ials" if args.implicit else "als",
+                  "num_shards": 1})
         _eprint(f"factors checkpointed to {step}")
     if args.output != "none":
         path = _save_predictions(
             model, None if args.output == "auto" else args.output)
         if path is not None:
             _eprint(f"predictions written to {path}")
-    print(f"layout={layout} device={dev} num_ratings={coo.num_ratings} "
-          f"prep_s={prep_s:.3f} train_s={train_s:.3f} "
-          f"s_per_iter={train_s / args.iterations:.4f} mse={mse:.6f} "
-          f"rmse={rmse:.6f}")
+    print(" ".join([f"layout={layout}", f"device={dev}",
+                    f"num_ratings={coo.num_ratings}", f"prep_s={prep_s:.3f}",
+                    f"train_s={train_s:.3f}",
+                    f"s_per_iter={train_s / args.iterations:.4f}", *gauges]))
     return 0
 
 
@@ -160,11 +219,11 @@ def _serving_model(args):
     the step's iteration).  Only the id maps and seen lists are built —
     never training blocks."""
     from cfk_tpu_torch.data.blocks import RatingsIndex
-    from cfk_tpu_torch.data.netflix import parse_netflix
     from cfk_tpu_torch.transport.checkpoint import CheckpointManager
     from cfk_tpu_torch.weights import model_from_state
 
-    ds = RatingsIndex.from_coo(parse_netflix(args.data))
+    ds = RatingsIndex.from_coo(
+        _parse_ratings(args.data, args.format, args.min_rating))
     state = CheckpointManager(args.checkpoint_dir).restore()
     model = model_from_state(state, num_users=ds.user_map.num_entities,
                              num_movies=ds.movie_map.num_entities,
@@ -265,7 +324,10 @@ def _serving_args(p, *, data_help: str) -> None:
                    help="checkpoint directory (train --checkpoint-dir, or "
                    "the JAX package's); its newest valid step is served")
     p.add_argument("--data", required=True, help=data_help)
-    p.add_argument("--format", choices=["netflix"], default="netflix")
+    p.add_argument("--format", choices=["netflix", "movielens"],
+                   default="netflix")
+    p.add_argument("--min-rating", type=float, default=0.0,
+                   help="(movielens) drop rows rated below this")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
 
 
@@ -286,21 +348,47 @@ def build_parser() -> argparse.ArgumentParser:
 
     t = sub.add_parser("train", help="full-flag training")
     t.add_argument("--data", required=True)
-    t.add_argument("--format", choices=["netflix"], default="netflix")
+    t.add_argument("--format", choices=["netflix", "movielens"],
+                   default="netflix")
+    t.add_argument("--implicit", action="store_true",
+                   help="confidence-weighted iALS")
+    t.add_argument("--min-rating", type=float, default=0.0,
+                   help="(movielens) drop rows rated below this")
     t.add_argument("--rank", type=int, default=5)
     t.add_argument("--lam", type=float, default=0.05)
+    t.add_argument("--alpha", type=float, default=40.0,
+                   help="iALS confidence weight")
+    t.add_argument(
+        "--algorithm", choices=["als", "als++", "ials++"], default="als",
+        help="per-entity optimizer: 'als' = full k-by-k normal-equation "
+        "solves; 'als++' (explicit) / 'ials++' (implicit) = warm-started "
+        "subspace block coordinate descent; padded/bucketed layouts",
+    )
+    t.add_argument(
+        "--eval-ranking", type=int, default=None, metavar="K",
+        help="(implicit only) hold one interaction per user out before "
+        "training and report leave-one-out Recall@K and mean percentile "
+        "rank after",
+    )
+    t.add_argument("--block-size", type=int, default=32,
+                   help="als++/ials++ coordinate block size (must divide rank)")
+    t.add_argument("--sweeps", type=int, default=1,
+                   help="als++/ials++ sweeps over all blocks per half-iteration")
     t.add_argument("--iterations", type=int, default=7)
     t.add_argument("--seed", type=int, default=42)
     t.add_argument(
-        "--layout", choices=["auto", "padded", "tiled"], default="auto",
-        help="InBlock layout: one rectangle per side (padded) or accum + "
-        "dense-stream tiles (tiled). Default 'auto': padded below 2M "
-        "ratings, tiled above",
+        "--layout", choices=["auto", "padded", "bucketed", "tiled"],
+        default="auto",
+        help="InBlock layout: one rectangle per side (padded), power-of-two "
+        "width classes (bucketed) or accum + dense-stream tiles (tiled). "
+        "Default 'auto': padded below 2M ratings, tiled above (bucketed "
+        "for als++/ials++)",
     )
     t.add_argument(
         "--chunk-elems", type=int, default=1 << 20,
-        help="gather-cell budget per chunk: the tiled layout's chunk size "
-        "at build time; padded derives entities per solve chunk from it",
+        help="gather-cell budget per chunk: the tiled and bucketed layouts' "
+        "chunk size at build time; padded derives entities per solve chunk "
+        "from it",
     )
     t.add_argument(
         "--solver", choices=["auto", "cholesky"], default="auto",

@@ -20,10 +20,11 @@ class ALSConfig:
     lam: float = 0.05
     num_iterations: int = 7
     seed: int = 42
-    # InBlock layout: "padded" (one rectangle per side), "tiled" (accum +
-    # dense stream), "auto" (padded below 2M ratings, tiled above — resolved
-    # by whoever builds the Dataset; the trainer follows the blocks).
-    layout: Literal["auto", "padded", "tiled"] = "padded"
+    # InBlock layout: "padded" (one rectangle per side), "bucketed"
+    # (power-of-two width classes), "tiled" (accum + dense stream), "auto"
+    # (resolved by whoever builds the Dataset; the trainer follows the
+    # blocks).
+    layout: Literal["auto", "padded", "bucketed", "tiled"] = "padded"
     # "auto": the CUDA kernels on a GPU, their plain PyTorch versions on
     # the CPU.  "cholesky": the plain PyTorch route (torch.linalg.cholesky
     # solves, einsum Grams), CPU only — train_als raises for it on CUDA.
@@ -35,6 +36,17 @@ class ALSConfig:
     # Validated like cfk_tpu's; the port's solve kernels eliminate by
     # Cholesky, so only "auto" is accepted ("lu"/"gj" raise).
     reg_solve_algo: Literal["auto", "lu", "gj"] = "auto"
+    # Per-entity optimizer.  "als" = the full k×k normal-equation solve
+    # every half-iteration; "als++" = warm-started subspace block
+    # coordinate descent (``ops.subspace``): ``sweeps`` passes over
+    # rank/block_size coordinate blocks, each a b×b solve per entity.
+    # padded/bucketed layouts only.
+    algorithm: str = "als"
+    block_size: int = 32
+    sweeps: int = 1
+
+    def _valid_algorithms(self) -> tuple[str, ...]:
+        return ("als", "als++")
 
     def chunk_cells(self) -> int:
         """The build-time gather-cell budget (1M cells when unset)."""
@@ -66,9 +78,30 @@ class ALSConfig:
             raise ValueError(f"lam must be >= 0, got {self.lam}")
         if self.solver not in ("auto", "cholesky"):
             raise ValueError(f"unknown solver {self.solver!r}")
-        if self.layout not in ("auto", "padded", "tiled"):
+        if self.layout not in ("auto", "padded", "bucketed", "tiled"):
             raise ValueError(f"unknown layout {self.layout!r}")
         if self.hbm_chunk_elems is not None and self.hbm_chunk_elems < 1:
             raise ValueError(
                 f"hbm_chunk_elems must be >= 1, got {self.hbm_chunk_elems}"
             )
+        if self.algorithm not in self._valid_algorithms():
+            raise ValueError(
+                f"unknown algorithm {self.algorithm!r} for "
+                f"{type(self).__name__}; valid: {self._valid_algorithms()}"
+            )
+        if self.algorithm != "als":
+            if self.layout == "tiled":
+                raise ValueError(
+                    f"{self.algorithm} supports the padded and bucketed "
+                    f"layouts (bucketed is the at-scale one); the "
+                    f"{self.layout} layout's chunk-straddling entities "
+                    "would need cross-chunk score updates — use "
+                    "layout='bucketed'"
+                )
+            if self.rank % self.block_size != 0:
+                raise ValueError(
+                    f"rank {self.rank} not divisible by block_size "
+                    f"{self.block_size}"
+                )
+            if self.sweeps < 1:
+                raise ValueError(f"sweeps must be >= 1, got {self.sweeps}")

@@ -1,7 +1,8 @@
 // Device code shared by the port's training kernels: the in-shared-memory
-// Cholesky solve (reg_solve.cu, gram_solve_dense.cu) and the gathered-row
-// Gram accumulator (gram_gather.cu, gram_solve_dense.cu); every kernel
-// library takes its error-string export from here.
+// Cholesky solve (reg_solve.cu, gram_solve_dense.cu, gram_solve_gather.cu)
+// and the gathered-row Gram accumulator (gram_gather.cu, gram_solve_dense.cu,
+// gram_solve_gather.cu); every kernel library takes its error-string export
+// from here.
 //
 // Everything is plain FP32 FMA on the CUDA cores: the JAX package pins its
 // Gram and solve contractions to full float32 (precision="highest",
@@ -15,6 +16,15 @@ namespace cfk {
 
 constexpr int kThreads = 256;  // one CTA = 16 x 16 threads
 constexpr int kRows = 32;      // gathered rows staged per pass
+// Register partial sums are flushed into the segment's running sums every
+// kFlushPasses passes (1,024 rows).  One float32 register summing a whole
+// long segment (a Zipf-head entity: a million rows and more, all of an
+// implicit Gram's diagonal terms positive) loses digits with every term
+// once the sum dwarfs the terms, and the normal equations' condition
+// number amplifies that in the solved factors; two levels of ~sqrt(n)
+// terms each keep the sums near the accuracy of the per-tile sums of the
+// JAX package's matrix-unit dots.
+constexpr int kFlushPasses = 32;
 constexpr int kRegDiag = 0;    // ridge λ·max(n,1)·I from per-row counts
 constexpr int kRegMatrix = 1;  // one shared [k,k] ridge term
 
@@ -92,30 +102,60 @@ struct RowStage {
 };
 
 // The running Gram of one segment: thread (ti, tj) of the 16 x 16 CTA owns
-// the RT x RT block A[ti·RT.., tj·RT..]; thread c < KMAX owns b[c].
+// the RT x RT block A[ti·RT.., tj·RT..] of a register partial and of the
+// segment's running sums (in shared or device memory, row stride ld);
+// thread c < KMAX owns b[c].  Every element has one owner thread, so the
+// partial-to-running flushes need no barrier.
 template <int KMAX>
 struct GramAcc {
   static constexpr int RT = KMAX / 16;
   float a[RT][RT];
   float b;
-  int ti, tj;
+  int ti, tj, passes, k, ld;
+  float* A;
+  float* bsum;
 
-  __device__ void init() {
+  // Zeroes the partial and this thread's elements of the running sums
+  // A [k, k] (row stride ld_) and bsum [k].
+  __device__ void init(float* A_, int ld_, float* bsum_, int k_) {
     ti = threadIdx.x / 16;
     tj = threadIdx.x % 16;
+    A = A_;
+    ld = ld_;
+    bsum = bsum_;
+    k = k_;
+    passes = 0;
     b = 0.0f;
 #pragma unroll
     for (int p = 0; p < RT; ++p)
 #pragma unroll
-      for (int q = 0; q < RT; ++q) a[p][q] = 0.0f;
+      for (int q = 0; q < RT; ++q) {
+        a[p][q] = 0.0f;
+        const int i = ti * RT + p, j = tj * RT + q;
+        if (i < k && j < k) A[(size_t)i * ld + j] = 0.0f;
+      }
+    if (threadIdx.x < k) bsum[threadIdx.x] = 0.0f;
+  }
+
+  // Adds the register partial into the running sums and zeroes it.
+  __device__ void flush() {
+#pragma unroll
+    for (int p = 0; p < RT; ++p)
+#pragma unroll
+      for (int q = 0; q < RT; ++q) {
+        const int i = ti * RT + p, j = tj * RT + q;
+        if (i < k && j < k) A[(size_t)i * ld + j] += a[p][q];
+        a[p][q] = 0.0f;
+      }
+    if (threadIdx.x < k) bsum[threadIdx.x] += b;
+    b = 0.0f;
   }
 
   // Threads < kRows have filled st.nb/w/rt for their slot (nb = -1 for a
   // zero row) and passed `live` = this slot contributes.  Gathers the live
   // rows and adds their rank-1 terms; a pass with no live row is skipped
   // (every thread sees the same barrier result).
-  __device__ void add_rows(RowStage<KMAX>& st, bool live, const float* table,
-                           int k) {
+  __device__ void add_rows(RowStage<KMAX>& st, bool live, const float* table) {
     if (!__syncthreads_or(live)) return;
     for (int idx = threadIdx.x; idx < kRows * KMAX; idx += blockDim.x) {
       const int r = idx / KMAX, c = idx % KMAX;
@@ -139,6 +179,10 @@ struct GramAcc {
         for (int q = 0; q < RT; ++q) a[p][q] = fmaf(gi[p], gj[q], a[p][q]);
       if (threadIdx.x < KMAX) b = fmaf(st.rt[r], st.g[r][threadIdx.x], b);
     }
+    if (++passes == kFlushPasses) {
+      flush();
+      passes = 0;
+    }
     __syncthreads();
   }
 
@@ -157,8 +201,7 @@ struct GramAcc {
 
   // Adds cin·(ca, cb) — the previous chunk's carried partial — into this
   // segment's sums (callers do this for segment 0 only).
-  __device__ void fold_carry(const float* ca, const float* cb, float cin,
-                             int k) {
+  __device__ void fold_carry(const float* ca, const float* cb, float cin) {
 #pragma unroll
     for (int p = 0; p < RT; ++p)
 #pragma unroll
@@ -167,18 +210,6 @@ struct GramAcc {
         if (i < k && j < k) a[p][q] = fmaf(cin, __ldg(ca + i * k + j), a[p][q]);
       }
     if (threadIdx.x < k) b = fmaf(cin, __ldg(cb + threadIdx.x), b);
-  }
-
-  // Writes A (row stride ld) and b to the given buffers.
-  __device__ void store(float* A, int ld, float* bout, int k) const {
-#pragma unroll
-    for (int p = 0; p < RT; ++p)
-#pragma unroll
-      for (int q = 0; q < RT; ++q) {
-        const int i = ti * RT + p, j = tj * RT + q;
-        if (i < k && j < k) A[(size_t)i * ld + j] = a[p][q];
-      }
-    if (threadIdx.x < k) bout[threadIdx.x] = b;
   }
 };
 

@@ -20,8 +20,10 @@
 // Design: one CTA per owner segment.  The CTA binary-searches seg for its
 // contiguous tile range, then walks its rows kRows at a time: gathers them
 // straight from the table into shared memory (premultiplied by wt), and
-// every thread adds the rank-1 terms of its RT x RT register block of A.
-// A and b are written to device memory once, at the end.  A pass whose
+// every thread adds the rank-1 terms of its RT x RT register block of A,
+// flushed into the segment's (A, b) in device memory every 1,024 rows and
+// at the end (common.cuh: a two-level sum stays accurate over a
+// million-row segment).  A pass whose
 // rows are all padding (zero row or zero weight) is skipped, so chunk
 // padding costs index reads only.  Skew is this design's weak point: one
 // hot entity is one CTA on one SM.
@@ -42,7 +44,7 @@ gram_gather_kernel(const float* __restrict__ table, int F, int k,
   const long row0 = (long)cfk::lower_bound(seg, nt, s) * T;
   const long row1 = (long)cfk::lower_bound(seg, nt, s + 1) * T;
   cfk::GramAcc<KMAX> acc;
-  acc.init();
+  acc.init(out_a + (size_t)s * k * k, k, out_b + (size_t)s * k, k);
   for (long base = row0; base < row1; base += cfk::kRows) {
     bool live = false;
     if (threadIdx.x < cfk::kRows) {
@@ -52,10 +54,10 @@ gram_gather_kernel(const float* __restrict__ table, int F, int k,
           st, valid, valid ? __ldg(nb + p) : -1, valid ? __ldg(wt + p) : 0.0f,
           valid ? __ldg(rt + p) : 0.0f, F);
     }
-    acc.add_rows(st, live, table, k);
+    acc.add_rows(st, live, table);
   }
-  if (s == 0 && ca != nullptr) acc.fold_carry(ca, cb, __ldg(cin), k);
-  acc.store(out_a + (size_t)s * k * k, k, out_b + (size_t)s * k, k);
+  if (s == 0 && ca != nullptr) acc.fold_carry(ca, cb, __ldg(cin));
+  acc.flush();
 }
 
 template <int KMAX>

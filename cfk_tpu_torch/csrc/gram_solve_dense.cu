@@ -21,10 +21,11 @@
 //
 // Design: one CTA per segment.  The CTA binary-searches seg for its tile
 // range and walks those tiles' windows kRows rows at a time (gather into
-// shared memory, RT x RT register blocks of A per thread); tiles with an
-// empty window (group padding) cost one metadata read.  The Gram then moves
-// from registers to shared memory, where the carry fold, the raw carry-row
-// copy, the ridge and the Cholesky solve run in place: the [S, k, k] batch
+// shared memory, RT x RT register blocks of A per thread, flushed into the
+// segment's Gram in shared memory every 1,024 rows and at the end); tiles
+// with an empty window (group padding) cost one metadata read.  In shared
+// memory the carry fold, the raw carry-row copy, the ridge and the Cholesky
+// solve then run in place: the [S, k, k] batch
 // never reaches device memory, only x and the carry row do.  One hot entity
 // is one CTA on one SM — the skew this first version leaves open.
 #include "common.cuh"
@@ -60,7 +61,7 @@ gram_solve_dense_kernel(const float* __restrict__ table, int F, int k,
   const int t0 = cfk::lower_bound(seg, nt, s);
   const int t1 = cfk::lower_bound(seg, nt, s + 1);
   cfk::GramAcc<KMAX> acc;
-  acc.init();
+  acc.init(A, ld, y, k);
   for (int i = t0; i < t1; ++i) {
     const int r_lo = __ldg(lo + i), r_hi = __ldg(hi + i);
     const long base = (long)__ldg(g_blk + i / m) * BG + __ldg(lb + i);
@@ -75,11 +76,11 @@ gram_solve_dense_kernel(const float* __restrict__ table, int F, int k,
             valid ? (wt != nullptr ? __ldg(wt + p) : 1.0f) : 0.0f,
             valid ? __ldg(rt + (long)i * T + r) : 0.0f, F);
       }
-      acc.add_rows(st, live, table, k);
+      acc.add_rows(st, live, table);
     }
   }
-  if (s == 0 && ca != nullptr) acc.fold_carry(ca, cb, __ldg(cin), k);
-  acc.store(A, ld, y, k);
+  if (s == 0 && ca != nullptr) acc.fold_carry(ca, cb, __ldg(cin));
+  acc.flush();
   __syncthreads();
   if (s == __ldg(lseg)) {
     for (int idx = threadIdx.x; idx < k * k; idx += blockDim.x) {

@@ -8,6 +8,8 @@ The port's own copy of the host-side block builders of
   raw external ids ↔ dense ascending indices, and the grouping step every
   builder shares;
 - ``PaddedBlocks`` — one [E, max_nnz] rectangle per side (small data);
+- ``BucketedBlocks`` — power-of-two width classes, one rectangle each (the
+  subspace optimizers' at-scale layout);
 - ``TiledBlocks`` — the tiled layout at scale: the few-entity side in
   ``accum`` mode (entries sorted by fixed-table slice, per-chunk tile owners,
   one accumulator over all chunks) and the many-entity side as the unpadded
@@ -15,7 +17,8 @@ The port's own copy of the host-side block builders of
   runs are padded to 16 rows only).
 
 Every array is bit-identical to what ``cfk_tpu.data.blocks`` builds for the
-same ratings at ``num_shards=1`` (asserted by ``tests/test_torch_blocks.py``).
+same ratings at ``num_shards=1`` (asserted by ``tests/test_torch_blocks.py``
+and ``tests/test_torch_bucketed.py``).
 The padded ``stream`` mode, sharded and ring builds are later slices.
 
 Entity-count padding rows have count 0; their normal equations are made
@@ -213,6 +216,161 @@ class TiledBlocks:
                     self.block_rows)
         return (self.num_chunks, self.chunk_cap, self.tile_rows,
                 self.slice_rows, self.chunk_entities)
+
+
+@dataclasses.dataclass(frozen=True)
+class Bucket:
+    """One width class of a ``BucketedBlocks``: entities whose nnz fits
+    ``width``.  Rows are shard-major (shard s owns rows [s·B, (s+1)·B));
+    ``entity_local`` maps each row to its entity within the shard's slice,
+    padding rows to the trash slot ``local_entities``."""
+
+    neighbor_idx: np.ndarray  # int32 [rows, width] dense idx into the fixed side
+    rating: np.ndarray  # float32 [rows, width]
+    mask: np.ndarray  # float32 [rows, width]
+    count: np.ndarray  # int32 [rows]
+    entity_local: np.ndarray  # int32 [rows]
+    chunk_rows: int | None  # per-shard chunking hint (divides rows/S)
+
+    @property
+    def width(self) -> int:
+        return int(self.neighbor_idx.shape[1])
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketedBlocks:
+    """InBlocks grouped into power-of-two width classes ``pad_multiple·2^j``:
+    each class is its own small rectangle, so padded cells stay within 2× of
+    nnz under power-law degrees.  Entities with zero ratings get no row (their
+    solve is identically zero)."""
+
+    buckets: tuple[Bucket, ...]
+    count: np.ndarray  # int32 [E_pad] dense per-entity nnz (0 for pad rows)
+    rating_sum: np.ndarray  # float32 [E_pad] per-entity rating sum (for init)
+    num_entities: int
+    num_shards: int
+
+    @property
+    def padded_entities(self) -> int:
+        return int(self.count.shape[0])
+
+    @property
+    def local_entities(self) -> int:
+        return self.padded_entities // self.num_shards
+
+    @property
+    def padded_cells(self) -> int:
+        return sum(b.neighbor_idx.size for b in self.buckets)
+
+    def to_tree(self):
+        """(tuple of per-bucket array dicts, per-bucket ``chunk_rows``) —
+        the one field list the device setup stages."""
+        trees = tuple(
+            {
+                "neighbor": b.neighbor_idx,
+                "rating": b.rating,
+                "mask": b.mask,
+                "count": b.count,
+                "entity_local": b.entity_local,
+            }
+            for b in self.buckets
+        )
+        return trees, tuple(b.chunk_rows for b in self.buckets)
+
+
+def build_bucketed_blocks(
+    solve_dense: np.ndarray,
+    fixed_dense: np.ndarray,
+    rating: np.ndarray,
+    num_solve_entities: int,
+    *,
+    num_shards: int = 1,
+    pad_multiple: int = 8,
+    chunk_elems: int | None = 1 << 20,
+) -> BucketedBlocks:
+    """Bin entities into power-of-two width buckets, shard-major rows.
+
+    ``chunk_elems`` bounds rows·width per solve chunk: a bucket whose
+    per-shard row count exceeds ``chunk_elems // width`` gets that as its
+    ``chunk_rows`` hint, with rows padded to a multiple of it.
+    """
+    e_pad = _round_up(num_solve_entities, num_shards)
+    e_local = e_pad // num_shards
+    order, count, group_start = group_by_dense(solve_dense, num_solve_entities)
+    s_sorted = solve_dense[order]
+    f_sorted = fixed_dense[order].astype(np.int32)
+    r_sorted = rating[order].astype(np.float32)
+    pos = np.arange(s_sorted.shape[0], dtype=np.int64) - group_start[s_sorted]
+
+    max_nnz = max(int(count.max()), 1)
+    widths = [pad_multiple]
+    while widths[-1] < max_nnz:
+        widths.append(widths[-1] * 2)
+
+    bucket_of = np.searchsorted(widths, count)  # smallest j, width_j >= nnz
+    shard_of = np.arange(num_solve_entities, dtype=np.int64) // e_local
+    rated = count > 0
+
+    # Per-bucket geometry first, then one flat-arena scatter for all ratings.
+    metas = []  # (width, rows, chunk, ents, rows_idx, arena offset)
+    arena_cells = 0
+    entity_base = np.full(num_solve_entities, -1, dtype=np.int64)
+    for j, width in enumerate(widths):
+        ents = np.flatnonzero(rated & (bucket_of == j))
+        if ents.size == 0:
+            continue
+        sh = shard_of[ents]
+        per_shard = np.bincount(sh, minlength=num_shards)
+        b = int(per_shard.max())
+        chunk = None
+        if chunk_elems is not None:
+            cap = max(1, chunk_elems // width)
+            if b > cap:
+                chunk = cap
+                b = _round_up(b, cap)
+        rows = num_shards * b
+        idx_in_shard = np.arange(ents.size) - np.searchsorted(sh, sh)
+        rows_idx = sh * b + idx_in_shard
+        entity_base[ents] = arena_cells + rows_idx * width
+        metas.append((width, rows, chunk, ents, rows_idx, arena_cells))
+        arena_cells += rows * width
+
+    neighbor_arena = np.zeros(arena_cells, dtype=np.int32)
+    rating_arena = np.zeros(arena_cells, dtype=np.float32)
+    mask_arena = np.zeros(arena_cells, dtype=np.float32)
+    target = entity_base[s_sorted] + pos
+    neighbor_arena[target] = f_sorted
+    rating_arena[target] = r_sorted
+    mask_arena[target] = 1.0
+
+    buckets = []
+    for width, rows, chunk, ents, rows_idx, off in metas:
+        count_rows = np.zeros(rows, dtype=np.int32)
+        entity_local = np.full(rows, e_local, dtype=np.int32)
+        count_rows[rows_idx] = count[ents]
+        entity_local[rows_idx] = (ents % e_local).astype(np.int32)
+        cells = slice(off, off + rows * width)
+        buckets.append(Bucket(
+            neighbor_idx=neighbor_arena[cells].reshape(rows, width),
+            rating=rating_arena[cells].reshape(rows, width),
+            mask=mask_arena[cells].reshape(rows, width),
+            count=count_rows,
+            entity_local=entity_local,
+            chunk_rows=chunk,
+        ))
+
+    count_pad = np.zeros(e_pad, dtype=np.int32)
+    count_pad[:num_solve_entities] = count
+    rating_sum = np.zeros(e_pad, dtype=np.float32)
+    rating_sum[:num_solve_entities] = _rating_sum(solve_dense, rating,
+                                                  num_solve_entities)
+    return BucketedBlocks(
+        buckets=tuple(buckets),
+        count=count_pad,
+        rating_sum=rating_sum,
+        num_entities=num_solve_entities,
+        num_shards=num_shards,
+    )
 
 
 TILED_SLICE_ROWS_DEFAULT = 1 << 17
@@ -654,8 +812,8 @@ class Dataset:
 
     movie_map: IdMap
     user_map: IdMap
-    movie_blocks: PaddedBlocks | TiledBlocks  # solve movies, neighbors are users
-    user_blocks: PaddedBlocks | TiledBlocks  # solve users, neighbors are movies
+    movie_blocks: PaddedBlocks | BucketedBlocks | TiledBlocks  # neighbors: users
+    user_blocks: PaddedBlocks | BucketedBlocks | TiledBlocks  # neighbors: movies
     coo_dense: RatingsCOO  # dense-index COO (movie_raw/user_raw hold dense idx)
 
     @classmethod
@@ -672,13 +830,20 @@ class Dataset:
     ) -> "Dataset":
         """Index the ratings and build both halves' blocks.
 
-        ``layout="padded"``: one rectangle per side.  ``layout="tiled"``:
-        accum mode for a side with at most ``accum_max_entities`` entities,
-        the dense stream for the other (``dense_stream`` must stay True:
-        the padded stream is a later slice)."""
+        ``layout="padded"``: one rectangle per side.  ``layout="bucketed"``:
+        power-of-two width classes, ``chunk_elems`` cells per solve chunk.
+        ``layout="tiled"``: accum mode for a side with at most
+        ``accum_max_entities`` entities, the dense stream for the other
+        (``dense_stream`` must stay True: the padded stream is a later
+        slice)."""
         movie_map, m_dense = index_entities(coo.movie_raw)
         user_map, u_dense = index_entities(coo.user_raw)
-        if layout == "tiled":
+        if layout == "bucketed":
+            def build(s, f, ns, _nf):
+                return build_bucketed_blocks(
+                    s, f, coo.rating, ns, pad_multiple=pad_multiple,
+                    chunk_elems=chunk_elems)
+        elif layout == "tiled":
             def build(s, f, ns, nf):
                 return build_tiled_blocks(
                     s, f, coo.rating, ns, nf, tile_rows=tile_rows,
@@ -692,8 +857,8 @@ class Dataset:
                     s, f, coo.rating, ns, pad_multiple=pad_multiple)
         else:
             raise ValueError(
-                f"unknown layout {layout!r} (the port builds 'padded' and "
-                "'tiled')"
+                f"unknown layout {layout!r} (the port builds 'padded', "
+                "'bucketed' and 'tiled')"
             )
         nm, nu = movie_map.num_entities, user_map.num_entities
         return cls(

@@ -21,13 +21,23 @@ import numpy as np
 import torch
 
 from cfk_tpu_torch.config import ALSConfig
-from cfk_tpu_torch.data.blocks import Dataset, PaddedBlocks, TiledBlocks
+from cfk_tpu_torch.data.blocks import (
+    BucketedBlocks,
+    Dataset,
+    PaddedBlocks,
+    TiledBlocks,
+)
 from cfk_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from cfk_tpu_torch.ops.solve import (
     als_half_step,
+    als_half_step_bucketed,
     init_factors,
     init_factors_stats,
     use_kernels,
+)
+from cfk_tpu_torch.ops.subspace import (
+    als_pp_half_step,
+    als_pp_half_step_bucketed,
 )
 from cfk_tpu_torch.ops.tiled import chunk_reg, tiled_half_step
 
@@ -86,15 +96,39 @@ def _blocks_to_device(blocks: PaddedBlocks, device) -> dict[str, torch.Tensor]:
     }
 
 
-def _tiled_to_device(blocks: TiledBlocks, device, fixed_rows: int
-                     ) -> dict[str, torch.Tensor]:
+def _bucketed_to_device(blocks: BucketedBlocks, device):
+    """(tuple of per-bucket device dicts, per-bucket ``chunk_rows``)."""
+    trees, chunks = blocks.to_tree()
+    return tuple({key: torch.as_tensor(v, device=device)
+                  for key, v in tree.items()} for tree in trees), chunks
+
+
+def _bucketed_device_setup(dataset: Dataset, device):
+    """Device block trees of both bucketed halves and the static layout
+    kwargs (``cfk_tpu/models/als.py:140``; one device, so no shard guard
+    beyond the builder's default of one shard)."""
+    mb, ub = dataset.movie_blocks, dataset.user_blocks
+    mblocks, m_chunks = _bucketed_to_device(mb, device)
+    ublocks, u_chunks = _bucketed_to_device(ub, device)
+    layout_kw = dict(m_chunks=m_chunks, u_chunks=u_chunks,
+                     m_entities=mb.padded_entities,
+                     u_entities=ub.padded_entities)
+    return mblocks, ublocks, layout_kw
+
+
+def _tiled_to_device(blocks: TiledBlocks, device, fixed_rows: int,
+                     weighted: bool = False) -> dict[str, torch.Tensor]:
     """Device tensors of one tiled half.  accum: the builder's slice-local
     neighbor indices are rebased to absolute rows of the [fixed_rows, k]
     table once here (the slice's zero row h → the table's virtual zero row
-    ``fixed_rows``), which is what the gather kernel reads."""
+    ``fixed_rows``), which is what the gather kernel reads.  ``weighted``
+    (the iALS trainer) also stages the dense stream's tile-aligned
+    ``weight`` and stream-aligned ``rating_dense`` — the channels the
+    reparameterized weights are computed from; the explicit path never
+    uploads them."""
     dev = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
     if blocks.mode == "dstream":
-        return {
+        d = {
             "neighbor_idx": dev(blocks.neighbor_idx),
             "rating": dev(blocks.rating),
             "tile_meta": dev(blocks.tile_meta),
@@ -104,6 +138,10 @@ def _tiled_to_device(blocks: TiledBlocks, device, fixed_rows: int
             "last_seg": dev(blocks.last_seg),
             "count": dev(blocks.count),
         }
+        if weighted:
+            d["weight"] = dev(blocks.weight)
+            d["rating_dense"] = dev(blocks.rating_dense)
+        return d
     nb = dev(blocks.neighbor_idx)
     base = dev(blocks.chunk_base).repeat_interleave(blocks.chunk_cap)
     nb_abs = torch.where(nb < blocks.slice_rows, base + nb,
@@ -118,8 +156,9 @@ def _tiled_to_device(blocks: TiledBlocks, device, fixed_rows: int
     }
 
 
-def _tiled_device_setup(dataset: Dataset, device):
-    """Device dicts of both tiled halves and the static layout kwargs."""
+def _tiled_device_setup(dataset: Dataset, device, weighted: bool = False):
+    """Device dicts of both tiled halves and the static layout kwargs;
+    ``weighted=True`` (iALS) stages the dense stream's weighted channels."""
     mb, ub = dataset.movie_blocks, dataset.user_blocks
     layout_kw = dict(
         m_chunks=("tiled", mb.mode) + mb.statics,
@@ -127,13 +166,80 @@ def _tiled_device_setup(dataset: Dataset, device):
         m_entities=mb.padded_entities,
         u_entities=ub.padded_entities,
     )
-    return (_tiled_to_device(mb, device, ub.padded_entities),
-            _tiled_to_device(ub, device, mb.padded_entities), layout_kw)
+    return (_tiled_to_device(mb, device, ub.padded_entities, weighted),
+            _tiled_to_device(ub, device, mb.padded_entities, weighted),
+            layout_kw)
+
+
+def _layout_of(dataset: Dataset) -> str:
+    return {BucketedBlocks: "bucketed", TiledBlocks: "tiled"}.get(
+        type(dataset.movie_blocks), "padded")
+
+
+def device_setup(dataset: Dataset, config: ALSConfig, device, *,
+                 weighted: bool = False):
+    """Both halves' device blocks, the static layout kwargs and the padded
+    layout's solve chunk, after checking that ``config.layout`` names the
+    layout the dataset was built with — shared by both model families."""
+    built = _layout_of(dataset)
+    if config.layout not in ("auto", built):
+        raise ValueError(f"config.layout={config.layout!r} but the dataset "
+                         f"was built with the {built} layout")
+    if config.algorithm != "als" and built == "tiled":
+        raise ValueError(
+            f"{config.algorithm} runs on the padded and bucketed layouts; "
+            "this dataset was built with the tiled layout")
+    mb, ub = dataset.movie_blocks, dataset.user_blocks
+    if built == "tiled":
+        return (*_tiled_device_setup(dataset, device, weighted), None)
+    if built == "bucketed":
+        return (*_bucketed_device_setup(dataset, device), None)
+    return (_blocks_to_device(mb, device), _blocks_to_device(ub, device), {},
+            config.padded_solve_chunk(max(mb.max_nnz, ub.max_nnz)))
+
+
+def init_user_factors(dataset: Dataset, ublocks, config: ALSConfig, device,
+                      warm_start):
+    """(u, m_prev): the seeded factors of ``warm_start`` (host arrays or
+    tensors, ascending-id rows, shorter ones zero-padded), else the avg-rating +
+    U(0,1) init of the users and zero movies.  ``m_prev`` is what a
+    subspace optimizer's first movie half warm-starts from."""
+    ub, mb = dataset.user_blocks, dataset.movie_blocks
+    rank = config.rank
+    if warm_start is not None:
+        return (_padded_seed(warm_start[0], ub.padded_entities, rank, "user",
+                             device),
+                _padded_seed(warm_start[1], mb.padded_entities, rank,
+                             "movie", device))
+    gen = torch.Generator().manual_seed(config.seed)
+    if isinstance(ub, PaddedBlocks):
+        u = init_factors(gen, ublocks["rating"], ublocks["mask"],
+                         ublocks["count"], rank)
+    else:
+        u = init_factors_stats(gen, torch.as_tensor(ub.rating_sum,
+                                                    device=device),
+                               torch.as_tensor(ub.count, device=device), rank)
+    return u, torch.zeros((mb.padded_entities, rank), device=device)
 
 
 def _half(fixed, blk, *, lam, solve_chunk, solver, chunks=None,
-          entities=None):
-    """Solve one side against fixed factors (tiled dict or padded dict)."""
+          entities=None, x_prev=None, algorithm="als", block_size=32,
+          sweeps=1):
+    """Solve one side against fixed factors; dispatches on the layout
+    (tuple = width buckets, tiled statics, else one padded rectangle).
+    ``algorithm="als++"`` runs warm-started subspace sweeps from
+    ``x_prev`` (padded/bucketed layouts)."""
+    if algorithm == "als++":
+        pp_kw = dict(block_size=block_size, sweeps=sweeps, solver=solver)
+        if isinstance(blk, tuple):
+            return als_pp_half_step_bucketed(fixed, x_prev, blk, chunks,
+                                             entities, lam, **pp_kw)
+        return als_pp_half_step(fixed, x_prev, blk["neighbor_idx"],
+                                blk["rating"], blk["mask"], blk["count"],
+                                lam, **pp_kw)
+    if isinstance(blk, tuple):
+        return als_half_step_bucketed(fixed, blk, entities, lam,
+                                      solver=solver)
     if chunks is not None:
         return tiled_half_step(fixed, blk, chunks, entities, lam,
                                solver=solver)
@@ -143,66 +249,48 @@ def _half(fixed, blk, *, lam, solve_chunk, solver, chunks=None,
 
 
 def _padded_seed(x, rows: int, rank: int, what: str, device) -> torch.Tensor:
-    x = np.asarray(x, dtype=np.float32)
+    """A seed table (host array or tensor on any device) as [rows, rank]
+    float32 on ``device``, missing rows zero."""
+    x = torch.as_tensor(x, dtype=torch.float32, device=device)
     if x.ndim != 2 or x.shape[0] > rows or x.shape[1] != rank:
         raise ValueError(
-            f"warm_start {what} factors have shape {x.shape}; this dataset "
-            f"solves [{rows}, {rank}] — rebuild the seed against the same "
-            "entity universe"
+            f"warm_start {what} factors have shape {tuple(x.shape)}; this "
+            f"dataset solves [{rows}, {rank}] — rebuild the seed against the "
+            "same entity universe"
         )
     out = torch.zeros((rows, rank), dtype=torch.float32, device=device)
-    out[: x.shape[0]] = torch.as_tensor(x, device=device)
+    out[: x.shape[0]] = x
     return out
 
 
 def train_als(dataset: Dataset, config: ALSConfig, *,
               device: str | torch.device = DEFAULT_DEVICE,
               warm_start=None) -> ALSModel:
-    """Train ALS-WR on one device; factors in ascending-id order.
+    """Train ALS-WR (or ALS++ with ``config.algorithm="als++"``) on one
+    device; factors in ascending-id order.
 
     ``device`` defaults to CUDA and raises if there is none; pass
     ``device="cpu"`` for the plain PyTorch versions.  ``warm_start=(u0, m0)``
-    (host arrays, ascending-id rows, shorter ones zero-padded) seeds the
-    factors instead of the avg-rating + U(0,1) init — how the parity tests
-    hand the JAX package's initial factors to the port.
+    (host arrays or tensors, ascending-id rows, shorter ones zero-padded)
+    seeds the factors instead of the avg-rating + U(0,1) init — how the
+    parity tests hand the JAX package's initial factors to the port, and how
+    a run resumes from an earlier one's factors.
     """
     use_kernels(config.solver, torch.device(device))  # cholesky: CPU only
     dev = resolve_device(device)
-    mb, ub = dataset.movie_blocks, dataset.user_blocks
-    tiled = isinstance(mb, TiledBlocks)
-    built = "tiled" if tiled else "padded"
-    if config.layout not in ("auto", built):
-        raise ValueError(f"config.layout={config.layout!r} but the dataset "
-                         f"was built with the {built} layout")
-    if tiled:
-        mblocks, ublocks, layout_kw = _tiled_device_setup(dataset, dev)
-        solve_chunk = None
-    else:
-        mblocks = _blocks_to_device(mb, dev)
-        ublocks = _blocks_to_device(ub, dev)
-        layout_kw = {}
-        solve_chunk = config.padded_solve_chunk(max(mb.max_nnz, ub.max_nnz))
-    rank = config.rank
-    if warm_start is not None:
-        u = _padded_seed(warm_start[0], ub.padded_entities, rank, "user", dev)
-        # Validated only: the first half-iteration overwrites the movies.
-        _padded_seed(warm_start[1], mb.padded_entities, rank, "movie", dev)
-    else:
-        gen = torch.Generator().manual_seed(config.seed)
-        if tiled:
-            u = init_factors_stats(gen, torch.as_tensor(ub.rating_sum, device=dev),
-                                   ublocks["count"], rank)
-        else:
-            u = init_factors(gen, ublocks["rating"], ublocks["mask"],
-                             ublocks["count"], rank)
+    mblocks, ublocks, layout_kw, solve_chunk = device_setup(dataset, config,
+                                                            dev)
+    u, m = init_user_factors(dataset, ublocks, config, dev, warm_start)
     half = functools.partial(_half, lam=config.lam, solve_chunk=solve_chunk,
-                             solver=config.solver)
-    m = None
+                             solver=config.solver,
+                             algorithm=config.algorithm,
+                             block_size=config.block_size,
+                             sweeps=config.sweeps)
     for _ in range(config.num_iterations):
         m = half(u, mblocks, chunks=layout_kw.get("m_chunks"),
-                 entities=layout_kw.get("m_entities"))
+                 entities=layout_kw.get("m_entities"), x_prev=m)
         u = half(m, ublocks, chunks=layout_kw.get("u_chunks"),
-                 entities=layout_kw.get("u_entities"))
+                 entities=layout_kw.get("u_entities"), x_prev=u)
     return ALSModel(
         user_factors=u,
         movie_factors=m,

@@ -1,0 +1,143 @@
+"""Implicit-feedback ALS (iALS, Hu-Koren-Volinsky 2008) — the second model
+family, on one device.
+
+The port of ``cfk_tpu/models/ials.py``'s fused-loop route.  Same layouts as
+the explicit model, different normal equations: per entity
+A = YᵀY + Σ_obs (c−1)·f fᵀ + λI with confidence c = 1 + α·r and
+preferences 1 at observed cells.  The global Gram YᵀY is computed once per
+half-iteration.  ``algorithm="ials++"`` swaps the full k×k solves for
+warm-started subspace sweeps (``ops.subspace``).
+
+Left for later slices: the checkpointed/resilient stepped loop, the health
+sentinel, the out-of-core ``host_window`` tier and ``train_ials_sharded``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from cfk_tpu_torch.config import ALSConfig
+from cfk_tpu_torch.data.blocks import Dataset
+from cfk_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from cfk_tpu_torch.models.als import ALSModel, device_setup, init_user_factors
+from cfk_tpu_torch.ops.solve import (
+    ials_half_step,
+    ials_half_step_bucketed,
+    use_kernels,
+)
+from cfk_tpu_torch.ops.subspace import (
+    ials_pp_half_step,
+    ials_pp_half_step_bucketed,
+)
+from cfk_tpu_torch.ops.tiled import ials_tiled_half_step
+
+
+@dataclasses.dataclass(frozen=True)
+class IALSConfig(ALSConfig):
+    """iALS hyper-parameters; ``lam`` here is plain-λI regularization.
+
+    ``algorithm="ials++"`` switches the per-entity solve from the full k×k
+    normal equations to subspace block coordinate descent (Rendle et al.):
+    ``sweeps`` passes over ``rank/block_size`` coordinate blocks per
+    half-iteration, warm-started from the previous epoch's factors.  With
+    ``block_size == rank`` one sweep equals the full solve.
+    """
+
+    alpha: float = 40.0
+    lam: float = 0.1
+
+    def _valid_algorithms(self) -> tuple[str, ...]:
+        return ("als", "ials++")
+
+    def __post_init__(self) -> None:
+        super().__post_init__()
+        if self.alpha <= 0:
+            raise ValueError(f"alpha must be > 0, got {self.alpha}")
+
+
+def _ials_half(fixed, blk, *, lam, alpha, solver, chunks=None, entities=None,
+               x_prev=None, algorithm="als", block_size=32, sweeps=1):
+    """Dispatch on the block layout (tuple = width buckets, tiled statics,
+    else one padded rectangle); ``algorithm="ials++"`` runs warm-started
+    subspace sweeps from ``x_prev`` (padded/bucketed layouts)."""
+    if algorithm == "ials++":
+        pp_kw = dict(block_size=block_size, sweeps=sweeps, solver=solver)
+        if isinstance(blk, tuple):
+            return ials_pp_half_step_bucketed(fixed, x_prev, blk, chunks,
+                                              entities, lam, alpha, **pp_kw)
+        return ials_pp_half_step(fixed, x_prev, blk["neighbor_idx"],
+                                 blk["rating"], blk["mask"], lam, alpha,
+                                 **pp_kw)
+    if isinstance(blk, tuple):
+        return ials_half_step_bucketed(fixed, blk, entities, lam, alpha,
+                                       solver=solver)
+    if chunks is not None:
+        return ials_tiled_half_step(fixed, blk, chunks, entities, lam, alpha,
+                                    solver=solver)
+    return ials_half_step(fixed, blk["neighbor_idx"], blk["rating"],
+                          blk["mask"], lam, alpha, solver=solver)
+
+
+def _ials_iteration_body(u, m_prev, movie_blocks, user_blocks, *, half,
+                         layout_kw):
+    """One full iALS iteration: movies from users, then users from movies
+    (each subspace half warm-started from its side's previous factors)."""
+    m = half(u, movie_blocks, chunks=layout_kw.get("m_chunks"),
+             entities=layout_kw.get("m_entities"), x_prev=m_prev)
+    u_new = half(m, user_blocks, chunks=layout_kw.get("u_chunks"),
+                 entities=layout_kw.get("u_entities"), x_prev=u)
+    return u_new, m
+
+
+def _check_nonnegative_strengths(dataset: Dataset) -> None:
+    """iALS needs interaction strengths ≥ 0 (c = 1 + α·r ≥ 1, and the
+    reparameterized weight stream takes √(α·r)): refuse negative ones at
+    trainer entry instead of training an inconsistent normal equation."""
+    r = dataset.coo_dense.rating
+    if not r.size:
+        return
+    mn = float(np.min(r))
+    if mn < 0:
+        raise ValueError(
+            "iALS requires non-negative interaction strengths "
+            f"(min rating {mn}); rescale or clamp the data "
+            "(see cfk_tpu.models.ials docstring)"
+        )
+
+
+def train_ials(dataset: Dataset, config: IALSConfig, *,
+               device: str | torch.device = DEFAULT_DEVICE,
+               warm_start=None) -> ALSModel:
+    """Single-device implicit ALS; ratings are interaction strengths
+    (counts, play time, stars — anything ≥ 0).  Factors in ascending-id
+    order.
+
+    ``device`` defaults to CUDA and raises if there is none (``"cpu"`` runs
+    the plain PyTorch versions).  ``warm_start=(u0, m0)`` seeds the factors
+    as in ``train_als`` — how the parity tests hand the JAX package's
+    initial factors (drawn with jax's threefry) to the port; ``m0`` is the
+    first movie half's warm start under ``ials++``.
+    """
+    _check_nonnegative_strengths(dataset)
+    use_kernels(config.solver, torch.device(device))  # cholesky: CPU only
+    dev = resolve_device(device)
+    mblocks, ublocks, layout_kw, _ = device_setup(dataset, config, dev,
+                                                  weighted=True)
+    u, m = init_user_factors(dataset, ublocks, config, dev, warm_start)
+    half = functools.partial(_ials_half, lam=config.lam, alpha=config.alpha,
+                             solver=config.solver, algorithm=config.algorithm,
+                             block_size=config.block_size,
+                             sweeps=config.sweeps)
+    for _ in range(config.num_iterations):
+        u, m = _ials_iteration_body(u, m, mblocks, ublocks, half=half,
+                                    layout_kw=layout_kw)
+    return ALSModel(
+        user_factors=u,
+        movie_factors=m,
+        num_users=dataset.user_map.num_entities,
+        num_movies=dataset.movie_map.num_entities,
+    )

@@ -1,6 +1,7 @@
-"""K2 gram_gather and K3 gram_solve_dense: the tiled layout's Gram kernels
-(``csrc/gram_gather.cu``, ``csrc/gram_solve_dense.cu``) and their plain
-PyTorch versions.
+"""The gathered-Gram kernels and their plain PyTorch versions: K2
+gram_gather, K3 gram_solve_dense, K5 gather_rows and K6 gram_solve_gather
+(``csrc/gram_gather.cu``, ``gram_solve_dense.cu``, ``gather_rows.cu``,
+``gram_solve_gather.cu``).
 
 Counterparts of ``cfk_tpu/ops/pallas/gram_kernel.py``:
 
@@ -11,6 +12,11 @@ Counterparts of ``cfk_tpu/ops/pallas/gram_kernel.py``:
   (dense-stream chunks): the same sums over the dense stream's windowed
   tiles, plus the carry fold, the raw carry row at ``lseg``, the ridge and
   the solve — the Gram never leaves the kernel.
+- ``gather_rows`` ↔ ``gather_rows_pallas``: the materialized gathered stream
+  ``out[i] = table[nb[i]]·wt[i]`` the subspace sweeps consume.
+- ``gram_solve_gather`` ↔ ``gram_solve_tiles_gather_pallas``: K2's sums plus
+  K3's epilogue (carry fold, raw ``lseg`` row, ridge, solve) — the bucketed
+  layout's width classes, one tile per entity.
 
 Index F (the table height) is the virtual zero row padding entries point at.
 Segments owning no tile come back as zeros (solve: x = 0); the TPU kernels
@@ -40,6 +46,11 @@ _DENSE_ARGTYPES = (
     _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _F, _P, _P, _P,
     _P, _P, _P, _P, _I, _P,
 )
+_ROWS_ARGTYPES = (_P, _I, _I, _P, _P, ctypes.c_longlong, _I, _P, _I, _P)
+_SOLVE_GATHER_ARGTYPES = (
+    _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _I, _F, _P, _P, _P, _P, _P,
+    _P, _P, _I, _P,
+)
 
 
 def gather_rows_plain(table: torch.Tensor, nb: torch.Tensor,
@@ -51,6 +62,38 @@ def gather_rows_plain(table: torch.Tensor, nb: torch.Tensor,
     idx = nb.long()
     g = fz[torch.where((idx >= 0) & (idx < f), idx, f)]
     return g if wt is None else g * wt[:, None]
+
+
+def gather_rows(table: torch.Tensor, nb: torch.Tensor,
+                wt: torch.Tensor | None = None) -> torch.Tensor:
+    """K5: the gathered stream ``out [C,k] = table[nb]·wt``.
+
+    table [F,k] f32 (raw: no zero row); nb [C] int32 — an index outside
+    [0, F) reads the zero row; wt [C] f32 premultiply or None (no multiply).
+    Only an f32 table is taken on CUDA: bf16/int8 tables belong to the
+    quantized-training path, which is not ported.
+    """
+    c = nb.shape[0]
+    f, k = table.shape
+    if not on_cuda(table, nb, wt):
+        return gather_rows_plain(table, nb, wt)
+    require(table, "table", torch.float32, (f, k))
+    require(nb, "nb", torch.int32, (c,))
+    if wt is not None:
+        require(wt, "wt", torch.float32, (c,))
+    out = torch.empty((c, k), dtype=torch.float32, device=table.device)
+    # 16-byte loads and stores need k % 4 == 0 and an aligned table base.
+    vec = int(k % 4 == 0 and table.data_ptr() % 16 == 0)
+    fn = _build.function("gather_rows", "cfk_gather_rows", _ROWS_ARGTYPES)
+    p = _build.ptr
+    rc = fn(p(table), f, k, p(nb), p(wt), c, vec, p(out),
+            table.device.index or 0, stream_of(table))
+    _build.check(rc, "gather_rows")
+    gather_rows.launches += 1
+    return out
+
+
+gather_rows.launches = 0
 
 
 def _segment_sums(a_t, b_t, seg, num_segments, carry):
@@ -230,3 +273,75 @@ def gram_solve_dense(table, nb, wt, rt, meta, reg, lseg, *, num_segments,
 
 
 gram_solve_dense.launches = 0
+
+
+def gram_solve_gather_plain(table, nb, wt, rt, seg, reg, lseg, *,
+                            num_segments, tile_rows, lam=0.0,
+                            reg_mode="diag", carry=None):
+    """The plain PyTorch version of K6: K2's plain sums, the raw ``lseg``
+    row, then K1's plain ridge + Cholesky solve."""
+    a, b = gram_gather_plain(table, nb, wt, rt, seg,
+                             num_segments=num_segments, tile_rows=tile_rows,
+                             carry=carry)
+    ls = lseg.reshape(()).long() if isinstance(lseg, torch.Tensor) else lseg
+    x = reg_solve_plain(a, b, reg, lam=lam, reg_mode=reg_mode)
+    return x, a[ls].clone(), b[ls].clone()
+
+
+def gram_solve_gather(table, nb, wt, rt, seg, reg, lseg, *, num_segments,
+                      tile_rows, lam=0.0, reg_mode="diag", carry=None):
+    """K6: one chunk of [T]-row tiles gathered, summed per owner segment,
+    regularized and solved — (x [S,k], carry_a [k,k], carry_b [k]).
+
+    table [F,k] f32; nb/wt/rt [C] (int32 / f32 / f32; nb outside [0, F) is
+    the zero row); seg [C/T] int32 owner per tile, sorted; reg [S] counts
+    (diag) or [k,k] (matrix); lseg = the segment whose RAW (A, b) is
+    returned as the next carry; ``carry`` = (ca, cb, cin) folds cin·(ca,
+    cb) into segment 0.  A segment owning no tile solves to x = 0.
+    """
+    c = nb.shape[0]
+    f, k = table.shape
+    t = tile_rows
+    if c % t != 0:
+        raise ValueError(f"entry count {c} not divisible by tile_rows {t}")
+    nt = c // t
+    if tuple(seg.shape) != (nt,):
+        raise ValueError(f"seg shape {tuple(seg.shape)} != ({nt},)")
+    check_reg(reg, reg_mode, num_segments, k)
+    if not on_cuda(table, nb, wt, rt, seg, reg):
+        return gram_solve_gather_plain(
+            table, nb, wt, rt, seg, reg, lseg, num_segments=num_segments,
+            tile_rows=t, lam=lam, reg_mode=reg_mode, carry=carry)
+    if not 1 <= k <= MAX_RANK:
+        raise ValueError(
+            f"gram_solve_gather supports rank 1..{MAX_RANK}, got {k}")
+    dev = table.device
+    require(table, "table", torch.float32, (f, k))
+    require(nb, "nb", torch.int32, (c,))
+    require(wt, "wt", torch.float32, (c,))
+    require(rt, "rt", torch.float32, (c,))
+    require(seg, "seg", torch.int32, (nt,))
+    reg32 = reg.to(torch.float32).contiguous()
+    lseg_d = scalar_on(lseg, dev, torch.int32)
+    ca = cb = cin = None
+    if carry is not None:
+        ca, cb, cin = carry
+        require(ca, "carry a", torch.float32, (k, k))
+        require(cb, "carry b", torch.float32, (k,))
+        cin = scalar_on(cin, dev, torch.float32)
+    x = torch.empty((num_segments, k), dtype=torch.float32, device=dev)
+    ca_out = torch.zeros((k, k), dtype=torch.float32, device=dev)
+    cb_out = torch.zeros((k,), dtype=torch.float32, device=dev)
+    fn = _build.function("gram_solve_gather", "cfk_gram_solve_gather",
+                         _SOLVE_GATHER_ARGTYPES)
+    p = _build.ptr
+    rc = fn(p(table), f, k, p(nb), p(wt), p(rt), p(seg), nt, t, num_segments,
+            p(reg32), REG_MODES[reg_mode], float(lam), p(lseg_d), p(ca),
+            p(cb), p(cin), p(x), p(ca_out), p(cb_out), dev.index or 0,
+            stream_of(table))
+    _build.check(rc, "gram_solve_gather")
+    gram_solve_gather.launches += 1
+    return x, ca_out, cb_out
+
+
+gram_solve_gather.launches = 0

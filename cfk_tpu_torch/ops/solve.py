@@ -1,6 +1,7 @@
-"""Batched ALS-WR normal-equation solves on the padded layout.
+"""Batched normal-equation solves on the padded and bucketed layouts.
 
-The port of ``cfk_tpu/ops/solve.py``'s padded path: per entity
+The port of ``cfk_tpu/ops/solve.py``'s padded and bucketed paths, explicit
+(ALS-WR) and implicit (iALS).  Explicit, per entity
 
     A = Σ f fᵀ,  b = Σ r·f,  A += λ·n_ratings·I,  x = A⁻¹ b
 
@@ -8,7 +9,11 @@ The port of ``cfk_tpu/ops/solve.py``'s padded path: per entity
 once: one gather of neighbor factors into [E, P, k], two float32 einsums for
 all Grams and right-hand sides (left to PyTorch, as the JAX package left
 them to XLA), then the ridge + solve of kernel K1 (``ops.kernels.
-solve_kernel.reg_solve``).
+solve_kernel.reg_solve``).  Implicit (Hu et al. 2008), per entity
+A = YᵀY + Σ_obs (c−1)·f fᵀ + λI, b = Σ_obs c·f with c = 1 + α·r: the global
+Gram YᵀY is one ``torch.matmul`` per half-step and the shared YᵀY + λI ridge
+is K1's matrix mode.  The bucketed half-steps walk the width classes and run
+each through kernel K6 (``ops.bucketed``).
 
 ``solver`` picks the route of every solve and Gram kernel: ``"auto"`` calls
 the kernel wrappers (the CUDA kernels for CUDA tensors, their plain versions
@@ -61,6 +66,175 @@ def regularized_solve(a: torch.Tensor, b: torch.Tensor, count: torch.Tensor,
     """Apply ALS-WR regularization λ·max(n, 1)·I and solve (K1)."""
     solve = reg_solve if use_kernels(solver, a.device) else reg_solve_plain
     return solve(a, b, count, lam=lam, reg_mode="diag")
+
+
+def regularized_solve_matrix(a: torch.Tensor, b: torch.Tensor,
+                             reg: torch.Tensor, solver: str = "auto"
+                             ) -> torch.Tensor:
+    """Solve (A_e + R) x_e = b_e with one shared [k,k] term R (iALS:
+    YᵀY + λI) — K1's matrix mode."""
+    solve = reg_solve if use_kernels(solver, a.device) else reg_solve_plain
+    return solve(a, b, reg, reg_mode="matrix")
+
+
+def gather_gram_implicit(
+    fixed_factors: torch.Tensor,  # [F, k]
+    neighbor_idx: torch.Tensor,  # [E, P]
+    confidence_m1: torch.Tensor,  # [E, P] c−1 = α·r observed, 0 at padding
+    mask: torch.Tensor,  # [E, P]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-entity observed-part Gram of iALS: (A_obs = Σ (c−1)·f fᵀ [E,k,k],
+    b = Σ c·f [E,k]); preferences are 1 at observed cells."""
+    gm = fixed_factors[neighbor_idx.long()] * mask[..., None]
+    gw = gm * confidence_m1[..., None]
+    a = torch.einsum("epk,epl->ekl", gw, gm)
+    b = torch.einsum("epk,ep->ek", gm, (confidence_m1 + 1.0) * mask)
+    return a, b
+
+
+def global_gram(factors: torch.Tensor) -> torch.Tensor:
+    """YᵀY over all rows — [k, k] float32 (a plain matmul, TF32 off)."""
+    return factors.T @ factors
+
+
+# Block height of the blocked global-Gram reduction (the JAX package's
+# ``GRAM_BLOCK_ROWS``): blocks are summed in order, block 0 first.
+GRAM_BLOCK_ROWS = 4096
+
+
+def gram_block_add(acc: torch.Tensor, blk: torch.Tensor) -> torch.Tensor:
+    """One blocked-Gram step: ``acc + blkᵀblk``."""
+    return acc + blk.T @ blk
+
+
+def global_gram_blocked(factors: torch.Tensor,
+                        block_rows: int = GRAM_BLOCK_ROWS) -> torch.Tensor:
+    """YᵀY by consecutive ``[block_rows, k]`` blocks accumulated in order —
+    the summation order the bucketed implicit half-steps use."""
+    k = factors.shape[-1]
+    acc = factors.new_zeros(k, k)
+    for lo in range(0, max(factors.shape[0], 1), block_rows):
+        acc = gram_block_add(acc, factors[lo:lo + block_rows])
+    return acc
+
+
+def implicit_reg(gram: torch.Tensor, lam: float) -> torch.Tensor:
+    """The iALS shared ridge YᵀY + λI."""
+    return gram + lam * torch.eye(gram.shape[-1], dtype=gram.dtype,
+                                  device=gram.device)
+
+
+def ials_half_step(
+    fixed_factors: torch.Tensor,  # [F, k] (full fixed side)
+    neighbor_idx: torch.Tensor,  # [E, P]
+    rating: torch.Tensor,  # [E, P] interaction strengths; c = 1 + α·r
+    mask: torch.Tensor,  # [E, P]
+    lam: float,
+    alpha: float,
+    *,
+    gram: torch.Tensor | None = None,
+    solver: str = "auto",
+) -> torch.Tensor:
+    """Solve all entities of one side for implicit feedback (padded layout);
+    plain λI regularization (Hu et al.), not ALS-WR's λ·n·I."""
+    if gram is None:
+        gram = global_gram(fixed_factors)
+    a_obs, b = gather_gram_implicit(fixed_factors, neighbor_idx,
+                                    alpha * rating, mask)
+    return regularized_solve_matrix(a_obs, b, implicit_reg(gram, lam), solver)
+
+
+def walk_buckets(buckets, chunk_rows, arrays_of, piece, out):
+    """The bucket scaffolding every width-bucketed half-step shares.
+
+    For each bucket: extract its per-row arrays (``arrays_of(blk, out)`` —
+    ``out`` is passed so warm-started optimizers can read the bucket's
+    current factors), run ``piece(*arrays) -> [rows, k]`` — in [chunk, ...]
+    pieces when ``chunk_rows`` bounds the bucket — and scatter the result
+    into ``out`` at the bucket's entity rows (padding rows target the trash
+    slot; real rows are unique across buckets).  The JAX package's
+    double-buffered chunk map is a plain loop here.
+    """
+    for blk, chunk in zip(buckets, chunk_rows):
+        arrs = arrays_of(blk, out)
+        rows = arrs[0].shape[0]
+        if chunk is None or chunk >= rows:
+            x = piece(*arrs)
+        else:
+            if rows % chunk != 0:
+                raise ValueError(
+                    f"bucket rows {rows} not divisible by chunk {chunk}")
+            x = torch.cat([piece(*(a[lo:lo + chunk] for a in arrs))
+                           for lo in range(0, rows, chunk)])
+        out[blk["entity_local"].long()] = x
+    return out
+
+
+def als_half_step_bucketed(
+    fixed_factors: torch.Tensor,  # [F, k]
+    buckets,  # sequence of dicts {neighbor, rating, mask, count, entity_local}
+    local_entities: int,
+    lam: float,
+    *,
+    solver: str = "auto",
+) -> torch.Tensor:
+    """One ALS-WR half-iteration over width-bucketed InBlocks: every width
+    class through K6 with one tile per entity (``ops.bucketed``).  Rows in
+    no bucket (zero ratings) stay exactly 0.
+
+    Each width class is one K6 launch: the builder's ``chunk_rows`` hints
+    bound a materialized [chunk, width, k] gather, and K6 materializes
+    neither the gathered rows nor the Gram batch, so the JAX route's
+    ``chunk_rows`` argument has no counterpart here (cutting the widest
+    classes into one-row launches would only serialize their entities)."""
+    from cfk_tpu_torch.ops.bucketed import bucket_gram_solve
+
+    k = fixed_factors.shape[-1]
+
+    def solve_piece(ni, rt, mk, cnt):
+        return bucket_gram_solve(fixed_factors, ni, mk, rt, cnt, lam=lam,
+                                 reg_mode="diag", solver=solver)
+
+    out = walk_buckets(
+        buckets, (None,) * len(buckets),
+        lambda blk, _out: (blk["neighbor"], blk["rating"], blk["mask"],
+                           blk["count"]),
+        solve_piece, fixed_factors.new_zeros(local_entities + 1, k))
+    return out[:local_entities]
+
+
+def ials_half_step_bucketed(
+    fixed_factors: torch.Tensor,  # [F, k]
+    buckets,  # sequence of dicts {neighbor, rating, mask, entity_local}
+    local_entities: int,
+    lam: float,
+    alpha: float,
+    *,
+    gram: torch.Tensor | None = None,
+    solver: str = "auto",
+) -> torch.Tensor:
+    """Implicit-feedback half-iteration over width-bucketed InBlocks: per
+    entity YᵀY + Σ_obs (c−1)·f fᵀ + λI, every width class through K6 with
+    the sqrt-reparameterized weight stream (``ops.bucketed.ials_reparam``)
+    and the shared ridge in matrix mode, one launch per width class (see
+    ``als_half_step_bucketed``).  Zero-interaction rows stay 0."""
+    from cfk_tpu_torch.ops.bucketed import bucket_gram_solve, ials_reparam
+
+    k = fixed_factors.shape[-1]
+    if gram is None:
+        gram = global_gram_blocked(fixed_factors)
+    reg_m = implicit_reg(gram, lam)
+
+    def solve_piece(ni, rt, mk):
+        wt, rt_b = ials_reparam(rt, mk, alpha)
+        return bucket_gram_solve(fixed_factors, ni, wt, rt_b, reg_m,
+                                 lam=0.0, reg_mode="matrix", solver=solver)
+
+    out = walk_buckets(
+        buckets, (None,) * len(buckets),
+        lambda blk, _out: (blk["neighbor"], blk["rating"], blk["mask"]),
+        solve_piece, fixed_factors.new_zeros(local_entities + 1, k))
+    return out[:local_entities]
 
 
 def pad_rows_to_multiple(tensors, multiple: int):

@@ -19,6 +19,12 @@ equations as ``ops.solve`` (``processors/MFeatureCalculator.java:85-99``):
   device memory.  Finalized rows are scattered by ``chunk_entity`` once,
   after the loop.
 
+Implicit feedback (``ials_tiled_half_step``) runs both modes with the
+shared YᵀY + λI ridge in matrix mode (``implicit_reg``) and the sqrt
+reparameterization of the confidence weights: one weighted stream
+gs = √(α·r)·f — K2's ``wt`` in accum mode, K3's stream-aligned ``wt`` in
+dense mode — with the b-coefficients rescaled to c/√(α·r).
+
 The chunk scans are plain Python loops (``lax.scan``/``prefetch_scan`` on
 the TPU route).  The padded ``stream`` mode is a later slice.
 """
@@ -27,13 +33,20 @@ from __future__ import annotations
 
 import torch
 
+from cfk_tpu_torch.ops.bucketed import _SQRT_WEIGHT_EPS, ials_reparam
 from cfk_tpu_torch.ops.kernels.gram_kernel import (
     gram_gather,
     gram_gather_plain,
     gram_solve_dense,
     gram_solve_dense_plain,
 )
-from cfk_tpu_torch.ops.solve import regularized_solve, use_kernels
+from cfk_tpu_torch.ops.solve import (
+    global_gram,
+    implicit_reg as implicit_ridge,
+    regularized_solve,
+    regularized_solve_matrix,
+    use_kernels,
+)
 
 
 def chunk_reg(chunk_count: torch.Tensor, num_chunks: int) -> torch.Tensor:
@@ -68,17 +81,20 @@ def dense_chunk(blk, statics, c: int) -> dict:
 
 
 def tiled_half_step(fixed_factors, blk, chunks, local_entities, lam, *,
-                    solver="auto"):
+                    solver="auto", implicit_reg=None):
     """Mode dispatch: ``chunks`` is the static tuple ``("tiled", mode,
-    *statics)`` and ``blk`` the device dict of ``models.als._tiled_to_device``."""
+    *statics)`` and ``blk`` the device dict of ``models.als._tiled_to_device``.
+    ``implicit_reg`` = the iALS [k,k] ridge YᵀY + λI (matrix mode; ``blk``
+    then carries the reparameterized weights), None = ALS-WR's λ·n."""
     mode = chunks[1]
     st = tuple(chunks[2:])
+    kw = dict(statics=st, solver=solver, implicit_reg=implicit_reg)
     if mode == "accum":
         return als_half_step_tiled_accum(fixed_factors, blk, local_entities,
-                                         lam, statics=st, solver=solver)
+                                         lam, **kw)
     if mode == "dstream":
         return als_half_step_tiled_dense(fixed_factors, blk, local_entities,
-                                         lam, statics=st, solver=solver)
+                                         lam, **kw)
     raise NotImplementedError(
         f"tiled mode {mode!r} is not ported yet: the padded tiled stream "
         "mode (and its gram_solve_tiles_gather kernel) is a later slice"
@@ -120,11 +136,15 @@ def als_half_step_tiled_accum(
     *,
     statics: tuple[int, int, int, int, int],  # (NC, C, T, H, Ec)
     solver: str = "auto",
+    implicit_reg: torch.Tensor | None = None,  # [k,k] YᵀY + λI (iALS)
 ) -> torch.Tensor:
-    """Accumulator-mode half-iteration: K2 per chunk, one K1 solve."""
+    """Accumulator-mode half-iteration: K2 per chunk, one K1 solve (λ·n
+    diag, or the shared ``implicit_reg`` in matrix mode)."""
     a, b = accum_grams(fixed_factors, blk, local_entities, statics=statics,
                        solver=solver)
-    return regularized_solve(a, b, blk["count"], lam, solver)
+    if implicit_reg is None:
+        return regularized_solve(a, b, blk["count"], lam, solver)
+    return regularized_solve_matrix(a, b, implicit_reg, solver)
 
 
 def als_half_step_tiled_dense(
@@ -136,21 +156,78 @@ def als_half_step_tiled_dense(
     *,
     statics: tuple[int, int, int, int, int, int, int],  # (NC,C,Ec,T,NT,NG,BG)
     solver: str = "auto",
+    implicit_reg: torch.Tensor | None = None,  # [k,k] YᵀY + λI (iALS)
 ) -> torch.Tensor:
-    """Dense-stream half-iteration: K3 per chunk, carry threaded across."""
-    nc, _cap, e_c = statics[:3]
+    """Dense-stream half-iteration: K3 per chunk, carry threaded across.
+    With ``implicit_reg`` (iALS) each chunk gathers the weighted stream
+    ``aweight_dense`` and solves against the shared ridge (matrix mode) —
+    ``_chunk_reg`` of ``cfk_tpu/ops/tiled.py:296``."""
+    nc, cap, e_c = statics[:3]
     k = fixed_factors.shape[-1]
+    if implicit_reg is not None and "aweight_dense" not in blk:
+        raise ValueError(
+            "weighted dense-stream half-step needs aweight_dense (the "
+            "per-entry A-weights aligned with the gather stream)"
+        )
     fused = (gram_solve_dense if use_kernels(solver, fixed_factors.device)
              else gram_solve_dense_plain)
     a0 = fixed_factors.new_zeros(k, k)
     b0 = fixed_factors.new_zeros(k)
     xs = fixed_factors.new_empty(nc, e_c, k)
+    reg_mode = "diag" if implicit_reg is None else "matrix"
     for c in range(nc):
         args = dense_chunk(blk, statics, c)
         cin = args.pop("cin")
-        x, a0, b0 = fused(fixed_factors, **args, lam=lam, carry=(a0, b0, cin))
+        if implicit_reg is not None:
+            args["wt"] = blk["aweight_dense"][c * cap:(c + 1) * cap]
+            args["reg"] = implicit_reg
+        x, a0, b0 = fused(fixed_factors, **args, lam=lam, reg_mode=reg_mode,
+                          carry=(a0, b0, cin))
         xs[c] = x[:e_c]
     # Non-finalized positions all route to the trash row E (dropped).
     out = fixed_factors.new_zeros(local_entities + 1, k)
     out[blk["chunk_entity"].long()] = xs.view(nc * e_c, k)
     return out[:local_entities]
+
+
+def ials_tiled_weights(blk: dict, mode: str, alpha: float) -> dict:
+    """The sqrt reparameterization of ``cfk_tpu/ops/tiled.py:445`` on a
+    tiled half's device dict (a new dict; ``blk`` is not modified).
+
+    The kernels then gather ONE weighted stream gs = √(α·r)·f, so
+    Σ gs gsᵀ = Σ α·r·f fᵀ, and the b-coefficient becomes c/√(α·r)
+    (ε-clamped: exact in b at α·r = 0).  Accum mode: the tile-aligned
+    ``weight`` becomes √(α·r)·mask (the mask survives the clamp); dense
+    mode: the stream-aligned ``aweight_dense`` = √(α·r) from
+    ``rating_dense``."""
+    blk = dict(blk)
+    if mode == "dstream" and ("rating_dense" not in blk
+                              or "weight" not in blk):
+        raise ValueError(
+            "iALS on dense-stream blocks needs the weighted channels "
+            "(rating_dense + tile-aligned weight); this dataset was "
+            "staged without them — use the iALS device setup "
+            "(weighted=True) or rebuild"
+        )
+    wt, blk["rating"] = ials_reparam(blk["rating"], blk["weight"], alpha)
+    if mode == "dstream":
+        blk["aweight_dense"] = torch.sqrt(torch.clamp_min(
+            alpha * blk["rating_dense"], _SQRT_WEIGHT_EPS))
+    else:
+        blk["weight"] = wt
+    return blk
+
+
+def ials_tiled_half_step(fixed_factors, blk, chunks, local_entities, lam,
+                         alpha, *, gram=None, solver="auto"):
+    """Implicit-feedback (Hu et al. 2008) half-iteration on tiled blocks:
+    per entity A = YᵀY + Σ_obs (c−1)·f fᵀ + λI, b = Σ_obs c·f, c = 1 + α·r,
+    through the reparameterized weights of ``ials_tiled_weights`` and the
+    shared ridge in matrix mode.  Negative strengths are refused by the
+    trainer (``models.ials``)."""
+    if gram is None:
+        gram = global_gram(fixed_factors)
+    return tiled_half_step(fixed_factors,
+                           ials_tiled_weights(blk, chunks[1], alpha), chunks,
+                           local_entities, lam, solver=solver,
+                           implicit_reg=implicit_ridge(gram, lam))

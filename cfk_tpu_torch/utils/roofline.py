@@ -1,10 +1,11 @@
-"""Byte and operation model of one top-K serving batch.
+"""Byte and operation models: one top-K serving batch, and the bucketed
+layout's gathered rows.
 
 The port's copy of ``cfk_tpu/utils/roofline.py``'s serving cost
 (``serve_batch_cost`` with ``table_gather_bytes_per_row`` and
-``expected_shortlist_rows``), with the H100's published peaks as the
-bounds' defaults: 3.35 TB/s of HBM and 67 TFLOP/s of FP32 outside the
-tensor cores (TF32 stays off on the serving path).
+``expected_shortlist_rows``) and of ``bucketed_gather_rows``, with the
+H100's published peaks as the bounds' defaults: 3.35 TB/s of HBM and
+67 TFLOP/s of FP32 outside the tensor cores (TF32 stays off).
 """
 
 from __future__ import annotations
@@ -25,6 +26,13 @@ def table_gather_bytes_per_row(rank: int, table_dtype: str | None,
     if resolve_table_dtype(table_dtype) == "int8":
         per_row += 4
     return float(per_row)
+
+
+def bucketed_gather_rows(movie_blocks, user_blocks) -> float:
+    """Gathered rows of one bucketed iteration: every padded cell of every
+    width class of both halves fetches a row (a padding slot is charged
+    like any other), so the count is Σ rows·width, not 2·nnz."""
+    return float(movie_blocks.padded_cells + user_blocks.padded_cells)
 
 
 @dataclasses.dataclass(frozen=True)

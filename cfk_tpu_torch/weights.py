@@ -2,8 +2,9 @@
 
 ``cfk_tpu.models.als.ALSModel.host_factors()`` returns the JAX package's
 trained factors as float32 numpy arrays (rows in ascending external-id
-order, padding trimmed); ``factors_from_numpy`` turns such a pair into the
-port's ``ALSModel`` so that both packages can be held to the same state.
+order, padding trimmed); ``factors_from_numpy`` turns such a pair — or a
+padded pair with the real entity counts — into the port's ``ALSModel`` so
+that both packages can be held to the same state.
 ``model_from_checkpoint`` restores a step of a checkpoint directory written
 by either package's ``CheckpointManager`` (the JAX package's ``train
 --checkpoint-dir`` or the port's).
@@ -19,19 +20,32 @@ from cfk_tpu_torch.models.als import ALSModel
 
 
 def factors_from_numpy(u: np.ndarray, m: np.ndarray, *,
+                       num_users: int | None = None,
+                       num_movies: int | None = None,
                        device: str | torch.device = DEFAULT_DEVICE) -> ALSModel:
-    """(U [num_users, k], M [num_movies, k]) float32 → ``ALSModel``."""
+    """(U [num_users, k], M [num_movies, k]) float32 → ``ALSModel``.
+
+    ``num_users`` / ``num_movies`` take factor tables with padded rows
+    beyond the real entities (each layout pads its own way: a trainer's raw
+    [padded_entities, k] output, or the JAX package's ``_one_iteration``'s)
+    and keep only the real ones; by default every row is real."""
     u = np.asarray(u, dtype=np.float32)
     m = np.asarray(m, dtype=np.float32)
     if u.ndim != 2 or m.ndim != 2 or u.shape[1] != m.shape[1]:
         raise ValueError(
             f"factor shapes {u.shape} and {m.shape} are not [*, k] of one rank")
+    nu = u.shape[0] if num_users is None else num_users
+    nm = m.shape[0] if num_movies is None else num_movies
+    if nu > u.shape[0] or nm > m.shape[0]:
+        raise ValueError(
+            f"factor tables ({u.shape[0]} users, {m.shape[0]} movies) are "
+            f"smaller than the entity counts ({nu}, {nm})")
     dev = resolve_device(device)
     return ALSModel(
-        user_factors=torch.as_tensor(u, device=dev),
-        movie_factors=torch.as_tensor(m, device=dev),
-        num_users=u.shape[0],
-        num_movies=m.shape[0],
+        user_factors=torch.tensor(u[:nu], device=dev),
+        movie_factors=torch.tensor(m[:nm], device=dev),
+        num_users=nu,
+        num_movies=nm,
     )
 
 

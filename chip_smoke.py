@@ -4,7 +4,7 @@
 
 Phases, each of which must pass:
 
-1. build   — compile the four CUDA kernels from cfk_tpu_torch/csrc (one nvcc
+1. build   — compile the six CUDA kernels from cfk_tpu_torch/csrc (one nvcc
              per source, in parallel);
 2. main    — train explicit ALS-WR with ``train_als`` at the Netflix Prize
              shape (480,189 users x 17,770 movies x 100,480,507 synthetic
@@ -38,12 +38,37 @@ Phases, each of which must pass:
              version, exact-mode ids against the dense route, no [B, M]
              allocation during a K4 call, times, and two-stage recall@100 vs
              the same engine's exact scan (>= 0.95, no fallback);
-6. small   — ``train_als`` on small padded and tiled datasets, kernels on the
-             card against the plain versions on the CPU;
-7. cli     — ``python -m cfk_tpu_torch train --layout auto --checkpoint-dir``
+6. implicit — implicit-feedback training at the repo's implicit
+             configuration (``bench.py`` ``ials_row``/``ialspp_row``: the
+             ML-25M shape, 162,541 users x 59,047 movies x 25,000,095
+             synthetic interactions, seed 0, rank 128, lambda 0.1, alpha 40,
+             nothing cut), 3 iterations each from one fixed u0 through
+             ``train_ials`` (one call per iteration, each warm-started from
+             the last): (a) iALS, tiled (accum movie half: K2 weighted + K1
+             matrix mode; dense-stream user half: K3 weighted + matrix),
+             49,152-entry chunks; (b) iALS, bucketed (chunk_elems 524,288),
+             every width class through K6; (c) iALS++, bucketed, b = 32, one
+             sweep (K5 + K1 at k = 32).  Launch counts zeroed before and read
+             after each run; the implicit objective (without the dense U·Mᵀ)
+             must fall every iteration; (a)'s and (b)'s first movie halves
+             solve the same normal equations as a float64 solve (checked on
+             the five widest and five random movies) and must agree with it
+             and with each other, and their scores on the observed entries
+             must agree every iteration; then K5, K6 and K1-K3 in their
+             implicit modes against their plain versions on a middle bucket
+             / chunk, with times and bounds, per-half and per-width-class
+             times and a profiler pass over one iteration of each run;
+7. small   — ``train_als`` on small padded, tiled and bucketed datasets
+             (ALS and ALS++) and ``train_ials`` on small tiled and bucketed
+             ones (iALS and iALS++), kernels on the card against the plain
+             versions on the CPU;
+8. cli     — ``python -m cfk_tpu_torch train --layout auto --checkpoint-dir``
              on a small Netflix-format file (padded is chosen), then
              ``recommend``, ``predict``, ``evaluate`` on predict's CSV (the
-             train MSE again) and ``serve`` (every request answered).
+             train MSE again) and ``serve`` (every request answered); then
+             ``train --implicit --algorithm ials++ --eval-ranking 10`` on a
+             small planted MovieLens-format file, whose Recall@10 and MPR on
+             the card must equal the CPU run's.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and,
 as its last line, ``{"ok": true, "device": {...}}``.  Exits non-zero without
@@ -53,6 +78,7 @@ chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -71,14 +97,30 @@ RANK, LAM, ITERS = 64, 0.05, 3
 # solves of systems with condition numbers up to ~1e3 amplify the rounding).
 # K4: scores within 1e-5 of the largest |score|, ids equal except at
 # near-ties (``compare_topk``) — float32 dot products in another order.
+# K5: one load and at most one float32 multiply per element, so kernel and
+# plain version are bit-equal (tolerance 0).  K6: as K3.  The implicit runs'
+# first movie half solves YᵀY + Σ α·r·f fᵀ + λI from the same u0 in (a), in
+# (b) and in float64 on the host's copy (for the widest and some random
+# movies): float32 sums of up to a million rows, whose error the condition
+# number (~4e2) amplifies, so factors agree within 1e-3 of the row's
+# largest |factor|.  Every later half solves against its own run's factors,
+# so (a) and (b) are then held by what they predict: the scores u·m on the
+# observed entries agree within 1e-3 of the largest |score|.
 TOL = {"reg_solve": 1e-3, "gram_gather": 1e-4, "gram_solve_dense": 1e-3,
-       "topk_scores": 1e-5}
+       "topk_scores": 1e-5, "gather_rows": 0.0, "gram_solve_gather": 1e-3,
+       "first_half_factors": 1e-3, "scores": 1e-3}
 REPLACES = {
     "reg_solve": "cfk_tpu/ops/pallas/solve_kernel.py:287",
     "gram_gather": "cfk_tpu/ops/pallas/gram_kernel.py:1422",
     "gram_solve_dense": "cfk_tpu/ops/pallas/gram_kernel.py:1764",
     "topk_scores": "cfk_tpu/serving/topk_kernel.py:215",
+    "gather_rows": "cfk_tpu/ops/pallas/gram_kernel.py:1929",
+    "gram_solve_gather": "cfk_tpu/ops/pallas/gram_kernel.py:1526",
 }
+# bench.py's implicit rows (bench.py:448-503): the ML-25M shape at rank 128.
+ML25M = dict(num_users=162_541, num_movies=59_047, nnz=25_000_095)
+IMPLICIT = dict(rank=128, lam=0.1, alpha=40.0, iterations=3,
+                tiled_chunk=49_152, bucketed_chunk=524_288, block_size=32)
 # bench.py --serve's configuration (bench.py:3236-3262).
 SERVE = dict(num_users=162_541, num_movies=59_047, nnz=25_000_095,
              rank=128, k=100, tile_m=2048, requests=256, clusters=1024)
@@ -197,6 +239,128 @@ def topk_scores_work(args, kw, n: int) -> tuple[float, float, dict]:
     seen_cells = 0 if seen is None else int((seen[:, :n] < kw["tile_m"]).sum())
     return (cost.hbm_bytes + 4 * seen_cells, cost.model_flops,
             dict(live_rows=live, padded_rows=m_pad, seen_cells=seen_cells))
+
+
+def gather_rows_work(table, nb, wt) -> tuple[float, float, dict]:
+    """(bytes, flops, counts) of K5: the distinct table rows the live
+    entries (index inside the table, weight not 0) reference, read once; nb
+    and wt (8 B per entry); the [C, k] output written once; one multiply
+    per element."""
+    import torch
+
+    f, k = table.shape
+    c = nb.numel()
+    idx = nb.long()
+    live = (idx >= 0) & (idx < f) & (wt != 0)
+    rows = int(torch.unique(idx[live]).numel())
+    return (4 * rows * k + 8 * c + 4 * c * k, c * k,
+            dict(entries=c, live_entries=int(live.sum()),
+                 distinct_table_rows=rows))
+
+
+def gram_solve_gather_work(table, args, reg_mode) -> tuple[float, float, dict]:
+    """(bytes, flops, counts) of K6 on one call: the distinct table rows of
+    the live entries, nb/wt/rt/seg and the ridge read once, x and the carry
+    row written once; k² + 3k flops per live row (symmetric Gram + b) and
+    k³/3 + 2k² + k per solve of a segment that owns a live row (a segment
+    with none solves to 0 and needs no work)."""
+    import torch
+
+    f, k = table.shape
+    nb = args["nb"].long()
+    t = args["tile_rows"]
+    live = (nb >= 0) & (nb < f) & (args["wt"] != 0)
+    n_live = int(live.sum())
+    rows = int(torch.unique(nb[live]).numel())
+    s = args["num_segments"]
+    nt = args["seg"].numel()
+    solved = int(torch.unique(args["seg"].long()[
+        torch.nonzero(live).flatten() // t]).numel())
+    reg_elems = k * k if reg_mode == "matrix" else s
+    return (4 * (rows * k + 3 * nb.numel() + nt + reg_elems + s * k
+                 + k * k + k),
+            n_live * (k * k + 3 * k) + solved * (k ** 3 / 3 + 2 * k * k + k),
+            dict(entries=nb.numel(), live_entries=n_live,
+                 distinct_table_rows=rows, segments=s, solved_segments=solved))
+
+
+def implicit_objective(u, m, users, movies, rating, lam, alpha,
+                       chunk=1 << 21) -> float:
+    """Hu et al.'s objective Σ_all w·(p − s)² + λ(‖U‖² + ‖M‖²) without the
+    dense U·Mᵀ: Σ_all s² = tr(UᵀU·MᵀM), plus Σ over the observed entries of
+    (1 + α·r)(1 − s)² − s², all in float64 (the two large terms cancel)."""
+    u, m = u.double(), m.double()
+    total = float(((u.T @ u) * (m.T @ m)).sum())
+    for lo in range(0, users.numel(), chunk):
+        s = (u[users[lo:lo + chunk]] * m[movies[lo:lo + chunk]]).sum(1)
+        c = 1.0 + alpha * rating[lo:lo + chunk].double()
+        total += float((c * (1.0 - s) ** 2 - s ** 2).sum())
+    return total + lam * float(u.pow(2).sum() + m.pow(2).sum())
+
+
+def planted_implicit_csv(path, users=2000, movies=400, nnz=40_000,
+                         seed=0) -> None:
+    """A planted non-negative factor model as a MovieLens CSV: positive
+    rank-4 factors, strengths u·m plus noise clipped above zero, and each
+    (user, movie) cell interacted with probability ∝ (u·m)⁴, so that a
+    ranking metric has structure to find."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    u = np.abs(rng.standard_normal((users, 4))) + 0.1
+    m = np.abs(rng.standard_normal((movies, 4))) + 0.1
+    s = u @ m.T
+    p = (s ** 4).ravel()
+    cell = rng.choice(users * movies, size=nnz, replace=False, p=p / p.sum())
+    ui, mi = cell // movies, cell % movies
+    r = np.maximum(s[ui, mi] + 0.05 * rng.standard_normal(nnz), 0.05)
+    with open(path, "w") as f:
+        f.write("userId,movieId,rating,timestamp\n")
+        f.writelines(f"{a + 1},{b + 1},{x:.3f},0\n"
+                     for a, b, x in zip(ui, mi, r))
+
+
+def score_rel_err(a, b, users, movies, chunk=1 << 21) -> float:
+    """max |u_a·m_a − u_b·m_b| over the observed (user, movie) entries,
+    over the largest |u_b·m_b|."""
+    diff = top = 0.0
+    for lo in range(0, users.numel(), chunk):
+        u_i, m_i = users[lo:lo + chunk], movies[lo:lo + chunk]
+        sa = (a[0][u_i] * a[1][m_i]).sum(1)
+        sb = (b[0][u_i] * b[1][m_i]).sum(1)
+        diff = max(diff, float((sa - sb).abs().max()))
+        top = max(top, float(sb.abs().max()))
+    return diff / max(top, 1e-30)
+
+
+def first_half_reference(u0, movies, users, rating, rows, lam, alpha):
+    """The first movie half's solutions for the dense movie ``rows``, in
+    float64 on the device: x = (YᵀY + Σ α·r·y yᵀ + λI)⁻¹ Σ (1 + α·r)·y
+    over each movie's observed entries, Y = u0."""
+    import torch
+
+    y = torch.as_tensor(u0, device="cuda", dtype=torch.float64)
+    ridge = y.T @ y + lam * torch.eye(y.shape[1], dtype=torch.float64,
+                                      device=y.device)
+    out = []
+    for row in rows:
+        sel = torch.nonzero(movies == row).flatten()
+        f = y[users[sel].long()]
+        r = rating[sel].double()
+        a = ridge + (f * (alpha * r)[:, None]).T @ f
+        out.append(torch.linalg.solve(a, f.T @ (1.0 + alpha * r)))
+    return torch.stack(out)
+
+
+def ridge_condition(factors, lam) -> float:
+    """Condition number of FᵀF + λI (float64), the shared part of every
+    implicit normal matrix solved against ``factors``."""
+    import torch
+
+    f = factors.double()
+    w = torch.linalg.eigvalsh(f.T @ f + lam * torch.eye(
+        f.shape[1], dtype=torch.float64, device=f.device))
+    return float(w[-1] / w[0])
 
 
 def profile_calls(fn, n: int) -> dict:
@@ -752,30 +916,405 @@ class Smoke:
             launches=launches_total,
             max_abs_err=max(r["max_abs_err"] for r in rows))
 
+    def implicit(self):
+        import numpy as np
+        import torch
+
+        from cfk_tpu_torch import Dataset
+        from cfk_tpu_torch.data.synthetic import synthetic_netflix_coo
+        from cfk_tpu_torch.models.als import device_setup
+        from cfk_tpu_torch.models.ials import IALSConfig, _ials_half, train_ials
+        from cfk_tpu_torch.ops.kernels.gram_kernel import (
+            gather_rows, gram_gather, gram_solve_dense, gram_solve_gather)
+        from cfk_tpu_torch.ops.kernels.solve_kernel import reg_solve
+        from cfk_tpu_torch.utils.roofline import bucketed_gather_rows
+
+        c = IMPLICIT
+        kernels = (reg_solve, gram_gather, gram_solve_dense, gather_rows,
+                   gram_solve_gather)
+        t0 = time.perf_counter()
+        coo = synthetic_netflix_coo(**ML25M, seed=0)
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ds_t = Dataset.from_coo(coo, layout="tiled",
+                                chunk_elems=c["tiled_chunk"])
+        tiled_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ds_b = Dataset.from_coo(coo, layout="bucketed",
+                                chunk_elems=c["bucketed_chunk"])
+        bucketed_s = time.perf_counter() - t0
+        del coo
+        mb, ub = ds_t.movie_blocks, ds_t.user_blocks
+        log(f"implicit data: generate {gen_s:.1f} s, tiled blocks "
+            f"{tiled_s:.1f} s (movie {mb.mode} {mb.statics}, user {ub.mode} "
+            f"{ub.statics}), bucketed blocks {bucketed_s:.1f} s (widths "
+            f"movie {[b.width for b in ds_b.movie_blocks.buckets]}, user "
+            f"{[b.width for b in ds_b.user_blocks.buckets]})")
+        self.check(mb.mode == "accum" and ub.mode == "dstream",
+                   f"implicit tiled modes {mb.mode}/{ub.mode}")
+        dev = torch.device("cuda")
+        nu, nm, k = ML25M["num_users"], ML25M["num_movies"], c["rank"]
+        u0 = np.random.default_rng(0).random((nu, k), dtype=np.float32)
+        m0 = np.zeros((nm, k), np.float32)
+        d = ds_t.coo_dense
+        obs = [torch.as_tensor(x, device=dev) for x in (
+            d.user_raw.astype(np.int32), d.movie_raw.astype(np.int32),
+            d.rating)]
+
+        def objective(u, m):
+            return implicit_objective(u, m, *obs, c["lam"], c["alpha"])
+
+        j0 = objective(torch.as_tensor(u0, device=dev),
+                       torch.as_tensor(m0, device=dev))
+        runs, report = {}, dict(
+            shape=ML25M, generate_s=gen_s, tiled_blocks_s=tiled_s,
+            bucketed_blocks_s=bucketed_s, objective_init=j0, **c)
+        needed = {"ials_tiled": ("reg_solve", "gram_gather",
+                                 "gram_solve_dense"),
+                  "ials_bucketed": ("gram_solve_gather",),
+                  "ialspp_bucketed": ("gather_rows", "reg_solve")}
+        for name, ds, layout, algorithm in (
+                ("ials_tiled", ds_t, "tiled", "als"),
+                ("ials_bucketed", ds_b, "bucketed", "als"),
+                ("ialspp_bucketed", ds_b, "bucketed", "ials++")):
+            cfg = IALSConfig(rank=k, lam=c["lam"], alpha=c["alpha"],
+                             num_iterations=1, layout=layout,
+                             algorithm=algorithm, block_size=c["block_size"])
+            # -- the main path: train_ials, one call per iteration ----------
+            for fn in kernels:
+                fn.launches = 0
+            torch.cuda.synchronize()
+            state, traj, call_s = (u0, m0), [], []
+            for _ in range(c["iterations"]):
+                t1 = time.perf_counter()
+                model = train_ials(ds, cfg, device=dev, warm_start=state)
+                torch.cuda.synchronize()
+                call_s.append(time.perf_counter() - t1)
+                state = (model.user_factors, model.movie_factors)
+                traj.append(state)
+            launches = {fn.__name__: fn.launches for fn in kernels}
+            for kname in needed[name]:
+                self.check(launches[kname] > 0,
+                           f"implicit {name}: {kname} launched "
+                           f"{launches[kname]} times")
+            u, m = state
+            self.check(bool(torch.isfinite(u).all() and torch.isfinite(m).all()),
+                       f"implicit {name}: non-finite factors")
+            objs = [objective(*st) for st in traj]
+            self.check(all(a > b for a, b in zip([j0] + objs, objs)),
+                       f"implicit {name}: objective did not fall every "
+                       f"iteration: {[j0] + objs}")
+            runs[name] = traj
+            report[name] = dict(
+                s_per_iter=float(np.mean(call_s)), call_s=call_s,
+                objective=objs, launches=launches,
+                launches_per_iter={key: v / c["iterations"]
+                                   for key, v in launches.items()})
+            if layout == "bucketed":
+                # Every padded cell of every width class gathers a k-float
+                # row once per iteration (once per sweep for iALS++): the
+                # iteration's gather-byte floor at the card's HBM rate.
+                rows = bucketed_gather_rows(ds.movie_blocks, ds.user_blocks)
+                report[name].update(
+                    gather_rows_per_iter=rows,
+                    gather_bound_ms_per_iter=bound(rows * k * 4, 0)[0])
+            log(f"implicit {name}: {report[name]}")
+        # (a) and (b): the same normal equations from the same u0 (TOL).
+        agree = []
+        for i, (st_a, st_b) in enumerate(zip(runs["ials_tiled"],
+                                             runs["ials_bucketed"])):
+            ja = report["ials_tiled"]["objective"][i]
+            jb = report["ials_bucketed"]["objective"][i]
+            agree.append(dict(
+                movie_factors=rel_err(st_a[1], st_b[1])[1],
+                user_factors=rel_err(st_a[0], st_b[0])[1],
+                scores=score_rel_err(st_a, st_b, obs[0], obs[1]),
+                objective=abs(ja - jb) / jb,
+                cond_user_ridge=ridge_condition(st_b[0], c["lam"]),
+                cond_movie_ridge=ridge_condition(st_b[1], c["lam"])))
+        report["cond_u0_ridge"] = ridge_condition(
+            torch.as_tensor(u0, device=dev), c["lam"])
+        report["tiled_vs_bucketed"] = agree
+        log(f"implicit tiled vs bucketed, per iteration: {agree}; "
+            f"cond(u0ᵀu0 + λI) {report['cond_u0_ridge']:.4g}")
+        self.check(agree[0]["movie_factors"] < TOL["first_half_factors"],
+                   "implicit tiled vs bucketed: first movie half differs by "
+                   f"{agree[0]['movie_factors']}")
+        # Both first movie halves against float64: the five widest movies
+        # (a million rows and more in one segment) and five random ones.
+        count = torch.bincount(obs[1].long(), minlength=nm)
+        sample = torch.cat([torch.topk(count, 5).indices, torch.as_tensor(
+            np.random.default_rng(0).choice(nm, 5, replace=False),
+            device=dev)])
+        ref = first_half_reference(u0, obs[1], obs[0], obs[2], sample,
+                                   c["lam"], c["alpha"])
+        vs64 = {}
+        for name in ("ials_tiled", "ials_bucketed"):
+            got = runs[name][0][1][sample].double()
+            vs64[name] = ((got - ref).abs().amax(1)
+                          / ref.abs().amax(1)).tolist()
+        report["first_half_vs_float64"] = dict(
+            movies=sample.tolist(), interactions=count[sample].tolist(),
+            **vs64)
+        log(f"implicit first movie half vs float64: "
+            f"{report['first_half_vs_float64']}")
+        self.check(max(max(v) for v in vs64.values())
+                   < TOL["first_half_factors"],
+                   f"implicit first movie half vs float64: {vs64}")
+        self.check(all(a["scores"] < TOL["scores"] for a in agree),
+                   f"implicit tiled vs bucketed scores differ: {agree}")
+        del obs
+        self.report["implicit"] = report
+        self.kernels.setdefault("gather_rows", {})["launches"] = \
+            report["ialspp_bucketed"]["launches"]["gather_rows"]
+        self.kernels.setdefault("gram_solve_gather", {})["launches"] = \
+            report["ials_bucketed"]["launches"]["gram_solve_gather"]
+        # Where an iteration's time goes (measurement only): each half of
+        # (a) alone, and a profiler pass over one iteration of each run.
+        blocks = {}
+        for name, ds, algorithm in (("ials_tiled", ds_t, "als"),
+                                    ("ials_bucketed", ds_b, "als"),
+                                    ("ialspp_bucketed", ds_b, "ials++")):
+            cfg = IALSConfig(rank=k, lam=c["lam"], alpha=c["alpha"],
+                             layout="auto", algorithm=algorithm,
+                             block_size=c["block_size"])
+            mblk, ublk, kw, _ = blocks[name] = device_setup(
+                ds, cfg, dev, weighted=True)
+            half = functools.partial(
+                _ials_half, lam=c["lam"], alpha=c["alpha"], solver="auto",
+                algorithm=algorithm, block_size=c["block_size"])
+            u_i, m_i = runs[name][-1]
+            movie = functools.partial(half, u_i, mblk, chunks=kw["m_chunks"],
+                                      entities=kw["m_entities"], x_prev=m_i)
+            user = functools.partial(half, m_i, ublk, chunks=kw["u_chunks"],
+                                     entities=kw["u_entities"], x_prev=u_i)
+            if name == "ials_tiled":
+                report["half_ms"] = {"movie_accum": time_ms(movie, 1),
+                                     "user_dstream": time_ms(user, 1)}
+            report[name]["profile"] = profile_calls(
+                lambda: (movie(), user()), 1)
+            log(f"implicit {name} profile of one iteration: "
+                f"{report[name]['profile']}")
+        log(f"implicit tiled halves {report['half_ms']} ms")
+        self.implicit_kernel_checks(ds_t, ds_b, blocks["ials_tiled"], runs,
+                                    report)
+
+    def implicit_kernel_checks(self, ds_t, ds_b, blocks, runs, report):
+        """K5, K6 and K1-K3 in their implicit modes against their plain
+        versions on a middle bucket / chunk of the implicit runs, with
+        times, bounds and yardsticks; K6's time per width class."""
+        import torch
+
+        from cfk_tpu_torch.ops.bucketed import bucket_gram_solve, ials_reparam
+        from cfk_tpu_torch.ops.kernels.gram_kernel import (
+            gather_rows, gather_rows_plain, gram_gather, gram_gather_plain,
+            gram_solve_dense, gram_solve_dense_plain, gram_solve_gather,
+            gram_solve_gather_plain)
+        from cfk_tpu_torch.ops.kernels.solve_kernel import (
+            reg_solve, reg_solve_plain)
+        from cfk_tpu_torch.ops.solve import (
+            global_gram, global_gram_blocked, implicit_reg)
+        from cfk_tpu_torch.ops.tiled import (
+            accum_chunk, accum_grams, dense_chunk, ials_tiled_weights)
+
+        c = IMPLICIT
+        dev = torch.device("cuda")
+        lam, alpha, k = c["lam"], c["alpha"], c["rank"]
+        modes = {}
+
+        def timed(row, fn, plain, library=None):
+            row.update(ms=time_ms(fn, 10), plain_ms=time_ms(plain, 3),
+                       library_ms=None if library is None
+                       else time_ms(library, 3))
+            return row
+
+        # K6: the middle width class of (b)'s user half, its final factors.
+        u_b, m_b = runs["ials_bucketed"][-1]
+        reg_b = implicit_reg(global_gram_blocked(m_b), lam)
+        buckets = ds_b.user_blocks.buckets
+        bk = buckets[len(buckets) // 2]
+        nb = torch.as_tensor(bk.neighbor_idx, device=dev)
+        mk = torch.as_tensor(bk.mask, device=dev)
+        rt = torch.as_tensor(bk.rating, device=dev)
+        wt, rt_b = ials_reparam(rt, mk, alpha)
+        rows, width = nb.shape
+        args = dict(nb=nb.reshape(-1), wt=wt.reshape(-1).contiguous(),
+                    rt=rt_b.reshape(-1).contiguous(),
+                    seg=torch.arange(rows, dtype=torch.int32, device=dev),
+                    reg=reg_b, lseg=rows - 1, num_segments=rows,
+                    tile_rows=width, reg_mode="matrix")
+        got = gram_solve_gather(m_b, **args)
+        torch.cuda.synchronize()
+        want = gram_solve_gather_plain(m_b, **args)
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        nbytes, flops, counts = gram_solve_gather_work(m_b, args, "matrix")
+        b_ms, by = bound(nbytes, flops)
+        row = timed(dict(max_abs_err=max(e[0] for e in errs),
+                         rel_err=max(e[1] for e in errs), bound_ms=b_ms,
+                         bound_by=by, width=width, rows=rows, **counts),
+                    lambda: gram_solve_gather(m_b, **args),
+                    lambda: gram_solve_gather_plain(m_b, **args))
+        self.kernels["gram_solve_gather"].update(row)
+        log(f"K6 gram_solve_gather: {row}")
+        self.check(row["rel_err"] < TOL["gram_solve_gather"],
+                   f"gram_solve_gather rel err {row['rel_err']}")
+        # K6's time per width class, both halves of (b) (one launch each).
+        per_class = {}
+        for side, blocks_b, table in (("movie", ds_b.movie_blocks, u_b),
+                                      ("user", ds_b.user_blocks, m_b)):
+            reg = implicit_reg(global_gram_blocked(table), lam)
+            out = []
+            for b in blocks_b.buckets:
+                nb_c = torch.as_tensor(b.neighbor_idx, device=dev)
+                mk_c = torch.as_tensor(b.mask, device=dev)
+                w_c, r_c = ials_reparam(torch.as_tensor(b.rating, device=dev),
+                                        mk_c, alpha)
+                ms = time_ms(lambda: bucket_gram_solve(
+                    table, nb_c, w_c, r_c, reg, lam=0.0, reg_mode="matrix"), 1)
+                out.append(dict(width=b.width, rows=int(nb_c.shape[0]),
+                                live=int(b.count.sum()),
+                                max_live=int(b.count.max()), ms=ms))
+            per_class[side] = out
+        report["k6_ms_per_width_class"] = per_class
+        log(f"K6 ms per width class: {per_class}")
+
+        # K5: the middle width class of (c)'s user half (its first piece).
+        u_c, m_c = runs["ialspp_bucketed"][-1]
+        piece = bk.chunk_rows or rows
+        nb5 = nb[:piece].reshape(-1)
+        wt5 = mk[:piece].reshape(-1).contiguous()
+        got = gather_rows(m_c, nb5, wt5)
+        torch.cuda.synchronize()
+        want = gather_rows_plain(m_c, nb5, wt5)
+        err, rel = rel_err(got, want)
+        idx = nb5.long()
+        nbytes, flops, counts = gather_rows_work(m_c, nb5, wt5)
+        b_ms, by = bound(nbytes, flops)
+        row = timed(dict(max_abs_err=err, rel_err=rel, bound_ms=b_ms,
+                         bound_by=by, width=width, rows=piece, **counts),
+                    lambda: gather_rows(m_c, nb5, wt5),
+                    lambda: gather_rows_plain(m_c, nb5, wt5),
+                    lambda: m_c.index_select(0, idx) * wt5[:, None])
+        self.kernels["gather_rows"].update(row)
+        log(f"K5 gather_rows: {row}")
+        self.check(err <= TOL["gather_rows"],
+                   f"gather_rows differs from plain by {err}")
+        del got, want, nb5, wt5, idx
+
+        # K2 weighted and K1 matrix mode: (a)'s movie (accum) half.
+        u_a, m_a = runs["ials_tiled"][-1]
+        mblk, ublk, kw = blocks[:3]
+        st_m = kw["m_chunks"][2:]
+        blk_mw = ials_tiled_weights(mblk, "accum", alpha)
+        args = accum_chunk(blk_mw, st_m, st_m[0] // 2)
+        got = gram_gather(u_a, **args)
+        torch.cuda.synchronize()
+        want = gram_gather_plain(u_a, **args)
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        nbytes, flops, counts = gram_gather_work(u_a, args)
+        b_ms, by = bound(nbytes, flops)
+        modes["gram_gather_weighted"] = timed(
+            dict(max_abs_err=max(e[0] for e in errs),
+                 rel_err=max(e[1] for e in errs), bound_ms=b_ms, bound_by=by,
+                 **counts),
+            lambda: gram_gather(u_a, **args),
+            lambda: gram_gather_plain(u_a, **args))
+        self.check(modes["gram_gather_weighted"]["rel_err"]
+                   < TOL["gram_gather"], "K2 weighted vs plain: "
+                   f"{modes['gram_gather_weighted']['rel_err']}")
+        a, b = accum_grams(u_a, blk_mw, kw["m_entities"], statics=st_m)
+        reg_a = implicit_reg(global_gram(u_a), lam)
+        got = reg_solve(a, b, reg_a, reg_mode="matrix")
+        torch.cuda.synchronize()
+        want = reg_solve_plain(a, b, reg_a, reg_mode="matrix")
+        err, rel = rel_err(got, want)
+        b_ms, by = bound(*reg_solve_work(a.shape[0], k))
+        modes["reg_solve_matrix"] = timed(
+            dict(max_abs_err=err, rel_err=rel, bound_ms=b_ms, bound_by=by,
+                 e=a.shape[0], k=k),
+            lambda: reg_solve(a, b, reg_a, reg_mode="matrix"),
+            lambda: reg_solve_plain(a, b, reg_a, reg_mode="matrix"),
+            lambda: torch.linalg.solve(a + reg_a, b))
+        self.check(rel < TOL["reg_solve"], f"K1 matrix mode rel err {rel}")
+        del a, b, got, want
+        # K3 weighted + matrix: (a)'s middle dense chunk, with its carry
+        # threaded from the last chunk that starts a fresh segment.
+        st_u = kw["u_chunks"][2:]
+        cap = st_u[1]
+        blk_uw = ials_tiled_weights(ublk, "dstream", alpha)
+        reg_u = implicit_reg(global_gram(m_a), lam)
+        mid = st_u[0] // 2
+        cin_all = blk_uw["carry_in"].cpu()
+        start = max(j for j in range(mid + 1) if j == 0 or cin_all[j] == 0)
+        a0 = torch.zeros((k, k), device=dev)
+        b0 = torch.zeros((k,), device=dev)
+        for ci in range(start, mid + 1):
+            args = dense_chunk(blk_uw, st_u, ci)
+            cin = args.pop("cin")
+            args.update(wt=blk_uw["aweight_dense"][ci * cap:(ci + 1) * cap],
+                        reg=reg_u)
+            carry = (a0, b0, cin)
+            if ci < mid:
+                _, a0, b0 = gram_solve_dense(m_a, **args, lam=0.0,
+                                             reg_mode="matrix", carry=carry)
+        got = gram_solve_dense(m_a, **args, lam=0.0, reg_mode="matrix",
+                               carry=carry)
+        torch.cuda.synchronize()
+        want = gram_solve_dense_plain(m_a, **args, lam=0.0, reg_mode="matrix",
+                                      carry=carry)
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        nbytes, flops, counts = gram_solve_dense_work(m_a, args)
+        b_ms, by = bound(nbytes, flops)
+        modes["gram_solve_dense_weighted_matrix"] = timed(
+            dict(max_abs_err=max(e[0] for e in errs),
+                 rel_err=max(e[1] for e in errs), bound_ms=b_ms, bound_by=by,
+                 chunk=mid, carry_from=start, **counts),
+            lambda: gram_solve_dense(m_a, **args, lam=0.0, reg_mode="matrix",
+                                     carry=carry),
+            lambda: gram_solve_dense_plain(m_a, **args, lam=0.0,
+                                           reg_mode="matrix", carry=carry))
+        self.check(modes["gram_solve_dense_weighted_matrix"]["rel_err"]
+                   < TOL["gram_solve_dense"], "K3 weighted+matrix vs plain: "
+                   f"{modes['gram_solve_dense_weighted_matrix']['rel_err']}")
+        report["kernel_modes"] = modes
+        log(f"K1-K3 implicit modes: {modes}")
+
     def small_parity(self):
         import numpy as np
         import torch
 
         from cfk_tpu_torch import ALSConfig, Dataset, train_als
         from cfk_tpu_torch.data.synthetic import synthetic_netflix_coo
+        from cfk_tpu_torch.models.ials import IALSConfig, train_ials
 
         coo = synthetic_netflix_coo(3000, 400, 60_000, seed=1)
         rng = np.random.default_rng(0)
         u0 = rng.random((3000, 16)).astype(np.float32)
         out = {}
-        for layout, kw in (("padded", {}),
-                           ("tiled", dict(chunk_elems=2048, tile_rows=16,
-                                          accum_max_entities=1000))):
+        tiled = dict(chunk_elems=2048, tile_rows=16, accum_max_entities=1000)
+        bucketed = dict(chunk_elems=4096)
+        for name, layout, kw, model, algorithm in (
+                ("padded", "padded", {}, "als", "als"),
+                ("tiled", "tiled", tiled, "als", "als"),
+                ("bucketed", "bucketed", bucketed, "als", "als"),
+                ("alspp_bucketed", "bucketed", bucketed, "als", "als++"),
+                ("ials_tiled", "tiled", tiled, "ials", "als"),
+                ("ials_bucketed", "bucketed", bucketed, "ials", "als"),
+                ("ialspp_bucketed", "bucketed", bucketed, "ials", "ials++")):
             ds = Dataset.from_coo(coo, layout=layout, **kw)
-            cfg = ALSConfig(rank=16, num_iterations=3, layout=layout)
+            common = dict(rank=16, num_iterations=3, layout=layout,
+                          algorithm=algorithm, block_size=8)
+            cfg, trainer = ((ALSConfig(**common), train_als) if model == "als"
+                            else (IALSConfig(alpha=2.0, **common),
+                                  train_ials))
             seed = (u0[:ds.user_map.num_entities],
                     np.zeros((ds.movie_map.num_entities, 16), np.float32))
-            got = train_als(ds, cfg, device="cuda", warm_start=seed)
-            want = train_als(ds, cfg, device="cpu", warm_start=seed)
+            got = trainer(ds, cfg, device="cuda", warm_start=seed)
+            want = trainer(ds, cfg, device="cpu", warm_start=seed)
             pg, pw = got.predict_dense(), want.predict_dense()
             rel = float(np.abs(pg - pw).max() / np.abs(pw).max())
-            out[layout] = rel
-            self.check(rel < 1e-3, f"small {layout}: kernels vs plain {rel}")
+            out[name] = rel
+            self.check(rel < 1e-3, f"small {name}: kernels vs plain {rel}")
         self.report["small_parity_rel"] = out
         log(f"small parity (kernels on the card vs plain on the CPU): {out}")
 
@@ -853,9 +1392,37 @@ class Smoke:
         self.check(row["answered"] == row["requests"] == 128,
                    f"cli serve answered {row['answered']} of "
                    f"{row['requests']}")
+        # Implicit: iALS++ with leave-one-out ranking, card vs CPU.
+        ml = work / "implicit.csv"
+        planted_implicit_csv(ml)
+        ranking = {}
+        for device in ("cuda", "cpu"):
+            out = subprocess.run(
+                [sys.executable, "-m", "cfk_tpu_torch", "train", "--data",
+                 str(ml), "--format", "movielens", "--implicit",
+                 "--algorithm", "ials++", "--rank", "16", "--block-size",
+                 "8", "--iterations", "5", "--eval-ranking", "10",
+                 "--output", "none", "--device", device],
+                cwd=ROOT, capture_output=True, text=True, timeout=300)
+            log(f"cli train --implicit ({device}) rc={out.returncode}: "
+                f"{out.stdout.strip()} | {out.stderr.strip()[-300:]}")
+            self.check(out.returncode == 0,
+                       f"cli train --implicit ({device}) failed")
+            f = dict(kv.split("=", 1) for kv in out.stdout.split()
+                     if "=" in kv)
+            ranking[device] = (float(f.get("recall_at_10", "nan")),
+                               float(f.get("mpr", "nan")))
+        # Recall@10 may differ by a near-tie flip of a held-out item or two
+        # (float32 in other orders on the two devices); MPR averages over all.
+        (rg, mg), (rc, mc) = ranking["cuda"], ranking["cpu"]
+        self.check(abs(rg - rc) <= 0.01 and abs(mg - mc) <= 1e-3,
+                   f"cli implicit ranking card {ranking['cuda']} vs CPU "
+                   f"{ranking['cpu']}")
+        self.check(mg < 0.4, f"cli implicit MPR {mg} not below chance")
         self.report["cli"] = dict(train=train.stdout.strip(),
                                   evaluate_mse=mse_eval,
-                                  predict_mse=mse_pred, serve=row)
+                                  predict_mse=mse_pred, serve=row,
+                                  implicit_ranking=ranking)
 
 
 def main() -> int:
@@ -884,6 +1451,8 @@ def main() -> int:
         torch.cuda.empty_cache()
     if built:
         smoke.phase("serve", smoke.serve)
+        torch.cuda.empty_cache()
+        smoke.phase("implicit", smoke.implicit)
         torch.cuda.empty_cache()
     smoke.phase("small", smoke.small_parity)
     smoke.phase("cli", smoke.cli)

@@ -125,4 +125,4 @@ def test_padded_stream_mode_not_ported(coo):
         tblocks.Dataset.from_coo(coo, layout="tiled", dense_stream=False,
                                  accum_max_entities=200)
     with pytest.raises(ValueError, match="unknown layout"):
-        tblocks.Dataset.from_coo(coo, layout="bucketed")
+        tblocks.Dataset.from_coo(coo, layout="segment")

@@ -26,10 +26,14 @@ from cfk_tpu_torch.data.synthetic import synthetic_netflix_coo
 from cfk_tpu_torch.models.als import _tiled_to_device
 from cfk_tpu_torch.ops.kernels.gram_kernel import (
     _gram_dense_plain,
+    gather_rows,
+    gather_rows_plain,
     gram_gather,
     gram_gather_plain,
     gram_solve_dense,
     gram_solve_dense_plain,
+    gram_solve_gather,
+    gram_solve_gather_plain,
 )
 from cfk_tpu_torch.ops.kernels.solve_kernel import (
     add_ridge_plain,
@@ -133,7 +137,7 @@ def test_gram_gather_matches_plain(cuda, k, tile_rows):
 
 @pytest.mark.parametrize("k,tile_rows,weighted", [
     (8, 16, False), (64, 128, False), (100, 32, False), (128, 16, False),
-    (64, 128, True)])
+    (64, 128, True), (128, 16, True)])
 def test_gram_solve_dense_matches_plain(cuda, k, tile_rows, weighted):
     blocks, blk, table = _tiled_side(k, tile_rows, 4096, cuda, accum=False)
     assert blocks.mode == "dstream" and blocks.num_chunks > 2
@@ -165,6 +169,159 @@ def test_gram_solve_dense_matches_plain(cuda, k, tile_rows, weighted):
         assert _rel_err(x, wx) < 1e-2
         assert _rel_err(ca, wca) < 1e-5 and _rel_err(cb, wcb) < 1e-5
         a0, b0 = wca, wcb
+
+
+def test_reg_solve_matrix_mode_on_implicit_grams(cuda):
+    """K1's matrix mode as the iALS halves run it: observed Grams
+    Σ α·r·f fᵀ with the shared YᵀY + λI ridge, at the ranks the full
+    solves (8, 64, 128) and the b×b sweeps (32) use."""
+    for k in (8, 32, 64, 128):
+        g = torch.Generator().manual_seed(k)
+        y = torch.rand((500, k), generator=g)
+        ridge = y.T @ y + 0.1 * torch.eye(k)
+        f = torch.rand((200, 12, k), generator=g)
+        w = 40.0 * torch.rand((200, 12), generator=g)
+        a = torch.einsum("epk,ep,epl->ekl", f, w, f)
+        b = torch.einsum("epk,ep->ek", f, 1.0 + w)
+        a, b, ridge = a.to(cuda), b.to(cuda), ridge.to(cuda)
+        got = reg_solve(a, b, ridge, reg_mode="matrix")
+        torch.cuda.synchronize()
+        want = reg_solve_plain(a, b, ridge, reg_mode="matrix")
+        assert _backward_err(got, a, b, ridge, 0.0, "matrix") < 1e-5
+        assert _rel_err(got, want) < 1e-3
+
+
+@pytest.mark.parametrize("k", [8, 64, 128])
+def test_gram_gather_weighted_matches_plain(cuda, k):
+    """K2 with the √(α·r) weight stream of the iALS accum half."""
+    blocks, blk, table = _tiled_side(k, 16, 4096, cuda, accum=True)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    for c in range(blocks.num_chunks):
+        args = accum_chunk(blk, blocks.statics, c)
+        args["wt"] = args["wt"] * torch.sqrt(
+            40.0 * torch.rand(args["wt"].shape, generator=g, device=cuda))
+        a, b = gram_gather(table, **args)
+        torch.cuda.synchronize()
+        wa, wb = gram_gather_plain(table, **args)
+        assert _rel_err(a, wa) < 1e-5 and _rel_err(b, wb) < 1e-5
+
+
+# K5 gather_rows and K6 gram_solve_gather against their plain versions.
+
+
+@pytest.mark.parametrize("k", [5, 8, 32, 64, 128])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_gather_rows_matches_plain(cuda, k, weighted):
+    """Bit-equal: one load and at most one float32 multiply per element.
+    Indices past the table (F = the zero row, and larger) and negative
+    ones read zeros; k = 5 takes the scalar (non-16-byte) path."""
+    rng = np.random.default_rng(k)
+    f, c = 1000, 4099
+    table = torch.as_tensor(rng.standard_normal((f, k), dtype=np.float32),
+                            device=cuda)
+    nb = rng.integers(0, f, c).astype(np.int32)
+    nb[::7] = f
+    nb[3::11] = f + 5
+    nb[5::13] = -1
+    nb = torch.as_tensor(nb, device=cuda)
+    wt = (torch.as_tensor(rng.random(c, dtype=np.float32), device=cuda)
+          if weighted else None)
+    got = gather_rows(table, nb, wt)
+    torch.cuda.synchronize()
+    want = gather_rows_plain(table, nb, wt)
+    assert torch.equal(got, want)
+    assert torch.all(got[::7] == 0)
+
+
+def test_gather_rows_refuses_what_it_does_not_take(cuda):
+    table = torch.zeros((10, 8), device=cuda)
+    nb = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="table must be torch.float32"):
+        gather_rows(table.to(torch.bfloat16), nb)
+    with pytest.raises(TypeError, match="nb must be torch.int32"):
+        gather_rows(table, nb.long())
+
+
+def _segments(rng, nt, num_segments, empty):
+    """Sorted tile owners over ``num_segments`` segments, ``empty`` of
+    them owning no tile."""
+    live = np.sort(rng.choice(num_segments, num_segments - empty,
+                              replace=False))
+    seg = np.sort(np.concatenate([live, rng.choice(live, nt - live.size)]))
+    return seg.astype(np.int32), np.setdiff1d(np.arange(num_segments), live)
+
+
+@pytest.mark.parametrize("k", [8, 32, 64, 128])
+@pytest.mark.parametrize("reg_mode", ["diag", "matrix"])
+@pytest.mark.parametrize("with_carry", [False, True])
+def test_gram_solve_gather_matches_plain(cuda, k, reg_mode, with_carry):
+    """Several tiles per segment, empty segments (x = 0), the zero row
+    and zero weights, the carry fold and the raw carry row at lseg."""
+    rng = np.random.default_rng(k + 7 * with_carry)
+    f, t, nt, s = 700, 16, 96, 40
+    c = nt * t
+    table = torch.as_tensor(rng.standard_normal((f, k), dtype=np.float32),
+                            device=cuda)
+    nb = rng.integers(0, f, c).astype(np.int32)
+    nb[rng.random(c) < 0.2] = f
+    wt = rng.random(c, dtype=np.float32)
+    wt[rng.random(c) < 0.1] = 0.0
+    rt = rng.standard_normal(c, dtype=np.float32)
+    seg, empty = _segments(rng, nt, s, 5)
+    dev = lambda x: torch.as_tensor(x, device=cuda)  # noqa: E731
+    nb, wt, rt, seg = dev(nb), dev(wt), dev(rt), dev(seg)
+    if reg_mode == "diag":
+        reg = dev(rng.integers(0, 40, s).astype(np.int32))
+    else:
+        y = rng.standard_normal((300, k)).astype(np.float32)
+        reg = dev(y.T @ y + 0.1 * np.eye(k, dtype=np.float32))
+    carry = None
+    if with_carry:
+        z = rng.standard_normal((2 * k, k)).astype(np.float32)
+        carry = (dev(z.T @ z), dev(rng.standard_normal(k).astype(np.float32)),
+                 torch.ones((1,), device=cuda))
+    lseg = int(seg[-1])
+    kw = dict(num_segments=s, tile_rows=t, lam=0.05, reg_mode=reg_mode,
+              carry=carry)
+    x, ca, cb = gram_solve_gather(table, nb, wt, rt, seg, reg, lseg, **kw)
+    torch.cuda.synchronize()
+    wx, wca, wcb = gram_solve_gather_plain(table, nb, wt, rt, seg, reg, lseg,
+                                           **kw)
+    a, b = gram_gather_plain(table, nb, wt, rt, seg, num_segments=s,
+                             tile_rows=t, carry=carry)
+    assert _backward_err(x, a, b, reg, 0.05, reg_mode) < 1e-5
+    assert _rel_err(x, wx) < 1e-2
+    assert _rel_err(ca, wca) < 1e-5 and _rel_err(cb, wcb) < 1e-5
+    keep = torch.as_tensor(np.setdiff1d(empty, [0] if with_carry else []),
+                           device=cuda, dtype=torch.long)
+    assert torch.all(x[keep] == 0)
+
+
+def test_gram_solve_gather_one_tile_per_entity(cuda):
+    """The bucketed adapter's shape: a [rows, width] width class, one tile
+    per entity, √(α·r) weights and the shared YᵀY + λI ridge, k = 128."""
+    from cfk_tpu_torch.ops.bucketed import bucket_gram_solve, ials_reparam
+
+    rng = np.random.default_rng(3)
+    k, f, rows, width = 128, 5000, 300, 64
+    table = torch.as_tensor(rng.random((f, k), dtype=np.float32), device=cuda)
+    nb = torch.as_tensor(rng.integers(0, f, (rows, width)).astype(np.int32),
+                         device=cuda)
+    cnt = rng.integers(1, width + 1, rows)
+    mk = torch.as_tensor((np.arange(width)[None, :] < cnt[:, None])
+                         .astype(np.float32), device=cuda)
+    rt = torch.as_tensor(rng.random((rows, width), dtype=np.float32),
+                         device=cuda) * mk
+    reg = table.T @ table + 0.1 * torch.eye(k, device=cuda)
+    wt, rt_b = ials_reparam(rt, mk, 40.0)
+    before = gram_solve_gather.launches
+    got = bucket_gram_solve(table, nb, wt, rt_b, reg, lam=0.0,
+                            reg_mode="matrix")
+    torch.cuda.synchronize()
+    assert gram_solve_gather.launches == before + 1
+    want = bucket_gram_solve(table.cpu(), nb.cpu(), wt.cpu(), rt_b.cpu(),
+                             reg.cpu(), lam=0.0, reg_mode="matrix")
+    assert _rel_err(got.cpu(), want) < 1e-3
 
 
 def test_launch_counters_count_kernel_calls_only(cuda):
