@@ -131,7 +131,12 @@ def _train(args) -> int:
     # Validate the flags before the (possibly long) block build.
     config = (IALSConfig(alpha=args.alpha, **common) if args.implicit
               else ALSConfig(**common))
-    ds = Dataset.from_coo(coo, layout=layout, chunk_elems=args.chunk_elems)
+    # The tiled layout's many-entity side as the unpadded dense stream, as
+    # the JAX CLI asks (cfk_tpu/cli.py:395); the subspace optimizers run on
+    # the padded and bucketed layouts, where the flag has no side to reach.
+    build = dict(layout=layout, chunk_elems=args.chunk_elems,
+                 dense_stream=args.algorithm not in ("als++", "ials++"))
+    ds = Dataset.from_coo(coo, **build)
     heldout = train_coo = None
     if args.eval_ranking:
         from cfk_tpu_torch.eval.ranking import leave_one_out_split
@@ -140,8 +145,7 @@ def _train(args) -> int:
         train_coo, heldout = leave_one_out_split(
             d.movie_raw, d.user_raw, d.rating, seed=args.seed)
         before = (ds.movie_map.num_entities, ds.user_map.num_entities)
-        ds = Dataset.from_coo(train_coo, layout=layout,
-                              chunk_elems=args.chunk_elems)
+        ds = Dataset.from_coo(train_coo, **build)
         if (ds.movie_map.num_entities, ds.user_map.num_entities) != before:
             _eprint(
                 "error: the leave-one-out split removed some entity's only "

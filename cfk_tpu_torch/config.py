@@ -44,6 +44,15 @@ class ALSConfig:
     algorithm: str = "als"
     block_size: int = 32
     sweeps: int = 1
+    # Fused Gram+solve epilogue of the tiled chunk scans.  None = the
+    # process default (on: K3 per dense-stream chunk, K6 per stream chunk,
+    # K1 on the accum side's accumulator).  False pins the split schedule:
+    # each chunk's (A, b) goes to device memory (dense stream: the split
+    # Gram kernel; stream: K2) and K1 solves it; the accum side's final
+    # solve becomes the ridge add + Gauss-Jordan dispatch
+    # (``ops.solve.dispatch_spd_solve``).  The knob does not reach the
+    # padded and bucketed half-steps (``cfk_tpu/config.py:221-237``).
+    fused_epilogue: bool | None = None
 
     def _valid_algorithms(self) -> tuple[str, ...]:
         return ("als", "als++")
@@ -60,6 +69,11 @@ class ALSConfig:
         return max(1, self.hbm_chunk_elems // max(width, 1))
 
     def __post_init__(self) -> None:
+        if self.fused_epilogue not in (None, True, False):
+            raise ValueError(
+                f"fused_epilogue must be None/True/False, got "
+                f"{self.fused_epilogue!r}"
+            )
         if self.reg_solve_algo not in ("auto", "lu", "gj"):
             raise ValueError(
                 f"reg_solve_algo must be 'auto', 'lu' or 'gj', got "

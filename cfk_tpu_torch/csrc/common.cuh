@@ -1,8 +1,9 @@
 // Device code shared by the port's training kernels: the in-shared-memory
 // Cholesky solve (reg_solve.cu, gram_solve_dense.cu, gram_solve_gather.cu)
-// and the gathered-row Gram accumulator (gram_gather.cu, gram_solve_dense.cu,
-// gram_solve_gather.cu); every kernel library takes its error-string export
-// from here.
+// and the gathered-row Gram accumulator with its dense-stream window walk
+// (gram_gather.cu, gram_solve_dense.cu, gram_tiles_dense_gather.cu,
+// gram_solve_gather.cu); every kernel library takes its error-string
+// export from here.
 //
 // Everything is plain FP32 FMA on the CUDA cores: the JAX package pins its
 // Gram and solve contractions to full float32 (precision="highest",
@@ -197,6 +198,43 @@ struct GramAcc {
     st.w[threadIdx.x] = w;
     st.rt[threadIdx.x] = rv;
     return live;
+  }
+
+  // Adds the rows of segment s of one dense-stream chunk: tile i (NT tiles
+  // in NG groups of M = NT/NG; meta = g_blk ‖ lb ‖ lo ‖ hi ‖ seg, seg
+  // sorted) covers stream rows p = g_blk[i/M]·BG + lb_i + r for r in
+  // [lo_i, hi_i), with weight wt[p] (1 when wt is null) and b-coefficient
+  // rt[i·T + r].  Shared by gram_solve_dense.cu and
+  // gram_tiles_dense_gather.cu.
+  __device__ void add_dense_segment(RowStage<KMAX>& st, int s,
+                                    const float* table, int F, const int* nb,
+                                    const float* wt, const float* rt,
+                                    const int* meta, int nt, int ng, int T,
+                                    int BG) {
+    const int m = nt / ng;
+    const int* g_blk = meta;
+    const int* lb = meta + ng;
+    const int* lo = lb + nt;
+    const int* hi = lo + nt;
+    const int* seg = hi + nt;
+    const int t0 = lower_bound(seg, nt, s);
+    const int t1 = lower_bound(seg, nt, s + 1);
+    for (int i = t0; i < t1; ++i) {
+      const int r_lo = __ldg(lo + i), r_hi = __ldg(hi + i);
+      const long base = (long)__ldg(g_blk + i / m) * BG + __ldg(lb + i);
+      for (int r0 = r_lo; r0 < r_hi; r0 += kRows) {
+        bool live = false;
+        if (threadIdx.x < kRows) {
+          const int r = r0 + threadIdx.x;
+          const bool valid = r < r_hi;
+          const long p = base + r;
+          live = stage(st, valid, valid ? __ldg(nb + p) : -1,
+                       valid ? (wt != nullptr ? __ldg(wt + p) : 1.0f) : 0.0f,
+                       valid ? __ldg(rt + (long)i * T + r) : 0.0f, F);
+        }
+        add_rows(st, live, table);
+      }
+    }
   }
 
   // Adds cin·(ca, cb) — the previous chunk's carried partial — into this

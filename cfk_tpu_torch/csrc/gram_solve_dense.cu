@@ -20,10 +20,12 @@
 // k x k Gram, twice the symmetric half.
 //
 // Design: one CTA per segment.  The CTA binary-searches seg for its tile
-// range and walks those tiles' windows kRows rows at a time (gather into
-// shared memory, RT x RT register blocks of A per thread, flushed into the
-// segment's Gram in shared memory every 1,024 rows and at the end); tiles
-// with an empty window (group padding) cost one metadata read.  In shared
+// range and walks those tiles' windows kRows rows at a time
+// (GramAcc::add_dense_segment in common.cuh, shared with the split kernel
+// gram_tiles_dense_gather.cu: gather into shared memory, RT x RT register
+// blocks of A per thread, flushed into the segment's Gram in shared memory
+// every 1,024 rows and at the end); tiles with an empty window (group
+// padding) cost one metadata read.  In shared
 // memory the carry fold, the raw carry-row copy, the ridge and the Cholesky
 // solve then run in place: the [S, k, k] batch
 // never reaches device memory, only x and the carry row do.  One hot entity
@@ -52,33 +54,9 @@ gram_solve_dense_kernel(const float* __restrict__ table, int F, int k,
   float* A = smem;
   float* y = smem + k * ld;
   const int s = blockIdx.x;
-  const int m = nt / ng;
-  const int* g_blk = meta;
-  const int* lb = meta + ng;
-  const int* lo = lb + nt;
-  const int* hi = lo + nt;
-  const int* seg = hi + nt;
-  const int t0 = cfk::lower_bound(seg, nt, s);
-  const int t1 = cfk::lower_bound(seg, nt, s + 1);
   cfk::GramAcc<KMAX> acc;
   acc.init(A, ld, y, k);
-  for (int i = t0; i < t1; ++i) {
-    const int r_lo = __ldg(lo + i), r_hi = __ldg(hi + i);
-    const long base = (long)__ldg(g_blk + i / m) * BG + __ldg(lb + i);
-    for (int r0 = r_lo; r0 < r_hi; r0 += cfk::kRows) {
-      bool live = false;
-      if (threadIdx.x < cfk::kRows) {
-        const int r = r0 + threadIdx.x;
-        const bool valid = r < r_hi;
-        const long p = base + r;
-        live = cfk::GramAcc<KMAX>::stage(
-            st, valid, valid ? __ldg(nb + p) : -1,
-            valid ? (wt != nullptr ? __ldg(wt + p) : 1.0f) : 0.0f,
-            valid ? __ldg(rt + (long)i * T + r) : 0.0f, F);
-      }
-      acc.add_rows(st, live, table);
-    }
-  }
+  acc.add_dense_segment(st, s, table, F, nb, wt, rt, meta, nt, ng, T, BG);
   if (s == 0 && ca != nullptr) acc.fold_carry(ca, cb, __ldg(cin));
   acc.flush();
   __syncthreads();

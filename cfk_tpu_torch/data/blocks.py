@@ -12,14 +12,16 @@ The port's own copy of the host-side block builders of
   subspace optimizers' at-scale layout);
 - ``TiledBlocks`` — the tiled layout at scale: the few-entity side in
   ``accum`` mode (entries sorted by fixed-table slice, per-chunk tile owners,
-  one accumulator over all chunks) and the many-entity side as the unpadded
-  ``dstream`` dense stream (tiles are [T]-row windows into a stream whose
-  runs are padded to 16 rows only).
+  one accumulator over all chunks) and the many-entity side in ``stream``
+  mode (entity runs padded to whole [T]-row tiles, chunk-relative segments
+  and the carry of an entity that straddles two chunks) or, with
+  ``dense_stream``, as the unpadded ``dstream`` dense stream (tiles are
+  [T]-row windows into a stream whose runs are padded to 16 rows only).
 
 Every array is bit-identical to what ``cfk_tpu.data.blocks`` builds for the
 same ratings at ``num_shards=1`` (asserted by ``tests/test_torch_blocks.py``
 and ``tests/test_torch_bucketed.py``).
-The padded ``stream`` mode, sharded and ring builds are later slices.
+Sharded and ring builds are later slices.
 
 Entity-count padding rows have count 0; their normal equations are made
 non-singular by flooring the ALS-WR regularizer ``λ·n`` at ``λ·1`` (real rows
@@ -188,7 +190,7 @@ class TiledBlocks:
     slice_starts: np.ndarray  # int32 [n_slices+1] accum: chunk range per slice
     count: np.ndarray  # int32 [E]
     rating_sum: np.ndarray  # float32 [E]
-    mode: str  # "accum" | "dstream"
+    mode: str  # "accum" | "stream" | "dstream"
     num_entities: int
     num_chunks: int  # NC
     chunk_cap: int  # C (entries per chunk)
@@ -208,8 +210,12 @@ class TiledBlocks:
 
     @property
     def statics(self):
-        """Static shape tuple: dstream (NC, C, Ec, T, NT, NG, BG), accum
-        (NC, C, T, H, Ec) — the same order as ``cfk_tpu``."""
+        """Static shape tuple: stream (NC, C, Ec, T), dstream (NC, C, Ec, T,
+        NT, NG, BG), accum (NC, C, T, H, Ec) — the same order as
+        ``cfk_tpu``."""
+        if self.mode == "stream":
+            return (self.num_chunks, self.chunk_cap, self.chunk_entities,
+                    self.tile_rows)
         if self.mode == "dstream":
             return (self.num_chunks, self.chunk_cap, self.chunk_entities,
                     self.tile_rows, self.num_tiles, self.num_groups,
@@ -394,22 +400,16 @@ def build_tiled_blocks(
     chunk_elems: int | None = 1 << 20,
     slice_rows: int = TILED_SLICE_ROWS_DEFAULT,
     accum_max_entities: int = 1 << 16,
-    dense_stream: bool = True,
+    dense_stream: bool = False,
 ) -> TiledBlocks:
     """Pad entity runs to tiles and pack into chunks (one mode per side).
 
     ``accum`` when the solve-entity count fits ``accum_max_entities`` (the
-    [E+1, k, k] accumulator must fit device memory), else the dense stream.
-    Table slicing engages only in accum mode and only when the fixed side
-    exceeds ``slice_rows``.  The padded stream mode (``dense_stream=False``
-    on a side past ``accum_max_entities``) is not ported yet.
+    [E+1, k, k] accumulator must fit device memory), else ``stream`` — or,
+    with ``dense_stream``, the unpadded dense stream.  Table slicing engages
+    only in accum mode and only when the fixed side exceeds ``slice_rows``.
     """
-    if num_solve_entities > accum_max_entities:
-        if not dense_stream:
-            raise NotImplementedError(
-                "the padded tiled stream mode (dense_stream=False) is ported "
-                "in a later slice; build with dense_stream=True"
-            )
+    if dense_stream and num_solve_entities > accum_max_entities:
         return _build_dense_stream(
             solve_dense, fixed_dense, rating, num_solve_entities,
             num_fixed_entities, tile_rows=tile_rows, chunk_elems=chunk_elems,
@@ -419,9 +419,10 @@ def build_tiled_blocks(
         raise ValueError(f"tile_rows must be >= 8, got {t}")
     e_local = num_solve_entities
     f_pad = num_fixed_entities
+    mode = "accum" if e_local <= accum_max_entities else "stream"
     n_slices = 1
     h = f_pad
-    if f_pad > slice_rows:
+    if mode == "accum" and f_pad > slice_rows:
         h = int(slice_rows)
         n_slices = (f_pad + h - 1) // h
 
@@ -490,15 +491,20 @@ def build_tiled_blocks(
         fill_pos = np.repeat(tile_idx, reps) + _concat_aranges(reps)
         tile_entity[fill_pos] = np.repeat(run_entity, reps)
     te = tile_entity.reshape(nc, nt)
-    # Ec = the most DISTINCT entities any chunk holds (accumulator rows).
+    # Ec: stream mode, the widest entity SPAN of any chunk (solve-batch
+    # rows); accum mode, the most DISTINCT entities (accumulator rows).
     e_c = 1
     for c in range(nc):
         real = te[c][te[c] < e_local]
         if real.size:
-            e_c = max(e_c, int(np.unique(real).shape[0]))
+            e_c = max(e_c, int(real[-1] - real[0]) + 1 if mode == "stream"
+                      else int(np.unique(real).shape[0]))
     e_c = min(e_c, e_local)
 
     chunk_entity = np.full(nc * e_c, e_local, dtype=np.int32)
+    chunk_count = np.zeros(nc * e_c, dtype=np.int32)
+    carry_in = np.zeros(nc, dtype=np.float32)
+    last_seg = np.zeros(nc, dtype=np.int32)
     slice_starts = np.zeros(n_slices + 1, dtype=np.int32)
     if run_len.shape[0]:
         pos_in_run = np.arange(loc.shape[0], dtype=np.int64) - np.repeat(
@@ -512,28 +518,20 @@ def build_tiled_blocks(
             neighbor[dst] = fix.astype(np.int32)
         rmat[dst] = rat
         wmat[dst] = 1.0
-    for c in range(nc):
-        tiles_c = te[c]
-        real = tiles_c < e_local
-        if not real.any():
-            tile_seg[c * nt:(c + 1) * nt] = e_c
-            continue
-        # Chunk-DENSE ranks plus an explicit entity list (slicing leaves
-        # gaps in the entity sequence); trash tiles rank e_c.
-        distinct = np.unique(tiles_c[real])
-        tile_seg[c * nt:(c + 1) * nt] = np.where(
-            real, np.searchsorted(distinct, tiles_c), e_c
-        ).astype(np.int32)
-        chunk_entity[c * e_c:c * e_c + distinct.shape[0]] = distinct
-    if n_slices > 1 and run_len.shape[0]:
-        chunks_per_slice = slice_rounded // cap
-        sl_of_chunk = np.repeat(np.arange(n_slices), chunks_per_slice)
-        chunk_base[:sl_of_chunk.shape[0]] = np.minimum(
-            sl_of_chunk * h, f_pad - h
-        ).astype(np.int32)
-        np.cumsum(chunks_per_slice, out=slice_starts[1:])
+    if mode == "stream":
+        _stream_chunk_meta(te, e_local, e_c, count, tile_seg, chunk_entity,
+                           chunk_count, carry_in, last_seg)
     else:
-        slice_starts[1:] = (total_padded + cap - 1) // cap
+        _accum_chunk_meta(te, e_local, e_c, tile_seg, chunk_entity)
+        if n_slices > 1 and run_len.shape[0]:
+            chunks_per_slice = slice_rounded // cap
+            sl_of_chunk = np.repeat(np.arange(n_slices), chunks_per_slice)
+            chunk_base[:sl_of_chunk.shape[0]] = np.minimum(
+                sl_of_chunk * h, f_pad - h
+            ).astype(np.int32)
+            np.cumsum(chunks_per_slice, out=slice_starts[1:])
+        else:
+            slice_starts[1:] = (total_padded + cap - 1) // cap
 
     return TiledBlocks(
         neighbor_idx=neighbor,
@@ -542,13 +540,13 @@ def build_tiled_blocks(
         tile_seg=tile_seg,
         chunk_base=chunk_base,
         chunk_entity=chunk_entity,
-        chunk_count=np.zeros(nc * e_c, dtype=np.int32),
-        carry_in=np.zeros(nc, dtype=np.float32),
-        last_seg=np.zeros(nc, dtype=np.int32),
+        chunk_count=chunk_count,
+        carry_in=carry_in,
+        last_seg=last_seg,
         slice_starts=slice_starts,
         count=count,
         rating_sum=rating_sum,
-        mode="accum",
+        mode=mode,
         num_entities=num_solve_entities,
         num_chunks=nc,
         chunk_cap=cap,
@@ -557,6 +555,56 @@ def build_tiled_blocks(
         slice_rows=h,
         num_slices=n_slices,
     )
+
+
+def _accum_chunk_meta(te, e_local, e_c, tile_seg, chunk_entity):
+    """Accum mode's per-chunk tile owners, filled in place: chunk-DENSE
+    ranks plus an explicit entity list (slicing leaves gaps in the entity
+    sequence); trash tiles rank Ec."""
+    nc, nt = te.shape
+    for c in range(nc):
+        tiles_c = te[c]
+        real = tiles_c < e_local
+        if not real.any():
+            tile_seg[c * nt:(c + 1) * nt] = e_c
+            continue
+        distinct = np.unique(tiles_c[real])
+        tile_seg[c * nt:(c + 1) * nt] = np.where(
+            real, np.searchsorted(distinct, tiles_c), e_c
+        ).astype(np.int32)
+        chunk_entity[c * e_c:c * e_c + distinct.shape[0]] = distinct
+
+
+def _stream_chunk_meta(te, e_local, e_c, count, tile_seg, chunk_entity,
+                       chunk_count, carry_in, last_seg):
+    """Stream mode's per-chunk bookkeeping, filled in place from the tile
+    owners ``te`` [NC, NT]: chunk-relative tile segments (trash = Ec), the
+    carry flag of a chunk whose first entity continues the previous chunk's
+    last, the last real segment (the next carry), and the finalized
+    entities with their counts (an entity continuing into the next chunk is
+    finalized there)."""
+    nc, nt = te.shape
+    for c in range(nc):
+        tiles_c = te[c]
+        real = tiles_c < e_local
+        if not real.any():
+            tile_seg[c * nt:(c + 1) * nt] = e_c
+            continue
+        first = int(tiles_c[real][0])
+        last = int(tiles_c[real][-1])
+        tile_seg[c * nt:(c + 1) * nt] = np.where(
+            real, tiles_c - first, e_c).astype(np.int32)
+        prev = te[c - 1][te[c - 1] < e_local] if c > 0 else tiles_c[:0]
+        carry_in[c] = float(prev.size > 0 and int(prev[-1]) == first)
+        last_seg[c] = last - first
+        nxt = te[c + 1][te[c + 1] < e_local] if c + 1 < nc else tiles_c[:0]
+        cont_out = bool(nxt.size > 0 and int(nxt[0]) == last)
+        n_final = (last - first + 1) - int(cont_out)
+        if n_final > 0:
+            chunk_entity[c * e_c:c * e_c + n_final] = np.arange(
+                first, first + n_final, dtype=np.int32)
+            chunk_count[c * e_c:c * e_c + n_final] = count[first:
+                                                           first + n_final]
 
 
 DENSE_STREAM_BLOCK_ROWS = 1 << 15  # BG: stream rows per block; tiles never
@@ -825,7 +873,7 @@ class Dataset:
         pad_multiple: int = 8,
         chunk_elems: int | None = 1 << 20,
         accum_max_entities: int = 1 << 16,
-        dense_stream: bool = True,
+        dense_stream: bool = False,
         tile_rows: int = 128,
     ) -> "Dataset":
         """Index the ratings and build both halves' blocks.
@@ -833,9 +881,9 @@ class Dataset:
         ``layout="padded"``: one rectangle per side.  ``layout="bucketed"``:
         power-of-two width classes, ``chunk_elems`` cells per solve chunk.
         ``layout="tiled"``: accum mode for a side with at most
-        ``accum_max_entities`` entities, the dense stream for the other
-        (``dense_stream`` must stay True: the padded stream is a later
-        slice)."""
+        ``accum_max_entities`` entities, stream mode for the other (the
+        unpadded dense stream with ``dense_stream``, which the CLI asks
+        for)."""
         movie_map, m_dense = index_entities(coo.movie_raw)
         user_map, u_dense = index_entities(coo.user_raw)
         if layout == "bucketed":

@@ -118,14 +118,16 @@ def _bucketed_device_setup(dataset: Dataset, device):
 
 def _tiled_to_device(blocks: TiledBlocks, device, fixed_rows: int,
                      weighted: bool = False) -> dict[str, torch.Tensor]:
-    """Device tensors of one tiled half.  accum: the builder's slice-local
-    neighbor indices are rebased to absolute rows of the [fixed_rows, k]
-    table once here (the slice's zero row h → the table's virtual zero row
-    ``fixed_rows``), which is what the gather kernel reads.  ``weighted``
-    (the iALS trainer) also stages the dense stream's tile-aligned
-    ``weight`` and stream-aligned ``rating_dense`` — the channels the
-    reparameterized weights are computed from; the explicit path never
-    uploads them."""
+    """Device tensors of one tiled half.  accum and stream: the blocks'
+    slice-local neighbor indices are rebased to absolute rows of the
+    [fixed_rows, k] table once here (the slice's zero row h → the table's
+    virtual zero row ``fixed_rows``; a stream side is one unsliced slice,
+    so only its padding moves), which is what K2 and K6 read; stream mode
+    also stages its per-chunk ridge counts, carry flags and carry rows.
+    ``weighted`` (the iALS trainer) also stages the dense stream's
+    tile-aligned ``weight`` and stream-aligned ``rating_dense`` — the
+    channels the reparameterized weights are computed from; the explicit
+    path never uploads them."""
     dev = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
     if blocks.mode == "dstream":
         d = {
@@ -146,7 +148,7 @@ def _tiled_to_device(blocks: TiledBlocks, device, fixed_rows: int,
     base = dev(blocks.chunk_base).repeat_interleave(blocks.chunk_cap)
     nb_abs = torch.where(nb < blocks.slice_rows, base + nb,
                          torch.full_like(nb, fixed_rows))
-    return {
+    d = {
         "neighbor_idx": nb_abs.to(torch.int32),
         "rating": dev(blocks.rating),
         "weight": dev(blocks.weight),
@@ -154,6 +156,12 @@ def _tiled_to_device(blocks: TiledBlocks, device, fixed_rows: int,
         "chunk_entity": dev(blocks.chunk_entity),
         "count": dev(blocks.count),
     }
+    if blocks.mode == "stream":
+        d.update(chunk_reg=chunk_reg(dev(blocks.chunk_count),
+                                     blocks.num_chunks),
+                 carry_in=dev(blocks.carry_in),
+                 last_seg=dev(blocks.last_seg))
+    return d
 
 
 def _tiled_device_setup(dataset: Dataset, device, weighted: bool = False):
@@ -224,11 +232,12 @@ def init_user_factors(dataset: Dataset, ublocks, config: ALSConfig, device,
 
 def _half(fixed, blk, *, lam, solve_chunk, solver, chunks=None,
           entities=None, x_prev=None, algorithm="als", block_size=32,
-          sweeps=1):
+          sweeps=1, fused_epilogue=None):
     """Solve one side against fixed factors; dispatches on the layout
     (tuple = width buckets, tiled statics, else one padded rectangle).
     ``algorithm="als++"`` runs warm-started subspace sweeps from
-    ``x_prev`` (padded/bucketed layouts)."""
+    ``x_prev`` (padded/bucketed layouts); ``fused_epilogue`` reaches the
+    tiled half-steps only."""
     if algorithm == "als++":
         pp_kw = dict(block_size=block_size, sweeps=sweeps, solver=solver)
         if isinstance(blk, tuple):
@@ -242,7 +251,7 @@ def _half(fixed, blk, *, lam, solve_chunk, solver, chunks=None,
                                       solver=solver)
     if chunks is not None:
         return tiled_half_step(fixed, blk, chunks, entities, lam,
-                               solver=solver)
+                               solver=solver, fused_epilogue=fused_epilogue)
     return als_half_step(fixed, blk["neighbor_idx"], blk["rating"],
                          blk["mask"], blk["count"], lam,
                          solve_chunk=solve_chunk, solver=solver)
@@ -285,7 +294,8 @@ def train_als(dataset: Dataset, config: ALSConfig, *,
                              solver=config.solver,
                              algorithm=config.algorithm,
                              block_size=config.block_size,
-                             sweeps=config.sweeps)
+                             sweeps=config.sweeps,
+                             fused_epilogue=config.fused_epilogue)
     for _ in range(config.num_iterations):
         m = half(u, mblocks, chunks=layout_kw.get("m_chunks"),
                  entities=layout_kw.get("m_entities"), x_prev=m)

@@ -60,10 +60,12 @@ class IALSConfig(ALSConfig):
 
 
 def _ials_half(fixed, blk, *, lam, alpha, solver, chunks=None, entities=None,
-               x_prev=None, algorithm="als", block_size=32, sweeps=1):
+               x_prev=None, algorithm="als", block_size=32, sweeps=1,
+               fused_epilogue=None):
     """Dispatch on the block layout (tuple = width buckets, tiled statics,
     else one padded rectangle); ``algorithm="ials++"`` runs warm-started
-    subspace sweeps from ``x_prev`` (padded/bucketed layouts)."""
+    subspace sweeps from ``x_prev`` (padded/bucketed layouts);
+    ``fused_epilogue`` reaches the tiled half-steps only."""
     if algorithm == "ials++":
         pp_kw = dict(block_size=block_size, sweeps=sweeps, solver=solver)
         if isinstance(blk, tuple):
@@ -77,7 +79,8 @@ def _ials_half(fixed, blk, *, lam, alpha, solver, chunks=None, entities=None,
                                        solver=solver)
     if chunks is not None:
         return ials_tiled_half_step(fixed, blk, chunks, entities, lam, alpha,
-                                    solver=solver)
+                                    solver=solver,
+                                    fused_epilogue=fused_epilogue)
     return ials_half_step(fixed, blk["neighbor_idx"], blk["rating"],
                           blk["mask"], lam, alpha, solver=solver)
 
@@ -131,7 +134,8 @@ def train_ials(dataset: Dataset, config: IALSConfig, *,
     half = functools.partial(_ials_half, lam=config.lam, alpha=config.alpha,
                              solver=config.solver, algorithm=config.algorithm,
                              block_size=config.block_size,
-                             sweeps=config.sweeps)
+                             sweeps=config.sweeps,
+                             fused_epilogue=config.fused_epilogue)
     for _ in range(config.num_iterations):
         u, m = _ials_iteration_body(u, m, mblocks, ublocks, half=half,
                                     layout_kw=layout_kw)

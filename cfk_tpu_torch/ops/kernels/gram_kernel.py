@@ -1,7 +1,8 @@
 """The gathered-Gram kernels and their plain PyTorch versions: K2
-gram_gather, K3 gram_solve_dense, K5 gather_rows and K6 gram_solve_gather
-(``csrc/gram_gather.cu``, ``gram_solve_dense.cu``, ``gather_rows.cu``,
-``gram_solve_gather.cu``).
+gram_gather, K3 gram_solve_dense, K5 gather_rows, K6 gram_solve_gather and
+gram_tiles_dense_gather (``csrc/gram_gather.cu``, ``gram_solve_dense.cu``,
+``gather_rows.cu``, ``gram_solve_gather.cu``,
+``gram_tiles_dense_gather.cu``).
 
 Counterparts of ``cfk_tpu/ops/pallas/gram_kernel.py``:
 
@@ -16,7 +17,11 @@ Counterparts of ``cfk_tpu/ops/pallas/gram_kernel.py``:
   ``out[i] = table[nb[i]]·wt[i]`` the subspace sweeps consume.
 - ``gram_solve_gather`` ↔ ``gram_solve_tiles_gather_pallas``: K2's sums plus
   K3's epilogue (carry fold, raw ``lseg`` row, ridge, solve) — the bucketed
-  layout's width classes, one tile per entity.
+  layout's width classes (one tile per entity) and the padded stream mode's
+  chunks.
+- ``gram_tiles_dense_gather`` ↔ ``gram_tiles_dense_gather_pallas``: K3
+  without its epilogue — the dense-stream chunk's carry-folded (A, b), for
+  the split schedule (K1 solves them).
 
 Index F (the table height) is the virtual zero row padding entries point at.
 Segments owning no tile come back as zeros (solve: x = 0); the TPU kernels
@@ -47,6 +52,10 @@ _DENSE_ARGTYPES = (
     _P, _P, _P, _P, _I, _P,
 )
 _ROWS_ARGTYPES = (_P, _I, _I, _P, _P, ctypes.c_longlong, _I, _P, _I, _P)
+_DENSE_GRAM_ARGTYPES = (
+    _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I,
+    _P,
+)
 _SOLVE_GATHER_ARGTYPES = (
     _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _I, _F, _P, _P, _P, _P, _P,
     _P, _P, _I, _P,
@@ -146,12 +155,7 @@ def gram_gather(table, nb, wt, rt, seg, *, num_segments, tile_rows,
     require(wt, "wt", torch.float32, (c,))
     require(rt, "rt", torch.float32, (c,))
     require(seg, "seg", torch.int32, (nt,))
-    ca = cb = cin = None
-    if carry is not None:
-        ca, cb, cin = carry
-        require(ca, "carry a", torch.float32, (k, k))
-        require(cb, "carry b", torch.float32, (k,))
-        cin = scalar_on(cin, table.device, torch.float32)
+    ca, cb, cin = _carry_on(carry, k, table.device)
     a = torch.empty((num_segments, k, k), dtype=torch.float32,
                     device=table.device)
     b = torch.empty((num_segments, k), dtype=torch.float32, device=table.device)
@@ -168,10 +172,12 @@ def gram_gather(table, nb, wt, rt, seg, *, num_segments, tile_rows,
 gram_gather.launches = 0
 
 
-def _gram_dense_plain(table, nb, wt, rt, meta, *, num_segments, tile_rows,
-                      num_tiles, num_groups, block_rows, carry):
-    """The dense-stream Gram: windowed tiles of the gathered stream, masked
-    einsums, segment sum — the indexing of ``_emulate_gram_dense``."""
+def gram_tiles_dense_gather_plain(table, nb, wt, rt, meta, *, num_segments,
+                                  tile_rows, num_tiles, num_groups,
+                                  block_rows, carry=None):
+    """The plain PyTorch version of ``gram_tiles_dense_gather`` (and K3's
+    Gram): windowed tiles of the gathered stream, masked einsums, segment
+    sum — the indexing of ``_emulate_gram_dense``."""
     k = table.shape[-1]
     t, nt, ng, bg = tile_rows, num_tiles, num_groups, block_rows
     m = nt // ng
@@ -193,12 +199,85 @@ def _gram_dense_plain(table, nb, wt, rt, meta, *, num_segments, tile_rows,
     return _segment_sums(a_t, b_t, seg, num_segments, carry)
 
 
+def _check_dense_chunk(c, rt, meta, *, tile_rows, num_tiles, num_groups,
+                       block_rows):
+    """The dense-stream chunk contracts of the JAX entry points."""
+    t, nt, ng, bg = tile_rows, num_tiles, num_groups, block_rows
+    if nt % ng != 0:
+        raise ValueError(f"num_tiles {nt} not divisible by num_groups {ng}")
+    if tuple(rt.shape) != (nt * t,):
+        raise ValueError(f"rt shape {tuple(rt.shape)} != ({nt * t},)")
+    if tuple(meta.shape) != (ng + 4 * nt,):
+        raise ValueError(f"meta shape {tuple(meta.shape)} != ({ng + 4 * nt},)")
+    if c % bg != 0 or bg < t:
+        raise ValueError(f"stream length {c} not a multiple of block_rows "
+                         f"{bg} >= tile_rows {t}")
+
+
+def _carry_on(carry, k, dev):
+    """(ca, cb, cin) checked and on ``dev``, or three Nones."""
+    if carry is None:
+        return None, None, None
+    ca, cb, cin = carry
+    require(ca, "carry a", torch.float32, (k, k))
+    require(cb, "carry b", torch.float32, (k,))
+    return ca, cb, scalar_on(cin, dev, torch.float32)
+
+
+def gram_tiles_dense_gather(table, nb, wt, rt, meta, *, num_segments,
+                            tile_rows, num_tiles, num_groups, block_rows,
+                            carry=None):
+    """One dense-stream chunk's per-segment (A [S,k,k], b [S,k]) — K3's
+    Gram without its epilogue.
+
+    table [F,k] f32; nb [C] int32 dense stream (padding → F); wt [C] f32
+    per-entry weight or None (unit); rt [NT·T] f32 tile-aligned
+    b-coefficients; meta [NG+4·NT] int32 (g_blk ‖ lb ‖ lo ‖ hi ‖ seg);
+    ``carry`` = (ca, cb, cin) folds cin·(ca, cb) into segment 0.  A segment
+    owning no tile comes back as zeros.
+    """
+    c = nb.shape[0]
+    f, k = table.shape
+    t, nt, ng, bg = tile_rows, num_tiles, num_groups, block_rows
+    _check_dense_chunk(c, rt, meta, tile_rows=t, num_tiles=nt,
+                       num_groups=ng, block_rows=bg)
+    if not on_cuda(table, nb, wt, rt, meta):
+        return gram_tiles_dense_gather_plain(
+            table, nb, wt, rt, meta, num_segments=num_segments, tile_rows=t,
+            num_tiles=nt, num_groups=ng, block_rows=bg, carry=carry)
+    if not 1 <= k <= MAX_RANK:
+        raise ValueError(
+            f"gram_tiles_dense_gather supports rank 1..{MAX_RANK}, got {k}")
+    dev = table.device
+    require(table, "table", torch.float32, (f, k))
+    require(nb, "nb", torch.int32, (c,))
+    if wt is not None:
+        require(wt, "wt", torch.float32, (c,))
+    require(rt, "rt", torch.float32, (nt * t,))
+    require(meta, "meta", torch.int32, (ng + 4 * nt,))
+    ca, cb, cin = _carry_on(carry, k, dev)
+    a = torch.empty((num_segments, k, k), dtype=torch.float32, device=dev)
+    b = torch.empty((num_segments, k), dtype=torch.float32, device=dev)
+    fn = _build.function("gram_tiles_dense_gather",
+                         "cfk_gram_tiles_dense_gather", _DENSE_GRAM_ARGTYPES)
+    p = _build.ptr
+    rc = fn(p(table), f, k, p(nb), p(wt), p(rt), p(meta), nt, ng, t, bg,
+            num_segments, p(ca), p(cb), p(cin), p(a), p(b), dev.index or 0,
+            stream_of(table))
+    _build.check(rc, "gram_tiles_dense_gather")
+    gram_tiles_dense_gather.launches += 1
+    return a, b
+
+
+gram_tiles_dense_gather.launches = 0
+
+
 def gram_solve_dense_plain(table, nb, wt, rt, meta, reg, lseg, *,
                            num_segments, tile_rows, num_tiles, num_groups,
                            block_rows, lam, reg_mode="diag", carry=None):
     """The plain PyTorch version of K3: dense Gram, raw carry row at
     ``lseg``, ridge + Cholesky solve."""
-    a, b = _gram_dense_plain(
+    a, b = gram_tiles_dense_gather_plain(
         table, nb, wt, rt, meta, num_segments=num_segments,
         tile_rows=tile_rows, num_tiles=num_tiles, num_groups=num_groups,
         block_rows=block_rows, carry=carry,
@@ -223,15 +302,8 @@ def gram_solve_dense(table, nb, wt, rt, meta, reg, lseg, *, num_segments,
     c = nb.shape[0]
     f, k = table.shape
     t, nt, ng, bg = tile_rows, num_tiles, num_groups, block_rows
-    if nt % ng != 0:
-        raise ValueError(f"num_tiles {nt} not divisible by num_groups {ng}")
-    if tuple(rt.shape) != (nt * t,):
-        raise ValueError(f"rt shape {tuple(rt.shape)} != ({nt * t},)")
-    if tuple(meta.shape) != (ng + 4 * nt,):
-        raise ValueError(f"meta shape {tuple(meta.shape)} != ({ng + 4 * nt},)")
-    if c % bg != 0 or bg < t:
-        raise ValueError(f"stream length {c} not a multiple of block_rows "
-                         f"{bg} >= tile_rows {t}")
+    _check_dense_chunk(c, rt, meta, tile_rows=t, num_tiles=nt,
+                       num_groups=ng, block_rows=bg)
     check_reg(reg, reg_mode, num_segments, k)
     if not on_cuda(table, nb, wt, rt, meta, reg):
         return gram_solve_dense_plain(
@@ -251,12 +323,7 @@ def gram_solve_dense(table, nb, wt, rt, meta, reg, lseg, *, num_segments,
     require(meta, "meta", torch.int32, (ng + 4 * nt,))
     reg32 = reg.to(torch.float32).contiguous()
     lseg_d = scalar_on(lseg, dev, torch.int32)
-    ca = cb = cin = None
-    if carry is not None:
-        ca, cb, cin = carry
-        require(ca, "carry a", torch.float32, (k, k))
-        require(cb, "carry b", torch.float32, (k,))
-        cin = scalar_on(cin, dev, torch.float32)
+    ca, cb, cin = _carry_on(carry, k, dev)
     x = torch.empty((num_segments, k), dtype=torch.float32, device=dev)
     ca_out = torch.empty((k, k), dtype=torch.float32, device=dev)
     cb_out = torch.empty((k,), dtype=torch.float32, device=dev)
@@ -323,12 +390,7 @@ def gram_solve_gather(table, nb, wt, rt, seg, reg, lseg, *, num_segments,
     require(seg, "seg", torch.int32, (nt,))
     reg32 = reg.to(torch.float32).contiguous()
     lseg_d = scalar_on(lseg, dev, torch.int32)
-    ca = cb = cin = None
-    if carry is not None:
-        ca, cb, cin = carry
-        require(ca, "carry a", torch.float32, (k, k))
-        require(cb, "carry b", torch.float32, (k,))
-        cin = scalar_on(cin, dev, torch.float32)
+    ca, cb, cin = _carry_on(carry, k, dev)
     x = torch.empty((num_segments, k), dtype=torch.float32, device=dev)
     ca_out = torch.zeros((k, k), dtype=torch.float32, device=dev)
     cb_out = torch.zeros((k,), dtype=torch.float32, device=dev)

@@ -15,6 +15,12 @@ Gram YᵀY is one ``torch.matmul`` per half-step and the shared YᵀY + λI ridg
 is K1's matrix mode.  The bucketed half-steps walk the width classes and run
 each through kernel K6 (``ops.bucketed``).
 
+The split epilogue (``fused=False``) adds the ridge on its own and hands
+the system to ``dispatch_spd_solve``: the Gauss-Jordan kernel for k ≤ 64,
+the blocked Schur solve (multi-RHS Gauss-Jordan, three batched float32
+contractions, Gauss-Jordan on the Schur complement) for 64 < k ≤ 128
+(``cfk_tpu/ops/solve.py:310-390``).
+
 ``solver`` picks the route of every solve and Gram kernel: ``"auto"`` calls
 the kernel wrappers (the CUDA kernels for CUDA tensors, their plain versions
 for CPU tensors); ``"cholesky"`` names the plain PyTorch versions
@@ -28,7 +34,16 @@ from __future__ import annotations
 
 import torch
 
-from cfk_tpu_torch.ops.kernels.solve_kernel import reg_solve, reg_solve_plain
+from cfk_tpu_torch.ops.kernels import on_cuda
+from cfk_tpu_torch.ops.kernels.solve_kernel import (
+    GJ_MAX_RANK,
+    MAX_RANK,
+    gauss_solve,
+    gauss_solve_multi,
+    reg_solve,
+    reg_solve_plain,
+    spd_solve_plain,
+)
 
 SOLVERS = ("auto", "cholesky")
 
@@ -61,20 +76,101 @@ def gather_gram(
     return a, b
 
 
+def resolve_fused_epilogue(fused: bool | None) -> bool:
+    """The per-call knob if given, else the default: on — every chunk Gram
+    kernel solves in place and the accum side's ridge + solve is K1's one
+    pass (``cfk_tpu/ops/solve.py:398-413``)."""
+    return True if fused is None else bool(fused)
+
+
+def resolve_fused_chunk(fused: bool | None, k: int) -> bool:
+    """Whether a tiled chunk runs its fused Gram + solve kernel (K3 for the
+    dense stream, K6 for the stream): the knob, and a rank those kernels
+    take.  A rank they refuse goes to the split schedule, as in
+    ``cfk_tpu/plan/registry.py:322-360`` — both schedules run kernels."""
+    return resolve_fused_epilogue(fused) and 1 <= k <= MAX_RANK
+
+
+def blocked_spd_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """SPD solve for 64 < k ≤ 128 by one level of block elimination
+    (``_blocked_spd_solve_pallas``, ``cfk_tpu/ops/solve.py:310-357``):
+    split A at k₁ = 64; ``gauss_solve_multi`` computes Y = A₁₁⁻¹[A₁₂ | b₁];
+    the Schur complement S = A₂₂ − A₂₁·Y₁₂ (SPD) is solved by
+    ``gauss_solve``; x₁ = y₁ − Y₁₂·x₂ back-substitutes.  The three batched
+    contractions are plain float32 matmuls (TF32 off), as the JAX package
+    left them to XLA at full precision.  a [E,k,k], b [E,k] → x [E,k]."""
+    k = a.shape[-1]
+    k1 = GJ_MAX_RANK
+    k2 = k - k1
+    a21, a22 = a[:, k1:, :k1], a[:, k1:, k1:]
+    rhs = torch.cat([a[:, :k1, k1:], b[:, :k1, None]], dim=2)  # [E,k1,k2+1]
+    y = gauss_solve_multi(a[:, :k1, :k1].permute(1, 2, 0),
+                          rhs.permute(1, 2, 0)).permute(2, 0, 1)
+    del rhs
+    y12, y1 = y[:, :, :k2], y[:, :, k2]
+    s = a22 - a21 @ y12  # [E, k2, k2]
+    rhs2 = b[:, k1:] - (a21 @ y1[:, :, None])[:, :, 0]
+    x2 = gauss_solve(s.permute(1, 2, 0), rhs2.T).T  # [E, k2]
+    del s
+    x1 = y1 - (y12 @ x2[:, :, None])[:, :, 0]
+    return torch.cat([x1, x2], dim=1)
+
+
+def dispatch_spd_solve(a: torch.Tensor, b: torch.Tensor,
+                       solver: str = "auto") -> torch.Tensor:
+    """Solve batched SPD systems a [E,k,k], b [E,k] → x [E,k] (no ridge).
+
+    ``"auto"``: the Gauss-Jordan kernel for k ≤ 64 (on the batch-last view
+    of the batch), the blocked Schur solve for 64 < k ≤ 128; on CUDA a
+    larger rank raises (the JAX package falls back to XLA's Cholesky
+    there; the port has no kernel for it yet), on the CPU it takes the
+    plain Cholesky as the JAX package does.  ``"cholesky"`` (CPU only):
+    the plain Cholesky.  The counterpart of ``cfk_tpu/ops/solve.py:
+    360-389``."""
+    k = a.shape[-1]
+    if not use_kernels(solver, a.device):
+        return spd_solve_plain(a, b)
+    if k > 2 * GJ_MAX_RANK:
+        if on_cuda(a, b):
+            raise ValueError(
+                f"the split solve supports rank <= {2 * GJ_MAX_RANK} on "
+                f"CUDA, got {k}; use the fused epilogue (fused_epilogue="
+                "None/True) at this rank"
+            )
+        return spd_solve_plain(a, b)
+    if k > GJ_MAX_RANK:
+        return blocked_spd_solve(a, b)
+    return gauss_solve(a.permute(1, 2, 0), b.T).T.contiguous()
+
+
 def regularized_solve(a: torch.Tensor, b: torch.Tensor, count: torch.Tensor,
-                      lam: float, solver: str = "auto") -> torch.Tensor:
-    """Apply ALS-WR regularization λ·max(n, 1)·I and solve (K1)."""
-    solve = reg_solve if use_kernels(solver, a.device) else reg_solve_plain
-    return solve(a, b, count, lam=lam, reg_mode="diag")
+                      lam: float, solver: str = "auto",
+                      fused: bool | None = None) -> torch.Tensor:
+    """Apply ALS-WR regularization λ·max(n, 1)·I and solve.
+
+    Fused (the default): K1's one pass.  Split (``fused=False``): the
+    ridge is added IN PLACE into ``a`` — the caller's batch is consumed (at
+    the ML-25M shape and rank 128 a second [E, k, k] copy would be 3.9 GB)
+    — and ``dispatch_spd_solve`` solves."""
+    if resolve_fused_epilogue(fused):
+        solve = reg_solve if use_kernels(solver, a.device) else reg_solve_plain
+        return solve(a, b, count, lam=lam, reg_mode="diag")
+    ridge = lam * count.to(torch.float32).clamp_min(1.0)
+    a.diagonal(dim1=-2, dim2=-1).add_(ridge[:, None])
+    return dispatch_spd_solve(a, b, solver)
 
 
 def regularized_solve_matrix(a: torch.Tensor, b: torch.Tensor,
-                             reg: torch.Tensor, solver: str = "auto"
-                             ) -> torch.Tensor:
+                             reg: torch.Tensor, solver: str = "auto",
+                             fused: bool | None = None) -> torch.Tensor:
     """Solve (A_e + R) x_e = b_e with one shared [k,k] term R (iALS:
-    YᵀY + λI) — K1's matrix mode."""
-    solve = reg_solve if use_kernels(solver, a.device) else reg_solve_plain
-    return solve(a, b, reg, reg_mode="matrix")
+    YᵀY + λI): fused, K1's matrix mode; split, R added IN PLACE into ``a``
+    (see ``regularized_solve``), then ``dispatch_spd_solve``."""
+    if resolve_fused_epilogue(fused):
+        solve = reg_solve if use_kernels(solver, a.device) else reg_solve_plain
+        return solve(a, b, reg, reg_mode="matrix")
+    a.add_(reg.to(torch.float32))
+    return dispatch_spd_solve(a, b, solver)
 
 
 def gather_gram_implicit(

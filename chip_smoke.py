@@ -4,12 +4,13 @@
 
 Phases, each of which must pass:
 
-1. build   — compile the six CUDA kernels from cfk_tpu_torch/csrc (one nvcc
+1. build   — compile the nine CUDA kernels from cfk_tpu_torch/csrc (one nvcc
              per source, in parallel);
 2. main    — train explicit ALS-WR with ``train_als`` at the Netflix Prize
              shape (480,189 users x 17,770 movies x 100,480,507 synthetic
              ratings, seed 0), tiled layout (accum movie half + dense-stream
-             user half), rank 64, lambda 0.05, float32, 3 iterations; every
+             user half), rank 64, lambda 0.05, float32, 3 iterations, the
+             fused epilogue (K1-K3); every
              kernel's launch counter is zeroed just before and read just
              after, and each must be > 0; factors must be finite and the
              train RMSE below the ratings' standard deviation;
@@ -25,6 +26,19 @@ Phases, each of which must pass:
              each kernel's device time per chunk beside the rows of the
              chunk's largest segment and the summed bound, and a
              torch.profiler pass over one iteration;
+4b. split  — the split epilogue (``fused_epilogue=False``) on the same
+             dataset from the main run's initial factors: ``train_als`` for 2
+             iterations (accum half: K2 + the Gauss-Jordan solve; dense half:
+             the split Gram ``gram_tiles_dense_gather`` + K1 per chunk), the
+             launch counts of those four zeroed before and read after (each
+             > 0), s/iter, each half's ms, the train RMSE guard; the first
+             movie half against the fused route's from the same start
+             (Gauss-Jordan vs Cholesky, TOL) and the first user half from
+             the same movie factors (expected bit-equal: the same Gram sums
+             and the same ridge + Cholesky code); then the split Gram on the
+             middle dense chunk and the Gauss-Jordan solve on the movie
+             half's E = 17,770 accumulated Grams with their ridge against
+             their plain versions, with times, bounds and library times;
 5. serve   — top-K serving at the repo's serving configuration (``bench.py
              --serve``: 162,541 users x 59,047 movies, the ML-25M shape,
              rank 128, K = 100, tile_m 2048, seen lists at the ML-25M mean;
@@ -48,20 +62,31 @@ Phases, each of which must pass:
              matrix mode; dense-stream user half: K3 weighted + matrix),
              49,152-entry chunks; (b) iALS, bucketed (chunk_elems 524,288),
              every width class through K6; (c) iALS++, bucketed, b = 32, one
-             sweep (K5 + K1 at k = 32).  Launch counts zeroed before and read
-             after each run; the implicit objective (without the dense U·Mᵀ)
-             must fall every iteration; (a)'s and (b)'s first movie halves
+             sweep (K5 + K1 at k = 32); (d) (a) split, 2 iterations (the
+             accum half's blocked Schur solve: ``gauss_solve_multi`` +
+             ``gauss_solve`` on 59,047 movie systems; the dense half: the
+             split Gram weighted + K1 matrix mode); (e) iALS on the tiled
+             stream mode (``dense_stream=False``; the user half through K6
+             with multi-tile segments and the carry), 2 iterations fused
+             and 1 split (K2 weighted + K1 matrix mode).  Launch counts
+             zeroed before and read after each run; the implicit objective
+             (without the dense U·Mᵀ) must fall every iteration; (d) and (e)
+             must agree with (a) on the first movie half's factors and on the
+             scores of each iteration; (a)'s and (b)'s first movie halves
              solve the same normal equations as a float64 solve (checked on
              the five widest and five random movies) and must agree with it
              and with each other, and their scores on the observed entries
              must agree every iteration; then K5, K6 and K1-K3 in their
              implicit modes against their plain versions on a middle bucket
              / chunk, with times and bounds, per-half and per-width-class
-             times and a profiler pass over one iteration of each run;
-7. small   — ``train_als`` on small padded, tiled and bucketed datasets
-             (ALS and ALS++) and ``train_ials`` on small tiled and bucketed
-             ones (iALS and iALS++), kernels on the card against the plain
-             versions on the CPU;
+             times and a profiler pass over one iteration of each run; the
+             multi-RHS Gauss-Jordan against its plain version and
+             ``torch.linalg.solve`` at the Schur shape (k = 64, m = 65);
+7. small   — ``train_als`` on small padded, tiled (dense stream, and the
+             stream mode fused and split) and bucketed datasets (ALS and
+             ALS++) and ``train_ials`` on small tiled and bucketed ones (iALS
+             and iALS++), kernels on the card against the plain versions on
+             the CPU;
 8. cli     — ``python -m cfk_tpu_torch train --layout auto --checkpoint-dir``
              on a small Netflix-format file (padded is chosen), then
              ``recommend``, ``predict``, ``evaluate`` on predict's CSV (the
@@ -105,9 +130,16 @@ RANK, LAM, ITERS = 64, 0.05, 3
 # number (~4e2) amplifies, so factors agree within 1e-3 of the row's
 # largest |factor|.  Every later half solves against its own run's factors,
 # so (a) and (b) are then held by what they predict: the scores u·m on the
-# observed entries agree within 1e-3 of the largest |score|.
+# observed entries agree within 1e-3 of the largest |score|.  The same two
+# tolerances hold the split and stream runs (d), (e) to (a).  The split
+# Gram: as K2 (1e-4).  The Gauss-Jordan solves against their plain
+# elimination: as K1 (1e-3).  The split explicit run's first movie half
+# solves the fused run's normal equations by Gauss-Jordan where the fused
+# run takes K1's Cholesky: 1e-3 of the largest |factor|, as K1.
 TOL = {"reg_solve": 1e-3, "gram_gather": 1e-4, "gram_solve_dense": 1e-3,
        "topk_scores": 1e-5, "gather_rows": 0.0, "gram_solve_gather": 1e-3,
+       "gram_tiles_dense_gather": 1e-4, "gauss_solve": 1e-3,
+       "gauss_solve_multi": 1e-3, "split_first_half": 1e-3,
        "first_half_factors": 1e-3, "scores": 1e-3}
 REPLACES = {
     "reg_solve": "cfk_tpu/ops/pallas/solve_kernel.py:287",
@@ -116,11 +148,16 @@ REPLACES = {
     "topk_scores": "cfk_tpu/serving/topk_kernel.py:215",
     "gather_rows": "cfk_tpu/ops/pallas/gram_kernel.py:1929",
     "gram_solve_gather": "cfk_tpu/ops/pallas/gram_kernel.py:1526",
+    "gram_tiles_dense_gather": "cfk_tpu/ops/pallas/gram_kernel.py:1653",
+    "gauss_solve": "cfk_tpu/ops/pallas/solve_kernel.py:529",
+    "gauss_solve_multi": "cfk_tpu/ops/pallas/solve_kernel.py:495",
 }
+SPLIT_ITERS = 2
 # bench.py's implicit rows (bench.py:448-503): the ML-25M shape at rank 128.
 ML25M = dict(num_users=162_541, num_movies=59_047, nnz=25_000_095)
 IMPLICIT = dict(rank=128, lam=0.1, alpha=40.0, iterations=3,
-                tiled_chunk=49_152, bucketed_chunk=524_288, block_size=32)
+                tiled_chunk=49_152, bucketed_chunk=524_288, block_size=32,
+                split_iterations=2, stream_iterations=2)
 # bench.py --serve's configuration (bench.py:3236-3262).
 SERVE = dict(num_users=162_541, num_movies=59_047, nnz=25_000_095,
              rank=128, k=100, tile_m=2048, requests=256, clusters=1024)
@@ -218,6 +255,25 @@ def gram_solve_dense_work(table, args) -> tuple[float, float, dict]:
             n_win * (k * k + 3 * k) + s * (k ** 3 / 3 + 2 * k * k + k),
             dict(chunk_rows=nb.numel(), window_rows=n_win,
                  distinct_table_rows=rows, segments=s))
+
+
+def gram_tiles_dense_gather_work(table, args) -> tuple[float, float, dict]:
+    """(bytes, flops, counts) of the split dense Gram on one chunk: as K3's
+    Gram (the distinct table rows, nb/rt/meta once, k² + 3k flops per live
+    window row), with the S·(k² + k) floats of (A, b) written in place of
+    K3's ridge counts, x and carry row, and no solves."""
+    nbytes, _, counts = gram_solve_dense_work(table, args)
+    k = table.shape[1]
+    s = args["num_segments"]
+    nbytes += 4 * (s * (k * k + k) - s - s * k - (k * k + k))
+    return nbytes, counts["window_rows"] * (k * k + 3 * k), counts
+
+
+def gauss_work(e: int, k: int, m: int) -> tuple[float, float]:
+    """(bytes, flops) of e k x k systems with m right-hand sides: A and B
+    read once, X written once; the least work is a Cholesky (k³/3) and its
+    triangular solves (2k² per right-hand side)."""
+    return 4 * e * (k * k + 2 * k * m), e * (k ** 3 / 3 + 2 * k * k * m)
 
 
 def topk_scores_work(args, kw, n: int) -> tuple[float, float, dict]:
@@ -483,7 +539,8 @@ class Smoke:
         coo = synthetic_netflix_coo(**NETFLIX, seed=0)
         gen_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        ds = Dataset.from_coo(coo, layout="tiled", chunk_elems=1 << 20)
+        ds = Dataset.from_coo(coo, layout="tiled", chunk_elems=1 << 20,
+                              dense_stream=True)
         build_s = time.perf_counter() - t0
         mb, ub = ds.movie_blocks, ds.user_blocks
         log(f"data: generate {gen_s:.1f} s, blocks {build_s:.1f} s; movie "
@@ -741,6 +798,150 @@ class Smoke:
         self.check(row["rel_err"] < TOL["gram_solve_dense"],
                    f"gram_solve_dense rel err {row['rel_err']}")
 
+    def split(self, ds, model, blk_m, blk_u):
+        """The split epilogue on the main path's dataset (phase 4b of the
+        module docstring)."""
+        import numpy as np
+        import torch
+
+        from cfk_tpu_torch import ALSConfig, train_als
+        from cfk_tpu_torch.eval.metrics import mse_rmse_from_model
+        from cfk_tpu_torch.models.als import init_user_factors
+        from cfk_tpu_torch.ops.kernels.gram_kernel import (
+            gram_gather, gram_solve_dense, gram_tiles_dense_gather,
+            gram_tiles_dense_gather_plain)
+        from cfk_tpu_torch.ops.kernels.solve_kernel import (
+            gauss_solve, gauss_solve_multi, gauss_solve_plain, reg_solve)
+        from cfk_tpu_torch.ops.tiled import (
+            accum_grams, dense_chunk, tiled_half_step)
+
+        dev = torch.device("cuda")
+        k = RANK
+        kernels = (gram_gather, gram_tiles_dense_gather, reg_solve,
+                   gauss_solve, gauss_solve_multi, gram_solve_dense)
+        config = ALSConfig(rank=RANK, lam=LAM, num_iterations=SPLIT_ITERS,
+                           seed=0, layout="tiled", fused_epilogue=False)
+        # -- the split path: train_als from the main run's initial factors --
+        for fn in kernels:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        split_model = train_als(ds, config, device=dev)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        for name in ("gram_gather", "gram_tiles_dense_gather", "reg_solve",
+                     "gauss_solve"):
+            self.check(launches[name] > 0,
+                       f"split path launched {name} {launches[name]} times")
+        self.check(launches["gram_solve_dense"] == 0
+                   and launches["gauss_solve_multi"] == 0,
+                   f"split path at rank {k} ran a fused dense chunk or the "
+                   f"blocked solve: {launches}")
+        u, m = split_model.user_factors, split_model.movie_factors
+        self.check(bool(torch.isfinite(u).all() and torch.isfinite(m).all()),
+                   "split: non-finite factors")
+        mse, rmse = mse_rmse_from_model(split_model, ds)
+        std = float(np.std(ds.coo_dense.rating.astype(np.float64)))
+        self.check(rmse < std, f"split: train RMSE {rmse} >= rating std {std}")
+        del split_model, u, m
+        # -- the first halves, fused against split, from the same start ------
+        em = ds.movie_blocks.padded_entities
+        eu = ds.user_blocks.padded_entities
+        mc = ("tiled", "accum") + ds.movie_blocks.statics
+        uc = ("tiled", "dstream") + ds.user_blocks.statics
+        u0, _ = init_user_factors(ds, blk_u, config, dev, None)
+        m_f = tiled_half_step(u0, blk_m, mc, em, LAM)
+        m_s = tiled_half_step(u0, blk_m, mc, em, LAM, fused_epilogue=False)
+        u_f = tiled_half_step(m_f, blk_u, uc, eu, LAM)
+        u_s = tiled_half_step(m_f, blk_u, uc, eu, LAM, fused_epilogue=False)
+        movie_err, user_err = rel_err(m_s, m_f), rel_err(u_s, u_f)
+        user_equal = bool(torch.equal(u_s, u_f))
+        self.check(movie_err[1] < TOL["split_first_half"],
+                   f"split: first movie half differs from fused by "
+                   f"{movie_err[1]}")
+        self.check(user_err[1] < TOL["split_first_half"],
+                   f"split: first user half differs from fused by "
+                   f"{user_err[1]}")
+        movie = functools.partial(tiled_half_step, u0, blk_m, mc, em, LAM,
+                                  fused_epilogue=False)
+        user = functools.partial(tiled_half_step, m_f, blk_u, uc, eu, LAM,
+                                 fused_epilogue=False)
+        half_ms = {"movie_accum_split": time_ms(movie, 1),
+                   "user_dstream_split": time_ms(user, 1)}
+        profile = profile_calls(lambda: (movie(), user()), 1)
+        del u0, m_f, m_s, u_f, u_s, movie, user
+        self.report["split"] = dict(
+            iterations=SPLIT_ITERS, train_s=train_s,
+            s_per_iter=train_s / SPLIT_ITERS, half_ms=half_ms,
+            train_mse=mse, train_rmse=rmse, launches=launches,
+            launches_per_iter={n: v / SPLIT_ITERS
+                               for n, v in launches.items()},
+            first_movie_half_vs_fused=movie_err,
+            first_user_half_vs_fused=user_err,
+            first_user_half_bit_equal=user_equal, profile=profile)
+        log(f"split: {self.report['split']}")
+
+        # The split Gram on the middle dense chunk (the trained M table, the
+        # carry the real previous chunks hand it), as K3 is checked.
+        mt = model.movie_factors
+        st = ds.user_blocks.statics
+        mid = st[0] // 2
+        a0 = torch.zeros((k, k), device=dev)
+        b0 = torch.zeros((k,), device=dev)
+        for ci in range(mid + 1):
+            args = dense_chunk(blk_u, st, ci)
+            cin, lseg = args.pop("cin"), args.pop("lseg")
+            args.pop("reg")
+            carry = (a0, b0, cin)
+            if ci < mid:
+                a, b = gram_tiles_dense_gather(mt, **args, carry=carry)
+                a0 = a.index_select(0, lseg.long())[0]
+                b0 = b.index_select(0, lseg.long())[0]
+        got = gram_tiles_dense_gather(mt, **args, carry=carry)
+        torch.cuda.synchronize()
+        want = gram_tiles_dense_gather_plain(mt, **args, carry=carry)
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        nbytes, flops, counts = gram_tiles_dense_gather_work(mt, args)
+        b_ms, by = bound(nbytes, flops)
+        row = dict(
+            max_abs_err=max(e[0] for e in errs),
+            rel_err=max(e[1] for e in errs),
+            ms=time_ms(lambda: gram_tiles_dense_gather(mt, **args,
+                                                       carry=carry), 10),
+            plain_ms=time_ms(lambda: gram_tiles_dense_gather_plain(
+                mt, **args, carry=carry), 3),
+            library_ms=None, bound_ms=b_ms, bound_by=by,
+            launches=launches["gram_tiles_dense_gather"], chunk=mid,
+            **counts)
+        self.kernels["gram_tiles_dense_gather"] = row
+        log(f"gram_tiles_dense_gather: {row}")
+        self.check(row["rel_err"] < TOL["gram_tiles_dense_gather"],
+                   f"gram_tiles_dense_gather rel err {row['rel_err']}")
+        del got, want
+
+        # Gauss-Jordan on the movie half's accumulated Grams of the trained
+        # U table with their ridge λ·max(n, 1): the accum half's split solve.
+        a, b = accum_grams(model.user_factors, blk_m, em,
+                           statics=ds.movie_blocks.statics)
+        ridge = LAM * blk_m["count"].to(torch.float32).clamp_min(1.0)
+        a.diagonal(dim1=-2, dim2=-1).add_(ridge[:, None])
+        al, bl = a.permute(1, 2, 0), b.T  # batch-last views, as dispatched
+        got = gauss_solve(al, bl)
+        torch.cuda.synchronize()
+        want = gauss_solve_plain(al, bl)
+        err, rel = rel_err(got, want)
+        b_ms, by = bound(*gauss_work(em, k, 1))
+        row = dict(max_abs_err=err, rel_err=rel,
+                   ms=time_ms(lambda: gauss_solve(al, bl), 20),
+                   plain_ms=time_ms(lambda: gauss_solve_plain(al, bl), 3),
+                   library_ms=time_ms(lambda: torch.linalg.solve(a, b), 5),
+                   bound_ms=b_ms, bound_by=by,
+                   launches=launches["gauss_solve"], e=em, k=k, m=1)
+        self.kernels["gauss_solve"] = row
+        log(f"gauss_solve: {row}")
+        self.check(rel < TOL["gauss_solve"], f"gauss_solve rel err {rel}")
+
     def serve(self):
         import numpy as np
         import torch
@@ -925,24 +1126,32 @@ class Smoke:
         from cfk_tpu_torch.models.als import device_setup
         from cfk_tpu_torch.models.ials import IALSConfig, _ials_half, train_ials
         from cfk_tpu_torch.ops.kernels.gram_kernel import (
-            gather_rows, gram_gather, gram_solve_dense, gram_solve_gather)
-        from cfk_tpu_torch.ops.kernels.solve_kernel import reg_solve
+            gather_rows, gram_gather, gram_solve_dense, gram_solve_gather,
+            gram_tiles_dense_gather)
+        from cfk_tpu_torch.ops.kernels.solve_kernel import (
+            gauss_solve, gauss_solve_multi, reg_solve)
         from cfk_tpu_torch.utils.roofline import bucketed_gather_rows
 
         c = IMPLICIT
         kernels = (reg_solve, gram_gather, gram_solve_dense, gather_rows,
-                   gram_solve_gather)
+                   gram_solve_gather, gram_tiles_dense_gather, gauss_solve,
+                   gauss_solve_multi)
         t0 = time.perf_counter()
         coo = synthetic_netflix_coo(**ML25M, seed=0)
         gen_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         ds_t = Dataset.from_coo(coo, layout="tiled",
-                                chunk_elems=c["tiled_chunk"])
+                                chunk_elems=c["tiled_chunk"],
+                                dense_stream=True)
         tiled_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         ds_b = Dataset.from_coo(coo, layout="bucketed",
                                 chunk_elems=c["bucketed_chunk"])
         bucketed_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ds_s = Dataset.from_coo(coo, layout="tiled",
+                                chunk_elems=c["tiled_chunk"])
+        stream_s = time.perf_counter() - t0
         del coo
         mb, ub = ds_t.movie_blocks, ds_t.user_blocks
         log(f"implicit data: generate {gen_s:.1f} s, tiled blocks "
@@ -952,6 +1161,12 @@ class Smoke:
             f"{[b.width for b in ds_b.user_blocks.buckets]})")
         self.check(mb.mode == "accum" and ub.mode == "dstream",
                    f"implicit tiled modes {mb.mode}/{ub.mode}")
+        ss = ds_s.user_blocks
+        log(f"implicit stream blocks {stream_s:.1f} s (user {ss.mode} "
+            f"{ss.statics}, {int(ss.carry_in.sum())} carried chunks)")
+        self.check(ds_s.movie_blocks.mode == "accum" and ss.mode == "stream"
+                   and ss.carry_in.sum() > 0,
+                   f"implicit stream modes {ds_s.movie_blocks.mode}/{ss.mode}")
         dev = torch.device("cuda")
         nu, nm, k = ML25M["num_users"], ML25M["num_movies"], c["rank"]
         u0 = np.random.default_rng(0).random((nu, k), dtype=np.float32)
@@ -968,24 +1183,39 @@ class Smoke:
                        torch.as_tensor(m0, device=dev))
         runs, report = {}, dict(
             shape=ML25M, generate_s=gen_s, tiled_blocks_s=tiled_s,
-            bucketed_blocks_s=bucketed_s, objective_init=j0, **c)
+            bucketed_blocks_s=bucketed_s, stream_blocks_s=stream_s,
+            objective_init=j0, **c)
+        split = ("gram_gather", "reg_solve", "gauss_solve",
+                 "gauss_solve_multi")
         needed = {"ials_tiled": ("reg_solve", "gram_gather",
                                  "gram_solve_dense"),
                   "ials_bucketed": ("gram_solve_gather",),
-                  "ialspp_bucketed": ("gather_rows", "reg_solve")}
-        for name, ds, layout, algorithm in (
-                ("ials_tiled", ds_t, "tiled", "als"),
-                ("ials_bucketed", ds_b, "bucketed", "als"),
-                ("ialspp_bucketed", ds_b, "bucketed", "ials++")):
+                  "ialspp_bucketed": ("gather_rows", "reg_solve"),
+                  "ials_tiled_split": split + ("gram_tiles_dense_gather",),
+                  "ials_stream": ("gram_gather", "reg_solve",
+                                  "gram_solve_gather"),
+                  "ials_stream_split": split}
+        for name, ds, layout, algorithm, fused, iters in (
+                ("ials_tiled", ds_t, "tiled", "als", None, c["iterations"]),
+                ("ials_bucketed", ds_b, "bucketed", "als", None,
+                 c["iterations"]),
+                ("ialspp_bucketed", ds_b, "bucketed", "ials++", None,
+                 c["iterations"]),
+                ("ials_tiled_split", ds_t, "tiled", "als", False,
+                 c["split_iterations"]),
+                ("ials_stream", ds_s, "tiled", "als", None,
+                 c["stream_iterations"]),
+                ("ials_stream_split", ds_s, "tiled", "als", False, 1)):
             cfg = IALSConfig(rank=k, lam=c["lam"], alpha=c["alpha"],
                              num_iterations=1, layout=layout,
-                             algorithm=algorithm, block_size=c["block_size"])
+                             algorithm=algorithm, block_size=c["block_size"],
+                             fused_epilogue=fused)
             # -- the main path: train_ials, one call per iteration ----------
             for fn in kernels:
                 fn.launches = 0
             torch.cuda.synchronize()
             state, traj, call_s = (u0, m0), [], []
-            for _ in range(c["iterations"]):
+            for _ in range(iters):
                 t1 = time.perf_counter()
                 model = train_ials(ds, cfg, device=dev, warm_start=state)
                 torch.cuda.synchronize()
@@ -1008,7 +1238,7 @@ class Smoke:
             report[name] = dict(
                 s_per_iter=float(np.mean(call_s)), call_s=call_s,
                 objective=objs, launches=launches,
-                launches_per_iter={key: v / c["iterations"]
+                launches_per_iter={key: v / iters
                                    for key, v in launches.items()})
             if layout == "bucketed":
                 # Every padded cell of every width class gathers a k-float
@@ -1063,26 +1293,51 @@ class Smoke:
                    f"implicit first movie half vs float64: {vs64}")
         self.check(all(a["scores"] < TOL["scores"] for a in agree),
                    f"implicit tiled vs bucketed scores differ: {agree}")
+        # (d) and (e) against (a): the first movie half and every iteration's
+        # scores on the observed entries.
+        for name in ("ials_tiled_split", "ials_stream", "ials_stream_split"):
+            ref = runs["ials_tiled"]
+            first = rel_err(runs[name][0][1], ref[0][1])[1]
+            scores = [score_rel_err(st, ref[i], obs[0], obs[1])
+                      for i, st in enumerate(runs[name])]
+            report[name].update(first_movie_half_vs_tiled=first,
+                                scores_vs_tiled=scores)
+            log(f"implicit {name} vs ials_tiled: first movie half {first}, "
+                f"scores {scores}")
+            self.check(first < TOL["first_half_factors"],
+                       f"implicit {name}: first movie half differs from "
+                       f"ials_tiled by {first}")
+            self.check(all(x < TOL["scores"] for x in scores),
+                       f"implicit {name}: scores differ from ials_tiled: "
+                       f"{scores}")
         del obs
         self.report["implicit"] = report
         self.kernels.setdefault("gather_rows", {})["launches"] = \
             report["ialspp_bucketed"]["launches"]["gather_rows"]
         self.kernels.setdefault("gram_solve_gather", {})["launches"] = \
             report["ials_bucketed"]["launches"]["gram_solve_gather"]
+        self.kernels.setdefault("gauss_solve_multi", {})["launches"] = \
+            report["ials_tiled_split"]["launches"]["gauss_solve_multi"]
         # Where an iteration's time goes (measurement only): each half of
         # (a) alone, and a profiler pass over one iteration of each run.
-        blocks = {}
-        for name, ds, algorithm in (("ials_tiled", ds_t, "als"),
-                                    ("ials_bucketed", ds_b, "als"),
-                                    ("ialspp_bucketed", ds_b, "ials++")):
+        blocks, staged = {}, {}
+        for name, ds, algorithm, fused in (
+                ("ials_tiled", ds_t, "als", None),
+                ("ials_bucketed", ds_b, "als", None),
+                ("ialspp_bucketed", ds_b, "ials++", None),
+                ("ials_tiled_split", ds_t, "als", False),
+                ("ials_stream", ds_s, "als", None),
+                ("ials_stream_split", ds_s, "als", False)):
             cfg = IALSConfig(rank=k, lam=c["lam"], alpha=c["alpha"],
                              layout="auto", algorithm=algorithm,
                              block_size=c["block_size"])
-            mblk, ublk, kw, _ = blocks[name] = device_setup(
-                ds, cfg, dev, weighted=True)
+            if id(ds) not in staged:
+                staged[id(ds)] = device_setup(ds, cfg, dev, weighted=True)
+            mblk, ublk, kw, _ = blocks[name] = staged[id(ds)]
             half = functools.partial(
                 _ials_half, lam=c["lam"], alpha=c["alpha"], solver="auto",
-                algorithm=algorithm, block_size=c["block_size"])
+                algorithm=algorithm, block_size=c["block_size"],
+                fused_epilogue=fused)
             u_i, m_i = runs[name][-1]
             movie = functools.partial(half, u_i, mblk, chunks=kw["m_chunks"],
                                       entities=kw["m_entities"], x_prev=m_i)
@@ -1111,7 +1366,8 @@ class Smoke:
             gram_solve_dense, gram_solve_dense_plain, gram_solve_gather,
             gram_solve_gather_plain)
         from cfk_tpu_torch.ops.kernels.solve_kernel import (
-            reg_solve, reg_solve_plain)
+            GJ_MAX_RANK, gauss_jordan_plain, gauss_solve_multi, reg_solve,
+            reg_solve_plain)
         from cfk_tpu_torch.ops.solve import (
             global_gram, global_gram_blocked, implicit_reg)
         from cfk_tpu_torch.ops.tiled import (
@@ -1236,7 +1492,34 @@ class Smoke:
             lambda: reg_solve_plain(a, b, reg_a, reg_mode="matrix"),
             lambda: torch.linalg.solve(a + reg_a, b))
         self.check(rel < TOL["reg_solve"], f"K1 matrix mode rel err {rel}")
-        del a, b, got, want
+        del got, want
+        # The multi-RHS Gauss-Jordan at the Schur shape: the blocked solve's
+        # first step, Y = A₁₁⁻¹[A₁₂ | b₁], on these systems with their ridge
+        # (k = 64, m = 65), its operands batch-first as the blocked solve
+        # hands them over (the wrapper's permute is then a view).
+        a.add_(reg_a)
+        k1 = GJ_MAX_RANK
+        a11 = a[:, :k1, :k1].contiguous()
+        rhs = torch.cat([a[:, :k1, k1:], b[:, :k1, None]], dim=2)
+        e = a.shape[0]
+        del a, b
+        al, rl = a11.permute(1, 2, 0), rhs.permute(1, 2, 0)
+        got = gauss_solve_multi(al, rl)
+        torch.cuda.synchronize()
+        want = gauss_jordan_plain(al, rl)
+        err, rel = rel_err(got, want)
+        del got, want
+        b_ms, by = bound(*gauss_work(e, k1, k1 + 1))
+        self.kernels["gauss_solve_multi"].update(timed(
+            dict(max_abs_err=err, rel_err=rel, bound_ms=b_ms, bound_by=by,
+                 e=e, k=k1, m=k1 + 1),
+            lambda: gauss_solve_multi(al, rl),
+            lambda: gauss_jordan_plain(al, rl),
+            lambda: torch.linalg.solve(a11, rhs)))
+        log(f"gauss_solve_multi: {self.kernels['gauss_solve_multi']}")
+        self.check(rel < TOL["gauss_solve_multi"],
+                   f"gauss_solve_multi rel err {rel}")
+        del a11, rhs, al, rl
         # K3 weighted + matrix: (a)'s middle dense chunk, with its carry
         # threaded from the last chunk that starts a fresh segment.
         st_u = kw["u_chunks"][2:]
@@ -1291,19 +1574,25 @@ class Smoke:
         rng = np.random.default_rng(0)
         u0 = rng.random((3000, 16)).astype(np.float32)
         out = {}
-        tiled = dict(chunk_elems=2048, tile_rows=16, accum_max_entities=1000)
+        stream = dict(chunk_elems=2048, tile_rows=16, accum_max_entities=1000)
+        tiled = dict(stream, dense_stream=True)
         bucketed = dict(chunk_elems=4096)
-        for name, layout, kw, model, algorithm in (
-                ("padded", "padded", {}, "als", "als"),
-                ("tiled", "tiled", tiled, "als", "als"),
-                ("bucketed", "bucketed", bucketed, "als", "als"),
-                ("alspp_bucketed", "bucketed", bucketed, "als", "als++"),
-                ("ials_tiled", "tiled", tiled, "ials", "als"),
-                ("ials_bucketed", "bucketed", bucketed, "ials", "als"),
-                ("ialspp_bucketed", "bucketed", bucketed, "ials", "ials++")):
+        for name, layout, kw, model, algorithm, fused in (
+                ("padded", "padded", {}, "als", "als", None),
+                ("tiled", "tiled", tiled, "als", "als", None),
+                ("stream", "tiled", stream, "als", "als", None),
+                ("stream_split", "tiled", stream, "als", "als", False),
+                ("bucketed", "bucketed", bucketed, "als", "als", None),
+                ("alspp_bucketed", "bucketed", bucketed, "als", "als++",
+                 None),
+                ("ials_tiled", "tiled", tiled, "ials", "als", None),
+                ("ials_bucketed", "bucketed", bucketed, "ials", "als", None),
+                ("ialspp_bucketed", "bucketed", bucketed, "ials", "ials++",
+                 None)):
             ds = Dataset.from_coo(coo, layout=layout, **kw)
             common = dict(rank=16, num_iterations=3, layout=layout,
-                          algorithm=algorithm, block_size=8)
+                          algorithm=algorithm, block_size=8,
+                          fused_epilogue=fused)
             cfg, trainer = ((ALSConfig(**common), train_als) if model == "als"
                             else (IALSConfig(alpha=2.0, **common),
                                   train_ials))
@@ -1447,6 +1736,7 @@ def main() -> int:
     if main_out is not None:
         smoke.phase("kernels", smoke.kernel_checks, *main_out)
         smoke.phase("breakdown", smoke.breakdown, *main_out)
+        smoke.phase("split", smoke.split, *main_out)
         del main_out
         torch.cuda.empty_cache()
     if built:

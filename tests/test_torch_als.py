@@ -94,7 +94,7 @@ def test_tiled_half_step_matches(coo, init, side, kw):
         fixed = rng.standard_normal((nm, K)).astype(np.float32)
         args = (d.user_raw, d.movie_raw, d.rating, nu, nm)
     jb = j_build_tiled(*args, dense_stream=True, **kw)
-    tb = build_tiled_blocks(*args, **kw)
+    tb = build_tiled_blocks(*args, dense_stream=True, **kw)
     assert tb.mode == ("accum" if side == "movie" else "dstream")
     chunks = ("tiled", tb.mode) + tb.statics
     want = j_tiled_half_step(
@@ -115,7 +115,7 @@ def test_tiled_half_step_matches(coo, init, side, kw):
 def test_train_als_matches_reference(coo, init, layout, kw):
     jkw = dict(kw, dense_stream=True) if layout == "tiled" else {}
     jd = JDataset.from_coo(coo, layout=layout, **jkw)
-    td = Dataset.from_coo(coo, layout=layout, **kw)
+    td = Dataset.from_coo(coo, layout=layout, **jkw)
     if layout == "tiled":
         assert (td.movie_blocks.mode, td.user_blocks.mode) == ("accum",
                                                                "dstream")
@@ -132,7 +132,8 @@ def test_train_als_matches_reference(coo, init, layout, kw):
 
 def test_solver_cholesky_is_the_plain_route(coo, init):
     td = Dataset.from_coo(coo, layout="tiled", chunk_elems=512,
-                          accum_max_entities=200, tile_rows=16)
+                          accum_max_entities=200, tile_rows=16,
+                          dense_stream=True)
     cfg = dict(rank=K, num_iterations=2, layout="tiled")
     a = train_als(td, ALSConfig(**cfg), device="cpu", warm_start=init)
     b = train_als(td, ALSConfig(solver="cholesky", **cfg), device="cpu",

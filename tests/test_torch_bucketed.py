@@ -232,7 +232,8 @@ def test_alspp_refuses_the_tiled_layout(coo):
     with pytest.raises(ValueError, match="use layout='bucketed'"):
         ALSConfig(layout="tiled", algorithm="als++")
     td = Dataset.from_coo(coo, layout="tiled", chunk_elems=512,
-                          accum_max_entities=200, tile_rows=16)
+                          accum_max_entities=200, tile_rows=16,
+                          dense_stream=True)
     with pytest.raises(ValueError, match="padded and bucketed"):
         train_als(td, ALSConfig(rank=K, algorithm="als++", layout="auto",
                                 block_size=4), device="cpu")

@@ -25,7 +25,6 @@ from cfk_tpu_torch.data.blocks import build_tiled_blocks, index_entities
 from cfk_tpu_torch.data.synthetic import synthetic_netflix_coo
 from cfk_tpu_torch.models.als import _tiled_to_device
 from cfk_tpu_torch.ops.kernels.gram_kernel import (
-    _gram_dense_plain,
     gather_rows,
     gather_rows_plain,
     gram_gather,
@@ -34,12 +33,20 @@ from cfk_tpu_torch.ops.kernels.gram_kernel import (
     gram_solve_dense_plain,
     gram_solve_gather,
     gram_solve_gather_plain,
+    gram_tiles_dense_gather,
+    gram_tiles_dense_gather_plain,
 )
 from cfk_tpu_torch.ops.kernels.solve_kernel import (
     add_ridge_plain,
+    gauss_jordan_plain,
+    gauss_solve,
+    gauss_solve_multi,
+    gauss_solve_plain,
     reg_solve,
     reg_solve_plain,
+    spd_solve_plain,
 )
+from cfk_tpu_torch.ops.solve import dispatch_spd_solve
 from cfk_tpu_torch.ops.quant import quantize_table
 from cfk_tpu_torch.ops.tiled import accum_chunk, dense_chunk
 from cfk_tpu_torch.serving.topk_kernel import (
@@ -110,7 +117,7 @@ def _tiled_side(k, tile_rows, chunk_elems, device, accum):
         blocks = build_tiled_blocks(u_dense, m_dense, coo.rating, nu, nm,
                                     tile_rows=tile_rows,
                                     chunk_elems=chunk_elems,
-                                    accum_max_entities=16)
+                                    accum_max_entities=16, dense_stream=True)
         fixed_rows = nm
     rng = np.random.default_rng(k)
     table = torch.as_tensor(
@@ -160,7 +167,7 @@ def test_gram_solve_dense_matches_plain(cuda, k, tile_rows, weighted):
         wx, wca, wcb = gram_solve_dense_plain(table, **args, lam=0.05,
                                               reg_mode=reg_mode,
                                               carry=(a0, b0, cin))
-        a, b = _gram_dense_plain(
+        a, b = gram_tiles_dense_gather_plain(
             table, args["nb"], args["wt"], args["rt"], args["meta"],
             num_segments=args["num_segments"], tile_rows=args["tile_rows"],
             num_tiles=args["num_tiles"], num_groups=args["num_groups"],
@@ -169,6 +176,106 @@ def test_gram_solve_dense_matches_plain(cuda, k, tile_rows, weighted):
         assert _rel_err(x, wx) < 1e-2
         assert _rel_err(ca, wca) < 1e-5 and _rel_err(cb, wcb) < 1e-5
         a0, b0 = wca, wcb
+
+
+@pytest.mark.parametrize("k,tile_rows,weighted", [
+    (1, 16, False), (8, 16, False), (64, 128, False), (100, 32, False),
+    (128, 16, True)])
+def test_gram_tiles_dense_gather_matches_plain(cuda, k, tile_rows, weighted):
+    """The split dense-stream Gram, carry threaded across every chunk;
+    with K1 after it, the split schedule must solve what K3 solves."""
+    blocks, blk, table = _tiled_side(k, tile_rows, 4096, cuda, accum=False)
+    assert blocks.mode == "dstream" and blocks.num_chunks > 2
+    a0 = torch.zeros((k, k), device=cuda)
+    b0 = torch.zeros((k,), device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    cap = blocks.statics[1]
+    wt_all = torch.rand(blocks.num_chunks * cap, generator=g, device=cuda)
+    for c in range(blocks.num_chunks):
+        args = dense_chunk(blk, blocks.statics, c)
+        cin, reg, lseg = args.pop("cin"), args.pop("reg"), args.pop("lseg")
+        if weighted:
+            args["wt"] = wt_all[c * cap:(c + 1) * cap]
+        a, b = gram_tiles_dense_gather(table, **args, carry=(a0, b0, cin))
+        torch.cuda.synchronize()
+        wa, wb = gram_tiles_dense_gather_plain(table, **args,
+                                               carry=(a0, b0, cin))
+        assert _rel_err(a, wa) < 1e-5 and _rel_err(b, wb) < 1e-5
+        # Segments owning no tile are zeros, as in the plain version.
+        owned = torch.zeros(args["num_segments"], dtype=torch.bool,
+                            device=cuda)
+        ng, nt = args["num_groups"], args["num_tiles"]
+        owned[args["meta"][ng + 3 * nt:].long()] = True
+        assert not a[~owned].any() and not b[~owned].any()
+        x = reg_solve(a, b, reg, lam=0.05)
+        xf, _, _ = gram_solve_dense(table, **args, reg=reg, lseg=lseg,
+                                    lam=0.05, carry=(a0, b0, cin))
+        torch.cuda.synchronize()
+        # The same Gram sums and the same ridge + Cholesky code (common.cuh)
+        # in both schedules; held here by backward error, as K3 is above.
+        assert _backward_err(xf, a, b, reg, 0.05, "diag") < 1e-5
+        assert _backward_err(x, a, b, reg, 0.05, "diag") < 1e-5
+        li = lseg.long()
+        a0, b0 = a.index_select(0, li)[0], b.index_select(0, li)[0]
+
+
+# Gauss-Jordan (gauss_solve, gauss_solve_multi): the kernels against the
+# plain elimination on the same batch-last systems, including a ragged batch
+# (E not a multiple of anything) and k = 1.  Both eliminate in float32
+# without pivoting, the kernel with one fused multiply-add per update where
+# the plain version rounds twice: relative 1e-4 on systems whose condition
+# numbers are a few hundred.
+
+
+def _gj_batch(e, k, m, seed, device):
+    a, _, _ = _spd_batch(e, k, seed, device)
+    a = a + 0.05 * k * torch.eye(k, device=device)
+    g = torch.Generator().manual_seed(seed + 1)
+    b = torch.rand((e, k, m), generator=g).to(device)
+    return a.permute(1, 2, 0).contiguous(), b.permute(1, 2, 0).contiguous()
+
+
+@pytest.mark.parametrize("k,e", [(1, 7), (8, 301), (64, 1000), (64, 33)])
+def test_gauss_solve_matches_plain(cuda, k, e):
+    a, b = _gj_batch(e, k, 1, k, cuda)
+    before = gauss_solve.launches
+    got = gauss_solve(a, b[:, 0])
+    torch.cuda.synchronize()
+    assert gauss_solve.launches == before + 1 and got.shape == (k, e)
+    assert _rel_err(got, gauss_solve_plain(a, b[:, 0])) < 1e-4
+    # A batch-first caller's permuted view needs no copy and no transpose.
+    af = a.permute(2, 0, 1).contiguous()
+    bf = b[:, 0].T.contiguous()
+    assert torch.equal(gauss_solve(af.permute(1, 2, 0), bf.T), got)
+
+
+@pytest.mark.parametrize("k,m,e", [(1, 1, 5), (20, 9, 301), (64, 65, 500),
+                                   (64, 72, 64)])
+def test_gauss_solve_multi_matches_plain(cuda, k, m, e):
+    a, b = _gj_batch(e, k, m, k + m, cuda)
+    before = gauss_solve_multi.launches
+    got = gauss_solve_multi(a, b)
+    torch.cuda.synchronize()
+    assert gauss_solve_multi.launches == before + 1
+    assert got.shape == (k, m, e)
+    assert _rel_err(got, gauss_jordan_plain(a, b)) < 1e-4
+
+
+@pytest.mark.parametrize("k", [16, 72, 128])
+def test_dispatch_spd_solve_on_the_card(cuda, k):
+    """The split solve: Gauss-Jordan (k ≤ 64) or the blocked Schur route
+    (64 < k ≤ 128) against the plain Cholesky; above 128 it raises."""
+    a, b, _ = _spd_batch(257, k, k, cuda)
+    a = a + 0.05 * k * torch.eye(k, device=cuda)
+    before = (gauss_solve.launches, gauss_solve_multi.launches)
+    got = dispatch_spd_solve(a, b)
+    torch.cuda.synchronize()
+    after = (gauss_solve.launches, gauss_solve_multi.launches)
+    assert after == (before[0] + 1, before[1] + int(k > 64))
+    assert _rel_err(got, spd_solve_plain(a, b)) < 1e-3
+    with pytest.raises(ValueError, match="split solve supports rank <= 128"):
+        dispatch_spd_solve(torch.eye(130, device=cuda)[None],
+                           torch.ones((1, 130), device=cuda))
 
 
 def test_reg_solve_matrix_mode_on_implicit_grams(cuda):
@@ -337,6 +444,14 @@ def test_launch_counters_count_kernel_calls_only(cuda):
     topk_scores(u.cpu(), t.cpu(), None, None, k_top=3, num_movies=30,
                 tile_m=16)
     assert topk_scores.launches == before + 2  # candidates + merge
+    a, b = _gj_batch(6, 4, 3, 0, cuda)
+    counts = (gauss_solve.launches, gauss_solve_multi.launches)
+    gauss_solve(a, b[:, 0])
+    gauss_solve_multi(a, b)
+    gauss_solve(a.cpu(), b[:, 0].cpu())  # plain routes
+    gauss_solve_multi(a.cpu(), b.cpu())
+    assert (gauss_solve.launches, gauss_solve_multi.launches) == (
+        counts[0] + 1, counts[1] + 1)
 
 
 # K4 topk_scores: the kernel against its plain version on the card, over

@@ -122,7 +122,7 @@ def test_ials_tiled_half_step_matches(coo, u0, side):
         args = (d.user_raw, d.movie_raw, d.rating, nu, nm)
         kw["accum_max_entities"] = 100
     jb = j_build_tiled(*args, dense_stream=True, **kw)
-    tb = build_tiled_blocks(*args, **kw)
+    tb = build_tiled_blocks(*args, dense_stream=True, **kw)
     assert tb.mode == ("accum" if side == "movie" else "dstream")
     chunks = ("tiled", tb.mode) + tb.statics
     want = j_ials_tiled(jnp.asarray(fixed), j_tiled_to_device(jb, True),
@@ -224,7 +224,7 @@ def test_train_ials_matches_reference_iterations(coo, u0, layout, algorithm):
     kw = {"padded": {}, "tiled": TILED, "bucketed": BUCKETED}[layout]
     jkw = dict(kw, dense_stream=True) if layout == "tiled" else kw
     jd = JDataset.from_coo(coo, **jkw)
-    td = Dataset.from_coo(coo, **kw)
+    td = Dataset.from_coo(coo, **jkw)
     if layout == "tiled":
         assert (td.movie_blocks.mode, td.user_blocks.mode) == ("accum",
                                                                "dstream")

@@ -53,7 +53,7 @@ def sides():
                                tile_rows=16, chunk_elems=1024, slice_rows=256)
     dense = build_tiled_blocks(u_dense, m_dense, coo.rating, nu, nm,
                                tile_rows=16, chunk_elems=512,
-                               accum_max_entities=100)
+                               accum_max_entities=100, dense_stream=True)
     rng = np.random.default_rng(0)
     u_tab = rng.standard_normal((nu, K)).astype(np.float32)
     m_tab = rng.standard_normal((nm, K)).astype(np.float32)
