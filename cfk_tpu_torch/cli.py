@@ -127,7 +127,9 @@ def _train(args) -> int:
                   num_iterations=args.iterations, seed=args.seed,
                   layout=layout, solver=args.solver,
                   hbm_chunk_elems=args.chunk_elems, algorithm=args.algorithm,
-                  block_size=args.block_size, sweeps=args.sweeps)
+                  block_size=args.block_size, sweeps=args.sweeps,
+                  in_kernel_gather=(None if args.in_kernel_gather == "auto"
+                                    else args.in_kernel_gather == "on"))
     # Validate the flags before the (possibly long) block build.
     config = (IALSConfig(alpha=args.alpha, **common) if args.implicit
               else ALSConfig(**common))
@@ -399,6 +401,15 @@ def build_parser() -> argparse.ArgumentParser:
         help="auto = the CUDA kernels on a GPU (their plain PyTorch "
         "versions on the CPU); cholesky = the plain PyTorch route "
         "(torch.linalg.cholesky), with --device cpu only",
+    )
+    t.add_argument(
+        "--in-kernel-gather", choices=["auto", "on", "off"], default="auto",
+        help="where the tiled and bucketed half-steps gather the neighbor "
+        "factors: 'auto'/'on' (default) inside the Gram kernels, which read "
+        "the factor table by index; 'off' pins the materialized-stream "
+        "schedule — each chunk's gathered [C, k] stream is written to "
+        "device memory first and read back by the stream Gram kernels (A/B "
+        "measurement; the factors agree either way)",
     )
     t.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     t.add_argument(

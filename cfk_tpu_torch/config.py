@@ -53,6 +53,16 @@ class ALSConfig:
     # (``ops.solve.dispatch_spd_solve``).  The knob does not reach the
     # padded and bucketed half-steps (``cfk_tpu/config.py:221-237``).
     fused_epilogue: bool | None = None
+    # Neighbor gather of the tiled and bucketed half-steps.  None/True =
+    # inside the Gram kernels (each reads the fixed table by index: K2, K3,
+    # K6, gram_tiles_dense_gather).  False pins the materialized-stream
+    # schedule (``ops.tiled.resolve_gather_mode``): K5 writes each chunk's
+    # (or width class's) gathered stream [C, k] to device memory and the
+    # stream twins read it (gram_tiles, gram_solve_tiles, gram_tiles_dense,
+    # gram_solve_tiles_dense) — the other side of the JAX package's A/B
+    # switch (``cfk_tpu/config.py:238-252``).  The subspace sweeps
+    # materialize their rectangle with K5 on either setting.
+    in_kernel_gather: bool | None = None
 
     def _valid_algorithms(self) -> tuple[str, ...]:
         return ("als", "als++")
@@ -73,6 +83,11 @@ class ALSConfig:
             raise ValueError(
                 f"fused_epilogue must be None/True/False, got "
                 f"{self.fused_epilogue!r}"
+            )
+        if self.in_kernel_gather not in (None, True, False):
+            raise ValueError(
+                f"in_kernel_gather must be None/True/False, got "
+                f"{self.in_kernel_gather!r}"
             )
         if self.reg_solve_algo not in ("auto", "lu", "gj"):
             raise ValueError(

@@ -1,9 +1,10 @@
 // Device code shared by the port's training kernels: the in-shared-memory
-// Cholesky solve (reg_solve.cu, gram_solve_dense.cu, gram_solve_gather.cu)
-// and the gathered-row Gram accumulator with its dense-stream window walk
-// (gram_gather.cu, gram_solve_dense.cu, gram_tiles_dense_gather.cu,
-// gram_solve_gather.cu); every kernel library takes its error-string
-// export from here.
+// Cholesky solve (reg_solve.cu and the fused Gram kernels) and the Gram
+// accumulator with its two row sources — rows gathered from the table by
+// index, or read from a materialized stream — and its two walks, over a
+// chunk's [T]-row tiles and over the dense stream's windows (instantiated
+// in gram_kernels.cuh); every kernel library takes its error-string export
+// from here.
 //
 // Everything is plain FP32 FMA on the CUDA cores: the JAX package pins its
 // Gram and solve contractions to full float32 (precision="highest",
@@ -92,14 +93,112 @@ __device__ void chol_solve_smem(float* A, int ld, float* y, int k) {
   __syncthreads();
 }
 
-// Staging buffer for kRows gathered rows: row r holds table[nb[r]]·w[r] in
-// columns [0, k) and zeros up to KMAX (nb[r] < 0 = the zero row).
+// Staging buffer for kRows rows: row r holds the pass's r-th row g_r in
+// columns [0, k) and zeros up to KMAX; rt[r] is its b-coefficient.  nb and w
+// are the gather source's index and weight per slot (nb = -1: a zero row).
+// Each of the kThreads threads stages kPerThread of the kRows·KMAX elements,
+// element idx = threadIdx.x + i·kThreads (row idx / KMAX, column idx % KMAX:
+// a warp reads 32 neighbouring columns of one row).  The sources issue all
+// of a thread's loads before storing any, so a pass waits on one memory
+// latency, not on kPerThread of them in turn.
 template <int KMAX>
 struct RowStage {
+  static constexpr int kPerThread = kRows * KMAX / kThreads;
   float g[kRows][KMAX];
   float rt[kRows];
   float w[kRows];
   int nb[kRows];
+};
+
+// Where a Gram kernel's rows come from.  A source fills the stage with the
+// rows p0 .. p0+n-1 of its stream (n <= kRows; slots n.. are zero rows) and
+// their b-coefficients rt[0 .. n), and returns — the same on every thread,
+// after a barrier that makes the stage visible — whether the pass holds a
+// row that adds anything.  kSkipsEmpty: a pass that holds none is not
+// accumulated at all.
+//
+// GatherRows (K2, K3, K6, gram_tiles_dense_gather): g_p = table[nb_p]·wt_p,
+// gathered inside the kernel (wt null = 1).  An index outside [0, F) — F is
+// the table's virtual zero row — or a zero weight is a dead row; a pass
+// with no live row is skipped before anything is loaded, so padding costs
+// index reads only.
+struct GatherRows {
+  static constexpr bool kSkipsEmpty = true;
+  const float* table;
+  int F;
+  const int* nb;
+  const float* wt;
+
+  template <int KMAX>
+  __device__ __forceinline__ bool stage(RowStage<KMAX>& st, int k, long p0,
+                                        int n, const float* rt) const {
+    bool live = false;
+    if (threadIdx.x < kRows) {
+      const int r = threadIdx.x;
+      const bool valid = r < n;
+      const int row = valid ? __ldg(nb + p0 + r) : -1;
+      const float w =
+          valid ? (wt != nullptr ? __ldg(wt + p0 + r) : 1.0f) : 0.0f;
+      live = valid && row >= 0 && row < F && w != 0.0f;
+      st.nb[r] = live ? row : -1;
+      st.w[r] = w;
+      st.rt[r] = valid ? __ldg(rt + r) : 0.0f;
+    }
+    if (!__syncthreads_or(live)) return false;
+    constexpr int kPer = RowStage<KMAX>::kPerThread;
+    float v[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      const int r = idx / KMAX, c = idx % KMAX;
+      const int row = st.nb[r];
+      v[i] = row >= 0 && c < k
+                 ? __ldg(table + (size_t)row * k + c) * st.w[r] : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      st.g[idx / KMAX][idx % KMAX] = v[i];
+    }
+    __syncthreads();
+    return true;
+  }
+};
+
+// StreamRows (gram_tiles, gram_solve_tiles, gram_tiles_dense,
+// gram_solve_tiles_dense): g_p read as it lies in the materialized [C, k]
+// stream (kernel K5 wrote it, zero rows included).  The kernel sees values
+// only, so every pass is accumulated, padding rows too, as the TPU kernels
+// do; a pass whose rows are all zero adds exactly nothing (fmaf(0, x, a) ==
+// a) and is not counted towards the register flush, so the flushes fall
+// where the gather sources' fall (they skip such passes) and the two
+// sources' sums agree bit for bit on the same rows.
+struct StreamRows {
+  static constexpr bool kSkipsEmpty = false;
+  const float* g;
+
+  template <int KMAX>
+  __device__ __forceinline__ bool stage(RowStage<KMAX>& st, int k, long p0,
+                                        int n, const float* rt) const {
+    if (threadIdx.x < kRows)
+      st.rt[threadIdx.x] = threadIdx.x < n ? __ldg(rt + threadIdx.x) : 0.0f;
+    constexpr int kPer = RowStage<KMAX>::kPerThread;
+    float v[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      const int r = idx / KMAX, c = idx % KMAX;
+      v[i] = r < n && c < k ? __ldg(g + (size_t)(p0 + r) * k + c) : 0.0f;
+    }
+    bool nonzero = false;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      st.g[idx / KMAX][idx % KMAX] = v[i];
+      nonzero |= v[i] != 0.0f;
+    }
+    return __syncthreads_or(nonzero);
+  }
 };
 
 // The running Gram of one segment: thread (ti, tj) of the 16 x 16 CTA owns
@@ -118,7 +217,8 @@ struct GramAcc {
 
   // Zeroes the partial and this thread's elements of the running sums
   // A [k, k] (row stride ld_) and bsum [k].
-  __device__ void init(float* A_, int ld_, float* bsum_, int k_) {
+  __device__ __forceinline__ void init(float* A_, int ld_, float* bsum_,
+                                       int k_) {
     ti = threadIdx.x / 16;
     tj = threadIdx.x % 16;
     A = A_;
@@ -139,7 +239,7 @@ struct GramAcc {
   }
 
   // Adds the register partial into the running sums and zeroes it.
-  __device__ void flush() {
+  __device__ __forceinline__ void flush() {
 #pragma unroll
     for (int p = 0; p < RT; ++p)
 #pragma unroll
@@ -152,20 +252,10 @@ struct GramAcc {
     b = 0.0f;
   }
 
-  // Threads < kRows have filled st.nb/w/rt for their slot (nb = -1 for a
-  // zero row) and passed `live` = this slot contributes.  Gathers the live
-  // rows and adds their rank-1 terms; a pass with no live row is skipped
-  // (every thread sees the same barrier result).
-  __device__ void add_rows(RowStage<KMAX>& st, bool live, const float* table) {
-    if (!__syncthreads_or(live)) return;
-    for (int idx = threadIdx.x; idx < kRows * KMAX; idx += blockDim.x) {
-      const int r = idx / KMAX, c = idx % KMAX;
-      const int row = st.nb[r];
-      float v = 0.0f;
-      if (row >= 0 && c < k) v = __ldg(table + (size_t)row * k + c) * st.w[r];
-      st.g[r][c] = v;
-    }
-    __syncthreads();
+  // Adds the rank-1 terms of the kRows staged rows to the register partial;
+  // a `counted` pass moves the partial towards its next flush.
+  __device__ __forceinline__ void accumulate(RowStage<KMAX>& st,
+                                             bool counted) {
 #pragma unroll 4
     for (int r = 0; r < kRows; ++r) {
       float gi[RT], gj[RT];
@@ -180,37 +270,44 @@ struct GramAcc {
         for (int q = 0; q < RT; ++q) a[p][q] = fmaf(gi[p], gj[q], a[p][q]);
       if (threadIdx.x < KMAX) b = fmaf(st.rt[r], st.g[r][threadIdx.x], b);
     }
-    if (++passes == kFlushPasses) {
+    if (counted && ++passes == kFlushPasses) {
       flush();
       passes = 0;
     }
     __syncthreads();
   }
 
-  // Stages slot r = threadIdx.x (< kRows): table row n with weight w and
-  // b-coefficient rv, or a zero row when `valid` is false.  Indices outside
-  // [0, F) — F is the table's virtual zero row — and zero weights read as
-  // the zero row.  Returns whether the slot contributes.
-  __device__ static bool stage(RowStage<KMAX>& st, bool valid, int n, float w,
-                               float rv, int F) {
-    const bool live = valid && n >= 0 && n < F && w != 0.0f;
-    st.nb[threadIdx.x] = live ? n : -1;
-    st.w[threadIdx.x] = w;
-    st.rt[threadIdx.x] = rv;
-    return live;
+  // One pass: rows p0 .. p0+n-1 of `src`, b-coefficients rt[0 .. n).
+  template <class Src>
+  __device__ __forceinline__ void add_pass(RowStage<KMAX>& st, const Src& src,
+                                           long p0, int n, const float* rt) {
+    const bool nonzero = src.stage(st, k, p0, n, rt);
+    if (nonzero || !Src::kSkipsEmpty) accumulate(st, nonzero);
+  }
+
+  // Adds the rows of segment s of one chunk of [T]-row tiles (NT tiles,
+  // owner seg[tile] sorted, so the segment's tiles are contiguous: found by
+  // binary search), b-coefficients rt[p] stream-aligned.
+  template <class Src>
+  __device__ __forceinline__ void add_tile_segment(
+      RowStage<KMAX>& st, int s, const Src& src, const float* rt,
+      const int* seg, int nt, int T) {
+    const long row0 = (long)lower_bound(seg, nt, s) * T;
+    const long row1 = (long)lower_bound(seg, nt, s + 1) * T;
+    for (long base = row0; base < row1; base += kRows) {
+      const int n = row1 - base < kRows ? (int)(row1 - base) : kRows;
+      add_pass(st, src, base, n, rt + base);
+    }
   }
 
   // Adds the rows of segment s of one dense-stream chunk: tile i (NT tiles
   // in NG groups of M = NT/NG; meta = g_blk ‖ lb ‖ lo ‖ hi ‖ seg, seg
   // sorted) covers stream rows p = g_blk[i/M]·BG + lb_i + r for r in
-  // [lo_i, hi_i), with weight wt[p] (1 when wt is null) and b-coefficient
-  // rt[i·T + r].  Shared by gram_solve_dense.cu and
-  // gram_tiles_dense_gather.cu.
-  __device__ void add_dense_segment(RowStage<KMAX>& st, int s,
-                                    const float* table, int F, const int* nb,
-                                    const float* wt, const float* rt,
-                                    const int* meta, int nt, int ng, int T,
-                                    int BG) {
+  // [lo_i, hi_i), with b-coefficient rt[i·T + r] (tile-aligned).
+  template <class Src>
+  __device__ __forceinline__ void add_dense_segment(
+      RowStage<KMAX>& st, int s, const Src& src, const float* rt,
+      const int* meta, int nt, int ng, int T, int BG) {
     const int m = nt / ng;
     const int* g_blk = meta;
     const int* lb = meta + ng;
@@ -223,23 +320,16 @@ struct GramAcc {
       const int r_lo = __ldg(lo + i), r_hi = __ldg(hi + i);
       const long base = (long)__ldg(g_blk + i / m) * BG + __ldg(lb + i);
       for (int r0 = r_lo; r0 < r_hi; r0 += kRows) {
-        bool live = false;
-        if (threadIdx.x < kRows) {
-          const int r = r0 + threadIdx.x;
-          const bool valid = r < r_hi;
-          const long p = base + r;
-          live = stage(st, valid, valid ? __ldg(nb + p) : -1,
-                       valid ? (wt != nullptr ? __ldg(wt + p) : 1.0f) : 0.0f,
-                       valid ? __ldg(rt + (long)i * T + r) : 0.0f, F);
-        }
-        add_rows(st, live, table);
+        const int n = r_hi - r0 < kRows ? r_hi - r0 : kRows;
+        add_pass(st, src, base + r0, n, rt + (long)i * T + r0);
       }
     }
   }
 
   // Adds cin·(ca, cb) — the previous chunk's carried partial — into this
   // segment's sums (callers do this for segment 0 only).
-  __device__ void fold_carry(const float* ca, const float* cb, float cin) {
+  __device__ __forceinline__ void fold_carry(const float* ca, const float* cb,
+                                             float cin) {
 #pragma unroll
     for (int p = 0; p < RT; ++p)
 #pragma unroll

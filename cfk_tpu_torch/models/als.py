@@ -232,12 +232,15 @@ def init_user_factors(dataset: Dataset, ublocks, config: ALSConfig, device,
 
 def _half(fixed, blk, *, lam, solve_chunk, solver, chunks=None,
           entities=None, x_prev=None, algorithm="als", block_size=32,
-          sweeps=1, fused_epilogue=None):
+          sweeps=1, fused_epilogue=None, in_kernel_gather=None):
     """Solve one side against fixed factors; dispatches on the layout
     (tuple = width buckets, tiled statics, else one padded rectangle).
     ``algorithm="als++"`` runs warm-started subspace sweeps from
     ``x_prev`` (padded/bucketed layouts); ``fused_epilogue`` reaches the
-    tiled half-steps only."""
+    tiled half-steps only, ``in_kernel_gather`` the tiled and bucketed
+    ones (the sweeps materialize their rectangle with K5 on either
+    setting, ``ops.subspace``; the padded rectangle is gathered by
+    PyTorch, as the JAX package gathers it by XLA)."""
     if algorithm == "als++":
         pp_kw = dict(block_size=block_size, sweeps=sweeps, solver=solver)
         if isinstance(blk, tuple):
@@ -248,10 +251,12 @@ def _half(fixed, blk, *, lam, solve_chunk, solver, chunks=None,
                                 lam, **pp_kw)
     if isinstance(blk, tuple):
         return als_half_step_bucketed(fixed, blk, entities, lam,
-                                      solver=solver)
+                                      solver=solver,
+                                      in_kernel_gather=in_kernel_gather)
     if chunks is not None:
         return tiled_half_step(fixed, blk, chunks, entities, lam,
-                               solver=solver, fused_epilogue=fused_epilogue)
+                               solver=solver, fused_epilogue=fused_epilogue,
+                               in_kernel_gather=in_kernel_gather)
     return als_half_step(fixed, blk["neighbor_idx"], blk["rating"],
                          blk["mask"], blk["count"], lam,
                          solve_chunk=solve_chunk, solver=solver)
@@ -295,7 +300,8 @@ def train_als(dataset: Dataset, config: ALSConfig, *,
                              algorithm=config.algorithm,
                              block_size=config.block_size,
                              sweeps=config.sweeps,
-                             fused_epilogue=config.fused_epilogue)
+                             fused_epilogue=config.fused_epilogue,
+                             in_kernel_gather=config.in_kernel_gather)
     for _ in range(config.num_iterations):
         m = half(u, mblocks, chunks=layout_kw.get("m_chunks"),
                  entities=layout_kw.get("m_entities"), x_prev=m)

@@ -61,11 +61,13 @@ class IALSConfig(ALSConfig):
 
 def _ials_half(fixed, blk, *, lam, alpha, solver, chunks=None, entities=None,
                x_prev=None, algorithm="als", block_size=32, sweeps=1,
-               fused_epilogue=None):
+               fused_epilogue=None, in_kernel_gather=None):
     """Dispatch on the block layout (tuple = width buckets, tiled statics,
     else one padded rectangle); ``algorithm="ials++"`` runs warm-started
     subspace sweeps from ``x_prev`` (padded/bucketed layouts);
-    ``fused_epilogue`` reaches the tiled half-steps only."""
+    ``fused_epilogue`` reaches the tiled half-steps only,
+    ``in_kernel_gather`` the tiled and bucketed ones (as in
+    ``models.als._half``)."""
     if algorithm == "ials++":
         pp_kw = dict(block_size=block_size, sweeps=sweeps, solver=solver)
         if isinstance(blk, tuple):
@@ -76,11 +78,13 @@ def _ials_half(fixed, blk, *, lam, alpha, solver, chunks=None, entities=None,
                                  **pp_kw)
     if isinstance(blk, tuple):
         return ials_half_step_bucketed(fixed, blk, entities, lam, alpha,
-                                       solver=solver)
+                                       solver=solver,
+                                       in_kernel_gather=in_kernel_gather)
     if chunks is not None:
         return ials_tiled_half_step(fixed, blk, chunks, entities, lam, alpha,
                                     solver=solver,
-                                    fused_epilogue=fused_epilogue)
+                                    fused_epilogue=fused_epilogue,
+                                    in_kernel_gather=in_kernel_gather)
     return ials_half_step(fixed, blk["neighbor_idx"], blk["rating"],
                           blk["mask"], lam, alpha, solver=solver)
 
@@ -135,7 +139,8 @@ def train_ials(dataset: Dataset, config: IALSConfig, *,
                              solver=config.solver, algorithm=config.algorithm,
                              block_size=config.block_size,
                              sweeps=config.sweeps,
-                             fused_epilogue=config.fused_epilogue)
+                             fused_epilogue=config.fused_epilogue,
+                             in_kernel_gather=config.in_kernel_gather)
     for _ in range(config.num_iterations):
         u, m = _ials_iteration_body(u, m, mblocks, ublocks, half=half,
                                     layout_kw=layout_kw)

@@ -1,17 +1,22 @@
-"""The bucketed layout's width classes through kernel K6.
+"""The bucketed layout's width classes through kernel K6, or through K5 and
+``gram_solve_tiles`` on the materialized-stream schedule.
 
-The port of ``cfk_tpu/ops/bucketed.py`` on its default route (gather fused,
-epilogue fused).  A width bucket is a [rows, width] rectangle; flattened with
-``tile_rows = width`` it is one tile per entity — ``seg = arange(rows)``, no
-carry — so ``gram_solve_gather`` (K6) gathers, sums, regularizes and solves
-the whole class in one launch, and neither the gathered stream nor the
-[rows, k, k] Gram batch reaches device memory.
+The port of ``cfk_tpu/ops/bucketed.py`` (epilogue fused).  A width bucket is
+a [rows, width] rectangle; flattened with ``tile_rows = width`` it is one
+tile per entity — ``seg = arange(rows)``, no carry — so ``gram_solve_gather``
+(K6) gathers, sums, regularizes and solves the whole class in one launch,
+and neither the gathered stream nor the [rows, k, k] Gram batch reaches
+device memory.  With ``in_kernel_gather=False`` K5 writes the class's stream
+g = table[nb]·wt [rows·width, k] and ``gram_solve_tiles`` (row 6 of the TPU
+kernel table, ``gram_solve_tiles_pallas``) solves it — the JAX route's
+``gather="xla"`` pieces (``cfk_tpu/ops/bucketed.py:134-230``), one piece per
+class as for K6.
 
-Every width class runs through K6 on CUDA.  The JAX route's legacy fallback
-for widths below 16 (a Mosaic sublane constraint) and its ``_sub_rows``
-scalar-prefetch budget have no counterpart: K6 reads its indices from device
-memory, its grid takes any row count and its shared memory does not depend
-on the width (see ``csrc/gram_solve_gather.cu``), so no class is split.
+The JAX route's legacy fallback for widths below 16 (a Mosaic sublane
+constraint) and its ``_sub_rows`` scalar-prefetch budget have no
+counterpart: K6 reads its indices from device memory, its grid takes any row
+count and its shared memory does not depend on the width (see
+``csrc/gram_solve_gather.cu``), so no class is split for the kernel's sake.
 """
 
 from __future__ import annotations
@@ -19,8 +24,12 @@ from __future__ import annotations
 import torch
 
 from cfk_tpu_torch.ops.kernels.gram_kernel import (
+    gather_rows,
+    gather_rows_plain,
     gram_solve_gather,
     gram_solve_gather_plain,
+    gram_solve_tiles,
+    gram_solve_tiles_plain,
 )
 from cfk_tpu_torch.ops.solve import use_kernels
 
@@ -48,15 +57,24 @@ def bucket_gram_solve(
     lam: float,
     reg_mode: str,
     solver: str = "auto",
+    gather: str = "fused",
 ) -> torch.Tensor:
     """One width-class piece: flatten to one tile per entity and solve every
-    row with K6 (its plain version on the CPU) — [rows, k]."""
+    row — [rows, k].  ``gather="fused"``: K6 reads the table by index;
+    ``"xla"`` (``ops.tiled.resolve_gather_mode``): K5 writes the piece's
+    stream and ``gram_solve_tiles`` solves it.  Plain versions on the CPU."""
     rows, width = nb.shape
-    fused = (gram_solve_gather if use_kernels(solver, table.device)
-             else gram_solve_gather_plain)
+    kernels = use_kernels(solver, table.device)
     seg = torch.arange(rows, dtype=torch.int32, device=nb.device)
-    x, _, _ = fused(table, nb.reshape(-1), wt.reshape(-1).contiguous(),
-                    rt.reshape(-1).contiguous(), seg, reg, rows - 1,
-                    num_segments=rows, tile_rows=width, lam=lam,
-                    reg_mode=reg_mode)
+    nb, wt = nb.reshape(-1), wt.reshape(-1).contiguous()
+    kw = dict(rt=rt.reshape(-1).contiguous(), seg=seg, reg=reg,
+              lseg=rows - 1, num_segments=rows, tile_rows=width, lam=lam,
+              reg_mode=reg_mode)
+    if gather == "xla":
+        g = (gather_rows if kernels else gather_rows_plain)(table, nb, wt)
+        x, _, _ = (gram_solve_tiles if kernels else gram_solve_tiles_plain)(
+            g, **kw)
+    else:
+        x, _, _ = (gram_solve_gather if kernels else gram_solve_gather_plain)(
+            table, nb=nb, wt=wt, **kw)
     return x

@@ -1,31 +1,43 @@
-"""The gathered-Gram kernels and their plain PyTorch versions: K2
-gram_gather, K3 gram_solve_dense, K5 gather_rows, K6 gram_solve_gather and
-gram_tiles_dense_gather (``csrc/gram_gather.cu``, ``gram_solve_dense.cu``,
-``gather_rows.cu``, ``gram_solve_gather.cu``,
-``gram_tiles_dense_gather.cu``).
+"""The tiled layout's Gram kernels and their plain PyTorch versions, on both
+schedules of the neighbor gather (``csrc/gram_kernels.cuh`` holds the
+kernels; one ``csrc/<wrapper>.cu`` library per entry).
 
-Counterparts of ``cfk_tpu/ops/pallas/gram_kernel.py``:
+Counterparts of ``cfk_tpu/ops/pallas/gram_kernel.py``.  The gather route
+(``in_kernel_gather`` None/True, the default) reads the fixed table by index
+inside the kernel:
 
-- ``gram_gather`` ↔ ``gram_tiles_gather_pallas`` (accum-mode chunks): the
-  per-owner-segment Gram A_s = Σ g gᵀ and RHS b_s = Σ rt·g of one chunk of
-  [T]-row tiles, g = table[nb]·wt gathered in the kernel.
-- ``gram_solve_dense`` ↔ ``gram_solve_tiles_dense_gather_pallas``
-  (dense-stream chunks): the same sums over the dense stream's windowed
-  tiles, plus the carry fold, the raw carry row at ``lseg``, the ridge and
-  the solve — the Gram never leaves the kernel.
-- ``gather_rows`` ↔ ``gather_rows_pallas``: the materialized gathered stream
-  ``out[i] = table[nb[i]]·wt[i]`` the subspace sweeps consume.
-- ``gram_solve_gather`` ↔ ``gram_solve_tiles_gather_pallas``: K2's sums plus
-  K3's epilogue (carry fold, raw ``lseg`` row, ridge, solve) — the bucketed
-  layout's width classes (one tile per entity) and the padded stream mode's
-  chunks.
-- ``gram_tiles_dense_gather`` ↔ ``gram_tiles_dense_gather_pallas``: K3
-  without its epilogue — the dense-stream chunk's carry-folded (A, b), for
-  the split schedule (K1 solves them).
+- ``gram_gather`` (K2) ↔ ``gram_tiles_gather_pallas`` (accum-mode chunks,
+  the stream mode's split chunks): the per-owner-segment Gram A_s = Σ g gᵀ
+  and RHS b_s = Σ rt·g of one chunk of [T]-row tiles, g = table[nb]·wt.
+- ``gram_solve_gather`` (K6) ↔ ``gram_solve_tiles_gather_pallas``: K2's
+  sums plus the fused epilogue (carry fold, raw ``lseg`` row, ridge,
+  solve) — the bucketed layout's width classes (one tile per entity) and
+  the stream mode's chunks.
+- ``gram_tiles_dense_gather`` ↔ ``gram_tiles_dense_gather_pallas``: the
+  same sums over the dense stream's windowed tiles — the dense-stream
+  chunk's (A, b) for the split schedule (K1 solves them).
+- ``gram_solve_dense`` (K3) ↔ ``gram_solve_tiles_dense_gather_pallas``:
+  the dense sums plus the fused epilogue — the Gram never leaves the kernel.
 
-Index F (the table height) is the virtual zero row padding entries point at.
-Segments owning no tile come back as zeros (solve: x = 0); the TPU kernels
-leave them unwritten, and callers route them to the trash row either way.
+The materialized-stream route (``in_kernel_gather=False``) first writes the
+gathered stream with ``gather_rows`` (K5 ↔ ``gather_rows_pallas``,
+``out[i] = table[nb[i]]·wt[i]``, also what the subspace sweeps consume),
+then reads it with the twin of each kernel above:
+
+- ``gram_tiles`` ↔ ``gram_tiles_pallas`` (twin of K2),
+- ``gram_solve_tiles`` ↔ ``gram_solve_tiles_pallas`` (twin of K6),
+- ``gram_tiles_dense`` ↔ ``gram_tiles_dense_pallas`` (twin of
+  ``gram_tiles_dense_gather``),
+- ``gram_solve_tiles_dense`` ↔ ``gram_solve_tiles_dense_pallas`` (twin of
+  K3).
+
+Each gather version's plain version is ``gather_rows_plain`` followed by its
+stream twin's, so the two routes agree by construction on the CPU; on the
+card a twin fed K5's stream runs its sibling's float32 operations in its
+sibling's order.  Index F (the table height) is the virtual zero row padding
+entries point at.  Segments owning no tile come back as zeros (solve:
+x = 0); the TPU kernels leave them unwritten, and callers route them to the
+trash row either way.
 """
 
 from __future__ import annotations
@@ -59,6 +71,18 @@ _DENSE_GRAM_ARGTYPES = (
 _SOLVE_GATHER_ARGTYPES = (
     _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _I, _F, _P, _P, _P, _P, _P,
     _P, _P, _I, _P,
+)
+_TILES_ARGTYPES = (_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P)
+_SOLVE_TILES_ARGTYPES = (
+    _P, _I, _P, _P, _I, _I, _I, _P, _I, _F, _P, _P, _P, _P, _P, _P, _P, _I,
+    _P,
+)
+_TILES_DENSE_ARGTYPES = (
+    _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P,
+)
+_SOLVE_TILES_DENSE_ARGTYPES = (
+    _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _I, _F, _P, _P, _P, _P, _P, _P,
+    _P, _I, _P,
 )
 
 
@@ -105,6 +129,8 @@ def gather_rows(table: torch.Tensor, nb: torch.Tensor,
 gather_rows.launches = 0
 
 
+# -- plain versions: the stream forms, and the gather forms on top ------------
+
 def _segment_sums(a_t, b_t, seg, num_segments, carry):
     k = a_t.shape[-1]
     a = a_t.new_zeros(num_segments, k, k).index_add_(0, seg.long(), a_t)
@@ -117,71 +143,62 @@ def _segment_sums(a_t, b_t, seg, num_segments, carry):
     return a, b
 
 
-def gram_gather_plain(table, nb, wt, rt, seg, *, num_segments, tile_rows,
-                      carry=None):
-    """The plain PyTorch version of K2: gather, tile einsums, segment sum
-    by ``index_add_`` — the XLA twin ``_emulate_gram_tiles``."""
-    k = table.shape[-1]
-    gt = gather_rows_plain(table, nb, wt).view(-1, tile_rows, k)
+def _solve_plain(ab, reg, lseg, lam, reg_mode):
+    """K1's plain ridge + Cholesky solve of (A, b) and the RAW ``lseg``
+    row: the fused epilogue's (x, carry_a, carry_b)."""
+    a, b = ab
+    ls = lseg.reshape(()).long() if isinstance(lseg, torch.Tensor) else lseg
+    x = reg_solve_plain(a, b, reg, lam=lam, reg_mode=reg_mode)
+    return x, a[ls].clone(), b[ls].clone()
+
+
+def gram_tiles_plain(g, rt, seg, *, num_segments, tile_rows, carry=None):
+    """The plain PyTorch version of ``gram_tiles``: tile einsums, segment
+    sum by ``index_add_`` — the XLA twin ``_emulate_gram_tiles``."""
+    k = g.shape[-1]
+    gt = g.view(-1, tile_rows, k)
     a_t = torch.einsum("ntk,ntl->nkl", gt, gt)
     b_t = torch.einsum("ntk,nt->nk", gt, rt.view(-1, tile_rows))
     return _segment_sums(a_t, b_t, seg, num_segments, carry)
 
 
-def gram_gather(table, nb, wt, rt, seg, *, num_segments, tile_rows,
-                carry=None):
-    """Per-segment (A [S,k,k], b [S,k]) of one tiled chunk.
-
-    table [F,k] f32 (raw: no zero row); nb/wt/rt [C] (int32 / f32 / f32);
-    seg [C/T] int32 owner per tile, sorted; ``carry`` = (ca [k,k], cb [k],
-    cin scalar) folds cin·(ca, cb) into segment 0.
-    """
-    c = nb.shape[0]
-    f, k = table.shape
-    t = tile_rows
-    if c % t != 0:
-        raise ValueError(f"entry count {c} not divisible by tile_rows {t}")
-    nt = c // t
-    if tuple(seg.shape) != (nt,):
-        raise ValueError(f"seg shape {tuple(seg.shape)} != ({nt},)")
-    if not on_cuda(table, nb, wt, rt, seg):
-        return gram_gather_plain(table, nb, wt, rt, seg,
-                                 num_segments=num_segments, tile_rows=t,
-                                 carry=carry)
-    if not 1 <= k <= MAX_RANK:
-        raise ValueError(f"gram_gather supports rank 1..{MAX_RANK}, got {k}")
-    require(table, "table", torch.float32, (f, k))
-    require(nb, "nb", torch.int32, (c,))
-    require(wt, "wt", torch.float32, (c,))
-    require(rt, "rt", torch.float32, (c,))
-    require(seg, "seg", torch.int32, (nt,))
-    ca, cb, cin = _carry_on(carry, k, table.device)
-    a = torch.empty((num_segments, k, k), dtype=torch.float32,
-                    device=table.device)
-    b = torch.empty((num_segments, k), dtype=torch.float32, device=table.device)
-    fn = _build.function("gram_gather", "cfk_gram_gather", _GATHER_ARGTYPES)
-    p = _build.ptr
-    rc = fn(p(table), f, k, p(nb), p(wt), p(rt), p(seg), nt, t, num_segments,
-            p(ca), p(cb), p(cin), p(a), p(b), table.device.index or 0,
-            stream_of(table))
-    _build.check(rc, "gram_gather")
-    gram_gather.launches += 1
-    return a, b
+def gram_gather_plain(table, nb, wt, rt, seg, *, num_segments, tile_rows,
+                      carry=None):
+    """The plain PyTorch version of K2: ``gather_rows_plain`` then
+    ``gram_tiles_plain``."""
+    return gram_tiles_plain(gather_rows_plain(table, nb, wt), rt, seg,
+                            num_segments=num_segments, tile_rows=tile_rows,
+                            carry=carry)
 
 
-gram_gather.launches = 0
+def gram_solve_tiles_plain(g, rt, seg, reg, lseg, *, num_segments,
+                           tile_rows, lam=0.0, reg_mode="diag", carry=None):
+    """The plain PyTorch version of ``gram_solve_tiles``: the plain sums,
+    the raw ``lseg`` row, then K1's plain ridge + Cholesky solve."""
+    return _solve_plain(gram_tiles_plain(g, rt, seg,
+                                         num_segments=num_segments,
+                                         tile_rows=tile_rows, carry=carry),
+                        reg, lseg, lam, reg_mode)
 
 
-def gram_tiles_dense_gather_plain(table, nb, wt, rt, meta, *, num_segments,
-                                  tile_rows, num_tiles, num_groups,
-                                  block_rows, carry=None):
-    """The plain PyTorch version of ``gram_tiles_dense_gather`` (and K3's
-    Gram): windowed tiles of the gathered stream, masked einsums, segment
-    sum — the indexing of ``_emulate_gram_dense``."""
-    k = table.shape[-1]
+def gram_solve_gather_plain(table, nb, wt, rt, seg, reg, lseg, *,
+                            num_segments, tile_rows, lam=0.0,
+                            reg_mode="diag", carry=None):
+    """The plain PyTorch version of K6: ``gather_rows_plain`` then
+    ``gram_solve_tiles_plain``."""
+    return gram_solve_tiles_plain(
+        gather_rows_plain(table, nb, wt), rt, seg, reg, lseg,
+        num_segments=num_segments, tile_rows=tile_rows, lam=lam,
+        reg_mode=reg_mode, carry=carry)
+
+
+def gram_tiles_dense_plain(g, rt, meta, *, num_segments, tile_rows,
+                           num_tiles, num_groups, block_rows, carry=None):
+    """The plain PyTorch version of ``gram_tiles_dense``: windowed tiles of
+    the stream, masked einsums, segment sum — the indexing of
+    ``_emulate_gram_dense``."""
     t, nt, ng, bg = tile_rows, num_tiles, num_groups, block_rows
     m = nt // ng
-    g = gather_rows_plain(table, nb, wt)
     meta = meta.long()
     gblk = meta[:ng]
     lb = meta[ng:ng + nt]
@@ -199,6 +216,54 @@ def gram_tiles_dense_gather_plain(table, nb, wt, rt, meta, *, num_segments,
     return _segment_sums(a_t, b_t, seg, num_segments, carry)
 
 
+def gram_tiles_dense_gather_plain(table, nb, wt, rt, meta, *, num_segments,
+                                  tile_rows, num_tiles, num_groups,
+                                  block_rows, carry=None):
+    """The plain PyTorch version of ``gram_tiles_dense_gather`` (and K3's
+    Gram): ``gather_rows_plain`` then ``gram_tiles_dense_plain``."""
+    return gram_tiles_dense_plain(
+        gather_rows_plain(table, nb, wt), rt, meta,
+        num_segments=num_segments, tile_rows=tile_rows, num_tiles=num_tiles,
+        num_groups=num_groups, block_rows=block_rows, carry=carry)
+
+
+def gram_solve_tiles_dense_plain(g, rt, meta, reg, lseg, *, num_segments,
+                                 tile_rows, num_tiles, num_groups,
+                                 block_rows, lam=0.0, reg_mode="diag",
+                                 carry=None):
+    """The plain PyTorch version of ``gram_solve_tiles_dense``: the dense
+    plain sums, the raw ``lseg`` row, ridge + Cholesky solve."""
+    return _solve_plain(gram_tiles_dense_plain(
+        g, rt, meta, num_segments=num_segments, tile_rows=tile_rows,
+        num_tiles=num_tiles, num_groups=num_groups, block_rows=block_rows,
+        carry=carry), reg, lseg, lam, reg_mode)
+
+
+def gram_solve_dense_plain(table, nb, wt, rt, meta, reg, lseg, *,
+                           num_segments, tile_rows, num_tiles, num_groups,
+                           block_rows, lam, reg_mode="diag", carry=None):
+    """The plain PyTorch version of K3: ``gather_rows_plain`` then
+    ``gram_solve_tiles_dense_plain``."""
+    return gram_solve_tiles_dense_plain(
+        gather_rows_plain(table, nb, wt), rt, meta, reg, lseg,
+        num_segments=num_segments, tile_rows=tile_rows, num_tiles=num_tiles,
+        num_groups=num_groups, block_rows=block_rows, lam=lam,
+        reg_mode=reg_mode, carry=carry)
+
+
+# -- the contracts the wrappers share -----------------------------------------
+
+def _check_tile_chunk(c, seg, tile_rows):
+    """The tile-chunk contracts of the JAX entry points; returns NT."""
+    if c % tile_rows != 0:
+        raise ValueError(
+            f"entry count {c} not divisible by tile_rows {tile_rows}")
+    nt = c // tile_rows
+    if tuple(seg.shape) != (nt,):
+        raise ValueError(f"seg shape {tuple(seg.shape)} != ({nt},)")
+    return nt
+
+
 def _check_dense_chunk(c, rt, meta, *, tile_rows, num_tiles, num_groups,
                        block_rows):
     """The dense-stream chunk contracts of the JAX entry points."""
@@ -214,6 +279,11 @@ def _check_dense_chunk(c, rt, meta, *, tile_rows, num_tiles, num_groups,
                          f"{bg} >= tile_rows {t}")
 
 
+def _check_rank(name, k):
+    if not 1 <= k <= MAX_RANK:
+        raise ValueError(f"{name} supports rank 1..{MAX_RANK}, got {k}")
+
+
 def _carry_on(carry, k, dev):
     """(ca, cb, cin) checked and on ``dev``, or three Nones."""
     if carry is None:
@@ -222,6 +292,56 @@ def _carry_on(carry, k, dev):
     require(ca, "carry a", torch.float32, (k, k))
     require(cb, "carry b", torch.float32, (k,))
     return ca, cb, scalar_on(cin, dev, torch.float32)
+
+
+def _gram_out(num_segments, k, dev):
+    return (torch.empty((num_segments, k, k), dtype=torch.float32, device=dev),
+            torch.empty((num_segments, k), dtype=torch.float32, device=dev))
+
+
+def _solve_out(num_segments, k, dev):
+    return (torch.empty((num_segments, k), dtype=torch.float32, device=dev),
+            torch.zeros((k, k), dtype=torch.float32, device=dev),
+            torch.zeros((k,), dtype=torch.float32, device=dev))
+
+
+# -- the gather route: the table read by index inside the kernel --------------
+
+def gram_gather(table, nb, wt, rt, seg, *, num_segments, tile_rows,
+                carry=None):
+    """K2: per-segment (A [S,k,k], b [S,k]) of one tiled chunk.
+
+    table [F,k] f32 (raw: no zero row); nb/wt/rt [C] (int32 / f32 / f32);
+    seg [C/T] int32 owner per tile, sorted; ``carry`` = (ca [k,k], cb [k],
+    cin scalar) folds cin·(ca, cb) into segment 0.
+    """
+    c = nb.shape[0]
+    f, k = table.shape
+    t = tile_rows
+    nt = _check_tile_chunk(c, seg, t)
+    if not on_cuda(table, nb, wt, rt, seg):
+        return gram_gather_plain(table, nb, wt, rt, seg,
+                                 num_segments=num_segments, tile_rows=t,
+                                 carry=carry)
+    _check_rank("gram_gather", k)
+    require(table, "table", torch.float32, (f, k))
+    require(nb, "nb", torch.int32, (c,))
+    require(wt, "wt", torch.float32, (c,))
+    require(rt, "rt", torch.float32, (c,))
+    require(seg, "seg", torch.int32, (nt,))
+    ca, cb, cin = _carry_on(carry, k, table.device)
+    a, b = _gram_out(num_segments, k, table.device)
+    fn = _build.function("gram_gather", "cfk_gram_gather", _GATHER_ARGTYPES)
+    p = _build.ptr
+    rc = fn(p(table), f, k, p(nb), p(wt), p(rt), p(seg), nt, t, num_segments,
+            p(ca), p(cb), p(cin), p(a), p(b), table.device.index or 0,
+            stream_of(table))
+    _build.check(rc, "gram_gather")
+    gram_gather.launches += 1
+    return a, b
+
+
+gram_gather.launches = 0
 
 
 def gram_tiles_dense_gather(table, nb, wt, rt, meta, *, num_segments,
@@ -245,9 +365,7 @@ def gram_tiles_dense_gather(table, nb, wt, rt, meta, *, num_segments,
         return gram_tiles_dense_gather_plain(
             table, nb, wt, rt, meta, num_segments=num_segments, tile_rows=t,
             num_tiles=nt, num_groups=ng, block_rows=bg, carry=carry)
-    if not 1 <= k <= MAX_RANK:
-        raise ValueError(
-            f"gram_tiles_dense_gather supports rank 1..{MAX_RANK}, got {k}")
+    _check_rank("gram_tiles_dense_gather", k)
     dev = table.device
     require(table, "table", torch.float32, (f, k))
     require(nb, "nb", torch.int32, (c,))
@@ -256,8 +374,7 @@ def gram_tiles_dense_gather(table, nb, wt, rt, meta, *, num_segments,
     require(rt, "rt", torch.float32, (nt * t,))
     require(meta, "meta", torch.int32, (ng + 4 * nt,))
     ca, cb, cin = _carry_on(carry, k, dev)
-    a = torch.empty((num_segments, k, k), dtype=torch.float32, device=dev)
-    b = torch.empty((num_segments, k), dtype=torch.float32, device=dev)
+    a, b = _gram_out(num_segments, k, dev)
     fn = _build.function("gram_tiles_dense_gather",
                          "cfk_gram_tiles_dense_gather", _DENSE_GRAM_ARGTYPES)
     p = _build.ptr
@@ -272,25 +389,10 @@ def gram_tiles_dense_gather(table, nb, wt, rt, meta, *, num_segments,
 gram_tiles_dense_gather.launches = 0
 
 
-def gram_solve_dense_plain(table, nb, wt, rt, meta, reg, lseg, *,
-                           num_segments, tile_rows, num_tiles, num_groups,
-                           block_rows, lam, reg_mode="diag", carry=None):
-    """The plain PyTorch version of K3: dense Gram, raw carry row at
-    ``lseg``, ridge + Cholesky solve."""
-    a, b = gram_tiles_dense_gather_plain(
-        table, nb, wt, rt, meta, num_segments=num_segments,
-        tile_rows=tile_rows, num_tiles=num_tiles, num_groups=num_groups,
-        block_rows=block_rows, carry=carry,
-    )
-    ls = lseg.reshape(()).long() if isinstance(lseg, torch.Tensor) else lseg
-    x = reg_solve_plain(a, b, reg, lam=lam, reg_mode=reg_mode)
-    return x, a[ls].clone(), b[ls].clone()
-
-
 def gram_solve_dense(table, nb, wt, rt, meta, reg, lseg, *, num_segments,
                      tile_rows, num_tiles, num_groups, block_rows, lam,
                      reg_mode="diag", carry=None):
-    """One dense-stream chunk: (x [S,k], carry_a [k,k], carry_b [k]).
+    """K3: one dense-stream chunk: (x [S,k], carry_a [k,k], carry_b [k]).
 
     table [F,k] f32; nb [C] int32 dense stream (padding → F); wt [C] f32
     per-entry weight or None (unit); rt [NT·T] f32 tile-aligned
@@ -311,9 +413,7 @@ def gram_solve_dense(table, nb, wt, rt, meta, reg, lseg, *, num_segments,
             tile_rows=t, num_tiles=nt, num_groups=ng, block_rows=bg, lam=lam,
             reg_mode=reg_mode, carry=carry,
         )
-    if not 1 <= k <= MAX_RANK:
-        raise ValueError(
-            f"gram_solve_dense supports rank 1..{MAX_RANK}, got {k}")
+    _check_rank("gram_solve_dense", k)
     dev = table.device
     require(table, "table", torch.float32, (f, k))
     require(nb, "nb", torch.int32, (c,))
@@ -324,9 +424,7 @@ def gram_solve_dense(table, nb, wt, rt, meta, reg, lseg, *, num_segments,
     reg32 = reg.to(torch.float32).contiguous()
     lseg_d = scalar_on(lseg, dev, torch.int32)
     ca, cb, cin = _carry_on(carry, k, dev)
-    x = torch.empty((num_segments, k), dtype=torch.float32, device=dev)
-    ca_out = torch.empty((k, k), dtype=torch.float32, device=dev)
-    cb_out = torch.empty((k,), dtype=torch.float32, device=dev)
+    x, ca_out, cb_out = _solve_out(num_segments, k, dev)
     fn = _build.function("gram_solve_dense", "cfk_gram_solve_dense",
                          _DENSE_ARGTYPES)
     p = _build.ptr
@@ -340,19 +438,6 @@ def gram_solve_dense(table, nb, wt, rt, meta, reg, lseg, *, num_segments,
 
 
 gram_solve_dense.launches = 0
-
-
-def gram_solve_gather_plain(table, nb, wt, rt, seg, reg, lseg, *,
-                            num_segments, tile_rows, lam=0.0,
-                            reg_mode="diag", carry=None):
-    """The plain PyTorch version of K6: K2's plain sums, the raw ``lseg``
-    row, then K1's plain ridge + Cholesky solve."""
-    a, b = gram_gather_plain(table, nb, wt, rt, seg,
-                             num_segments=num_segments, tile_rows=tile_rows,
-                             carry=carry)
-    ls = lseg.reshape(()).long() if isinstance(lseg, torch.Tensor) else lseg
-    x = reg_solve_plain(a, b, reg, lam=lam, reg_mode=reg_mode)
-    return x, a[ls].clone(), b[ls].clone()
 
 
 def gram_solve_gather(table, nb, wt, rt, seg, reg, lseg, *, num_segments,
@@ -369,19 +454,13 @@ def gram_solve_gather(table, nb, wt, rt, seg, reg, lseg, *, num_segments,
     c = nb.shape[0]
     f, k = table.shape
     t = tile_rows
-    if c % t != 0:
-        raise ValueError(f"entry count {c} not divisible by tile_rows {t}")
-    nt = c // t
-    if tuple(seg.shape) != (nt,):
-        raise ValueError(f"seg shape {tuple(seg.shape)} != ({nt},)")
+    nt = _check_tile_chunk(c, seg, t)
     check_reg(reg, reg_mode, num_segments, k)
     if not on_cuda(table, nb, wt, rt, seg, reg):
         return gram_solve_gather_plain(
             table, nb, wt, rt, seg, reg, lseg, num_segments=num_segments,
             tile_rows=t, lam=lam, reg_mode=reg_mode, carry=carry)
-    if not 1 <= k <= MAX_RANK:
-        raise ValueError(
-            f"gram_solve_gather supports rank 1..{MAX_RANK}, got {k}")
+    _check_rank("gram_solve_gather", k)
     dev = table.device
     require(table, "table", torch.float32, (f, k))
     require(nb, "nb", torch.int32, (c,))
@@ -391,9 +470,7 @@ def gram_solve_gather(table, nb, wt, rt, seg, reg, lseg, *, num_segments,
     reg32 = reg.to(torch.float32).contiguous()
     lseg_d = scalar_on(lseg, dev, torch.int32)
     ca, cb, cin = _carry_on(carry, k, dev)
-    x = torch.empty((num_segments, k), dtype=torch.float32, device=dev)
-    ca_out = torch.zeros((k, k), dtype=torch.float32, device=dev)
-    cb_out = torch.zeros((k,), dtype=torch.float32, device=dev)
+    x, ca_out, cb_out = _solve_out(num_segments, k, dev)
     fn = _build.function("gram_solve_gather", "cfk_gram_solve_gather",
                          _SOLVE_GATHER_ARGTYPES)
     p = _build.ptr
@@ -407,3 +484,164 @@ def gram_solve_gather(table, nb, wt, rt, seg, reg, lseg, *, num_segments,
 
 
 gram_solve_gather.launches = 0
+
+
+# -- the materialized-stream route: K5's stream read by the twins -------------
+
+def gram_tiles(g, rt, seg, *, num_segments, tile_rows, carry=None):
+    """Per-segment (A [S,k,k], b [S,k]) of one tiled chunk's gathered
+    stream — K2's twin on the materialized-stream schedule.
+
+    g [C,k] f32 (``gather_rows``' stream: zero rows at padding); rt [C] f32
+    b-coefficients; seg [C/T] int32 owner per tile, sorted; ``carry`` =
+    (ca [k,k], cb [k], cin scalar) folds cin·(ca, cb) into segment 0.
+    """
+    c, k = g.shape
+    t = tile_rows
+    nt = _check_tile_chunk(c, seg, t)
+    if not on_cuda(g, rt, seg):
+        return gram_tiles_plain(g, rt, seg, num_segments=num_segments,
+                                tile_rows=t, carry=carry)
+    _check_rank("gram_tiles", k)
+    dev = g.device
+    require(g, "g", torch.float32, (c, k))
+    require(rt, "rt", torch.float32, (c,))
+    require(seg, "seg", torch.int32, (nt,))
+    ca, cb, cin = _carry_on(carry, k, dev)
+    a, b = _gram_out(num_segments, k, dev)
+    fn = _build.function("gram_tiles", "cfk_gram_tiles", _TILES_ARGTYPES)
+    p = _build.ptr
+    rc = fn(p(g), k, p(rt), p(seg), nt, t, num_segments, p(ca), p(cb),
+            p(cin), p(a), p(b), dev.index or 0, stream_of(g))
+    _build.check(rc, "gram_tiles")
+    gram_tiles.launches += 1
+    return a, b
+
+
+gram_tiles.launches = 0
+
+
+def gram_solve_tiles(g, rt, seg, reg, lseg, *, num_segments, tile_rows,
+                     lam=0.0, reg_mode="diag", carry=None):
+    """One tiled chunk's gathered stream summed per owner segment,
+    regularized and solved — (x [S,k], carry_a [k,k], carry_b [k]); K6's
+    twin on the materialized-stream schedule.
+
+    g [C,k] f32 (zero rows at padding); rt [C] f32; seg [C/T] int32, sorted;
+    reg [S] counts (diag) or [k,k] (matrix); lseg = the segment whose RAW
+    (A, b) is returned as the next carry; ``carry`` = (ca, cb, cin) folded
+    into segment 0.  A segment owning no tile solves to x = 0.
+    """
+    c, k = g.shape
+    t = tile_rows
+    nt = _check_tile_chunk(c, seg, t)
+    check_reg(reg, reg_mode, num_segments, k)
+    if not on_cuda(g, rt, seg, reg):
+        return gram_solve_tiles_plain(
+            g, rt, seg, reg, lseg, num_segments=num_segments, tile_rows=t,
+            lam=lam, reg_mode=reg_mode, carry=carry)
+    _check_rank("gram_solve_tiles", k)
+    dev = g.device
+    require(g, "g", torch.float32, (c, k))
+    require(rt, "rt", torch.float32, (c,))
+    require(seg, "seg", torch.int32, (nt,))
+    reg32 = reg.to(torch.float32).contiguous()
+    lseg_d = scalar_on(lseg, dev, torch.int32)
+    ca, cb, cin = _carry_on(carry, k, dev)
+    x, ca_out, cb_out = _solve_out(num_segments, k, dev)
+    fn = _build.function("gram_solve_tiles", "cfk_gram_solve_tiles",
+                         _SOLVE_TILES_ARGTYPES)
+    p = _build.ptr
+    rc = fn(p(g), k, p(rt), p(seg), nt, t, num_segments, p(reg32),
+            REG_MODES[reg_mode], float(lam), p(lseg_d), p(ca), p(cb), p(cin),
+            p(x), p(ca_out), p(cb_out), dev.index or 0, stream_of(g))
+    _build.check(rc, "gram_solve_tiles")
+    gram_solve_tiles.launches += 1
+    return x, ca_out, cb_out
+
+
+gram_solve_tiles.launches = 0
+
+
+def gram_tiles_dense(g, rt, meta, *, num_segments, tile_rows, num_tiles,
+                     num_groups, block_rows, carry=None):
+    """One dense-stream chunk's per-segment (A [S,k,k], b [S,k]) from its
+    gathered stream — ``gram_tiles_dense_gather``'s twin on the
+    materialized-stream schedule.
+
+    g [C,k] f32 stream-aligned (zero rows at padding); rt [NT·T] f32
+    tile-aligned b-coefficients; meta [NG+4·NT] int32 (g_blk ‖ lb ‖ lo ‖ hi
+    ‖ seg); ``carry`` = (ca, cb, cin) folds cin·(ca, cb) into segment 0.  A
+    segment owning no tile comes back as zeros.
+    """
+    c, k = g.shape
+    t, nt, ng, bg = tile_rows, num_tiles, num_groups, block_rows
+    _check_dense_chunk(c, rt, meta, tile_rows=t, num_tiles=nt,
+                       num_groups=ng, block_rows=bg)
+    if not on_cuda(g, rt, meta):
+        return gram_tiles_dense_plain(
+            g, rt, meta, num_segments=num_segments, tile_rows=t,
+            num_tiles=nt, num_groups=ng, block_rows=bg, carry=carry)
+    _check_rank("gram_tiles_dense", k)
+    dev = g.device
+    require(g, "g", torch.float32, (c, k))
+    require(rt, "rt", torch.float32, (nt * t,))
+    require(meta, "meta", torch.int32, (ng + 4 * nt,))
+    ca, cb, cin = _carry_on(carry, k, dev)
+    a, b = _gram_out(num_segments, k, dev)
+    fn = _build.function("gram_tiles_dense", "cfk_gram_tiles_dense",
+                         _TILES_DENSE_ARGTYPES)
+    p = _build.ptr
+    rc = fn(p(g), k, p(rt), p(meta), nt, ng, t, bg, num_segments, p(ca),
+            p(cb), p(cin), p(a), p(b), dev.index or 0, stream_of(g))
+    _build.check(rc, "gram_tiles_dense")
+    gram_tiles_dense.launches += 1
+    return a, b
+
+
+gram_tiles_dense.launches = 0
+
+
+def gram_solve_tiles_dense(g, rt, meta, reg, lseg, *, num_segments,
+                           tile_rows, num_tiles, num_groups, block_rows,
+                           lam=0.0, reg_mode="diag", carry=None):
+    """One dense-stream chunk from its gathered stream: (x [S,k], carry_a
+    [k,k], carry_b [k]) — K3's twin on the materialized-stream schedule.
+
+    g [C,k] f32 stream-aligned; rt [NT·T] f32 tile-aligned; meta
+    [NG+4·NT] int32; reg [S] counts (diag) or [k,k] (matrix); lseg = the
+    segment whose RAW (A, b) is returned as the next carry; ``carry`` =
+    (ca, cb, cin) folded into segment 0.
+    """
+    c, k = g.shape
+    t, nt, ng, bg = tile_rows, num_tiles, num_groups, block_rows
+    _check_dense_chunk(c, rt, meta, tile_rows=t, num_tiles=nt,
+                       num_groups=ng, block_rows=bg)
+    check_reg(reg, reg_mode, num_segments, k)
+    if not on_cuda(g, rt, meta, reg):
+        return gram_solve_tiles_dense_plain(
+            g, rt, meta, reg, lseg, num_segments=num_segments, tile_rows=t,
+            num_tiles=nt, num_groups=ng, block_rows=bg, lam=lam,
+            reg_mode=reg_mode, carry=carry)
+    _check_rank("gram_solve_tiles_dense", k)
+    dev = g.device
+    require(g, "g", torch.float32, (c, k))
+    require(rt, "rt", torch.float32, (nt * t,))
+    require(meta, "meta", torch.int32, (ng + 4 * nt,))
+    reg32 = reg.to(torch.float32).contiguous()
+    lseg_d = scalar_on(lseg, dev, torch.int32)
+    ca, cb, cin = _carry_on(carry, k, dev)
+    x, ca_out, cb_out = _solve_out(num_segments, k, dev)
+    fn = _build.function("gram_solve_tiles_dense",
+                         "cfk_gram_solve_tiles_dense",
+                         _SOLVE_TILES_DENSE_ARGTYPES)
+    p = _build.ptr
+    rc = fn(p(g), k, p(rt), p(meta), nt, ng, t, bg, num_segments, p(reg32),
+            REG_MODES[reg_mode], float(lam), p(lseg_d), p(ca), p(cb), p(cin),
+            p(x), p(ca_out), p(cb_out), dev.index or 0, stream_of(g))
+    _build.check(rc, "gram_solve_tiles_dense")
+    gram_solve_tiles_dense.launches += 1
+    return x, ca_out, cb_out
+
+
+gram_solve_tiles_dense.launches = 0

@@ -273,23 +273,29 @@ def als_half_step_bucketed(
     lam: float,
     *,
     solver: str = "auto",
+    in_kernel_gather: bool | None = None,
 ) -> torch.Tensor:
     """One ALS-WR half-iteration over width-bucketed InBlocks: every width
-    class through K6 with one tile per entity (``ops.bucketed``).  Rows in
-    no bucket (zero ratings) stay exactly 0.
+    class through K6 with one tile per entity (``ops.bucketed``), or, with
+    ``in_kernel_gather=False``, through K5 and ``gram_solve_tiles``.  Rows
+    in no bucket (zero ratings) stay exactly 0.
 
-    Each width class is one K6 launch: the builder's ``chunk_rows`` hints
+    Each width class is one launch: the builder's ``chunk_rows`` hints
     bound a materialized [chunk, width, k] gather, and K6 materializes
     neither the gathered rows nor the Gram batch, so the JAX route's
     ``chunk_rows`` argument has no counterpart here (cutting the widest
-    classes into one-row launches would only serialize their entities)."""
+    classes into one-row launches would only serialize their entities).
+    The materialized stream of a class is rows·width·k·4 bytes at once."""
     from cfk_tpu_torch.ops.bucketed import bucket_gram_solve
+    from cfk_tpu_torch.ops.tiled import resolve_gather_mode
 
     k = fixed_factors.shape[-1]
+    gather = resolve_gather_mode(in_kernel_gather)
 
     def solve_piece(ni, rt, mk, cnt):
         return bucket_gram_solve(fixed_factors, ni, mk, rt, cnt, lam=lam,
-                                 reg_mode="diag", solver=solver)
+                                 reg_mode="diag", solver=solver,
+                                 gather=gather)
 
     out = walk_buckets(
         buckets, (None,) * len(buckets),
@@ -308,15 +314,19 @@ def ials_half_step_bucketed(
     *,
     gram: torch.Tensor | None = None,
     solver: str = "auto",
+    in_kernel_gather: bool | None = None,
 ) -> torch.Tensor:
     """Implicit-feedback half-iteration over width-bucketed InBlocks: per
-    entity YᵀY + Σ_obs (c−1)·f fᵀ + λI, every width class through K6 with
-    the sqrt-reparameterized weight stream (``ops.bucketed.ials_reparam``)
-    and the shared ridge in matrix mode, one launch per width class (see
+    entity YᵀY + Σ_obs (c−1)·f fᵀ + λI, every width class through K6 (or,
+    with ``in_kernel_gather=False``, K5 and ``gram_solve_tiles``) with the
+    sqrt-reparameterized weight stream (``ops.bucketed.ials_reparam``) and
+    the shared ridge in matrix mode, one launch per width class (see
     ``als_half_step_bucketed``).  Zero-interaction rows stay 0."""
     from cfk_tpu_torch.ops.bucketed import bucket_gram_solve, ials_reparam
+    from cfk_tpu_torch.ops.tiled import resolve_gather_mode
 
     k = fixed_factors.shape[-1]
+    gather = resolve_gather_mode(in_kernel_gather)
     if gram is None:
         gram = global_gram_blocked(fixed_factors)
     reg_m = implicit_reg(gram, lam)
@@ -324,7 +334,8 @@ def ials_half_step_bucketed(
     def solve_piece(ni, rt, mk):
         wt, rt_b = ials_reparam(rt, mk, alpha)
         return bucket_gram_solve(fixed_factors, ni, wt, rt_b, reg_m,
-                                 lam=0.0, reg_mode="matrix", solver=solver)
+                                 lam=0.0, reg_mode="matrix", solver=solver,
+                                 gather=gather)
 
     out = walk_buckets(
         buckets, (None,) * len(buckets),

@@ -22,9 +22,13 @@ x0 gives the full solve A⁻¹b.
 The sweep's gathered rectangle [E, P, k] is the one place the fixed rows
 enter (kernel K5 ``gather_rows`` on CUDA): its Gram blocks, b-side and score
 stream all read it, and the score stream is rank-updated across blocks, so
-the rectangle has to exist in device memory.  The einsums stay PyTorch
-(float32, TF32 off), as the JAX package left them to XLA; the b×b solves run
-through K1 (``regularized_solve_matrix`` / ``regularized_solve``) at k = b.
+the rectangle has to exist in device memory.  ``in_kernel_gather`` therefore
+changes nothing here: the JAX package's sweep swaps ``gather_rows_pallas``
+for the identical XLA gather when it is off (``cfk_tpu/ops/subspace.py:
+50-79``), and the port writes the same rectangle with K5 on either setting.
+The einsums stay PyTorch (float32, TF32 off), as the JAX package left them
+to XLA; the b×b solves run through K1 (``regularized_solve_matrix`` /
+``regularized_solve``) at k = b.
 """
 
 from __future__ import annotations

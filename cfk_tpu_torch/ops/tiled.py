@@ -1,9 +1,14 @@
 """Tiled-layout half-steps: the accum, stream and dense-stream modes.
 
-The port of ``cfk_tpu/ops/tiled.py`` on its in-kernel-gather route, with
-the fused epilogue (the default) or the split one (``fused_epilogue=
-False``).  All modes compute the same per-entity normal equations as
-``ops.solve`` (``processors/MFeatureCalculator.java:85-99``):
+The port of ``cfk_tpu/ops/tiled.py``, with the fused epilogue (the default)
+or the split one (``fused_epilogue=False``), and with the neighbor gather
+inside the Gram kernels (the default) or materialized first
+(``in_kernel_gather=False``, ``resolve_gather_mode``: K5 ``gather_rows``
+writes each chunk's stream g = table[nb]·wt, and the stream twins of the
+kernels named below read it — ``gram_tiles`` for K2, ``gram_solve_tiles``
+for K6, ``gram_solve_tiles_dense`` for K3, ``gram_tiles_dense`` for
+``gram_tiles_dense_gather``).  All modes compute the same per-entity normal
+equations as ``ops.solve`` (``processors/MFeatureCalculator.java:85-99``):
 
 - ``accum`` (the few-entities side; the movie half at Netflix shape):
   every chunk's per-entity Grams come from kernel K2 (``gram_gather``) with
@@ -43,14 +48,24 @@ import torch
 
 from cfk_tpu_torch.ops.bucketed import _SQRT_WEIGHT_EPS, ials_reparam
 from cfk_tpu_torch.ops.kernels.gram_kernel import (
+    gather_rows,
+    gather_rows_plain,
     gram_gather,
     gram_gather_plain,
     gram_solve_dense,
     gram_solve_dense_plain,
     gram_solve_gather,
     gram_solve_gather_plain,
+    gram_solve_tiles,
+    gram_solve_tiles_dense,
+    gram_solve_tiles_dense_plain,
+    gram_solve_tiles_plain,
+    gram_tiles,
+    gram_tiles_dense,
     gram_tiles_dense_gather,
     gram_tiles_dense_gather_plain,
+    gram_tiles_dense_plain,
+    gram_tiles_plain,
 )
 from cfk_tpu_torch.ops.solve import (
     global_gram,
@@ -60,6 +75,37 @@ from cfk_tpu_torch.ops.solve import (
     resolve_fused_chunk,
     use_kernels,
 )
+
+
+def resolve_gather_mode(in_kernel_gather: bool | None) -> str:
+    """Who fetches a chunk's neighbor rows: ``"fused"`` (None/True, the
+    default — the Gram kernels read the table by index) or ``"xla"``
+    (False — the materialized-stream schedule: K5 writes the [C, k] stream,
+    the stream twins read it); the knob half of
+    ``cfk_tpu/plan/registry.py:291-320``.
+
+    The TPU gates that route a refused shape to the stream there — the
+    resident-output VMEM cap, the kernels' SMEM/alignment gate, the
+    ``mosaic_tpu`` backend's availability, the probe stages — have no
+    counterpart: both routes' kernels take every rank up to their own cap
+    (128), past which they raise, on either setting."""
+    return "fused" if in_kernel_gather is None or in_kernel_gather else "xla"
+
+
+# (mode, gather) → ((fused Gram + solve, its plain version),
+#                   (split Gram, its plain version)) of a chunk scan.
+_SCAN_KERNELS = {
+    ("stream", "fused"): ((gram_solve_gather, gram_solve_gather_plain),
+                          (gram_gather, gram_gather_plain)),
+    ("stream", "xla"): ((gram_solve_tiles, gram_solve_tiles_plain),
+                        (gram_tiles, gram_tiles_plain)),
+    ("dstream", "fused"): ((gram_solve_dense, gram_solve_dense_plain),
+                           (gram_tiles_dense_gather,
+                            gram_tiles_dense_gather_plain)),
+    ("dstream", "xla"): ((gram_solve_tiles_dense,
+                          gram_solve_tiles_dense_plain),
+                         (gram_tiles_dense, gram_tiles_dense_plain)),
+}
 
 
 def chunk_reg(chunk_count: torch.Tensor, num_chunks: int) -> torch.Tensor:
@@ -107,12 +153,15 @@ def dense_chunk(blk, statics, c: int) -> dict:
 
 
 def tiled_half_step(fixed_factors, blk, chunks, local_entities, lam, *,
-                    solver="auto", implicit_reg=None, fused_epilogue=None):
+                    solver="auto", implicit_reg=None, fused_epilogue=None,
+                    in_kernel_gather=None):
     """Mode dispatch: ``chunks`` is the static tuple ``("tiled", mode,
     *statics)`` and ``blk`` the device dict of ``models.als._tiled_to_device``.
     ``implicit_reg`` = the iALS [k,k] ridge YᵀY + λI (matrix mode; ``blk``
     then carries the reparameterized weights), None = ALS-WR's λ·n.
-    ``fused_epilogue`` = the fused (None/True) or split (False) schedule."""
+    ``fused_epilogue`` = the fused (None/True) or split (False) schedule;
+    ``in_kernel_gather`` = the gather inside the kernels (None/True) or the
+    materialized stream (False, ``resolve_gather_mode``)."""
     half = {"accum": als_half_step_tiled_accum,
             "stream": als_half_step_tiled,
             "dstream": als_half_step_tiled_dense}.get(chunks[1])
@@ -120,23 +169,31 @@ def tiled_half_step(fixed_factors, blk, chunks, local_entities, lam, *,
         raise ValueError(f"unknown tiled mode {chunks[1]!r}")
     return half(fixed_factors, blk, local_entities, lam,
                 statics=tuple(chunks[2:]), solver=solver,
-                implicit_reg=implicit_reg, fused_epilogue=fused_epilogue)
+                implicit_reg=implicit_reg, fused_epilogue=fused_epilogue,
+                in_kernel_gather=in_kernel_gather)
 
 
 def _chunk_scan(fixed_factors, blk, local_entities, lam, nc, e_c, chunk,
-                solve_gram, gram, *, solver, implicit_reg, fused_epilogue):
+                mode, *, solver, implicit_reg, fused_epilogue,
+                in_kernel_gather):
     """The stream and dense-stream chunk scans: ``chunk(c)`` gives chunk
     c's operands (with its ridge counts ``reg``, carry-out row ``lseg``
-    and carry flag ``cin``); per chunk the fused kernel ``solve_gram``
-    returns (x, carry pair), or, split, the Gram kernel ``gram`` writes
-    (A, b), K1 solves them in one pass (``fused=True``: the epilogue knob
-    toggles only the Gram's round trip through device memory,
-    ``cfk_tpu/ops/tiled.py:640-652``) and the carry row is taken by index
-    on the device, without a host sync.  Finalized rows [NC, Ec, k] are
-    scattered by ``chunk_entity`` once, after the loop; non-finalized
-    positions all route to the trash row E (dropped)."""
+    and carry flag ``cin``); per chunk the fused kernel returns (x, carry
+    pair), or, split, the Gram kernel writes (A, b), K1 solves them in one
+    pass (``fused=True``: the epilogue knob toggles only the Gram's round
+    trip through device memory, ``cfk_tpu/ops/tiled.py:640-652``) and the
+    carry row is taken by index on the device, without a host sync.  On
+    the materialized-stream schedule each chunk's (nb, wt) first become
+    its stream g = table[nb]·wt (K5), which the stream twins read
+    (``_SCAN_KERNELS``).  Finalized rows [NC, Ec, k] are scattered by
+    ``chunk_entity`` once, after the loop; non-finalized positions all
+    route to the trash row E (dropped)."""
     k = fixed_factors.shape[-1]
     fused = resolve_fused_chunk(fused_epilogue, k)
+    gather = resolve_gather_mode(in_kernel_gather)
+    pick = 0 if use_kernels(solver, fixed_factors.device) else 1
+    solve_gram, gram = (fns[pick] for fns in _SCAN_KERNELS[mode, gather])
+    gather_fn = (gather_rows, gather_rows_plain)[pick]
     reg_mode = "diag" if implicit_reg is None else "matrix"
     a0 = fixed_factors.new_zeros(k, k)
     b0 = fixed_factors.new_zeros(k)
@@ -146,12 +203,15 @@ def _chunk_scan(fixed_factors, blk, local_entities, lam, nc, e_c, chunk,
         cin, lseg, reg = args.pop("cin"), args.pop("lseg"), args.pop("reg")
         if implicit_reg is not None:
             reg = implicit_reg
-        if fused:
-            x, a0, b0 = solve_gram(fixed_factors, **args, reg=reg, lseg=lseg,
-                                   lam=lam, reg_mode=reg_mode,
-                                   carry=(a0, b0, cin))
+        if gather == "xla":
+            rows = gather_fn(fixed_factors, args.pop("nb"), args.pop("wt"))
         else:
-            a, b = gram(fixed_factors, **args, carry=(a0, b0, cin))
+            rows = fixed_factors
+        if fused:
+            x, a0, b0 = solve_gram(rows, **args, reg=reg, lseg=lseg, lam=lam,
+                                   reg_mode=reg_mode, carry=(a0, b0, cin))
+        else:
+            a, b = gram(rows, **args, carry=(a0, b0, cin))
             if implicit_reg is None:
                 x = regularized_solve(a, b, reg, lam, solver, fused=True)
             else:
@@ -172,18 +232,30 @@ def accum_grams(
     *,
     statics: tuple[int, int, int, int, int],  # (NC, C, T, H, Ec)
     solver: str = "auto",
+    in_kernel_gather: bool | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The accum side's summed normal equations (A [E, k, k], b [E, k]):
-    K2 per chunk, folded into one accumulator by ``index_add_``."""
+    K2 per chunk (materialized stream: K5 then ``gram_tiles``), folded into
+    one accumulator by ``index_add_``.  The table indices are absolute, so
+    the stream is K5 over the whole table: the TPU route's per-slice
+    gather windows (``ops/tiled.py:1083-1140``) have no counterpart on
+    either schedule."""
     nc, _cap, _t, _h, e_c = statics
     k = fixed_factors.shape[-1]
-    gram = (gram_gather if use_kernels(solver, fixed_factors.device)
-            else gram_gather_plain)
+    kernels = use_kernels(solver, fixed_factors.device)
+    xla = resolve_gather_mode(in_kernel_gather) == "xla"
     acc_a = fixed_factors.new_zeros(local_entities + 1, k, k)
     acc_b = fixed_factors.new_zeros(local_entities + 1, k)
     ent = blk["chunk_entity"].long().view(nc, e_c)
     for c in range(nc):
-        a, b = gram(fixed_factors, **accum_chunk(blk, statics, c))
+        args = accum_chunk(blk, statics, c)
+        if xla:
+            g = (gather_rows if kernels else gather_rows_plain)(
+                fixed_factors, args.pop("nb"), args.pop("wt"))
+            a, b = (gram_tiles if kernels else gram_tiles_plain)(g, **args)
+        else:
+            a, b = (gram_gather if kernels else gram_gather_plain)(
+                fixed_factors, **args)
         # Ranks owning no tile are zero rows routed to the trash row E by
         # chunk_entity; the trash segment a[e_c] is dropped.
         acc_a.index_add_(0, ent[c], a[:e_c])
@@ -201,13 +273,15 @@ def als_half_step_tiled_accum(
     solver: str = "auto",
     implicit_reg: torch.Tensor | None = None,  # [k,k] YᵀY + λI (iALS)
     fused_epilogue: bool | None = None,
+    in_kernel_gather: bool | None = None,
 ) -> torch.Tensor:
-    """Accumulator-mode half-iteration: K2 per chunk, then one solve of the
-    accumulator (λ·n diag, or the shared ``implicit_reg`` in matrix mode):
-    K1 fused; split, the ridge added in place and the Gauss-Jordan
-    dispatch (``cfk_tpu/ops/tiled.py:1250-1266``)."""
+    """Accumulator-mode half-iteration: K2 per chunk (or K5 + ``gram_tiles``
+    with ``in_kernel_gather=False``), then one solve of the accumulator
+    (λ·n diag, or the shared ``implicit_reg`` in matrix mode): K1 fused;
+    split, the ridge added in place and the Gauss-Jordan dispatch
+    (``cfk_tpu/ops/tiled.py:1250-1266``)."""
     a, b = accum_grams(fixed_factors, blk, local_entities, statics=statics,
-                       solver=solver)
+                       solver=solver, in_kernel_gather=in_kernel_gather)
     if implicit_reg is None:
         return regularized_solve(a, b, blk["count"], lam, solver,
                                  fused=fused_epilogue)
@@ -227,18 +301,17 @@ def als_half_step_tiled(
     solver: str = "auto",
     implicit_reg: torch.Tensor | None = None,  # [k,k] YᵀY + λI (iALS)
     fused_epilogue: bool | None = None,
+    in_kernel_gather: bool | None = None,
 ) -> torch.Tensor:
     """Stream-mode half-iteration (``cfk_tpu/ops/tiled.py:529``): per
-    chunk K6 (fused) or K2 then K1 (split), the carry threaded across
-    chunks; one scatter by ``chunk_entity`` after the loop."""
-    kernels = use_kernels(solver, fixed_factors.device)
+    chunk K6 (fused) or K2 then K1 (split) — on the materialized stream
+    ``gram_solve_tiles`` or ``gram_tiles`` then K1 — the carry threaded
+    across chunks; one scatter by ``chunk_entity`` after the loop."""
     return _chunk_scan(
         fixed_factors, blk, local_entities, lam, statics[0], statics[2],
-        lambda c: stream_chunk(blk, statics, c),
-        gram_solve_gather if kernels else gram_solve_gather_plain,
-        gram_gather if kernels else gram_gather_plain,
+        lambda c: stream_chunk(blk, statics, c), "stream",
         solver=solver, implicit_reg=implicit_reg,
-        fused_epilogue=fused_epilogue)
+        fused_epilogue=fused_epilogue, in_kernel_gather=in_kernel_gather)
 
 
 def als_half_step_tiled_dense(
@@ -252,19 +325,21 @@ def als_half_step_tiled_dense(
     solver: str = "auto",
     implicit_reg: torch.Tensor | None = None,  # [k,k] YᵀY + λI (iALS)
     fused_epilogue: bool | None = None,
+    in_kernel_gather: bool | None = None,
 ) -> torch.Tensor:
     """Dense-stream half-iteration: K3 per chunk (fused), or
-    ``gram_tiles_dense_gather`` then K1 (split), carry threaded across.
-    With ``implicit_reg`` (iALS) each chunk gathers the weighted stream
-    ``aweight_dense`` and solves against the shared ridge (matrix mode) —
-    ``_chunk_reg`` of ``cfk_tpu/ops/tiled.py:296``."""
+    ``gram_tiles_dense_gather`` then K1 (split), carry threaded across; on
+    the materialized stream ``gram_solve_tiles_dense`` or
+    ``gram_tiles_dense`` then K1.  With ``implicit_reg`` (iALS) each chunk
+    gathers the weighted stream ``aweight_dense`` and solves against the
+    shared ridge (matrix mode) — ``_chunk_reg`` of
+    ``cfk_tpu/ops/tiled.py:296``."""
     nc, cap, e_c = statics[:3]
     if implicit_reg is not None and "aweight_dense" not in blk:
         raise ValueError(
             "weighted dense-stream half-step needs aweight_dense (the "
             "per-entry A-weights aligned with the gather stream)"
         )
-    kernels = use_kernels(solver, fixed_factors.device)
 
     def chunk(c):
         args = dense_chunk(blk, statics, c)
@@ -273,11 +348,9 @@ def als_half_step_tiled_dense(
         return args
 
     return _chunk_scan(
-        fixed_factors, blk, local_entities, lam, nc, e_c, chunk,
-        gram_solve_dense if kernels else gram_solve_dense_plain,
-        gram_tiles_dense_gather if kernels else gram_tiles_dense_gather_plain,
+        fixed_factors, blk, local_entities, lam, nc, e_c, chunk, "dstream",
         solver=solver, implicit_reg=implicit_reg,
-        fused_epilogue=fused_epilogue)
+        fused_epilogue=fused_epilogue, in_kernel_gather=in_kernel_gather)
 
 
 def ials_tiled_weights(blk: dict, mode: str, alpha: float) -> dict:
@@ -310,7 +383,7 @@ def ials_tiled_weights(blk: dict, mode: str, alpha: float) -> dict:
 
 def ials_tiled_half_step(fixed_factors, blk, chunks, local_entities, lam,
                          alpha, *, gram=None, solver="auto",
-                         fused_epilogue=None):
+                         fused_epilogue=None, in_kernel_gather=None):
     """Implicit-feedback (Hu et al. 2008) half-iteration on tiled blocks:
     per entity A = YᵀY + Σ_obs (c−1)·f fᵀ + λI, b = Σ_obs c·f, c = 1 + α·r,
     through the reparameterized weights of ``ials_tiled_weights`` and the
@@ -322,4 +395,5 @@ def ials_tiled_half_step(fixed_factors, blk, chunks, local_entities, lam,
                            ials_tiled_weights(blk, chunks[1], alpha), chunks,
                            local_entities, lam, solver=solver,
                            implicit_reg=implicit_ridge(gram, lam),
-                           fused_epilogue=fused_epilogue)
+                           fused_epilogue=fused_epilogue,
+                           in_kernel_gather=in_kernel_gather)

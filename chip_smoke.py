@@ -4,8 +4,8 @@
 
 Phases, each of which must pass:
 
-1. build   — compile the nine CUDA kernels from cfk_tpu_torch/csrc (one nvcc
-             per source, in parallel);
+1. build   — compile the thirteen CUDA kernels from cfk_tpu_torch/csrc (one
+             nvcc per source, in parallel);
 2. main    — train explicit ALS-WR with ``train_als`` at the Netflix Prize
              shape (480,189 users x 17,770 movies x 100,480,507 synthetic
              ratings, seed 0), tiled layout (accum movie half + dense-stream
@@ -39,6 +39,23 @@ Phases, each of which must pass:
              middle dense chunk and the Gauss-Jordan solve on the movie
              half's E = 17,770 accumulated Grams with their ridge against
              their plain versions, with times, bounds and library times;
+4c. gather — the materialized-stream schedule (``in_kernel_gather=False``)
+             on the same dataset: ``train_als`` from the main run's start,
+             2 fused iterations (accum half: K5 + ``gram_tiles`` per chunk,
+             K1; dense half: K5 + ``gram_solve_tiles_dense`` per chunk) and
+             2 split (``gram_tiles`` + the Gauss-Jordan solve;
+             ``gram_tiles_dense`` + K1), each with its launch counts zeroed
+             before and read after (the stream kernels and K5 > 0; K2, K3,
+             K6 and ``gram_tiles_dense_gather`` = 0), s/iter beside the
+             gather-on runs', the train RMSE guard; the first movie and
+             user halves with the gather off against on from the same start,
+             fused and split (bit-equal by design; held to TOL) and each
+             half's device ms; then ``gram_tiles`` on the middle accum chunk
+             and ``gram_solve_tiles_dense`` and ``gram_tiles_dense`` on the
+             middle dense chunk (its real carry) against their plain
+             versions and their gather siblings, with times and bounds, and
+             both stream kernels' time on every chunk beside its largest
+             segment;
 5. serve   — top-K serving at the repo's serving configuration (``bench.py
              --serve``: 162,541 users x 59,047 movies, the ML-25M shape,
              rank 128, K = 100, tile_m 2048, seen lists at the ML-25M mean;
@@ -82,11 +99,19 @@ Phases, each of which must pass:
              times and a profiler pass over one iteration of each run; the
              multi-RHS Gauss-Jordan against its plain version and
              ``torch.linalg.solve`` at the Schur shape (k = 64, m = 65);
+6b. gather_ml25m — (a), (b) and (e) with ``in_kernel_gather=False`` for one
+             iteration each from the same u0 on the implicit phase's
+             datasets (rows 5 and 7; ``gram_solve_tiles`` per width class;
+             rows 5 and 6), launch counts as in 4c, each held to its
+             gather-on run's first iteration (first movie half and scores,
+             TOL; bit-equality reported); ``gram_solve_tiles`` on (b)'s
+             middle width class against its plain version and K6;
 7. small   — ``train_als`` on small padded, tiled (dense stream, and the
              stream mode fused and split) and bucketed datasets (ALS and
              ALS++) and ``train_ials`` on small tiled and bucketed ones (iALS
-             and iALS++), kernels on the card against the plain versions on
-             the CPU;
+             and iALS++), and the gather-off dense stream and stream modes
+             (fused and split) and iALS bucketed, kernels on the card
+             against the plain versions on the CPU;
 8. cli     — ``python -m cfk_tpu_torch train --layout auto --checkpoint-dir``
              on a small Netflix-format file (padded is chosen), then
              ``recommend``, ``predict``, ``evaluate`` on predict's CSV (the
@@ -136,10 +161,17 @@ RANK, LAM, ITERS = 64, 0.05, 3
 # elimination: as K1 (1e-3).  The split explicit run's first movie half
 # solves the fused run's normal equations by Gauss-Jordan where the fused
 # run takes K1's Cholesky: 1e-3 of the largest |factor|, as K1.
+# The stream kernels (rows 4-7) against their plain versions: as their
+# gather siblings (Gram sums 1e-4, solves 1e-3).  The gather-off runs'
+# first halves against the gather-on ones from the same start: the same
+# float32 operations in the same order, so bit-equal by design (reported);
+# held, as every cross-route agreement here, to the split tolerance.
 TOL = {"reg_solve": 1e-3, "gram_gather": 1e-4, "gram_solve_dense": 1e-3,
        "topk_scores": 1e-5, "gather_rows": 0.0, "gram_solve_gather": 1e-3,
        "gram_tiles_dense_gather": 1e-4, "gauss_solve": 1e-3,
-       "gauss_solve_multi": 1e-3, "split_first_half": 1e-3,
+       "gauss_solve_multi": 1e-3, "gram_tiles": 1e-4,
+       "gram_solve_tiles": 1e-3, "gram_tiles_dense": 1e-4,
+       "gram_solve_tiles_dense": 1e-3, "split_first_half": 1e-3,
        "first_half_factors": 1e-3, "scores": 1e-3}
 REPLACES = {
     "reg_solve": "cfk_tpu/ops/pallas/solve_kernel.py:287",
@@ -151,8 +183,13 @@ REPLACES = {
     "gram_tiles_dense_gather": "cfk_tpu/ops/pallas/gram_kernel.py:1653",
     "gauss_solve": "cfk_tpu/ops/pallas/solve_kernel.py:529",
     "gauss_solve_multi": "cfk_tpu/ops/pallas/solve_kernel.py:495",
+    "gram_tiles_dense": "cfk_tpu/ops/pallas/gram_kernel.py:310",
+    "gram_tiles": "cfk_tpu/ops/pallas/gram_kernel.py:427",
+    "gram_solve_tiles": "cfk_tpu/ops/pallas/gram_kernel.py:787",
+    "gram_solve_tiles_dense": "cfk_tpu/ops/pallas/gram_kernel.py:920",
 }
 SPLIT_ITERS = 2
+GATHER_OFF_ITERS = 2  # the gather-off runs, fused and split
 # bench.py's implicit rows (bench.py:448-503): the ML-25M shape at rank 128.
 ML25M = dict(num_users=162_541, num_movies=59_047, nnz=25_000_095)
 IMPLICIT = dict(rank=128, lam=0.1, alpha=40.0, iterations=3,
@@ -338,6 +375,68 @@ def gram_solve_gather_work(table, args, reg_mode) -> tuple[float, float, dict]:
             n_live * (k * k + 3 * k) + solved * (k ** 3 / 3 + 2 * k * k + k),
             dict(entries=nb.numel(), live_entries=n_live,
                  distinct_table_rows=rows, segments=s, solved_segments=solved))
+
+
+def stream_gram_work(g, args, reg_mode=None) -> tuple[float, float, dict]:
+    """(bytes, flops, counts) of ``gram_tiles`` (``reg_mode`` None) or
+    ``gram_solve_tiles`` on one chunk's stream: the [C, k] stream read once
+    (C·k·4 contiguous bytes, its padding rows too: the function cannot
+    tell them apart without reading them), rt and seg once, (A, b) — or x,
+    the ridge and the carry row — once; k² + 3k flops per nonzero row
+    (symmetric Gram + b) and, solving, k³/3 + 2k² + k per segment that owns
+    one (as K2 and K6)."""
+    import torch
+
+    c, k = g.shape
+    s, t = args["num_segments"], args["tile_rows"]
+    nt = args["seg"].numel()
+    live = (g != 0).any(1)
+    n_live = int(live.sum())
+    nbytes = 4 * (c * k + c + nt)
+    flops = n_live * (k * k + 3 * k)
+    counts = dict(entries=c, live_rows=n_live, segments=s)
+    if reg_mode is None:
+        nbytes += 4 * s * (k * k + k)
+    else:
+        solved = int(torch.unique(args["seg"].long()[
+            torch.nonzero(live).flatten() // t]).numel())
+        nbytes += 4 * ((k * k if reg_mode == "matrix" else s) + s * k
+                       + k * k + k)
+        flops += solved * (k ** 3 / 3 + 2 * k * k + k)
+        counts["solved_segments"] = solved
+    return nbytes, flops, counts
+
+
+def stream_dense_work(g, args, reg_mode=None) -> tuple[float, float, dict]:
+    """(bytes, flops, counts) of ``gram_tiles_dense`` (``reg_mode`` None) or
+    ``gram_solve_tiles_dense`` on one dense chunk's stream: the [C, k]
+    stream once (C·k·4 contiguous bytes), rt [NT·T] and meta once, (A, b) —
+    or x, the ridge and the carry row — once; k² + 3k flops per nonzero
+    row inside a tile window and, solving, k³/3 + 2k² + k per segment (as
+    row 9 and K3)."""
+    import torch
+
+    c, k = g.shape
+    t, nt, ng, bg = (args[n] for n in ("tile_rows", "num_tiles",
+                                         "num_groups", "block_rows"))
+    meta = args["meta"].long()
+    lo, hi = meta[ng + nt:ng + 2 * nt], meta[ng + 2 * nt:ng + 3 * nt]
+    absrow = meta[:ng].repeat_interleave(nt // ng) * bg + meta[ng:ng + nt]
+    r = torch.arange(t, device=meta.device)
+    in_win = (r[None, :] >= lo[:, None]) & (r[None, :] < hi[:, None])
+    rows = (absrow[:, None] + r[None, :])[in_win]
+    n_live = int((g[rows] != 0).any(1).sum())
+    s = args["num_segments"]
+    nbytes = 4 * (c * k + nt * t + meta.numel())
+    flops = n_live * (k * k + 3 * k)
+    if reg_mode is None:
+        nbytes += 4 * s * (k * k + k)
+    else:
+        nbytes += 4 * ((k * k if reg_mode == "matrix" else s) + s * k
+                       + k * k + k)
+        flops += s * (k ** 3 / 3 + 2 * k * k + k)
+    return nbytes, flops, dict(chunk_rows=c, window_rows=int(rows.numel()),
+                               live_window_rows=n_live, segments=s)
 
 
 def implicit_objective(u, m, users, movies, rating, lam, alpha,
@@ -942,6 +1041,255 @@ class Smoke:
         log(f"gauss_solve: {row}")
         self.check(rel < TOL["gauss_solve"], f"gauss_solve rel err {rel}")
 
+    def gather(self, ds, model, blk_m, blk_u):
+        """The materialized-stream schedule on the main path's dataset
+        (phase 4c of the module docstring)."""
+        import numpy as np
+        import torch
+
+        from cfk_tpu_torch import ALSConfig, train_als
+        from cfk_tpu_torch.eval.metrics import mse_rmse_from_model
+        from cfk_tpu_torch.models.als import init_user_factors
+        from cfk_tpu_torch.ops.kernels import gram_kernel as gk
+        from cfk_tpu_torch.ops.kernels.solve_kernel import (
+            gauss_solve, reg_solve)
+        from cfk_tpu_torch.ops.tiled import (
+            accum_chunk, dense_chunk, tiled_half_step)
+
+        dev = torch.device("cuda")
+        k = RANK
+        kernels = (gk.gather_rows, gk.gram_gather, gk.gram_solve_dense,
+                   gk.gram_solve_gather, gk.gram_tiles_dense_gather,
+                   gk.gram_tiles, gk.gram_solve_tiles, gk.gram_tiles_dense,
+                   gk.gram_solve_tiles_dense, reg_solve, gauss_solve)
+        gather_kernels = ("gram_gather", "gram_solve_dense",
+                          "gram_solve_gather", "gram_tiles_dense_gather")
+        needed = {"fused": ("gather_rows", "gram_tiles",
+                            "gram_solve_tiles_dense", "reg_solve"),
+                  "split": ("gather_rows", "gram_tiles", "gram_tiles_dense",
+                            "reg_solve", "gauss_solve")}
+        report = dict(on_s_per_iter=dict(
+            fused=self.report["main"]["s_per_iter"],
+            split=self.report.get("split", {}).get("s_per_iter")))
+        # -- the main path with the gather off: train_als, fused and split --
+        for sched, fused in (("fused", None), ("split", False)):
+            iters = GATHER_OFF_ITERS
+            config = ALSConfig(rank=RANK, lam=LAM, num_iterations=iters,
+                               seed=0, layout="tiled", fused_epilogue=fused,
+                               in_kernel_gather=False)
+            for fn in kernels:
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            off = train_als(ds, config, device=dev)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in kernels}
+            for name in needed[sched]:
+                self.check(launches[name] > 0, f"gather off ({sched}) "
+                           f"launched {name} {launches[name]} times")
+            self.check(all(launches[n] == 0 for n in gather_kernels),
+                       f"gather off ({sched}) launched a gather kernel: "
+                       f"{launches}")
+            self.check(bool(torch.isfinite(off.user_factors).all()
+                            and torch.isfinite(off.movie_factors).all()),
+                       f"gather off ({sched}): non-finite factors")
+            _, rmse = mse_rmse_from_model(off, ds)
+            std = float(np.std(ds.coo_dense.rating.astype(np.float64)))
+            self.check(rmse < std, f"gather off ({sched}): train RMSE "
+                       f"{rmse} >= rating std {std}")
+            report[sched] = dict(
+                iterations=iters, train_s=train_s, s_per_iter=train_s / iters,
+                train_rmse=rmse, launches=launches,
+                launches_per_iter={n: v / iters for n, v in launches.items()})
+            for name in ("gram_tiles", "gram_tiles_dense",
+                         "gram_solve_tiles_dense"):
+                row = self.kernels.setdefault(name, {})
+                row["launches"] = row.get("launches", 0) + launches[name]
+            del off
+        # -- the first halves, gather on against off, from the main start --
+        em = ds.movie_blocks.padded_entities
+        eu = ds.user_blocks.padded_entities
+        mc = ("tiled", "accum") + ds.movie_blocks.statics
+        uc = ("tiled", "dstream") + ds.user_blocks.statics
+        u0, _ = init_user_factors(ds, blk_u, ALSConfig(rank=RANK, seed=0),
+                                  dev, None)
+
+        def timed(fn):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            end.synchronize()
+            return out, start.elapsed_time(end)
+
+        halves, half_ms = {}, {}
+        for sched, fused in (("fused", None), ("split", False)):
+            out = {}
+            for side, fixed_of, blk, chunks, ents in (
+                    ("movie", lambda: u0, blk_m, mc, em),
+                    ("user", lambda: out["movie", True], blk_u, uc, eu)):
+                for on in (True, False):
+                    out[side, on], half_ms[f"{side}_{sched}_"
+                                           f"{'on' if on else 'off'}"] = \
+                        timed(lambda: tiled_half_step(
+                            fixed_of(), blk, chunks, ents, LAM,
+                            fused_epilogue=fused,
+                            in_kernel_gather=None if on else False))
+            halves[sched] = {side: dict(
+                rel_err=rel_err(out[side, False], out[side, True])[1],
+                bit_equal=bool(torch.equal(out[side, False],
+                                           out[side, True])))
+                for side in ("movie", "user")}
+            for side, v in halves[sched].items():
+                self.check(v["rel_err"] < TOL["split_first_half"],
+                           f"gather off ({sched}): first {side} half "
+                           f"differs from gather on by {v['rel_err']}")
+            del out
+        report.update(first_halves_off_vs_on=halves, half_ms=half_ms)
+        log(f"gather (Netflix): {report}")
+
+        # -- rows 5, 7, 4 on the main path's chunks, the trained factors --
+        u, m = model.user_factors, model.movie_factors
+        st = ds.movie_blocks.statics
+        args = accum_chunk(blk_m, st, st[0] // 2)
+        nb, wt = args.pop("nb"), args.pop("wt")
+        g = gk.gather_rows(u, nb, wt)
+        got = gk.gram_tiles(g, **args)
+        sibling = gk.gram_gather(u, nb, wt, **args)
+        torch.cuda.synchronize()
+        want = gk.gram_tiles_plain(g, **args)
+        errs = [rel_err(x, w) for x, w in zip(got, want)]
+        nbytes, flops, counts = stream_gram_work(g, args)
+        b_ms, by = bound(nbytes, flops)
+        row = dict(max_abs_err=max(e[0] for e in errs),
+                   rel_err=max(e[1] for e in errs),
+                   equal_to_gram_gather=all(torch.equal(x, y) for x, y in
+                                            zip(got, sibling)),
+                   ms=time_ms(lambda: gk.gram_tiles(g, **args), 10),
+                   plain_ms=time_ms(lambda: gk.gram_tiles_plain(g, **args),
+                                    3),
+                   gather_rows_ms=time_ms(lambda: gk.gather_rows(u, nb, wt),
+                                          10),
+                   library_ms=None, bound_ms=b_ms, bound_by=by, **counts)
+        self.kernels["gram_tiles"].update(row)
+        log(f"gram_tiles (row 5): {row}")
+        self.check(row["rel_err"] < TOL["gram_tiles"],
+                   f"gram_tiles rel err {row['rel_err']}")
+        del g, got, sibling, want
+        # Rows 7 and 4 on the middle dense chunk, with the carry the real
+        # previous chunks hand it (as K3 and row 9 are checked).
+        st = ds.user_blocks.statics
+        mid = st[0] // 2
+        a0 = torch.zeros((k, k), device=dev)
+        b0 = torch.zeros((k,), device=dev)
+        for ci in range(mid + 1):
+            args = dense_chunk(blk_u, st, ci)
+            cin = args.pop("cin")
+            nb, wt = args.pop("nb"), args.pop("wt")
+            g = gk.gather_rows(m, nb, wt)
+            carry = (a0, b0, cin)
+            if ci < mid:
+                _, a0, b0 = gk.gram_solve_tiles_dense(g, **args, lam=LAM,
+                                                      carry=carry)
+        gram_args = {n: v for n, v in args.items() if n not in ("reg",
+                                                                "lseg")}
+        for name, fn, plain, sib, kw, work in (
+                ("gram_solve_tiles_dense", gk.gram_solve_tiles_dense,
+                 gk.gram_solve_tiles_dense_plain, gk.gram_solve_dense,
+                 dict(args, lam=LAM), "diag"),
+                ("gram_tiles_dense", gk.gram_tiles_dense,
+                 gk.gram_tiles_dense_plain, gk.gram_tiles_dense_gather,
+                 gram_args, None)):
+            got = fn(g, **kw, carry=carry)
+            sibling = sib(m, nb, wt, **kw, carry=carry)
+            torch.cuda.synchronize()
+            want = plain(g, **kw, carry=carry)
+            errs = [rel_err(x, w) for x, w in zip(got, want)]
+            nbytes, flops, counts = stream_dense_work(g, kw, work)
+            b_ms, by = bound(nbytes, flops)
+            row = dict(
+                max_abs_err=max(e[0] for e in errs),
+                rel_err=max(e[1] for e in errs),
+                equal_to_gather_sibling=all(torch.equal(x, y) for x, y in
+                                            zip(got, sibling)),
+                ms=time_ms(lambda: fn(g, **kw, carry=carry), 10),
+                plain_ms=time_ms(lambda: plain(g, **kw, carry=carry), 3),
+                library_ms=None, bound_ms=b_ms, bound_by=by, chunk=mid,
+                **counts)
+            self.kernels[name].update(row)
+            log(f"{name}: {row}")
+            self.check(row["rel_err"] < TOL[name],
+                       f"{name} rel err {row['rel_err']}")
+            del got, sibling, want
+        del g
+        # Where the time goes: rows 5 and 7 per chunk of the trained
+        # factors beside the rows of each chunk's largest segment (one CTA
+        # walks each segment), as the breakdown phase reads K2 and K3.
+        report["chunks"] = self.stream_chunk_times(ds, u, m, blk_m, blk_u)
+        log(f"gather (Netflix) per-chunk stream kernel times: "
+            f"{report['chunks']}")
+        self.report["gather"] = report
+
+    def stream_chunk_times(self, ds, u, m, blk_m, blk_u):
+        """Device ms of row 5 on every accum chunk and of row 7 on every
+        dense chunk (each chunk's stream written first, outside the
+        timing), with ns per row of the chunk's largest segment."""
+        import numpy as np
+        import torch
+
+        from cfk_tpu_torch.ops.kernels import gram_kernel as gk
+        from cfk_tpu_torch.ops.tiled import accum_chunk, dense_chunk
+
+        def ms_of(call):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            call()
+            end.record()
+            return start, end
+
+        st_m = ds.movie_blocks.statics
+        events, big_m, work_m = [], [], []
+        for c in range(st_m[0]):
+            a = accum_chunk(blk_m, st_m, c)
+            g = gk.gather_rows(u, a.pop("nb"), a.pop("wt"))
+            events.append(ms_of(lambda: gk.gram_tiles(g, **a)))
+            big_m.append(int(torch.bincount(a["seg"], minlength=st_m[4] + 1)
+                             [:st_m[4]].max()) * st_m[2])
+            work_m.append(stream_gram_work(g, a)[:2])
+        torch.cuda.synchronize()
+        ms_m = np.array([s.elapsed_time(e) for s, e in events])
+        st_u = ds.user_blocks.statics
+        _, _, _, t, nt, ng, _ = st_u
+        events, big_u, work_u = [], [], []
+        for c in range(st_u[0]):
+            a = dense_chunk(blk_u, st_u, c)
+            a.pop("cin")
+            g = gk.gather_rows(m, a.pop("nb"), a.pop("wt"))
+            events.append(ms_of(lambda: gk.gram_solve_tiles_dense(
+                g, **a, lam=LAM)))
+            meta = a["meta"].long()
+            win = meta[ng + 2 * nt:ng + 3 * nt] - meta[ng + nt:ng + 2 * nt]
+            big_u.append(int(torch.bincount(meta[ng + 3 * nt:],
+                                            weights=win.double()).max()))
+            work_u.append(stream_dense_work(g, a, "diag")[:2])
+        torch.cuda.synchronize()
+        ms_u = np.array([s.elapsed_time(e) for s, e in events])
+
+        def summary(ms, big, work):
+            big = np.array(big)
+            return dict(total_ms=float(ms.sum()), median_ms=float(
+                np.median(ms)), max_ms=float(ms.max()),
+                bound_ms=float(sum(bound(b, f)[0] for b, f in work)),
+                ns_per_row_of_largest_segment=float(
+                    np.median(ms / np.maximum(big, 1)) * 1e6),
+                corr_ms_vs_largest_segment=float(np.corrcoef(ms, big)[0, 1]))
+
+        return dict(gram_tiles=summary(ms_m, big_m, work_m),
+                    gram_solve_tiles_dense=summary(ms_u, big_u, work_u))
+
     def serve(self):
         import numpy as np
         import torch
@@ -1353,6 +1701,125 @@ class Smoke:
         log(f"implicit tiled halves {report['half_ms']} ms")
         self.implicit_kernel_checks(ds_t, ds_b, blocks["ials_tiled"], runs,
                                     report)
+        return ds_t, ds_b, ds_s, u0, m0, runs
+
+    def gather_implicit(self, ds_t, ds_b, ds_s, u0, m0, runs):
+        """The materialized-stream schedule at the ML-25M shape (phase 6b of
+        the module docstring): (a), (b) and (e) for one iteration each from
+        the implicit phase's u0 on its datasets, held to their gather-on
+        runs' first iteration; row 6 on (b)'s middle width class."""
+        import numpy as np
+        import torch
+
+        from cfk_tpu_torch.models.ials import IALSConfig, train_ials
+        from cfk_tpu_torch.ops.bucketed import ials_reparam
+        from cfk_tpu_torch.ops.kernels import gram_kernel as gk
+        from cfk_tpu_torch.ops.kernels.solve_kernel import reg_solve
+        from cfk_tpu_torch.ops.solve import global_gram_blocked, implicit_reg
+
+        c = IMPLICIT
+        dev = torch.device("cuda")
+        k = c["rank"]
+        kernels = (gk.gather_rows, gk.gram_gather, gk.gram_solve_dense,
+                   gk.gram_solve_gather, gk.gram_tiles_dense_gather,
+                   gk.gram_tiles, gk.gram_solve_tiles, gk.gram_tiles_dense,
+                   gk.gram_solve_tiles_dense, reg_solve)
+        gather_kernels = ("gram_gather", "gram_solve_dense",
+                          "gram_solve_gather", "gram_tiles_dense_gather")
+        d = ds_t.coo_dense
+        obs = [torch.as_tensor(x, device=dev) for x in (
+            d.user_raw.astype(np.int32), d.movie_raw.astype(np.int32))]
+        report, row6 = {}, 0
+        on_report = self.report["implicit"]
+        for name, ds, layout, needed in (
+                ("ials_tiled", ds_t, "tiled",
+                 ("gather_rows", "gram_tiles", "gram_solve_tiles_dense",
+                  "reg_solve")),
+                ("ials_bucketed", ds_b, "bucketed",
+                 ("gather_rows", "gram_solve_tiles")),
+                ("ials_stream", ds_s, "tiled",
+                 ("gather_rows", "gram_tiles", "gram_solve_tiles",
+                  "reg_solve"))):
+            cfg = IALSConfig(rank=k, lam=c["lam"], alpha=c["alpha"],
+                             num_iterations=1, layout=layout,
+                             in_kernel_gather=False)
+            for fn in kernels:
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model = train_ials(ds, cfg, device=dev, warm_start=(u0, m0))
+            torch.cuda.synchronize()
+            call_s = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in kernels}
+            for kname in needed:
+                self.check(launches[kname] > 0,
+                           f"gather off {name}: {kname} launched "
+                           f"{launches[kname]} times")
+            self.check(all(launches[n] == 0 for n in gather_kernels),
+                       f"gather off {name} launched a gather kernel: "
+                       f"{launches}")
+            row6 += launches["gram_solve_tiles"]
+            off = (model.user_factors, model.movie_factors)
+            on = runs[name][0]
+            first = rel_err(off[1], on[1])[1]
+            scores = score_rel_err(off, on, obs[0], obs[1])
+            report[name] = dict(
+                call_s=call_s, on_call_s=on_report[name]["call_s"],
+                launches=launches, first_movie_half_vs_on=first,
+                user_factors_vs_on=rel_err(off[0], on[0])[1],
+                scores_vs_on=scores,
+                bit_equal=bool(torch.equal(off[0], on[0])
+                               and torch.equal(off[1], on[1])))
+            log(f"gather off {name}: {report[name]}")
+            self.check(first < TOL["first_half_factors"],
+                       f"gather off {name}: first movie half differs from "
+                       f"gather on by {first}")
+            self.check(scores < TOL["scores"],
+                       f"gather off {name}: scores differ from gather on "
+                       f"by {scores}")
+            del model, off
+        del obs
+        self.kernels.setdefault("gram_solve_tiles", {})["launches"] = row6
+        # Row 6 on the middle width class of (b)'s user half, its final
+        # gather-on factors (K6's operands in the implicit phase).
+        m_b = runs["ials_bucketed"][-1][1]
+        reg_b = implicit_reg(global_gram_blocked(m_b), c["lam"])
+        buckets = ds_b.user_blocks.buckets
+        bk = buckets[len(buckets) // 2]
+        nb = torch.as_tensor(bk.neighbor_idx, device=dev).reshape(-1)
+        wt, rt_b = ials_reparam(torch.as_tensor(bk.rating, device=dev),
+                                torch.as_tensor(bk.mask, device=dev),
+                                c["alpha"])
+        rows, width = bk.neighbor_idx.shape
+        wt = wt.reshape(-1).contiguous()
+        args = dict(rt=rt_b.reshape(-1).contiguous(),
+                    seg=torch.arange(rows, dtype=torch.int32, device=dev),
+                    reg=reg_b, lseg=rows - 1, num_segments=rows,
+                    tile_rows=width, reg_mode="matrix")
+        g = gk.gather_rows(m_b, nb, wt)
+        got = gk.gram_solve_tiles(g, **args)
+        sibling = gk.gram_solve_gather(m_b, nb, wt, **args)
+        torch.cuda.synchronize()
+        want = gk.gram_solve_tiles_plain(g, **args)
+        errs = [rel_err(x, w) for x, w in zip(got, want)]
+        nbytes, flops, counts = stream_gram_work(g, args, "matrix")
+        b_ms, by = bound(nbytes, flops)
+        row = dict(max_abs_err=max(e[0] for e in errs),
+                   rel_err=max(e[1] for e in errs),
+                   equal_to_gram_solve_gather=all(
+                       torch.equal(x, y) for x, y in zip(got, sibling)),
+                   ms=time_ms(lambda: gk.gram_solve_tiles(g, **args), 10),
+                   plain_ms=time_ms(lambda: gk.gram_solve_tiles_plain(
+                       g, **args), 3),
+                   gram_solve_gather_ms=time_ms(
+                       lambda: gk.gram_solve_gather(m_b, nb, wt, **args), 10),
+                   library_ms=None, bound_ms=b_ms, bound_by=by, width=width,
+                   rows=rows, **counts)
+        self.kernels["gram_solve_tiles"].update(row)
+        log(f"gram_solve_tiles (row 6): {row}")
+        self.check(row["rel_err"] < TOL["gram_solve_tiles"],
+                   f"gram_solve_tiles rel err {row['rel_err']}")
+        self.report["gather_ml25m"] = report
 
     def implicit_kernel_checks(self, ds_t, ds_b, blocks, runs, report):
         """K5, K6 and K1-K3 in their implicit modes against their plain
@@ -1577,22 +2044,33 @@ class Smoke:
         stream = dict(chunk_elems=2048, tile_rows=16, accum_max_entities=1000)
         tiled = dict(stream, dense_stream=True)
         bucketed = dict(chunk_elems=4096)
-        for name, layout, kw, model, algorithm, fused in (
-                ("padded", "padded", {}, "als", "als", None),
-                ("tiled", "tiled", tiled, "als", "als", None),
-                ("stream", "tiled", stream, "als", "als", None),
-                ("stream_split", "tiled", stream, "als", "als", False),
-                ("bucketed", "bucketed", bucketed, "als", "als", None),
+        for name, layout, kw, model, algorithm, fused, gather in (
+                ("padded", "padded", {}, "als", "als", None, None),
+                ("tiled", "tiled", tiled, "als", "als", None, None),
+                ("stream", "tiled", stream, "als", "als", None, None),
+                ("stream_split", "tiled", stream, "als", "als", False, None),
+                ("bucketed", "bucketed", bucketed, "als", "als", None, None),
                 ("alspp_bucketed", "bucketed", bucketed, "als", "als++",
+                 None, None),
+                ("ials_tiled", "tiled", tiled, "ials", "als", None, None),
+                ("ials_bucketed", "bucketed", bucketed, "ials", "als", None,
                  None),
-                ("ials_tiled", "tiled", tiled, "ials", "als", None),
-                ("ials_bucketed", "bucketed", bucketed, "ials", "als", None),
                 ("ialspp_bucketed", "bucketed", bucketed, "ials", "ials++",
-                 None)):
+                 None, None),
+                ("tiled_gather_off", "tiled", tiled, "als", "als", None,
+                 False),
+                ("tiled_split_gather_off", "tiled", tiled, "als", "als",
+                 False, False),
+                ("stream_gather_off", "tiled", stream, "als", "als", None,
+                 False),
+                ("stream_split_gather_off", "tiled", stream, "als", "als",
+                 False, False),
+                ("ials_bucketed_gather_off", "bucketed", bucketed, "ials",
+                 "als", None, False)):
             ds = Dataset.from_coo(coo, layout=layout, **kw)
             common = dict(rank=16, num_iterations=3, layout=layout,
                           algorithm=algorithm, block_size=8,
-                          fused_epilogue=fused)
+                          fused_epilogue=fused, in_kernel_gather=gather)
             cfg, trainer = ((ALSConfig(**common), train_als) if model == "als"
                             else (IALSConfig(alpha=2.0, **common),
                                   train_ials))
@@ -1737,12 +2215,17 @@ def main() -> int:
         smoke.phase("kernels", smoke.kernel_checks, *main_out)
         smoke.phase("breakdown", smoke.breakdown, *main_out)
         smoke.phase("split", smoke.split, *main_out)
+        smoke.phase("gather", smoke.gather, *main_out)
         del main_out
         torch.cuda.empty_cache()
     if built:
         smoke.phase("serve", smoke.serve)
         torch.cuda.empty_cache()
-        smoke.phase("implicit", smoke.implicit)
+        implicit_out = smoke.phase("implicit", smoke.implicit)
+        if implicit_out is not None:
+            smoke.phase("gather_ml25m", smoke.gather_implicit,
+                        *implicit_out)
+        del implicit_out
         torch.cuda.empty_cache()
     smoke.phase("small", smoke.small_parity)
     smoke.phase("cli", smoke.cli)

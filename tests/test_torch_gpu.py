@@ -33,8 +33,16 @@ from cfk_tpu_torch.ops.kernels.gram_kernel import (
     gram_solve_dense_plain,
     gram_solve_gather,
     gram_solve_gather_plain,
+    gram_solve_tiles,
+    gram_solve_tiles_dense,
+    gram_solve_tiles_dense_plain,
+    gram_solve_tiles_plain,
+    gram_tiles,
+    gram_tiles_dense,
     gram_tiles_dense_gather,
     gram_tiles_dense_gather_plain,
+    gram_tiles_dense_plain,
+    gram_tiles_plain,
 )
 from cfk_tpu_torch.ops.kernels.solve_kernel import (
     add_ridge_plain,
@@ -452,6 +460,181 @@ def test_launch_counters_count_kernel_calls_only(cuda):
     gauss_solve_multi(a.cpu(), b.cpu())
     assert (gauss_solve.launches, gauss_solve_multi.launches) == (
         counts[0] + 1, counts[1] + 1)
+
+
+# The materialized-stream kernels (gram_tiles, gram_solve_tiles,
+# gram_tiles_dense, gram_solve_tiles_dense) against their plain versions,
+# and against their gather siblings (K2, K6, gram_tiles_dense_gather, K3)
+# fed the stream K5 writes from the siblings' operands: the same walk, sums,
+# flush points and epilogue, so the results must be bit-equal.
+
+
+def _stream_chunk(k, device, seed):
+    """One chunk of 256 tiles of 16 rows over 6 segments (one owns no
+    tile; the others average ~800 rows, some past the 1,024-row flush),
+    with the zero row, zero weights and eight 96-row runs of padding — so
+    whole passes of 32 rows are padding inside segments."""
+    rng = np.random.default_rng(seed)
+    f, t, nt, s = 700, 16, 256, 6
+    c = nt * t
+    nb = rng.integers(0, f, c).astype(np.int32)
+    nb[rng.random(c) < 0.2] = f
+    for start in rng.choice(c - 96, 8, replace=False):
+        nb[start:start + 96] = f
+    wt = rng.random(c, dtype=np.float32)
+    wt[rng.random(c) < 0.1] = 0.0
+    seg, empty = _segments(rng, nt, s, 1)
+    dev = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
+    table = dev(rng.standard_normal((f, k), dtype=np.float32))
+    z = rng.standard_normal((2 * k, k)).astype(np.float32)
+    carry = (dev(z.T @ z), dev(rng.standard_normal(k).astype(np.float32)),
+             torch.ones((1,), device=device))
+    args = dict(rt=dev(rng.standard_normal(c, dtype=np.float32)),
+                seg=dev(seg), num_segments=s, tile_rows=t)
+    return table, dev(nb), dev(wt), args, carry, empty
+
+
+def _ridges(k, s, device, seed):
+    rng = np.random.default_rng(seed)
+    y = rng.standard_normal((300, k)).astype(np.float32)
+    return {"diag": torch.as_tensor(rng.integers(0, 40, s).astype(np.int32),
+                                    device=device),
+            "matrix": torch.as_tensor(y.T @ y + 0.1 * np.eye(
+                k, dtype=np.float32), device=device)}
+
+
+@pytest.mark.parametrize("k", [8, 64, 128])
+def test_stream_tile_kernels_match_plain(cuda, k):
+    """gram_tiles and gram_solve_tiles on a weighted chunk with the carry,
+    both ridge modes; segments owning no tile are zeros (x = 0)."""
+    table, nb, wt, args, carry, empty = _stream_chunk(k, cuda, k)
+    g = gather_rows(table, nb, wt)
+    a, b = gram_tiles(g, **args, carry=carry)
+    torch.cuda.synchronize()
+    wa, wb = gram_tiles_plain(g, **args, carry=carry)
+    assert _rel_err(a, wa) < 1e-5 and _rel_err(b, wb) < 1e-5
+    keep = torch.as_tensor(empty[empty != 0], device=cuda, dtype=torch.long)
+    assert not a[keep].any() and not b[keep].any()
+    lseg = int(args["seg"][-1])
+    for reg_mode, reg in _ridges(k, args["num_segments"], cuda, k).items():
+        x, ca, cb = gram_solve_tiles(g, **args, reg=reg, lseg=lseg, lam=0.05,
+                                     reg_mode=reg_mode, carry=carry)
+        torch.cuda.synchronize()
+        wx, wca, wcb = gram_solve_tiles_plain(g, **args, reg=reg, lseg=lseg,
+                                              lam=0.05, reg_mode=reg_mode,
+                                              carry=carry)
+        assert _backward_err(x, wa, wb, reg, 0.05, reg_mode) < 1e-5
+        assert _rel_err(x, wx) < 1e-2
+        assert _rel_err(ca, wca) < 1e-5 and _rel_err(cb, wcb) < 1e-5
+        assert torch.all(x[keep] == 0)
+
+
+@pytest.mark.parametrize("k,tile_rows,weighted", [
+    (8, 16, False), (64, 128, True), (128, 16, True)])
+def test_stream_dense_kernels_match_plain(cuda, k, tile_rows, weighted):
+    """gram_tiles_dense and gram_solve_tiles_dense on every dense chunk of
+    a real side, the carry threaded across the chunks, both ridge modes."""
+    blocks, blk, table = _tiled_side(k, tile_rows, 4096, cuda, accum=False)
+    assert blocks.mode == "dstream" and blocks.num_chunks > 2
+    a0 = torch.zeros((k, k), device=cuda)
+    b0 = torch.zeros((k,), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    cap = blocks.statics[1]
+    wt_all = torch.rand(blocks.num_chunks * cap, generator=gen, device=cuda)
+    ridge = torch.eye(k, device=cuda) * 2.0
+    for c in range(blocks.num_chunks):
+        args = dense_chunk(blk, blocks.statics, c)
+        cin, reg, lseg = args.pop("cin"), args.pop("reg"), args.pop("lseg")
+        nb, wt = args.pop("nb"), args.pop("wt")
+        if weighted:
+            wt = wt_all[c * cap:(c + 1) * cap]
+        g = gather_rows(table, nb, wt)
+        carry = (a0, b0, cin)
+        a, b = gram_tiles_dense(g, **args, carry=carry)
+        torch.cuda.synchronize()
+        wa, wb = gram_tiles_dense_plain(g, **args, carry=carry)
+        assert _rel_err(a, wa) < 1e-5 and _rel_err(b, wb) < 1e-5
+        for reg_mode, r in (("diag", reg), ("matrix", ridge)):
+            x, ca, cb = gram_solve_tiles_dense(g, **args, reg=r, lseg=lseg,
+                                               lam=0.05, reg_mode=reg_mode,
+                                               carry=carry)
+            torch.cuda.synchronize()
+            wx, wca, wcb = gram_solve_tiles_dense_plain(
+                g, **args, reg=r, lseg=lseg, lam=0.05, reg_mode=reg_mode,
+                carry=carry)
+            assert _backward_err(x, wa, wb, r, 0.05, reg_mode) < 1e-5
+            assert _rel_err(x, wx) < 1e-2
+            assert _rel_err(ca, wca) < 1e-5 and _rel_err(cb, wcb) < 1e-5
+        a0, b0 = wca, wcb
+
+
+@pytest.mark.parametrize("k", [8, 64, 128])
+def test_stream_kernels_equal_their_gather_siblings(cuda, k):
+    """Each stream kernel on gather_rows(table, nb, wt) returns its gather
+    sibling's bits on (table, nb, wt): padding passes inside segments, the
+    1,024-row flush and the carry fold included."""
+    table, nb, wt, args, carry, _ = _stream_chunk(k, cuda, 100 + k)
+    g = gather_rows(table, nb, wt)
+    got = gram_tiles(g, **args, carry=carry)
+    want = gram_gather(table, nb, wt, **args, carry=carry)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    lseg = int(args["seg"][-1])
+    for reg_mode, reg in _ridges(k, args["num_segments"], cuda, k).items():
+        kw = dict(reg=reg, lseg=lseg, lam=0.05, reg_mode=reg_mode,
+                  carry=carry)
+        got = gram_solve_tiles(g, **args, **kw)
+        want = gram_solve_gather(table, nb, wt, **args, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    blocks, blk, table = _tiled_side(k, 16, 4096, cuda, accum=False)
+    a0 = torch.zeros((k, k), device=cuda)
+    b0 = torch.zeros((k,), device=cuda)
+    cap = blocks.statics[1]
+    wt_all = torch.rand(blocks.num_chunks * cap, device=cuda)
+    for c in range(blocks.num_chunks):
+        args = dense_chunk(blk, blocks.statics, c)
+        cin, reg, lseg = args.pop("cin"), args.pop("reg"), args.pop("lseg")
+        nb = args.pop("nb")
+        args.pop("wt")
+        for wt in (None, wt_all[c * cap:(c + 1) * cap]):
+            g = gather_rows(table, nb, wt)
+            carry = (a0, b0, cin)
+            got = gram_tiles_dense(g, **args, carry=carry)
+            want = gram_tiles_dense_gather(table, nb, wt, **args, carry=carry)
+            torch.cuda.synchronize()
+            assert all(torch.equal(x, y) for x, y in zip(got, want))
+            kw = dict(reg=reg, lseg=lseg, lam=0.05, carry=carry)
+            got = gram_solve_tiles_dense(g, **args, **kw)
+            want = gram_solve_dense(table, nb, wt, **args, **kw)
+            torch.cuda.synchronize()
+            assert all(torch.equal(x, y) for x, y in zip(got, want))
+        a0, b0 = got[1], got[2]
+
+
+def test_stream_kernels_refuse_what_they_do_not_take(cuda):
+    table, nb, wt, args, carry, _ = _stream_chunk(8, cuda, 1)
+    g = gather_rows(table, nb, wt)
+    wide = torch.zeros((g.shape[0], 129), device=cuda)
+    with pytest.raises(ValueError, match="gram_tiles supports rank 1..128"):
+        gram_tiles(wide, **args)
+    with pytest.raises(TypeError, match="g must be torch.float32"):
+        gram_tiles(g.to(torch.bfloat16), **args)
+    reg = torch.ones(args["num_segments"], device=cuda)
+    with pytest.raises(ValueError, match="rt shape"):
+        gram_solve_tiles(g, **dict(args, rt=args["rt"][:-1]), reg=reg,
+                         lseg=0)
+    blocks, blk, table = _tiled_side(8, 16, 4096, cuda, accum=False)
+    d = dense_chunk(blk, blocks.statics, 0)
+    for key in ("cin", "lseg", "reg", "wt"):
+        d.pop(key)
+    g = gather_rows(table, d.pop("nb"))
+    with pytest.raises(TypeError, match="meta must be torch.int32"):
+        gram_tiles_dense(g, **dict(d, meta=d["meta"].long()))
+    with pytest.raises(ValueError, match="gram_solve_tiles_dense supports"):
+        gram_solve_tiles_dense(torch.zeros((g.shape[0], 200), device=cuda),
+                               **d, reg=torch.ones(d["num_segments"],
+                                                   device=cuda), lseg=0)
 
 
 # K4 topk_scores: the kernel against its plain version on the card, over
