@@ -26,7 +26,8 @@ BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("reg_solve", "gram_gather", "gram_solve_dense", "topk_scores",
            "gather_rows", "gram_solve_gather", "gram_tiles_dense_gather",
            "gauss_solve", "gauss_solve_multi", "gram_tiles",
-           "gram_solve_tiles", "gram_tiles_dense", "gram_solve_tiles_dense")
+           "gram_solve_tiles", "gram_tiles_dense", "gram_solve_tiles_dense",
+           "binv_solve_reg", "binv_inv")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

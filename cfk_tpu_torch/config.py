@@ -44,14 +44,19 @@ class ALSConfig:
     algorithm: str = "als"
     block_size: int = 32
     sweeps: int = 1
-    # Fused Gram+solve epilogue of the tiled chunk scans.  None = the
-    # process default (on: K3 per dense-stream chunk, K6 per stream chunk,
-    # K1 on the accum side's accumulator).  False pins the split schedule:
-    # each chunk's (A, b) goes to device memory (dense stream: the split
-    # Gram kernel; stream: K2) and K1 solves it; the accum side's final
-    # solve becomes the ridge add + Gauss-Jordan dispatch
-    # (``ops.solve.dispatch_spd_solve``).  The knob does not reach the
-    # padded and bucketed half-steps (``cfk_tpu/config.py:221-237``).
+    # Fused Gram+solve epilogue.  None = the process default (on: K3 per
+    # dense-stream chunk, K6 per stream chunk and per bucketed width class,
+    # K1 on the accum side's accumulator and in the subspace sweeps).
+    # False pins the split schedule: each tiled chunk's (A, b) goes to
+    # device memory (dense stream: the split Gram kernel; stream: K2) and
+    # K1 solves it; the accum side's final solve becomes the ridge add +
+    # Gauss-Jordan dispatch (``ops.solve.dispatch_spd_solve``); each
+    # bucketed width class's (A, b) goes to memory through K2 (or K5 and
+    # gram_tiles) and K1 solves it; the ALS++/iALS++ sweeps' b×b solves
+    # become the ridge add + dispatch.  The padded ALS/iALS half-steps
+    # always solve with K1, as the JAX package's do
+    # (``cfk_tpu/models/als.py:251-276``, ``cfk_tpu/ops/bucketed.py:
+    # 101-131``).
     fused_epilogue: bool | None = None
     # Neighbor gather of the tiled and bucketed half-steps.  None/True =
     # inside the Gram kernels (each reads the fixed table by index: K2, K3,

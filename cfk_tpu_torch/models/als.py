@@ -237,12 +237,15 @@ def _half(fixed, blk, *, lam, solve_chunk, solver, chunks=None,
     (tuple = width buckets, tiled statics, else one padded rectangle).
     ``algorithm="als++"`` runs warm-started subspace sweeps from
     ``x_prev`` (padded/bucketed layouts); ``fused_epilogue`` reaches the
-    tiled half-steps only, ``in_kernel_gather`` the tiled and bucketed
-    ones (the sweeps materialize their rectangle with K5 on either
-    setting, ``ops.subspace``; the padded rectangle is gathered by
-    PyTorch, as the JAX package gathers it by XLA)."""
+    tiled and bucketed half-steps and the sweeps' b×b solves (the padded
+    ALS half-step always solves with K1, as the JAX package's does),
+    ``in_kernel_gather`` the tiled and bucketed ones (the sweeps
+    materialize their rectangle with K5 on either setting,
+    ``ops.subspace``; the padded rectangle is gathered by PyTorch, as the
+    JAX package gathers it by XLA)."""
     if algorithm == "als++":
-        pp_kw = dict(block_size=block_size, sweeps=sweeps, solver=solver)
+        pp_kw = dict(block_size=block_size, sweeps=sweeps, solver=solver,
+                     fused_epilogue=fused_epilogue)
         if isinstance(blk, tuple):
             return als_pp_half_step_bucketed(fixed, x_prev, blk, chunks,
                                              entities, lam, **pp_kw)
@@ -252,7 +255,8 @@ def _half(fixed, blk, *, lam, solve_chunk, solver, chunks=None,
     if isinstance(blk, tuple):
         return als_half_step_bucketed(fixed, blk, entities, lam,
                                       solver=solver,
-                                      in_kernel_gather=in_kernel_gather)
+                                      in_kernel_gather=in_kernel_gather,
+                                      fused_epilogue=fused_epilogue)
     if chunks is not None:
         return tiled_half_step(fixed, blk, chunks, entities, lam,
                                solver=solver, fused_epilogue=fused_epilogue,

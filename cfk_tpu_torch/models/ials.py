@@ -65,11 +65,12 @@ def _ials_half(fixed, blk, *, lam, alpha, solver, chunks=None, entities=None,
     """Dispatch on the block layout (tuple = width buckets, tiled statics,
     else one padded rectangle); ``algorithm="ials++"`` runs warm-started
     subspace sweeps from ``x_prev`` (padded/bucketed layouts);
-    ``fused_epilogue`` reaches the tiled half-steps only,
-    ``in_kernel_gather`` the tiled and bucketed ones (as in
+    ``fused_epilogue`` reaches the tiled and bucketed half-steps and the
+    sweeps, ``in_kernel_gather`` the tiled and bucketed ones (as in
     ``models.als._half``)."""
     if algorithm == "ials++":
-        pp_kw = dict(block_size=block_size, sweeps=sweeps, solver=solver)
+        pp_kw = dict(block_size=block_size, sweeps=sweeps, solver=solver,
+                     fused_epilogue=fused_epilogue)
         if isinstance(blk, tuple):
             return ials_pp_half_step_bucketed(fixed, x_prev, blk, chunks,
                                               entities, lam, alpha, **pp_kw)
@@ -79,7 +80,8 @@ def _ials_half(fixed, blk, *, lam, alpha, solver, chunks=None, entities=None,
     if isinstance(blk, tuple):
         return ials_half_step_bucketed(fixed, blk, entities, lam, alpha,
                                        solver=solver,
-                                       in_kernel_gather=in_kernel_gather)
+                                       in_kernel_gather=in_kernel_gather,
+                                       fused_epilogue=fused_epilogue)
     if chunks is not None:
         return ials_tiled_half_step(fixed, blk, chunks, entities, lam, alpha,
                                     solver=solver,

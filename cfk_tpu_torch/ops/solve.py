@@ -13,7 +13,8 @@ solve_kernel.reg_solve``).  Implicit (Hu et al. 2008), per entity
 A = YᵀY + Σ_obs (c−1)·f fᵀ + λI, b = Σ_obs c·f with c = 1 + α·r: the global
 Gram YᵀY is one ``torch.matmul`` per half-step and the shared YᵀY + λI ridge
 is K1's matrix mode.  The bucketed half-steps walk the width classes and run
-each through kernel K6 (``ops.bucketed``).
+each through kernel K6 (``ops.bucketed``); with ``fused_epilogue=False``
+through K2 and K1 (the JAX package's split bucket piece).
 
 The split epilogue (``fused=False``) adds the ridge on its own and hands
 the system to ``dispatch_spd_solve``: the Gauss-Jordan kernel for k ≤ 64,
@@ -274,11 +275,14 @@ def als_half_step_bucketed(
     *,
     solver: str = "auto",
     in_kernel_gather: bool | None = None,
+    fused_epilogue: bool | None = None,
 ) -> torch.Tensor:
     """One ALS-WR half-iteration over width-bucketed InBlocks: every width
     class through K6 with one tile per entity (``ops.bucketed``), or, with
-    ``in_kernel_gather=False``, through K5 and ``gram_solve_tiles``.  Rows
-    in no bucket (zero ratings) stay exactly 0.
+    ``in_kernel_gather=False``, through K5 and ``gram_solve_tiles``; with
+    ``fused_epilogue=False`` each class's (A, b) goes to device memory (K2,
+    or K5 and ``gram_tiles``) and K1 solves it.  Rows in no bucket (zero
+    ratings) stay exactly 0.
 
     Each width class is one launch: the builder's ``chunk_rows`` hints
     bound a materialized [chunk, width, k] gather, and K6 materializes
@@ -291,11 +295,12 @@ def als_half_step_bucketed(
 
     k = fixed_factors.shape[-1]
     gather = resolve_gather_mode(in_kernel_gather)
+    fused = resolve_fused_epilogue(fused_epilogue)
 
     def solve_piece(ni, rt, mk, cnt):
         return bucket_gram_solve(fixed_factors, ni, mk, rt, cnt, lam=lam,
                                  reg_mode="diag", solver=solver,
-                                 gather=gather)
+                                 gather=gather, fused=fused)
 
     out = walk_buckets(
         buckets, (None,) * len(buckets),
@@ -315,18 +320,21 @@ def ials_half_step_bucketed(
     gram: torch.Tensor | None = None,
     solver: str = "auto",
     in_kernel_gather: bool | None = None,
+    fused_epilogue: bool | None = None,
 ) -> torch.Tensor:
     """Implicit-feedback half-iteration over width-bucketed InBlocks: per
     entity YᵀY + Σ_obs (c−1)·f fᵀ + λI, every width class through K6 (or,
     with ``in_kernel_gather=False``, K5 and ``gram_solve_tiles``) with the
     sqrt-reparameterized weight stream (``ops.bucketed.ials_reparam``) and
     the shared ridge in matrix mode, one launch per width class (see
-    ``als_half_step_bucketed``).  Zero-interaction rows stay 0."""
+    ``als_half_step_bucketed``, also for ``fused_epilogue=False``: K2 + K1
+    matrix mode).  Zero-interaction rows stay 0."""
     from cfk_tpu_torch.ops.bucketed import bucket_gram_solve, ials_reparam
     from cfk_tpu_torch.ops.tiled import resolve_gather_mode
 
     k = fixed_factors.shape[-1]
     gather = resolve_gather_mode(in_kernel_gather)
+    fused = resolve_fused_epilogue(fused_epilogue)
     if gram is None:
         gram = global_gram_blocked(fixed_factors)
     reg_m = implicit_reg(gram, lam)
@@ -335,7 +343,7 @@ def ials_half_step_bucketed(
         wt, rt_b = ials_reparam(rt, mk, alpha)
         return bucket_gram_solve(fixed_factors, ni, wt, rt_b, reg_m,
                                  lam=0.0, reg_mode="matrix", solver=solver,
-                                 gather=gather)
+                                 gather=gather, fused=fused)
 
     out = walk_buckets(
         buckets, (None,) * len(buckets),

@@ -28,7 +28,10 @@ for the identical XLA gather when it is off (``cfk_tpu/ops/subspace.py:
 50-79``), and the port writes the same rectangle with K5 on either setting.
 The einsums stay PyTorch (float32, TF32 off), as the JAX package left them
 to XLA; the b×b solves run through K1 (``regularized_solve_matrix`` /
-``regularized_solve``) at k = b.
+``regularized_solve``) at k = b, or, with ``fused_epilogue=False``, through
+the ridge add and the split dispatch (``ops.solve.dispatch_spd_solve``:
+``gauss_solve`` at b ≤ 64), as the JAX sweep passes ``fused=`` on
+(``cfk_tpu/ops/subspace.py:158-175``).
 """
 
 from __future__ import annotations
@@ -67,6 +70,7 @@ def _sweep_rect(
     block_size: int,
     solver: str = "auto",
     count: torch.Tensor | None = None,  # [E] rating counts (explicit: λ·n·I)
+    fused_epilogue: bool | None = None,
 ) -> torch.Tensor:
     """One sweep over all k/block_size coordinate blocks of a rectangle:
     implicit mode when ``gram`` is given, explicit (ALS-WR) when ``count``
@@ -97,24 +101,28 @@ def _sweep_rect(
                    + torch.einsum("epb,ep->eb", f_b, w))
             a_obs = torch.einsum("epb,epc->ebc", f_b * conf_m1[..., None], f_b)
             delta = regularized_solve_matrix(
-                a_obs, -g_b, gram[cols, cols] + lam * eye_b, solver)
+                a_obs, -g_b, gram[cols, cols] + lam * eye_b, solver,
+                fused=fused_epilogue)
         else:
             w = (s - rating.to(torch.float32)) * maskf  # residual at observed
             g_b = (reg_n[:, None] * x[:, cols]
                    + torch.einsum("epb,ep->eb", f_b, w))
             a_obs = torch.einsum("epb,epc->ebc", f_b, f_b)
-            delta = regularized_solve(a_obs, -g_b, count, lam, solver)
+            delta = regularized_solve(a_obs, -g_b, count, lam, solver,
+                                      fused=fused_epilogue)
         x[:, cols] += delta
         s = s + torch.einsum("epb,eb->ep", f_b, delta)
     return x
 
 
 def als_pp_half_step(fixed, x_prev, neighbor_idx, rating, mask, count, lam,
-                     *, block_size=32, sweeps=1, solver="auto"):
+                     *, block_size=32, sweeps=1, solver="auto",
+                     fused_epilogue=None):
     """Explicit ALS-WR half-iteration by subspace sweeps (padded layout)."""
     for _ in range(sweeps):
         x_prev = _sweep_rect(fixed, x_prev, neighbor_idx, rating, mask, lam,
-                             0.0, None, block_size, solver, count=count)
+                             0.0, None, block_size, solver, count=count,
+                             fused_epilogue=fused_epilogue)
     return x_prev
 
 
@@ -139,13 +147,14 @@ def _warm_bucket_walk(k, x_prev, buckets, chunk_rows, local_entities,
 
 def als_pp_half_step_bucketed(fixed, x_prev, buckets, chunk_rows,
                               local_entities, lam, *, block_size=32,
-                              sweeps=1, solver="auto"):
+                              sweeps=1, solver="auto", fused_epilogue=None):
     """Explicit ALS-WR half-iteration by subspace sweeps over width buckets."""
 
     def sweep_piece(xb, ni, rt, mk, cnt):
         for _ in range(sweeps):
             xb = _sweep_rect(fixed, xb, ni, rt, mk, lam, 0.0, None,
-                             block_size, solver, count=cnt)
+                             block_size, solver, count=cnt,
+                             fused_epilogue=fused_epilogue)
         return xb
 
     return _warm_bucket_walk(fixed.shape[-1], x_prev, buckets, chunk_rows,
@@ -155,19 +164,22 @@ def als_pp_half_step_bucketed(fixed, x_prev, buckets, chunk_rows,
 
 
 def ials_pp_half_step(fixed, x_prev, neighbor_idx, rating, mask, lam, alpha,
-                      *, gram=None, block_size=32, sweeps=1, solver="auto"):
+                      *, gram=None, block_size=32, sweeps=1, solver="auto",
+                      fused_epilogue=None):
     """iALS++ half-iteration over the padded rectangle layout."""
     if gram is None:
         gram = global_gram(fixed)
     for _ in range(sweeps):
         x_prev = _sweep_rect(fixed, x_prev, neighbor_idx, rating, mask, lam,
-                             alpha, gram, block_size, solver)
+                             alpha, gram, block_size, solver,
+                             fused_epilogue=fused_epilogue)
     return x_prev
 
 
 def ials_pp_half_step_bucketed(fixed, x_prev, buckets, chunk_rows,
                                local_entities, lam, alpha, *, gram=None,
-                               block_size=32, sweeps=1, solver="auto"):
+                               block_size=32, sweeps=1, solver="auto",
+                               fused_epilogue=None):
     """iALS++ half-iteration over width-bucketed InBlocks: each rated entity
     lives in exactly one bucket, so the sweep runs per bucket rectangle and
     scatters back."""
@@ -177,7 +189,8 @@ def ials_pp_half_step_bucketed(fixed, x_prev, buckets, chunk_rows,
     def sweep_piece(xb, ni, rt, mk):
         for _ in range(sweeps):
             xb = _sweep_rect(fixed, xb, ni, rt, mk, lam, alpha, gram,
-                             block_size, solver)
+                             block_size, solver,
+                             fused_epilogue=fused_epilogue)
         return xb
 
     return _warm_bucket_walk(fixed.shape[-1], x_prev, buckets, chunk_rows,

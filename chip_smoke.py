@@ -4,7 +4,7 @@
 
 Phases, each of which must pass:
 
-1. build   — compile the thirteen CUDA kernels from cfk_tpu_torch/csrc (one
+1. build   — compile the fifteen CUDA kernels from cfk_tpu_torch/csrc (one
              nvcc per source, in parallel);
 2. main    — train explicit ALS-WR with ``train_als`` at the Netflix Prize
              shape (480,189 users x 17,770 movies x 100,480,507 synthetic
@@ -22,6 +22,28 @@ Phases, each of which must pass:
              with its time, the plain
              version's time, a one-call library yardstick where one exists
              and the card's bound for the same work;
+3b. binv   — the block-inverse solve path (the port of the prototype
+             ``scripts/exp_binv.py``, ``cfk_tpu_torch.scripts.exp_binv``):
+             with the launch counts of ``binv_solve_reg`` and ``binv_inv``
+             zeroed just before and read just after (each > 0), both routes
+             once at the prototype's default shape — k = 128, E = 5,248
+             (``--e 5344`` rounded down to a tile multiple), its rank-k/8
+             Grams plus λ·max(n, 1)·I from numpy seed 0 — the fused kernel
+             (``binv_solve_reg``) and the Schur route (batched float32
+             products above n = 32, ``binv_inv`` on the 32 x 32 blocks);
+             each held to its plain version (TOL "binv_solve_reg") and to
+             a float64 ``numpy.linalg.solve`` (TOL "binv_float64"), beside
+             two controls (the plain solve unrefined, which must read above
+             the tolerance, and with TF32 products), with max |Ax − b|, the
+             relative x error, ms beside K1 and ``torch.linalg.solve`` on the same
+             batch and the bound; then ``binv_solve_reg`` on the main path's
+             E = 17,770 accumulated movie Grams at k = 64 against K1's x;
+             matrix mode at k = 128 on 59,047 count-scaled Grams with one
+             shared SPD ridge YᵀY + λI (the ML-25M movie and user counts)
+             against K1's matrix mode and its plain version; ``binv_inv`` alone at n = 16 and 32 against its plain
+             version and ``torch.linalg.inv``; and
+             ``python -m cfk_tpu_torch.scripts.exp_binv`` (both modes) as a
+             subprocess, exit 0;
 4. breakdown — where one iteration's time goes (measurement, no checks):
              each kernel's device time per chunk beside the rows of the
              chunk's largest segment and the summed bound, and a
@@ -106,6 +128,15 @@ Phases, each of which must pass:
              gather-on run's first iteration (first movie half and scores,
              TOL; bit-equality reported); ``gram_solve_tiles`` on (b)'s
              middle width class against its plain version and K6;
+6c. split_ml25m — (b) and (c) with ``fused_epilogue=False`` for one
+             iteration each from the same u0 on the implicit phase's
+             bucketed dataset: (b) each width class's (A, b) through K2, K1
+             matrix mode solving it (K6 and ``gram_solve_tiles`` must launch
+             0 times); (c) the sweeps' b x b solves through the ridge add
+             and ``gauss_solve`` (K1 0 times); each held to its fused run's
+             first iteration (first movie half and scores, TOL), with its
+             s/iter beside the fused run's and a profiler pass over one
+             split iteration beside the fused one's;
 7. small   — ``train_als`` on small padded, tiled (dense stream, and the
              stream mode fused and split) and bucketed datasets (ALS and
              ALS++) and ``train_ials`` on small tiled and bucketed ones (iALS
@@ -166,13 +197,28 @@ RANK, LAM, ITERS = 64, 0.05, 3
 # first halves against the gather-on ones from the same start: the same
 # float32 operations in the same order, so bit-equal by design (reported);
 # held, as every cross-route agreement here, to the split tolerance.
+# The block-inverse solve (binv_solve_reg) against its plain recursion and
+# K1 on the main path's movie Grams and on the implicit-shaped matrix-mode
+# batch, and binv_inv against its plain recursion: as K1 (1e-3).  On the
+# prototype's own inputs (rank-k/8 Grams held up by λ·n, condition numbers
+# up to 4.5e3 at k = 128) the float32 algorithm itself — an explicit
+# inverse and one float32 refinement step — ends 2.6e-3 of max|x| from a
+# float64 solve (its plain version, on the CPU and on the card; K1's
+# Cholesky 6e-5), so both routes are held there to the float64 solve at
+# 1e-2 ("binv_float64") and to their plain version at 1e-3 as everywhere
+# else.  Two controls show that 1e-3 has teeth there: the plain solve
+# without its refinement step ends 2.5e-2 of max|x| from the refined one
+# (checked above 1e-3 on every run), and with its inverse rounded to
+# bfloat16 5.7e-3 (the CPU, the same inputs); the card's TF32 products are
+# reported beside them.
 TOL = {"reg_solve": 1e-3, "gram_gather": 1e-4, "gram_solve_dense": 1e-3,
        "topk_scores": 1e-5, "gather_rows": 0.0, "gram_solve_gather": 1e-3,
        "gram_tiles_dense_gather": 1e-4, "gauss_solve": 1e-3,
        "gauss_solve_multi": 1e-3, "gram_tiles": 1e-4,
        "gram_solve_tiles": 1e-3, "gram_tiles_dense": 1e-4,
        "gram_solve_tiles_dense": 1e-3, "split_first_half": 1e-3,
-       "first_half_factors": 1e-3, "scores": 1e-3}
+       "first_half_factors": 1e-3, "scores": 1e-3,
+       "binv_solve_reg": 1e-3, "binv_inv": 1e-3, "binv_float64": 1e-2}
 REPLACES = {
     "reg_solve": "cfk_tpu/ops/pallas/solve_kernel.py:287",
     "gram_gather": "cfk_tpu/ops/pallas/gram_kernel.py:1422",
@@ -187,7 +233,13 @@ REPLACES = {
     "gram_tiles": "cfk_tpu/ops/pallas/gram_kernel.py:427",
     "gram_solve_tiles": "cfk_tpu/ops/pallas/gram_kernel.py:787",
     "gram_solve_tiles_dense": "cfk_tpu/ops/pallas/gram_kernel.py:920",
+    "binv_solve_reg": "scripts/exp_binv.py:154",
+    "binv_inv": "scripts/exp_binv.py:271",
 }
+# scripts/exp_binv.py's defaults (main :187-212): k = 128, --e 334·16
+# rounded down to a multiple of the 128-system tile, λ = 0.05; the main
+# path's movie Grams at k = 64; matrix mode at the ML-25M movie count.
+BINV = dict(k=128, e=(334 * 16 // 128) * 128, lam=0.05, matrix_e=59_047)
 SPLIT_ITERS = 2
 GATHER_OFF_ITERS = 2  # the gather-off runs, fused and split
 # bench.py's implicit rows (bench.py:448-503): the ML-25M shape at rank 128.
@@ -311,6 +363,31 @@ def gauss_work(e: int, k: int, m: int) -> tuple[float, float]:
     read once, X written once; the least work is a Cholesky (k³/3) and its
     triangular solves (2k² per right-hand side)."""
     return 4 * e * (k * k + 2 * k * m), e * (k ** 3 / 3 + 2 * k * k * m)
+
+
+def binv_macs(n: int) -> float:
+    """Multiply-adds of the block recursion inverting one n x n system:
+    five m x m x m products a Schur level (P, S, P·S⁻¹, B11, B21) and a
+    Gauss-Jordan leaf's n steps over n rows of 2n columns."""
+    if n <= 16:
+        return 2.0 * n ** 3
+    m = n // 2
+    return 5.0 * m ** 3 + 2 * binv_macs(m)
+
+
+def binv_solve_work(e: int, k: int, reg_mode: str) -> tuple[float, float]:
+    """(bytes, flops) of binv_solve_reg on e systems: A, b and the ridge
+    (counts, or one [k,k] matrix) read once, x written once; the recursion
+    and the three matrix-vector products (x = Bb, r = b − A'x, x + Br)."""
+    reg = 4 * e if reg_mode == "diag" else 4 * k * k
+    return (4 * e * (k * k + 2 * k) + reg,
+            2.0 * e * (binv_macs(k) + 3 * k * k))
+
+
+def binv_inv_work(e: int, n: int) -> tuple[float, float]:
+    """(bytes, flops) of binv_inv on e systems: A read once, A⁻¹ written
+    once; the recursion's multiply-adds."""
+    return 8.0 * e * n * n, 2.0 * e * binv_macs(n)
 
 
 def topk_scores_work(args, kw, n: int) -> tuple[float, float, dict]:
@@ -896,6 +973,211 @@ class Smoke:
         log(f"K3 gram_solve_dense: {row}")
         self.check(row["rel_err"] < TOL["gram_solve_dense"],
                    f"gram_solve_dense rel err {row['rel_err']}")
+
+    def binv(self, ds, model, blk_m, blk_u):
+        """The block-inverse solve path (phase 3b of the module docstring):
+        the prototype's default shape through both routes as the path's
+        run, then each kernel against its plain version, K1, a float64
+        solve and the library call at the shapes the path and the training
+        halves give it."""
+        import numpy as np
+        import torch
+
+        from cfk_tpu_torch.ops.kernels.binv_kernel import (
+            binv_inv, binv_inv_plain, binv_solve_reg, binv_solve_reg_plain)
+        from cfk_tpu_torch.ops.kernels.solve_kernel import (
+            add_ridge_plain, reg_solve)
+        from cfk_tpu_torch.ops.tiled import accum_grams
+        from cfk_tpu_torch.scripts.exp_binv import (
+            float64_check, make_inputs, xla_binv_solve_reg)
+
+        dev = torch.device("cuda")
+        c = BINV
+        k, e, lam = c["k"], c["e"], c["lam"]
+        a_np, b_np, cnt_np = make_inputs(k, e)
+        a, b, cnt = (torch.as_tensor(x, device=dev)
+                     for x in (a_np, b_np, cnt_np))
+        routes = {
+            "fused": lambda: binv_solve_reg(a, b, cnt, lam=lam),
+            "xla": lambda: xla_binv_solve_reg(a, b, cnt, lam=lam)}
+        # -- the path: both routes once, launch counts zeroed before ------
+        for fn in (binv_solve_reg, binv_inv):
+            fn.launches = 0
+        torch.cuda.synchronize()
+        got = {mode: run() for mode, run in routes.items()}
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches
+                    for fn in (binv_solve_reg, binv_inv)}
+        for name, n in launches.items():
+            self.check(n > 0, f"binv path launched {name} {n} times")
+            self.kernels.setdefault(name, {})["launches"] = n
+        report = dict(k=k, e=e, lam=lam, launches=launches)
+        plain = binv_solve_reg_plain(a, b, cnt, lam=lam)
+        a_reg = add_ridge_plain(a, cnt, lam=lam, reg_mode="diag")
+        k1_x = reg_solve(a, b, cnt, lam=lam)
+        for mode, x in got.items():
+            resid, rel64 = float64_check(a_np, b_np, cnt_np, x.cpu().numpy(),
+                                         lam)
+            row = dict(max_abs_resid=resid, rel_err_vs_float64=rel64,
+                       rel_err_vs_plain=rel_err(x, plain)[1],
+                       rel_err_vs_reg_solve=rel_err(x, k1_x)[1],
+                       ms=time_ms(routes[mode], 10))
+            report[mode] = row
+            log(f"binv {mode} k={k} E={e}: {row}")
+            self.check(rel64 < TOL["binv_float64"],
+                       f"binv {mode}: rel_err_vs_float64 {rel64}")
+            self.check(row["rel_err_vs_plain"] < TOL["binv_solve_reg"],
+                       f"binv {mode}: rel_err_vs_plain "
+                       f"{row['rel_err_vs_plain']}")
+        # Controls: what a kernel that dropped the refinement step, or took
+        # its products in TF32, would read against the plain version.
+        a_inv = binv_inv_plain(a_reg)
+        unrefined = (a_inv @ b[..., None])[..., 0]
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            plain_tf32 = binv_solve_reg_plain(a, b, cnt, lam=lam)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        report["control_rel_err_vs_plain"] = dict(
+            unrefined=rel_err(unrefined, plain)[1],
+            tf32_products=rel_err(plain_tf32, plain)[1])
+        log(f"binv controls vs plain: {report['control_rel_err_vs_plain']}")
+        self.check(report["control_rel_err_vs_plain"]["unrefined"]
+                   > TOL["binv_solve_reg"],
+                   "binv control: the unrefined solve is within "
+                   f"{TOL['binv_solve_reg']} of the refined one")
+        del a_inv, unrefined, plain_tf32
+        k1_64 = float64_check(a_np, b_np, cnt_np, k1_x.cpu().numpy(), lam)
+        report["plain_rel_err_vs_float64"] = float64_check(
+            a_np, b_np, cnt_np, plain.cpu().numpy(), lam)[1]
+        nbytes, flops = binv_solve_work(e, k, "diag")
+        b_ms, by = bound(nbytes, flops)
+        row = dict(max_abs_err=rel_err(got["fused"], plain)[0],
+                   rel_err=rel_err(got["fused"], plain)[1],
+                   ms=report["fused"]["ms"],
+                   plain_ms=time_ms(lambda: binv_solve_reg_plain(
+                       a, b, cnt, lam=lam), 3),
+                   library_ms=time_ms(lambda: torch.linalg.solve(a_reg, b), 5),
+                   bound_ms=b_ms, bound_by=by, e=e, k=k,
+                   reg_solve_ms=time_ms(lambda: reg_solve(a, b, cnt, lam=lam),
+                                        10),
+                   reg_solve_rel_err_vs_float64=k1_64[1],
+                   operands="exp_binv default inputs (seed 0)")
+        self.kernels["binv_solve_reg"].update(row)
+        report["binv_solve_reg_k128"] = row
+        log(f"binv_solve_reg (row 14) k={k} E={e}: {row}")
+        # binv_inv alone on the Schur route's leaf operands (the ridged
+        # A11 blocks) at n = 32 (its shape on the route) and n = 16.
+        for n in (16, 32):
+            blk = a_reg[:, :n, :n].contiguous()
+            inv = binv_inv(blk)
+            torch.cuda.synchronize()
+            want = binv_inv_plain(blk)
+            err, rel = rel_err(inv, want)
+            nbytes, flops = binv_inv_work(e, n)
+            b_ms, by = bound(nbytes, flops)
+            row = dict(max_abs_err=err, rel_err=rel,
+                       ms=time_ms(lambda: binv_inv(blk), 20),
+                       plain_ms=time_ms(lambda: binv_inv_plain(blk), 3),
+                       library_ms=time_ms(lambda: torch.linalg.inv(blk), 5),
+                       bound_ms=b_ms, bound_by=by, e=e, n=n)
+            report[f"binv_inv_n{n}"] = row
+            log(f"binv_inv (row 15) n={n} E={e}: {row}")
+            self.check(rel < TOL["binv_inv"],
+                       f"binv_inv n={n} rel err {rel}")
+            if n == 32:
+                self.kernels["binv_inv"].update(row)
+        del a, b, cnt, a_reg, plain, got, k1_x
+        # Row 14 on the main path's own batch: the movie half's accumulated
+        # Grams of the trained U table with their counts, at k = 64 — the
+        # systems K1 solves there.
+        u = model.user_factors
+        counts = blk_m["count"]
+        a64, b64 = accum_grams(u, blk_m, ds.movie_blocks.padded_entities,
+                               statics=ds.movie_blocks.statics)
+        x = binv_solve_reg(a64, b64, counts, lam=LAM)
+        k1_x = reg_solve(a64, b64, counts, lam=LAM)
+        torch.cuda.synchronize()
+        nbytes, flops = binv_solve_work(a64.shape[0], a64.shape[1], "diag")
+        row = dict(e=a64.shape[0], k=a64.shape[1],
+                   rel_err_vs_reg_solve=rel_err(x, k1_x)[1],
+                   rel_err_vs_plain=rel_err(x, binv_solve_reg_plain(
+                       a64, b64, counts, lam=LAM))[1],
+                   ms=time_ms(lambda: binv_solve_reg(a64, b64, counts,
+                                                     lam=LAM), 20),
+                   reg_solve_ms=time_ms(lambda: reg_solve(a64, b64, counts,
+                                                          lam=LAM), 20),
+                   library_ms=time_ms(lambda: torch.linalg.solve(
+                       add_ridge_plain(a64, counts, lam=LAM,
+                                       reg_mode="diag"), b64), 5),
+                   bound_ms=bound(nbytes, flops)[0],
+                   bound_by=bound(nbytes, flops)[1])
+        report["main_path_k64"] = row
+        log(f"binv_solve_reg (row 14) on the main path's movie Grams: {row}")
+        for what in ("rel_err_vs_reg_solve", "rel_err_vs_plain"):
+            self.check(row[what] < TOL["binv_solve_reg"],
+                       f"binv_solve_reg k=64 main path: {what} {row[what]}")
+        del a64, b64, x, k1_x
+        # Matrix mode at k = 128 on 59,047 systems shaped as the implicit
+        # movie half's (the ML-25M movie count, 3.9 GB of A, built in
+        # slices): an observed part α·(n/64)·XᵀX, X [64, k] ~ U(0, 1), n
+        # in [1, 400) from seed 1, and the shared ridge YᵀY + λI over
+        # 162,541 rows Y ~ U(0, 1) (the implicit phase's u0 and λ).
+        em = c["matrix_e"]
+        gen = torch.Generator(device=dev).manual_seed(1)
+        cnt_m = torch.randint(1, 400, (em,), generator=gen, device=dev)
+        am = torch.empty((em, k, k), device=dev)
+        for lo in range(0, em, 8192):
+            xs = torch.rand((min(8192, em - lo), 64, k), generator=gen,
+                            device=dev)
+            torch.matmul(xs.transpose(1, 2), xs,
+                         out=am[lo:lo + xs.shape[0]])
+            am[lo:lo + xs.shape[0]] *= (
+                IMPLICIT["alpha"] * cnt_m[lo:lo + xs.shape[0]].float()
+                / 64)[:, None, None]
+        del xs
+        bm = torch.rand((em, k), generator=gen, device=dev) * 100
+        y = torch.rand((ML25M["num_users"], k), generator=gen, device=dev)
+        rm = y.T @ y + IMPLICIT["lam"] * torch.eye(k, device=dev)
+        del y
+        x = binv_solve_reg(am, bm, rm, reg_mode="matrix")
+        k1_x = reg_solve(am, bm, rm, reg_mode="matrix")
+        torch.cuda.synchronize()
+        nbytes, flops = binv_solve_work(em, k, "matrix")
+        row = dict(e=em, k=k, rel_err_vs_reg_solve=rel_err(x, k1_x)[1],
+                   ms=time_ms(lambda: binv_solve_reg(
+                       am, bm, rm, reg_mode="matrix"), 3),
+                   reg_solve_ms=time_ms(lambda: reg_solve(
+                       am, bm, rm, reg_mode="matrix"), 3),
+                   bound_ms=bound(nbytes, flops)[0],
+                   bound_by=bound(nbytes, flops)[1])
+        del k1_x
+        row["rel_err_vs_plain"] = rel_err(x, binv_solve_reg_plain(
+            am, bm, rm, reg_mode="matrix"))[1]
+        report["matrix_k128"] = row
+        log(f"binv_solve_reg (row 14) matrix mode k={k} E={em}: {row}")
+        for what in ("rel_err_vs_reg_solve", "rel_err_vs_plain"):
+            self.check(row[what] < TOL["binv_solve_reg"],
+                       f"binv_solve_reg matrix k=128: {what} {row[what]}")
+        del am, bm, x
+        torch.cuda.empty_cache()
+        # The port's script as a user runs it, on the card.
+        for argv in ((), ("--mode", "fused")):
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "cfk_tpu_torch.scripts.exp_binv",
+                 *argv], cwd=ROOT, capture_output=True, text=True,
+                timeout=300)
+            log(f"exp_binv {' '.join(argv) or '(defaults)'}: exit "
+                f"{r.returncode} in {time.perf_counter() - t0:.1f} s:\n"
+                f"{r.stdout.strip()}\n{r.stderr.strip()[-2000:]}")
+            report[f"script{'_'.join(argv)}"] = dict(
+                returncode=r.returncode, stdout=r.stdout)
+            self.check(r.returncode == 0,
+                       f"python -m cfk_tpu_torch.scripts.exp_binv {argv} "
+                       f"exited {r.returncode}")
+        self.report["binv"] = report
 
     def split(self, ds, model, blk_m, blk_u):
         """The split epilogue on the main path's dataset (phase 4b of the
@@ -1821,6 +2103,93 @@ class Smoke:
                    f"gram_solve_tiles rel err {row['rel_err']}")
         self.report["gather_ml25m"] = report
 
+    def split_implicit(self, ds_t, ds_b, ds_s, u0, m0, runs):
+        """The split epilogue on the bucketed layout and in the sweeps at
+        the ML-25M shape (phase 6c of the module docstring): (b) and (c)
+        with ``fused_epilogue=False`` for one iteration each from the
+        implicit phase's u0, held to their fused runs' first iteration."""
+        import numpy as np
+        import torch
+
+        from cfk_tpu_torch.models.als import device_setup
+        from cfk_tpu_torch.models.ials import IALSConfig, _ials_half, train_ials
+        from cfk_tpu_torch.ops.kernels import gram_kernel as gk
+        from cfk_tpu_torch.ops.kernels.solve_kernel import (
+            gauss_solve, gauss_solve_multi, reg_solve)
+
+        c = IMPLICIT
+        dev = torch.device("cuda")
+        k = c["rank"]
+        kernels = (gk.gram_gather, gk.gram_tiles, gk.gather_rows,
+                   gk.gram_solve_gather, gk.gram_solve_tiles, reg_solve,
+                   gauss_solve, gauss_solve_multi)
+        d = ds_t.coo_dense
+        obs = [torch.as_tensor(x, device=dev) for x in (
+            d.user_raw.astype(np.int32), d.movie_raw.astype(np.int32))]
+        report, staged = {}, None
+        on_report = self.report["implicit"]
+        for name, algorithm, needed, idle in (
+                ("ials_bucketed", "als", ("gram_gather", "reg_solve"),
+                 ("gram_solve_gather", "gram_solve_tiles", "gauss_solve")),
+                ("ialspp_bucketed", "ials++", ("gather_rows", "gauss_solve"),
+                 ("reg_solve", "gram_solve_gather"))):
+            cfg = IALSConfig(rank=k, lam=c["lam"], alpha=c["alpha"],
+                             num_iterations=1, layout="bucketed",
+                             algorithm=algorithm, block_size=c["block_size"],
+                             fused_epilogue=False)
+            for fn in kernels:
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model = train_ials(ds_b, cfg, device=dev, warm_start=(u0, m0))
+            torch.cuda.synchronize()
+            call_s = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in kernels}
+            for kname in needed:
+                self.check(launches[kname] > 0,
+                           f"split {name}: {kname} launched "
+                           f"{launches[kname]} times")
+            for kname in idle:
+                self.check(launches[kname] == 0,
+                           f"split {name}: {kname} launched "
+                           f"{launches[kname]} times (must be 0)")
+            split = (model.user_factors, model.movie_factors)
+            fused = runs[name][0]
+            first = rel_err(split[1], fused[1])[1]
+            scores = score_rel_err(split, fused, obs[0], obs[1])
+            report[name] = dict(
+                call_s=call_s, fused_call_s=on_report[name]["call_s"][0],
+                fused_s_per_iter=on_report[name]["s_per_iter"],
+                launches=launches, first_movie_half_vs_fused=first,
+                user_factors_vs_fused=rel_err(split[0], fused[0])[1],
+                scores_vs_fused=scores)
+            # Where the split iteration's device time goes (measurement
+            # only), beside the implicit phase's profile of the fused run.
+            if staged is None:
+                staged = device_setup(ds_b, cfg, dev, weighted=True)
+            mblk, ublk, kw, _ = staged
+            half = functools.partial(
+                _ials_half, lam=c["lam"], alpha=c["alpha"], solver="auto",
+                algorithm=algorithm, block_size=c["block_size"],
+                fused_epilogue=False)
+            u_i, m_i = split
+            report[name]["profile"] = profile_calls(lambda: (
+                half(u_i, mblk, chunks=kw["m_chunks"],
+                     entities=kw["m_entities"], x_prev=m_i),
+                half(m_i, ublk, chunks=kw["u_chunks"],
+                     entities=kw["u_entities"], x_prev=u_i)), 1)
+            report[name]["fused_profile"] = on_report[name].get("profile")
+            log(f"split {name}: {report[name]}")
+            self.check(first < TOL["first_half_factors"],
+                       f"split {name}: first movie half differs from the "
+                       f"fused run by {first}")
+            self.check(scores < TOL["scores"],
+                       f"split {name}: scores differ from the fused run by "
+                       f"{scores}")
+            del model, split, u_i, m_i
+        del obs, staged
+        self.report["split_ml25m"] = report
+
     def implicit_kernel_checks(self, ds_t, ds_b, blocks, runs, report):
         """K5, K6 and K1-K3 in their implicit modes against their plain
         versions on a middle bucket / chunk of the implicit runs, with
@@ -2213,6 +2582,8 @@ def main() -> int:
         main_out = smoke.phase("main", smoke.main_path)
     if main_out is not None:
         smoke.phase("kernels", smoke.kernel_checks, *main_out)
+        smoke.phase("binv", smoke.binv, *main_out)
+        torch.cuda.empty_cache()
         smoke.phase("breakdown", smoke.breakdown, *main_out)
         smoke.phase("split", smoke.split, *main_out)
         smoke.phase("gather", smoke.gather, *main_out)
@@ -2225,6 +2596,7 @@ def main() -> int:
         if implicit_out is not None:
             smoke.phase("gather_ml25m", smoke.gather_implicit,
                         *implicit_out)
+            smoke.phase("split_ml25m", smoke.split_implicit, *implicit_out)
         del implicit_out
         torch.cuda.empty_cache()
     smoke.phase("small", smoke.small_parity)

@@ -245,6 +245,8 @@ def test_import_pulls_in_no_jax_and_no_cfk_tpu():
         "import cfk_tpu_torch.models.ials, cfk_tpu_torch.ops.subspace\n"
         "import cfk_tpu_torch.ops.bucketed, cfk_tpu_torch.eval.ranking\n"
         "import cfk_tpu_torch.data.movielens\n"
+        "import cfk_tpu_torch.ops.kernels.binv_kernel\n"
+        "import cfk_tpu_torch.scripts.exp_binv\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'cfk_tpu' or m.startswith('cfk_tpu.')]\n"
         "print(bad)\n"

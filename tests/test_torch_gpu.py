@@ -716,3 +716,135 @@ def test_topk_scores_large_k_and_wide_seen(cuda, k_top):
     with pytest.raises(ValueError, match="k_top <= 1024"):
         topk_scores(u, data, scale, st, k_top=1025, num_movies=4990,
                     tile_m=512)
+
+
+# The block-inverse solve (rows 14 and 15: binv_solve_reg, binv_inv) and
+# the bucketed split epilogue.  Solves against the plain recursion on the
+# same CUDA tensors (cuBLAS products there, in-order shared-memory sums in
+# the kernel): 1e-3 of max|x|, as K1's batches in chip_smoke.py, and the
+# backward error below 1e-5 in float64, as K3's — the prototype's inputs
+# are rank-k/8 Grams held up by λ·n (condition numbers up to ~6e3 at
+# k = 128).  Inverses: 1e-3 of max|A⁻¹|.
+
+def _binv_inputs(k, e, device, reg_mode):
+    from cfk_tpu_torch.scripts.exp_binv import make_inputs
+
+    a, b, cnt = make_inputs(k, e, seed=k)
+    if reg_mode == "diag":
+        reg = cnt
+    else:
+        y = np.random.default_rng(1).standard_normal((4 * k, k))
+        reg = (y.T @ y / (4 * k) + 0.05 * np.eye(k)).astype(np.float32)
+    return tuple(torch.as_tensor(x, device=device) for x in (a, b, reg))
+
+
+@pytest.mark.parametrize("k", [16, 32, 64, 128])
+@pytest.mark.parametrize("reg_mode", ["diag", "matrix"])
+def test_binv_solve_reg_matches_plain(cuda, k, reg_mode):
+    from cfk_tpu_torch.ops.kernels.binv_kernel import (
+        binv_solve_reg, binv_solve_reg_plain)
+
+    a, b, reg = _binv_inputs(k, 300, cuda, reg_mode)
+    before = binv_solve_reg.launches
+    got = binv_solve_reg(a, b, reg, lam=0.05, reg_mode=reg_mode)
+    torch.cuda.synchronize()
+    assert binv_solve_reg.launches == before + 1
+    want = binv_solve_reg_plain(a, b, reg, lam=0.05, reg_mode=reg_mode)
+    assert binv_solve_reg.launches == before + 1  # the plain route
+    assert bool(torch.isfinite(got).all())
+    assert _rel_err(got, want) < 1e-3
+    assert _backward_err(got, a, b, reg, 0.05, reg_mode) < 1e-5
+
+
+@pytest.mark.parametrize("n", [1, 5, 16, 18, 24, 32])
+def test_binv_inv_matches_plain(cuda, n):
+    from cfk_tpu_torch.ops.kernels.binv_kernel import binv_inv, binv_inv_plain
+
+    a, _, cnt = _binv_inputs(n, 257, cuda, "diag")
+    a = add_ridge_plain(a, cnt, lam=0.05, reg_mode="diag")
+    before = binv_inv.launches
+    got = binv_inv(a)
+    torch.cuda.synchronize()
+    assert binv_inv.launches == before + 1
+    assert _rel_err(got, binv_inv_plain(a)) < 1e-3
+
+
+@pytest.mark.parametrize("k,leaves", [(64, 2), (128, 4)])
+def test_binv_schur_route_on_the_card(cuda, k, leaves):
+    from cfk_tpu_torch.ops.kernels.binv_kernel import (
+        binv_inv, binv_solve_reg_plain)
+    from cfk_tpu_torch.scripts.exp_binv import xla_binv_solve_reg
+
+    a, b, cnt = _binv_inputs(k, 300, cuda, "diag")
+    before = binv_inv.launches
+    got = xla_binv_solve_reg(a, b, cnt, lam=0.05)
+    torch.cuda.synchronize()
+    assert binv_inv.launches == before + leaves
+    want = binv_solve_reg_plain(a, b, cnt, lam=0.05)
+    assert _rel_err(got, want) < 1e-3
+    assert _backward_err(got, a, b, cnt, 0.05, "diag") < 1e-5
+
+
+def test_binv_kernels_refuse_what_they_do_not_take(cuda):
+    from cfk_tpu_torch.ops.kernels.binv_kernel import binv_inv, binv_solve_reg
+
+    for k, match in ((34, "must stay even"), (256, "rank 1..128 on CUDA")):
+        a, b, cnt = _binv_inputs(k, 4, cuda, "diag")
+        with pytest.raises(ValueError, match=match):
+            binv_solve_reg(a, b, cnt, lam=0.05)
+    a, _, _ = _binv_inputs(64, 4, cuda, "diag")
+    with pytest.raises(ValueError, match="n <= 32"):
+        binv_inv(a)
+    a, b, cnt = _binv_inputs(32, 4, cuda, "diag")
+    with pytest.raises(TypeError):
+        binv_solve_reg(a.double(), b, cnt, lam=0.05)
+    with pytest.raises(ValueError, match="contiguous"):
+        binv_inv(a.transpose(1, 2))
+
+
+@pytest.mark.parametrize("gather", [None, False])
+@pytest.mark.parametrize("implicit", [False, True])
+def test_bucketed_split_launches_on_the_card(cuda, gather, implicit):
+    """fused_epilogue=False on the bucketed layout: each width class's
+    (A, b) through K2 (gather off: K5 + gram_tiles), solved by K1; K6 and
+    gram_solve_tiles launch zero times.  The factors equal the fused
+    route's within K1's tolerance (Cholesky on the same sums)."""
+    from cfk_tpu_torch import Dataset
+    from cfk_tpu_torch.models.als import _bucketed_to_device
+    from cfk_tpu_torch.ops.solve import (
+        als_half_step_bucketed, ials_half_step_bucketed)
+
+    ds = Dataset.from_coo(synthetic_netflix_coo(3000, 400, 60_000, seed=1),
+                          layout="bucketed", chunk_elems=4096)
+    blocks = ds.movie_blocks
+    trees, _ = _bucketed_to_device(blocks, cuda)
+    fixed = torch.as_tensor(np.random.default_rng(2).random(
+        (ds.user_blocks.padded_entities, 32), dtype=np.float32), device=cuda)
+    kernels = (gram_gather, gram_tiles, gather_rows, reg_solve,
+               gram_solve_gather, gram_solve_tiles)
+
+    def run(fused):
+        for fn in kernels:
+            fn.launches = 0
+        if implicit:
+            x = ials_half_step_bucketed(fixed, trees, blocks.padded_entities,
+                                        0.1, 40.0, fused_epilogue=fused,
+                                        in_kernel_gather=gather)
+        else:
+            x = als_half_step_bucketed(fixed, trees, blocks.padded_entities,
+                                       0.05, fused_epilogue=fused,
+                                       in_kernel_gather=gather)
+        torch.cuda.synchronize()
+        return x, {fn.__name__: fn.launches for fn in kernels}
+
+    split, n = run(False)
+    fused, _ = run(None)
+    classes = len(trees)
+    assert n["reg_solve"] == classes
+    assert n["gram_solve_gather"] == 0 and n["gram_solve_tiles"] == 0
+    if gather is False:
+        assert n["gather_rows"] == classes and n["gram_tiles"] == classes
+        assert n["gram_gather"] == 0
+    else:
+        assert n["gram_gather"] == classes and n["gram_tiles"] == 0
+    assert _rel_err(split, fused) < 1e-3
