@@ -1,10 +1,9 @@
 // Device code shared by the port's training kernels: the in-shared-memory
 // Cholesky solve (reg_solve.cu and the fused Gram kernels) and the Gram
 // accumulator with its two row sources — rows gathered from the table by
-// index, or read from a materialized stream — and its two walks, over a
-// chunk's [T]-row tiles and over the dense stream's windows (instantiated
-// in gram_kernels.cuh); every kernel library takes its error-string export
-// from here.
+// index, or read from a materialized stream — fed one work unit at a time
+// by the walks of gram_kernels.cuh; every kernel library takes its
+// error-string export from here.
 //
 // Everything is plain FP32 FMA on the CUDA cores: the JAX package pins its
 // Gram and solve contractions to full float32 (precision="highest",
@@ -18,27 +17,20 @@ namespace cfk {
 
 constexpr int kThreads = 256;  // one CTA = 16 x 16 threads
 constexpr int kRows = 32;      // gathered rows staged per pass
-// Register partial sums are flushed into the segment's running sums every
-// kFlushPasses passes (1,024 rows).  One float32 register summing a whole
-// long segment (a Zipf-head entity: a million rows and more, all of an
-// implicit Gram's diagonal terms positive) loses digits with every term
-// once the sum dwarfs the terms, and the normal equations' condition
-// number amplifies that in the solved factors; two levels of ~sqrt(n)
-// terms each keep the sums near the accuracy of the per-tile sums of the
-// JAX package's matrix-unit dots.
-constexpr int kFlushPasses = 32;
+// A segment's rows are summed in work units of at most kUnitPasses passes
+// (1,024 rows), each into a register partial that starts from zero; the
+// segment's sum is its units' partials added in unit order
+// (ops/kernels/gram_units.py plans the units, gram_kernels.cuh spreads them
+// over CTAs).  One float32 register summing a whole long segment (a
+// Zipf-head entity: a million rows and more, all of an implicit Gram's
+// diagonal terms positive) would lose digits with every term once the sum
+// dwarfs the terms, and the normal equations' condition number amplifies
+// that in the solved factors; two levels of ~sqrt(n) terms each keep the
+// sums near the accuracy of the per-tile sums of the JAX package's
+// matrix-unit dots.
+constexpr int kUnitPasses = 32;
 constexpr int kRegDiag = 0;    // ridge λ·max(n,1)·I from per-row counts
 constexpr int kRegMatrix = 1;  // one shared [k,k] ridge term
-
-// First index in sorted a[0, n) whose value is >= v.
-__device__ __forceinline__ int lower_bound(const int* a, int n, int v) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(a + mid) < v) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
 
 // Adds the ridge to the k x k system held in shared memory (row stride ld):
 // diag mode λ·max(n,1) on the diagonal (padding rows, n = 0, become λ·I),
@@ -110,12 +102,26 @@ struct RowStage {
   int nb[kRows];
 };
 
+// One work unit of a chunk (ops/kernels/gram_units.py): segment s (< 0: a
+// surplus slot, which exits at once), where its walk starts and ends (the
+// walks of gram_kernels.cuh read start and end), n, the segment's unit
+// count, and j, this unit's index in the segment (a segment's units are
+// consecutive in the table; the record packs n | j << 16).
+struct Unit {
+  int s, start, end, n, j;
+};
+
+__device__ __forceinline__ Unit load_unit(const int* units, int u) {
+  const int4 v = __ldg(reinterpret_cast<const int4*>(units) + u);
+  return Unit{v.x, v.y, v.z, v.w & 0xffff, v.w >> 16};
+}
+
 // Where a Gram kernel's rows come from.  A source fills the stage with the
 // rows p0 .. p0+n-1 of its stream (n <= kRows; slots n.. are zero rows) and
 // their b-coefficients rt[0 .. n), and returns — the same on every thread,
 // after a barrier that makes the stage visible — whether the pass holds a
-// row that adds anything.  kSkipsEmpty: a pass that holds none is not
-// accumulated at all.
+// row that adds anything; a pass that holds none is not accumulated (its
+// terms would all be exact zeros: fmaf(0, x, a) == a).
 //
 // GatherRows (K2, K3, K6, gram_tiles_dense_gather): g_p = table[nb_p]·wt_p,
 // gathered inside the kernel (wt null = 1).  An index outside [0, F) — F is
@@ -123,7 +129,6 @@ struct RowStage {
 // with no live row is skipped before anything is loaded, so padding costs
 // index reads only.
 struct GatherRows {
-  static constexpr bool kSkipsEmpty = true;
   const float* table;
   int F;
   const int* nb;
@@ -168,13 +173,11 @@ struct GatherRows {
 // StreamRows (gram_tiles, gram_solve_tiles, gram_tiles_dense,
 // gram_solve_tiles_dense): g_p read as it lies in the materialized [C, k]
 // stream (kernel K5 wrote it, zero rows included).  The kernel sees values
-// only, so every pass is accumulated, padding rows too, as the TPU kernels
-// do; a pass whose rows are all zero adds exactly nothing (fmaf(0, x, a) ==
-// a) and is not counted towards the register flush, so the flushes fall
-// where the gather sources' fall (they skip such passes) and the two
-// sources' sums agree bit for bit on the same rows.
+// only, so it loads every pass, padding rows too, as the TPU kernels walk
+// them, and skips accumulating a pass whose rows are all zero — exactly
+// what its gather sibling adds for the same pass, so the two sources' sums
+// agree bit for bit on the same rows.
 struct StreamRows {
-  static constexpr bool kSkipsEmpty = false;
   const float* g;
 
   template <int KMAX>
@@ -201,61 +204,29 @@ struct StreamRows {
   }
 };
 
-// The running Gram of one segment: thread (ti, tj) of the 16 x 16 CTA owns
-// the RT x RT block A[ti·RT.., tj·RT..] of a register partial and of the
-// segment's running sums (in shared or device memory, row stride ld);
-// thread c < KMAX owns b[c].  Every element has one owner thread, so the
-// partial-to-running flushes need no barrier.
+// The register sums of one work unit: thread (ti, tj) of the 16 x 16 CTA
+// owns the RT x RT block A[ti·RT.., tj·RT..] of the Gram, thread c < KMAX
+// owns b[c].
 template <int KMAX>
 struct GramAcc {
   static constexpr int RT = KMAX / 16;
   float a[RT][RT];
   float b;
-  int ti, tj, passes, k, ld;
-  float* A;
-  float* bsum;
+  int ti, tj, k;
 
-  // Zeroes the partial and this thread's elements of the running sums
-  // A [k, k] (row stride ld_) and bsum [k].
-  __device__ __forceinline__ void init(float* A_, int ld_, float* bsum_,
-                                       int k_) {
+  __device__ __forceinline__ void init(int k_) {
     ti = threadIdx.x / 16;
     tj = threadIdx.x % 16;
-    A = A_;
-    ld = ld_;
-    bsum = bsum_;
     k = k_;
-    passes = 0;
     b = 0.0f;
 #pragma unroll
     for (int p = 0; p < RT; ++p)
 #pragma unroll
-      for (int q = 0; q < RT; ++q) {
-        a[p][q] = 0.0f;
-        const int i = ti * RT + p, j = tj * RT + q;
-        if (i < k && j < k) A[(size_t)i * ld + j] = 0.0f;
-      }
-    if (threadIdx.x < k) bsum[threadIdx.x] = 0.0f;
+      for (int q = 0; q < RT; ++q) a[p][q] = 0.0f;
   }
 
-  // Adds the register partial into the running sums and zeroes it.
-  __device__ __forceinline__ void flush() {
-#pragma unroll
-    for (int p = 0; p < RT; ++p)
-#pragma unroll
-      for (int q = 0; q < RT; ++q) {
-        const int i = ti * RT + p, j = tj * RT + q;
-        if (i < k && j < k) A[(size_t)i * ld + j] += a[p][q];
-        a[p][q] = 0.0f;
-      }
-    if (threadIdx.x < k) bsum[threadIdx.x] += b;
-    b = 0.0f;
-  }
-
-  // Adds the rank-1 terms of the kRows staged rows to the register partial;
-  // a `counted` pass moves the partial towards its next flush.
-  __device__ __forceinline__ void accumulate(RowStage<KMAX>& st,
-                                             bool counted) {
+  // Adds the rank-1 terms of the kRows staged rows.
+  __device__ __forceinline__ void accumulate(RowStage<KMAX>& st) {
 #pragma unroll 4
     for (int r = 0; r < kRows; ++r) {
       float gi[RT], gj[RT];
@@ -270,10 +241,6 @@ struct GramAcc {
         for (int q = 0; q < RT; ++q) a[p][q] = fmaf(gi[p], gj[q], a[p][q]);
       if (threadIdx.x < KMAX) b = fmaf(st.rt[r], st.g[r][threadIdx.x], b);
     }
-    if (counted && ++passes == kFlushPasses) {
-      flush();
-      passes = 0;
-    }
     __syncthreads();
   }
 
@@ -281,53 +248,11 @@ struct GramAcc {
   template <class Src>
   __device__ __forceinline__ void add_pass(RowStage<KMAX>& st, const Src& src,
                                            long p0, int n, const float* rt) {
-    const bool nonzero = src.stage(st, k, p0, n, rt);
-    if (nonzero || !Src::kSkipsEmpty) accumulate(st, nonzero);
+    if (src.stage(st, k, p0, n, rt)) accumulate(st);
   }
 
-  // Adds the rows of segment s of one chunk of [T]-row tiles (NT tiles,
-  // owner seg[tile] sorted, so the segment's tiles are contiguous: found by
-  // binary search), b-coefficients rt[p] stream-aligned.
-  template <class Src>
-  __device__ __forceinline__ void add_tile_segment(
-      RowStage<KMAX>& st, int s, const Src& src, const float* rt,
-      const int* seg, int nt, int T) {
-    const long row0 = (long)lower_bound(seg, nt, s) * T;
-    const long row1 = (long)lower_bound(seg, nt, s + 1) * T;
-    for (long base = row0; base < row1; base += kRows) {
-      const int n = row1 - base < kRows ? (int)(row1 - base) : kRows;
-      add_pass(st, src, base, n, rt + base);
-    }
-  }
-
-  // Adds the rows of segment s of one dense-stream chunk: tile i (NT tiles
-  // in NG groups of M = NT/NG; meta = g_blk ‖ lb ‖ lo ‖ hi ‖ seg, seg
-  // sorted) covers stream rows p = g_blk[i/M]·BG + lb_i + r for r in
-  // [lo_i, hi_i), with b-coefficient rt[i·T + r] (tile-aligned).
-  template <class Src>
-  __device__ __forceinline__ void add_dense_segment(
-      RowStage<KMAX>& st, int s, const Src& src, const float* rt,
-      const int* meta, int nt, int ng, int T, int BG) {
-    const int m = nt / ng;
-    const int* g_blk = meta;
-    const int* lb = meta + ng;
-    const int* lo = lb + nt;
-    const int* hi = lo + nt;
-    const int* seg = hi + nt;
-    const int t0 = lower_bound(seg, nt, s);
-    const int t1 = lower_bound(seg, nt, s + 1);
-    for (int i = t0; i < t1; ++i) {
-      const int r_lo = __ldg(lo + i), r_hi = __ldg(hi + i);
-      const long base = (long)__ldg(g_blk + i / m) * BG + __ldg(lb + i);
-      for (int r0 = r_lo; r0 < r_hi; r0 += kRows) {
-        const int n = r_hi - r0 < kRows ? r_hi - r0 : kRows;
-        add_pass(st, src, base + r0, n, rt + (long)i * T + r0);
-      }
-    }
-  }
-
-  // Adds cin·(ca, cb) — the previous chunk's carried partial — into this
-  // segment's sums (callers do this for segment 0 only).
+  // Adds cin·(ca, cb) — the previous chunk's carried partial — into the
+  // sums (callers do this for the last unit of segment 0 only).
   __device__ __forceinline__ void fold_carry(const float* ca, const float* cb,
                                              float cin) {
 #pragma unroll
@@ -338,6 +263,18 @@ struct GramAcc {
         if (i < k && j < k) a[p][q] = fmaf(cin, __ldg(ca + i * k + j), a[p][q]);
       }
     if (threadIdx.x < k) b = fmaf(cin, __ldg(cb + threadIdx.x), b);
+  }
+
+  // Writes the sums to A [k, k] (row stride ld) and bv [k].
+  __device__ __forceinline__ void store(float* A, int ld, float* bv) const {
+#pragma unroll
+    for (int p = 0; p < RT; ++p)
+#pragma unroll
+      for (int q = 0; q < RT; ++q) {
+        const int i = ti * RT + p, j = tj * RT + q;
+        if (i < k && j < k) A[(size_t)i * ld + j] = a[p][q];
+      }
+    if (threadIdx.x < k) bv[threadIdx.x] = b;
   }
 };
 

@@ -1,12 +1,12 @@
 // The tiled layout's Gram kernels, templated on their walk and their row
 // source (common.cuh).  Two shapes:
-//   gram_kernel        per-segment (A [S,k,k], b [S,k]) written to device
-//                      memory, cin·(ca, cb) folded into segment 0;
-//   gram_solve_kernel  the same sums kept in shared memory, then the fused
-//                      epilogue: carry fold, the RAW (A, b) of segment lseg
-//                      as the next chunk's carry, the ridge, the Cholesky
-//                      solve; only x [S,k] and the carry row leave the CTA.
-// Two walks: TileWalk (a chunk of [T]-row tiles with sorted owners seg) and
+//   gram        per-segment (A [S,k,k], b [S,k]) written to device memory,
+//               cin·(ca, cb) folded into segment 0;
+//   gram_solve  the same sums, then the fused epilogue in shared memory:
+//               carry fold, the RAW (A, b) of segment lseg as the next
+//               chunk's carry, the ridge, the Cholesky solve; only x [S,k]
+//               and the carry row leave the kernel.
+// Two walks: TileWalk (a chunk of [T]-row tiles with sorted owners) and
 // DenseWalk (the dense stream's windowed tiles, meta = g_blk ‖ lb ‖ lo ‖ hi
 // ‖ seg).  Two sources: GatherRows (the table read by index inside the
 // kernel) and StreamRows (a materialized [C, k] stream).  Each kernel
@@ -18,146 +18,355 @@
 //   gram        dense  gram_tiles_dense_gather.cu  gram_tiles_dense.cu
 //   gram_solve  dense  gram_solve_dense.cu (K3)    gram_solve_tiles_dense.cu
 //
-// So a gather kernel and its stream twin run the same walk, the same float32
-// operations in the same order and the same epilogue: fed the stream K5
-// gathers from the same operands, the twins agree bit for bit.
+// So a gather kernel and its stream twin run the same units, the same
+// float32 operations in the same order and the same epilogue: fed the
+// stream K5 gathers from the same operands, the twins agree bit for bit.
 //
-// Design (all eight): one CTA per owner segment.  The CTA finds its rows by
-// binary search of the sorted owners, stages them kRows at a time into
-// shared memory, and every thread adds the rank-1 terms of its RT x RT
-// register block of A, flushed into the segment's running sums every 1,024
-// counted rows and at the end (common.cuh: a two-level sum stays accurate
-// over a million-row segment).  Segments owning no row get zeros (solve:
-// x = 0); the TPU kernels leave them unwritten, and callers route those rows
-// to the trash row either way.  Skew is the design's weak point: one hot
-// entity is one CTA on one SM.
+// Design (all eight): the grid is work units, not segments.  A chunk's
+// unit table (ops/kernels/gram_units.py: planned once when the blocks are
+// uploaded, or derived on the device by the wrapper) cuts every segment's
+// passes into units of at most kUnitPasses passes (1,024 rows), so one hot
+// entity is spread over as many CTAs as it has units, and a chunk's time
+// follows its live rows, not its largest segment.  A CTA stages its unit's
+// rows kRows at a time into shared memory and every thread adds the rank-1
+// terms of its RT x RT register block.  A segment of one unit is finished
+// by that CTA, straight into its output or its epilogue.  The units of a
+// longer segment write their register partials to a scratch slot each,
+// summed per Gram element in unit order from zero (the carry folded into
+// the last partial with fmaf, for segment 0), so the sums are
+// deterministic and equal the running two-level sums a single CTA would
+// form.  gram: a second launch sums every split segment, one thread per
+// element, and writes the sums out.  gram_solve: the last of a segment's
+// units to finish (an integer ticket after a fence) sums a segment of up
+// to kInlineUnits units itself and runs the epilogue at once, beside the
+// other segments' work — in a second launch the k = 128 Cholesky solves of
+// the split segments were a serial round of ~0.4 ms a chunk; a longer
+// segment is summed by the second launch's slice CTAs, and the last of
+// them to finish runs the epilogue.  Two launches per call; no float
+// atomics.
+// Segments owning no row get zeros (solve: x = 0); the TPU kernels leave
+// them unwritten, and callers route those rows to the trash row either way.
 #pragma once
 
 #include "common.cuh"
 
 namespace cfk {
 
-// The rows of segment s of a chunk of [T]-row tiles; rt stream-aligned.
+// A tile-walk unit is the rows [start, end) of the chunk's stream (rt
+// stream-aligned), end - start <= kUnitPasses·kRows.
 struct TileWalk {
-  const int* seg;
-  int nt, T;
-
-  bool valid() const { return T >= 1; }
+  bool valid() const { return true; }
 
   template <int KMAX, class Src>
   __device__ __forceinline__ void add(GramAcc<KMAX>& acc, RowStage<KMAX>& st,
-                                      int s, const Src& src,
+                                      const Unit& u, const Src& src,
                                       const float* rt) const {
-    acc.add_tile_segment(st, s, src, rt, seg, nt, T);
+    for (int p = u.start; p < u.end; p += kRows)
+      acc.add_pass(st, src, p, min(kRows, u.end - p), rt + p);
   }
 };
 
-// The rows of segment s of a dense-stream chunk; rt tile-aligned [NT·T].
+// A dense-walk unit is up to kUnitPasses window passes of one segment from
+// the tile-aligned position start = i·T + r (tile i, window row r), over
+// the segment's tiles before tile `end`.  Tile i (NT tiles in NG groups of
+// M = NT/NG) covers stream rows p = g_blk[i/M]·BG + lb_i + r for r in
+// [lo_i, hi_i), b-coefficient rt[i·T + r] (tile-aligned); tiles with an
+// empty window (group padding) cost one metadata read.
 struct DenseWalk {
   const int* meta;
   int nt, ng, T, BG;
 
-  bool valid() const { return ng >= 1 && nt % ng == 0; }
+  bool valid() const { return ng >= 1 && nt % ng == 0 && T >= 1; }
 
   template <int KMAX, class Src>
   __device__ __forceinline__ void add(GramAcc<KMAX>& acc, RowStage<KMAX>& st,
-                                      int s, const Src& src,
+                                      const Unit& u, const Src& src,
                                       const float* rt) const {
-    acc.add_dense_segment(st, s, src, rt, meta, nt, ng, T, BG);
+    const int m = nt / ng;
+    const int* g_blk = meta;
+    const int* lb = meta + ng;
+    const int* lo = lb + nt;
+    const int* hi = lo + nt;
+    const int i0 = u.start / T;
+    int passes = 0;
+    for (int i = i0; i < u.end && passes < kUnitPasses; ++i) {
+      const int r_hi = __ldg(hi + i);
+      const long base = (long)__ldg(g_blk + i / m) * BG + __ldg(lb + i);
+      for (int r = i == i0 ? u.start - i0 * T : __ldg(lo + i);
+           r < r_hi && passes < kUnitPasses; r += kRows, ++passes)
+        acc.add_pass(st, src, base + r, min(kRows, r_hi - r),
+                     rt + (long)i * T + r);
+    }
   }
 };
 
+// A chunk's unit plan as the kernels take it: nu units [nu, 4] (Unit
+// records; a segment's units consecutive, split segments' units first), the
+// nsp split segments' first units, the scratch for the split units'
+// partials [*, k² + k] (A row-major, then b) and, for gram_solve, nu + nsp
+// zeroed tickets (the unit launch's indexed by a segment's first unit, the
+// reduce launch's by split segment).
+struct Plan {
+  const int* units;
+  int nu;
+  const int* splits;
+  int nsp;
+  float* scratch;
+  int* tickets;
+};
+
+__device__ __forceinline__ float* partial_of(float* scratch, int u, int k) {
+  return scratch + (size_t)u * (k * k + k);
+}
+
+// Element e of split segment u.s's sum: its n units' partials from unit u0
+// on, added in unit order from zero, cin·(ca, cb)[e] folded into the last
+// with fmaf when `carry` — the operations a single CTA's running two-level
+// sum performs.  The partials were written by the previous launch.
+__device__ __forceinline__ float reduce_element(const float* scratch, int u0,
+                                                int n, int k, int e,
+                                                bool carry, const float* ca,
+                                                const float* cb,
+                                                const float* cin) {
+  const size_t w = (size_t)k * k + k;
+  const float* p = scratch + (size_t)u0 * w + e;
+  float sum = 0.0f;
+#pragma unroll 8
+  for (int j = 0; j < n - 1; ++j) sum += __ldcg(p + (size_t)j * w);
+  float last = __ldcg(p + (size_t)(n - 1) * w);
+  if (carry)
+    last = fmaf(__ldg(cin), e < k * k ? __ldg(ca + e) : __ldg(cb + e - k * k),
+                last);
+  return sum + last;
+}
+
+// A reduce launch sums each split segment's k² + k elements in slices of
+// kThreads, one CTA a slice.  The gram shape takes them all; gram_solve
+// takes one CTA per kReduceUnits units of the segment (CTA y then sums
+// elements y·kThreads + t + j·slices·kThreads), because each of its CTAs
+// holds the epilogue's shared memory (66 KB at k = 128, three CTAs per
+// SM).  gram_solve's segments of up to kInlineUnits units (32K rows) are
+// summed in the unit launch by one CTA: at most 2 MB of partials at
+// k = 128, read in far less time than the Cholesky solve after it.
+constexpr int kReduceUnits = 16;
+constexpr int kInlineUnits = 32;
+
+__host__ __device__ __forceinline__ int max_slices(int k) {
+  return (k * k + k + kThreads - 1) / kThreads;
+}
+
+// Uncapped: two CTAs per SM at KMAX = 128 (128 registers, spilling) ran
+// 10% faster on 1M-row chunks but 36% slower on the implicit runs'
+// 49,152-entry chunks (tools/gram_kernels_ab.py, chip_smoke.py; PERF.md).
 template <int KMAX, class Walk, class Src>
 __global__ void __launch_bounds__(kThreads)
-gram_kernel(Src src, Walk walk, int k, const float* __restrict__ rt,
-            const float* __restrict__ ca, const float* __restrict__ cb,
-            const float* __restrict__ cin, float* __restrict__ out_a,
-            float* __restrict__ out_b) {
+gram_kernel(Src src, Walk walk, int k, const int* __restrict__ units,
+            const float* __restrict__ rt, const float* __restrict__ ca,
+            const float* __restrict__ cb, const float* __restrict__ cin,
+            float* __restrict__ out_a, float* __restrict__ out_b,
+            float* __restrict__ scratch) {
   __shared__ RowStage<KMAX> st;
-  const int s = blockIdx.x;
+  const Unit u = load_unit(units, blockIdx.x);
+  if (u.s < 0) return;
   GramAcc<KMAX> acc;
-  acc.init(out_a + (size_t)s * k * k, k, out_b + (size_t)s * k, k);
-  walk.add(acc, st, s, src, rt);
-  if (s == 0 && ca != nullptr) acc.fold_carry(ca, cb, __ldg(cin));
-  acc.flush();
+  acc.init(k);
+  walk.add(acc, st, u, src, rt);
+  if (u.n > 1) {
+    float* p = partial_of(scratch, blockIdx.x, k);
+    acc.store(p, k, p + k * k);
+    return;
+  }
+  if (u.s == 0 && ca != nullptr) acc.fold_carry(ca, cb, __ldg(cin));
+  acc.store(out_a + (size_t)u.s * k * k, k, out_b + (size_t)u.s * k);
 }
+
+// grid (split segment, slice): the split segments' sums.
+__global__ void __launch_bounds__(kThreads)
+gram_reduce_kernel(int k, const int* __restrict__ units,
+                   const int* __restrict__ splits,
+                   const float* __restrict__ ca, const float* __restrict__ cb,
+                   const float* __restrict__ cin,
+                   const float* __restrict__ scratch,
+                   float* __restrict__ out_a, float* __restrict__ out_b) {
+  const int u0 = __ldg(splits + blockIdx.x);
+  const int e = blockIdx.y * kThreads + threadIdx.x;
+  if (u0 < 0 || e >= k * k + k) return;
+  const Unit u = load_unit(units, u0);
+  const float v = reduce_element(scratch, u0, u.n, k, e,
+                                 u.s == 0 && ca != nullptr, ca, cb, cin);
+  if (e < k * k)
+    out_a[(size_t)u.s * k * k + e] = v;
+  else
+    out_b[(size_t)u.s * k + e - k * k] = v;
+}
+
+// The fused epilogue of segment s, whose raw sums are in shared memory
+// (A [k, k] with row stride k + 1, then y [k]; the caller synchronized).
+struct SolveEpilogue {
+  const float* reg;
+  int reg_mode;
+  float lam;
+  const int* lseg;
+  float* x;
+  float* ca_out;
+  float* cb_out;
+
+  __device__ void run(float* A, float* y, int k, int s) const {
+    const int ld = k + 1;
+    if (s == __ldg(lseg)) {
+      for (int idx = threadIdx.x; idx < k * k; idx += blockDim.x) {
+        const int i = idx / k, j = idx - i * k;
+        ca_out[idx] = A[i * ld + j];
+      }
+      for (int i = threadIdx.x; i < k; i += blockDim.x) cb_out[i] = y[i];
+      __syncthreads();
+    }
+    add_ridge(A, ld, k, reg_mode, lam, reg, s);
+    chol_solve_smem(A, ld, y, k);
+    for (int i = threadIdx.x; i < k; i += blockDim.x)
+      x[(size_t)s * k + i] = y[i];
+  }
+};
 
 // Four CTAs per SM at KMAX <= 64, two at 128 (the register cap this asks
 // for): a fused chunk holds thousands of short segments, and the CTAs in
 // flight hide each other's latency — uncapped, the staging registers
-// halved them and K3 took 1.4-1.7x as long (tools/gram_kernels_ab.py).  The
-// gram shape serves few long segments and runs uncapped.
+// halved them and K3 took 1.4-1.7x as long (tools/gram_kernels_ab.py).
 template <int KMAX, class Walk, class Src>
 __global__ void __launch_bounds__(kThreads, KMAX <= 64 ? 4 : 2)
-gram_solve_kernel(Src src, Walk walk, int k, const float* __restrict__ rt,
-                  const float* __restrict__ reg, int reg_mode, float lam,
-                  const int* __restrict__ lseg, const float* __restrict__ ca,
-                  const float* __restrict__ cb, const float* __restrict__ cin,
-                  float* __restrict__ x, float* __restrict__ ca_out,
-                  float* __restrict__ cb_out) {
+gram_solve_kernel(Src src, Walk walk, int k, const int* __restrict__ units,
+                  const float* __restrict__ rt, SolveEpilogue ep,
+                  const float* __restrict__ ca, const float* __restrict__ cb,
+                  const float* __restrict__ cin, float* scratch,
+                  int* __restrict__ tickets) {
   __shared__ RowStage<KMAX> st;
+  __shared__ bool last;
   extern __shared__ float smem[];
+  const Unit u = load_unit(units, blockIdx.x);
+  if (u.s < 0) return;
+  GramAcc<KMAX> acc;
+  acc.init(k);
+  walk.add(acc, st, u, src, rt);
   const int ld = k + 1;
   float* A = smem;
   float* y = smem + k * ld;
-  const int s = blockIdx.x;
-  GramAcc<KMAX> acc;
-  acc.init(A, ld, y, k);
-  walk.add(acc, st, s, src, rt);
-  if (s == 0 && ca != nullptr) acc.fold_carry(ca, cb, __ldg(cin));
-  acc.flush();
-  __syncthreads();
-  if (s == __ldg(lseg)) {
-    for (int idx = threadIdx.x; idx < k * k; idx += blockDim.x) {
-      const int i = idx / k, j = idx - i * k;
-      ca_out[idx] = A[i * ld + j];
-    }
-    for (int i = threadIdx.x; i < k; i += blockDim.x) cb_out[i] = y[i];
+  if (u.n == 1) {
+    if (u.s == 0 && ca != nullptr) acc.fold_carry(ca, cb, __ldg(cin));
+    acc.store(A, ld, y);
     __syncthreads();
+    ep.run(A, y, k, u.s);
+    return;
   }
-  add_ridge(A, ld, k, reg_mode, lam, reg, s);
-  chol_solve_smem(A, ld, y, k);
-  for (int i = threadIdx.x; i < k; i += blockDim.x) x[(size_t)s * k + i] = y[i];
+  float* p = partial_of(scratch, blockIdx.x, k);
+  acc.store(p, k, p + k * k);
+  if (u.n > kInlineUnits) return;  // the reduce launch's
+  const int u0 = blockIdx.x - u.j;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(tickets + u0, 1) == u.n - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int e = threadIdx.x; e < k * k + k; e += blockDim.x) {
+    const float v = reduce_element(scratch, u0, u.n, k, e,
+                                   u.s == 0 && ca != nullptr, ca, cb, cin);
+    if (e < k * k)
+      A[(e / k) * ld + e % k] = v;
+    else
+      y[e - k * k] = v;
+  }
+  __syncthreads();
+  ep.run(A, y, k, u.s);
+}
+
+// grid (split segment, slice), segments of more than kInlineUnits units:
+// each slice CTA writes its elements of the segment's sums over the
+// segment's first partial (only the thread that read an element writes
+// it), then takes a ticket; the last of the segment's slices to arrive
+// loads the sums and runs the epilogue.
+__global__ void __launch_bounds__(kThreads)
+gram_solve_reduce_kernel(int k, const int* __restrict__ units,
+                         const int* __restrict__ splits, SolveEpilogue ep,
+                         const float* __restrict__ ca,
+                         const float* __restrict__ cb,
+                         const float* __restrict__ cin, float* scratch,
+                         int* __restrict__ tickets) {
+  extern __shared__ float smem[];
+  __shared__ bool last;
+  const int u0 = __ldg(splits + blockIdx.x);
+  if (u0 < 0) return;
+  const Unit u = load_unit(units, u0);
+  if (u.n <= kInlineUnits) return;  // summed in the unit launch
+  const int sl =
+      min(max_slices(k), (u.n + kReduceUnits - 1) / kReduceUnits);
+  if ((int)blockIdx.y >= sl) return;
+  float* sum = partial_of(scratch, u0, k);
+  for (int e = blockIdx.y * kThreads + threadIdx.x; e < k * k + k;
+       e += sl * kThreads)
+    sum[e] = reduce_element(scratch, u0, u.n, k, e,
+                            u.s == 0 && ca != nullptr, ca, cb, cin);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(tickets + blockIdx.x, 1) == sl - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int ld = k + 1;
+  float* A = smem;
+  float* y = smem + k * ld;
+  for (int idx = threadIdx.x; idx < k * k; idx += blockDim.x) {
+    const int i = idx / k, j = idx - i * k;
+    A[i * ld + j] = __ldcg(sum + idx);
+  }
+  for (int i = threadIdx.x; i < k; i += blockDim.x) y[i] = __ldcg(sum + k * k + i);
+  __syncthreads();
+  ep.run(A, y, k, u.s);
 }
 
 // Refuses what the kernels do not take and selects the device.
 template <class Walk>
-inline int prepare(int k, const Walk& walk, int device) {
-  if (k < 1 || k > 128 || !walk.valid()) return (int)cudaErrorInvalidValue;
+inline int prepare(int k, const Walk& walk, const Plan& plan, int device) {
+  if (k < 1 || k > 128 || !walk.valid() || plan.nu < 0 || plan.nsp < 0)
+    return (int)cudaErrorInvalidValue;
   return (int)cudaSetDevice(device);
 }
 
 template <int KMAX, class Walk, class Src>
-int launch_gram_k(Src src, Walk walk, int k, int S, const float* rt,
-                  const float* ca, const float* cb, const float* cin,
-                  float* out_a, float* out_b, cudaStream_t stream) {
-  gram_kernel<KMAX, Walk, Src><<<S, kThreads, 0, stream>>>(
-      src, walk, k, rt, ca, cb, cin, out_a, out_b);
+int launch_gram_k(Src src, Walk walk, int k, const Plan& plan,
+                  const float* rt, const float* ca, const float* cb,
+                  const float* cin, float* out_a, float* out_b,
+                  cudaStream_t stream) {
+  gram_kernel<KMAX, Walk, Src><<<plan.nu, kThreads, 0, stream>>>(
+      src, walk, k, plan.units, rt, ca, cb, cin, out_a, out_b, plan.scratch);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || plan.nsp == 0) return (int)err;
+  gram_reduce_kernel<<<dim3(plan.nsp, max_slices(k)), kThreads, 0,
+                       stream>>>(k, plan.units, plan.splits, ca, cb, cin,
+                                 plan.scratch, out_a, out_b);
   return (int)cudaGetLastError();
 }
 
-// One chunk's (A, b): S CTAs, one per segment.
+// One chunk's (A, b): the unit launch, then the split segments' reduction.
 template <class Walk, class Src>
-int launch_gram(Src src, Walk walk, int k, int S, const float* rt,
+int launch_gram(Src src, Walk walk, int k, const Plan& plan, const float* rt,
                 const float* ca, const float* cb, const float* cin,
                 float* out_a, float* out_b, int device, void* stream) {
-  if (S == 0) return 0;
-  const int err = prepare(k, walk, device);
-  if (err != 0) return err;
+  const int err = prepare(k, walk, plan, device);
+  if (err != 0 || plan.nu == 0) return err;
   cudaStream_t st = (cudaStream_t)stream;
   if (k <= 32)
-    return launch_gram_k<32>(src, walk, k, S, rt, ca, cb, cin, out_a, out_b, st);
+    return launch_gram_k<32>(src, walk, k, plan, rt, ca, cb, cin, out_a, out_b, st);
   if (k <= 64)
-    return launch_gram_k<64>(src, walk, k, S, rt, ca, cb, cin, out_a, out_b, st);
-  return launch_gram_k<128>(src, walk, k, S, rt, ca, cb, cin, out_a, out_b, st);
+    return launch_gram_k<64>(src, walk, k, plan, rt, ca, cb, cin, out_a, out_b, st);
+  return launch_gram_k<128>(src, walk, k, plan, rt, ca, cb, cin, out_a, out_b, st);
 }
 
 template <int KMAX, class Walk, class Src>
-int launch_gram_solve_k(Src src, Walk walk, int k, int S, const float* rt,
-                        const float* reg, int reg_mode, float lam,
-                        const int* lseg, const float* ca, const float* cb,
-                        const float* cin, float* x, float* ca_out,
-                        float* cb_out, cudaStream_t stream) {
+int launch_gram_solve_k(Src src, Walk walk, int k, const Plan& plan,
+                        const float* rt, const SolveEpilogue& ep,
+                        const float* ca, const float* cb, const float* cin,
+                        cudaStream_t stream) {
   // The static row stage plus the dynamic (A, y) block pass the default
   // 48 KB at k > ~64 (KMAX = 128: 16.5 KB + 40-66 KB), so opt in every time.
   const size_t smem = sizeof(float) * (size_t)(k * (k + 1) + k);
@@ -165,31 +374,37 @@ int launch_gram_solve_k(Src src, Walk walk, int k, int S, const float* rt,
       gram_solve_kernel<KMAX, Walk, Src>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  gram_solve_kernel<KMAX, Walk, Src><<<S, kThreads, smem, stream>>>(
-      src, walk, k, rt, reg, reg_mode, lam, lseg, ca, cb, cin, x, ca_out,
-      cb_out);
+  gram_solve_kernel<KMAX, Walk, Src><<<plan.nu, kThreads, smem, stream>>>(
+      src, walk, k, plan.units, rt, ep, ca, cb, cin, plan.scratch,
+      plan.tickets);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || plan.nsp == 0) return (int)err;
+  err = cudaFuncSetAttribute(gram_solve_reduce_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  gram_solve_reduce_kernel<<<dim3(plan.nsp, max_slices(k)), kThreads, smem,
+                             stream>>>(k, plan.units, plan.splits, ep, ca, cb,
+                                       cin, plan.scratch,
+                                       plan.tickets + plan.nu);
   return (int)cudaGetLastError();
 }
 
-// One chunk's solved rows x and next carry: S CTAs, one per segment.
+// One chunk's solved rows x and next carry: the unit launch (one-unit
+// segments solved in place), then the split segments' reduction and solve.
 template <class Walk, class Src>
-int launch_gram_solve(Src src, Walk walk, int k, int S, const float* rt,
-                      const float* reg, int reg_mode, float lam,
-                      const int* lseg, const float* ca, const float* cb,
-                      const float* cin, float* x, float* ca_out,
-                      float* cb_out, int device, void* stream) {
-  if (S == 0) return 0;
-  const int err = prepare(k, walk, device);
-  if (err != 0) return err;
+int launch_gram_solve(Src src, Walk walk, int k, const Plan& plan,
+                      const float* rt, const SolveEpilogue& ep,
+                      const float* ca, const float* cb, const float* cin,
+                      int device, void* stream) {
+  const int err = prepare(k, walk, plan, device);
+  if (err != 0 || plan.nu == 0) return err;
   cudaStream_t st = (cudaStream_t)stream;
   if (k <= 32)
-    return launch_gram_solve_k<32>(src, walk, k, S, rt, reg, reg_mode, lam,
-                                   lseg, ca, cb, cin, x, ca_out, cb_out, st);
+    return launch_gram_solve_k<32>(src, walk, k, plan, rt, ep, ca, cb, cin, st);
   if (k <= 64)
-    return launch_gram_solve_k<64>(src, walk, k, S, rt, reg, reg_mode, lam,
-                                   lseg, ca, cb, cin, x, ca_out, cb_out, st);
-  return launch_gram_solve_k<128>(src, walk, k, S, rt, reg, reg_mode, lam,
-                                  lseg, ca, cb, cin, x, ca_out, cb_out, st);
+    return launch_gram_solve_k<64>(src, walk, k, plan, rt, ep, ca, cb, cin, st);
+  return launch_gram_solve_k<128>(src, walk, k, plan, rt, ep, ca, cb, cin, st);
 }
 
 }  // namespace cfk

@@ -20,22 +20,33 @@
 // k x k Gram, twice the symmetric half.
 //
 // Design: gram_kernels.cuh's gram_solve shape on the dense walk with the
-// gather source — one CTA per segment walks its tiles' windows kRows rows
-// at a time (tiles with an empty window, group padding, cost one metadata
-// read), then the carry fold, the raw carry-row copy, the ridge and the
-// Cholesky solve run in place in shared memory: the [S, k, k] batch never
-// reaches device memory, only x and the carry row do.
-// gram_solve_tiles_dense.cu is its twin on a materialized stream.
+// gather source.  What bounded the one-CTA-per-segment design was skew: a
+// chunk's time tracked its largest user (136 ns per row of it), the card
+// idle around that CTA.  Now the grid is the chunk's work units — each
+// segment's window passes cut into runs of at most 32 passes, a unit
+// possibly starting inside a tile — so a heavy user is spread over several
+// CTAs.  A one-unit segment (most users) is finished by its CTA as before:
+// the carry fold, the raw carry-row copy, the ridge and the Cholesky solve
+// run in place in shared memory, and the [S, k, k] batch never reaches
+// device memory.  The units of a longer segment write register partials
+// to scratch; a second launch sums them per Gram element in unit order
+// (the carry folded into the last partial) and the last of the segment's
+// slice CTAs to arrive runs the same epilogue on the sums.  What is left
+// is the per-segment Cholesky tail (~4,900 k = 64 solves per Netflix
+// chunk) and the FMA loop.  gram_solve_tiles_dense.cu is its twin on a
+// materialized stream.
 #include "gram_kernels.cuh"
 
 extern "C" int cfk_gram_solve_dense(
     const float* table, int F, int k, const int* nb, const float* wt,
-    const float* rt, const int* meta, int nt, int ng, int T, int BG, int S,
-    const float* reg, int reg_mode, float lam, const int* lseg,
+    const float* rt, const int* meta, int nt, int ng, int T, int BG,
+    const int* units, int nu, const int* splits, int nsp, float* scratch,
+    int* tickets, const float* reg, int reg_mode, float lam, const int* lseg,
     const float* ca, const float* cb, const float* cin, float* x,
     float* ca_out, float* cb_out, int device, void* stream) {
-  return cfk::launch_gram_solve(cfk::GatherRows{table, F, nb, wt},
-                                cfk::DenseWalk{meta, nt, ng, T, BG}, k, S, rt,
-                                reg, reg_mode, lam, lseg, ca, cb, cin, x,
-                                ca_out, cb_out, device, stream);
+  return cfk::launch_gram_solve(
+      cfk::GatherRows{table, F, nb, wt}, cfk::DenseWalk{meta, nt, ng, T, BG},
+      k, cfk::Plan{units, nu, splits, nsp, scratch, tickets}, rt,
+      cfk::SolveEpilogue{reg, reg_mode, lam, lseg, x, ca_out, cb_out}, ca, cb,
+      cin, device, stream);
 }

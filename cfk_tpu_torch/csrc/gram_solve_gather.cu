@@ -20,23 +20,25 @@
 // full k x k Gram, twice the symmetric half.
 //
 // Design: gram_kernels.cuh's gram_solve shape on the tile walk with the
-// gather source — K2's walk and K3's epilogue (carry fold, raw carry-row
+// gather source — K2's units and K3's epilogue (carry fold, raw carry-row
 // copy, ridge, Cholesky in place); only x and the carry row reach device
-// memory.  The grid's x dimension takes up to 2³¹ − 1 segments and the
-// shared memory (16.5 KB static stage + 66 KB dynamic at k = 128) fits one
-// CTA of any width class, so no bucket is split for the kernel's sake.  A
-// width class whose widest row holds a Zipf-head entity waits on that one
-// CTA.  gram_solve_tiles.cu is its twin on a materialized stream.
+// memory.  A width class's Zipf-head entity (one row of 1.2M entries) is
+// spread over its ~1,200 units, and its partials are summed by ~65 slice
+// CTAs at k = 128 before one CTA solves it.  The shared memory (16.5 KB
+// static stage + 66 KB dynamic at k = 128) fits one CTA of any width class,
+// so no bucket is split for the kernel's sake.  gram_solve_tiles.cu is its
+// twin on a materialized stream.
 #include "gram_kernels.cuh"
 
 extern "C" int cfk_gram_solve_gather(
     const float* table, int F, int k, const int* nb, const float* wt,
-    const float* rt, const int* seg, int nt, int T, int S, const float* reg,
-    int reg_mode, float lam, const int* lseg, const float* ca,
-    const float* cb, const float* cin, float* x, float* ca_out,
-    float* cb_out, int device, void* stream) {
-  return cfk::launch_gram_solve(cfk::GatherRows{table, F, nb, wt},
-                                cfk::TileWalk{seg, nt, T}, k, S, rt, reg,
-                                reg_mode, lam, lseg, ca, cb, cin, x, ca_out,
-                                cb_out, device, stream);
+    const float* rt, const int* units, int nu, const int* splits, int nsp,
+    float* scratch, int* tickets, const float* reg, int reg_mode, float lam,
+    const int* lseg, const float* ca, const float* cb, const float* cin,
+    float* x, float* ca_out, float* cb_out, int device, void* stream) {
+  return cfk::launch_gram_solve(
+      cfk::GatherRows{table, F, nb, wt}, cfk::TileWalk{}, k,
+      cfk::Plan{units, nu, splits, nsp, scratch, tickets}, rt,
+      cfk::SolveEpilogue{reg, reg_mode, lam, lseg, x, ca_out, cb_out}, ca, cb,
+      cin, device, stream);
 }

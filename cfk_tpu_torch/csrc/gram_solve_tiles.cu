@@ -19,18 +19,21 @@
 // segment for the solve.  This kernel computes the full k x k Gram.
 //
 // Design: gram_kernels.cuh's gram_solve shape on the tile walk with the
-// stream source — K6's walk, sums and epilogue, reading each row from g.
-// Every pass is accumulated, padding rows too (the stream holds values
-// only, as the TPU kernel's input does).  On the stream K5 writes from K6's
-// operands it returns K6's bits.
+// stream source — K6's units, sums and epilogue, reading each row from g.
+// Every pass is loaded, padding rows too (the stream holds values only, as
+// the TPU kernel's input does).  On the stream K5 writes from K6's operands
+// it returns K6's bits.
 #include "gram_kernels.cuh"
 
 extern "C" int cfk_gram_solve_tiles(
-    const float* g, int k, const float* rt, const int* seg, int nt, int T,
-    int S, const float* reg, int reg_mode, float lam, const int* lseg,
+    const float* g, int k, const float* rt, const int* units, int nu,
+    const int* splits, int nsp, float* scratch, int* tickets,
+    const float* reg, int reg_mode, float lam, const int* lseg,
     const float* ca, const float* cb, const float* cin, float* x,
     float* ca_out, float* cb_out, int device, void* stream) {
-  return cfk::launch_gram_solve(cfk::StreamRows{g}, cfk::TileWalk{seg, nt, T},
-                                k, S, rt, reg, reg_mode, lam, lseg, ca, cb,
-                                cin, x, ca_out, cb_out, device, stream);
+  return cfk::launch_gram_solve(
+      cfk::StreamRows{g}, cfk::TileWalk{}, k,
+      cfk::Plan{units, nu, splits, nsp, scratch, tickets}, rt,
+      cfk::SolveEpilogue{reg, reg_mode, lam, lseg, x, ca_out, cb_out}, ca, cb,
+      cin, device, stream);
 }

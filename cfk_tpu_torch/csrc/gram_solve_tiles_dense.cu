@@ -17,18 +17,20 @@
 // per segment for the solve.  The full k x k Gram is computed.
 //
 // Design: gram_kernels.cuh's gram_solve shape on the dense walk with the
-// stream source — K3's windows, sums and epilogue (carry fold, raw carry
-// row, ridge, Cholesky in shared memory), each window row read from g.  On
-// the stream K5 writes from K3's operands it returns K3's bits.
+// stream source — K3's units, sums and epilogue (carry fold, raw carry row,
+// ridge, Cholesky in shared memory), each window row read from g.  On the
+// stream K5 writes from K3's operands it returns K3's bits.
 #include "gram_kernels.cuh"
 
 extern "C" int cfk_gram_solve_tiles_dense(
     const float* g, int k, const float* rt, const int* meta, int nt, int ng,
-    int T, int BG, int S, const float* reg, int reg_mode, float lam,
+    int T, int BG, const int* units, int nu, const int* splits, int nsp,
+    float* scratch, int* tickets, const float* reg, int reg_mode, float lam,
     const int* lseg, const float* ca, const float* cb, const float* cin,
     float* x, float* ca_out, float* cb_out, int device, void* stream) {
-  return cfk::launch_gram_solve(cfk::StreamRows{g},
-                                cfk::DenseWalk{meta, nt, ng, T, BG}, k, S, rt,
-                                reg, reg_mode, lam, lseg, ca, cb, cin, x,
-                                ca_out, cb_out, device, stream);
+  return cfk::launch_gram_solve(
+      cfk::StreamRows{g}, cfk::DenseWalk{meta, nt, ng, T, BG}, k,
+      cfk::Plan{units, nu, splits, nsp, scratch, tickets}, rt,
+      cfk::SolveEpilogue{reg, reg_mode, lam, lseg, x, ca_out, cb_out}, ca, cb,
+      cin, device, stream);
 }

@@ -19,18 +19,20 @@
 // Gram, twice the symmetric half.
 //
 // Design: gram_kernels.cuh's gram shape on the tile walk with the stream
-// source — K2's walk, sums and flush points, reading each row from g in
-// place of gathering it.  The stream holds values only, so every pass is
-// accumulated, the tile padding's zero rows too (as the TPU kernel walks
-// them): where K2 skips a pass of padding rows this kernel loads and adds
-// it.  On the stream K5 writes from K2's operands it returns K2's bits.
+// source — K2's units, sums and reduction, reading each row from g in place
+// of gathering it.  The stream holds values only, so every pass is loaded,
+// the tile padding's zero rows too (as the TPU kernel walks them), and a
+// pass of zero rows is not accumulated, as K2 skips it.  On the stream K5
+// writes from K2's operands it returns K2's bits.
 #include "gram_kernels.cuh"
 
 extern "C" int cfk_gram_tiles(const float* g, int k, const float* rt,
-                              const int* seg, int nt, int T, int S,
-                              const float* ca, const float* cb,
-                              const float* cin, float* out_a, float* out_b,
-                              int device, void* stream) {
-  return cfk::launch_gram(cfk::StreamRows{g}, cfk::TileWalk{seg, nt, T}, k, S,
+                              const int* units, int nu, const int* splits,
+                              int nsp, float* scratch, const float* ca,
+                              const float* cb, const float* cin,
+                              float* out_a, float* out_b, int device,
+                              void* stream) {
+  return cfk::launch_gram(cfk::StreamRows{g}, cfk::TileWalk{}, k,
+                          cfk::Plan{units, nu, splits, nsp, scratch, nullptr},
                           rt, ca, cb, cin, out_a, out_b, device, stream);
 }

@@ -18,18 +18,20 @@
 // S·(k² + k)·4 bytes of (A, b) written.  The full k x k Gram is computed.
 //
 // Design: gram_kernels.cuh's gram shape on the dense walk with the stream
-// source — gram_tiles_dense_gather's windows, sums and flush points, each
-// window row read from g in place of being gathered.  The two alignments
-// (g by stream row, rt by tile slot) are the dense walk's, as in K3.  On
-// the stream K5 writes from gram_tiles_dense_gather's operands it returns
-// that kernel's bits.
+// source — gram_tiles_dense_gather's units, sums and reduction, each window
+// row read from g in place of being gathered.  The two alignments (g by
+// stream row, rt by tile slot) are the dense walk's, as in K3.  On the
+// stream K5 writes from gram_tiles_dense_gather's operands it returns that
+// kernel's bits.
 #include "gram_kernels.cuh"
 
 extern "C" int cfk_gram_tiles_dense(
     const float* g, int k, const float* rt, const int* meta, int nt, int ng,
-    int T, int BG, int S, const float* ca, const float* cb, const float* cin,
+    int T, int BG, const int* units, int nu, const int* splits, int nsp,
+    float* scratch, const float* ca, const float* cb, const float* cin,
     float* out_a, float* out_b, int device, void* stream) {
   return cfk::launch_gram(cfk::StreamRows{g},
-                          cfk::DenseWalk{meta, nt, ng, T, BG}, k, S, rt, ca,
-                          cb, cin, out_a, out_b, device, stream);
+                          cfk::DenseWalk{meta, nt, ng, T, BG}, k,
+                          cfk::Plan{units, nu, splits, nsp, scratch, nullptr},
+                          rt, ca, cb, cin, out_a, out_b, device, stream);
 }

@@ -21,21 +21,23 @@
 //
 // Design: K3 (gram_solve_dense.cu) with the epilogue left out —
 // gram_kernels.cuh's gram shape on the dense walk with the gather source:
-// the same windows and two-level sums, accumulated straight into the
-// segment's rows of the output, the carry folded into the register partial
-// before the last flush, as in K3.  Each Gram element therefore takes the
-// same float32 operations in the same order as in K3's shared memory, so
-// the split schedule (this kernel, then K1's ridge and Cholesky, which K3's
-// epilogue shares) solves the same bits as K3.  gram_tiles_dense.cu is its
-// twin on a materialized stream.
+// the same units and sums, a one-unit segment's sums written straight to
+// its rows of the output, a longer segment's partials summed by the second
+// launch, the carry folded into the last partial, as in K3.  Each Gram
+// element therefore takes the same float32 operations in the same order as
+// K3's, so the split schedule (this kernel, then K1's ridge and Cholesky,
+// which K3's epilogue shares) solves the same bits as K3.
+// gram_tiles_dense.cu is its twin on a materialized stream.
 #include "gram_kernels.cuh"
 
 extern "C" int cfk_gram_tiles_dense_gather(
     const float* table, int F, int k, const int* nb, const float* wt,
-    const float* rt, const int* meta, int nt, int ng, int T, int BG, int S,
+    const float* rt, const int* meta, int nt, int ng, int T, int BG,
+    const int* units, int nu, const int* splits, int nsp, float* scratch,
     const float* ca, const float* cb, const float* cin, float* out_a,
     float* out_b, int device, void* stream) {
   return cfk::launch_gram(cfk::GatherRows{table, F, nb, wt},
-                          cfk::DenseWalk{meta, nt, ng, T, BG}, k, S, rt, ca,
-                          cb, cin, out_a, out_b, device, stream);
+                          cfk::DenseWalk{meta, nt, ng, T, BG}, k,
+                          cfk::Plan{units, nu, splits, nsp, scratch, nullptr},
+                          rt, ca, cb, cin, out_a, out_b, device, stream);
 }

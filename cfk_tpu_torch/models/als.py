@@ -28,6 +28,11 @@ from cfk_tpu_torch.data.blocks import (
     TiledBlocks,
 )
 from cfk_tpu_torch.device import DEFAULT_DEVICE, resolve_device
+from cfk_tpu_torch.ops.kernels.gram_units import (
+    derive_dense_units,
+    derive_tile_units,
+    stage_plans,
+)
 from cfk_tpu_torch.ops.solve import (
     als_half_step,
     als_half_step_bucketed,
@@ -97,10 +102,21 @@ def _blocks_to_device(blocks: PaddedBlocks, device) -> dict[str, torch.Tensor]:
 
 
 def _bucketed_to_device(blocks: BucketedBlocks, device):
-    """(tuple of per-bucket device dicts, per-bucket ``chunk_rows``)."""
+    """(tuple of per-bucket device dicts, per-bucket ``chunk_rows``).  Each
+    dict also holds its width class's Gram work-unit plan (``units``,
+    ``unit_splits``, ``unit_scratch``: one tile per entity,
+    ``ops.bucketed``)."""
     trees, chunks = blocks.to_tree()
-    return tuple({key: torch.as_tensor(v, device=device)
-                  for key, v in tree.items()} for tree in trees), chunks
+    out = []
+    for tree in trees:
+        d = {key: torch.as_tensor(v, device=device)
+             for key, v in tree.items()}
+        rows, width = tree["neighbor"].shape
+        seg = torch.arange(rows, dtype=torch.int32)
+        d.update(stage_plans(derive_tile_units(seg[None], width, rows),
+                             device))
+        out.append(d)
+    return tuple(out), chunks
 
 
 def _bucketed_device_setup(dataset: Dataset, device):
@@ -127,7 +143,9 @@ def _tiled_to_device(blocks: TiledBlocks, device, fixed_rows: int,
     ``weighted`` (the iALS trainer) also stages the dense stream's
     tile-aligned ``weight`` and stream-aligned ``rating_dense`` — the
     channels the reparameterized weights are computed from; the explicit
-    path never uploads them."""
+    path never uploads them.  Every mode stages its chunks' Gram work-unit
+    plans (``ops.kernels.gram_units``: ``units``, ``unit_splits``,
+    ``unit_scratch``), which depend on the layout alone."""
     dev = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
     if blocks.mode == "dstream":
         d = {
@@ -140,6 +158,10 @@ def _tiled_to_device(blocks: TiledBlocks, device, fixed_rows: int,
             "last_seg": dev(blocks.last_seg),
             "count": dev(blocks.count),
         }
+        _, _, e_c, t, nt, ng, _ = blocks.statics
+        meta = torch.as_tensor(blocks.tile_meta).view(blocks.num_chunks, -1)
+        d.update(stage_plans(derive_dense_units(meta, t, nt, ng, e_c + 1),
+                             device))
         if weighted:
             d["weight"] = dev(blocks.weight)
             d["rating_dense"] = dev(blocks.rating_dense)
@@ -161,6 +183,9 @@ def _tiled_to_device(blocks: TiledBlocks, device, fixed_rows: int,
                                      blocks.num_chunks),
                  carry_in=dev(blocks.carry_in),
                  last_seg=dev(blocks.last_seg))
+    t, e_c = blocks.tile_rows, blocks.chunk_entities
+    seg = torch.as_tensor(blocks.tile_seg).view(blocks.num_chunks, -1)
+    d.update(stage_plans(derive_tile_units(seg, t, e_c + 1), device))
     return d
 
 

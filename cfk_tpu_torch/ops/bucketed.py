@@ -74,6 +74,7 @@ def bucket_gram_solve(
     solver: str = "auto",
     gather: str = "fused",
     fused: bool = True,
+    units=None,  # the class's Gram work-unit plan (None: derived on device)
 ) -> torch.Tensor:
     """One width-class piece: flatten to one tile per entity and solve every
     row — [rows, k].  ``gather="fused"``: K6 reads the table by index;
@@ -86,7 +87,7 @@ def bucket_gram_solve(
     seg = torch.arange(rows, dtype=torch.int32, device=nb.device)
     nb, wt = nb.reshape(-1), wt.reshape(-1).contiguous()
     kw = dict(rt=rt.reshape(-1).contiguous(), seg=seg, num_segments=rows,
-              tile_rows=width)
+              tile_rows=width, units=units)
     g = None
     if gather == "xla":
         g = (gather_rows if kernels else gather_rows_plain)(table, nb, wt)

@@ -31,6 +31,13 @@ then reads it with the twin of each kernel above:
 - ``gram_solve_tiles_dense`` ↔ ``gram_solve_tiles_dense_pallas`` (twin of
   K3).
 
+Every Gram kernel's grid is work units — runs of at most 1,024 rows of one
+owner segment, so a hot segment is spread over many CTAs — and every Gram
+wrapper takes ``units``, the chunk's unit plan (``gram_units``: the device
+upload stages one per chunk and the half-steps pass it); called without
+one, the wrapper derives it on the device.  The plain versions take and
+ignore it.
+
 Each gather version's plain version is ``gather_rows_plain`` followed by its
 stream twin's, so the two routes agree by construction on the CPU; on the
 card a twin fed K5's stream runs its sibling's float32 operations in its
@@ -48,6 +55,10 @@ import torch
 
 from cfk_tpu_torch import _build
 from cfk_tpu_torch.ops.kernels import on_cuda, require, scalar_on, stream_of
+from cfk_tpu_torch.ops.kernels.gram_units import (
+    derive_dense_units,
+    derive_tile_units,
+)
 from cfk_tpu_torch.ops.kernels.solve_kernel import (
     MAX_RANK,
     REG_MODES,
@@ -56,34 +67,21 @@ from cfk_tpu_torch.ops.kernels.solve_kernel import (
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_GATHER_ARGTYPES = (
-    _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P,
-)
-_DENSE_ARGTYPES = (
-    _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _F, _P, _P, _P,
-    _P, _P, _P, _P, _I, _P,
-)
+_PLAN = (_P, _I, _P, _I, _P)  # units, nu, splits, nsp, scratch
+_SOLVE = (_P, _P, _I, _F, _P, _P, _P, _P, _P, _P, _P)  # tickets .. cb_out
+_GRAM_TAIL = (_P, _P, _P, _P, _P, _I, _P)  # ca, cb, cin, out_a, out_b, dev, st
+_DENSE_WALK = (_P, _I, _I, _I, _I)  # meta, nt, ng, T, BG
+_GATHER = (_P, _I, _I, _P, _P, _P)  # table, F, k, nb, wt, rt
+_STREAM = (_P, _I, _P)  # g, k, rt
+_GATHER_ARGTYPES = _GATHER + _PLAN + _GRAM_TAIL
+_DENSE_GRAM_ARGTYPES = _GATHER + _DENSE_WALK + _PLAN + _GRAM_TAIL
+_DENSE_ARGTYPES = _GATHER + _DENSE_WALK + _PLAN + _SOLVE + (_I, _P)
+_SOLVE_GATHER_ARGTYPES = _GATHER + _PLAN + _SOLVE + (_I, _P)
+_TILES_ARGTYPES = _STREAM + _PLAN + _GRAM_TAIL
+_TILES_DENSE_ARGTYPES = _STREAM + _DENSE_WALK + _PLAN + _GRAM_TAIL
+_SOLVE_TILES_ARGTYPES = _STREAM + _PLAN + _SOLVE + (_I, _P)
+_SOLVE_TILES_DENSE_ARGTYPES = _STREAM + _DENSE_WALK + _PLAN + _SOLVE + (_I, _P)
 _ROWS_ARGTYPES = (_P, _I, _I, _P, _P, ctypes.c_longlong, _I, _P, _I, _P)
-_DENSE_GRAM_ARGTYPES = (
-    _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I,
-    _P,
-)
-_SOLVE_GATHER_ARGTYPES = (
-    _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _P, _I, _F, _P, _P, _P, _P, _P,
-    _P, _P, _I, _P,
-)
-_TILES_ARGTYPES = (_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P)
-_SOLVE_TILES_ARGTYPES = (
-    _P, _I, _P, _P, _I, _I, _I, _P, _I, _F, _P, _P, _P, _P, _P, _P, _P, _I,
-    _P,
-)
-_TILES_DENSE_ARGTYPES = (
-    _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P,
-)
-_SOLVE_TILES_DENSE_ARGTYPES = (
-    _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _I, _F, _P, _P, _P, _P, _P, _P,
-    _P, _I, _P,
-)
 
 
 def gather_rows_plain(table: torch.Tensor, nb: torch.Tensor,
@@ -152,9 +150,12 @@ def _solve_plain(ab, reg, lseg, lam, reg_mode):
     return x, a[ls].clone(), b[ls].clone()
 
 
-def gram_tiles_plain(g, rt, seg, *, num_segments, tile_rows, carry=None):
+def gram_tiles_plain(g, rt, seg, *, num_segments, tile_rows, carry=None,
+                     units=None):
     """The plain PyTorch version of ``gram_tiles``: tile einsums, segment
-    sum by ``index_add_`` — the XLA twin ``_emulate_gram_tiles``."""
+    sum by ``index_add_`` — the XLA twin ``_emulate_gram_tiles``.  Every
+    plain version takes the kernels' work-unit plan ``units`` and has no use
+    for it."""
     k = g.shape[-1]
     gt = g.view(-1, tile_rows, k)
     a_t = torch.einsum("ntk,ntl->nkl", gt, gt)
@@ -163,7 +164,7 @@ def gram_tiles_plain(g, rt, seg, *, num_segments, tile_rows, carry=None):
 
 
 def gram_gather_plain(table, nb, wt, rt, seg, *, num_segments, tile_rows,
-                      carry=None):
+                      carry=None, units=None):
     """The plain PyTorch version of K2: ``gather_rows_plain`` then
     ``gram_tiles_plain``."""
     return gram_tiles_plain(gather_rows_plain(table, nb, wt), rt, seg,
@@ -172,7 +173,8 @@ def gram_gather_plain(table, nb, wt, rt, seg, *, num_segments, tile_rows,
 
 
 def gram_solve_tiles_plain(g, rt, seg, reg, lseg, *, num_segments,
-                           tile_rows, lam=0.0, reg_mode="diag", carry=None):
+                           tile_rows, lam=0.0, reg_mode="diag", carry=None,
+                           units=None):
     """The plain PyTorch version of ``gram_solve_tiles``: the plain sums,
     the raw ``lseg`` row, then K1's plain ridge + Cholesky solve."""
     return _solve_plain(gram_tiles_plain(g, rt, seg,
@@ -183,7 +185,7 @@ def gram_solve_tiles_plain(g, rt, seg, reg, lseg, *, num_segments,
 
 def gram_solve_gather_plain(table, nb, wt, rt, seg, reg, lseg, *,
                             num_segments, tile_rows, lam=0.0,
-                            reg_mode="diag", carry=None):
+                            reg_mode="diag", carry=None, units=None):
     """The plain PyTorch version of K6: ``gather_rows_plain`` then
     ``gram_solve_tiles_plain``."""
     return gram_solve_tiles_plain(
@@ -193,7 +195,8 @@ def gram_solve_gather_plain(table, nb, wt, rt, seg, reg, lseg, *,
 
 
 def gram_tiles_dense_plain(g, rt, meta, *, num_segments, tile_rows,
-                           num_tiles, num_groups, block_rows, carry=None):
+                           num_tiles, num_groups, block_rows, carry=None,
+                           units=None):
     """The plain PyTorch version of ``gram_tiles_dense``: windowed tiles of
     the stream, masked einsums, segment sum — the indexing of
     ``_emulate_gram_dense``."""
@@ -218,7 +221,7 @@ def gram_tiles_dense_plain(g, rt, meta, *, num_segments, tile_rows,
 
 def gram_tiles_dense_gather_plain(table, nb, wt, rt, meta, *, num_segments,
                                   tile_rows, num_tiles, num_groups,
-                                  block_rows, carry=None):
+                                  block_rows, carry=None, units=None):
     """The plain PyTorch version of ``gram_tiles_dense_gather`` (and K3's
     Gram): ``gather_rows_plain`` then ``gram_tiles_dense_plain``."""
     return gram_tiles_dense_plain(
@@ -230,7 +233,7 @@ def gram_tiles_dense_gather_plain(table, nb, wt, rt, meta, *, num_segments,
 def gram_solve_tiles_dense_plain(g, rt, meta, reg, lseg, *, num_segments,
                                  tile_rows, num_tiles, num_groups,
                                  block_rows, lam=0.0, reg_mode="diag",
-                                 carry=None):
+                                 carry=None, units=None):
     """The plain PyTorch version of ``gram_solve_tiles_dense``: the dense
     plain sums, the raw ``lseg`` row, ridge + Cholesky solve."""
     return _solve_plain(gram_tiles_dense_plain(
@@ -241,7 +244,8 @@ def gram_solve_tiles_dense_plain(g, rt, meta, reg, lseg, *, num_segments,
 
 def gram_solve_dense_plain(table, nb, wt, rt, meta, reg, lseg, *,
                            num_segments, tile_rows, num_tiles, num_groups,
-                           block_rows, lam, reg_mode="diag", carry=None):
+                           block_rows, lam, reg_mode="diag", carry=None,
+                           units=None):
     """The plain PyTorch version of K3: ``gather_rows_plain`` then
     ``gram_solve_tiles_dense_plain``."""
     return gram_solve_tiles_dense_plain(
@@ -305,15 +309,40 @@ def _solve_out(num_segments, k, dev):
             torch.zeros((k,), dtype=torch.float32, device=dev))
 
 
+def _plan_args(units, derive, k, dev, solve):
+    """The C entry's plan arguments (units, nu, splits, nsp, scratch[,
+    tickets]) and the tensors they point at: ``units`` (a
+    ``gram_units.UnitPlan``, as the device upload plans it) or, when None,
+    ``derive()``'s plan on the device.  The wrapper allocates the split
+    units' scratch and, for the solve shape, zeroes the kernels' nu + nsp
+    tickets."""
+    plan = derive() if units is None else units
+    nu, nsp = plan.units.shape[0], plan.splits.shape[0]
+    require(plan.units, "units", torch.int32, (nu, 4))
+    require(plan.splits, "unit splits", torch.int32, (nsp,))
+    if plan.units.device != dev or plan.splits.device != dev:
+        raise ValueError(f"unit plan on {plan.units.device}, kernel on {dev}")
+    scratch = torch.empty((plan.scratch_rows if nsp else 0, k * k + k),
+                          dtype=torch.float32, device=dev)
+    p = _build.ptr
+    args = [p(plan.units), nu, p(plan.splits), nsp, p(scratch)]
+    keep = [plan, scratch]
+    if solve:
+        keep.append(torch.zeros(nu + nsp, dtype=torch.int32, device=dev))
+        args.append(p(keep[-1]))
+    return args, keep
+
+
 # -- the gather route: the table read by index inside the kernel --------------
 
 def gram_gather(table, nb, wt, rt, seg, *, num_segments, tile_rows,
-                carry=None):
+                carry=None, units=None):
     """K2: per-segment (A [S,k,k], b [S,k]) of one tiled chunk.
 
     table [F,k] f32 (raw: no zero row); nb/wt/rt [C] (int32 / f32 / f32);
     seg [C/T] int32 owner per tile, sorted; ``carry`` = (ca [k,k], cb [k],
-    cin scalar) folds cin·(ca, cb) into segment 0.
+    cin scalar) folds cin·(ca, cb) into segment 0; ``units`` = the chunk's
+    work-unit plan (``gram_units``; None: derived on the device).
     """
     c = nb.shape[0]
     f, k = table.shape
@@ -331,11 +360,13 @@ def gram_gather(table, nb, wt, rt, seg, *, num_segments, tile_rows,
     require(seg, "seg", torch.int32, (nt,))
     ca, cb, cin = _carry_on(carry, k, table.device)
     a, b = _gram_out(num_segments, k, table.device)
+    plan, _keep = _plan_args(
+        units, lambda: derive_tile_units(seg, t, num_segments), k,
+        table.device, solve=False)
     fn = _build.function("gram_gather", "cfk_gram_gather", _GATHER_ARGTYPES)
     p = _build.ptr
-    rc = fn(p(table), f, k, p(nb), p(wt), p(rt), p(seg), nt, t, num_segments,
-            p(ca), p(cb), p(cin), p(a), p(b), table.device.index or 0,
-            stream_of(table))
+    rc = fn(p(table), f, k, p(nb), p(wt), p(rt), *plan, p(ca), p(cb), p(cin),
+            p(a), p(b), table.device.index or 0, stream_of(table))
     _build.check(rc, "gram_gather")
     gram_gather.launches += 1
     return a, b
@@ -346,15 +377,16 @@ gram_gather.launches = 0
 
 def gram_tiles_dense_gather(table, nb, wt, rt, meta, *, num_segments,
                             tile_rows, num_tiles, num_groups, block_rows,
-                            carry=None):
+                            carry=None, units=None):
     """One dense-stream chunk's per-segment (A [S,k,k], b [S,k]) — K3's
     Gram without its epilogue.
 
     table [F,k] f32; nb [C] int32 dense stream (padding → F); wt [C] f32
     per-entry weight or None (unit); rt [NT·T] f32 tile-aligned
     b-coefficients; meta [NG+4·NT] int32 (g_blk ‖ lb ‖ lo ‖ hi ‖ seg);
-    ``carry`` = (ca, cb, cin) folds cin·(ca, cb) into segment 0.  A segment
-    owning no tile comes back as zeros.
+    ``carry`` = (ca, cb, cin) folds cin·(ca, cb) into segment 0; ``units``
+    = the work-unit plan (None: derived on the device).  A segment owning
+    no tile comes back as zeros.
     """
     c = nb.shape[0]
     f, k = table.shape
@@ -375,11 +407,14 @@ def gram_tiles_dense_gather(table, nb, wt, rt, meta, *, num_segments,
     require(meta, "meta", torch.int32, (ng + 4 * nt,))
     ca, cb, cin = _carry_on(carry, k, dev)
     a, b = _gram_out(num_segments, k, dev)
+    plan, _keep = _plan_args(
+        units, lambda: derive_dense_units(meta, t, nt, ng, num_segments), k,
+        dev, solve=False)
     fn = _build.function("gram_tiles_dense_gather",
                          "cfk_gram_tiles_dense_gather", _DENSE_GRAM_ARGTYPES)
     p = _build.ptr
     rc = fn(p(table), f, k, p(nb), p(wt), p(rt), p(meta), nt, ng, t, bg,
-            num_segments, p(ca), p(cb), p(cin), p(a), p(b), dev.index or 0,
+            *plan, p(ca), p(cb), p(cin), p(a), p(b), dev.index or 0,
             stream_of(table))
     _build.check(rc, "gram_tiles_dense_gather")
     gram_tiles_dense_gather.launches += 1
@@ -391,7 +426,7 @@ gram_tiles_dense_gather.launches = 0
 
 def gram_solve_dense(table, nb, wt, rt, meta, reg, lseg, *, num_segments,
                      tile_rows, num_tiles, num_groups, block_rows, lam,
-                     reg_mode="diag", carry=None):
+                     reg_mode="diag", carry=None, units=None):
     """K3: one dense-stream chunk: (x [S,k], carry_a [k,k], carry_b [k]).
 
     table [F,k] f32; nb [C] int32 dense stream (padding → F); wt [C] f32
@@ -399,7 +434,8 @@ def gram_solve_dense(table, nb, wt, rt, meta, reg, lseg, *, num_segments,
     b-coefficients; meta [NG+4·NT] int32 (g_blk ‖ lb ‖ lo ‖ hi ‖ seg); reg
     [S] counts (diag; trash row floored by the caller) or [k,k] (matrix);
     lseg = the segment whose RAW (A, b) is returned as the next carry;
-    ``carry`` = (ca, cb, cin) folded into segment 0.
+    ``carry`` = (ca, cb, cin) folded into segment 0; ``units`` = the
+    work-unit plan (None: derived on the device).
     """
     c = nb.shape[0]
     f, k = table.shape
@@ -425,11 +461,14 @@ def gram_solve_dense(table, nb, wt, rt, meta, reg, lseg, *, num_segments,
     lseg_d = scalar_on(lseg, dev, torch.int32)
     ca, cb, cin = _carry_on(carry, k, dev)
     x, ca_out, cb_out = _solve_out(num_segments, k, dev)
+    plan, _keep = _plan_args(
+        units, lambda: derive_dense_units(meta, t, nt, ng, num_segments), k,
+        dev, solve=True)
     fn = _build.function("gram_solve_dense", "cfk_gram_solve_dense",
                          _DENSE_ARGTYPES)
     p = _build.ptr
     rc = fn(p(table), f, k, p(nb), p(wt), p(rt), p(meta), nt, ng, t, bg,
-            num_segments, p(reg32), REG_MODES[reg_mode], float(lam),
+            *plan, p(reg32), REG_MODES[reg_mode], float(lam),
             p(lseg_d), p(ca), p(cb), p(cin), p(x), p(ca_out), p(cb_out),
             dev.index or 0, stream_of(table))
     _build.check(rc, "gram_solve_dense")
@@ -441,7 +480,8 @@ gram_solve_dense.launches = 0
 
 
 def gram_solve_gather(table, nb, wt, rt, seg, reg, lseg, *, num_segments,
-                      tile_rows, lam=0.0, reg_mode="diag", carry=None):
+                      tile_rows, lam=0.0, reg_mode="diag", carry=None,
+                      units=None):
     """K6: one chunk of [T]-row tiles gathered, summed per owner segment,
     regularized and solved — (x [S,k], carry_a [k,k], carry_b [k]).
 
@@ -449,7 +489,8 @@ def gram_solve_gather(table, nb, wt, rt, seg, reg, lseg, *, num_segments,
     the zero row); seg [C/T] int32 owner per tile, sorted; reg [S] counts
     (diag) or [k,k] (matrix); lseg = the segment whose RAW (A, b) is
     returned as the next carry; ``carry`` = (ca, cb, cin) folds cin·(ca,
-    cb) into segment 0.  A segment owning no tile solves to x = 0.
+    cb) into segment 0; ``units`` = the work-unit plan (None: derived on
+    the device).  A segment owning no tile solves to x = 0.
     """
     c = nb.shape[0]
     f, k = table.shape
@@ -471,13 +512,15 @@ def gram_solve_gather(table, nb, wt, rt, seg, reg, lseg, *, num_segments,
     lseg_d = scalar_on(lseg, dev, torch.int32)
     ca, cb, cin = _carry_on(carry, k, dev)
     x, ca_out, cb_out = _solve_out(num_segments, k, dev)
+    plan, _keep = _plan_args(
+        units, lambda: derive_tile_units(seg, t, num_segments), k, dev,
+        solve=True)
     fn = _build.function("gram_solve_gather", "cfk_gram_solve_gather",
                          _SOLVE_GATHER_ARGTYPES)
     p = _build.ptr
-    rc = fn(p(table), f, k, p(nb), p(wt), p(rt), p(seg), nt, t, num_segments,
-            p(reg32), REG_MODES[reg_mode], float(lam), p(lseg_d), p(ca),
-            p(cb), p(cin), p(x), p(ca_out), p(cb_out), dev.index or 0,
-            stream_of(table))
+    rc = fn(p(table), f, k, p(nb), p(wt), p(rt), *plan, p(reg32),
+            REG_MODES[reg_mode], float(lam), p(lseg_d), p(ca), p(cb), p(cin),
+            p(x), p(ca_out), p(cb_out), dev.index or 0, stream_of(table))
     _build.check(rc, "gram_solve_gather")
     gram_solve_gather.launches += 1
     return x, ca_out, cb_out
@@ -488,13 +531,15 @@ gram_solve_gather.launches = 0
 
 # -- the materialized-stream route: K5's stream read by the twins -------------
 
-def gram_tiles(g, rt, seg, *, num_segments, tile_rows, carry=None):
+def gram_tiles(g, rt, seg, *, num_segments, tile_rows, carry=None,
+               units=None):
     """Per-segment (A [S,k,k], b [S,k]) of one tiled chunk's gathered
     stream — K2's twin on the materialized-stream schedule.
 
     g [C,k] f32 (``gather_rows``' stream: zero rows at padding); rt [C] f32
     b-coefficients; seg [C/T] int32 owner per tile, sorted; ``carry`` =
-    (ca [k,k], cb [k], cin scalar) folds cin·(ca, cb) into segment 0.
+    (ca [k,k], cb [k], cin scalar) folds cin·(ca, cb) into segment 0;
+    ``units`` = the work-unit plan (None: derived on the device).
     """
     c, k = g.shape
     t = tile_rows
@@ -509,10 +554,13 @@ def gram_tiles(g, rt, seg, *, num_segments, tile_rows, carry=None):
     require(seg, "seg", torch.int32, (nt,))
     ca, cb, cin = _carry_on(carry, k, dev)
     a, b = _gram_out(num_segments, k, dev)
+    plan, _keep = _plan_args(
+        units, lambda: derive_tile_units(seg, t, num_segments), k, dev,
+        solve=False)
     fn = _build.function("gram_tiles", "cfk_gram_tiles", _TILES_ARGTYPES)
     p = _build.ptr
-    rc = fn(p(g), k, p(rt), p(seg), nt, t, num_segments, p(ca), p(cb),
-            p(cin), p(a), p(b), dev.index or 0, stream_of(g))
+    rc = fn(p(g), k, p(rt), *plan, p(ca), p(cb), p(cin), p(a), p(b),
+            dev.index or 0, stream_of(g))
     _build.check(rc, "gram_tiles")
     gram_tiles.launches += 1
     return a, b
@@ -522,7 +570,7 @@ gram_tiles.launches = 0
 
 
 def gram_solve_tiles(g, rt, seg, reg, lseg, *, num_segments, tile_rows,
-                     lam=0.0, reg_mode="diag", carry=None):
+                     lam=0.0, reg_mode="diag", carry=None, units=None):
     """One tiled chunk's gathered stream summed per owner segment,
     regularized and solved — (x [S,k], carry_a [k,k], carry_b [k]); K6's
     twin on the materialized-stream schedule.
@@ -530,7 +578,8 @@ def gram_solve_tiles(g, rt, seg, reg, lseg, *, num_segments, tile_rows,
     g [C,k] f32 (zero rows at padding); rt [C] f32; seg [C/T] int32, sorted;
     reg [S] counts (diag) or [k,k] (matrix); lseg = the segment whose RAW
     (A, b) is returned as the next carry; ``carry`` = (ca, cb, cin) folded
-    into segment 0.  A segment owning no tile solves to x = 0.
+    into segment 0; ``units`` = the work-unit plan (None: derived on the
+    device).  A segment owning no tile solves to x = 0.
     """
     c, k = g.shape
     t = tile_rows
@@ -549,10 +598,13 @@ def gram_solve_tiles(g, rt, seg, reg, lseg, *, num_segments, tile_rows,
     lseg_d = scalar_on(lseg, dev, torch.int32)
     ca, cb, cin = _carry_on(carry, k, dev)
     x, ca_out, cb_out = _solve_out(num_segments, k, dev)
+    plan, _keep = _plan_args(
+        units, lambda: derive_tile_units(seg, t, num_segments), k, dev,
+        solve=True)
     fn = _build.function("gram_solve_tiles", "cfk_gram_solve_tiles",
                          _SOLVE_TILES_ARGTYPES)
     p = _build.ptr
-    rc = fn(p(g), k, p(rt), p(seg), nt, t, num_segments, p(reg32),
+    rc = fn(p(g), k, p(rt), *plan, p(reg32),
             REG_MODES[reg_mode], float(lam), p(lseg_d), p(ca), p(cb), p(cin),
             p(x), p(ca_out), p(cb_out), dev.index or 0, stream_of(g))
     _build.check(rc, "gram_solve_tiles")
@@ -564,14 +616,15 @@ gram_solve_tiles.launches = 0
 
 
 def gram_tiles_dense(g, rt, meta, *, num_segments, tile_rows, num_tiles,
-                     num_groups, block_rows, carry=None):
+                     num_groups, block_rows, carry=None, units=None):
     """One dense-stream chunk's per-segment (A [S,k,k], b [S,k]) from its
     gathered stream — ``gram_tiles_dense_gather``'s twin on the
     materialized-stream schedule.
 
     g [C,k] f32 stream-aligned (zero rows at padding); rt [NT·T] f32
     tile-aligned b-coefficients; meta [NG+4·NT] int32 (g_blk ‖ lb ‖ lo ‖ hi
-    ‖ seg); ``carry`` = (ca, cb, cin) folds cin·(ca, cb) into segment 0.  A
+    ‖ seg); ``carry`` = (ca, cb, cin) folds cin·(ca, cb) into segment 0;
+    ``units`` = the work-unit plan (None: derived on the device).  A
     segment owning no tile comes back as zeros.
     """
     c, k = g.shape
@@ -589,11 +642,14 @@ def gram_tiles_dense(g, rt, meta, *, num_segments, tile_rows, num_tiles,
     require(meta, "meta", torch.int32, (ng + 4 * nt,))
     ca, cb, cin = _carry_on(carry, k, dev)
     a, b = _gram_out(num_segments, k, dev)
+    plan, _keep = _plan_args(
+        units, lambda: derive_dense_units(meta, t, nt, ng, num_segments), k,
+        dev, solve=False)
     fn = _build.function("gram_tiles_dense", "cfk_gram_tiles_dense",
                          _TILES_DENSE_ARGTYPES)
     p = _build.ptr
-    rc = fn(p(g), k, p(rt), p(meta), nt, ng, t, bg, num_segments, p(ca),
-            p(cb), p(cin), p(a), p(b), dev.index or 0, stream_of(g))
+    rc = fn(p(g), k, p(rt), p(meta), nt, ng, t, bg, *plan, p(ca), p(cb),
+            p(cin), p(a), p(b), dev.index or 0, stream_of(g))
     _build.check(rc, "gram_tiles_dense")
     gram_tiles_dense.launches += 1
     return a, b
@@ -604,14 +660,15 @@ gram_tiles_dense.launches = 0
 
 def gram_solve_tiles_dense(g, rt, meta, reg, lseg, *, num_segments,
                            tile_rows, num_tiles, num_groups, block_rows,
-                           lam=0.0, reg_mode="diag", carry=None):
+                           lam=0.0, reg_mode="diag", carry=None, units=None):
     """One dense-stream chunk from its gathered stream: (x [S,k], carry_a
     [k,k], carry_b [k]) — K3's twin on the materialized-stream schedule.
 
     g [C,k] f32 stream-aligned; rt [NT·T] f32 tile-aligned; meta
     [NG+4·NT] int32; reg [S] counts (diag) or [k,k] (matrix); lseg = the
     segment whose RAW (A, b) is returned as the next carry; ``carry`` =
-    (ca, cb, cin) folded into segment 0.
+    (ca, cb, cin) folded into segment 0; ``units`` = the work-unit plan
+    (None: derived on the device).
     """
     c, k = g.shape
     t, nt, ng, bg = tile_rows, num_tiles, num_groups, block_rows
@@ -632,11 +689,14 @@ def gram_solve_tiles_dense(g, rt, meta, reg, lseg, *, num_segments,
     lseg_d = scalar_on(lseg, dev, torch.int32)
     ca, cb, cin = _carry_on(carry, k, dev)
     x, ca_out, cb_out = _solve_out(num_segments, k, dev)
+    plan, _keep = _plan_args(
+        units, lambda: derive_dense_units(meta, t, nt, ng, num_segments), k,
+        dev, solve=True)
     fn = _build.function("gram_solve_tiles_dense",
                          "cfk_gram_solve_tiles_dense",
                          _SOLVE_TILES_DENSE_ARGTYPES)
     p = _build.ptr
-    rc = fn(p(g), k, p(rt), p(meta), nt, ng, t, bg, num_segments, p(reg32),
+    rc = fn(p(g), k, p(rt), p(meta), nt, ng, t, bg, *plan, p(reg32),
             REG_MODES[reg_mode], float(lam), p(lseg_d), p(ca), p(cb), p(cin),
             p(x), p(ca_out), p(cb_out), dev.index or 0, stream_of(g))
     _build.check(rc, "gram_solve_tiles_dense")

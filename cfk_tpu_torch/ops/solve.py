@@ -249,7 +249,9 @@ def walk_buckets(buckets, chunk_rows, arrays_of, piece, out):
     current factors), run ``piece(*arrays) -> [rows, k]`` — in [chunk, ...]
     pieces when ``chunk_rows`` bounds the bucket — and scatter the result
     into ``out`` at the bucket's entity rows (padding rows target the trash
-    slot; real rows are unique across buckets).  The JAX package's
+    slot; real rows are unique across buckets).  Only per-row arrays are
+    cut into pieces: a caller passing anything else (a Gram work-unit
+    plan) passes ``chunk_rows`` None.  The JAX package's
     double-buffered chunk map is a plain loop here.
     """
     for blk, chunk in zip(buckets, chunk_rows):
@@ -291,21 +293,22 @@ def als_half_step_bucketed(
     classes into one-row launches would only serialize their entities).
     The materialized stream of a class is rows·width·k·4 bytes at once."""
     from cfk_tpu_torch.ops.bucketed import bucket_gram_solve
+    from cfk_tpu_torch.ops.kernels.gram_units import chunk_plan
     from cfk_tpu_torch.ops.tiled import resolve_gather_mode
 
     k = fixed_factors.shape[-1]
     gather = resolve_gather_mode(in_kernel_gather)
     fused = resolve_fused_epilogue(fused_epilogue)
 
-    def solve_piece(ni, rt, mk, cnt):
+    def solve_piece(ni, rt, mk, cnt, units):
         return bucket_gram_solve(fixed_factors, ni, mk, rt, cnt, lam=lam,
                                  reg_mode="diag", solver=solver,
-                                 gather=gather, fused=fused)
+                                 gather=gather, fused=fused, units=units)
 
     out = walk_buckets(
         buckets, (None,) * len(buckets),
         lambda blk, _out: (blk["neighbor"], blk["rating"], blk["mask"],
-                           blk["count"]),
+                           blk["count"], chunk_plan(blk, 0)),
         solve_piece, fixed_factors.new_zeros(local_entities + 1, k))
     return out[:local_entities]
 
@@ -330,6 +333,7 @@ def ials_half_step_bucketed(
     ``als_half_step_bucketed``, also for ``fused_epilogue=False``: K2 + K1
     matrix mode).  Zero-interaction rows stay 0."""
     from cfk_tpu_torch.ops.bucketed import bucket_gram_solve, ials_reparam
+    from cfk_tpu_torch.ops.kernels.gram_units import chunk_plan
     from cfk_tpu_torch.ops.tiled import resolve_gather_mode
 
     k = fixed_factors.shape[-1]
@@ -339,15 +343,16 @@ def ials_half_step_bucketed(
         gram = global_gram_blocked(fixed_factors)
     reg_m = implicit_reg(gram, lam)
 
-    def solve_piece(ni, rt, mk):
+    def solve_piece(ni, rt, mk, units):
         wt, rt_b = ials_reparam(rt, mk, alpha)
         return bucket_gram_solve(fixed_factors, ni, wt, rt_b, reg_m,
                                  lam=0.0, reg_mode="matrix", solver=solver,
-                                 gather=gather, fused=fused)
+                                 gather=gather, fused=fused, units=units)
 
     out = walk_buckets(
         buckets, (None,) * len(buckets),
-        lambda blk, _out: (blk["neighbor"], blk["rating"], blk["mask"]),
+        lambda blk, _out: (blk["neighbor"], blk["rating"], blk["mask"],
+                           chunk_plan(blk, 0)),
         solve_piece, fixed_factors.new_zeros(local_entities + 1, k))
     return out[:local_entities]
 

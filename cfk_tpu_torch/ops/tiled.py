@@ -47,6 +47,7 @@ from __future__ import annotations
 import torch
 
 from cfk_tpu_torch.ops.bucketed import _SQRT_WEIGHT_EPS, ials_reparam
+from cfk_tpu_torch.ops.kernels.gram_units import chunk_plan
 from cfk_tpu_torch.ops.kernels.gram_kernel import (
     gather_rows,
     gather_rows_plain,
@@ -199,7 +200,7 @@ def _chunk_scan(fixed_factors, blk, local_entities, lam, nc, e_c, chunk,
     b0 = fixed_factors.new_zeros(k)
     xs = fixed_factors.new_empty(nc, e_c, k)
     for c in range(nc):
-        args = chunk(c)
+        args = dict(chunk(c), units=chunk_plan(blk, c))
         cin, lseg, reg = args.pop("cin"), args.pop("lseg"), args.pop("reg")
         if implicit_reg is not None:
             reg = implicit_reg
@@ -248,7 +249,7 @@ def accum_grams(
     acc_b = fixed_factors.new_zeros(local_entities + 1, k)
     ent = blk["chunk_entity"].long().view(nc, e_c)
     for c in range(nc):
-        args = accum_chunk(blk, statics, c)
+        args = dict(accum_chunk(blk, statics, c), units=chunk_plan(blk, c))
         if xla:
             g = (gather_rows if kernels else gather_rows_plain)(
                 fixed_factors, args.pop("nb"), args.pop("wt"))

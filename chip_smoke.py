@@ -17,9 +17,11 @@ Phases, each of which must pass:
 3. kernels — each kernel against its plain PyTorch version on the card at
              main-path shapes (K1: the movie half's E = 17,770 accumulated
              Grams at k = 64 with their real counts, and count-scaled random
-             Grams at k = 128; K2, K3: one real chunk of the full-shape
-             dataset at k = 64; the trained factors as the table throughout),
-             with its time, the plain
+             Grams at k = 128; K2, K3: the middle chunk of the full-shape
+             dataset at k = 64 and the chunk holding the half's largest
+             segment, each with its work-unit plan and launched twice — the
+             two launches must be bit-equal; the trained factors as the
+             table throughout), with its time, the plain
              version's time, a one-call library yardstick where one exists
              and the card's bound for the same work;
 3b. binv   — the block-inverse solve path (the port of the prototype
@@ -45,9 +47,10 @@ Phases, each of which must pass:
              ``python -m cfk_tpu_torch.scripts.exp_binv`` (both modes) as a
              subprocess, exit 0;
 4. breakdown — where one iteration's time goes (measurement, no checks):
-             each kernel's device time per chunk beside the rows of the
-             chunk's largest segment and the summed bound, and a
-             torch.profiler pass over one iteration;
+             each kernel's device time per chunk beside the chunk's live
+             rows, the rows of its largest segment, its work units and
+             split segments, and the summed bound, and a torch.profiler
+             pass over one iteration;
 4b. split  — the split epilogue (``fused_epilogue=False``) on the same
              dataset from the main run's initial factors: ``train_als`` for 2
              iterations (accum half: K2 + the Gauss-Jordan solve; dense half:
@@ -118,7 +121,8 @@ Phases, each of which must pass:
              must agree every iteration; then K5, K6 and K1-K3 in their
              implicit modes against their plain versions on a middle bucket
              / chunk, with times and bounds, per-half and per-width-class
-             times and a profiler pass over one iteration of each run; the
+             times (the head class, one 1.2M-row movie, reported apart) and
+             a profiler pass over one iteration of each run; the
              multi-RHS Gauss-Jordan against its plain version and
              ``torch.linalg.solve`` at the Schur shape (k = 64, m = 65);
 6b. gather_ml25m — (a), (b) and (e) with ``in_kernel_gather=False`` for one
@@ -356,6 +360,59 @@ def gram_tiles_dense_gather_work(table, args) -> tuple[float, float, dict]:
     s = args["num_segments"]
     nbytes += 4 * (s * (k * k + k) - s - s * k - (k * k + k))
     return nbytes, counts["window_rows"] * (k * k + 3 * k), counts
+
+
+def with_plan(args: dict, blk: dict, c: int) -> dict:
+    """Chunk c's kernel operands with the work-unit plan the device upload
+    staged for it, as the half-steps pass it."""
+    from cfk_tpu_torch.ops.kernels.gram_units import chunk_plan
+
+    return dict(args, units=chunk_plan(blk, c))
+
+
+def class_plan(rows: int, width: int, dev):
+    """A width class's work-unit plan (one tile per entity), as the
+    bucketed device upload stages it."""
+    import torch
+
+    from cfk_tpu_torch.ops.kernels.gram_units import (
+        chunk_plan, derive_tile_units, stage_plans)
+
+    seg = torch.arange(rows, dtype=torch.int32)
+    return chunk_plan(stage_plans(derive_tile_units(seg[None], width, rows),
+                                  dev), 0)
+
+
+def largest_tile_segments(blk, statics) -> "np.ndarray":
+    """Rows of each accum chunk's largest real segment (its tiles x T; the
+    trash segment Ec left out)."""
+    import numpy as np
+    import torch
+
+    from cfk_tpu_torch.ops.tiled import accum_chunk
+
+    e_c, t = statics[4], statics[2]
+    return np.array([
+        int(torch.bincount(accum_chunk(blk, statics, c)["seg"],
+                           minlength=e_c + 1)[:e_c].max()) * t
+        for c in range(statics[0])])
+
+
+def largest_window_segments(blk, statics) -> "np.ndarray":
+    """Window rows of each dense chunk's largest segment."""
+    import numpy as np
+    import torch
+
+    from cfk_tpu_torch.ops.tiled import dense_chunk
+
+    _, _, _, _, nt, ng, _ = statics
+    out = []
+    for c in range(statics[0]):
+        meta = dense_chunk(blk, statics, c)["meta"].long()
+        win = meta[ng + 2 * nt:ng + 3 * nt] - meta[ng + nt:ng + 2 * nt]
+        out.append(int(torch.bincount(meta[ng + 3 * nt:],
+                                      weights=win.double()).max()))
+    return np.array(out)
 
 
 def gauss_work(e: int, k: int, m: int) -> tuple[float, float]:
@@ -776,10 +833,11 @@ class Smoke:
 
     def breakdown(self, ds, model, blk_m, blk_u):
         """Where one iteration's time goes (measurement only, no checks):
-        each kernel's device time per chunk beside the rows of the chunk's
-        largest segment (one CTA walks each segment, so the largest one is
-        the chunk's critical path), and a torch.profiler pass over one
-        iteration summed by kernel."""
+        each kernel's device time per chunk beside the chunk's live rows,
+        the rows of its largest segment (before the work-unit split, one
+        CTA walked each segment, so that one was the chunk's critical
+        path) and its units and split segments, and a torch.profiler pass
+        over one iteration summed by kernel."""
         import numpy as np
         import torch
         from torch.profiler import ProfilerActivity, profile
@@ -804,44 +862,56 @@ class Smoke:
             return np.array([s.elapsed_time(e) for s, e in events])
 
         st_m = ds.movie_blocks.statics
-        args_m = [accum_chunk(blk_m, st_m, c) for c in range(st_m[0])]
+        args_m = [with_plan(accum_chunk(blk_m, st_m, c), blk_m, c)
+                  for c in range(st_m[0])]
         ms_m = chunk_ms([lambda a=a: gram_gather(u, **a) for a in args_m])
-        big_m = np.array([  # tiles of the largest real segment x T
-            int(torch.bincount(a["seg"], minlength=st_m[4] + 1)[:st_m[4]]
-                .max()) * st_m[2] for a in args_m])
         st_u = ds.user_blocks.statics
-        _, _, _, t, nt, ng, _ = st_u
-        args_u = [dense_chunk(blk_u, st_u, c) for c in range(st_u[0])]
+        args_u = [with_plan(dense_chunk(blk_u, st_u, c), blk_u, c)
+                  for c in range(st_u[0])]
         for a in args_u:
             a.pop("cin")
         ms_u = chunk_ms([lambda a=a: gram_solve_dense(m, **a, lam=LAM)
                          for a in args_u])
-        big_u = []
-        for a in args_u:
-            meta = a["meta"].long()
-            win = meta[ng + 2 * nt:ng + 3 * nt] - meta[ng + nt:ng + 2 * nt]
-            big_u.append(int(torch.bincount(meta[ng + 3 * nt:],
-                                            weights=win.double()).max()))
-        big_u = np.array(big_u)
 
-        def summary(ms, big, work):
+        def summary(ms, big, args, work, live_key):
+            work = [work(a) for a in args]
+            live = np.array([w[2][live_key] for w in work])
+            units = np.array([int((a["units"].units[:, 0] >= 0).sum())
+                              for a in args])
+            split = np.array([int((a["units"].splits >= 0).sum())
+                              for a in args])
             order = np.argsort(ms)
             return dict(total_ms=float(ms.sum()), min_ms=float(ms.min()),
                         median_ms=float(np.median(ms)), max_ms=float(ms.max()),
-                        bound_ms=float(sum(bound(b, f)[0] for b, f, _ in work)),
+                        bound_ms=float(sum(bound(b, f)[0]
+                                           for b, f, _ in work)),
+                        ns_per_live_row=float(np.median(ms / live) * 1e6),
                         ns_per_row_of_largest_segment=float(
                             np.median(ms / np.maximum(big, 1)) * 1e6),
+                        corr_ms_vs_live_rows=float(
+                            np.corrcoef(ms, live)[0, 1]),
                         corr_ms_vs_largest_segment=float(
                             np.corrcoef(ms, big)[0, 1]),
-                        slowest=[(float(ms[i]), int(big[i]))
+                        units_per_chunk=[int(units.min()),
+                                         float(units.mean()),
+                                         int(units.max())],
+                        split_segments_per_chunk=[int(split.min()),
+                                                  float(split.mean()),
+                                                  int(split.max())],
+                        slowest=[dict(ms=float(ms[i]), live_rows=int(live[i]),
+                                      largest_segment=int(big[i]),
+                                      units=int(units[i]),
+                                      split_segments=int(split[i]))
                                  for i in order[-3:]])
 
         self.report["chunks"] = dict(
-            gram_gather=summary(ms_m, big_m,
-                                [gram_gather_work(u, a) for a in args_m]),
+            gram_gather=summary(ms_m, largest_tile_segments(blk_m, st_m),
+                                args_m, lambda a: gram_gather_work(u, a),
+                                "live_rows"),
             gram_solve_dense=summary(
-                ms_u, big_u, [gram_solve_dense_work(m, a) for a in args_u]))
-        log(f"per-chunk kernel time vs largest segment rows: "
+                ms_u, largest_window_segments(blk_u, st_u), args_u,
+                lambda a: gram_solve_dense_work(m, a), "window_rows"))
+        log(f"per-chunk kernel time vs live rows and largest segment: "
             f"{self.report['chunks']}")
         kw = dict(m_chunks=("tiled", "accum") + st_m,
                   u_chunks=("tiled", "dstream") + st_u)
@@ -872,6 +942,7 @@ class Smoke:
             log(f"profiler unavailable: {traceback.format_exc()}")
 
     def kernel_checks(self, ds, model, blk_m, blk_u):
+        import numpy as np
         import torch
 
         from cfk_tpu_torch.ops.kernels.gram_kernel import (
@@ -921,58 +992,66 @@ class Smoke:
             del got, want
         del a64, b64, a128, b128, a, b
 
-        # K2: the middle accum chunk of the movie half, the trained U table.
-        st = ds.movie_blocks.statics
-        args = accum_chunk(blk_m, st, st[0] // 2)
-        got = gram_gather(u, **args)
-        torch.cuda.synchronize()
-        want = gram_gather_plain(u, **args)
-        err_a, rel_a = rel_err(got[0], want[0])
-        err_b, rel_b = rel_err(got[1], want[1])
-        ms = time_ms(lambda: gram_gather(u, **args), 10)
-        plain_ms = time_ms(lambda: gram_gather_plain(u, **args), 3)
-        nbytes, flops, counts = gram_gather_work(u, args)
-        b_ms, by = bound(nbytes, flops)
-        row = dict(max_abs_err=max(err_a, err_b), rel_err=max(rel_a, rel_b),
-                   ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-                   bound_by=by, **counts)
-        self.kernels.setdefault("gram_gather", {}).update(row)
-        log(f"K2 gram_gather: {row}")
-        self.check(row["rel_err"] < TOL["gram_gather"],
-                   f"gram_gather rel err {row['rel_err']}")
-        del got, want
+        def dense_args(c):
+            """Dense chunk c's K3 operands with the carry the real previous
+            chunk hands it (the plain chain over chunks 0 .. c-1)."""
+            a0 = torch.zeros((k, k), device=dev)
+            b0 = torch.zeros((k,), device=dev)
+            for ci in range(c):
+                prev = dense_chunk(blk_u, st_u, ci)
+                cin = prev.pop("cin")
+                _, a0, b0 = gram_solve_dense_plain(m, **prev, lam=LAM,
+                                                   carry=(a0, b0, cin))
+            args = with_plan(dense_chunk(blk_u, st_u, c), blk_u, c)
+            cin = args.pop("cin")
+            return dict(args, lam=LAM, carry=(a0, b0, cin))
 
-        # K3: the middle dense chunk of the user half, the trained M table,
-        # with the carry the real previous chunk hands it.
-        st = ds.user_blocks.statics
-        c = st[0] // 2
-        a0 = torch.zeros((k, k), device=dev)
-        b0 = torch.zeros((k,), device=dev)
-        for ci in range(c):
-            prev = dense_chunk(blk_u, st, ci)
-            cin = prev.pop("cin")
-            _, a0, b0 = gram_solve_dense_plain(m, **prev, lam=LAM,
-                                               carry=(a0, b0, cin))
-        args = dense_chunk(blk_u, st, c)
-        cin = args.pop("cin")
-        carry = (a0, b0, cin)
-        got = gram_solve_dense(m, **args, lam=LAM, carry=carry)
-        torch.cuda.synchronize()
-        want = gram_solve_dense_plain(m, **args, lam=LAM, carry=carry)
-        errs = [rel_err(g, w) for g, w in zip(got, want)]
-        ms = time_ms(lambda: gram_solve_dense(m, **args, lam=LAM,
-                                              carry=carry), 10)
-        plain_ms = time_ms(lambda: gram_solve_dense_plain(
-            m, **args, lam=LAM, carry=carry), 3)
-        nbytes, flops, counts = gram_solve_dense_work(m, args)
-        b_ms, by = bound(nbytes, flops)
-        row = dict(max_abs_err=max(x[0] for x in errs),
-                   rel_err=max(x[1] for x in errs), ms=ms, plain_ms=plain_ms,
-                   library_ms=None, bound_ms=b_ms, bound_by=by, **counts)
-        self.kernels.setdefault("gram_solve_dense", {}).update(row)
-        log(f"K3 gram_solve_dense: {row}")
-        self.check(row["rel_err"] < TOL["gram_solve_dense"],
-                   f"gram_solve_dense rel err {row['rel_err']}")
+        # K2: the middle accum chunk of the movie half, the trained U table,
+        # and the chunk holding the half's largest segment.  K3: the middle
+        # dense chunk of the user half, the trained M table, and the chunk
+        # holding its largest segment, each with the carry the real previous
+        # chunk hands it.  Each run twice: the work-unit split sums a
+        # segment's partials in unit order, so two launches give the same
+        # bits (checked).
+        st_m, st_u = ds.movie_blocks.statics, ds.user_blocks.statics
+        big_m = int(np.argmax(largest_tile_segments(blk_m, st_m)))
+        big_u = int(np.argmax(largest_window_segments(blk_u, st_u)))
+        k2 = ("gram_gather", gram_gather, gram_gather_plain, gram_gather_work,
+              lambda c: (u, with_plan(accum_chunk(blk_m, st_m, c), blk_m,
+                                      c)))
+        k3 = ("gram_solve_dense", gram_solve_dense, gram_solve_dense_plain,
+              gram_solve_dense_work, lambda c: (m, dense_args(c)))
+        for where, c, (name, fn, plain, work, args_of) in (
+                ("middle", st_m[0] // 2, k2), ("largest", big_m, k2),
+                ("middle", st_u[0] // 2, k3), ("largest", big_u, k3)):
+            table, args = args_of(c)
+            got = fn(table, **args)
+            again = fn(table, **args)
+            torch.cuda.synchronize()
+            want = plain(table, **args)
+            errs = [rel_err(g, w) for g, w in zip(got, want)]
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            ms = time_ms(lambda: fn(table, **args), 10)
+            plain_ms = time_ms(lambda: plain(table, **args), 3)
+            nbytes, flops, counts = work(table, args)
+            b_ms, by = bound(nbytes, flops)
+            units = args["units"]
+            row = dict(max_abs_err=max(x[0] for x in errs),
+                       rel_err=max(x[1] for x in errs), ms=ms,
+                       plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                       bound_by=by, chunk=c, two_launches_bit_equal=same,
+                       units=int((units.units[:, 0] >= 0).sum()),
+                       split_segments=int((units.splits >= 0).sum()),
+                       **counts)
+            if where == "middle":
+                self.kernels.setdefault(name, {}).update(row)
+            self.report.setdefault("kernel_chunks", {})[
+                f"{name}_{where}"] = row
+            log(f"{name} on the {where}-segment chunk {c}: {row}")
+            self.check(row["rel_err"] < TOL[name],
+                       f"{name} chunk {c} rel err {row['rel_err']}")
+            self.check(same, f"{name} chunk {c}: two launches differ")
+            del got, again, want
 
     def binv(self, ds, model, blk_m, blk_u):
         """The block-inverse solve path (phase 3b of the module docstring):
@@ -1271,7 +1350,7 @@ class Smoke:
         a0 = torch.zeros((k, k), device=dev)
         b0 = torch.zeros((k,), device=dev)
         for ci in range(mid + 1):
-            args = dense_chunk(blk_u, st, ci)
+            args = with_plan(dense_chunk(blk_u, st, ci), blk_u, ci)
             cin, lseg = args.pop("cin"), args.pop("lseg")
             args.pop("reg")
             carry = (a0, b0, cin)
@@ -1435,7 +1514,8 @@ class Smoke:
         # -- rows 5, 7, 4 on the main path's chunks, the trained factors --
         u, m = model.user_factors, model.movie_factors
         st = ds.movie_blocks.statics
-        args = accum_chunk(blk_m, st, st[0] // 2)
+        args = with_plan(accum_chunk(blk_m, st, st[0] // 2), blk_m,
+                         st[0] // 2)
         nb, wt = args.pop("nb"), args.pop("wt")
         g = gk.gather_rows(u, nb, wt)
         got = gk.gram_tiles(g, **args)
@@ -1467,7 +1547,7 @@ class Smoke:
         a0 = torch.zeros((k, k), device=dev)
         b0 = torch.zeros((k,), device=dev)
         for ci in range(mid + 1):
-            args = dense_chunk(blk_u, st, ci)
+            args = with_plan(dense_chunk(blk_u, st, ci), blk_u, ci)
             cin = args.pop("cin")
             nb, wt = args.pop("nb"), args.pop("wt")
             g = gk.gather_rows(m, nb, wt)
@@ -1535,7 +1615,7 @@ class Smoke:
         st_m = ds.movie_blocks.statics
         events, big_m, work_m = [], [], []
         for c in range(st_m[0]):
-            a = accum_chunk(blk_m, st_m, c)
+            a = with_plan(accum_chunk(blk_m, st_m, c), blk_m, c)
             g = gk.gather_rows(u, a.pop("nb"), a.pop("wt"))
             events.append(ms_of(lambda: gk.gram_tiles(g, **a)))
             big_m.append(int(torch.bincount(a["seg"], minlength=st_m[4] + 1)
@@ -1547,7 +1627,7 @@ class Smoke:
         _, _, _, t, nt, ng, _ = st_u
         events, big_u, work_u = [], [], []
         for c in range(st_u[0]):
-            a = dense_chunk(blk_u, st_u, c)
+            a = with_plan(dense_chunk(blk_u, st_u, c), blk_u, c)
             a.pop("cin")
             g = gk.gather_rows(m, a.pop("nb"), a.pop("wt"))
             events.append(ms_of(lambda: gk.gram_solve_tiles_dense(
@@ -2077,7 +2157,8 @@ class Smoke:
         args = dict(rt=rt_b.reshape(-1).contiguous(),
                     seg=torch.arange(rows, dtype=torch.int32, device=dev),
                     reg=reg_b, lseg=rows - 1, num_segments=rows,
-                    tile_rows=width, reg_mode="matrix")
+                    tile_rows=width, reg_mode="matrix",
+                    units=class_plan(rows, width, dev))
         g = gk.gather_rows(m_b, nb, wt)
         got = gk.gram_solve_tiles(g, **args)
         sibling = gk.gram_solve_gather(m_b, nb, wt, **args)
@@ -2234,7 +2315,8 @@ class Smoke:
                     rt=rt_b.reshape(-1).contiguous(),
                     seg=torch.arange(rows, dtype=torch.int32, device=dev),
                     reg=reg_b, lseg=rows - 1, num_segments=rows,
-                    tile_rows=width, reg_mode="matrix")
+                    tile_rows=width, reg_mode="matrix",
+                    units=class_plan(rows, width, dev))
         got = gram_solve_gather(m_b, **args)
         torch.cuda.synchronize()
         want = gram_solve_gather_plain(m_b, **args)
@@ -2250,7 +2332,8 @@ class Smoke:
         log(f"K6 gram_solve_gather: {row}")
         self.check(row["rel_err"] < TOL["gram_solve_gather"],
                    f"gram_solve_gather rel err {row['rel_err']}")
-        # K6's time per width class, both halves of (b) (one launch each).
+        # K6's time per width class, both halves of (b) (one launch each,
+        # with the work-unit plan the device upload stages for the class).
         per_class = {}
         for side, blocks_b, table in (("movie", ds_b.movie_blocks, u_b),
                                       ("user", ds_b.user_blocks, m_b)):
@@ -2261,14 +2344,23 @@ class Smoke:
                 mk_c = torch.as_tensor(b.mask, device=dev)
                 w_c, r_c = ials_reparam(torch.as_tensor(b.rating, device=dev),
                                         mk_c, alpha)
+                rows_c = int(nb_c.shape[0])
+                plan = class_plan(rows_c, b.width, dev)
                 ms = time_ms(lambda: bucket_gram_solve(
-                    table, nb_c, w_c, r_c, reg, lam=0.0, reg_mode="matrix"), 1)
-                out.append(dict(width=b.width, rows=int(nb_c.shape[0]),
+                    table, nb_c, w_c, r_c, reg, lam=0.0, reg_mode="matrix",
+                    units=plan), 1)
+                out.append(dict(width=b.width, rows=rows_c,
                                 live=int(b.count.sum()),
-                                max_live=int(b.count.max()), ms=ms))
+                                max_live=int(b.count.max()), ms=ms,
+                                units=int(plan.units.shape[0]),
+                                split_segments=int(plan.splits.shape[0])))
             per_class[side] = out
         report["k6_ms_per_width_class"] = per_class
         log(f"K6 ms per width class: {per_class}")
+        # The head class: the widest movie class (one Zipf-head movie).
+        report["k6_head_class"] = max(per_class["movie"],
+                                      key=lambda r: r["width"])
+        log(f"K6 head class: {report['k6_head_class']}")
 
         # K5: the middle width class of (c)'s user half (its first piece).
         u_c, m_c = runs["ialspp_bucketed"][-1]
@@ -2298,7 +2390,8 @@ class Smoke:
         mblk, ublk, kw = blocks[:3]
         st_m = kw["m_chunks"][2:]
         blk_mw = ials_tiled_weights(mblk, "accum", alpha)
-        args = accum_chunk(blk_mw, st_m, st_m[0] // 2)
+        args = with_plan(accum_chunk(blk_mw, st_m, st_m[0] // 2), blk_mw,
+                         st_m[0] // 2)
         got = gram_gather(u_a, **args)
         torch.cuda.synchronize()
         want = gram_gather_plain(u_a, **args)
@@ -2368,7 +2461,7 @@ class Smoke:
         a0 = torch.zeros((k, k), device=dev)
         b0 = torch.zeros((k,), device=dev)
         for ci in range(start, mid + 1):
-            args = dense_chunk(blk_uw, st_u, ci)
+            args = with_plan(dense_chunk(blk_uw, st_u, ci), blk_uw, ci)
             cin = args.pop("cin")
             args.update(wt=blk_uw["aweight_dense"][ci * cap:(ci + 1) * cap],
                         reg=reg_u)

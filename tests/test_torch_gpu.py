@@ -848,3 +848,144 @@ def test_bucketed_split_launches_on_the_card(cuda, gather, implicit):
     else:
         assert n["gram_gather"] == classes and n["gram_tiles"] == 0
     assert _rel_err(split, fused) < 1e-3
+
+
+# The work-unit split (csrc/gram_kernels.cuh, ops/kernels/gram_units.py):
+# every Gram kernel on segments of 1, 1,024, 1,025 and 200,000 rows, one
+# owning none, one of 5,000 live rows with dead passes inside, a carry into
+# a split segment 0 and the carry row (lseg) of a split segment; and a
+# bucketed width class of one 300,000-row tile.  Each kernel against its
+# plain version (Gram sums 1e-4, solves 1e-3 of the largest |value|, as
+# chip_smoke.py's TOL, and the solves' backward error), each stream twin
+# bit-equal to its gather sibling, and a second launch bit-equal to the
+# first (the partials are summed in unit order, no float atomics).
+
+_SPLIT_ROWS = (3_000, 1, 1_024, 1_025, 200_000, 0, 5_000, 40)
+_SPLIT_LSEG = 4
+
+
+def _split_tile_case(k, rng, dev):
+    """(table, nb, wt, rt, seg, S): T = 16; each segment's live rows, then
+    dead rows to a whole tile; segment 6 also has six 96-row dead runs."""
+    f, t = 3000, 16
+    nb, seg = [], []
+    for s, live in enumerate(_SPLIT_ROWS):
+        rows = -(-live // t) * t
+        idx = rng.integers(0, f, rows)
+        idx[live:] = f
+        if s == 6:
+            for start in range(500, 4_000, 600):
+                idx[start:start + 96] = f
+        nb.append(idx)
+        seg.append(np.full(rows // t, s))
+    nb = np.concatenate(nb).astype(np.int32)
+    c = nb.size
+    wt = rng.random(c, dtype=np.float32) + 0.5
+    d = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    return (d(rng.standard_normal((f, k), dtype=np.float32)), d(nb), d(wt),
+            d(rng.standard_normal(c, dtype=np.float32)),
+            d(np.concatenate(seg).astype(np.int32)), len(_SPLIT_ROWS))
+
+
+def _split_dense_case(k, rng, dev):
+    """(table, nb, wt, rt, meta, dense kwargs): one group, T = 128, tile i
+    reads stream rows i·T + [lo_i, hi_i); every tile's window starts at a
+    random row below 32, so units start inside tiles; rt 0 off-window."""
+    f, t = 3000, 128
+    lo, hi, seg = [], [], []
+    for s, live in enumerate(_SPLIT_ROWS):
+        while live > 0:
+            a = int(rng.integers(0, 32))
+            lo.append(a)
+            hi.append(min(t, a + live))
+            seg.append(s)
+            live -= hi[-1] - a
+    nt = len(seg)
+    lo, hi = np.array(lo), np.array(hi)
+    r = np.arange(t)
+    win = ((r >= lo[:, None]) & (r < hi[:, None])).reshape(-1)
+    nb = np.where(win, rng.integers(0, f, nt * t), f)
+    six = np.flatnonzero(np.repeat(np.array(seg) == 6, t) & win)
+    for start in range(500, 4_000, 600):
+        nb[six[start:start + 96]] = f
+    meta = np.concatenate([[0], np.arange(nt) * t, lo, hi, seg])
+    d = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    rt = rng.standard_normal(nt * t, dtype=np.float32) * win
+    kw = dict(num_segments=len(_SPLIT_ROWS), tile_rows=t, num_tiles=nt,
+              num_groups=1, block_rows=nt * t)
+    return (d(rng.standard_normal((f, k), dtype=np.float32)),
+            d(nb.astype(np.int32)), d(rng.random(nt * t, dtype=np.float32)
+                                      + 0.5), d(rt.astype(np.float32)),
+            d(meta.astype(np.int32)), kw)
+
+
+def _twice(fn, *args, **kw):
+    """Two launches; they must agree bit for bit."""
+    first = fn(*args, **kw)
+    second = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second)), fn.__name__
+    return first
+
+
+def _check_gram(got, want):
+    assert _rel_err(got[0], want[0]) < 1e-4 and _rel_err(got[1], want[1]) < 1e-4
+
+
+def _check_solve(got, want, ab, reg):
+    assert _backward_err(got[0], *ab, reg, 0.05, "diag") < 1e-5
+    assert _rel_err(got[0], want[0]) < 1e-3
+    assert _rel_err(got[1], want[1]) < 1e-4 and _rel_err(got[2], want[2]) < 1e-4
+
+
+@pytest.mark.parametrize("k", [8, 64, 128])
+@pytest.mark.parametrize("walk", ["tile", "dense", "bucket"])
+def test_split_segments_on_every_gram_kernel(cuda, k, walk):
+    rng = np.random.default_rng(k)
+    z = rng.standard_normal((2 * k, k)).astype(np.float32)
+    carry = (torch.as_tensor(z.T @ z, device=cuda),
+             torch.as_tensor(rng.standard_normal(k).astype(np.float32),
+                             device=cuda), torch.ones((1,), device=cuda))
+    if walk == "dense":
+        table, nb, wt, rt, meta, kw = _split_dense_case(k, rng, cuda)
+        gram, gram_twin = gram_tiles_dense_gather, gram_tiles_dense
+        solve, solve_twin = gram_solve_dense, gram_solve_tiles_dense
+        gram_plain = gram_tiles_dense_gather_plain
+        solve_plain = gram_solve_dense_plain
+        kw = dict(kw, meta=meta, carry=carry)
+        lseg = _SPLIT_LSEG
+    else:
+        if walk == "tile":
+            table, nb, wt, rt, seg, s = _split_tile_case(k, rng, cuda)
+            t, lseg, c = 16, _SPLIT_LSEG, carry
+        else:  # one width class, one 300k-row tile, no carry
+            f, t, s = 3000, 300_000, 1
+            d = lambda x: torch.as_tensor(x, device=cuda)  # noqa: E731
+            table = d(rng.standard_normal((f, k), dtype=np.float32))
+            nb = d(rng.integers(0, f, t).astype(np.int32))
+            wt = d(rng.random(t, dtype=np.float32) + 0.5)
+            rt = d(rng.standard_normal(t, dtype=np.float32))
+            seg = torch.zeros(1, dtype=torch.int32, device=cuda)
+            lseg, c = 0, None
+        gram, gram_twin = gram_gather, gram_tiles
+        solve, solve_twin = gram_solve_gather, gram_solve_tiles
+        gram_plain, solve_plain = gram_gather_plain, gram_solve_gather_plain
+        kw = dict(seg=seg, num_segments=s, tile_rows=t, carry=c)
+    g = gather_rows(table, nb, wt)
+    ab = _twice(gram, table, nb=nb, wt=wt, rt=rt, **kw)
+    want = gram_plain(table, nb=nb, wt=wt, rt=rt, **kw)
+    _check_gram(ab, want)
+    twin = _twice(gram_twin, g, rt=rt, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(twin, ab))
+    counts = torch.as_tensor(np.array(_SPLIT_ROWS[:kw["num_segments"]])
+                             if walk != "bucket" else np.array([t]),
+                             device=cuda, dtype=torch.float32)
+    skw = dict(kw, reg=counts, lseg=lseg, lam=0.05)
+    x = _twice(solve, table, nb=nb, wt=wt, rt=rt, **skw)
+    _check_solve(x, solve_plain(table, nb=nb, wt=wt, rt=rt, **skw), want,
+                 counts)
+    twin = _twice(solve_twin, g, rt=rt, **skw)
+    assert all(torch.equal(a, b) for a, b in zip(twin, x))
+    # The split and fused schedules solve the same sums: K1 on the Gram
+    # kernel's (A, b) solves what the fused epilogue solves in place.
+    assert torch.equal(reg_solve(*ab, counts, lam=0.05), x[0])

@@ -2,6 +2,7 @@
 tiled dataset, for comparing two source trees on one card.
 
     python3 tools/gram_kernels_ab.py [--tree DIR] [--label NAME]
+        [--nnz N] [--rank K] [--cache FILE]
 
 ``--tree`` names the directory holding the ``cfk_tpu_torch`` package to
 measure (default: this checkout); its kernels are built from that tree's
@@ -15,13 +16,17 @@ passes), with the gather kernels K2 (accum chunks), K3 and
 ``gram_tiles_dense_gather`` (dense chunks) and, where the tree has them,
 their stream twins ``gram_tiles``, ``gram_solve_tiles_dense`` and
 ``gram_tiles_dense`` on the stream K5 writes (outside the timing) and K5
-itself.  Prints the card (``nvidia-smi``) and one JSON line.
+itself.  ``--cache FILE`` keeps the built dataset in FILE (pickled; the
+first process of a call writes it, the others read it), so turns at the
+full Netflix rating count (``--nnz 100480507``) do not each spend minutes
+building it.  Prints the card (``nvidia-smi``) and one JSON line.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import pickle
 import subprocess
 import sys
 import time
@@ -35,6 +40,7 @@ def main() -> int:
     ap.add_argument("--nnz", type=int, default=10_000_000)
     ap.add_argument("--rank", type=int, default=64)
     ap.add_argument("--reps", type=int, default=2)
+    ap.add_argument("--cache", default=None)
     args = ap.parse_args()
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
@@ -57,9 +63,20 @@ def main() -> int:
     t0 = time.perf_counter()
     gk._build.build_all()
     build_s = time.perf_counter() - t0
-    coo = synthetic_netflix_coo(480_189, 17_770, args.nnz, seed=0)
-    ds = Dataset.from_coo(coo, layout="tiled", chunk_elems=1 << 20,
-                          dense_stream=True)
+    cache = Path(args.cache) if args.cache else None
+    if cache is not None and cache.exists():
+        with cache.open("rb") as fh:
+            ds = pickle.load(fh)
+        if int(ds.movie_blocks.count.sum()) != args.nnz:
+            raise RuntimeError(f"{cache} holds another --nnz")
+    else:
+        coo = synthetic_netflix_coo(480_189, 17_770, args.nnz, seed=0)
+        ds = Dataset.from_coo(coo, layout="tiled", chunk_elems=1 << 20,
+                              dense_stream=True)
+        del coo
+        if cache is not None:
+            with cache.open("wb") as fh:
+                pickle.dump(ds, fh, protocol=pickle.HIGHEST_PROTOCOL)
     dev = torch.device("cuda")
     blk_m, blk_u, _ = _tiled_device_setup(ds, dev)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -68,10 +85,19 @@ def main() -> int:
     m = torch.randn((ds.movie_blocks.padded_entities, args.rank),
                     generator=gen, device=dev)
     st_m, st_u = ds.movie_blocks.statics, ds.user_blocks.statics
-    accum = [accum_chunk(blk_m, st_m, c) for c in range(st_m[0])]
+    try:  # the work-unit plans the device upload staged, where the tree has them
+        from cfk_tpu_torch.ops.kernels.gram_units import chunk_plan
+
+        def with_plan(a, blk, c):
+            return dict(a, units=chunk_plan(blk, c))
+    except ImportError:
+        def with_plan(a, blk, c):
+            return a
+    accum = [with_plan(accum_chunk(blk_m, st_m, c), blk_m, c)
+             for c in range(st_m[0])]
     dense = []
     for c in range(st_u[0]):
-        a = dense_chunk(blk_u, st_u, c)
+        a = with_plan(dense_chunk(blk_u, st_u, c), blk_u, c)
         a.pop("cin")
         dense.append(a)
 
