@@ -1,5 +1,5 @@
-// Device code shared by the port's training kernels: the in-shared-memory
-// Cholesky solve (reg_solve.cu and the fused Gram kernels) and the Gram
+// Device code shared by the port's training kernels: the ridge add of the
+// solves (spd_solve.cuh holds the SPD solve itself) and the Gram
 // accumulator with its two row sources — rows gathered from the table by
 // index, or read from a materialized stream — fed one work unit at a time
 // by the walks of gram_kernels.cuh; every kernel library takes its
@@ -34,53 +34,36 @@ constexpr int kRegMatrix = 1;  // one shared [k,k] ridge term
 
 // Adds the ridge to the k x k system held in shared memory (row stride ld):
 // diag mode λ·max(n,1) on the diagonal (padding rows, n = 0, become λ·I),
-// matrix mode the shared [k,k] term.
+// matrix mode the shared [k,k] term — only its lower triangle when `lower`
+// (the Cholesky solve reads no more).  Matrix mode: warp w adds rows w,
+// w + W, ... (W warps), each thread issuing the loads of four rows x four
+// columns before any add, so a CTA waits on a few L2 round trips, not on
+// one per element.
 __device__ void add_ridge(float* A, int ld, int k, int reg_mode, float lam,
-                          const float* reg, int row) {
+                          const float* reg, int row, bool lower = false) {
   if (reg_mode == kRegDiag) {
     const float r = lam * fmaxf(__ldg(reg + row), 1.0f);
     for (int i = threadIdx.x; i < k; i += blockDim.x) A[i * ld + i] += r;
   } else {
-    for (int idx = threadIdx.x; idx < k * k; idx += blockDim.x) {
-      const int i = idx / k, j = idx - i * k;
-      A[i * ld + j] += __ldg(reg + idx);
+    const int nw = blockDim.x / 32, lane = threadIdx.x % 32;
+    for (int i0 = threadIdx.x / 32; i0 < k; i0 += 4 * nw) {
+      float v[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int i = i0 + r * nw, j = lane + 32 * c;
+          v[r][c] = i < k && j < k && (!lower || j <= i)
+                        ? __ldg(reg + i * k + j) : 0.0f;
+        }
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int i = i0 + r * nw, j = lane + 32 * c;
+          if (i < k && j < k && (!lower || j <= i)) A[i * ld + j] += v[r][c];
+        }
     }
-  }
-  __syncthreads();
-}
-
-// Solves A x = y in place for one SPD system in shared memory: a no-pivot
-// Cholesky factorization A = L·Lᵀ over the lower triangle (L overwrites it),
-// then the two triangular solves; x overwrites y.  Every thread of the CTA
-// takes part; the caller has synchronized after filling A and y.
-__device__ void chol_solve_smem(float* A, int ld, float* y, int k) {
-  const int tid = threadIdx.x, nth = blockDim.x;
-  for (int j = 0; j < k; ++j) {
-    const float d = sqrtf(A[j * ld + j]);
-    const float inv = 1.0f / d;
-    for (int i = j + 1 + tid; i < k; i += nth) A[i * ld + j] *= inv;
-    __syncthreads();
-    if (tid == 0) A[j * ld + j] = d;
-    const int n = k - j - 1;
-    for (int idx = tid; idx < n * n; idx += nth) {
-      const int i = j + 1 + idx / n;
-      const int l = j + 1 + idx % n;
-      if (l <= i) A[i * ld + l] = fmaf(-A[i * ld + j], A[l * ld + j], A[i * ld + l]);
-    }
-    __syncthreads();
-  }
-  for (int j = 0; j < k; ++j) {  // L z = y
-    const float zj = y[j] / A[j * ld + j];
-    for (int i = j + 1 + tid; i < k; i += nth) y[i] = fmaf(-A[i * ld + j], zj, y[i]);
-    __syncthreads();
-    if (tid == 0) y[j] = zj;
-  }
-  __syncthreads();
-  for (int j = k - 1; j >= 0; --j) {  // Lᵀ x = z
-    const float xj = y[j] / A[j * ld + j];
-    for (int i = tid; i < j; i += nth) y[i] = fmaf(-A[j * ld + i], xj, y[i]);
-    __syncthreads();
-    if (tid == 0) y[j] = xj;
   }
   __syncthreads();
 }

@@ -4,8 +4,9 @@
 //               cin·(ca, cb) folded into segment 0;
 //   gram_solve  the same sums, then the fused epilogue in shared memory:
 //               carry fold, the RAW (A, b) of segment lseg as the next
-//               chunk's carry, the ridge, the Cholesky solve; only x [S,k]
-//               and the carry row leave the kernel.
+//               chunk's carry, the ridge, the blocked Cholesky solve of
+//               spd_solve.cuh (K1's); only x [S,k] and the carry row leave
+//               the kernel.
 // Two walks: TileWalk (a chunk of [T]-row tiles with sorted owners) and
 // DenseWalk (the dense stream's windowed tiles, meta = g_blk ‖ lb ‖ lo ‖ hi
 // ‖ seg).  Two sources: GatherRows (the table read by index inside the
@@ -39,8 +40,8 @@
 // element, and writes the sums out.  gram_solve: the last of a segment's
 // units to finish (an integer ticket after a fence) sums a segment of up
 // to kInlineUnits units itself and runs the epilogue at once, beside the
-// other segments' work — in a second launch the k = 128 Cholesky solves of
-// the split segments were a serial round of ~0.4 ms a chunk; a longer
+// other segments' work — in a second launch the split segments' k = 128
+// solves would be a serial round after each chunk's units; a longer
 // segment is summed by the second launch's slice CTAs, and the last of
 // them to finish runs the epilogue.  Two launches per call; no float
 // atomics.
@@ -48,7 +49,7 @@
 // them unwritten, and callers route those rows to the trash row either way.
 #pragma once
 
-#include "common.cuh"
+#include "spd_solve.cuh"
 
 namespace cfk {
 
@@ -144,10 +145,10 @@ __device__ __forceinline__ float reduce_element(const float* scratch, int u0,
 // kThreads, one CTA a slice.  The gram shape takes them all; gram_solve
 // takes one CTA per kReduceUnits units of the segment (CTA y then sums
 // elements y·kThreads + t + j·slices·kThreads), because each of its CTAs
-// holds the epilogue's shared memory (66 KB at k = 128, three CTAs per
-// SM).  gram_solve's segments of up to kInlineUnits units (32K rows) are
-// summed in the unit launch by one CTA: at most 2 MB of partials at
-// k = 128, read in far less time than the Cholesky solve after it.
+// holds the epilogue's shared memory (71 KB at k = 128 with the solve's
+// scratch, three CTAs per SM).  gram_solve's segments of up to
+// kInlineUnits units (32K rows) are summed in the unit launch by one CTA
+// (at most 2 MB of partials at k = 128) before its solve.
 constexpr int kReduceUnits = 16;
 constexpr int kInlineUnits = 32;
 
@@ -200,8 +201,9 @@ gram_reduce_kernel(int k, const int* __restrict__ units,
     out_b[(size_t)u.s * k + e - k * k] = v;
 }
 
-// The fused epilogue of segment s, whose raw sums are in shared memory
-// (A [k, k] with row stride k + 1, then y [k]; the caller synchronized).
+// The fused epilogue of segment s, whose raw sums are in shared memory in
+// spd_solve's layout (A [k, k] with row stride spd_ld(k), y its row k; the
+// caller synchronized).
 struct SolveEpilogue {
   const float* reg;
   int reg_mode;
@@ -211,8 +213,10 @@ struct SolveEpilogue {
   float* ca_out;
   float* cb_out;
 
-  __device__ void run(float* A, float* y, int k, int s) const {
-    const int ld = k + 1;
+  template <int KMAX>
+  __device__ void run(float* A, int k, int s) const {
+    const int ld = spd_ld(k);
+    const float* y = A + k * ld;
     if (s == __ldg(lseg)) {
       for (int idx = threadIdx.x; idx < k * k; idx += blockDim.x) {
         const int i = idx / k, j = idx - i * k;
@@ -221,8 +225,8 @@ struct SolveEpilogue {
       for (int i = threadIdx.x; i < k; i += blockDim.x) cb_out[i] = y[i];
       __syncthreads();
     }
-    add_ridge(A, ld, k, reg_mode, lam, reg, s);
-    chol_solve_smem(A, ld, y, k);
+    add_ridge(A, ld, k, reg_mode, lam, reg, s, true);
+    spd_solve<KMAX>(A, ld, k);
     for (int i = threadIdx.x; i < k; i += blockDim.x)
       x[(size_t)s * k + i] = y[i];
   }
@@ -247,14 +251,14 @@ gram_solve_kernel(Src src, Walk walk, int k, const int* __restrict__ units,
   GramAcc<KMAX> acc;
   acc.init(k);
   walk.add(acc, st, u, src, rt);
-  const int ld = k + 1;
+  const int ld = spd_ld(k);
   float* A = smem;
   float* y = smem + k * ld;
   if (u.n == 1) {
     if (u.s == 0 && ca != nullptr) acc.fold_carry(ca, cb, __ldg(cin));
     acc.store(A, ld, y);
     __syncthreads();
-    ep.run(A, y, k, u.s);
+    ep.template run<KMAX>(A, k, u.s);
     return;
   }
   float* p = partial_of(scratch, blockIdx.x, k);
@@ -276,7 +280,7 @@ gram_solve_kernel(Src src, Walk walk, int k, const int* __restrict__ units,
       y[e - k * k] = v;
   }
   __syncthreads();
-  ep.run(A, y, k, u.s);
+  ep.template run<KMAX>(A, k, u.s);
 }
 
 // grid (split segment, slice), segments of more than kInlineUnits units:
@@ -284,6 +288,7 @@ gram_solve_kernel(Src src, Walk walk, int k, const int* __restrict__ units,
 // segment's first partial (only the thread that read an element writes
 // it), then takes a ticket; the last of the segment's slices to arrive
 // loads the sums and runs the epilogue.
+template <int KMAX>
 __global__ void __launch_bounds__(kThreads)
 gram_solve_reduce_kernel(int k, const int* __restrict__ units,
                          const int* __restrict__ splits, SolveEpilogue ep,
@@ -312,7 +317,7 @@ gram_solve_reduce_kernel(int k, const int* __restrict__ units,
   __syncthreads();
   if (!last) return;
   __threadfence();
-  const int ld = k + 1;
+  const int ld = spd_ld(k);
   float* A = smem;
   float* y = smem + k * ld;
   for (int idx = threadIdx.x; idx < k * k; idx += blockDim.x) {
@@ -321,7 +326,7 @@ gram_solve_reduce_kernel(int k, const int* __restrict__ units,
   }
   for (int i = threadIdx.x; i < k; i += blockDim.x) y[i] = __ldcg(sum + k * k + i);
   __syncthreads();
-  ep.run(A, y, k, u.s);
+  ep.template run<KMAX>(A, k, u.s);
 }
 
 // Refuses what the kernels do not take and selects the device.
@@ -367,9 +372,10 @@ int launch_gram_solve_k(Src src, Walk walk, int k, const Plan& plan,
                         const float* rt, const SolveEpilogue& ep,
                         const float* ca, const float* cb, const float* cin,
                         cudaStream_t stream) {
-  // The static row stage plus the dynamic (A, y) block pass the default
-  // 48 KB at k > ~64 (KMAX = 128: 16.5 KB + 40-66 KB), so opt in every time.
-  const size_t smem = sizeof(float) * (size_t)(k * (k + 1) + k);
+  // The static row stage and solve scratch plus the dynamic (A, y) block
+  // pass the default 48 KB at k > ~64 (KMAX = 128: 21 KB + 40-66 KB), so
+  // opt in every time.
+  const size_t smem = sizeof(float) * (size_t)spd_floats(k);
   cudaError_t err = cudaFuncSetAttribute(
       gram_solve_kernel<KMAX, Walk, Src>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -379,11 +385,11 @@ int launch_gram_solve_k(Src src, Walk walk, int k, const Plan& plan,
       plan.tickets);
   err = cudaGetLastError();
   if (err != cudaSuccess || plan.nsp == 0) return (int)err;
-  err = cudaFuncSetAttribute(gram_solve_reduce_kernel,
+  err = cudaFuncSetAttribute(gram_solve_reduce_kernel<KMAX>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  gram_solve_reduce_kernel<<<dim3(plan.nsp, max_slices(k)), kThreads, smem,
+  gram_solve_reduce_kernel<KMAX><<<dim3(plan.nsp, max_slices(k)), kThreads, smem,
                              stream>>>(k, plan.units, plan.splits, ep, ca, cb,
                                        cin, plan.scratch,
                                        plan.tickets + plan.nu);

@@ -32,8 +32,8 @@
 // to scratch; a second launch sums them per Gram element in unit order
 // (the carry folded into the last partial) and the last of the segment's
 // slice CTAs to arrive runs the same epilogue on the sums.  What is left
-// is the per-segment Cholesky tail (~4,900 k = 64 solves per Netflix
-// chunk) and the FMA loop.  gram_solve_tiles_dense.cu is its twin on a
+// is the per-segment solve (~4,900 k = 64 systems per Netflix chunk, each
+// the blocked Cholesky of spd_solve.cuh, K1's) and the FMA loop.  gram_solve_tiles_dense.cu is its twin on a
 // materialized stream.
 #include "gram_kernels.cuh"
 

@@ -21,11 +21,15 @@
 //
 // Design: gram_kernels.cuh's gram_solve shape on the tile walk with the
 // gather source — K2's units and K3's epilogue (carry fold, raw carry-row
-// copy, ridge, Cholesky in place); only x and the carry row reach device
-// memory.  A width class's Zipf-head entity (one row of 1.2M entries) is
+// copy, ridge, the blocked Cholesky solve of spd_solve.cuh in place);
+// only x and the carry row reach device memory.  A class of tens of
+// thousands of short rows is one solve per entity after a short walk, so
+// the solve's latency (a chain of k pivots, 12 CTA barriers at k = 128)
+// sets the class's time.  A width class's Zipf-head entity (one row of 1.2M entries) is
 // spread over its ~1,200 units, and its partials are summed by ~65 slice
 // CTAs at k = 128 before one CTA solves it.  The shared memory (16.5 KB
-// static stage + 66 KB dynamic at k = 128) fits one CTA of any width class,
+// static stage, 4.5 KB of solve scratch, 66 KB dynamic at k = 128) fits
+// one CTA of any width class,
 // so no bucket is split for the kernel's sake.  gram_solve_tiles.cu is its
 // twin on a materialized stream.
 #include "gram_kernels.cuh"

@@ -98,9 +98,13 @@ def _spd_batch(e, k, seed, device):
     return a.to(device), b.to(device), cnt.to(device)
 
 
-@pytest.mark.parametrize("k", [8, 64, 100, 128])
-def test_reg_solve_matches_plain(cuda, k):
-    a, b, cnt = _spd_batch(300, k, k, cuda)
+@pytest.mark.parametrize("e", [1, 203, 300])
+@pytest.mark.parametrize("k", [1, 8, 31, 32, 33, 64, 100, 127, 128])
+def test_reg_solve_matches_plain(cuda, k, e):
+    """Every panel shape of the blocked solve (k below, at and above one
+    32-column panel, ragged last panels) at one system, one wave and a
+    batch past it."""
+    a, b, cnt = _spd_batch(e, k, k, cuda)
     got = reg_solve(a, b, cnt, lam=0.05)
     torch.cuda.synchronize()
     want = reg_solve_plain(a, b, cnt, lam=0.05)
@@ -109,6 +113,33 @@ def test_reg_solve_matches_plain(cuda, k):
     got = reg_solve(a, b, r, lam=0.0, reg_mode="matrix")
     want = reg_solve_plain(a, b, r, lam=0.0, reg_mode="matrix")
     assert _rel_err(got, want) < 1e-4
+
+
+@pytest.mark.parametrize("k", [40, 128])
+def test_reg_solve_bit_stable_and_non_spd_rows(cuda, k):
+    """Two launches return the same bits; a system whose factorization
+    meets a pivot <= 0 (−I, the zero matrix, one negative eigenvalue at
+    column 35) gets a non-finite row of x, wherever the plain version's
+    cholesky_ex does and on the others too, while its SPD neighbours are
+    solved as before."""
+    a, b, _ = _spd_batch(6, k, 7, cuda)
+    eig = torch.ones(k, device=cuda)
+    eig[35] = -1.0
+    a[1] = -torch.eye(k, device=cuda)
+    a[2] = 0.0
+    a[4] = torch.diag(eig)
+    zero = torch.zeros(6, dtype=torch.int32, device=cuda)
+    got = reg_solve(a, b, zero, lam=0.0)
+    again = reg_solve(a, b, zero, lam=0.0)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.nan_to_num(got, 1.0, 2.0, 3.0),
+                       torch.nan_to_num(again, 1.0, 2.0, 3.0))
+    want = reg_solve_plain(a, b, zero, lam=0.0)
+    finite = torch.isfinite(got).all(1).tolist()
+    assert finite == [True, False, False, True, False, True]
+    assert not (torch.isfinite(got).all(1) & ~torch.isfinite(want).all(1)).any()
+    spd = torch.tensor([0, 3, 5], device=cuda)
+    assert _rel_err(got[spd], want[spd]) < 1e-4
 
 
 def _tiled_side(k, tile_rows, chunk_elems, device, accum):

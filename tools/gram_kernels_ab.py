@@ -1,8 +1,10 @@
 """Device time of the port's tiled Gram kernels over every chunk of one
-tiled dataset, for comparing two source trees on one card.
+tiled dataset, of K1 at the shapes its paths give it, and of K6 per width
+class of the implicit bucketed layout, for comparing two source trees on
+one card.
 
     python3 tools/gram_kernels_ab.py [--tree DIR] [--label NAME]
-        [--nnz N] [--rank K] [--cache FILE]
+        [--nnz N] [--rank K] [--cache FILE] [--parts grams,k1,k6]
 
 ``--tree`` names the directory holding the ``cfk_tpu_torch`` package to
 measure (default: this checkout); its kernels are built from that tree's
@@ -19,7 +21,17 @@ their stream twins ``gram_tiles``, ``gram_solve_tiles_dense`` and
 itself.  ``--cache FILE`` keeps the built dataset in FILE (pickled; the
 first process of a call writes it, the others read it), so turns at the
 full Netflix rating count (``--nnz 100480507``) do not each spend minutes
-building it.  Prints the card (``nvidia-smi``) and one JSON line.
+building it.  ``--parts`` picks what runs (default ``grams,k1``):
+``grams`` the above; ``k1`` K1 ``reg_solve`` (its kernel's device ms a launch,
+from torch.profiler) on count-scaled random Grams at k = 128 with E = 1 (one
+solve's latency) and E = 203 (a split implicit chunk, one wave), at k = 64
+with E = 17,770 (the Netflix movie half) and in matrix mode on 59,047
+implicit-shaped systems at k = 128 (as ``chip_smoke.py``'s binv phase
+builds them); ``k6`` K6 ``gram_solve_gather`` on every width class of both
+halves of iALS (b) (the ML-25M shape, 25,000,095 interactions, seed 0,
+bucketed at 524,288 entries, rank 128, U(0, 1) tables, λ 0.1, α 40), one
+launch each, summed, the head class apart.  Prints the card
+(``nvidia-smi``) and one JSON line.
 """
 
 from __future__ import annotations
@@ -41,7 +53,9 @@ def main() -> int:
     ap.add_argument("--rank", type=int, default=64)
     ap.add_argument("--reps", type=int, default=2)
     ap.add_argument("--cache", default=None)
+    ap.add_argument("--parts", default="grams,k1")
     args = ap.parse_args()
+    parts = set(args.parts.split(","))
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
 
@@ -51,18 +65,154 @@ def main() -> int:
         print("gram_kernels_ab: no CUDA device", file=sys.stderr)
         return 1
     import cfk_tpu_torch
+    from cfk_tpu_torch import _build
+
+    if Path(cfk_tpu_torch.__file__).resolve().parents[1] != tree:
+        raise RuntimeError(f"imported {cfk_tpu_torch.__file__}, not {tree}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    _build.build_all()
+    build_s = time.perf_counter() - t0
+    dev = torch.device("cuda")
+    out = {}
+    if "k1" in parts:
+        out.update(k1_rows(dev))
+    if "k6" in parts:
+        out.update(k6_rows(dev))
+    if "grams" in parts:
+        out.update(gram_rows(args, dev))
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
+    print(card)
+    print(json.dumps(dict(label=args.label, tree=str(tree), nnz=args.nnz,
+                          rank=args.rank, build_s=build_s, total_ms=out)))
+    return 0
+
+
+def mean_ms(fn, reps: int) -> float:
+    """Mean device ms of ``fn`` over ``reps`` calls after one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, reps: int, kernel: str) -> float:
+    """Device ms per call of the kernels named ``kernel`` (torch.profiler
+    rows over ``reps`` calls after a warm-up): K1 below one wave is too
+    short for back-to-back calls to time the card and not the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if kernel in e.key) / 1e3 / reps
+
+
+def k1_rows(dev) -> dict:
+    import torch
+
+    from cfk_tpu_torch.ops.kernels.solve_kernel import reg_solve
+
+    gen = torch.Generator(device=dev).manual_seed(128)
+    out = {}
+    for k, e, reps in ((128, 1, 200), (128, 203, 50), (64, 17_770, 20)):
+        cnt = torch.randint(1, 400, (e,), generator=gen, device=dev)
+        x = torch.randn((e, 2 * k, k), generator=gen, device=dev)
+        a = torch.einsum("enk,enl->ekl", x, x) * (
+            cnt.float() / (2 * k))[:, None, None]
+        b = torch.randn((e, k), generator=gen, device=dev)
+        del x
+        out[f"reg_solve_k{k}_e{e}"] = kernel_ms(
+            lambda: reg_solve(a, b, cnt, lam=0.05), reps, "reg_solve_kernel")
+    # Matrix mode: α·(n/64)·XᵀX, X [64, k] ~ U(0, 1), and the shared ridge
+    # YᵀY + λI over 162,541 rows Y ~ U(0, 1).
+    k, em = 128, 59_047
+    cnt = torch.randint(1, 400, (em,), generator=gen, device=dev)
+    am = torch.empty((em, k, k), device=dev)
+    for lo in range(0, em, 8192):
+        xs = torch.rand((min(8192, em - lo), 64, k), generator=gen,
+                        device=dev)
+        torch.matmul(xs.transpose(1, 2), xs, out=am[lo:lo + xs.shape[0]])
+        am[lo:lo + xs.shape[0]] *= (
+            40.0 * cnt[lo:lo + xs.shape[0]].float() / 64)[:, None, None]
+    del xs
+    bm = torch.rand((em, k), generator=gen, device=dev) * 100
+    y = torch.rand((162_541, k), generator=gen, device=dev)
+    rm = y.T @ y + 0.1 * torch.eye(k, device=dev)
+    out[f"reg_solve_matrix_k{k}_e{em}"] = kernel_ms(
+        lambda: reg_solve(am, bm, rm, reg_mode="matrix"), 5,
+        "reg_solve_kernel")
+    del am
+    torch.cuda.empty_cache()
+    return out
+
+
+def k6_rows(dev) -> dict:
+    import numpy as np
+    import torch
+
+    from cfk_tpu_torch import Dataset
+    from cfk_tpu_torch.data.synthetic import synthetic_netflix_coo
+    from cfk_tpu_torch.ops.bucketed import bucket_gram_solve, ials_reparam
+    from cfk_tpu_torch.ops.kernels.gram_units import (
+        chunk_plan, derive_tile_units, stage_plans)
+    from cfk_tpu_torch.ops.solve import global_gram_blocked, implicit_reg
+
+    ds = Dataset.from_coo(synthetic_netflix_coo(162_541, 59_047, 25_000_095,
+                                                seed=0),
+                          layout="bucketed", chunk_elems=524_288)
+    rng = np.random.default_rng(0)
+    tables = {side: torch.as_tensor(rng.random((n, 128), dtype=np.float32),
+                                    device=dev)
+              for side, n in (("user", 162_541), ("movie", 59_047))}
+    total, head = 0.0, (0, 0.0)
+    for blocks, table in ((ds.movie_blocks, tables["user"]),
+                          (ds.user_blocks, tables["movie"])):
+        reg = implicit_reg(global_gram_blocked(table), 0.1)
+        for bk in blocks.buckets:
+            nb = torch.as_tensor(bk.neighbor_idx, device=dev)
+            mk = torch.as_tensor(bk.mask, device=dev)
+            wt, rt = ials_reparam(torch.as_tensor(bk.rating, device=dev), mk,
+                                  40.0)
+            rows = int(nb.shape[0])
+            seg = torch.arange(rows, dtype=torch.int32)
+            plan = chunk_plan(stage_plans(
+                derive_tile_units(seg[None], bk.width, rows), dev), 0)
+            ms = mean_ms(lambda: bucket_gram_solve(
+                table, nb, wt, rt, reg, lam=0.0, reg_mode="matrix",
+                units=plan), 2)
+            total += ms
+            if blocks is ds.movie_blocks and bk.width > head[0]:
+                head = (bk.width, ms)
+    return {"gram_solve_gather_ials_b_classes": total,
+            "gram_solve_gather_ials_b_head_class": head[1]}
+
+
+def gram_rows(args, dev) -> dict:
+    import torch
+
     from cfk_tpu_torch import Dataset
     from cfk_tpu_torch.data.synthetic import synthetic_netflix_coo
     from cfk_tpu_torch.models.als import _tiled_device_setup
     from cfk_tpu_torch.ops.kernels import gram_kernel as gk
     from cfk_tpu_torch.ops.tiled import accum_chunk, dense_chunk
 
-    if Path(cfk_tpu_torch.__file__).resolve().parents[1] != tree:
-        raise RuntimeError(f"imported {cfk_tpu_torch.__file__}, not {tree}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    t0 = time.perf_counter()
-    gk._build.build_all()
-    build_s = time.perf_counter() - t0
     cache = Path(args.cache) if args.cache else None
     if cache is not None and cache.exists():
         with cache.open("rb") as fh:
@@ -77,7 +227,6 @@ def main() -> int:
         if cache is not None:
             with cache.open("wb") as fh:
                 pickle.dump(ds, fh, protocol=pickle.HIGHEST_PROTOCOL)
-    dev = torch.device("cuda")
     blk_m, blk_u, _ = _tiled_device_setup(ds, dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     u = torch.randn((ds.user_blocks.padded_entities, args.rank),
@@ -153,16 +302,8 @@ def main() -> int:
         out["gram_tiles_dense"] = total_ms([
             (stream(m, a), lambda g, a=a: gk.gram_tiles_dense(
                 g, **gram_of(rest(a)))) for a in dense])
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-    ).stdout.strip().splitlines()[0]
-    print(card)
-    print(json.dumps(dict(label=args.label, tree=str(tree), nnz=args.nnz,
-                          rank=args.rank, build_s=build_s,
-                          accum_chunks=len(accum), dense_chunks=len(dense),
-                          total_ms=out)))
-    return 0
+    out["accum_chunks"], out["dense_chunks"] = len(accum), len(dense)
+    return out
 
 
 if __name__ == "__main__":
