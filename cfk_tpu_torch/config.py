@@ -50,7 +50,7 @@ class ALSConfig:
     # False pins the split schedule: each tiled chunk's (A, b) goes to
     # device memory (dense stream: the split Gram kernel; stream: K2) and
     # K1 solves it; the accum side's final solve becomes the ridge add +
-    # Gauss-Jordan dispatch (``ops.solve.dispatch_spd_solve``); each
+    # split solve dispatch (``ops.solve.dispatch_spd_solve``); each
     # bucketed width class's (A, b) goes to memory through K2 (or K5 and
     # gram_tiles) and K1 solves it; the ALS++/iALS++ sweeps' b×b solves
     # become the ridge add + dispatch.  The padded ALS/iALS half-steps

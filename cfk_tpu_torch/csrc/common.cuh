@@ -42,7 +42,10 @@ constexpr int kRegMatrix = 1;  // one shared [k,k] ridge term
 __device__ void add_ridge(float* A, int ld, int k, int reg_mode, float lam,
                           const float* reg, int row, bool lower = false) {
   if (reg_mode == kRegDiag) {
-    const float r = lam * fmaxf(__ldg(reg + row), 1.0f);
+    // λ·max(n, 1) rounded, then one add, as the reference and the split
+    // route's torch add: __fmul_rn keeps nvcc from fusing the two into
+    // one FMA, which would round once.
+    const float r = __fmul_rn(lam, fmaxf(__ldg(reg + row), 1.0f));
     for (int i = threadIdx.x; i < k; i += blockDim.x) A[i * ld + i] += r;
   } else {
     const int nw = blockDim.x / 32, lane = threadIdx.x % 32;

@@ -6,18 +6,24 @@
   ``processors/MFeatureCalculator.java:91-95``; count-0 padding rows become
   λ·I) or one shared [k,k] term (``reg_mode="matrix"``).
 - ``gauss_solve`` (``csrc/gauss_solve.cu``) ↔ ``gauss_solve_pallas``: the
-  unregularized Gauss-Jordan solve of the split epilogue, batch-last
-  A [k,k,E], b [k,E] → x [k,E], k ≤ 64.
+  unregularized SPD solve of the split epilogue, batch-last A [k,k,E],
+  b [k,E] → x [k,E], k ≤ 64.
 - ``gauss_solve_multi`` (``csrc/gauss_solve_multi.cu``) ↔
   ``gauss_solve_multi_pallas``: the same with m right-hand sides,
   A [k,k,E], B [k,m,E] → X [k,m,E], k ≤ 64, m ≤ 72 — the first step of the
   blocked (Schur) solve for 64 < k ≤ 128 (``ops.solve.blocked_spd_solve``).
 
-The two Gauss-Jordan entries keep the JAX package's batch-last layout at
-the public function; their kernels solve batch-first systems, one CTA per
-system, so the wrapper permutes to batch-first — a free view when the
-caller's tensor is itself a permuted view of a batch-first batch, as
-``dispatch_spd_solve``'s is.  No pivoting: the systems are SPD.
+The two unregularized entries keep the JAX package's names and batch-last
+layout at the public function, and Gauss-Jordan is their plain version (the
+reference's algorithm); their kernels run K1's blocked Cholesky
+(``csrc/spd_batch.cuh`` over ``csrc/spd_solve.cuh``) on batch-first
+systems, one CTA per system.  The wrapper hands the kernel the batch-first
+view with its batch and row strides (``batch_first``): no copy when the
+caller's tensor is a permuted view of a batch-first batch — as
+``dispatch_spd_solve``'s is, and the Schur route's A₁₁, a slice of the
+[E, 128, 128] batch.  No pivoting: the systems are SPD (a system that is
+not gives a non-finite row on the card, finite Gauss-Jordan numbers on the
+CPU).
 """
 
 from __future__ import annotations
@@ -103,9 +109,10 @@ def reg_solve(a: torch.Tensor, b: torch.Tensor, reg: torch.Tensor, *,
 reg_solve.launches = 0
 
 
-_GJ_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p)
+_GJ_ARGTYPES = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_void_p)
 
 
 def gauss_jordan_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -132,23 +139,37 @@ def gauss_solve_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return gauss_jordan_plain(a, b[:, None, :])[:, 0, :]
 
 
+def batch_first(t: torch.Tensor) -> tuple[torch.Tensor, int, int]:
+    """A batch-last operand t [r, c, E] as the kernels read it: the
+    batch-first view [E, r, c] when its columns are adjacent (stride 1, or
+    one column), else a contiguous copy; with its batch and row strides."""
+    v = t.permute(2, 0, 1)
+    if v.shape[2] > 1 and v.stride(2) != 1:
+        v = v.contiguous()
+    return v, v.stride(0), v.stride(1)
+
+
 def _launch_gauss(name: str, symbol: str, a: torch.Tensor, b: torch.Tensor,
                   k: int, m: int, e: int) -> torch.Tensor:
-    """Runs the batch-first kernel on a [E,k,k], b [E,k,m] (the wrapper's
-    permuted copies) → x [E,k,m]."""
-    require(a, "a", torch.float32, (e, k, k))
-    require(b, "b", torch.float32, (e, k, m))
+    """Runs the batch-first kernel on a [k,k,E], b [k,m,E] (batch-last, read
+    through ``batch_first``) → x [E,k,m]."""
+    for t, what in ((a, "a"), (b, "b")):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what} must be torch.float32, got {t.dtype}")
+    af, a_bs, a_rs = batch_first(a)
+    bf, b_bs, b_rs = batch_first(b)
     x = torch.empty((e, k, m), dtype=torch.float32, device=a.device)
     fn = _build.function(name, symbol, _GJ_ARGTYPES)
-    rc = fn(_build.ptr(a), _build.ptr(b), _build.ptr(x), e, k, m,
-            a.device.index or 0, stream_of(a))
+    rc = fn(_build.ptr(af), a_bs, a_rs, _build.ptr(bf), b_bs, b_rs,
+            _build.ptr(x), e, k, m, a.device.index or 0, stream_of(a))
     _build.check(rc, name)
     return x
 
 
 def gauss_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve A[:, :, e] x = b[:, e] for every e (batch-last): a [k,k,E] f32
-    SPD per system, b [k,E] f32 → x [k,E], k ≤ 64."""
+    SPD per system (the kernel reads its lower triangle), b [k,E] f32 →
+    x [k,E], k ≤ 64."""
     k, _, e = a.shape
     if k > GJ_MAX_RANK:
         raise ValueError(
@@ -159,9 +180,8 @@ def gauss_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"bad shapes a={tuple(a.shape)} b={tuple(b.shape)}")
     if not on_cuda(a, b):
         return gauss_solve_plain(a, b)
-    x = _launch_gauss("gauss_solve", "cfk_gauss_solve",
-                      a.permute(2, 0, 1).contiguous(),
-                      b.T.contiguous().view(e, k, 1), k, 1, e)
+    x = _launch_gauss("gauss_solve", "cfk_gauss_solve", a, b[:, None, :],
+                      k, 1, e)
     gauss_solve.launches += 1
     return x.view(e, k).T
 
@@ -171,7 +191,8 @@ gauss_solve.launches = 0
 
 def gauss_solve_multi(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve A X = B with an [m]-wide RHS block per system (batch-last):
-    a [k,k,E] f32, b [k,m,E] f32 → X [k,m,E], k ≤ 64, m ≤ 72."""
+    a [k,k,E] f32 SPD (the kernel reads its lower triangle), b [k,m,E] f32
+    → X [k,m,E], k ≤ 64, m ≤ 72."""
     k, m, e = b.shape
     if tuple(a.shape) != (k, k, e):
         raise ValueError(f"a shape {tuple(a.shape)} != ({k},{k},{e})")
@@ -182,9 +203,8 @@ def gauss_solve_multi(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         )
     if not on_cuda(a, b):
         return gauss_jordan_plain(a, b)
-    x = _launch_gauss("gauss_solve_multi", "cfk_gauss_solve_multi",
-                      a.permute(2, 0, 1).contiguous(),
-                      b.permute(2, 0, 1).contiguous(), k, m, e)
+    x = _launch_gauss("gauss_solve_multi", "cfk_gauss_solve_multi", a, b,
+                      k, m, e)
     gauss_solve_multi.launches += 1
     return x.permute(1, 2, 0)
 

@@ -17,10 +17,12 @@ each through kernel K6 (``ops.bucketed``); with ``fused_epilogue=False``
 through K2 and K1 (the JAX package's split bucket piece).
 
 The split epilogue (``fused=False``) adds the ridge on its own and hands
-the system to ``dispatch_spd_solve``: the Gauss-Jordan kernel for k ≤ 64,
-the blocked Schur solve (multi-RHS Gauss-Jordan, three batched float32
-contractions, Gauss-Jordan on the Schur complement) for 64 < k ≤ 128
-(``cfk_tpu/ops/solve.py:310-390``).
+the system to ``dispatch_spd_solve``: ``gauss_solve`` for k ≤ 64, the
+blocked Schur solve (``gauss_solve_multi``, three batched float32
+contractions, ``gauss_solve`` on the Schur complement) for 64 < k ≤ 128
+(``cfk_tpu/ops/solve.py:310-390``).  Their kernels run K1's blocked
+Cholesky, so the split route's x equals the fused route's bit for bit
+wherever both add the same ridge to the same sums.
 
 ``solver`` picks the route of every solve and Gram kernel: ``"auto"`` calls
 the kernel wrappers (the CUDA kernels for CUDA tensors, their plain versions
@@ -99,7 +101,10 @@ def blocked_spd_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     the Schur complement S = A₂₂ − A₂₁·Y₁₂ (SPD) is solved by
     ``gauss_solve``; x₁ = y₁ − Y₁₂·x₂ back-substitutes.  The three batched
     contractions are plain float32 matmuls (TF32 off), as the JAX package
-    left them to XLA at full precision.  a [E,k,k], b [E,k] → x [E,k]."""
+    left them to XLA at full precision.  A₁₁ is handed over as a view of
+    ``a`` (the kernel reads it in place); S, which float32 rounding leaves
+    symmetric only to its last bits, is solved from its lower triangle on
+    the card.  a [E,k,k], b [E,k] → x [E,k]."""
     k = a.shape[-1]
     k1 = GJ_MAX_RANK
     k2 = k - k1
@@ -121,8 +126,8 @@ def dispatch_spd_solve(a: torch.Tensor, b: torch.Tensor,
                        solver: str = "auto") -> torch.Tensor:
     """Solve batched SPD systems a [E,k,k], b [E,k] → x [E,k] (no ridge).
 
-    ``"auto"``: the Gauss-Jordan kernel for k ≤ 64 (on the batch-last view
-    of the batch), the blocked Schur solve for 64 < k ≤ 128; on CUDA a
+    ``"auto"``: ``gauss_solve`` for k ≤ 64 (on the batch-last view of the
+    batch), the blocked Schur solve for 64 < k ≤ 128; on CUDA a
     larger rank raises (the JAX package falls back to XLA's Cholesky
     there; the port has no kernel for it yet), on the CPU it takes the
     plain Cholesky as the JAX package does.  ``"cholesky"`` (CPU only):
@@ -152,7 +157,8 @@ def regularized_solve(a: torch.Tensor, b: torch.Tensor, count: torch.Tensor,
     Fused (the default): K1's one pass.  Split (``fused=False``): the
     ridge is added IN PLACE into ``a`` — the caller's batch is consumed (at
     the ML-25M shape and rank 128 a second [E, k, k] copy would be 3.9 GB)
-    — and ``dispatch_spd_solve`` solves."""
+    — λ·max(n, 1) rounded, then one add, as K1 adds it — and
+    ``dispatch_spd_solve`` solves."""
     if resolve_fused_epilogue(fused):
         solve = reg_solve if use_kernels(solver, a.device) else reg_solve_plain
         return solve(a, b, count, lam=lam, reg_mode="diag")

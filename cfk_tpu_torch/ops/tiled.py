@@ -15,7 +15,7 @@ equations as ``ops.solve`` (``processors/MFeatureCalculator.java:85-99``):
   ABSOLUTE table indices (the device setup rebases the builder's
   slice-local ones once), are summed into one [E+1, k, k] accumulator by
   ``index_add_``, and the accumulator is solved once at the end: by K1, or,
-  split, by the ridge add + Gauss-Jordan dispatch
+  split, by the ridge add + the split solve dispatch
   (``ops.solve.dispatch_spd_solve``).
   The TPU route's window stack (a workaround for XLA's operand-size gather
   cliff, ``ops/tiled.py:1075-1141``) has no counterpart: the kernel reads
@@ -279,7 +279,7 @@ def als_half_step_tiled_accum(
     """Accumulator-mode half-iteration: K2 per chunk (or K5 + ``gram_tiles``
     with ``in_kernel_gather=False``), then one solve of the accumulator
     (λ·n diag, or the shared ``implicit_reg`` in matrix mode): K1 fused;
-    split, the ridge added in place and the Gauss-Jordan dispatch
+    split, the ridge added in place and the split solve dispatch
     (``cfk_tpu/ops/tiled.py:1250-1266``)."""
     a, b = accum_grams(fixed_factors, blk, local_entities, statics=statics,
                        solver=solver, in_kernel_gather=in_kernel_gather)

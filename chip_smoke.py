@@ -59,22 +59,23 @@ Phases, each of which must pass:
              pass over one iteration;
 4b. split  — the split epilogue (``fused_epilogue=False``) on the same
              dataset from the main run's initial factors: ``train_als`` for 2
-             iterations (accum half: K2 + the Gauss-Jordan solve; dense half:
-             the split Gram ``gram_tiles_dense_gather`` + K1 per chunk), the
-             launch counts of those four zeroed before and read after (each
-             > 0), s/iter, each half's ms, the train RMSE guard; the first
-             movie half against the fused route's from the same start
-             (Gauss-Jordan vs Cholesky, TOL) and the first user half from
-             the same movie factors (expected bit-equal: the same Gram sums
-             and the same ridge + Cholesky code); then the split Gram on the
-             middle dense chunk and the Gauss-Jordan solve on the movie
-             half's E = 17,770 accumulated Grams with their ridge against
+             iterations (accum half: K2 + the ridge add + ``gauss_solve``;
+             dense half: the split Gram ``gram_tiles_dense_gather`` + K1 per
+             chunk), the launch counts of those four zeroed before and read
+             after (each > 0), s/iter, each half's ms, the train RMSE guard;
+             the first movie half against the fused route's from the same
+             start (TOL, and bit-equal: the same float32 ridge add and the
+             same Cholesky code, K1's) and the first user half from the same
+             movie factors (bit-equal: the same Gram sums and the same ridge
+             + Cholesky code); then the split Gram on the middle dense chunk
+             and ``gauss_solve`` on the movie half's E = 17,770 accumulated
+             Grams with their ridge (launched twice: bit-equal) against
              their plain versions, with times, bounds and library times;
 4c. gather — the materialized-stream schedule (``in_kernel_gather=False``)
              on the same dataset: ``train_als`` from the main run's start,
              2 fused iterations (accum half: K5 + ``gram_tiles`` per chunk,
              K1; dense half: K5 + ``gram_solve_tiles_dense`` per chunk) and
-             2 split (``gram_tiles`` + the Gauss-Jordan solve;
+             2 split (``gram_tiles`` + ``gauss_solve``;
              ``gram_tiles_dense`` + K1), each with its launch counts zeroed
              before and read after (the stream kernels and K5 > 0; K2, K3,
              K6 and ``gram_tiles_dense_gather`` = 0), s/iter beside the
@@ -129,9 +130,16 @@ Phases, each of which must pass:
              / chunk (K6 launched twice: bit-equal), with times and bounds,
              per-half and per-width-class times (summed over the classes;
              the head class, one 1.2M-row movie, reported apart) and
-             a profiler pass over one iteration of each run; the
-             multi-RHS Gauss-Jordan against its plain version and
-             ``torch.linalg.solve`` at the Schur shape (k = 64, m = 65);
+             a profiler pass over one iteration of each run;
+             ``gauss_solve_multi`` against its plain version and
+             ``torch.linalg.solve`` at the Schur shape (k = 64, m = 65, A₁₁
+             read in place from the [E, 128, 128] batch), then
+             ``gauss_solve`` on the Schur complement S it leads to (59,047
+             systems, k = 64) against its plain version and
+             ``torch.linalg.solve``, each launched twice (bit-equal), and
+             the error of x₂ against a float64 solve of the full S and of
+             the whole system, beside the plain Gauss-Jordan's and the
+             symmetrized (S + Sᵀ)/2's;
 6b. gather_ml25m — (a), (b) and (e) with ``in_kernel_gather=False`` for one
              iteration each from the same u0 on the implicit phase's
              datasets (rows 5 and 7; ``gram_solve_tiles`` per width class;
@@ -203,10 +211,15 @@ RANK, LAM, ITERS = 64, 0.05, 3
 # so (a) and (b) are then held by what they predict: the scores u·m on the
 # observed entries agree within 1e-3 of the largest |score|.  The same two
 # tolerances hold the split and stream runs (d), (e) to (a).  The split
-# Gram: as K2 (1e-4).  The Gauss-Jordan solves against their plain
-# elimination: as K1 (1e-3).  The split explicit run's first movie half
-# solves the fused run's normal equations by Gauss-Jordan where the fused
-# run takes K1's Cholesky: 1e-3 of the largest |factor|, as K1.
+# Gram: as K2 (1e-4).  Rows 11 and 12 (K1's Cholesky without the ridge)
+# against their plain version, the reference's Gauss-Jordan elimination: as
+# K1 (1e-3).  The split explicit run's first movie half solves the fused
+# run's normal equations with the same float32 ridge add and the same
+# Cholesky: 1e-3 of the largest |factor|, as K1, and bit-equal (checked).
+# On the Schur complement, x₂ against a float64 solve of the full S: at
+# most 4 times the plain Gauss-Jordan's error plus 4 float32 ulps of
+# max|x₂| (as tests/test_torch_spd_solve.py: an order that rounds no
+# worse).
 # The stream kernels (rows 4-7) against their plain versions: as their
 # gather siblings (Gram sums 1e-4, solves 1e-3).  The gather-off runs'
 # first halves against the gather-on ones from the same start: the same
@@ -258,7 +271,9 @@ REPLACES = {
     "binv_inv": "scripts/exp_binv.py:271",
 }
 # Fields of the kernels line beyond the contract's: K1 below one wave.
-LINE_EXTRA = {"reg_solve": ("ms_k128_e1", "bound_ms_k128_e1", "ms_k128_e203",
+LINE_EXTRA = {"gauss_solve": ("ms_schur", "bound_ms_schur",
+                              "library_ms_schur"),
+              "reg_solve": ("ms_k128_e1", "bound_ms_k128_e1", "ms_k128_e203",
                             "bound_ms_k128_e203")}
 # scripts/exp_binv.py's defaults (main :187-212): k = 128, --e 334·16
 # rounded down to a multiple of the 128-system tile, λ = 0.05; the main
@@ -459,10 +474,12 @@ def largest_window_segments(blk, statics) -> "np.ndarray":
 
 
 def gauss_work(e: int, k: int, m: int) -> tuple[float, float]:
-    """(bytes, flops) of e k x k systems with m right-hand sides: A and B
-    read once, X written once; the least work is a Cholesky (k³/3) and its
-    triangular solves (2k² per right-hand side)."""
-    return 4 * e * (k * k + 2 * k * m), e * (k ** 3 / 3 + 2 * k * k * m)
+    """(bytes, flops) of e k x k SPD systems with m right-hand sides: A's
+    lower triangle (all the Cholesky needs, as for K1) and B read once, X
+    written once; the least work is a Cholesky (k³/3) and its triangular
+    solves (2k² per right-hand side)."""
+    return (4 * e * (k * (k + 1) // 2 + 2 * k * m),
+            e * (k ** 3 / 3 + 2 * k * k * m))
 
 
 def binv_macs(n: int) -> float:
@@ -1393,10 +1410,13 @@ class Smoke:
         u_f = tiled_half_step(m_f, blk_u, uc, eu, LAM)
         u_s = tiled_half_step(m_f, blk_u, uc, eu, LAM, fused_epilogue=False)
         movie_err, user_err = rel_err(m_s, m_f), rel_err(u_s, u_f)
+        movie_equal = bool(torch.equal(m_s, m_f))
         user_equal = bool(torch.equal(u_s, u_f))
         self.check(movie_err[1] < TOL["split_first_half"],
                    f"split: first movie half differs from fused by "
                    f"{movie_err[1]}")
+        self.check(movie_equal, "split: first movie half not bit-equal to "
+                   f"the fused one (max abs diff {movie_err[0]})")
         self.check(user_err[1] < TOL["split_first_half"],
                    f"split: first user half differs from fused by "
                    f"{user_err[1]}")
@@ -1415,6 +1435,7 @@ class Smoke:
             launches_per_iter={n: v / SPLIT_ITERS
                                for n, v in launches.items()},
             first_movie_half_vs_fused=movie_err,
+            first_movie_half_bit_equal=movie_equal,
             first_user_half_vs_fused=user_err,
             first_user_half_bit_equal=user_equal, profile=profile)
         log(f"split: {self.report['split']}")
@@ -1457,19 +1478,21 @@ class Smoke:
                    f"gram_tiles_dense_gather rel err {row['rel_err']}")
         del got, want
 
-        # Gauss-Jordan on the movie half's accumulated Grams of the trained
-        # U table with their ridge λ·max(n, 1): the accum half's split solve.
+        # Row 11 on the movie half's accumulated Grams of the trained U
+        # table with their ridge λ·max(n, 1): the accum half's split solve.
         a, b = accum_grams(model.user_factors, blk_m, em,
                            statics=ds.movie_blocks.statics)
         ridge = LAM * blk_m["count"].to(torch.float32).clamp_min(1.0)
         a.diagonal(dim1=-2, dim2=-1).add_(ridge[:, None])
         al, bl = a.permute(1, 2, 0), b.T  # batch-last views, as dispatched
         got = gauss_solve(al, bl)
+        again = gauss_solve(al, bl)
         torch.cuda.synchronize()
         want = gauss_solve_plain(al, bl)
         err, rel = rel_err(got, want)
         b_ms, by = bound(*gauss_work(em, k, 1))
         row = dict(max_abs_err=err, rel_err=rel,
+                   bit_equal_twice=bool(torch.equal(got, again)),
                    ms=time_ms(lambda: gauss_solve(al, bl), 20),
                    plain_ms=time_ms(lambda: gauss_solve_plain(al, bl), 3),
                    library_ms=time_ms(lambda: torch.linalg.solve(a, b), 5),
@@ -1478,6 +1501,8 @@ class Smoke:
         self.kernels["gauss_solve"] = row
         log(f"gauss_solve: {row}")
         self.check(rel < TOL["gauss_solve"], f"gauss_solve rel err {rel}")
+        self.check(row["bit_equal_twice"],
+                   "gauss_solve: two launches differ")
 
     def gather(self, ds, model, blk_m, blk_u):
         """The materialized-stream schedule on the main path's dataset
@@ -2324,6 +2349,8 @@ class Smoke:
                 fused_s_per_iter=on_report[name]["s_per_iter"],
                 launches=launches, first_movie_half_vs_fused=first,
                 user_factors_vs_fused=rel_err(split[0], fused[0])[1],
+                bit_equal_to_fused=bool(torch.equal(split[0], fused[0])
+                                        and torch.equal(split[1], fused[1])),
                 scores_vs_fused=scores)
             # Where the split iteration's device time goes (measurement
             # only), beside the implicit phase's profile of the fused run.
@@ -2364,8 +2391,8 @@ class Smoke:
             gram_solve_dense, gram_solve_dense_plain, gram_solve_gather,
             gram_solve_gather_plain)
         from cfk_tpu_torch.ops.kernels.solve_kernel import (
-            GJ_MAX_RANK, gauss_jordan_plain, gauss_solve_multi, reg_solve,
-            reg_solve_plain)
+            GJ_MAX_RANK, gauss_jordan_plain, gauss_solve, gauss_solve_multi,
+            gauss_solve_plain, reg_solve, reg_solve_plain)
         from cfk_tpu_torch.ops.solve import (
             global_gram, global_gram_blocked, implicit_reg)
         from cfk_tpu_torch.ops.tiled import (
@@ -2513,33 +2540,95 @@ class Smoke:
             lambda: torch.linalg.solve(a + reg_a, b))
         self.check(rel < TOL["reg_solve"], f"K1 matrix mode rel err {rel}")
         del got, want
-        # The multi-RHS Gauss-Jordan at the Schur shape: the blocked solve's
-        # first step, Y = A₁₁⁻¹[A₁₂ | b₁], on these systems with their ridge
-        # (k = 64, m = 65), its operands batch-first as the blocked solve
-        # hands them over (the wrapper's permute is then a view).
+        # Row 12 at the Schur shape: the blocked solve's first step,
+        # Y = A₁₁⁻¹[A₁₂ | b₁], on these systems with their ridge (k = 64,
+        # m = 65), A₁₁ read in place from the [E, 128, 128] batch as the
+        # blocked solve hands it over.
         a.add_(reg_a)
         k1 = GJ_MAX_RANK
-        a11 = a[:, :k1, :k1].contiguous()
+        k2 = k - k1
         rhs = torch.cat([a[:, :k1, k1:], b[:, :k1, None]], dim=2)
         e = a.shape[0]
-        del a, b
-        al, rl = a11.permute(1, 2, 0), rhs.permute(1, 2, 0)
+        al, rl = a[:, :k1, :k1].permute(1, 2, 0), rhs.permute(1, 2, 0)
         got = gauss_solve_multi(al, rl)
+        again = gauss_solve_multi(al, rl)
         torch.cuda.synchronize()
         want = gauss_jordan_plain(al, rl)
         err, rel = rel_err(got, want)
-        del got, want
+        twice = bool(torch.equal(got, again))
+        del again, want
         b_ms, by = bound(*gauss_work(e, k1, k1 + 1))
-        self.kernels["gauss_solve_multi"].update(timed(
-            dict(max_abs_err=err, rel_err=rel, bound_ms=b_ms, bound_by=by,
-                 e=e, k=k1, m=k1 + 1),
+        self.kernels.setdefault("gauss_solve_multi", {}).update(timed(
+            dict(max_abs_err=err, rel_err=rel, bit_equal_twice=twice,
+                 bound_ms=b_ms, bound_by=by, e=e, k=k1, m=k1 + 1),
             lambda: gauss_solve_multi(al, rl),
             lambda: gauss_jordan_plain(al, rl),
-            lambda: torch.linalg.solve(a11, rhs)))
+            lambda: torch.linalg.solve(a[:, :k1, :k1], rhs)))
         log(f"gauss_solve_multi: {self.kernels['gauss_solve_multi']}")
         self.check(rel < TOL["gauss_solve_multi"],
                    f"gauss_solve_multi rel err {rel}")
-        del a11, rhs, al, rl
+        self.check(twice, "gauss_solve_multi: two launches differ")
+        # Row 11 on the Schur complement S = A₂₂ − A₂₁·Y₁₂ and its
+        # right-hand side, formed as the blocked solve forms them (float32
+        # products: S is symmetric only to its last bits, and the kernel
+        # reads its lower triangle), against the plain Gauss-Jordan on the
+        # full S and x₂ against a float64 solve of the full S.
+        y = got.permute(2, 0, 1)
+        y12, y1 = y[:, :, :k2], y[:, :, k2]
+        sc = a[:, k1:, k1:] - a[:, k1:, :k1] @ y12
+        r2 = b[:, k1:] - (a[:, k1:, :k1] @ y1[:, :, None])[:, :, 0]
+        # x₂ of a float64 solve of the whole system: what S's float32
+        # rounding (both triangles) and the solve's together miss.
+        x_true = torch.cat([
+            torch.linalg.solve(a[lo:lo + 8192].double(),
+                               b[lo:lo + 8192].double())[:, k1:]
+            for lo in range(0, e, 8192)]).T
+        del a, b, rhs, al, rl, got, y, y12, y1
+        sl, r2l = sc.permute(1, 2, 0), r2.T
+        x2 = gauss_solve(sl, r2l)
+        again = gauss_solve(sl, r2l)
+        torch.cuda.synchronize()
+        want = gauss_solve_plain(sl, r2l)
+        x64 = torch.linalg.solve(sc.double(), r2.double()).T
+        sym = gauss_solve(((sc + sc.transpose(1, 2)) / 2).permute(1, 2, 0),
+                          r2l)
+
+        def rel64(x, ref=x64):
+            return float((x.double() - ref).abs().max() / ref.abs().max())
+
+        err, rel = rel_err(x2, want)
+        b_ms, by = bound(*gauss_work(e, k2, 1))
+        schur = timed(dict(
+            e=e, k=k2, max_abs_err=err, rel_err=rel,
+            bit_equal_twice=bool(torch.equal(x2, again)),
+            asymmetry=float((sc - sc.transpose(1, 2)).abs().max()
+                            / sc.abs().max()),
+            x2_rel_err_float64=rel64(x2),
+            x2_rel_err_float64_gauss_jordan=rel64(want),
+            x2_rel_err_float64_symmetrized=rel64(sym),
+            x2_rel_err_whole_float64=rel64(x2, x_true),
+            x2_rel_err_whole_float64_gauss_jordan=rel64(want, x_true),
+            x2_rel_err_whole_float64_symmetrized=rel64(sym, x_true),
+            bound_ms=b_ms, bound_by=by),
+            lambda: gauss_solve(sl, r2l), lambda: gauss_solve_plain(sl, r2l),
+            lambda: torch.linalg.solve(sc, r2))
+        del x2, again, want, x64, x_true, sym
+        report["gauss_solve_schur"] = schur
+        self.kernels.setdefault("gauss_solve", {}).update(
+            ms_schur=schur["ms"], bound_ms_schur=b_ms,
+            library_ms_schur=schur["library_ms"])
+        log(f"gauss_solve on the Schur complement: {schur}")
+        self.check(rel < TOL["gauss_solve"],
+                   f"gauss_solve on S rel err {rel}")
+        self.check(schur["bit_equal_twice"],
+                   "gauss_solve on S: two launches differ")
+        self.check(schur["x2_rel_err_float64"]
+                   <= 4 * schur["x2_rel_err_float64_gauss_jordan"]
+                   + 4 * 2.0 ** -24,
+                   f"gauss_solve on S: x2 vs float64 "
+                   f"{schur['x2_rel_err_float64']}, Gauss-Jordan's "
+                   f"{schur['x2_rel_err_float64_gauss_jordan']}")
+        del sc, r2, sl, r2l
         # K3 weighted + matrix: (a)'s middle dense chunk, with its carry
         # threaded from the last chunk that starts a fresh segment.
         st_u = kw["u_chunks"][2:]

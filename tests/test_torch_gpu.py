@@ -54,7 +54,11 @@ from cfk_tpu_torch.ops.kernels.solve_kernel import (
     reg_solve_plain,
     spd_solve_plain,
 )
-from cfk_tpu_torch.ops.solve import dispatch_spd_solve
+from cfk_tpu_torch.ops.solve import (
+    dispatch_spd_solve,
+    regularized_solve,
+    regularized_solve_matrix,
+)
 from cfk_tpu_torch.ops.quant import quantize_table
 from cfk_tpu_torch.ops.tiled import accum_chunk, dense_chunk
 from cfk_tpu_torch.serving.topk_kernel import (
@@ -258,12 +262,24 @@ def test_gram_tiles_dense_gather_matches_plain(cuda, k, tile_rows, weighted):
         a0, b0 = a.index_select(0, li)[0], b.index_select(0, li)[0]
 
 
-# Gauss-Jordan (gauss_solve, gauss_solve_multi): the kernels against the
-# plain elimination on the same batch-last systems, including a ragged batch
-# (E not a multiple of anything) and k = 1.  Both eliminate in float32
-# without pivoting, the kernel with one fused multiply-add per update where
-# the plain version rounds twice: relative 1e-4 on systems whose condition
+# Rows 11 and 12 (gauss_solve, gauss_solve_multi): the kernels — K1's
+# blocked Cholesky over the lower triangle — against their plain versions,
+# the reference's Gauss-Jordan elimination, on the same batch-last systems:
+# every panel shape of the blocked solve (k below, at and above one
+# 32-column panel, a ragged last panel), one to 72 right-hand sides, at one
+# system, within one wave and past it.  Two float32 solves by different
+# algorithms without pivoting: relative 1e-4 on systems whose condition
 # numbers are a few hundred.
+
+GJ_KS = [1, 31, 32, 33, 64]
+GJ_MS = [1, 2, 33, 65, 72]
+GJ_ES = [1, 203, 300]
+# The grid, then the earlier cases; E = 1000 passes one wave (4 CTAs per SM
+# x 132 SMs = 528 systems resident).
+GJ_CASES = [(k, e) for k in [8] + GJ_KS for e in GJ_ES] + [
+    (1, 7), (8, 301), (64, 1000), (64, 33)]
+GJ_MULTI_CASES = [(k, m, e) for k in GJ_KS for m in GJ_MS for e in GJ_ES] + [
+    (1, 1, 5), (20, 9, 301), (64, 65, 500), (64, 72, 64), (64, 65, 1000)]
 
 
 def _gj_batch(e, k, m, seed, device):
@@ -274,7 +290,7 @@ def _gj_batch(e, k, m, seed, device):
     return a.permute(1, 2, 0).contiguous(), b.permute(1, 2, 0).contiguous()
 
 
-@pytest.mark.parametrize("k,e", [(1, 7), (8, 301), (64, 1000), (64, 33)])
+@pytest.mark.parametrize("k,e", GJ_CASES)
 def test_gauss_solve_matches_plain(cuda, k, e):
     a, b = _gj_batch(e, k, 1, k, cuda)
     before = gauss_solve.launches
@@ -288,8 +304,7 @@ def test_gauss_solve_matches_plain(cuda, k, e):
     assert torch.equal(gauss_solve(af.permute(1, 2, 0), bf.T), got)
 
 
-@pytest.mark.parametrize("k,m,e", [(1, 1, 5), (20, 9, 301), (64, 65, 500),
-                                   (64, 72, 64)])
+@pytest.mark.parametrize("k,m,e", GJ_MULTI_CASES)
 def test_gauss_solve_multi_matches_plain(cuda, k, m, e):
     a, b = _gj_batch(e, k, m, k + m, cuda)
     before = gauss_solve_multi.launches
@@ -298,6 +313,76 @@ def test_gauss_solve_multi_matches_plain(cuda, k, m, e):
     assert gauss_solve_multi.launches == before + 1
     assert got.shape == (k, m, e)
     assert _rel_err(got, gauss_jordan_plain(a, b)) < 1e-4
+
+
+@pytest.mark.parametrize("k", [33, 64])
+def test_gauss_solve_multi_columns_are_gauss_solve(cuda, k):
+    """Each element of the m-column solve takes the one-column solve's
+    operations: column r of row 12 equals row 11 on B's column r, bit for
+    bit, in each of the three warps whose threads run the 65 back
+    substitutions."""
+    a, b = _gj_batch(203, k, 65, k, cuda)
+    got = gauss_solve_multi(a, b)
+    for r in (0, 31, 32, 64):
+        assert torch.equal(got[:, r], gauss_solve(a, b[:, r].contiguous()))
+
+
+def test_gauss_solve_multi_reads_a11_in_place(cuda):
+    """The Schur route's A₁₁ is a strided slice of the [E, 128, 128] batch:
+    the kernel reads it in place and returns what it returns on a
+    contiguous copy."""
+    a, b, _ = _spd_batch(300, 128, 5, cuda)
+    a = a + 6.4 * torch.eye(128, device=cuda)
+    rhs = torch.cat([a[:, :64, 64:], b[:, :64, None]], dim=2)
+    view = gauss_solve_multi(a[:, :64, :64].permute(1, 2, 0),
+                             rhs.permute(1, 2, 0))
+    copy = gauss_solve_multi(a[:, :64, :64].contiguous().permute(1, 2, 0),
+                             rhs.permute(1, 2, 0))
+    assert torch.equal(view, copy)
+
+
+@pytest.mark.parametrize("k", [40, 64])
+def test_gauss_solve_bit_stable_and_non_spd_rows(cuda, k):
+    """Rows 11 and 12: two launches return the same bits; a system whose
+    factorization meets a pivot <= 0 (−I, the zero matrix, one negative
+    eigenvalue at column 35) gets a non-finite row of x in every column
+    (Gauss-Jordan gave finite numbers where its pivots were nonzero), while
+    its SPD neighbours are solved as before."""
+    a, b = _gj_batch(6, k, 3, 11, cuda)
+    eig = torch.ones(k, device=cuda)
+    eig[35] = -1.0
+    a[:, :, 1] = -torch.eye(k, device=cuda)
+    a[:, :, 2] = 0.0
+    a[:, :, 4] = torch.diag(eig)
+    spd = torch.tensor([0, 3, 5], device=cuda)
+    for solve, bb, plain in ((gauss_solve, b[:, 0], gauss_solve_plain),
+                             (gauss_solve_multi, b, gauss_jordan_plain)):
+        got = solve(a, bb)
+        again = solve(a, bb)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.nan_to_num(got, 1.0, 2.0, 3.0),
+                           torch.nan_to_num(again, 1.0, 2.0, 3.0))
+        fin = torch.isfinite(got.reshape(-1, 6))
+        assert fin.all(0).tolist() == [True, False, False, True, False, True]
+        assert not fin[:, [1, 2, 4]].any()
+        want = plain(a[..., spd], bb[..., spd])
+        assert _rel_err(got[..., spd], want) < 1e-4
+
+
+@pytest.mark.parametrize("k", GJ_KS)
+def test_split_solve_equals_reg_solve_bitwise(cuda, k):
+    """The split route's ridge add (torch: λ·max(n, 1) rounded, one add;
+    matrix mode one add) then row 11 equals K1 on the same sums bit for
+    bit: both run the blocked Cholesky on the same lower triangle."""
+    a, b, cnt = _spd_batch(300, k, 3 * k, cuda)
+    fused = regularized_solve(a, b, cnt, 0.05)
+    split = regularized_solve(a.clone(), b, cnt, 0.05, fused=False)
+    torch.cuda.synchronize()
+    assert torch.equal(split, fused)
+    r = torch.eye(k, device=cuda) * 0.3 + 0.01
+    fused = regularized_solve_matrix(a, b, r)
+    split = regularized_solve_matrix(a.clone(), b, r, fused=False)
+    assert torch.equal(split, fused)
 
 
 @pytest.mark.parametrize("k", [16, 72, 128])

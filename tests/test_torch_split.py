@@ -39,6 +39,7 @@ from cfk_tpu_torch.models.als import _tiled_to_device
 from cfk_tpu_torch.models.ials import IALSConfig, train_ials
 from cfk_tpu_torch.ops.kernels.gram_kernel import gram_tiles_dense_gather
 from cfk_tpu_torch.ops.kernels.solve_kernel import (
+    batch_first,
     gauss_solve,
     gauss_solve_multi,
 )
@@ -91,7 +92,7 @@ def u0(coo):
     return np.random.default_rng(1).random((n, K)).astype(np.float32)
 
 
-# -- the Gauss-Jordan solves (rows 11 and 12) ---------------------------------
+# -- the unregularized solves (rows 11 and 12) --------------------------------
 
 @pytest.mark.parametrize("k", [5, 16, 64])
 def test_gauss_solve_matches_reference(k):
@@ -132,6 +133,24 @@ def test_gauss_solve_contracts():
         gauss_solve_multi(torch.zeros(16, 16, 3), torch.zeros(16, 8, 4))
 
 
+def test_gauss_operands_read_in_place():
+    """The kernels of rows 11 and 12 read batch-first operands through
+    ``batch_first``: the Schur route's A₁₁ (a slice of the [E, 128, 128]
+    batch) and the split dispatch's transposed b as views, with their
+    strides; a contiguous batch-last tensor through a batch-first copy."""
+    a = torch.rand(5, 128, 128)
+    v, bs, rs = batch_first(a[:, :64, :64].permute(1, 2, 0))
+    assert v.data_ptr() == a.data_ptr() and (bs, rs) == (128 * 128, 128)
+    assert torch.equal(v, a[:, :64, :64])
+    b = torch.rand(5, 64)
+    v, bs, rs = batch_first(b.T[:, None, :])
+    assert v.data_ptr() == b.data_ptr() and (bs, rs) == (64, 1)
+    al = torch.rand(16, 16, 5)
+    v, bs, rs = batch_first(al)
+    assert v.is_contiguous() and (bs, rs) == (256, 16)
+    assert torch.equal(v, al.permute(2, 0, 1))
+
+
 @pytest.mark.parametrize("k", [16, 72])  # 72: the blocked Schur route
 def test_dispatch_spd_solve_matches_reference(k):
     a, b = _spd(40, k, 7)
@@ -156,6 +175,29 @@ def test_fused_resolution_and_split_ridge():
     fused = regularized_solve(T(a), T(b), cnt, LAM)
     split = regularized_solve(T(a.copy()), T(b), cnt, LAM, fused=False)
     assert _rel(split, fused) < 1e-5  # Gauss-Jordan vs Cholesky, float32
+
+
+def test_split_ridge_add_rounds_twice():
+    """The split ridge add is λ·max(n, 1) rounded to float32, then one add,
+    as the JAX reference (``lam * jnp.maximum(count, 1)``, then ``a +``)
+    and K1 add it — not one fused multiply-add: on these triples one
+    rounding of the exact λ·n + A_ii (exact in float64: ≤ 33 + 24 bits
+    within 20 binades) gives other bits for some of them."""
+    rng = np.random.default_rng(0)
+    e = 2000
+    cnt = rng.integers(0, 400, e).astype(np.int32)
+    diag = (1 + 29 * rng.random((e, 2))).astype(np.float32)
+    a = np.zeros((e, 2, 2), np.float32)
+    a[:, [0, 1], [0, 1]] = diag
+    split = T(a)
+    regularized_solve(split, T(np.ones((e, 2), np.float32)), T(cnt), LAM,
+                      fused=False)
+    got = torch.diagonal(split, dim1=1, dim2=2).numpy()
+    n = np.maximum(cnt, 1).astype(np.float32)[:, None]
+    twice = np.float32(LAM) * n + diag
+    once = (np.float64(np.float32(LAM)) * n + diag).astype(np.float32)
+    assert np.array_equal(got.view(np.int32), twice.view(np.int32))
+    assert (once != twice).sum() > 0
 
 
 # -- the split dense-stream Gram (row 9) --------------------------------------

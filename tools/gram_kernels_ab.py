@@ -4,7 +4,7 @@ class of the implicit bucketed layout, for comparing two source trees on
 one card.
 
     python3 tools/gram_kernels_ab.py [--tree DIR] [--label NAME]
-        [--nnz N] [--rank K] [--cache FILE] [--parts grams,k1,k6]
+        [--nnz N] [--rank K] [--cache FILE] [--parts grams,k1,k6,gj]
 
 ``--tree`` names the directory holding the ``cfk_tpu_torch`` package to
 measure (default: this checkout); its kernels are built from that tree's
@@ -30,8 +30,22 @@ implicit-shaped systems at k = 128 (as ``chip_smoke.py``'s binv phase
 builds them); ``k6`` K6 ``gram_solve_gather`` on every width class of both
 halves of iALS (b) (the ML-25M shape, 25,000,095 interactions, seed 0,
 bucketed at 524,288 entries, rank 128, U(0, 1) tables, λ 0.1, α 40), one
-launch each, summed, the head class apart.  Prints the card
-(``nvidia-smi``) and one JSON line.
+launch each, summed, the head class apart; ``gj`` rows 11 and 12
+(``gauss_solve``, ``gauss_solve_multi``) at their path shapes, each as its
+kernel's device ms a launch and as the device ms of the whole wrapper call
+(``_call``: every kernel it launches, operand copies included), from
+torch.profiler: row 11 on count-scaled random Grams plus λ·max(n, 1) at
+k = 64, E = 17,770 (the Netflix split movie half); row 12 at the Schur
+shape (k = 64, m = 65, E = 59,047) on the k1 part's implicit-shaped
+matrix-mode systems with their ridge, A₁₁ handed over as the blocked solve
+hands it (a view of the [E, 128, 128] batch); row 11 on the Schur
+complement that follows (k = 64, E = 59,047); and the whole blocked solve
+(``blocked_spd_solve``, k = 128) on those systems.  Prints the card
+(``nvidia-smi``) and one JSON line; its ``crc32`` holds a CRC-32 of the
+outputs of K1 at each shape, of K6 over all classes and of rows 11 and 12
+at each shape, for telling two trees' bits apart, and its ``clocks`` the
+card's clocks, power draw and temperature before each row 11 and 12
+measurement.
 """
 
 from __future__ import annotations
@@ -42,7 +56,25 @@ import pickle
 import subprocess
 import sys
 import time
+import zlib
 from pathlib import Path
+
+
+def sample_clocks(clocks: list, what: str) -> None:
+    """Append the card's SM and memory clocks, power draw and temperature
+    to ``clocks``, to keep beside a measurement."""
+    q = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    clocks.append(f"{what}: {q}")
+
+
+def crc_of(crc: dict, name: str, *tensors) -> None:
+    """Fold the bytes of ``tensors`` into crc[name] (CRC-32)."""
+    for t in tensors:
+        crc[name] = zlib.crc32(t.detach().cpu().numpy().tobytes(),
+                               crc.get(name, 0))
 
 
 def main() -> int:
@@ -74,11 +106,13 @@ def main() -> int:
     _build.build_all()
     build_s = time.perf_counter() - t0
     dev = torch.device("cuda")
-    out = {}
+    out, crc, clocks = {}, {}, []
     if "k1" in parts:
-        out.update(k1_rows(dev))
+        out.update(k1_rows(dev, crc))
     if "k6" in parts:
-        out.update(k6_rows(dev))
+        out.update(k6_rows(dev, crc))
+    if "gj" in parts:
+        out.update(gj_rows(dev, crc, clocks))
     if "grams" in parts:
         out.update(gram_rows(args, dev))
     card = subprocess.run(
@@ -87,7 +121,8 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(card)
     print(json.dumps(dict(label=args.label, tree=str(tree), nnz=args.nnz,
-                          rank=args.rank, build_s=build_s, total_ms=out)))
+                          rank=args.rank, build_s=build_s, total_ms=out,
+                          crc32=crc, clocks=clocks)))
     return 0
 
 
@@ -107,13 +142,16 @@ def mean_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_ms(fn, reps: int, kernel: str) -> float:
-    """Device ms per call of the kernels named ``kernel`` (torch.profiler
-    rows over ``reps`` calls after a warm-up): K1 below one wave is too
-    short for back-to-back calls to time the card and not the host."""
+def kernel_ms(fn, reps: int, kernel) -> float:
+    """Device ms per call of the kernels whose name holds ``kernel`` (a
+    string, or a tuple of names: the parent's and the change's; "" for
+    every device activity of the call), from torch.profiler rows over
+    ``reps`` calls after a warm-up: K1 below one wave is too short for
+    back-to-back calls to time the card and not the host."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    names = (kernel,) if isinstance(kernel, str) else kernel
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -121,10 +159,10 @@ def kernel_ms(fn, reps: int, kernel: str) -> float:
             fn()
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
-               if kernel in e.key) / 1e3 / reps
+               if any(n in e.key for n in names)) / 1e3 / reps
 
 
-def k1_rows(dev) -> dict:
+def k1_rows(dev, crc: dict) -> dict:
     import torch
 
     from cfk_tpu_torch.ops.kernels.solve_kernel import reg_solve
@@ -140,9 +178,24 @@ def k1_rows(dev) -> dict:
         del x
         out[f"reg_solve_k{k}_e{e}"] = kernel_ms(
             lambda: reg_solve(a, b, cnt, lam=0.05), reps, "reg_solve_kernel")
-    # Matrix mode: α·(n/64)·XᵀX, X [64, k] ~ U(0, 1), and the shared ridge
-    # YᵀY + λI over 162,541 rows Y ~ U(0, 1).
-    k, em = 128, 59_047
+        crc_of(crc, f"reg_solve_k{k}_e{e}", reg_solve(a, b, cnt, lam=0.05))
+    am, bm, rm = implicit_systems(dev, gen)
+    out[f"reg_solve_matrix_k128_e{am.shape[0]}"] = kernel_ms(
+        lambda: reg_solve(am, bm, rm, reg_mode="matrix"), 5,
+        "reg_solve_kernel")
+    crc_of(crc, "reg_solve_matrix",
+           reg_solve(am, bm, rm, reg_mode="matrix"))
+    del am
+    torch.cuda.empty_cache()
+    return out
+
+
+def implicit_systems(dev, gen, k=128, em=59_047):
+    """K1's matrix-mode systems at the ML-25M movie count: α·(n/64)·XᵀX,
+    X [64, k] ~ U(0, 1), b ~ 100·U(0, 1), and the shared ridge YᵀY + λI
+    over 162,541 rows Y ~ U(0, 1)."""
+    import torch
+
     cnt = torch.randint(1, 400, (em,), generator=gen, device=dev)
     am = torch.empty((em, k, k), device=dev)
     for lo in range(0, em, 8192):
@@ -154,16 +207,64 @@ def k1_rows(dev) -> dict:
     del xs
     bm = torch.rand((em, k), generator=gen, device=dev) * 100
     y = torch.rand((162_541, k), generator=gen, device=dev)
-    rm = y.T @ y + 0.1 * torch.eye(k, device=dev)
-    out[f"reg_solve_matrix_k{k}_e{em}"] = kernel_ms(
-        lambda: reg_solve(am, bm, rm, reg_mode="matrix"), 5,
-        "reg_solve_kernel")
-    del am
+    return am, bm, y.T @ y + 0.1 * torch.eye(k, device=dev)
+
+
+# Rows 11 and 12's kernel in the parent tree (Gauss-Jordan) and since the
+# blocked Cholesky.
+GJ_KERNELS = ("gauss_jordan_kernel", "spd_batch_kernel")
+
+
+def gj_rows(dev, crc: dict, clocks: list) -> dict:
+    import torch
+
+    from cfk_tpu_torch.ops.kernels.solve_kernel import (
+        gauss_solve, gauss_solve_multi)
+    from cfk_tpu_torch.ops.solve import blocked_spd_solve
+
+    out = {}
+
+    def both(name, call, reps):
+        sample_clocks(clocks, name)
+        out[name] = kernel_ms(call, reps, GJ_KERNELS)
+        out[f"{name}_call"] = kernel_ms(call, reps, "")
+        crc_of(crc, name, call())
+
+    gen = torch.Generator(device=dev).manual_seed(64)
+    k, e = 64, 17_770
+    cnt = torch.randint(1, 400, (e,), generator=gen, device=dev)
+    x = torch.randn((e, 2 * k, k), generator=gen, device=dev)
+    a = torch.einsum("enk,enl->ekl", x, x) * (
+        cnt.float() / (2 * k))[:, None, None]
+    a.diagonal(dim1=-2, dim2=-1).add_(0.05 * cnt.float()[:, None])
+    b = torch.randn((e, k), generator=gen, device=dev)
+    del x
+    both(f"gauss_solve_k{k}_e{e}",
+         lambda: gauss_solve(a.permute(1, 2, 0), b.T), 20)
+    del a, b
+    am, bm, rm = implicit_systems(dev, torch.Generator(
+        device=dev).manual_seed(128))
+    am.add_(rm)
+    e, k1 = am.shape[0], 64
+    rhs = torch.cat([am[:, :k1, k1:], bm[:, :k1, None]], dim=2)
+    al, rl = am[:, :k1, :k1].permute(1, 2, 0), rhs.permute(1, 2, 0)
+    both(f"gauss_solve_multi_k{k1}_m{k1 + 1}_e{e}",
+         lambda: gauss_solve_multi(al, rl), 5)
+    y = gauss_solve_multi(al, rl).permute(2, 0, 1)
+    s = am[:, k1:, k1:] - am[:, k1:, :k1] @ y[:, :, :k1]
+    r2 = bm[:, k1:] - (am[:, k1:, :k1] @ y[:, :, k1:])[:, :, 0]
+    del y, rhs, al, rl
+    both(f"gauss_solve_schur_k{k1}_e{e}",
+         lambda: gauss_solve(s.permute(1, 2, 0), r2.T), 5)
+    del s, r2
+    out[f"blocked_spd_solve_k128_e{e}_call"] = kernel_ms(
+        lambda: blocked_spd_solve(am, bm), 3, "")
+    del am, bm
     torch.cuda.empty_cache()
     return out
 
 
-def k6_rows(dev) -> dict:
+def k6_rows(dev, crc: dict) -> dict:
     import numpy as np
     import torch
 
@@ -197,6 +298,9 @@ def k6_rows(dev) -> dict:
             ms = mean_ms(lambda: bucket_gram_solve(
                 table, nb, wt, rt, reg, lam=0.0, reg_mode="matrix",
                 units=plan), 2)
+            crc_of(crc, "gram_solve_gather_ials_b", bucket_gram_solve(
+                table, nb, wt, rt, reg, lam=0.0, reg_mode="matrix",
+                units=plan))
             total += ms
             if blocks is ds.movie_blocks and bk.width > head[0]:
                 head = (bk.width, ms)
