@@ -3,38 +3,68 @@
 //
 // Replaces: cfk_tpu/serving/topk_kernel.py::topk_scores_pallas (body
 // _topk_kernel, per-tile fold _score_tile_fold).  score = u · row in f32
-// (int8 rows dequantized element by element, code · scale; with a bf16
-// table u is rounded to bf16 first); a row whose global id row_offset + r is
+// (an int8 row is its codes times the row's scale; with a bf16 table u is
+// rounded to bf16 first); a row whose global id row_offset + r is
 // >= num_movies, or whose in-tile column is listed in seen[t, b, :], scores
 // -inf.  The result is the first K of the order (score descending, id
 // ascending) with empty slots (-inf, -1) — what lax.top_k's stable carry-
 // first merge gives, ties included.
 //
 // What bounds it on the H100: at a serving batch of 256 users and rank 128,
-// operations (2·B·M·k FP32 flops against one read of the table); at 16
-// users, bytes (the table read).  Either way no [B, M] score matrix may be
-// written: only [B, K] leaves the kernel, plus a [B, splits, K] partial.
+// an f32 or int8 table's 2·B·M·k flops on the FP32 cores (TF32 stays off);
+// a bf16 table's products run on the tensor cores, where the table read
+// bounds them, as it bounds every kind at 16 users.  No [B, M] score
+// matrix is written: only [B, K] leaves the kernel, plus a [B, splits, K]
+// partial.
 //
 // Design, two launches:
-//  1. topk_partial_kernel — grid (user blocks of 8) x (splits of the table
-//     rows).  A CTA of 256 threads stages its 8 users in shared memory
-//     (layout [k][8], read as broadcasts) and walks its rows 256 at a time,
-//     one row per thread: 32-column slices of the rows are staged
-//     transposed in shared memory (coalesced global reads, conflict-free
-//     row-stride-257 layout, int8 dequantized and bf16 widened on the way
-//     in; the next slice is read into registers while the current one is
-//     multiplied), and each thread accumulates its row's 8 scores with FP32
-//     FMAs in column order.  The seen mask of a 256-row window is a bitmap rebuilt
-//     per step from seen[t, b, 0:W] (a loop over W: shared memory never
-//     scales with W).  A score above the user's running K-th best is
-//     appended to that user's candidate buffer (warp-aggregated atomics);
-//     when a buffer could overflow, a CTA-wide bitonic sort compacts every
-//     buffer to its best K and raises the thresholds.  The CTA's sorted
-//     top K per user goes to part[b, split, :].
-//  2. topk_merge_kernel — one CTA per user bitonic-sorts its splits·K
-//     candidates and writes the first K, empty slots as (-inf, -1).
+//  1. topk_partial_kernel<TABLE, BU> — grid (user blocks of BU = 16 or 32)
+//     x (splits of the table's 256-row tiles, split_plan), 8·BU threads.
+//     A CTA walks its split tile by tile and, per tile, k in slices (16
+//     columns for f32/int8, 32 for bf16) staged in shared memory by 16-byte
+//     cp.async, double-buffered: the next slice's copy is in flight while
+//     the current one is multiplied; rows are padded so every read is free
+//     of bank conflicts; a table that is not 16-byte aligned, or a rank that
+//     is not a multiple of the 16-byte chunk, falls back to element loads.
+//     u is staged per slice too, through registers (rounded to bf16 there
+//     for a bf16 table), so the rank is a loop bound, not a shared-memory
+//     size.
+//     - f32: each thread owns an 8-row x 4-user micro-tile, 32 FP32 FMA
+//       accumulators fed by 3 LDS.128 per 32 FMAs (TF32 stays off).
+//     - int8: the codes are staged (a quarter of the bytes) and converted
+//       to f32 once per CTA slice — each conversion feeds BU users — then
+//       multiplied as f32; the row's scale multiplies the finished k-sum
+//       (scale · Σ code·u in place of Σ (code·scale)·u: a reassociation
+//       within float32 rounding, 1e-5 of the largest score).
+//     - bf16: mma.sync m16n8k16 on the tensor cores (operands by ldmatrix,
+//       f32 accumulators) — the reference's arithmetic: bf16 operands,
+//       exact products, f32 sums; each warp computes 64 rows x 16 users.
+//     When a tile's k-loop ends its scores go to a [BU][256] shared tile
+//     (over the staging buffers) and warp w selects for users w, w + W, ...:
+//     it masks padding and seen rows (a per-tile bitmap built from
+//     seen[t, b, 0:W], a loop over W: shared memory never scales with W),
+//     keeps the scores above the user's running K-th best (ballot
+//     compaction into the warp's 256-key scratch, no atomics), sorts them in
+//     registers (a bitonic network over 32·P keys, P = 1 .. 8, shuffles
+//     across lanes) and merges them into the user's sorted top-pow2(K) list:
+//     the larger of list[i] and survivors[n-1-i] is a bitonic sequence that
+//     holds the best n, one bitonic merge sorts it (lists of up to 128 keys
+//     in registers, longer ones in shared memory).  The list's K-th key is
+//     the next tile's threshold.  (score, id) travel as one 64-bit key whose
+//     unsigned order is (score desc, id asc), so ties resolve as the
+//     reference's.  The list's first K go to part[b, split, :].
+//     What the card shows (NVIDIA H100, PERF.md): the selection's sorts and
+//     merges take about as many issue slots as the f32 FMAs at a serving
+//     batch — each split's first tile passes every row, and a split of
+//     ~1,800 rows keeps ~440 survivors a user.
+//  2. topk_merge_kernel — one CTA of 16 warps per user: each warp merges
+//     every 16th split's sorted list into its own with the same step in
+//     registers (the next list's loads in flight), the warps' lists combine
+//     in a tree, and the first K are written, empty slots as (-inf, -1).
+// k_top stays capped at 1024: the per-user lists live in shared memory, so
+// a larger K needs candidate buffers in device memory or a radix-select
+// pass.
 #include <cuda_bf16.h>
-#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -42,18 +72,20 @@
 
 namespace {
 
-constexpr int kRowsPerStep = 256;  // T: one table row per thread per step
-constexpr int kUsers = 8;          // users per CTA of pass 1
-constexpr int kColChunk = 32;      // table columns staged per pass
-constexpr int kTileLd = kRowsPerStep + 1;  // odd stride: conflict-free
-constexpr int kSliceRegs = kColChunk;  // slice elements per thread
-constexpr int kBitWords = kRowsPerStep / 32;
+typedef unsigned long long u64;
+
+constexpr int kTileRows = 256;  // table rows of one CTA tile
+constexpr int kBitWords = kTileRows / 32;
+constexpr int kBkF = 16;           // f32/int8 k-slice
+constexpr int kLdF = kBkF + 4;     // staged f32 row stride (floats)
+constexpr int kBkH = 32;           // bf16 k-slice: two m16n8k16 steps
+constexpr int kLdH = kBkH + 8;     // staged bf16 row stride: 80 bytes
 constexpr int kMergeThreads = 512;
 constexpr int kMaxTop = 1024;
-constexpr int kMaxRank = 512;
 constexpr size_t kMaxSmem = 227 * 1024;
-constexpr int kEmptyId = INT_MAX;  // id of an empty slot while sorting
 constexpr int kTableF32 = 0, kTableBF16 = 1, kTableI8 = 2;
+// Every key of a -inf score is <= this; every other score's key is above.
+constexpr u64 kNegInfKey = (0x007FFFFFull << 32) | 0xFFFFFFFFull;
 
 __host__ __device__ inline int pow2_ceil(int x) {
   int p = 1;
@@ -61,274 +93,665 @@ __host__ __device__ inline int pow2_ceil(int x) {
   return p;
 }
 
-__device__ __forceinline__ bool better(float av, int ai, float bv, int bi) {
-  return av > bv || (av == bv && ai < bi);
+// (score, id) as one key: the score's bits made order-preserving in the
+// high word (-0 folded into +0 first: the two compare equal), 0x7FFFFFFF -
+// id in the low word, so a larger key is a higher score or, at equal
+// scores, a lower id.  Key 0 is an empty slot.
+__device__ __forceinline__ u64 make_key(float s, int id) {
+  unsigned b = __float_as_uint(__fadd_rn(s, 0.0f));
+  b ^= (b & 0x80000000u) ? 0xFFFFFFFFu : 0x80000000u;
+  return ((u64)b << 32) | (0x7FFFFFFFu - (unsigned)id);
 }
 
-// Sorts each aligned segment of `seg` (a power of two) entries of v/id[0, n)
-// best first.  Every thread of the CTA takes part; ends synchronized.
-__device__ void bitonic_sort(float* v, int* id, int n, int seg) {
-  for (int size = 2; size <= seg; size <<= 1) {
+__device__ __forceinline__ void split_key(u64 key, float& s, int& id) {
+  if (key == 0ull) {
+    s = -INFINITY;
+    id = -1;
+    return;
+  }
+  unsigned b = (unsigned)(key >> 32);
+  b ^= (b & 0x80000000u) ? 0x80000000u : 0xFFFFFFFFu;
+  s = __uint_as_float(b);
+  id = (int)(0x7FFFFFFFu - (unsigned)key);
+}
+
+// One warp sorts a[0, n) (n a power of two) descending.
+__device__ void warp_sort_desc(u64* a, int n, int lane) {
+  for (int size = 2; size <= n; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int p = threadIdx.x; p < (n >> 1); p += blockDim.x) {
-        const int i = 2 * p - (p & (stride - 1));
-        const int j = i + stride;
-        const bool best_first = (((i & (seg - 1)) & size) == 0);
-        const float vi = v[i], vj = v[j];
-        const int ii = id[i], ij = id[j];
-        if (best_first ? better(vj, ij, vi, ii) : better(vi, ii, vj, ij)) {
-          v[i] = vj;
-          v[j] = vi;
-          id[i] = ij;
-          id[j] = ii;
+      for (int p = lane; p < (n >> 1); p += 32) {
+        const int i = 2 * p - (p & (stride - 1)), j = i + stride;
+        const u64 x = a[i], y = a[j];
+        if (((i & size) == 0) ? x < y : x > y) {
+          a[i] = y;
+          a[j] = x;
         }
       }
-      __syncthreads();
+      __syncwarp();
     }
   }
 }
 
-template <int TABLE>
-__device__ __forceinline__ float table_elem(const void* table,
-                                            const float* scale, int row,
-                                            int k, int col) {
-  const int o = row * k + col;  // m_pad·k < 2^31, checked at launch
-  if (TABLE == kTableF32) return __ldg(static_cast<const float*>(table) + o);
-  if (TABLE == kTableBF16)
-    return __bfloat162float(static_cast<const __nv_bfloat16*>(table)[o]);
-  return (float)static_cast<const int8_t*>(table)[o] * __ldg(scale + row);
-}
-
-// Thread t's share of one slice: elements i·T + t of the [T rows x
-// kColChunk columns] block (row-major), so each warp reads 128 contiguous
-// bytes of a row per f32 load; out-of-range rows and columns read 0.
-template <int TABLE>
-__device__ __forceinline__ void load_slice(float (&v)[kSliceRegs],
-                                           const void* table,
-                                           const float* scale, int r0, int hi,
-                                           int k, int jc) {
-#pragma unroll
-  for (int i = 0; i < kSliceRegs; ++i) {
-    const int idx = i * kRowsPerStep + threadIdx.x;
-    const int row = r0 + idx / kColChunk, col = jc + idx % kColChunk;
-    v[i] = (row < hi && col < k) ? table_elem<TABLE>(table, scale, row, k, col)
-                                 : 0.0f;
+// One warp sorts the bitonic sequence a[0, n) descending.
+__device__ void warp_merge_desc(u64* a, int n, int lane) {
+  for (int stride = n >> 1; stride > 0; stride >>= 1) {
+    for (int p = lane; p < (n >> 1); p += 32) {
+      const int i = 2 * p - (p & (stride - 1)), j = i + stride;
+      const u64 x = a[i], y = a[j];
+      if (x < y) {
+        a[i] = y;
+        a[j] = x;
+      }
+    }
+    __syncwarp();
   }
 }
 
-// Writes the slice transposed, tile_s[column][row]: the odd row stride
-// keeps both this write and the per-row reads free of bank conflicts.
-__device__ __forceinline__ void store_slice(const float (&v)[kSliceRegs],
-                                            float* tile_s) {
-#pragma unroll
-  for (int i = 0; i < kSliceRegs; ++i) {
-    const int idx = i * kRowsPerStep + threadIdx.x;
-    tile_s[(idx % kColChunk) * kTileLd + idx / kColChunk] = v[i];
+// L[0, kp) and c[0, n) sorted descending: L becomes the best kp of both,
+// sorted.  max(L[i], c[kp-1-i]) is bitonic and holds the best kp.
+__device__ void warp_merge_into(u64* L, int kp, const u64* c, int n,
+                                int lane) {
+  for (int i = lane; i < kp; i += 32) {
+    const int j = kp - 1 - i;
+    if (j < n && c[j] > L[i]) L[i] = c[j];
   }
+  __syncwarp();
+  warp_merge_desc(L, kp, lane);
 }
 
-// Keeps each user's best `k_top` candidates, sorted, and sets the
-// thresholds a new candidate must beat.
-__device__ void compact(float* cv, int* ci, int* cnt, float* thresh, int buf,
-                        int k_top) {
-  for (int idx = threadIdx.x; idx < kUsers * buf; idx += blockDim.x) {
-    const int b = idx / buf;
-    if (idx - b * buf >= cnt[b]) {
-      cv[idx] = -INFINITY;
-      ci[idx] = kEmptyId;
+__device__ __forceinline__ u64 kmax(u64 a, u64 b) { return a > b ? a : b; }
+
+// One compare-exchange stage of a register bitonic network over 32·P keys
+// (element e = P·lane + t): pairs (e, e ^ STRIDE) ordered descending where
+// e & SIZE is 0, ascending elsewhere.  Strides below P pair keys of one
+// lane, the others pair lanes by shuffles.  Templates keep every register
+// index a compile-time constant.
+template <int P, int SIZE, int STRIDE>
+__device__ __forceinline__ void reg_stage(u64 (&v)[P], int lane) {
+  // e & SIZE: t's bit while SIZE < P, else the lane's (P·lane has no bits
+  // below P, so adding t never carries into it)
+  const bool lane_desc = ((P * lane) & SIZE) == 0;
+  if constexpr (STRIDE < P) {
+#pragma unroll
+    for (int t = 0; t < P; ++t) {
+      if ((t & STRIDE) == 0) {
+        const bool desc = SIZE < P ? (t & SIZE) == 0 : lane_desc;
+        const u64 x = v[t], y = v[t + STRIDE];
+        const bool swap = (x < y) == desc;
+        v[t] = swap ? y : x;
+        v[t + STRIDE] = swap ? x : y;
+      }
+    }
+  } else {
+    constexpr int kLane = STRIDE / P;
+    const bool keep_max = lane_desc == ((lane & kLane) == 0);
+#pragma unroll
+    for (int t = 0; t < P; ++t) {
+      const u64 o = __shfl_xor_sync(0xffffffffu, v[t], kLane);
+      if ((o > v[t]) == keep_max) v[t] = o;
     }
   }
-  __syncthreads();
-  bitonic_sort(cv, ci, kUsers * buf, buf);
-  if (threadIdx.x < kUsers) {
-    const int b = threadIdx.x;
-    const int c = min(cnt[b], k_top);
-    cnt[b] = c;
-    thresh[b] = c == k_top ? cv[b * buf + k_top - 1] : -INFINITY;
-  }
-  __syncthreads();
+  if constexpr (STRIDE > 1) reg_stage<P, SIZE, STRIDE / 2>(v, lane);
 }
 
-template <int TABLE>
-__global__ void __launch_bounds__(kRowsPerStep, 2)
+template <int P, int SIZE>
+__device__ __forceinline__ void reg_sort_level(u64 (&v)[P], int lane) {
+  reg_stage<P, SIZE, SIZE / 2>(v, lane);
+  if constexpr (SIZE < 32 * P) reg_sort_level<P, SIZE * 2>(v, lane);
+}
+
+// One warp sorts the 32·P keys v descending in registers.
+template <int P>
+__device__ __forceinline__ void reg_sort_desc(u64 (&v)[P], int lane) {
+  reg_sort_level<P, 2>(v, lane);
+}
+
+// a (128 keys, sorted descending, e = 4·lane + t) becomes the best 128 of
+// a and b (same layout, sorted descending), sorted: max(a[e], b[127-e]) is
+// bitonic and holds the best 128; one bitonic merge sorts it.
+__device__ __forceinline__ void reg_merge_into(u64 (&a)[4], const u64 (&b)[4],
+                                               int lane) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+    a[t] = kmax(a[t], __shfl_xor_sync(0xffffffffu, b[3 - t], 31));
+  // the bitonic merge: the descending half-cleaners of strides 64 .. 1
+  reg_stage<4, 256, 64>(a, lane);
+}
+
+// Sorts the survivors scr[0, cnt) (32·P >= cnt) in registers and writes
+// them back, descending, zero-padded to 32·P.
+template <int P>
+__device__ void sort_survivors(u64* scr, int cnt, int lane) {
+  u64 v[P];
+#pragma unroll
+  for (int t = 0; t < P; ++t) {
+    const int e = P * lane + t;
+    v[t] = e < cnt ? scr[e] : 0ull;
+  }
+  reg_sort_desc<P>(v, lane);
+  __syncwarp();
+#pragma unroll
+  for (int t = 0; t < P; ++t) scr[P * lane + t] = v[t];
+  __syncwarp();
+}
+
+// Merges one tile's survivors scr[0, cnt) (cnt <= 256) of a user into its
+// sorted list L[0, kp); returns the new threshold (the K-th best key, or
+// kNegInfKey while the list holds fewer than K).  Lists of up to 128 keys
+// run in registers, longer ones in shared memory.
+__device__ u64 merge_tile(u64* L, u64* scr, int cnt, int kp, int k_top,
+                          int lane) {
+  if (kp <= 128) {
+    int n;
+    if (cnt <= 32) {
+      sort_survivors<1>(scr, cnt, lane);
+      n = 32;
+    } else if (cnt <= 64) {
+      sort_survivors<2>(scr, cnt, lane);
+      n = 64;
+    } else if (cnt <= 128) {
+      sort_survivors<4>(scr, cnt, lane);
+      n = 128;
+    } else {
+      sort_survivors<8>(scr, cnt, lane);
+      n = 128;  // the best 128 of the sorted 256
+    }
+    u64 a[4], b[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int e = 4 * lane + t;
+      a[t] = e < kp ? L[e] : 0ull;
+      b[t] = e < n ? scr[e] : 0ull;
+    }
+    if (L[0] != 0ull) {  // an empty list takes the sorted survivors as they are
+      reg_merge_into(a, b, lane);
+    } else {
+#pragma unroll
+      for (int t = 0; t < 4; ++t) a[t] = b[t];
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      if (4 * lane + t < kp) L[4 * lane + t] = a[t];
+  } else {
+    int n = 32;
+    while (n < cnt) n <<= 1;
+    for (int i = cnt + lane; i < n; i += 32) scr[i] = 0ull;
+    __syncwarp();
+    warp_sort_desc(scr, n, lane);
+    warp_merge_into(L, kp, scr, n, lane);
+  }
+  __syncwarp();
+  return kmax(L[k_top - 1], kNegInfKey);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void mma_bf16(float& d0, float& d1, float& d2,
+                                         float& d3, const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d0), "+f"(d1), "+f"(d2), "+f"(d3)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Pass 1's shared-memory layout for one (table kind, users per CTA).  The
+// staging buffers and the score tile share one region (a tile's scores are
+// written after its last slice is consumed).
+template <int TABLE, int BU>
+struct Pass1 {
+  static constexpr int kThreads = 8 * BU;  // (BU/4 user groups) x 32 row groups
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr bool kHalf = TABLE == kTableBF16;
+  static constexpr int kBk = kHalf ? kBkH : kBkF;
+  static constexpr int kLd = kHalf ? kLdH : kLdF;  // staged row stride
+  static constexpr int kEl = kHalf ? 2 : 4;        // staged element bytes
+  // score tile [BU][kLdS] floats: both writers' patterns conflict-free
+  static constexpr int kLdS = kHalf ? kTileRows + 4 : kTileRows + 8;
+  static constexpr size_t kTBytes = (size_t)kTileRows * kLd * kEl;  // one slice
+  static constexpr size_t kUBytes = (size_t)BU * kLd * kEl;
+  static constexpr size_t kCodeBytes = (size_t)kTileRows * kBkF;  // int8 slice
+  static constexpr size_t kStage =
+      TABLE == kTableI8 ? 2 * kCodeBytes + kTBytes + 2 * kUBytes
+                        : 2 * (kTBytes + kUBytes);
+  static constexpr size_t kScore = (size_t)BU * kLdS * 4;
+  static constexpr size_t kRegion = kStage > kScore ? kStage : kScore;
+  static size_t smem(int kp) {  // + lists, survivor scratch, thresholds, bits
+    return kRegion + (size_t)BU * kp * 8 + (size_t)kWarps * kTileRows * 8 +
+           (size_t)BU * 8 + (size_t)BU * kBitWords * 4;
+  }
+};
+
+template <int TABLE, int BU>
+__global__ void __launch_bounds__(8 * BU, 64 / BU)
 topk_partial_kernel(const float* __restrict__ u, const void* __restrict__ table,
                     const float* __restrict__ scale,
                     const int* __restrict__ seen, int seen_w, int b_total,
                     int k, int m_pad, int num_movies, int row_offset,
-                    int tile_m, int k_top, int buf, int rows_per_split,
-                    float* __restrict__ part_v, int* __restrict__ part_id) {
+                    int tile_m, int k_top, int kp, int splits, int vec,
+                    u64* __restrict__ part) {
+  using P = Pass1<TABLE, BU>;
+  constexpr int kThreads = P::kThreads, kBk = P::kBk, kLd = P::kLd, kLdS = P::kLdS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* u_s = reinterpret_cast<float*>(smem_raw);  // [k][kUsers]
-  float* tile_s = u_s + k * kUsers;                 // [kColChunk][kTileLd]
-  float* cand_v = tile_s + kColChunk * kTileLd;     // [kUsers][buf]
-  int* cand_id = reinterpret_cast<int*>(cand_v + kUsers * buf);
-  unsigned* bits = reinterpret_cast<unsigned*>(cand_id + kUsers * buf);
-  __shared__ int cnt[kUsers];
-  __shared__ float thresh[kUsers];
-  __shared__ int need_compact;
+  unsigned char* region = smem_raw;  // staging, then the tile's scores
+  float* score = reinterpret_cast<float*>(region);
+  u64* lists = reinterpret_cast<u64*>(smem_raw + P::kRegion);  // [BU][kp]
+  u64* scratch = lists + (size_t)BU * kp;  // [warps][256] tile survivors
+  u64* thr_s = scratch + P::kWarps * kTileRows;  // [BU]
+  unsigned* bits = reinterpret_cast<unsigned*>(thr_s + BU);  // [BU][8]
 
-  const int tid = threadIdx.x;
-  const unsigned lane = tid & 31;
-  const int b0 = blockIdx.x * kUsers;
-  const int n_users = min(kUsers, b_total - b0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b0 = blockIdx.x * BU;
+  const int n_users = min(BU, b_total - b0);
   const int split = blockIdx.y;
-  const int lo = min(m_pad, split * rows_per_split);
-  const int hi = min(m_pad, lo + rows_per_split);
+  const int tiles = (m_pad + kTileRows - 1) / kTileRows;
+  const int t_lo = (int)((long long)split * tiles / splits);
+  const int t_hi = (int)((long long)(split + 1) * tiles / splits);
+  const int nslices = (k + kBk - 1) / kBk;
 
-  for (int idx = tid; idx < k * kUsers; idx += blockDim.x) {
-    const int j = idx / kUsers, b = idx - j * kUsers;
-    float x = b < n_users ? __ldg(u + (size_t)(b0 + b) * k + j) : 0.0f;
-    if (TABLE == kTableBF16) x = __bfloat162float(__float2bfloat16_rn(x));
-    u_s[idx] = x;
-  }
-  if (tid < kUsers) {
-    cnt[tid] = 0;
-    thresh[tid] = -INFINITY;
-  }
+  for (int i = tid; i < BU * kp; i += kThreads) lists[i] = 0ull;
+  for (int i = tid; i < BU * kBitWords; i += kThreads) bits[i] = 0u;
+  if (tid < BU) thr_s[tid] = kNegInfKey;
   __syncthreads();
 
-  // One slice = kColChunk columns of one step's kRowsPerStep rows.  Slices
-  // run in (step, column) order; the next slice's elements are loaded into
-  // registers while the current one is multiplied, so the global reads of
-  // the staging are in flight behind the FMAs instead of in front of them.
-  const int nchunks = (k + kColChunk - 1) / kColChunk;
-  const int nslices = (hi - lo + kRowsPerStep - 1) / kRowsPerStep * nchunks;
-  float next[kSliceRegs];
-  if (nslices > 0) load_slice<TABLE>(next, table, scale, lo, hi, k, 0);
-  float acc[kUsers];
-  for (int sl = 0; sl < nslices; ++sl) {
-    const int step = sl / nchunks, jc = (sl - step * nchunks) * kColChunk;
-    const int r0 = lo + step * kRowsPerStep;
-    const int r = r0 + tid;
-    if (jc == 0) {
+  // thread (user group ug, row group rg) of warp (wu, wr): rows
+  // wr·64 + rg + 8i (i < 8), users wu·16 + ug + 4j (j < 4) — the bf16 path
+  // maps the same warp tile onto mma fragments
+  const int wu = warp >> 2, wr = warp & 3;
+  const int ug = lane >> 3, rg = lane & 7;
+
+  // -- staging ----------------------------------------------------------
+  // u: kBk/8 consecutive columns of one user per thread, through registers
+  constexpr int kUPer = kBk / 8;
+  const int su = tid / 8, sc = (tid % 8) * kUPer;
+  float ureg[kUPer];
+  auto load_u = [&](int s) {
+    const int k0 = s * kBk + sc;
 #pragma unroll
-      for (int b = 0; b < kUsers; ++b) acc[b] = 0.0f;
-      if (seen != nullptr) {  // this step's seen bitmap, per user
-        for (int i = tid; i < kUsers * kBitWords; i += kRowsPerStep) bits[i] = 0u;
-        __syncthreads();
-        const int t_last = (min(r0 + kRowsPerStep, hi) - 1) / tile_m;
-        for (int t = r0 / tile_m; t <= t_last; ++t) {
-          const int* st = seen + ((size_t)t * b_total + b0) * seen_w;
-          for (int idx = tid; idx < n_users * seen_w; idx += kRowsPerStep) {
-            const int c = __ldg(st + idx);
-            const int row = t * tile_m + c - r0;
-            if (c >= 0 && c < tile_m && row >= 0 && row < kRowsPerStep)
-              atomicOr(&bits[(idx / seen_w) * kBitWords + (row >> 5)],
-                       1u << (row & 31));
+    for (int e = 0; e < kUPer; ++e)
+      ureg[e] = (su < n_users && k0 + e < k)
+                    ? __ldg(u + (size_t)(b0 + su) * k + k0 + e)
+                    : 0.0f;
+  };
+  auto store_u = [&](int buf) {
+    unsigned char* ub = region + (TABLE == kTableI8
+                                      ? 2 * P::kCodeBytes + P::kTBytes
+                                      : 2 * P::kTBytes) +
+                        buf * P::kUBytes;
+    if (TABLE == kTableBF16) {
+      __nv_bfloat16* d = reinterpret_cast<__nv_bfloat16*>(ub) + su * kLd + sc;
+#pragma unroll
+      for (int e = 0; e < kUPer; ++e) d[e] = __float2bfloat16_rn(ureg[e]);
+    } else {
+      float* d = reinterpret_cast<float*>(ub) + su * kLd + sc;
+#pragma unroll
+      for (int e = 0; e < kUPer; ++e) d[e] = ureg[e];
+    }
+  };
+  // the table slice: rows [r0, r0 + 256) x columns [s·kBk, s·kBk + kBk)
+  auto stage_table = [&](int r0, int s, int buf) {
+    const int k0 = s * kBk;
+    if (TABLE == kTableI8) {
+      int8_t* d = reinterpret_cast<int8_t*>(region) + buf * P::kCodeBytes;
+      const int8_t* t = static_cast<const int8_t*>(table);
+      if (vec) {
+        for (int row = tid; row < kTileRows; row += kThreads) {
+          const bool ok = r0 + row < m_pad && k0 < k;
+          cp_async16(d + row * kBkF,
+                     ok ? t + (size_t)(r0 + row) * k + k0 : t, ok ? 16 : 0);
+        }
+      } else {
+        for (int e = tid; e < kTileRows * kBkF; e += kThreads) {
+          const int row = e / kBkF, c = e % kBkF;
+          d[e] = (r0 + row < m_pad && k0 + c < k)
+                     ? t[(size_t)(r0 + row) * k + k0 + c] : (int8_t)0;
+        }
+      }
+    } else {
+      constexpr int kPer = 16 / P::kEl;  // elements per 16-byte chunk
+      constexpr int kChunks = kBk / kPer;
+      unsigned char* d = region + buf * P::kTBytes;
+      const unsigned char* t = static_cast<const unsigned char*>(table);
+      if (vec) {
+        for (int c = tid; c < kTileRows * kChunks; c += kThreads) {
+          const int row = c / kChunks, col = k0 + (c % kChunks) * kPer;
+          const bool ok = r0 + row < m_pad && col < k;
+          cp_async16(d + (row * kLd + (c % kChunks) * kPer) * P::kEl,
+                     ok ? t + ((size_t)(r0 + row) * k + col) * P::kEl : t,
+                     ok ? 16 : 0);
+        }
+      } else {
+        for (int e = tid; e < kTileRows * kBk; e += kThreads) {
+          const int row = e / kBk, c = e % kBk;
+          const bool ok = r0 + row < m_pad && k0 + c < k;
+          const size_t o = (size_t)(r0 + row) * k + k0 + c;
+          if (TABLE == kTableBF16) {
+            reinterpret_cast<__nv_bfloat16*>(d)[row * kLd + c] =
+                ok ? static_cast<const __nv_bfloat16*>(table)[o]
+                   : __float2bfloat16_rn(0.0f);
+          } else {
+            reinterpret_cast<float*>(d)[row * kLd + c] =
+                ok ? __ldg(static_cast<const float*>(table) + o) : 0.0f;
           }
         }
       }
     }
-    __syncthreads();  // the previous slice is consumed, the bitmap built
-    store_slice(next, tile_s);
-    __syncthreads();
-    if (sl + 1 < nslices) {
-      const int nstep = (sl + 1) / nchunks;
-      load_slice<TABLE>(next, table, scale, lo + nstep * kRowsPerStep, hi, k,
-                        (sl + 1 - nstep * nchunks) * kColChunk);
+    cp_async_commit();
+  };
+
+  for (int tile = t_lo; tile < t_hi; ++tile) {
+    const int r0 = tile * kTileRows;
+    if (seen != nullptr) {  // this tile's seen bitmap (cleared by the scan)
+      const int t_last = (min(r0 + kTileRows, m_pad) - 1) / tile_m;
+      for (int t = r0 / tile_m; t <= t_last; ++t) {
+        const int* st = seen + ((size_t)t * b_total + b0) * seen_w;
+        for (int idx = tid; idx < n_users * seen_w; idx += kThreads) {
+          const int c = __ldg(st + idx);
+          const int row = t * tile_m + c - r0;
+          if (c >= 0 && c < tile_m && row >= 0 && row < kTileRows)
+            atomicOr(&bits[(idx / seen_w) * kBitWords + (row >> 5)],
+                     1u << (row & 31));
+        }
+      }
     }
-    const int nc = min(kColChunk, k - jc);
-    for (int c = 0; c < nc; ++c) {
-      const float t = tile_s[c * kTileLd + tid];
-      const float4* uj =
-          reinterpret_cast<const float4*>(u_s + (jc + c) * kUsers);
-      const float4 ua = uj[0], ub = uj[1];
-      acc[0] = fmaf(ua.x, t, acc[0]);
-      acc[1] = fmaf(ua.y, t, acc[1]);
-      acc[2] = fmaf(ua.z, t, acc[2]);
-      acc[3] = fmaf(ua.w, t, acc[3]);
-      acc[4] = fmaf(ub.x, t, acc[4]);
-      acc[5] = fmaf(ub.y, t, acc[5]);
-      acc[6] = fmaf(ub.z, t, acc[6]);
-      acc[7] = fmaf(ub.w, t, acc[7]);
-    }
-    if (jc + kColChunk < k) continue;
-    // the step's last slice: its scores are complete
-    const bool live_row = r < hi;
-    const int gid = row_offset + r;
+    load_u(0);
+    store_u(0);
+    stage_table(r0, 0, 0);
+    float acc[32];
 #pragma unroll
-    for (int b = 0; b < kUsers; ++b) {
-      if (b < n_users) {  // uniform across the CTA
-        float s = acc[b];
-        if (gid >= num_movies) s = -INFINITY;
-        if (seen != nullptr && ((bits[b * kBitWords + (tid >> 5)] >> lane) & 1u))
-          s = -INFINITY;
-        const bool take = live_row && s > thresh[b];
-        const unsigned mask = __ballot_sync(0xffffffffu, take);
-        if (mask != 0u) {
-          int base = 0;
-          if (lane == 0) base = atomicAdd(&cnt[b], __popc(mask));
-          base = __shfl_sync(0xffffffffu, base, 0);
-          if (take) {
-            const int pos = base + __popc(mask & ((1u << lane) - 1u));
-            cand_v[b * buf + pos] = s;
-            cand_id[b * buf + pos] = gid;
+    for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+    for (int s = 0; s < nslices; ++s) {
+      const int buf = s & 1;
+      cp_async_wait_all();
+      __syncthreads();  // slice s landed; slice s-1 consumed everywhere
+      if (s + 1 < nslices) {
+        stage_table(r0, s + 1, buf ^ 1);
+        load_u(s + 1);
+      }
+      if (TABLE == kTableBF16) {
+        const __nv_bfloat16* T =
+            reinterpret_cast<const __nv_bfloat16*>(region + buf * P::kTBytes);
+        const __nv_bfloat16* U = reinterpret_cast<const __nv_bfloat16*>(
+            region + 2 * P::kTBytes + buf * P::kUBytes);
+#pragma unroll
+        for (int kk = 0; kk < kBk; kk += 16) {
+          unsigned a[4][4], bb[4];
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt)
+            ldmatrix_x4(a[mt], T + (wr * 64 + mt * 16 + (lane & 15)) * kLd +
+                                   kk + (lane >> 4) * 8);
+          ldmatrix_x4(bb, U + (wu * 16 + (lane >> 4) * 8 + (lane & 7)) * kLd +
+                              kk + ((lane >> 3) & 1) * 8);
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+              float* d = acc + (mt * 2 + nt) * 4;
+              mma_bf16(d[0], d[1], d[2], d[3], a[mt], bb[2 * nt],
+                       bb[2 * nt + 1]);
+            }
+        }
+      } else {
+        const float* T;
+        if (TABLE == kTableI8) {  // codes -> f32 once per CTA slice
+          const int8_t* cs =
+              reinterpret_cast<const int8_t*>(region) + buf * P::kCodeBytes;
+          float* F = reinterpret_cast<float*>(region + 2 * P::kCodeBytes);
+          for (int row = tid; row < kTileRows; row += kThreads) {
+            const int4 w = *reinterpret_cast<const int4*>(cs + row * kBkF);
+            const int8_t* c8 = reinterpret_cast<const int8_t*>(&w);
+            float4* d = reinterpret_cast<float4*>(F + row * kLd);
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              d[q] = make_float4((float)c8[4 * q], (float)c8[4 * q + 1],
+                                 (float)c8[4 * q + 2], (float)c8[4 * q + 3]);
           }
+          __syncthreads();
+          T = F;
+        } else {
+          T = reinterpret_cast<const float*>(region + buf * P::kTBytes);
+        }
+        const float* U = reinterpret_cast<const float*>(
+            region + (TABLE == kTableI8 ? 2 * P::kCodeBytes + P::kTBytes
+                                        : 2 * P::kTBytes) +
+            buf * P::kUBytes);
+        const float* Tb = T + (wr * 64 + rg) * kLd;
+        const float* Ub = U + (wu * 16 + ug) * kLd;
+#pragma unroll
+        for (int kk = 0; kk < kBk; kk += 4) {
+          float4 a[8], bv[4];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            a[i] = *reinterpret_cast<const float4*>(Tb + 8 * i * kLd + kk);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            bv[j] = *reinterpret_cast<const float4*>(Ub + 4 * j * kLd + kk);
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              float& c = acc[i * 4 + j];
+              c = fmaf(a[i].x, bv[j].x, c);
+              c = fmaf(a[i].y, bv[j].y, c);
+              c = fmaf(a[i].z, bv[j].z, c);
+              c = fmaf(a[i].w, bv[j].w, c);
+            }
+        }
+      }
+      if (s + 1 < nslices) store_u(buf ^ 1);
+    }
+    __syncthreads();  // every slice consumed: the region holds scores now
+    if (TABLE == kTableBF16) {
+      const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = wr * 64 + mt * 16 + g + 8 * (e >> 1);
+            const int user = wu * 16 + nt * 8 + 2 * q + (e & 1);
+            score[user * kLdS + row] = acc[(mt * 2 + nt) * 4 + e];
+          }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int row = wr * 64 + rg + 8 * i;
+        const float sc_row = (TABLE == kTableI8 && r0 + row < m_pad)
+                                 ? __ldg(scale + r0 + row) : 1.0f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float v = acc[i * 4 + j];
+          score[(wu * 16 + ug + 4 * j) * kLdS + row] =
+              TABLE == kTableI8 ? v * sc_row : v;
         }
       }
     }
     __syncthreads();
-    if (tid == 0) {
-      int need = 0;
-      for (int b = 0; b < kUsers; ++b) need |= cnt[b] > buf - kRowsPerStep;
-      need_compact = need;
+    // -- selection: warp w owns users w, w + W, ... ---------------------
+    u64* scr = scratch + warp * kTileRows;
+    unsigned live_c[kBitWords];  // table rows below num_movies, per chunk
+#pragma unroll
+    for (int c = 0; c < kBitWords; ++c) {
+      const int row = r0 + c * 32 + lane;
+      live_c[c] = __ballot_sync(
+          0xffffffffu, row < m_pad && (long long)row_offset + row < num_movies);
     }
-    __syncthreads();
-    if (need_compact) compact(cand_v, cand_id, cnt, thresh, buf, k_top);
+    for (int uu = warp; uu < n_users; uu += P::kWarps) {
+      float tv;  // the threshold as (score, id): take s > tv, or s == tv
+      int ti;    // with a lower id — the key order
+      split_key(thr_s[uu], tv, ti);
+      int cnt = 0;
+#pragma unroll
+      for (int c = 0; c < kBitWords; ++c) {
+        unsigned live = live_c[c];
+        if (seen != nullptr) live &= ~bits[uu * kBitWords + c];
+        const float sc = score[uu * kLdS + c * 32 + lane];
+        const int gid = row_offset + r0 + c * 32 + lane;
+        const bool take = ((live >> lane) & 1u) &&
+                          (sc > tv || (sc == tv && gid < ti));
+        const unsigned m = __ballot_sync(0xffffffffu, take);
+        if (take) scr[cnt + __popc(m & ((1u << lane) - 1u))] = make_key(sc, gid);
+        cnt += __popc(m);
+      }
+      if (seen != nullptr && lane < kBitWords) bits[uu * kBitWords + lane] = 0u;
+      if (cnt > 0) {
+        __syncwarp();
+        const u64 t = merge_tile(lists + (size_t)uu * kp, scr, cnt, kp, k_top,
+                                 lane);
+        if (lane == 0) thr_s[uu] = t;
+      }
+    }
+    __syncthreads();  // the score tile and bitmap are free again
   }
-  compact(cand_v, cand_id, cnt, thresh, buf, k_top);
-  for (int idx = tid; idx < n_users * k_top; idx += blockDim.x) {
-    const int b = idx / k_top, i = idx - b * k_top;
-    const size_t o = ((size_t)(b0 + b) * gridDim.y + split) * k_top + i;
-    const bool full = i < cnt[b];
-    part_v[o] = full ? cand_v[b * buf + i] : -INFINITY;
-    part_id[o] = full ? cand_id[b * buf + i] : kEmptyId;
+  for (int uu = warp; uu < n_users; uu += P::kWarps) {
+    const u64* L = lists + (size_t)uu * kp;
+    u64* out = part + ((size_t)(b0 + uu) * splits + split) * k_top;
+    for (int i = lane; i < k_top; i += 32) out[i] = L[i];
   }
 }
 
 __global__ void __launch_bounds__(kMergeThreads)
-topk_merge_kernel(const float* __restrict__ part_v,
-                  const int* __restrict__ part_id, int splits, int kp,
-                  int k_top, int n, float* __restrict__ vals,
-                  int* __restrict__ ids) {
+topk_merge_kernel(const u64* __restrict__ part, int splits, int k_top, int kp,
+                  float* __restrict__ vals, int* __restrict__ ids) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* v = reinterpret_cast<float*>(smem_raw);
-  int* id = reinterpret_cast<int*>(v + n);
-  const size_t b = blockIdx.x;
-  for (int idx = threadIdx.x; idx < n; idx += blockDim.x) {
-    const int s = idx / kp, i = idx - s * kp;
-    if (s < splits && i < k_top) {
-      const size_t o = (b * splits + s) * k_top + i;
-      v[idx] = __ldg(part_v + o);
-      id[idx] = __ldg(part_id + o);
-    } else {
-      v[idx] = -INFINITY;
-      id[idx] = kEmptyId;
+  constexpr int kWarps = kMergeThreads / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ld = kp < 128 ? 128 : kp;  // a warp's list in shared memory
+  u64* A = reinterpret_cast<u64*>(smem_raw) + (size_t)warp * ld;
+  const u64* pb = part + (size_t)blockIdx.x * splits * k_top;
+  float* vo = vals + (size_t)blockIdx.x * k_top;
+  int* io = ids + (size_t)blockIdx.x * k_top;
+  if (kp <= 128) {  // lists in registers (e = 4·lane + t)
+    auto load = [&](u64 (&r)[4], int s) {
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int e = 4 * lane + t;
+        r[t] = s < splits && e < k_top ? __ldg(pb + (size_t)s * k_top + e)
+                                       : 0ull;
+      }
+    };
+    u64 a[4] = {0ull, 0ull, 0ull, 0ull}, cur[4], nxt[4];
+    load(cur, warp);
+    for (int s = warp; s < splits; s += kWarps) {
+      load(nxt, s + kWarps);  // in flight during this merge
+      reg_merge_into(a, cur, lane);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) cur[t] = nxt[t];
     }
+    for (int half = kWarps / 2; half > 0; half >>= 1) {
+      if (warp >= half && warp < 2 * half)
+#pragma unroll
+        for (int t = 0; t < 4; ++t) A[4 * lane + t] = a[t];
+      __syncthreads();
+      if (warp < half) {
+        u64 b[4];
+#pragma unroll
+        for (int t = 0; t < 4; ++t) b[t] = A[(size_t)half * ld + 4 * lane + t];
+        reg_merge_into(a, b, lane);
+      }
+      __syncthreads();
+    }
+    if (warp == 0) {
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int e = 4 * lane + t;
+        if (e < k_top) split_key(a[t], vo[e], io[e]);
+      }
+    }
+    return;
+  }
+  for (int i = lane; i < kp; i += 32) A[i] = 0ull;
+  __syncwarp();
+  for (int s = warp; s < splits; s += kWarps) {
+    for (int i = lane; i < kp; i += 32) {
+      const int j = kp - 1 - i;
+      if (j < k_top) A[i] = kmax(A[i], __ldg(pb + (size_t)s * k_top + j));
+    }
+    __syncwarp();
+    warp_merge_desc(A, kp, lane);
   }
   __syncthreads();
-  bitonic_sort(v, id, n, n);
-  for (int i = threadIdx.x; i < k_top; i += blockDim.x) {
-    vals[b * k_top + i] = v[i];
-    ids[b * k_top + i] = id[i] == kEmptyId ? -1 : id[i];
+  for (int half = kWarps / 2; half > 0; half >>= 1) {
+    if (warp < half) {
+      const u64* B = A + (size_t)half * ld;
+      for (int i = lane; i < kp; i += 32) A[i] = kmax(A[i], B[kp - 1 - i]);
+      __syncwarp();
+      warp_merge_desc(A, kp, lane);
+    }
+    __syncthreads();
   }
+  if (warp == 0)
+    for (int i = lane; i < k_top; i += 32) split_key(A[i], vo[i], io[i]);
 }
 
-template <int TABLE>
-cudaError_t launch_partial(dim3 grid, size_t smem, cudaStream_t st,
+template <int TABLE, int BU>
+cudaError_t launch_partial(int splits, int kp, cudaStream_t st,
                            const float* u, const void* table,
                            const float* scale, const int* seen, int seen_w,
                            int b, int k, int m_pad, int num_movies,
-                           int row_offset, int tile_m, int k_top, int buf,
-                           int rows_per_split, float* part_v, int* part_id) {
+                           int row_offset, int tile_m, int k_top, int vec,
+                           u64* part) {
+  const size_t smem = Pass1<TABLE, BU>::smem(kp);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      topk_partial_kernel<TABLE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      topk_partial_kernel<TABLE, BU>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)  // room for two CTAs an SM
+    err = cudaFuncSetAttribute(topk_partial_kernel<TABLE, BU>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  topk_partial_kernel<TABLE><<<grid, kRowsPerStep, smem, st>>>(
+  const dim3 grid((b + BU - 1) / BU, splits);
+  topk_partial_kernel<TABLE, BU><<<grid, 8 * BU, smem, st>>>(
       u, table, scale, seen, seen_w, b, k, m_pad, num_movies, row_offset,
-      tile_m, k_top, buf, rows_per_split, part_v, part_id);
+      tile_m, k_top, kp, splits, vec, part);
   return cudaGetLastError();
+}
+
+template <int BU>
+cudaError_t launch_kind(int table_kind, int splits, int kp, cudaStream_t st,
+                        const float* u, const void* table, const float* scale,
+                        const int* seen, int seen_w, int b, int k, int m_pad,
+                        int num_movies, int row_offset, int tile_m, int k_top,
+                        int vec, u64* part) {
+  switch (table_kind) {
+    case kTableF32:
+      return launch_partial<kTableF32, BU>(splits, kp, st, u, table, scale,
+                                           seen, seen_w, b, k, m_pad,
+                                           num_movies, row_offset, tile_m,
+                                           k_top, vec, part);
+    case kTableBF16:
+      return launch_partial<kTableBF16, BU>(splits, kp, st, u, table, scale,
+                                            seen, seen_w, b, k, m_pad,
+                                            num_movies, row_offset, tile_m,
+                                            k_top, vec, part);
+    default:
+      return launch_partial<kTableI8, BU>(splits, kp, st, u, table, scale,
+                                          seen, seen_w, b, k, m_pad,
+                                          num_movies, row_offset, tile_m,
+                                          k_top, vec, part);
+  }
 }
 
 }  // namespace
@@ -337,55 +760,41 @@ extern "C" int cfk_topk_scores(const float* u, const void* table,
                                int table_kind, const float* scale,
                                const int* seen, int seen_w, int b, int k,
                                int m_pad, int num_movies, int row_offset,
-                               int tile_m, int k_top, int splits,
-                               int rows_per_split, float* part_v,
-                               int* part_id, float* vals, int* ids,
+                               int tile_m, int k_top, int users_per_cta,
+                               int splits, void* part, float* vals, int* ids,
                                int device, void* stream) {
   if (b == 0) return 0;
-  if (k < 1 || k > kMaxRank || k_top < 1 || k_top > kMaxTop || splits < 1 ||
-      (long long)m_pad * k >= (1LL << 31) ||
-      rows_per_split < 1 || rows_per_split % kRowsPerStep != 0 ||
-      tile_m < 1 || m_pad % tile_m != 0 || table_kind < kTableF32 ||
+  const int tiles = (m_pad + kTileRows - 1) / kTileRows;
+  if (k < 1 || k_top < 1 || k_top > kMaxTop || splits < 1 || m_pad < 0 ||
+      splits > (tiles > 0 ? tiles : 1) ||
+      (users_per_cta != 16 && users_per_cta != 32) || tile_m < 1 ||
+      m_pad % tile_m != 0 || table_kind < kTableF32 ||
       table_kind > kTableI8 || (table_kind == kTableI8) != (scale != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int kp = pow2_ceil(k_top);
-  const int buf = pow2_ceil(kp + kRowsPerStep);
-  const size_t smem1 =
-      sizeof(float) * ((size_t)k * kUsers + (size_t)kColChunk * kTileLd) +
-      (sizeof(float) + sizeof(int)) * (size_t)kUsers * buf +
-      sizeof(unsigned) * kUsers * kBitWords;
-  const int n2 = pow2_ceil(splits * kp);
-  const size_t smem2 = (sizeof(float) + sizeof(int)) * (size_t)n2;
-  if (smem1 > kMaxSmem || smem2 > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const size_t smem2 =
+      (size_t)(kMergeThreads / 32) * (kp < 128 ? 128 : kp) * sizeof(u64);
+  if (smem2 > kMaxSmem) return (int)cudaErrorInvalidValue;
+  // 16-byte copies need 16-byte rows: the chunk's element count divides k
+  const int chunk = table_kind == kTableI8 ? 16 : table_kind == kTableBF16 ? 8 : 4;
+  const int vec = (k % chunk == 0) && ((uintptr_t)table % 16 == 0);
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((b + kUsers - 1) / kUsers, splits);
-  switch (table_kind) {
-    case kTableF32:
-      err = launch_partial<kTableF32>(grid, smem1, st, u, table, scale, seen,
-                                      seen_w, b, k, m_pad, num_movies,
-                                      row_offset, tile_m, k_top, buf,
-                                      rows_per_split, part_v, part_id);
-      break;
-    case kTableBF16:
-      err = launch_partial<kTableBF16>(grid, smem1, st, u, table, scale, seen,
-                                       seen_w, b, k, m_pad, num_movies,
-                                       row_offset, tile_m, k_top, buf,
-                                       rows_per_split, part_v, part_id);
-      break;
-    default:
-      err = launch_partial<kTableI8>(grid, smem1, st, u, table, scale, seen,
-                                     seen_w, b, k, m_pad, num_movies,
-                                     row_offset, tile_m, k_top, buf,
-                                     rows_per_split, part_v, part_id);
-  }
+  u64* p = static_cast<u64*>(part);
+  err = users_per_cta == 16
+            ? launch_kind<16>(table_kind, splits, kp, st, u, table, scale,
+                              seen, seen_w, b, k, m_pad, num_movies,
+                              row_offset, tile_m, k_top, vec, p)
+            : launch_kind<32>(table_kind, splits, kp, st, u, table, scale,
+                              seen, seen_w, b, k, m_pad, num_movies,
+                              row_offset, tile_m, k_top, vec, p);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(topk_merge_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem2);
   if (err != cudaSuccess) return (int)err;
-  topk_merge_kernel<<<b, kMergeThreads, smem2, st>>>(part_v, part_id, splits,
-                                                     kp, k_top, n2, vals, ids);
+  topk_merge_kernel<<<b, kMergeThreads, smem2, st>>>(p, splits, k_top, kp,
+                                                     vals, ids);
   return (int)cudaGetLastError();
 }

@@ -4,9 +4,21 @@ Counterpart of ``cfk_tpu/serving/topk_kernel.py::topk_scores_pallas``.  For a
 [B, k] batch of user factors it scores every row of the (optionally
 quantized, ``ops.quant``) [M_pad, k] item table and returns each user's K
 best (score, row) pairs.  Only the [B, K] result reaches the caller: no
-[B, M] score matrix is ever written to device memory (the CUDA kernel keeps
-scores in registers and candidates in shared memory; the plain version
+[B, M] score matrix is ever written to device memory (the plain version
 scores one [B, tile_m] block at a time, as the JAX package's fold does).
+
+The CUDA kernel runs two launches.  Pass 1's grid is (user blocks of 16 or
+32) × splits of the table's 256-row tiles (``split_plan``): a CTA scores a
+[users, 256] tile at a time — FP32 FMAs from register micro-tiles for f32
+and int8 tables (int8 codes converted once per staged slice, the row scale
+applied to the finished sum), ``mma.sync`` bf16 tensor-core products for a
+bf16 table — then its warps select from the tile, each warp for its own
+users: the scores above the user's running K-th best are sorted in
+registers and merged into the user's sorted top list, whose K-th key is the
+next tile's threshold.  Each split's top K per user goes to a [B, splits,
+K] partial; pass 2 merges a user's splits, sorted list by sorted list.  The
+rank is a loop bound (k is staged in slices); K is capped at ``MAX_K_TOP``
+because the per-user lists live in shared memory.
 
 The function, exactly as the JAX fold ``_score_tile_fold`` defines it:
 
@@ -28,6 +40,7 @@ The function, exactly as the JAX fold ``_score_tile_fold`` defines it:
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -38,21 +51,24 @@ from cfk_tpu_torch.ops.kernels import on_cuda, require, stream_of
 # Seen-rectangle widths are multiples of this (``build_seen_tiles`` pads to
 # a power of two of at least it), as the JAX kernel requires.
 _SEEN_CHUNK = 16
-# The CUDA kernel's limits (csrc/topk_scores.cu): its shared-memory
-# candidate buffers are sized by the next power of two of k_top, and its
-# user block by the rank.
+# The CUDA kernel's limit (csrc/topk_scores.cu): its per-user lists live in
+# shared memory, pow2(k_top) keys each.
 MAX_K_TOP = 1024
-MAX_RANK = 512
-_ROWS_PER_STEP = 256  # table rows one CTA scores per step (one per thread)
-_USERS_PER_CTA = 8
-_MERGE_ENTRIES = 8192  # pass 2 sorts splits · pow2(k_top) ≤ this per user
+_TILE_ROWS = 256  # table rows of one pass-1 CTA tile
+_CTAS_PER_SM = 2  # pass 1's grid aims at one wave of this many per SM
+# Pass 2 merges splits sorted lists of pow2(k_top) keys per user: at most
+# this many keys (a user's merge CTA walks them list by list).
+_MERGE_ENTRIES = 32768
+# A user's [splits, K] partial (8-byte keys) stays within half the bytes of
+# its row of a [B, M_pad] f32 score matrix, which K4 never writes.
+_PARTIAL_SHARE = 2
 _TABLE_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_void_p,
 )
 
 
@@ -191,20 +207,35 @@ def topk_scores_plain(u, table, scale, seen_tiles, *, k_top, num_movies,
     return vals, ids
 
 
+@functools.lru_cache(maxsize=None)
+def _num_sms(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def users_per_cta(b: int, k_top: int) -> int:
+    """Users of one pass-1 CTA: 16 for small batches (so a B = 16 batch does
+    not pay for a wider tile) and for K above 512 (their per-user lists
+    would not fit 32 users' shared memory), else 32."""
+    return 16 if b <= 32 or _pow2_ceil(k_top) > 512 else 32
+
+
 def split_plan(b: int, m_pad: int, k_top: int, num_sms: int
                ) -> tuple[int, int]:
-    """(splits, rows per split) of the CUDA kernel's pass 1.
+    """(users per CTA, splits) of the CUDA kernel's pass 1.
 
-    The grid is (user blocks of 8) × splits of the table rows, at most two
-    CTAs per SM (one wave), capped so that pass 2 sorts at most ``_MERGE_ENTRIES``
-    candidates per user; each split is a whole number of 256-row steps and
-    none is empty."""
-    steps = -(-m_pad // _ROWS_PER_STEP)
-    blocks = -(-b // _USERS_PER_CTA)
-    cap = max(_MERGE_ENTRIES // _pow2_ceil(k_top), 1)
-    want = max(min(2 * num_sms // blocks, cap, steps), 1)
-    per = -(-steps // want)
-    return -(-steps // per), per * _ROWS_PER_STEP
+    The grid is (user blocks) × splits of the table's 256-row tiles, aimed
+    at one wave of ``_CTAS_PER_SM`` CTAs per SM; never more splits than
+    tiles (none is empty), at most ``_MERGE_ENTRIES`` keys for pass 2 to
+    merge per user, and a partial of at most half a score row's bytes
+    (``_PARTIAL_SHARE``).  Split s takes tiles [s·T // splits,
+    (s + 1)·T // splits) of the T tiles, the last one cut at ``m_pad``."""
+    bu = users_per_cta(b, k_top)
+    tiles = -(-m_pad // _TILE_ROWS)
+    blocks = -(-b // bu)
+    cap = min(_MERGE_ENTRIES // _pow2_ceil(k_top),
+              m_pad * 4 // (_PARTIAL_SHARE * 8 * k_top))
+    want = _CTAS_PER_SM * num_sms // blocks
+    return bu, max(min(want, tiles, cap), 1)
 
 
 def topk_scores(u, table, scale, seen_tiles, *, k_top, num_movies, tile_m,
@@ -218,7 +249,7 @@ def topk_scores(u, table, scale, seen_tiles, *, k_top, num_movies, tile_m,
     tail ids are −1.  ``row_offset`` maps table rows to global ids (the
     two-stage rescore passes R_pad − R to mask the shortlist's padding).
     CPU tensors take ``topk_scores_plain``; CUDA tensors launch the kernel
-    (two launches: per-split candidates, then the per-user merge) or raise.
+    (two launches: per-split top K, then the per-user merge) or raise.
     """
     _check_args(u, table, scale, seen_tiles, k_top=k_top, tile_m=tile_m)
     if not on_cuda(u, table, scale, seen_tiles):
@@ -229,13 +260,7 @@ def topk_scores(u, table, scale, seen_tiles, *, k_top, num_movies, tile_m,
     m_pad = table.shape[0]
     if k_top > MAX_K_TOP:
         raise ValueError(f"topk_scores on CUDA supports k_top <= {MAX_K_TOP} "
-                         f"(shared-memory candidate buffers), got {k_top}")
-    if k > MAX_RANK:
-        raise ValueError(f"topk_scores on CUDA supports rank <= {MAX_RANK}, "
-                         f"got {k}")
-    if m_pad * k >= 1 << 31:
-        raise ValueError(f"topk_scores on CUDA indexes the table with 32-bit "
-                         f"offsets: {m_pad} x {k} elements is too many")
+                         f"(per-user lists in shared memory), got {k_top}")
     if table.dtype not in _TABLE_KIND:
         raise TypeError(f"table must be float32, bfloat16 or int8, got "
                         f"{table.dtype}")
@@ -253,17 +278,15 @@ def topk_scores(u, table, scale, seen_tiles, *, k_top, num_movies, tile_m,
     ids = torch.empty((b, k_top), dtype=torch.int32, device=dev)
     if b == 0:
         return vals, ids
-    splits, rows = split_plan(
-        b, m_pad, k_top, torch.cuda.get_device_properties(dev).multi_processor_count)
-    part_v = torch.empty((b, splits, k_top), dtype=torch.float32, device=dev)
-    part_i = torch.empty((b, splits, k_top), dtype=torch.int32, device=dev)
+    bu, splits = split_plan(b, m_pad, k_top, _num_sms(dev.index or 0))
+    # pass 1's per-split top K: (score, id) as one 64-bit key a slot
+    part = torch.empty((b, splits, k_top), dtype=torch.int64, device=dev)
     fn = _build.function("topk_scores", "cfk_topk_scores", _ARGTYPES)
     rc = fn(_build.ptr(u32), _build.ptr(table), _TABLE_KIND[table.dtype],
             _build.ptr(scale), _build.ptr(seen_tiles), w, b, k, m_pad,
-            int(num_movies), int(row_offset), int(tile_m), int(k_top),
-            splits, rows, _build.ptr(part_v), _build.ptr(part_i),
-            _build.ptr(vals), _build.ptr(ids), dev.index or 0,
-            stream_of(u32))
+            int(num_movies), int(row_offset), int(tile_m), int(k_top), bu,
+            splits, _build.ptr(part), _build.ptr(vals), _build.ptr(ids),
+            dev.index or 0, stream_of(u32))
     _build.check(rc, "topk_scores")
     topk_scores.launches += 2
     return vals, ids

@@ -99,8 +99,13 @@ Phases, each of which must pass:
              measured capacity, 256 requests) drive it, and the count must be
              > 0; then K4 on that batch's own arguments against its plain
              version, exact-mode ids against the dense route, no [B, M]
-             allocation during a K4 call, times, and two-stage recall@100 vs
-             the same engine's exact scan (>= 0.95, no fallback);
+             allocation during a K4 call, times (the whole call, each of
+             its two launches from torch.profiler, the bound — for a bf16
+             table at the tensor cores' bf16 rate — and the library's), and
+             two-stage recall@100 vs the same engine's exact scan (>= 0.95,
+             no fallback); then K4 at rank 600 (above the earlier kernel's
+             512 cap) against its plain version on a small random table,
+             every table kind;
 6. implicit — implicit-feedback training at the repo's implicit
              configuration (``bench.py`` ``ials_row``/``ialspp_row``: the
              ML-25M shape, 162,541 users x 59,047 movies x 25,000,095
@@ -194,6 +199,9 @@ ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores
+# H100 SXM dense bf16 on the tensor cores: K4's bound for a bf16 table (its
+# products run there, by mma.sync); every other kernel is held to FP32.
+BF16_TC_FLOPS_PER_S = 989e12
 NETFLIX = dict(num_users=480_189, num_movies=17_770, nnz=100_480_507)
 RANK, LAM, ITERS = 64, 0.05, 3
 # Kernel vs plain, max |difference| over max |plain|: float32 on both sides
@@ -273,6 +281,7 @@ REPLACES = {
 # Fields of the kernels line beyond the contract's: K1 below one wave.
 LINE_EXTRA = {"gauss_solve": ("ms_schur", "bound_ms_schur",
                               "library_ms_schur"),
+              "topk_scores": ("configs",),
               "reg_solve": ("ms_k128_e1", "bound_ms_k128_e1", "ms_k128_e203",
                             "bound_ms_k128_e203")}
 # scripts/exp_binv.py's defaults (main :187-212): k = 128, --e 334·16
@@ -343,9 +352,10 @@ def kernel_ms(fn, reps: int, kernel: str) -> float:
     return us / 1e3 / reps
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, flops: float,
+          flops_per_s: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1887,9 +1897,14 @@ class Smoke:
                            f"{growth} B >= B·M_pad·4 = {dense_bytes}")
                 # -- times and the bound ------------------------------------
                 nbytes, flops, counts = topk_scores_work(a, kw, b)
-                b_ms, by = bound(nbytes, flops)
+                b_ms, by = bound(nbytes, flops, BF16_TC_FLOPS_PER_S
+                                 if td == "bfloat16" else FP32_FLOPS_PER_S)
                 row.update(**counts)
                 row.update(
+                    pass1_ms=kernel_ms(lambda: topk_scores(*a, **kw), 20,
+                                       "topk_partial_kernel"),
+                    pass2_ms=kernel_ms(lambda: topk_scores(*a, **kw), 20,
+                                       "topk_merge_kernel"),
                     ms=time_ms(lambda: topk_scores(*a, **kw), 20),
                     plain_ms=time_ms(lambda: topk_scores_plain(*a, **kw), 3),
                     library_ms=time_ms(dense, 10), bound_ms=b_ms, bound_by=by,
@@ -1927,7 +1942,33 @@ class Smoke:
             {key: head[key] for key in ("ms", "plain_ms", "library_ms",
                                         "bound_ms", "bound_by")},
             launches=launches_total,
-            max_abs_err=max(r["max_abs_err"] for r in rows))
+            max_abs_err=max(r["max_abs_err"] for r in rows),
+            configs=[{"config": f"{r['mode']}/{r['table_dtype']}/B{r['batch']}",
+                      **{key: r[key] for key in (
+                          "ms", "pass1_ms", "pass2_ms", "bound_ms",
+                          "bound_by", "library_ms")}} for r in rows])
+        # -- K4 above the earlier kernel's rank cap (512), every table kind --
+        from cfk_tpu_torch.ops.quant import quantize_table
+
+        rng = np.random.default_rng(600)
+        ut = torch.as_tensor(rng.standard_normal((40, 600), np.float32),
+                             device="cuda")
+        tbl = torch.as_tensor(rng.standard_normal((1536, 600), np.float32),
+                              device="cuda")
+        high = {}
+        for td in ("float32", "bfloat16", "int8"):
+            data, sc = quantize_table(tbl, td)
+            kw = dict(k_top=k, num_movies=1500, tile_m=256)
+            got = topk_scores(ut, data, sc, None, **kw)
+            torch.cuda.synchronize()
+            want = topk_scores_plain(ut, data, sc, None, **kw)
+            ext = topk_scores_plain(ut, data, sc, None, **dict(kw, k_top=k + 1))
+            par = compare_topk(*got, *want, ext[0], tol=TOL["topk_scores"])
+            high[td] = par
+            self.check(par["ok"], f"serve: K4 at rank 600 ({td}) vs plain "
+                       f"{par}")
+        self.report["serve_rank600"] = high
+        log(f"serve: K4 at rank 600 vs plain {high}")
 
     def implicit(self):
         import numpy as np

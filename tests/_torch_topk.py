@@ -2,7 +2,8 @@
 
 ``compare_topk`` holds a top-K result against a reference under the rule the
 port's K4 ``topk_scores`` is held to: scores within a relative tolerance,
-ids equal except at near-ties of the reference.  It lives with the tests, not
+ids equal except at near-ties of the reference.  ``split_bounds`` states the
+kernel's row partition for the plan tests.  It lives with the tests, not
 in ``cfk_tpu_torch.serving``, because only checks use it; ``chip_smoke.py``
 imports it from here.
 """
@@ -45,3 +46,15 @@ def compare_topk(got_v, got_i, want_v, want_i, want_v_ext=None, *,
     bad = int(((got_i != want_i) & ~tied).sum())
     return {"ok": bool(inf_ok and err <= tol * scale and bad == 0),
             "max_abs_err": err, "rel_err": err / scale, "id_mismatches": bad}
+
+
+def split_bounds(splits: int, m_pad: int, tile_rows: int = 256
+                 ) -> list[tuple[int, int]]:
+    """Each pass-1 split's table rows [lo, hi), as K4's kernel derives them
+    (``topk_kernel.split_plan``): split s takes tiles [s·T // splits,
+    (s + 1)·T // splits) of the T 256-row tiles, the last one cut at
+    ``m_pad``."""
+    tiles = -(-m_pad // tile_rows)
+    return [(s * tiles // splits * tile_rows,
+             min((s + 1) * tiles // splits * tile_rows, m_pad))
+            for s in range(splits)]

@@ -834,6 +834,47 @@ def test_topk_scores_large_k_and_wide_seen(cuda, k_top):
                     tile_m=512)
 
 
+@pytest.mark.parametrize("table_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("b", [1, 15, 16, 17, 63, 64, 65, 300])
+def test_topk_scores_batches_cross_user_tiles(cuda, table_dtype, b):
+    # pass 1 takes 16 users a CTA up to B = 32, 32 above: partial blocks,
+    # block edges and several blocks, on every table kind
+    u, data, scale, st = _topk_problem(13, b, 2000, 32, 256, 50, table_dtype,
+                                       cuda)
+    _check_topk(u, data, scale, st, k_top=50, num_movies=1990, tile_m=256)
+
+
+@pytest.mark.parametrize("table_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("k", [5, 129, 600])
+def test_topk_scores_any_rank(cuda, table_dtype, k):
+    # rank is a loop bound: odd ranks take the element-load staging, 600 is
+    # above the earlier kernel's 512 cap
+    u, data, scale, st = _topk_problem(17, 40, 1500, k, 256, 40, table_dtype,
+                                       cuda)
+    _check_topk(u, data, scale, st, k_top=30, num_movies=1500, tile_m=256)
+
+
+@pytest.mark.parametrize("table_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("b", [20, 40])
+def test_topk_scores_exact_ties_across_tiles(cuda, table_dtype, b):
+    # integer tables: every kind (the bf16 tensor-core path included) sums
+    # exactly, so ids and values equal the plain version's, ties included
+    u, data, scale, st = _topk_problem(19, b, 1200, 16, 256, 30, table_dtype,
+                                       cuda, integer=True)
+    _check_topk(u, data, scale, st, exact=True, k_top=64, num_movies=1150,
+                tile_m=256)
+
+
+@pytest.mark.parametrize("table_dtype", ["float32", "bfloat16", "int8"])
+def test_topk_scores_two_stage_shape(cuda, table_dtype):
+    # the two-stage rescore's call: a shortlist padded to R_pad rows whose
+    # padding tail row_offset = R_pad - R masks, at a serving batch
+    u, data, scale, st = _topk_problem(23, 256, 1024, 64, 256, 20,
+                                       table_dtype, cuda)
+    _check_topk(u, data, scale, st, k_top=100, num_movies=1024, tile_m=256,
+                row_offset=324)
+
+
 # The block-inverse solve (rows 14 and 15: binv_solve_reg, binv_inv) and
 # the bucketed split epilogue.  Solves against the plain recursion on the
 # same CUDA tensors (cuBLAS products there, in-order shared-memory sums in

@@ -31,7 +31,7 @@ from cfk_tpu_torch.serving import engine as t_engine
 from cfk_tpu_torch.serving import topk_kernel as t_kernel
 from cfk_tpu_torch.serving import twostage as t_two
 
-from _torch_topk import compare_topk
+from _torch_topk import compare_topk, split_bounds
 
 TOL = 1e-5
 
@@ -204,14 +204,17 @@ def test_compare_topk_flags_real_disagreements():
 
 
 def test_split_plan_bounds():
-    # pass 2 sorts at most 8192 entries per user; no split under one step
+    # pass 2 merges at most 32768 keys per user; every split holds whole
+    # 256-row tiles and none is empty
     for b, m_pad, k_top in [(16, 61440, 100), (256, 61440, 100),
                             (64, 4096, 1024), (8, 64, 5), (1, 256, 1)]:
-        splits, rows = t_kernel.split_plan(b, m_pad, k_top, 132)
-        assert rows % 256 == 0 and rows >= 256
-        assert t_kernel._pow2_ceil(
-            splits * t_kernel._pow2_ceil(k_top)) <= 8192
-        assert splits * rows >= m_pad > (splits - 1) * rows
+        bu, splits = t_kernel.split_plan(b, m_pad, k_top, 132)
+        assert bu in (16, 32)
+        assert splits * t_kernel._pow2_ceil(k_top) <= 32768
+        bounds = split_bounds(splits, m_pad)
+        assert bounds[0][0] == 0 and bounds[-1][1] == m_pad
+        assert all(lo < hi and lo % 256 == 0 for lo, hi in bounds)
+        assert all(x[1] == y[0] for x, y in zip(bounds, bounds[1:]))
 
 
 # -- host helpers, bit-equal -------------------------------------------------

@@ -4,7 +4,7 @@ class of the implicit bucketed layout, for comparing two source trees on
 one card.
 
     python3 tools/gram_kernels_ab.py [--tree DIR] [--label NAME]
-        [--nnz N] [--rank K] [--cache FILE] [--parts grams,k1,k6,gj]
+        [--nnz N] [--rank K] [--cache FILE] [--parts grams,k1,k6,gj,k4]
 
 ``--tree`` names the directory holding the ``cfk_tpu_torch`` package to
 measure (default: this checkout); its kernels are built from that tree's
@@ -45,7 +45,14 @@ complement that follows (k = 64, E = 59,047); and the whole blocked solve
 outputs of K1 at each shape, of K6 over all classes and of rows 11 and 12
 at each shape, for telling two trees' bits apart, and its ``clocks`` the
 card's clocks, power draw and temperature before each row 11 and 12
-measurement.
+measurement; ``k4`` K4 ``topk_scores`` at the six serve configurations of
+``chip_smoke.py`` (the ML-25M shape, rank 128, K = 100, tile_m 2048:
+exact f32 at B = 16, 64, 256, bf16 and int8 at 256, two-stage f32 at 256)
+on ``serve_factors``/``serve_seen_csr`` at seed 0, each on the arguments
+``ServeEngine.topk`` gives K4 (recorded inside the engine, as the smoke's
+serve phase records them): pass 1's and pass 2's device ms a call and the
+whole call's device ms, from torch.profiler, and the call's ms from CUDA
+events, with a CRC-32 of its outputs.
 """
 
 from __future__ import annotations
@@ -113,6 +120,8 @@ def main() -> int:
         out.update(k6_rows(dev, crc))
     if "gj" in parts:
         out.update(gj_rows(dev, crc, clocks))
+    if "k4" in parts:
+        out.update(k4_rows(dev, crc, clocks))
     if "grams" in parts:
         out.update(gram_rows(args, dev))
     card = subprocess.run(
@@ -261,6 +270,84 @@ def gj_rows(dev, crc: dict, clocks: list) -> dict:
         lambda: blocked_spd_solve(am, bm), 3, "")
     del am, bm
     torch.cuda.empty_cache()
+    return out
+
+
+# K4's two launches (the same kernel names in the parent tree and since).
+K4_PASSES = (("pass1", "topk_partial_kernel"), ("pass2", "topk_merge_kernel"))
+
+
+def profile_split(fn, reps: int, names) -> dict:
+    """Device ms per call of ``fn`` for each (label, kernel name) of
+    ``names`` and for every device activity of the call ("call"), from one
+    torch.profiler window over ``reps`` calls after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()]
+    out = {label: sum(us for key, us in rows if name in key) / 1e3 / reps
+           for label, name in names}
+    out["call"] = sum(us for _, us in rows) / 1e3 / reps
+    return out
+
+
+def k4_rows(dev, crc: dict, clocks: list) -> dict:
+    import numpy as np
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import SERVE, SERVE_CONFIGS
+
+    from cfk_tpu_torch.data.synthetic import serve_factors, serve_seen_csr
+    from cfk_tpu_torch.serving import (
+        ServeEngine, default_two_stage_params, zipf_user_rows)
+    from cfk_tpu_torch.serving import engine as engine_mod
+    from cfk_tpu_torch.serving import twostage as twostage_mod
+    from cfk_tpu_torch.serving.topk_kernel import topk_scores
+
+    s = SERVE
+    nu, nm, k = s["num_users"], s["num_movies"], s["k"]
+    # chip_smoke.py's serve phase at --seed 0: traffic 3, pool 1, data 2
+    traffic = zipf_user_rows(nu, s["requests"], seed=3)
+    pool = np.concatenate([zipf_user_rows(nu, 4096, seed=1), traffic])
+    rng = np.random.default_rng(2)
+    u, m = serve_factors(nu, nm, s["rank"], rng)
+    seen, indptr = serve_seen_csr(nu, nm, s["nnz"], pool, rng)
+    _, probe = default_two_stage_params(nm, clusters=s["clusters"])
+    captured = {}
+
+    def recording(*a, **kw):
+        captured["call"] = (a, kw)
+        return topk_scores(*a, **kw)
+
+    out, engines = {}, {}
+    engine_mod.topk_scores = twostage_mod.topk_scores = recording
+    try:
+        for mode, td, b in SERVE_CONFIGS:
+            if (mode, td) not in engines:
+                engines[(mode, td)] = ServeEngine(
+                    u, m, num_users=nu, num_movies=nm, seen_movies=seen,
+                    seen_indptr=indptr, table_dtype=td, tile_m=s["tile_m"],
+                    serve_mode=mode,
+                    clusters=s["clusters"] if mode == "two_stage" else None,
+                    probe_clusters=probe if mode == "two_stage" else None,
+                    device="cuda")
+            engines[(mode, td)].topk(pool[:b], k)
+            a, kw = captured["call"]
+            name = f"k4_{mode}_{td}_b{b}"
+            sample_clocks(clocks, name)
+            call = lambda: topk_scores(*a, **kw)  # noqa: E731
+            for label, ms in profile_split(call, 20, K4_PASSES).items():
+                out[f"{name}_{label}"] = ms
+            out[f"{name}_events"] = mean_ms(call, 20)
+            crc_of(crc, name, *call())
+    finally:
+        engine_mod.topk_scores = twostage_mod.topk_scores = topk_scores
     return out
 
 
