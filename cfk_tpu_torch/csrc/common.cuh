@@ -88,6 +88,23 @@ struct RowStage {
   int nb[kRows];
 };
 
+// The split Gram past k = 128 (gram_kernels.cuh) sums one kBlk x kBlk block
+// (bi, bj), bi >= bj, of the Gram a CTA: it stages only the two kBlk-column
+// slices of each row the block reads — columns [ci, ci + kBlk) into gi and
+// [cj, cj + kBlk) into gj, zeros past k — or one, gi, on the diagonal
+// (ci == cj).  Element idx of a slice is row idx / kBlk, column idx % kBlk,
+// as in RowStage<kBlk>.
+constexpr int kBlk = 128;
+
+struct PairStage {
+  static constexpr int kPerThread = kRows * kBlk / kThreads;
+  float gi[kRows][kBlk];
+  float gj[kRows][kBlk];
+  float rt[kRows];
+  float w[kRows];
+  int nb[kRows];
+};
+
 // One work unit of a chunk (ops/kernels/gram_units.py): segment s (< 0: a
 // surplus slot, which exits at once), where its walk starts and ends (the
 // walks of gram_kernels.cuh read start and end), n, the segment's unit
@@ -120,9 +137,11 @@ struct GatherRows {
   const int* nb;
   const float* wt;
 
-  template <int KMAX>
-  __device__ __forceinline__ bool stage(RowStage<KMAX>& st, int k, long p0,
-                                        int n, const float* rt) const {
+  // The pass's indices, weights and b-coefficients into the stage; whether
+  // any of its rows is live (the same on every thread).
+  template <class Stage>
+  __device__ __forceinline__ bool stage_index(Stage& st, long p0, int n,
+                                              const float* rt) const {
     bool live = false;
     if (threadIdx.x < kRows) {
       const int r = threadIdx.x;
@@ -135,7 +154,13 @@ struct GatherRows {
       st.w[r] = w;
       st.rt[r] = valid ? __ldg(rt + r) : 0.0f;
     }
-    if (!__syncthreads_or(live)) return false;
+    return __syncthreads_or(live);
+  }
+
+  template <int KMAX>
+  __device__ __forceinline__ bool stage(RowStage<KMAX>& st, int k, long p0,
+                                        int n, const float* rt) const {
+    if (!stage_index(st, p0, n, rt)) return false;
     constexpr int kPer = RowStage<KMAX>::kPerThread;
     float v[kPer];
 #pragma unroll
@@ -150,6 +175,36 @@ struct GatherRows {
     for (int i = 0; i < kPer; ++i) {
       const int idx = threadIdx.x + i * kThreads;
       st.g[idx / KMAX][idx % KMAX] = v[i];
+    }
+    __syncthreads();
+    return true;
+  }
+
+  // The split Gram's block pass: the slices at columns ci and cj (one when
+  // ci == cj) of the same gathered rows.  Every load of both slices is
+  // issued before any store.
+  __device__ __forceinline__ bool stage_pair(PairStage& st, int k, long p0,
+                                             int n, const float* rt, int ci,
+                                             int cj) const {
+    if (!stage_index(st, p0, n, rt)) return false;
+    constexpr int kPer = PairStage::kPerThread;
+    const bool two = ci != cj;
+    float vi[kPer], vj[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      const int r = idx / kBlk, c = idx % kBlk;
+      const int row = st.nb[r];
+      const float* src = table + (size_t)row * k;
+      vi[i] = row >= 0 && ci + c < k ? __ldg(src + ci + c) * st.w[r] : 0.0f;
+      vj[i] = two && row >= 0 && cj + c < k ? __ldg(src + cj + c) * st.w[r]
+                                            : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      st.gi[idx / kBlk][idx % kBlk] = vi[i];
+      if (two) st.gj[idx / kBlk][idx % kBlk] = vj[i];
     }
     __syncthreads();
     return true;
@@ -185,6 +240,36 @@ struct StreamRows {
       const int idx = threadIdx.x + i * kThreads;
       st.g[idx / KMAX][idx % KMAX] = v[i];
       nonzero |= v[i] != 0.0f;
+    }
+    return __syncthreads_or(nonzero);
+  }
+
+  // The split Gram's block pass: the stream rows' slices at columns ci and
+  // cj (one when ci == cj).  A pass skipped because both slices are zero
+  // would add exact zeros, so the sums still equal the gather sibling's.
+  __device__ __forceinline__ bool stage_pair(PairStage& st, int k, long p0,
+                                             int n, const float* rt, int ci,
+                                             int cj) const {
+    if (threadIdx.x < kRows)
+      st.rt[threadIdx.x] = threadIdx.x < n ? __ldg(rt + threadIdx.x) : 0.0f;
+    constexpr int kPer = PairStage::kPerThread;
+    const bool two = ci != cj;
+    float vi[kPer], vj[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      const int r = idx / kBlk, c = idx % kBlk;
+      const float* src = g + (size_t)(p0 + r) * k;
+      vi[i] = r < n && ci + c < k ? __ldg(src + ci + c) : 0.0f;
+      vj[i] = two && r < n && cj + c < k ? __ldg(src + cj + c) : 0.0f;
+    }
+    bool nonzero = false;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      st.gi[idx / kBlk][idx % kBlk] = vi[i];
+      if (two) st.gj[idx / kBlk][idx % kBlk] = vj[i];
+      nonzero |= vi[i] != 0.0f || vj[i] != 0.0f;
     }
     return __syncthreads_or(nonzero);
   }
@@ -261,6 +346,90 @@ struct GramAcc {
         if (i < k && j < k) A[(size_t)i * ld + j] = a[p][q];
       }
     if (threadIdx.x < k) bv[threadIdx.x] = b;
+  }
+};
+
+// The register sums of block (bi, bj) of a Gram past k = 128, columns
+// ci = bi·kBlk and cj = bj·kBlk: thread (ti, tj) owns the RT x RT block
+// A[ci + ti·RT.., cj + tj·RT..], summed row by row with the operations
+// GramAcc<kBlk> performs on its elements; a diagonal block's thread c < kBlk
+// owns b[ci + c].  An off-diagonal block is stored with its mirror (the
+// same sums: fmaf(x, y, a) == fmaf(y, x, a)).
+struct PairAcc {
+  static constexpr int RT = kBlk / 16;
+  float a[RT][RT];
+  float b;
+  int ti, tj, k, ci, cj;
+
+  __device__ __forceinline__ void init(int k_, int bi, int bj) {
+    ti = threadIdx.x / 16;
+    tj = threadIdx.x % 16;
+    k = k_;
+    ci = bi * kBlk;
+    cj = bj * kBlk;
+    b = 0.0f;
+#pragma unroll
+    for (int p = 0; p < RT; ++p)
+#pragma unroll
+      for (int q = 0; q < RT; ++q) a[p][q] = 0.0f;
+  }
+
+  __device__ __forceinline__ void accumulate(PairStage& st) {
+    const bool diag = ci == cj;
+    const float(*gjs)[kBlk] = diag ? st.gi : st.gj;
+#pragma unroll 4
+    for (int r = 0; r < kRows; ++r) {
+      float gi[RT], gj[RT];
+#pragma unroll
+      for (int p = 0; p < RT; ++p) {
+        gi[p] = st.gi[r][ti * RT + p];
+        gj[p] = gjs[r][tj * RT + p];
+      }
+#pragma unroll
+      for (int p = 0; p < RT; ++p)
+#pragma unroll
+        for (int q = 0; q < RT; ++q) a[p][q] = fmaf(gi[p], gj[q], a[p][q]);
+      if (diag && threadIdx.x < kBlk)
+        b = fmaf(st.rt[r], st.gi[r][threadIdx.x], b);
+    }
+    __syncthreads();
+  }
+
+  template <class Src>
+  __device__ __forceinline__ void add_pass(PairStage& st, const Src& src,
+                                           long p0, int n, const float* rt) {
+    if (src.stage_pair(st, k, p0, n, rt, ci, cj)) accumulate(st);
+  }
+
+  __device__ __forceinline__ void fold_carry(const float* ca, const float* cb,
+                                             float cin) {
+#pragma unroll
+    for (int p = 0; p < RT; ++p)
+#pragma unroll
+      for (int q = 0; q < RT; ++q) {
+        const int i = ci + ti * RT + p, j = cj + tj * RT + q;
+        if (i < k && j < k)
+          a[p][q] = fmaf(cin, __ldg(ca + (size_t)i * k + j), a[p][q]);
+      }
+    if (ci == cj && threadIdx.x < kBlk && ci + (int)threadIdx.x < k)
+      b = fmaf(cin, __ldg(cb + ci + threadIdx.x), b);
+  }
+
+  // Writes the block (and its mirror) to A [k, k] (row stride ld) and a
+  // diagonal block's slice of bv [k].
+  __device__ __forceinline__ void store(float* A, int ld, float* bv) const {
+#pragma unroll
+    for (int p = 0; p < RT; ++p)
+#pragma unroll
+      for (int q = 0; q < RT; ++q) {
+        const int i = ci + ti * RT + p, j = cj + tj * RT + q;
+        if (i < k && j < k) {
+          A[(size_t)i * ld + j] = a[p][q];
+          if (ci != cj) A[(size_t)j * ld + i] = a[p][q];
+        }
+      }
+    if (ci == cj && threadIdx.x < kBlk && ci + (int)threadIdx.x < k)
+      bv[ci + threadIdx.x] = b;
   }
 };
 

@@ -47,6 +47,14 @@
 // atomics.
 // Segments owning no row get zeros (solve: x = 0); the TPU kernels leave
 // them unwritten, and callers route those rows to the trash row either way.
+//
+// Ranks: gram_solve takes k <= 128 (its epilogue holds the system in shared
+// memory, and the reference routes larger ranks to its split schedule);
+// gram takes any rank.  Up to 128 one CTA sums a unit's whole Gram; past
+// it the grid gains an axis over the lower-triangle pairs of 128 x 128
+// blocks (gram_pair_kernel: 3 CTAs a unit at k = 256, 10 at 512), each CTA
+// summing one block, with its mirror, by the same per-element operations —
+// a simple kernel that re-stages each row once per pair, not yet a fast one.
 #pragma once
 
 #include "spd_solve.cuh"
@@ -58,10 +66,9 @@ namespace cfk {
 struct TileWalk {
   bool valid() const { return true; }
 
-  template <int KMAX, class Src>
-  __device__ __forceinline__ void add(GramAcc<KMAX>& acc, RowStage<KMAX>& st,
-                                      const Unit& u, const Src& src,
-                                      const float* rt) const {
+  template <class Acc, class Stage, class Src>
+  __device__ __forceinline__ void add(Acc& acc, Stage& st, const Unit& u,
+                                      const Src& src, const float* rt) const {
     for (int p = u.start; p < u.end; p += kRows)
       acc.add_pass(st, src, p, min(kRows, u.end - p), rt + p);
   }
@@ -79,10 +86,9 @@ struct DenseWalk {
 
   bool valid() const { return ng >= 1 && nt % ng == 0 && T >= 1; }
 
-  template <int KMAX, class Src>
-  __device__ __forceinline__ void add(GramAcc<KMAX>& acc, RowStage<KMAX>& st,
-                                      const Unit& u, const Src& src,
-                                      const float* rt) const {
+  template <class Acc, class Stage, class Src>
+  __device__ __forceinline__ void add(Acc& acc, Stage& st, const Unit& u,
+                                      const Src& src, const float* rt) const {
     const int m = nt / ng;
     const int* g_blk = meta;
     const int* lb = meta + ng;
@@ -156,6 +162,30 @@ __host__ __device__ __forceinline__ int max_slices(int k) {
   return (k * k + k + kThreads - 1) / kThreads;
 }
 
+// The gram shape's reduce launch: one CTA a slice up to the grid's height,
+// each CTA then striding over the slices past it (k > 4,095).
+constexpr int kMaxGridY = 65535;
+
+// The ranks each shape takes.  gram_solve holds a segment's system in
+// shared memory for its solve: k <= 128, the reference's fused cap.  gram
+// takes any rank whose k² + k Gram elements an int indexes; past kBlk it
+// runs the block-pair kernel below.
+constexpr int kMaxFusedRank = 128;
+constexpr int kMaxSplitRank = 46000;  // k² + k + a grid stride < 2^31
+
+// The lower-triangle block pairs (bi >= bj) of a Gram of nb = ceil(k/kBlk)
+// column blocks, numbered p = bi(bi + 1)/2 + bj: 3 at k = 256, 10 at 512.
+__host__ __device__ __forceinline__ int block_pairs(int k) {
+  const int nb = (k + kBlk - 1) / kBlk;
+  return nb * (nb + 1) / 2;
+}
+
+__device__ __forceinline__ void pair_of(int p, int& bi, int& bj) {
+  bi = 0;
+  while ((bi + 1) * (bi + 2) / 2 <= p) ++bi;
+  bj = p - bi * (bi + 1) / 2;
+}
+
 // Uncapped: two CTAs per SM at KMAX = 128 (128 registers, spilling) ran
 // 10% faster on 1M-row chunks but 36% slower on the implicit runs'
 // 49,152-entry chunks (tools/gram_kernels_ab.py, chip_smoke.py; PERF.md).
@@ -181,6 +211,39 @@ gram_kernel(Src src, Walk walk, int k, const int* __restrict__ units,
   acc.store(out_a + (size_t)u.s * k * k, k, out_b + (size_t)u.s * k);
 }
 
+// The split Gram past k = 128: grid (work unit, block pair), pairs the
+// fast index, so a unit's CTAs run together and share its rows in L2.  The
+// CTA of unit u and pair (bi, bj) walks u's rows as gram_kernel walks them,
+// staging the two kBlk-column slices its block reads (the last block masked
+// at k), and writes its block and the mirror — into the segment's (A, b),
+// or, for a split segment's unit, into the unit's [k² + k] partial slot,
+// which gram_reduce_kernel sums per element as below k = 128.  The diagonal
+// blocks' CTAs form b's slices and fold the carry's.
+template <class Walk, class Src>
+__global__ void __launch_bounds__(kThreads)
+gram_pair_kernel(Src src, Walk walk, int k, int pairs,
+                 const int* __restrict__ units, const float* __restrict__ rt,
+                 const float* __restrict__ ca, const float* __restrict__ cb,
+                 const float* __restrict__ cin, float* __restrict__ out_a,
+                 float* __restrict__ out_b, float* __restrict__ scratch) {
+  __shared__ PairStage st;
+  const int ui = blockIdx.x / pairs;
+  const Unit u = load_unit(units, ui);
+  if (u.s < 0) return;
+  int bi, bj;
+  pair_of(blockIdx.x - ui * pairs, bi, bj);
+  PairAcc acc;
+  acc.init(k, bi, bj);
+  walk.add(acc, st, u, src, rt);
+  if (u.n > 1) {
+    float* p = partial_of(scratch, ui, k);
+    acc.store(p, k, p + (size_t)k * k);
+    return;
+  }
+  if (u.s == 0 && ca != nullptr) acc.fold_carry(ca, cb, __ldg(cin));
+  acc.store(out_a + (size_t)u.s * k * k, k, out_b + (size_t)u.s * k);
+}
+
 // grid (split segment, slice): the split segments' sums.
 __global__ void __launch_bounds__(kThreads)
 gram_reduce_kernel(int k, const int* __restrict__ units,
@@ -190,15 +253,17 @@ gram_reduce_kernel(int k, const int* __restrict__ units,
                    const float* __restrict__ scratch,
                    float* __restrict__ out_a, float* __restrict__ out_b) {
   const int u0 = __ldg(splits + blockIdx.x);
-  const int e = blockIdx.y * kThreads + threadIdx.x;
-  if (u0 < 0 || e >= k * k + k) return;
+  if (u0 < 0) return;
   const Unit u = load_unit(units, u0);
-  const float v = reduce_element(scratch, u0, u.n, k, e,
-                                 u.s == 0 && ca != nullptr, ca, cb, cin);
-  if (e < k * k)
-    out_a[(size_t)u.s * k * k + e] = v;
-  else
-    out_b[(size_t)u.s * k + e - k * k] = v;
+  for (int e = blockIdx.y * kThreads + threadIdx.x; e < k * k + k;
+       e += gridDim.y * kThreads) {
+    const float v = reduce_element(scratch, u0, u.n, k, e,
+                                   u.s == 0 && ca != nullptr, ca, cb, cin);
+    if (e < k * k)
+      out_a[(size_t)u.s * k * k + e] = v;
+    else
+      out_b[(size_t)u.s * k + e - k * k] = v;
+  }
 }
 
 // The fused epilogue of segment s, whose raw sums are in shared memory in
@@ -329,12 +394,24 @@ gram_solve_reduce_kernel(int k, const int* __restrict__ units,
   ep.template run<KMAX>(A, k, u.s);
 }
 
-// Refuses what the kernels do not take and selects the device.
+// Refuses what the kernels do not take (k past the shape's `kmax`) and
+// selects the device.
 template <class Walk>
-inline int prepare(int k, const Walk& walk, const Plan& plan, int device) {
-  if (k < 1 || k > 128 || !walk.valid() || plan.nu < 0 || plan.nsp < 0)
+inline int prepare(int k, int kmax, const Walk& walk, const Plan& plan,
+                   int device) {
+  if (k < 1 || k > kmax || !walk.valid() || plan.nu < 0 || plan.nsp < 0)
     return (int)cudaErrorInvalidValue;
   return (int)cudaSetDevice(device);
+}
+
+inline int launch_gram_reduce(int k, const Plan& plan, const float* ca,
+                              const float* cb, const float* cin, float* out_a,
+                              float* out_b, cudaStream_t stream) {
+  gram_reduce_kernel<<<dim3(plan.nsp, min(max_slices(k), kMaxGridY)),
+                       kThreads, 0, stream>>>(k, plan.units, plan.splits, ca,
+                                              cb, cin, plan.scratch, out_a,
+                                              out_b);
+  return (int)cudaGetLastError();
 }
 
 template <int KMAX, class Walk, class Src>
@@ -346,25 +423,41 @@ int launch_gram_k(Src src, Walk walk, int k, const Plan& plan,
       src, walk, k, plan.units, rt, ca, cb, cin, out_a, out_b, plan.scratch);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || plan.nsp == 0) return (int)err;
-  gram_reduce_kernel<<<dim3(plan.nsp, max_slices(k)), kThreads, 0,
-                       stream>>>(k, plan.units, plan.splits, ca, cb, cin,
-                                 plan.scratch, out_a, out_b);
-  return (int)cudaGetLastError();
+  return launch_gram_reduce(k, plan, ca, cb, cin, out_a, out_b, stream);
 }
 
-// One chunk's (A, b): the unit launch, then the split segments' reduction.
+template <class Walk, class Src>
+int launch_gram_pairs(Src src, Walk walk, int k, const Plan& plan,
+                      const float* rt, const float* ca, const float* cb,
+                      const float* cin, float* out_a, float* out_b,
+                      cudaStream_t stream) {
+  const int pairs = block_pairs(k);
+  if ((long long)plan.nu * pairs > 0x7fffffffLL)
+    return (int)cudaErrorInvalidConfiguration;
+  gram_pair_kernel<Walk, Src><<<plan.nu * pairs, kThreads, 0, stream>>>(
+      src, walk, k, pairs, plan.units, rt, ca, cb, cin, out_a, out_b,
+      plan.scratch);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || plan.nsp == 0) return (int)err;
+  return launch_gram_reduce(k, plan, ca, cb, cin, out_a, out_b, stream);
+}
+
+// One chunk's (A, b): the unit launch, then the split segments' reduction;
+// past k = 128 the unit launch is the block-pair kernel's.
 template <class Walk, class Src>
 int launch_gram(Src src, Walk walk, int k, const Plan& plan, const float* rt,
                 const float* ca, const float* cb, const float* cin,
                 float* out_a, float* out_b, int device, void* stream) {
-  const int err = prepare(k, walk, plan, device);
+  const int err = prepare(k, kMaxSplitRank, walk, plan, device);
   if (err != 0 || plan.nu == 0) return err;
   cudaStream_t st = (cudaStream_t)stream;
   if (k <= 32)
     return launch_gram_k<32>(src, walk, k, plan, rt, ca, cb, cin, out_a, out_b, st);
   if (k <= 64)
     return launch_gram_k<64>(src, walk, k, plan, rt, ca, cb, cin, out_a, out_b, st);
-  return launch_gram_k<128>(src, walk, k, plan, rt, ca, cb, cin, out_a, out_b, st);
+  if (k <= kBlk)
+    return launch_gram_k<128>(src, walk, k, plan, rt, ca, cb, cin, out_a, out_b, st);
+  return launch_gram_pairs(src, walk, k, plan, rt, ca, cb, cin, out_a, out_b, st);
 }
 
 template <int KMAX, class Walk, class Src>
@@ -403,7 +496,7 @@ int launch_gram_solve(Src src, Walk walk, int k, const Plan& plan,
                       const float* rt, const SolveEpilogue& ep,
                       const float* ca, const float* cb, const float* cin,
                       int device, void* stream) {
-  const int err = prepare(k, walk, plan, device);
+  const int err = prepare(k, kMaxFusedRank, walk, plan, device);
   if (err != 0 || plan.nu == 0) return err;
   cudaStream_t st = (cudaStream_t)stream;
   if (k <= 32)

@@ -31,11 +31,11 @@
 //     size.
 //     - f32: each thread owns an 8-row x 4-user micro-tile, 32 FP32 FMA
 //       accumulators fed by 3 LDS.128 per 32 FMAs (TF32 stays off).
-//     - int8: the codes are staged (a quarter of the bytes) and converted
-//       to f32 once per CTA slice — each conversion feeds BU users — then
-//       multiplied as f32; the row's scale multiplies the finished k-sum
-//       (scale · Σ code·u in place of Σ (code·scale)·u: a reassociation
-//       within float32 rounding, 1e-5 of the largest score).
+//     - int8: the codes are staged (a quarter of the bytes) and each is
+//       multiplied by its row's scale as it is converted to f32, once per
+//       CTA slice — each conversion feeds BU users — then run through the
+//       f32 FMAs: Σ (code·scale)·u, the reference's dequantize-then-dot
+//       order, so an int8 table scores as the f32 table code·scale does.
 //     - bf16: mma.sync m16n8k16 on the tensor cores (operands by ldmatrix,
 //       f32 accumulators) — the reference's arithmetic: bf16 operands,
 //       exact products, f32 sums; each warp computes 64 rows x 16 users.
@@ -513,18 +513,21 @@ topk_partial_kernel(const float* __restrict__ u, const void* __restrict__ table,
         }
       } else {
         const float* T;
-        if (TABLE == kTableI8) {  // codes -> f32 once per CTA slice
+        if (TABLE == kTableI8) {  // code·scale -> f32 once per CTA slice
           const int8_t* cs =
               reinterpret_cast<const int8_t*>(region) + buf * P::kCodeBytes;
           float* F = reinterpret_cast<float*>(region + 2 * P::kCodeBytes);
           for (int row = tid; row < kTileRows; row += kThreads) {
             const int4 w = *reinterpret_cast<const int4*>(cs + row * kBkF);
             const int8_t* c8 = reinterpret_cast<const int8_t*>(&w);
+            const float sc = r0 + row < m_pad ? __ldg(scale + r0 + row) : 0.0f;
             float4* d = reinterpret_cast<float4*>(F + row * kLd);
 #pragma unroll
             for (int q = 0; q < 4; ++q)
-              d[q] = make_float4((float)c8[4 * q], (float)c8[4 * q + 1],
-                                 (float)c8[4 * q + 2], (float)c8[4 * q + 3]);
+              d[q] = make_float4((float)c8[4 * q] * sc,
+                                 (float)c8[4 * q + 1] * sc,
+                                 (float)c8[4 * q + 2] * sc,
+                                 (float)c8[4 * q + 3] * sc);
           }
           __syncthreads();
           T = F;
@@ -577,14 +580,9 @@ topk_partial_kernel(const float* __restrict__ u, const void* __restrict__ table,
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         const int row = wr * 64 + rg + 8 * i;
-        const float sc_row = (TABLE == kTableI8 && r0 + row < m_pad)
-                                 ? __ldg(scale + r0 + row) : 1.0f;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float v = acc[i * 4 + j];
-          score[(wu * 16 + ug + 4 * j) * kLdS + row] =
-              TABLE == kTableI8 ? v * sc_row : v;
-        }
+        for (int j = 0; j < 4; ++j)
+          score[(wu * 16 + ug + 4 * j) * kLdS + row] = acc[i * 4 + j];
       }
     }
     __syncthreads();

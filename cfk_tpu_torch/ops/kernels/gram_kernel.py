@@ -31,6 +31,16 @@ then reads it with the twin of each kernel above:
 - ``gram_solve_tiles_dense`` ↔ ``gram_solve_tiles_dense_pallas`` (twin of
   K3).
 
+Ranks: the fused entries (K3, K6, ``gram_solve_tiles``,
+``gram_solve_tiles_dense``) take k ≤ 128 (``MAX_RANK``) on every device —
+the reference's fused gate routes larger ranks to its split schedule, and
+so do the port's half-steps (``ops.solve.resolve_fused_chunk``).  The split
+entries (K2, ``gram_tiles_dense_gather``, ``gram_tiles``,
+``gram_tiles_dense``) take any rank up to ``MAX_SPLIT_RANK``, the largest
+whose k² + k Gram elements the kernels index with an int: above 128 their
+grid gains an axis over the Gram's 128 × 128 block pairs
+(``csrc/gram_kernels.cuh``).
+
 Every Gram kernel's grid is work units — runs of at most 1,024 rows of one
 owner segment, so a hot segment is spread over many CTAs — and every Gram
 wrapper takes ``units``, the chunk's unit plan (``gram_units``: the device
@@ -67,6 +77,8 @@ from cfk_tpu_torch.ops.kernels.solve_kernel import (
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# csrc/gram_kernels.cuh kMaxSplitRank: k² + k (and a reduce stride) < 2^31.
+MAX_SPLIT_RANK = 46000
 _PLAN = (_P, _I, _P, _I, _P)  # units, nu, splits, nsp, scratch
 _SOLVE = (_P, _P, _I, _F, _P, _P, _P, _P, _P, _P, _P)  # tickets .. cb_out
 _GRAM_TAIL = (_P, _P, _P, _P, _P, _I, _P)  # ca, cb, cin, out_a, out_b, dev, st
@@ -283,9 +295,9 @@ def _check_dense_chunk(c, rt, meta, *, tile_rows, num_tiles, num_groups,
                          f"{bg} >= tile_rows {t}")
 
 
-def _check_rank(name, k):
-    if not 1 <= k <= MAX_RANK:
-        raise ValueError(f"{name} supports rank 1..{MAX_RANK}, got {k}")
+def _check_rank(name, k, cap=MAX_RANK):
+    if not 1 <= k <= cap:
+        raise ValueError(f"{name} supports rank 1..{cap}, got {k}")
 
 
 def _carry_on(carry, k, dev):
@@ -352,7 +364,7 @@ def gram_gather(table, nb, wt, rt, seg, *, num_segments, tile_rows,
         return gram_gather_plain(table, nb, wt, rt, seg,
                                  num_segments=num_segments, tile_rows=t,
                                  carry=carry)
-    _check_rank("gram_gather", k)
+    _check_rank("gram_gather", k, MAX_SPLIT_RANK)
     require(table, "table", torch.float32, (f, k))
     require(nb, "nb", torch.int32, (c,))
     require(wt, "wt", torch.float32, (c,))
@@ -397,7 +409,7 @@ def gram_tiles_dense_gather(table, nb, wt, rt, meta, *, num_segments,
         return gram_tiles_dense_gather_plain(
             table, nb, wt, rt, meta, num_segments=num_segments, tile_rows=t,
             num_tiles=nt, num_groups=ng, block_rows=bg, carry=carry)
-    _check_rank("gram_tiles_dense_gather", k)
+    _check_rank("gram_tiles_dense_gather", k, MAX_SPLIT_RANK)
     dev = table.device
     require(table, "table", torch.float32, (f, k))
     require(nb, "nb", torch.int32, (c,))
@@ -443,13 +455,13 @@ def gram_solve_dense(table, nb, wt, rt, meta, reg, lseg, *, num_segments,
     _check_dense_chunk(c, rt, meta, tile_rows=t, num_tiles=nt,
                        num_groups=ng, block_rows=bg)
     check_reg(reg, reg_mode, num_segments, k)
+    _check_rank("gram_solve_dense", k)
     if not on_cuda(table, nb, wt, rt, meta, reg):
         return gram_solve_dense_plain(
             table, nb, wt, rt, meta, reg, lseg, num_segments=num_segments,
             tile_rows=t, num_tiles=nt, num_groups=ng, block_rows=bg, lam=lam,
             reg_mode=reg_mode, carry=carry,
         )
-    _check_rank("gram_solve_dense", k)
     dev = table.device
     require(table, "table", torch.float32, (f, k))
     require(nb, "nb", torch.int32, (c,))
@@ -497,11 +509,11 @@ def gram_solve_gather(table, nb, wt, rt, seg, reg, lseg, *, num_segments,
     t = tile_rows
     nt = _check_tile_chunk(c, seg, t)
     check_reg(reg, reg_mode, num_segments, k)
+    _check_rank("gram_solve_gather", k)
     if not on_cuda(table, nb, wt, rt, seg, reg):
         return gram_solve_gather_plain(
             table, nb, wt, rt, seg, reg, lseg, num_segments=num_segments,
             tile_rows=t, lam=lam, reg_mode=reg_mode, carry=carry)
-    _check_rank("gram_solve_gather", k)
     dev = table.device
     require(table, "table", torch.float32, (f, k))
     require(nb, "nb", torch.int32, (c,))
@@ -547,7 +559,7 @@ def gram_tiles(g, rt, seg, *, num_segments, tile_rows, carry=None,
     if not on_cuda(g, rt, seg):
         return gram_tiles_plain(g, rt, seg, num_segments=num_segments,
                                 tile_rows=t, carry=carry)
-    _check_rank("gram_tiles", k)
+    _check_rank("gram_tiles", k, MAX_SPLIT_RANK)
     dev = g.device
     require(g, "g", torch.float32, (c, k))
     require(rt, "rt", torch.float32, (c,))
@@ -585,11 +597,11 @@ def gram_solve_tiles(g, rt, seg, reg, lseg, *, num_segments, tile_rows,
     t = tile_rows
     nt = _check_tile_chunk(c, seg, t)
     check_reg(reg, reg_mode, num_segments, k)
+    _check_rank("gram_solve_tiles", k)
     if not on_cuda(g, rt, seg, reg):
         return gram_solve_tiles_plain(
             g, rt, seg, reg, lseg, num_segments=num_segments, tile_rows=t,
             lam=lam, reg_mode=reg_mode, carry=carry)
-    _check_rank("gram_solve_tiles", k)
     dev = g.device
     require(g, "g", torch.float32, (c, k))
     require(rt, "rt", torch.float32, (c,))
@@ -635,7 +647,7 @@ def gram_tiles_dense(g, rt, meta, *, num_segments, tile_rows, num_tiles,
         return gram_tiles_dense_plain(
             g, rt, meta, num_segments=num_segments, tile_rows=t,
             num_tiles=nt, num_groups=ng, block_rows=bg, carry=carry)
-    _check_rank("gram_tiles_dense", k)
+    _check_rank("gram_tiles_dense", k, MAX_SPLIT_RANK)
     dev = g.device
     require(g, "g", torch.float32, (c, k))
     require(rt, "rt", torch.float32, (nt * t,))
@@ -675,12 +687,12 @@ def gram_solve_tiles_dense(g, rt, meta, reg, lseg, *, num_segments,
     _check_dense_chunk(c, rt, meta, tile_rows=t, num_tiles=nt,
                        num_groups=ng, block_rows=bg)
     check_reg(reg, reg_mode, num_segments, k)
+    _check_rank("gram_solve_tiles_dense", k)
     if not on_cuda(g, rt, meta, reg):
         return gram_solve_tiles_dense_plain(
             g, rt, meta, reg, lseg, num_segments=num_segments, tile_rows=t,
             num_tiles=nt, num_groups=ng, block_rows=bg, lam=lam,
             reg_mode=reg_mode, carry=carry)
-    _check_rank("gram_solve_tiles_dense", k)
     dev = g.device
     require(g, "g", torch.float32, (c, k))
     require(rt, "rt", torch.float32, (nt * t,))

@@ -86,13 +86,15 @@ def reg_solve_plain(a: torch.Tensor, b: torch.Tensor, reg: torch.Tensor, *,
 def reg_solve(a: torch.Tensor, b: torch.Tensor, reg: torch.Tensor, *,
               lam: float = 0.0, reg_mode: str = "diag") -> torch.Tensor:
     """Regularize and solve a batch of SPD systems: a [E,k,k] f32, b [E,k]
-    f32, reg [E] counts (diag) or [k,k] (matrix) → x [E,k] f32."""
+    f32, reg [E] counts (diag) or [k,k] (matrix) → x [E,k] f32; k ≤ 128 on
+    every device (above it the half-steps take the split route,
+    ``ops.solve.batched_spd_solve``)."""
     e, k = b.shape
     check_reg(reg, reg_mode, e, k)
-    if not on_cuda(a, b, reg):
-        return reg_solve_plain(a, b, reg, lam=lam, reg_mode=reg_mode)
     if not 1 <= k <= MAX_RANK:
         raise ValueError(f"reg_solve supports rank 1..{MAX_RANK}, got {k}")
+    if not on_cuda(a, b, reg):
+        return reg_solve_plain(a, b, reg, lam=lam, reg_mode=reg_mode)
     require(a, "a", torch.float32, (e, k, k))
     require(b, "b", torch.float32, (e, k))
     reg32 = reg.to(torch.float32).contiguous()

@@ -22,7 +22,12 @@ blocked Schur solve (``gauss_solve_multi``, three batched float32
 contractions, ``gauss_solve`` on the Schur complement) for 64 < k ≤ 128
 (``cfk_tpu/ops/solve.py:310-390``).  Their kernels run K1's blocked
 Cholesky, so the split route's x equals the fused route's bit for bit
-wherever both add the same ridge to the same sums.
+wherever both add the same ridge to the same sums.  Above k = 128 both
+epilogue settings take that split route, as the reference's rank gate
+routes them (``cfk_tpu/ops/solve.py:441-443, 480-481``), and the dispatch
+solves with ``batched_spd_solve`` — PyTorch's batched Cholesky, the
+counterpart of the XLA Cholesky the JAX package falls back to there: it has
+no kernel above that rank, so neither has the port.
 
 ``solver`` picks the route of every solve and Gram kernel: ``"auto"`` calls
 the kernel wrappers (the CUDA kernels for CUDA tensors, their plain versions
@@ -37,7 +42,6 @@ from __future__ import annotations
 
 import torch
 
-from cfk_tpu_torch.ops.kernels import on_cuda
 from cfk_tpu_torch.ops.kernels.solve_kernel import (
     GJ_MAX_RANK,
     MAX_RANK,
@@ -87,11 +91,25 @@ def resolve_fused_epilogue(fused: bool | None) -> bool:
 
 
 def resolve_fused_chunk(fused: bool | None, k: int) -> bool:
-    """Whether a tiled chunk runs its fused Gram + solve kernel (K3 for the
-    dense stream, K6 for the stream): the knob, and a rank those kernels
-    take.  A rank they refuse goes to the split schedule, as in
-    ``cfk_tpu/plan/registry.py:322-360`` — both schedules run kernels."""
+    """Whether a chunk or width class runs its fused Gram + solve kernel
+    (K3 for the dense stream, K6 for the stream and the bucketed classes),
+    and whether a batch takes K1's one pass: the knob, and a rank those
+    kernels take.  A rank they refuse goes to the split schedule, as in
+    ``cfk_tpu/plan/registry.py:322-360`` and ``cfk_tpu/ops/solve.py:
+    441-443`` — both schedules run kernels."""
     return resolve_fused_epilogue(fused) and 1 <= k <= MAX_RANK
+
+
+def batched_spd_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The SPD solve above k = 128: a [E,k,k], b [E,k] → x [E,k] by
+    PyTorch's batched Cholesky (``cholesky_ex``, so a system that is not SPD
+    gives a non-finite row, as the kernels do, instead of raising) and two
+    triangular solves.  The counterpart of ``cfk_tpu/ops/solve.py:79-91``,
+    XLA's Cholesky, which the JAX package runs at k > 128 outside any Pallas
+    kernel; chosen by rank before any launch.  Reads only the lower
+    triangle of ``a``."""
+    chol, _ = torch.linalg.cholesky_ex(a)
+    return torch.cholesky_solve(b.unsqueeze(-1), chol).squeeze(-1)
 
 
 def blocked_spd_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -127,23 +145,15 @@ def dispatch_spd_solve(a: torch.Tensor, b: torch.Tensor,
     """Solve batched SPD systems a [E,k,k], b [E,k] → x [E,k] (no ridge).
 
     ``"auto"``: ``gauss_solve`` for k ≤ 64 (on the batch-last view of the
-    batch), the blocked Schur solve for 64 < k ≤ 128; on CUDA a
-    larger rank raises (the JAX package falls back to XLA's Cholesky
-    there; the port has no kernel for it yet), on the CPU it takes the
-    plain Cholesky as the JAX package does.  ``"cholesky"`` (CPU only):
-    the plain Cholesky.  The counterpart of ``cfk_tpu/ops/solve.py:
-    360-389``."""
+    batch), the blocked Schur solve for 64 < k ≤ 128, ``batched_spd_solve``
+    above, as the JAX package's pallas solver falls back to XLA's Cholesky
+    there.  ``"cholesky"`` (CPU only): the plain Cholesky.  The
+    counterpart of ``cfk_tpu/ops/solve.py:360-389``."""
     k = a.shape[-1]
     if not use_kernels(solver, a.device):
         return spd_solve_plain(a, b)
     if k > 2 * GJ_MAX_RANK:
-        if on_cuda(a, b):
-            raise ValueError(
-                f"the split solve supports rank <= {2 * GJ_MAX_RANK} on "
-                f"CUDA, got {k}; use the fused epilogue (fused_epilogue="
-                "None/True) at this rank"
-            )
-        return spd_solve_plain(a, b)
+        return batched_spd_solve(a, b)
     if k > GJ_MAX_RANK:
         return blocked_spd_solve(a, b)
     return gauss_solve(a.permute(1, 2, 0), b.T).T.contiguous()
@@ -154,12 +164,13 @@ def regularized_solve(a: torch.Tensor, b: torch.Tensor, count: torch.Tensor,
                       fused: bool | None = None) -> torch.Tensor:
     """Apply ALS-WR regularization λ·max(n, 1)·I and solve.
 
-    Fused (the default): K1's one pass.  Split (``fused=False``): the
+    Fused (the default, k ≤ 128): K1's one pass.  Split (``fused=False``,
+    or any k > 128, where K1 does not reach — ``resolve_fused_chunk``): the
     ridge is added IN PLACE into ``a`` — the caller's batch is consumed (at
     the ML-25M shape and rank 128 a second [E, k, k] copy would be 3.9 GB)
     — λ·max(n, 1) rounded, then one add, as K1 adds it — and
     ``dispatch_spd_solve`` solves."""
-    if resolve_fused_epilogue(fused):
+    if resolve_fused_chunk(fused, a.shape[-1]):
         solve = reg_solve if use_kernels(solver, a.device) else reg_solve_plain
         return solve(a, b, count, lam=lam, reg_mode="diag")
     ridge = lam * count.to(torch.float32).clamp_min(1.0)
@@ -171,9 +182,9 @@ def regularized_solve_matrix(a: torch.Tensor, b: torch.Tensor,
                              reg: torch.Tensor, solver: str = "auto",
                              fused: bool | None = None) -> torch.Tensor:
     """Solve (A_e + R) x_e = b_e with one shared [k,k] term R (iALS:
-    YᵀY + λI): fused, K1's matrix mode; split, R added IN PLACE into ``a``
-    (see ``regularized_solve``), then ``dispatch_spd_solve``."""
-    if resolve_fused_epilogue(fused):
+    YᵀY + λI): fused (k ≤ 128), K1's matrix mode; split, R added IN PLACE
+    into ``a`` (see ``regularized_solve``), then ``dispatch_spd_solve``."""
+    if resolve_fused_chunk(fused, a.shape[-1]):
         solve = reg_solve if use_kernels(solver, a.device) else reg_solve_plain
         return solve(a, b, reg, reg_mode="matrix")
     a.add_(reg.to(torch.float32))
@@ -288,9 +299,10 @@ def als_half_step_bucketed(
     """One ALS-WR half-iteration over width-bucketed InBlocks: every width
     class through K6 with one tile per entity (``ops.bucketed``), or, with
     ``in_kernel_gather=False``, through K5 and ``gram_solve_tiles``; with
-    ``fused_epilogue=False`` each class's (A, b) goes to device memory (K2,
-    or K5 and ``gram_tiles``) and K1 solves it.  Rows in no bucket (zero
-    ratings) stay exactly 0.
+    ``fused_epilogue=False`` — or at k > 128, which K6 does not take — each
+    class's (A, b) goes to device memory (K2, or K5 and ``gram_tiles``) and
+    K1 solves it (the ridge add and ``batched_spd_solve`` above 128).  Rows
+    in no bucket (zero ratings) stay exactly 0.
 
     Each width class is one launch: the builder's ``chunk_rows`` hints
     bound a materialized [chunk, width, k] gather, and K6 materializes
@@ -304,7 +316,7 @@ def als_half_step_bucketed(
 
     k = fixed_factors.shape[-1]
     gather = resolve_gather_mode(in_kernel_gather)
-    fused = resolve_fused_epilogue(fused_epilogue)
+    fused = resolve_fused_chunk(fused_epilogue, k)
 
     def solve_piece(ni, rt, mk, cnt, units):
         return bucket_gram_solve(fixed_factors, ni, mk, rt, cnt, lam=lam,
@@ -344,7 +356,7 @@ def ials_half_step_bucketed(
 
     k = fixed_factors.shape[-1]
     gather = resolve_gather_mode(in_kernel_gather)
-    fused = resolve_fused_epilogue(fused_epilogue)
+    fused = resolve_fused_chunk(fused_epilogue, k)
     if gram is None:
         gram = global_gram_blocked(fixed_factors)
     reg_m = implicit_reg(gram, lam)

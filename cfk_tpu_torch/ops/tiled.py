@@ -88,8 +88,10 @@ def resolve_gather_mode(in_kernel_gather: bool | None) -> str:
     The TPU gates that route a refused shape to the stream there — the
     resident-output VMEM cap, the kernels' SMEM/alignment gate, the
     ``mosaic_tpu`` backend's availability, the probe stages — have no
-    counterpart: both routes' kernels take every rank up to their own cap
-    (128), past which they raise, on either setting."""
+    counterpart: both routes' kernels take every rank their schedule runs
+    at, on either setting — the fused Gram + solve kernels up to 128, the
+    split Gram kernels any rank (past 128 every chunk takes the split
+    schedule, ``resolve_fused_chunk``)."""
     return "fused" if in_kernel_gather is None or in_kernel_gather else "xla"
 
 
@@ -213,12 +215,14 @@ def _chunk_scan(fixed_factors, blk, local_entities, lam, nc, e_c, chunk,
                                    reg_mode=reg_mode, carry=(a0, b0, cin))
         else:
             a, b = gram(rows, **args, carry=(a0, b0, cin))
+            # The raw carry row first: above k = 128 the solve adds the
+            # ridge into ``a`` in place.
+            ls = lseg.long()
+            a0, b0 = a.index_select(0, ls)[0], b.index_select(0, ls)[0]
             if implicit_reg is None:
                 x = regularized_solve(a, b, reg, lam, solver, fused=True)
             else:
                 x = regularized_solve_matrix(a, b, reg, solver, fused=True)
-            ls = lseg.long()
-            a0, b0 = a.index_select(0, ls)[0], b.index_select(0, ls)[0]
         xs[c] = x[:e_c]
     out = fixed_factors.new_zeros(local_entities + 1, k)
     out[blk["chunk_entity"].long()] = xs.view(nc * e_c, k)

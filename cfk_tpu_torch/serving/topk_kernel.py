@@ -10,8 +10,8 @@ scores one [B, tile_m] block at a time, as the JAX package's fold does).
 The CUDA kernel runs two launches.  Pass 1's grid is (user blocks of 16 or
 32) × splits of the table's 256-row tiles (``split_plan``): a CTA scores a
 [users, 256] tile at a time — FP32 FMAs from register micro-tiles for f32
-and int8 tables (int8 codes converted once per staged slice, the row scale
-applied to the finished sum), ``mma.sync`` bf16 tensor-core products for a
+and int8 tables (each int8 code times its row's scale, once per staged
+slice, then the f32 products), ``mma.sync`` bf16 tensor-core products for a
 bf16 table — then its warps select from the tile, each warp for its own
 users: the scores above the user's running K-th best are sorted in
 registers and merged into the user's sorted top list, whose K-th key is the

@@ -88,6 +88,26 @@ Phases, each of which must pass:
              versions and their gather siblings, with times and bounds, and
              both stream kernels' time on every chunk beside its largest
              segment;
+4d. rank256 — explicit ALS-WR above the fused kernels' rank cap (128) on
+             the same dataset: ``train_als`` at rank 256, λ 0.05, default
+             knobs, 2 iterations — every chunk takes the split schedule, as
+             in the JAX package (accum half: K2 per chunk, the ridge add,
+             ``batched_spd_solve``, PyTorch's batched Cholesky, on the
+             17,770 accumulated Grams; dense half: the split dense Gram per
+             chunk, the ridge add and ``batched_spd_solve``) — then 1
+             iteration with the gather off (K5 + rows 5 and 4); launch
+             counts zeroed before each run and read after (the split Grams
+             > 0; K1, K3, K6, rows 6, 7, 11, 12 = 0), s/iter, peak memory,
+             the train RMSE guard; the first movie half with the gather off
+             against on (bit-equal) and against a float64 solve of the same
+             Grams plus their ridge (TOL "float64_r256"); rows 2 and 5 on
+             the middle accum chunk and rows 9 and 4 on the middle dense
+             chunk (its real carry) at k = 256 against their plain versions
+             (TOL "gram_r256"), each twin bit-equal to its sibling, with ms
+             and bound (the kernels line's ``k256``); the Cholesky route's
+             ms on the movie accumulator and on the middle dense chunk's
+             Grams; each half's device ms and a profiler pass over one
+             iteration;
 5. serve   — top-K serving at the repo's serving configuration (``bench.py
              --serve``: 162,541 users x 59,047 movies, the ML-25M shape,
              rank 128, K = 100, tile_m 2048, seen lists at the ML-25M mean;
@@ -98,7 +118,9 @@ Phases, each of which must pass:
              an open-loop run through ``RecommendServer`` (70% of the
              measured capacity, 256 requests) drive it, and the count must be
              > 0; then K4 on that batch's own arguments against its plain
-             version, exact-mode ids against the dense route, no [B, M]
+             version (f32 and int8 tables exactly — values and ids bit
+             for bit; bf16 within TOL), exact-mode ids against the dense
+             route, no [B, M]
              allocation during a K4 call, times (the whole call, each of
              its two launches from torch.profiler, the bound — for a bf16
              table at the tensor cores' bf16 rate — and the library's), and
@@ -162,6 +184,12 @@ Phases, each of which must pass:
              first iteration (first movie half and scores, TOL), with its
              s/iter beside the fused run's and a profiler pass over one
              split iteration beside the fused one's;
+6d. implicit_r256 — one warm-started ``train_ials`` call of (a) at rank
+             256 on the implicit phase's tiled blocks (weighted K2 and the
+             split dense Gram in matrix mode, YᵀY + λI added in place before
+             ``batched_spd_solve``): launch counts, the objective must fall,
+             the first movie half against ``first_half_reference`` on the
+             five widest and five random movies;
 7. small   — ``train_als`` on small padded, tiled (dense stream, and the
              stream mode fused and split) and bucketed datasets (ALS and
              ALS++) and ``train_ials`` on small tiled and bucketed ones (iALS
@@ -171,7 +199,9 @@ Phases, each of which must pass:
 8. cli     — ``python -m cfk_tpu_torch train --layout auto --checkpoint-dir``
              on a small Netflix-format file (padded is chosen), then
              ``recommend``, ``predict``, ``evaluate`` on predict's CSV (the
-             train MSE again) and ``serve`` (every request answered); then
+             train MSE again) and ``serve`` (every request answered);
+             ``train --layout padded --rank 256`` on the card and the CPU
+             (MSEs within 1e-3 of each other); then
              ``train --implicit --algorithm ials++ --eval-ranking 10`` on a
              small planted MovieLens-format file, whose Recall@10 and MPR on
              the card must equal the CPU run's.
@@ -247,6 +277,20 @@ RANK, LAM, ITERS = 64, 0.05, 3
 # (checked above 1e-3 on every run), and with its inverse rounded to
 # bfloat16 5.7e-3 (the CPU, the same inputs); the card's TF32 products are
 # reported beside them.
+# K4 with an f32 or int8 table at the serve configurations: exact (values
+# and ids, tolerance 0) — an int8 row is dequantized code by code before the
+# f32 products, so both kinds sum Σ (code·scale)·u in the plain version's
+# order (bf16, the tensor cores' sums, stays at "topk_scores").
+# Above rank 128 (phase 4d): the four split Gram kernels against their plain
+# versions at 1e-5 ("gram_r256"); the first movie half against a float64
+# solve of the same float32 Grams at 1e-4 of max|x| ("float64_r256": the
+# float32 Cholesky alone).  Implicit (a)'s first movie half at rank 256
+# against ``first_half_reference`` (Grams and solve in float64) stays at
+# "first_half_factors" (1e-3): on a small ML-25M-shaped case (3,000 users,
+# 400 movies, 60,000 interactions, U(0, 1) u0, α 40) the JAX package's own
+# float32 route ends 3e-4–6.5e-4 from that reference and the port's CPU
+# route 2e-5–1.3e-4 — the float32 Gram sums of up to a million rows,
+# amplified by the systems' condition numbers, which grow with k.
 TOL = {"reg_solve": 1e-3, "gram_gather": 1e-4, "gram_solve_dense": 1e-3,
        "topk_scores": 1e-5, "gather_rows": 0.0, "gram_solve_gather": 1e-3,
        "gram_tiles_dense_gather": 1e-4, "gauss_solve": 1e-3,
@@ -255,7 +299,8 @@ TOL = {"reg_solve": 1e-3, "gram_gather": 1e-4, "gram_solve_dense": 1e-3,
        "gram_solve_tiles_dense": 1e-3, "split_first_half": 1e-3,
        "first_half_factors": 1e-3, "scores": 1e-3,
        "binv_solve_reg": 1e-3, "binv_inv": 1e-3, "binv_float64": 1e-2,
-       "reg_solve_float64": 2 * 6.17e-5}
+       "reg_solve_float64": 2 * 6.17e-5, "topk_exact": 0.0,
+       "gram_r256": 1e-5, "float64_r256": 1e-4}
 # K1's relative x error against float64 on the binv phase's inputs (k = 128,
 # condition numbers to 4.5e3) when it factored one column at a time
 # (NVIDIA H100 80GB HBM3, 700 W): the blocked solve is held to twice it
@@ -278,9 +323,13 @@ REPLACES = {
     "binv_solve_reg": "scripts/exp_binv.py:154",
     "binv_inv": "scripts/exp_binv.py:271",
 }
-# Fields of the kernels line beyond the contract's: K1 below one wave.
+# Fields of the kernels line beyond the contract's: K1 below one wave; the
+# split Grams at rank 256 (phase 4d, ``k256``: its launches, ms, bound).
 LINE_EXTRA = {"gauss_solve": ("ms_schur", "bound_ms_schur",
                               "library_ms_schur"),
+              "gram_gather": ("k256",), "gram_tiles": ("k256",),
+              "gram_tiles_dense": ("k256",),
+              "gram_tiles_dense_gather": ("k256",),
               "topk_scores": ("configs",),
               "reg_solve": ("ms_k128_e1", "bound_ms_k128_e1", "ms_k128_e203",
                             "bound_ms_k128_e203")}
@@ -289,6 +338,11 @@ LINE_EXTRA = {"gauss_solve": ("ms_schur", "bound_ms_schur",
 # path's movie Grams at k = 64; matrix mode at the ML-25M movie count.
 BINV = dict(k=128, e=(334 * 16 // 128) * 128, lam=0.05, matrix_e=59_047)
 SPLIT_ITERS = 2
+# Phase 4d: explicit ALS-WR at rank 256 on the main phase's Netflix blocks,
+# default knobs (every chunk takes the split schedule above 128), then the
+# same with the gather off; and one call of implicit (a) at rank 256 on the
+# implicit phase's ML-25M blocks.  Nothing is cut.
+R256 = dict(rank=256, iterations=2, gather_off_iterations=1)
 GATHER_OFF_ITERS = 2  # the gather-off runs, fused and split
 # bench.py's implicit rows (bench.py:448-503): the ML-25M shape at rank 128.
 ML25M = dict(num_users=162_541, num_movies=59_047, nnz=25_000_095)
@@ -1764,6 +1818,209 @@ class Smoke:
         return dict(gram_tiles=summary(ms_m, big_m, work_m),
                     gram_solve_tiles_dense=summary(ms_u, big_u, work_u))
 
+    def rank256(self, ds, model, blk_m, blk_u):
+        """ALS-WR above the fused kernels' cap on the main path's dataset
+        (phase 4d of the module docstring)."""
+        import numpy as np
+        import torch
+
+        from cfk_tpu_torch import ALSConfig, train_als
+        from cfk_tpu_torch.eval.metrics import mse_rmse_from_model
+        from cfk_tpu_torch.models.als import init_user_factors
+        from cfk_tpu_torch.ops.kernels import gram_kernel as gk
+        from cfk_tpu_torch.ops.kernels.solve_kernel import (
+            gauss_solve, gauss_solve_multi, reg_solve)
+        from cfk_tpu_torch.ops.solve import batched_spd_solve
+        from cfk_tpu_torch.ops.tiled import (
+            accum_chunk, accum_grams, dense_chunk, tiled_half_step)
+
+        dev = torch.device("cuda")
+        k = R256["rank"]
+        grams = (gk.gram_gather, gk.gram_tiles_dense_gather, gk.gram_tiles,
+                 gk.gram_tiles_dense, gk.gather_rows)
+        refused = (reg_solve, gk.gram_solve_dense, gk.gram_solve_gather,
+                   gk.gram_solve_tiles, gk.gram_solve_tiles_dense,
+                   gauss_solve, gauss_solve_multi)
+        std = float(np.std(ds.coo_dense.rating.astype(np.float64)))
+        report = dict(rank=k, lam=LAM, linalg_library=str(
+            torch.backends.cuda.preferred_linalg_library()))
+        launches = {}
+        # -- the path: train_als at rank 256, gather on, then off -----------
+        for name, gather, iters, needed in (
+                ("gather_on", None, R256["iterations"],
+                 ("gram_gather", "gram_tiles_dense_gather")),
+                ("gather_off", False, R256["gather_off_iterations"],
+                 ("gather_rows", "gram_tiles", "gram_tiles_dense"))):
+            config = ALSConfig(rank=k, lam=LAM, num_iterations=iters,
+                               seed=0, layout="tiled",
+                               in_kernel_gather=gather)
+            torch.cuda.reset_peak_memory_stats()
+            for fn in grams + refused:
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run = train_als(ds, config, device=dev)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            n = {fn.__name__: fn.launches for fn in grams + refused}
+            launches[name] = n
+            for kname in n:
+                want_some = kname in needed
+                self.check((n[kname] > 0) == want_some,
+                           f"rank256 {name}: {kname} launched {n[kname]} "
+                           f"times")
+            u, m = run.user_factors, run.movie_factors
+            self.check(tuple(u.shape) == (NETFLIX["num_users"], k)
+                       and tuple(m.shape) == (NETFLIX["num_movies"], k)
+                       and bool(torch.isfinite(u).all()
+                                and torch.isfinite(m).all()),
+                       f"rank256 {name}: factors {tuple(u.shape)} "
+                       f"{tuple(m.shape)} or non-finite")
+            mse, rmse = mse_rmse_from_model(run, ds)
+            # One iteration does not yet reach the guard at this rank (RMSE
+            # 1.511 against a 1.414 std on an H100, PERF.md §6): the
+            # gather-off run is held to the gather-on one by its first movie
+            # half, bit for bit, below.
+            if iters > 1:
+                self.check(rmse < std, f"rank256 {name}: train RMSE {rmse} "
+                           f">= rating std {std}")
+            report[name] = dict(
+                iterations=iters, train_s=train_s, s_per_iter=train_s / iters,
+                train_mse=mse, train_rmse=rmse, rating_std=std, launches=n,
+                launches_per_iter={key: v / iters for key, v in n.items()},
+                peak_device_bytes=torch.cuda.max_memory_allocated())
+            log(f"rank256 {name}: {report[name]}")
+            del run, u, m
+        torch.cuda.empty_cache()
+        # -- the first movie half: gather off against on, and float64 --------
+        em = ds.movie_blocks.padded_entities
+        eu = ds.user_blocks.padded_entities
+        st_m, st_u = ds.movie_blocks.statics, ds.user_blocks.statics
+        mc, uc = ("tiled", "accum") + st_m, ("tiled", "dstream") + st_u
+        u0, _ = init_user_factors(ds, blk_u, ALSConfig(rank=k, seed=0), dev,
+                                  None)
+        m_on = tiled_half_step(u0, blk_m, mc, em, LAM)
+        m_off = tiled_half_step(u0, blk_m, mc, em, LAM, in_kernel_gather=False)
+        report["first_movie_half_gather_off_bit_equal"] = bool(
+            torch.equal(m_on, m_off))
+        self.check(report["first_movie_half_gather_off_bit_equal"],
+                   f"rank256: gather-off first movie half differs from "
+                   f"gather-on by {rel_err(m_off, m_on)}")
+        del m_off
+        a, b = accum_grams(u0, blk_m, em, statics=st_m)
+        ridge = LAM * blk_m["count"].to(torch.float32).clamp_min(1.0)
+        a.diagonal(dim1=-2, dim2=-1).add_(ridge[:, None])  # as the half does
+        diff = top = 0.0
+        for lo in range(0, em, 2048):
+            x64 = torch.linalg.solve(a[lo:lo + 2048].double(),
+                                     b[lo:lo + 2048].double())
+            diff = max(diff, float((m_on[lo:lo + 2048].double()
+                                    - x64).abs().max()))
+            top = max(top, float(x64.abs().max()))
+        report["first_movie_half_vs_float64"] = diff / top
+        self.check(diff / top < TOL["float64_r256"],
+                   f"rank256: first movie half vs float64 {diff / top}")
+        # -- the Cholesky route on the path's two batch shapes ---------------
+        chol = dict(movie_systems=em, movie_ms=time_ms(
+            lambda: batched_spd_solve(a, b), 3))
+        del a, b
+        torch.cuda.empty_cache()
+        # -- the four split Gram kernels at k = 256, middle chunks -----------
+        mid = st_m[0] // 2
+        args = with_plan(accum_chunk(blk_m, st_m, mid), blk_m, mid)
+        g = gk.gather_rows(u0, args["nb"], args["wt"])
+        rest = {n: v for n, v in args.items() if n not in ("nb", "wt")}
+        cases = {"gram_gather": (lambda: gk.gram_gather(u0, **args),
+                                 lambda: gk.gram_gather_plain(u0, **args),
+                                 gram_gather_work(u0, args)),
+                 "gram_tiles": (lambda: gk.gram_tiles(g, **rest),
+                                lambda: gk.gram_tiles_plain(g, **rest),
+                                stream_gram_work(g, rest))}
+        self.split_grams_r256(cases, mid, launches, "gram_gather")
+        del g, cases
+        mid = st_u[0] // 2
+        a0 = torch.zeros((k, k), device=dev)
+        b0 = torch.zeros((k,), device=dev)
+        for ci in range(mid + 1):
+            args = with_plan(dense_chunk(blk_u, st_u, ci), blk_u, ci)
+            cin, lseg = args.pop("cin"), args.pop("lseg")
+            reg = args.pop("reg")
+            carry = (a0, b0, cin)
+            if ci < mid:
+                a, b = gk.gram_tiles_dense_gather(m_on, **args, carry=carry)
+                a0 = a.index_select(0, lseg.long())[0]
+                b0 = b.index_select(0, lseg.long())[0]
+                del a, b
+        g = gk.gather_rows(m_on, args["nb"], args["wt"])
+        rest = {n: v for n, v in args.items() if n not in ("nb", "wt")}
+        cases = {"gram_tiles_dense_gather": (
+                     lambda: gk.gram_tiles_dense_gather(m_on, **args,
+                                                        carry=carry),
+                     lambda: gk.gram_tiles_dense_gather_plain(m_on, **args,
+                                                              carry=carry),
+                     gram_tiles_dense_gather_work(m_on, args)),
+                 "gram_tiles_dense": (
+                     lambda: gk.gram_tiles_dense(g, **rest, carry=carry),
+                     lambda: gk.gram_tiles_dense_plain(g, **rest,
+                                                       carry=carry),
+                     stream_dense_work(g, rest))}
+        a, b = self.split_grams_r256(cases, mid, launches,
+                                     "gram_tiles_dense_gather")
+        del g, cases
+        a.diagonal(dim1=-2, dim2=-1).add_(
+            (LAM * reg.to(torch.float32).clamp_min(1.0))[:, None])
+        chol.update(dense_chunk_systems=int(a.shape[0]), dense_chunk_ms=(
+            time_ms(lambda: batched_spd_solve(a, b), 3)))
+        report["cholesky"] = chol
+        log(f"rank256 Cholesky route ({report['linalg_library']}): {chol}")
+        del a, b
+        torch.cuda.empty_cache()
+        # -- where one iteration's time goes --------------------------------
+        movie = functools.partial(tiled_half_step, u0, blk_m, mc, em, LAM)
+        user = functools.partial(tiled_half_step, m_on, blk_u, uc, eu, LAM)
+        report["half_ms"] = {"movie_accum": time_ms(movie, 1),
+                             "user_dstream": time_ms(user, 1)}
+        report["profile"] = profile_calls(lambda: (movie(), user()), 1)
+        log(f"rank256 halves {report['half_ms']} ms, profile of one "
+            f"iteration: {report['profile']}")
+        del movie, user, u0, m_on
+        self.report["rank256"] = report
+
+    def split_grams_r256(self, cases, chunk, launches, sibling):
+        """Each split Gram kernel of ``cases`` (name → kernel call, plain
+        call, (bytes, flops, counts)) at rank 256 against its plain version
+        (TOL "gram_r256"), its stream twin bit-equal to the gather
+        ``sibling``, with ms and bound: the kernels line's ``k256``.
+        Returns the sibling's (A, b)."""
+        import torch
+
+        out = {}
+        for name, (call, plain, (nbytes, flops, counts)) in cases.items():
+            got = out[name] = call()
+            torch.cuda.synchronize()
+            want = plain()
+            errs = [rel_err(x, y) for x, y in zip(got, want)]
+            del want
+            b_ms, by = bound(nbytes, flops)
+            run = "gather_on" if name in ("gram_gather",
+                                          "gram_tiles_dense_gather") \
+                else "gather_off"
+            row = dict(launches=launches[run][name],
+                       max_abs_err=max(e[0] for e in errs),
+                       rel_err=max(e[1] for e in errs), ms=time_ms(call, 5),
+                       plain_ms=time_ms(plain, 2), bound_ms=b_ms,
+                       bound_by=by, library_ms=None, chunk=chunk, **counts)
+            if name != sibling:
+                row["bit_equal_to_gather_sibling"] = all(
+                    torch.equal(x, y) for x, y in zip(got, out[sibling]))
+                self.check(row["bit_equal_to_gather_sibling"],
+                           f"rank256: {name} not bit-equal to {sibling}")
+            self.kernels.setdefault(name, {})["k256"] = row
+            log(f"rank256 {name}: {row}")
+            self.check(row["rel_err"] < TOL["gram_r256"],
+                       f"rank256: {name} rel err {row['rel_err']}")
+        return out[sibling]
+
     def serve(self):
         import numpy as np
         import torch
@@ -1869,7 +2126,12 @@ class Smoke:
                 torch.cuda.synchronize()
                 want = topk_scores_plain(*a, **kw)
                 ext = topk_scores_plain(*a, **dict(kw, k_top=k + 1))
-                par = compare_topk(*got, *want, ext[0], tol=TOL["topk_scores"])
+                exact = td in ("float32", "int8")
+                par = compare_topk(*got, *want, ext[0], tol=TOL[
+                    "topk_exact" if exact else "topk_scores"])
+                if exact:
+                    par["ok"] &= bool(torch.equal(got[0], want[0])
+                                      and torch.equal(got[1], want[1]))
                 self.check(par["ok"], f"serve {name}: K4 vs plain {par}")
                 row = dict(mode=mode, table_dtype=td, batch=b,
                            k4_rows=int(a[1].shape[0]),
@@ -2207,6 +2469,70 @@ class Smoke:
         self.implicit_kernel_checks(ds_t, ds_b, blocks["ials_tiled"], runs,
                                     report)
         return ds_t, ds_b, ds_s, u0, m0, runs
+
+    def implicit_r256(self, ds_t, ds_b, ds_s, u0, m0, runs):
+        """Implicit (a) above the fused kernels' cap (phase 6d of the
+        module docstring): one warm-started ``train_ials`` call at rank 256
+        on the implicit phase's tiled ML-25M blocks."""
+        import numpy as np
+        import torch
+
+        from cfk_tpu_torch.models.ials import IALSConfig, train_ials
+        from cfk_tpu_torch.ops.kernels import gram_kernel as gk
+        from cfk_tpu_torch.ops.kernels.solve_kernel import (
+            gauss_solve, gauss_solve_multi, reg_solve)
+
+        c, k = IMPLICIT, R256["rank"]
+        dev = torch.device("cuda")
+        nu, nm = ML25M["num_users"], ML25M["num_movies"]
+        u0 = np.random.default_rng(0).random((nu, k), dtype=np.float32)
+        m0 = np.zeros((nm, k), np.float32)
+        d = ds_t.coo_dense
+        obs = [torch.as_tensor(x, device=dev) for x in (
+            d.user_raw.astype(np.int32), d.movie_raw.astype(np.int32),
+            d.rating)]
+        kernels = (gk.gram_gather, gk.gram_tiles_dense_gather, reg_solve,
+                   gk.gram_solve_dense, gauss_solve, gauss_solve_multi)
+        cfg = IALSConfig(rank=k, lam=c["lam"], alpha=c["alpha"],
+                         num_iterations=1, layout="tiled")
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = train_ials(ds_t, cfg, device=dev, warm_start=(u0, m0))
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        n = {fn.__name__: fn.launches for fn in kernels}
+        for kname, v in n.items():
+            self.check((v > 0) == (kname in ("gram_gather",
+                                              "gram_tiles_dense_gather")),
+                       f"implicit_r256: {kname} launched {v} times")
+        u, m = model.user_factors, model.movie_factors
+        self.check(bool(torch.isfinite(u).all() and torch.isfinite(m).all()),
+                   "implicit_r256: non-finite factors")
+        j0 = implicit_objective(torch.as_tensor(u0, device=dev),
+                                torch.as_tensor(m0, device=dev), *obs,
+                                c["lam"], c["alpha"])
+        j1 = implicit_objective(u, m, *obs, c["lam"], c["alpha"])
+        self.check(j1 < j0, f"implicit_r256: objective {j0} -> {j1}")
+        count = torch.bincount(obs[1].long(), minlength=nm)
+        sample = torch.cat([torch.topk(count, 5).indices, torch.as_tensor(
+            np.random.default_rng(0).choice(nm, 5, replace=False),
+            device=dev)])
+        ref = first_half_reference(u0, obs[1], obs[0], obs[2], sample,
+                                   c["lam"], c["alpha"])
+        vs64 = ((m[sample].double() - ref).abs().amax(1)
+                / ref.abs().amax(1)).tolist()
+        self.check(max(vs64) < TOL["first_half_factors"],
+                   f"implicit_r256: first movie half vs float64 {vs64}")
+        self.report["implicit_r256"] = dict(
+            rank=k, call_s=call_s, launches=n, objective=[j0, j1],
+            first_half_vs_float64=dict(movies=sample.tolist(),
+                                       interactions=count[sample].tolist(),
+                                       rel_err=vs64),
+            peak_device_bytes=torch.cuda.max_memory_allocated())
+        log(f"implicit_r256: {self.report['implicit_r256']}")
 
     def gather_implicit(self, ds_t, ds_b, ds_s, u0, m0, runs):
         """The materialized-stream schedule at the ML-25M shape (phase 6b of
@@ -2808,6 +3134,26 @@ class Smoke:
         mse_train = float(fields["mse"])
         self.check(abs(mse_eval - mse_train) <= 1e-4 * mse_train,
                    f"evaluate MSE {mse_eval} != train MSE {mse_train}")
+        # Above the fused kernels' cap: rank 256 on the padded layout (the
+        # split schedule's ridge add and Cholesky), the card against the CPU.
+        r256 = {}
+        for device in ("cuda", "cpu"):
+            out = subprocess.run(
+                [sys.executable, "-m", "cfk_tpu_torch", "train", "--data",
+                 str(data), "--layout", "padded", "--rank", "256",
+                 "--iterations", "2", "--device", device, "--output",
+                 "none"], cwd=ROOT, capture_output=True, text=True,
+                timeout=300)
+            log(f"cli train --rank 256 ({device}) rc={out.returncode}: "
+                f"{out.stdout.strip()} | {out.stderr.strip()[-300:]}")
+            self.check(out.returncode == 0,
+                       f"cli train --rank 256 ({device}) failed")
+            f = dict(kv.split("=", 1) for kv in out.stdout.split()
+                     if "=" in kv)
+            r256[device] = float(f.get("mse", "nan"))
+        self.check(abs(r256["cuda"] - r256["cpu"]) <= 1e-3 * r256["cpu"],
+                   f"cli train --rank 256: card MSE {r256['cuda']} vs CPU "
+                   f"{r256['cpu']}")
         # The serving verbs over the checkpoint train just wrote.
         serving = ["--checkpoint-dir", str(ckpt), "--data", str(data),
                    "--device", "cuda"]
@@ -2870,7 +3216,7 @@ class Smoke:
                    f"{ranking['cpu']}")
         self.check(mg < 0.4, f"cli implicit MPR {mg} not below chance")
         self.report["cli"] = dict(train=train.stdout.strip(),
-                                  evaluate_mse=mse_eval,
+                                  rank256_mse=r256, evaluate_mse=mse_eval,
                                   predict_mse=mse_pred, serve=row,
                                   implicit_ranking=ranking)
 
@@ -2901,6 +3247,8 @@ def main() -> int:
         smoke.phase("breakdown", smoke.breakdown, *main_out)
         smoke.phase("split", smoke.split, *main_out)
         smoke.phase("gather", smoke.gather, *main_out)
+        torch.cuda.empty_cache()
+        smoke.phase("rank256", smoke.rank256, *main_out)
         del main_out
         torch.cuda.empty_cache()
     if built:
@@ -2911,6 +3259,8 @@ def main() -> int:
             smoke.phase("gather_ml25m", smoke.gather_implicit,
                         *implicit_out)
             smoke.phase("split_ml25m", smoke.split_implicit, *implicit_out)
+            torch.cuda.empty_cache()
+            smoke.phase("implicit_r256", smoke.implicit_r256, *implicit_out)
         del implicit_out
         torch.cuda.empty_cache()
     smoke.phase("small", smoke.small_parity)

@@ -55,6 +55,7 @@ from cfk_tpu_torch.ops.kernels.solve_kernel import (
     spd_solve_plain,
 )
 from cfk_tpu_torch.ops.solve import (
+    batched_spd_solve,
     dispatch_spd_solve,
     regularized_solve,
     regularized_solve_matrix,
@@ -388,7 +389,8 @@ def test_split_solve_equals_reg_solve_bitwise(cuda, k):
 @pytest.mark.parametrize("k", [16, 72, 128])
 def test_dispatch_spd_solve_on_the_card(cuda, k):
     """The split solve: Gauss-Jordan (k ≤ 64) or the blocked Schur route
-    (64 < k ≤ 128) against the plain Cholesky; above 128 it raises."""
+    (64 < k ≤ 128) against the plain Cholesky; above 128 the route is
+    ``batched_spd_solve``, with no Gauss-Jordan launch."""
     a, b, _ = _spd_batch(257, k, k, cuda)
     a = a + 0.05 * k * torch.eye(k, device=cuda)
     before = (gauss_solve.launches, gauss_solve_multi.launches)
@@ -397,9 +399,13 @@ def test_dispatch_spd_solve_on_the_card(cuda, k):
     after = (gauss_solve.launches, gauss_solve_multi.launches)
     assert after == (before[0] + 1, before[1] + int(k > 64))
     assert _rel_err(got, spd_solve_plain(a, b)) < 1e-3
-    with pytest.raises(ValueError, match="split solve supports rank <= 128"):
-        dispatch_spd_solve(torch.eye(130, device=cuda)[None],
-                           torch.ones((1, 130), device=cuda))
+    a, b, _ = _spd_batch(5, 130, 130, cuda)
+    a = a + 0.05 * 130 * torch.eye(130, device=cuda)
+    got = dispatch_spd_solve(a, b)
+    torch.cuda.synchronize()
+    assert (gauss_solve.launches, gauss_solve_multi.launches) == after
+    assert torch.equal(got, batched_spd_solve(a, b))
+    assert _rel_err(got, spd_solve_plain(a, b)) < 1e-3
 
 
 def test_reg_solve_matrix_mode_on_implicit_grams(cuda):
@@ -731,9 +737,15 @@ def test_stream_kernels_equal_their_gather_siblings(cuda, k):
 def test_stream_kernels_refuse_what_they_do_not_take(cuda):
     table, nb, wt, args, carry, _ = _stream_chunk(8, cuda, 1)
     g = gather_rows(table, nb, wt)
-    wide = torch.zeros((g.shape[0], 129), device=cuda)
-    with pytest.raises(ValueError, match="gram_tiles supports rank 1..128"):
+    # the split entries take any rank an int indexes; the fused ones 128
+    wide = torch.zeros((), device=cuda).expand(g.shape[0], 46001)
+    with pytest.raises(ValueError, match="gram_tiles supports rank 1..46000"):
         gram_tiles(wide, **args)
+    reg = torch.ones(args["num_segments"], device=cuda)
+    with pytest.raises(ValueError,
+                       match="gram_solve_tiles supports rank 1..128"):
+        gram_solve_tiles(torch.zeros((g.shape[0], 129), device=cuda),
+                         **args, reg=reg, lseg=0)
     with pytest.raises(TypeError, match="g must be torch.float32"):
         gram_tiles(g.to(torch.bfloat16), **args)
     reg = torch.ones(args["num_segments"], device=cuda)
@@ -1146,3 +1158,153 @@ def test_split_segments_on_every_gram_kernel(cuda, k, walk):
     # The split and fused schedules solve the same sums: K1 on the Gram
     # kernel's (A, b) solves what the fused epilogue solves in place.
     assert torch.equal(reg_solve(*ab, counts, lam=0.05), x[0])
+
+
+# Ranks above 128.  The four split Gram kernels (K2, gram_tiles_dense_gather
+# and their stream twins gram_tiles, gram_tiles_dense) sum 128 x 128 block
+# pairs there (csrc/gram_kernels.cuh, gram_pair_kernel): against their plain
+# versions as below 128 (1e-5 of the largest |value| on a short chunk, 1e-4
+# with 200,000-row segments), each launched twice (bit-equal), each twin fed
+# K5's stream bit-equal to its gather sibling, every Gram exactly symmetric
+# (a block and its mirror are the same sums).  k = 129 leaves the last block
+# one column wide; 512 is 10 block pairs.  The fused kernels and K1 refuse
+# these ranks: the half-steps route them to the split Grams and
+# batched_spd_solve, PyTorch's Cholesky, held here to a float64 solve.
+
+_ABOVE_128 = [129, 136, 256, 512]
+
+
+def _symmetric(a):
+    return torch.equal(a, a.transpose(1, 2))
+
+
+@pytest.mark.parametrize("k", _ABOVE_128)
+def test_split_grams_above_128_match_plain(cuda, k):
+    table, nb, wt, args, carry, empty = _stream_chunk(k, cuda, 300 + k)
+    g = gather_rows(table, nb, wt)
+    got = _twice(gram_gather, table, nb, wt, **args, carry=carry)
+    want = gram_gather_plain(table, nb, wt, **args, carry=carry)
+    assert _rel_err(got[0], want[0]) < 1e-5 and _rel_err(got[1], want[1]) < 1e-5
+    assert _symmetric(got[0])
+    keep = torch.as_tensor(empty[empty != 0], device=cuda, dtype=torch.long)
+    assert not got[0][keep].any() and not got[1][keep].any()
+    twin = _twice(gram_tiles, g, **args, carry=carry)
+    assert all(torch.equal(x, y) for x, y in zip(twin, got))
+    rng = np.random.default_rng(k)
+    table, nb, wt, rt, meta, kw = _split_dense_case(k, rng, cuda)
+    kw = dict(kw, meta=meta, carry=carry)
+    got = _twice(gram_tiles_dense_gather, table, nb, wt, rt, **kw)
+    _check_gram(got, gram_tiles_dense_gather_plain(table, nb, wt, rt, **kw))
+    assert _symmetric(got[0])
+    twin = _twice(gram_tiles_dense, gather_rows(table, nb, wt), rt, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(twin, got))
+    table, nb, wt, rt, seg, s = _split_tile_case(k, rng, cuda)
+    kw = dict(seg=seg, num_segments=s, tile_rows=16, carry=carry)
+    got = _twice(gram_gather, table, nb, wt, rt, **kw)
+    _check_gram(got, gram_gather_plain(table, nb, wt, rt, **kw))
+    twin = _twice(gram_tiles, gather_rows(table, nb, wt), rt, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(twin, got))
+
+
+@pytest.mark.parametrize("k", [136, 256])
+def test_split_grams_above_128_on_a_dense_side(cuda, k):
+    """Every dense chunk of a real side at tile_rows 128, the carry
+    threaded, unit plans staged by the device upload."""
+    blocks, blk, table = _tiled_side(k, 128, 4096, cuda, accum=False)
+    a0 = torch.zeros((k, k), device=cuda)
+    b0 = torch.zeros((k,), device=cuda)
+    for c in range(blocks.num_chunks):
+        args = dense_chunk(blk, blocks.statics, c)
+        cin, _, lseg = args.pop("cin"), args.pop("reg"), args.pop("lseg")
+        got = gram_tiles_dense_gather(table, **args, carry=(a0, b0, cin))
+        torch.cuda.synchronize()
+        want = gram_tiles_dense_gather_plain(table, **args,
+                                             carry=(a0, b0, cin))
+        assert _rel_err(got[0], want[0]) < 1e-5
+        assert _rel_err(got[1], want[1]) < 1e-5
+        a0, b0 = got[0][int(lseg)], got[1][int(lseg)]
+
+
+def test_batched_spd_solve_matches_float64(cuda):
+    """The k > 128 solve at k = 256: ALS-shaped systems (a Gram of 2k
+    normal rows plus λ·max(n, 1)·I), 1e-4 of max|x| from float64."""
+    g = torch.Generator().manual_seed(256)
+    e, k = 300, 256
+    x = torch.randn((e, 2 * k, k), generator=g)
+    a = torch.einsum("enk,enl->ekl", x, x)
+    a.diagonal(dim1=1, dim2=2).add_(
+        0.05 * torch.randint(1, 400, (e, 1), generator=g).float())
+    b = torch.randn((e, k), generator=g)
+    got = batched_spd_solve(a.to(cuda), b.to(cuda))
+    want = torch.linalg.solve(a.double(), b.double())
+    assert _rel_err(got.cpu().double(), want) < 1e-4
+    assert _rel_err(dispatch_spd_solve(a.to(cuda), b.to(cuda)), got) == 0.0
+
+
+def test_fused_kernels_refuse_above_128(cuda):
+    table, nb, wt, args, carry, _ = _stream_chunk(129, cuda, 7)
+    reg = torch.ones(args["num_segments"], device=cuda)
+    with pytest.raises(ValueError, match="gram_solve_gather supports rank"):
+        gram_solve_gather(table, nb, wt, **args, reg=reg, lseg=0)
+    a, b, cnt = _spd_batch(3, 129, 1, cuda)
+    with pytest.raises(ValueError, match="reg_solve supports rank 1..128"):
+        reg_solve(a, b, cnt, lam=0.05)
+    blocks, blk, table = _tiled_side(136, 16, 4096, cuda, accum=False)
+    d = dense_chunk(blk, blocks.statics, 0)
+    d.pop("cin")
+    with pytest.raises(ValueError, match="gram_solve_dense supports rank"):
+        gram_solve_dense(table, **d, lam=0.05)
+
+
+@pytest.mark.parametrize("layout", ["tiled", "padded", "bucketed"])
+def test_train_als_above_128_on_the_card(cuda, layout):
+    """train_als at rank 136 on the card against the CPU's plain route
+    (1e-3 of the largest |factor|, the trainer tolerance), from the same
+    start: every route runs kernels (the split Grams, the dispatch's
+    Cholesky) and never K1 or a fused Gram kernel."""
+    from cfk_tpu_torch import ALSConfig, Dataset, train_als
+    from cfk_tpu_torch.ops.kernels import gram_kernel as gk
+
+    coo = synthetic_netflix_coo(600, 150, 9000, seed=4)
+    kw = dict(layout=layout, chunk_elems=2048)
+    if layout == "tiled":  # the accum movie half, the dense user half
+        kw.update(dense_stream=True, accum_max_entities=200)
+    ds = Dataset.from_coo(coo, **kw)
+    k = 136
+    u0 = (np.random.default_rng(5).random(
+        (ds.user_map.num_entities, k)).astype(np.float32),
+          np.zeros((ds.movie_map.num_entities, k), np.float32))
+    cfg = ALSConfig(rank=k, num_iterations=2, layout=layout)
+    fused = (gk.gram_solve_dense, gk.gram_solve_gather, gk.gram_solve_tiles,
+             gk.gram_solve_tiles_dense, reg_solve)
+    for fn in fused + (gk.gram_gather, gk.gram_tiles_dense_gather):
+        fn.launches = 0
+    card = train_als(ds, cfg, warm_start=u0, device="cuda")
+    cpu = train_als(ds, cfg, warm_start=u0, device="cpu")
+    assert all(fn.launches == 0 for fn in fused)
+    if layout != "padded":
+        assert gk.gram_gather.launches > 0
+    if layout == "tiled":
+        assert gk.gram_tiles_dense_gather.launches > 0
+    for got, want in ((card.user_factors, cpu.user_factors),
+                      (card.movie_factors, cpu.movie_factors)):
+        got, want = torch.as_tensor(got).cpu(), torch.as_tensor(want).cpu()
+        assert torch.isfinite(got).all()
+        assert _rel_err(got, want) < 1e-3
+
+
+@pytest.mark.parametrize("table_dtype", ["float32", "int8"])
+@pytest.mark.parametrize("b,two_stage", [(16, False), (64, False),
+                                         (256, False), (256, True)])
+def test_topk_scores_bit_equal_at_serve_shapes(cuda, table_dtype, b,
+                                               two_stage):
+    """At the serve configurations' shapes (rank 128, K = 100, 2,048-row
+    tiles, seen lists; the two-stage rescore's padded shortlist) an int8
+    table scores Σ (code·scale)·u, the plain version's order, so K4 returns
+    its values and ids bit for bit, as for an f32 table."""
+    u, data, scale, st = _topk_problem(29 + b, b, 6000, 128, 2048, 200,
+                                       table_dtype, cuda)
+    kw = dict(k_top=100, num_movies=6000, tile_m=2048)
+    if two_stage:
+        kw.update(num_movies=6144, row_offset=1200)
+    _check_topk(u, data, scale, st, exact=True, **kw)

@@ -18,7 +18,10 @@ passes), with the gather kernels K2 (accum chunks), K3 and
 ``gram_tiles_dense_gather`` (dense chunks) and, where the tree has them,
 their stream twins ``gram_tiles``, ``gram_solve_tiles_dense`` and
 ``gram_tiles_dense`` on the stream K5 writes (outside the timing) and K5
-itself.  ``--cache FILE`` keeps the built dataset in FILE (pickled; the
+itself, with a CRC-32 of every chunk's outputs of each; above rank 128 the
+fused K3 and ``gram_solve_tiles_dense`` take no part (they refuse the
+rank, as the half-steps route around them).  ``--cache FILE`` keeps the
+built dataset in FILE (pickled; the
 first process of a call writes it, the others read it), so turns at the
 full Netflix rating count (``--nnz 100480507``) do not each spend minutes
 building it.  ``--parts`` picks what runs (default ``grams,k1``):
@@ -78,10 +81,22 @@ def sample_clocks(clocks: list, what: str) -> None:
 
 
 def crc_of(crc: dict, name: str, *tensors) -> None:
-    """Fold the bytes of ``tensors`` into crc[name] (CRC-32)."""
+    """Fold the bytes of ``tensors`` into crc[name] (CRC-32).  A tensor of
+    more than 2^24 elements (a dense chunk's Gram batch, GBs) is folded in
+    as a digest made on the device: per run of 2^20 elements, the sum of
+    its 32-bit words times odd position weights, wrapping in int64 — any
+    changed bit changes it except by a 2^-64 coincidence."""
+    import torch
+
     for t in tensors:
-        crc[name] = zlib.crc32(t.detach().cpu().numpy().tobytes(),
-                               crc.get(name, 0))
+        t = t.detach()
+        if t.numel() > 1 << 24:
+            v = t.contiguous().view(-1).view(torch.int32).long()
+            v = torch.cat([v, v.new_zeros(-v.numel() % (1 << 20))])
+            w = torch.arange(1, 2 << 20, 2, device=v.device,
+                             dtype=torch.int64) * 0x9E3779B1
+            t = (v.view(-1, 1 << 20) * w).sum(1)
+        crc[name] = zlib.crc32(t.cpu().numpy().tobytes(), crc.get(name, 0))
 
 
 def main() -> int:
@@ -89,7 +104,7 @@ def main() -> int:
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--label", default="tree")
     ap.add_argument("--nnz", type=int, default=10_000_000)
-    ap.add_argument("--rank", type=int, default=64)
+    ap.add_argument("--rank", type=int, default=64)  # any: 256 for the blocks
     ap.add_argument("--reps", type=int, default=2)
     ap.add_argument("--cache", default=None)
     ap.add_argument("--parts", default="grams,k1")
@@ -123,7 +138,7 @@ def main() -> int:
     if "k4" in parts:
         out.update(k4_rows(dev, crc, clocks))
     if "grams" in parts:
-        out.update(gram_rows(args, dev))
+        out.update(gram_rows(args, dev, crc))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -395,7 +410,7 @@ def k6_rows(dev, crc: dict) -> dict:
             "gram_solve_gather_ials_b_head_class": head[1]}
 
 
-def gram_rows(args, dev) -> dict:
+def gram_rows(args, dev, crc) -> dict:
     import torch
 
     from cfk_tpu_torch import Dataset
@@ -464,16 +479,18 @@ def gram_rows(args, dev) -> dict:
         return {n: v for n, v in a.items() if n not in ("reg", "lseg")}
 
     none = lambda: None  # noqa: E731
-    out = {
-        "gram_gather": total_ms([(none, lambda _, a=a: gk.gram_gather(u, **a))
-                                 for a in accum]),
-        "gram_solve_dense": total_ms([
-            (none, lambda _, a=a: gk.gram_solve_dense(m, **a, lam=0.05))
-            for a in dense]),
-        "gram_tiles_dense_gather": total_ms([
+    fused = args.rank <= 128  # the fused kernels' ranks
+    calls = {
+        "gram_gather": [(none, lambda _, a=a: gk.gram_gather(u, **a))
+                        for a in accum],
+        "gram_tiles_dense_gather": [
             (none, lambda _, a=a: gk.gram_tiles_dense_gather(m, **gram_of(a)))
-            for a in dense]),
+            for a in dense],
     }
+    if fused:
+        calls["gram_solve_dense"] = [
+            (none, lambda _, a=a: gk.gram_solve_dense(m, **a, lam=0.05))
+            for a in dense]
     if hasattr(gk, "gram_tiles"):
         def stream(table, a):
             return lambda: gk.gather_rows(table, a["nb"], a["wt"])
@@ -481,18 +498,23 @@ def gram_rows(args, dev) -> dict:
         def rest(a):
             return {n: v for n, v in a.items() if n not in ("nb", "wt")}
 
-        out["gather_rows"] = total_ms([
-            (none, lambda _, a=a: gk.gather_rows(u, a["nb"], a["wt"]))
-            for a in accum])
-        out["gram_tiles"] = total_ms([
+        calls["gather_rows"] = [
+            (none, lambda _, a=a: (gk.gather_rows(u, a["nb"], a["wt"]),))
+            for a in accum]
+        calls["gram_tiles"] = [
             (stream(u, a), lambda g, a=a: gk.gram_tiles(g, **rest(a)))
-            for a in accum])
-        out["gram_solve_tiles_dense"] = total_ms([
-            (stream(m, a), lambda g, a=a: gk.gram_solve_tiles_dense(
-                g, **rest(a), lam=0.05)) for a in dense])
-        out["gram_tiles_dense"] = total_ms([
+            for a in accum]
+        if fused:
+            calls["gram_solve_tiles_dense"] = [
+                (stream(m, a), lambda g, a=a: gk.gram_solve_tiles_dense(
+                    g, **rest(a), lam=0.05)) for a in dense]
+        calls["gram_tiles_dense"] = [
             (stream(m, a), lambda g, a=a: gk.gram_tiles_dense(
-                g, **gram_of(rest(a)))) for a in dense])
+                g, **gram_of(rest(a)))) for a in dense]
+    out = {name: total_ms(c) for name, c in calls.items()}
+    for name, c in calls.items():  # every chunk's outputs, for the CRCs
+        for prepare, launch in c:
+            crc_of(crc, name, *launch(prepare()))
     out["accum_chunks"], out["dense_chunks"] = len(accum), len(dense)
     return out
 
