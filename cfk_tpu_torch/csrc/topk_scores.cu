@@ -61,9 +61,31 @@
 //     every 16th split's sorted list into its own with the same step in
 //     registers (the next list's loads in flight), the warps' lists combine
 //     in a tree, and the first K are written, empty slots as (-inf, -1).
-// k_top stays capped at 1024: the per-user lists live in shared memory, so
-// a larger K needs candidate buffers in device memory or a radix-select
-// pass.
+// Those lists live in shared memory, pow2(K) keys a user, so this route
+// takes K <= 1024 (kMaxTop).  Above it, cfk_topk_scores_large_k runs three
+// launches instead, with candidates in device memory:
+//  1. topk_partial_kernel<TABLE, BU, KEYS = true> — pass 1's grid, staging
+//     and products, each score computed in the same operations in the same
+//     order (so its bits are the small-K route's), but no selection: every
+//     (user, row) goes to a [B, M_pad] workspace as its 64-bit key, a
+//     padding, num_movies, seen or −inf row as key 0, which never wins.
+//  2. topk_select_kernel — one CTA per user, an MSB-first radix select over
+//     its M_pad keys: eight 8-bit digits, each a pass that histograms the
+//     keys under the prefix found so far (per-warp shared histograms,
+//     __match_any_sync aggregating equal digits) and a scan from the top
+//     digit to the bucket holding the K-th key.  Live keys are unique (ids
+//     are), so it ends on exactly the K-th key; the keys at or above it —
+//     every live key when fewer than K are live — are compacted (one
+//     ballot and one shared atomic a warp) into a [B, pow2(K)] buffer,
+//     zero-filled.
+//  3. topk_sort_kernel — one CTA per user sorts its pow2(K) keys
+//     descending by a bitonic network: chunks of up to 8,192 keys sort in
+//     shared memory, stages whose stride spans chunks run over device
+//     memory (one CTA owns a user's buffer, so __syncthreads orders them),
+//     then the first K decode to (vals, ids), key 0 as (−inf, −1).
+// What bounds it: the [B, M_pad] keys written once and read by eight
+// digit passes and the compaction; it is written to be right and simple
+// first, not fast.
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
@@ -81,7 +103,10 @@ constexpr int kLdF = kBkF + 4;     // staged f32 row stride (floats)
 constexpr int kBkH = 32;           // bf16 k-slice: two m16n8k16 steps
 constexpr int kLdH = kBkH + 8;     // staged bf16 row stride: 80 bytes
 constexpr int kMergeThreads = 512;
-constexpr int kMaxTop = 1024;
+constexpr int kMaxTop = 1024;  // the two-launch route's K
+constexpr int kSelThreads = 512;
+constexpr int kSortThreads = 1024;
+constexpr int kSortChunk = 8192;  // keys a sort CTA holds in shared memory
 constexpr size_t kMaxSmem = 227 * 1024;
 constexpr int kTableF32 = 0, kTableBF16 = 1, kTableI8 = 2;
 // Every key of a -inf score is <= this; every other score's key is above.
@@ -336,13 +361,16 @@ struct Pass1 {
                         : 2 * (kTBytes + kUBytes);
   static constexpr size_t kScore = (size_t)BU * kLdS * 4;
   static constexpr size_t kRegion = kStage > kScore ? kStage : kScore;
-  static size_t smem(int kp) {  // + lists, survivor scratch, thresholds, bits
-    return kRegion + (size_t)BU * kp * 8 + (size_t)kWarps * kTileRows * 8 +
+  // + lists, survivor scratch (neither in KEYS mode), thresholds, bits
+  static size_t smem(int kp, bool keys) {
+    return kRegion +
+           (keys ? 0 : (size_t)BU * kp * 8 + (size_t)kWarps * kTileRows * 8) +
            (size_t)BU * 8 + (size_t)BU * kBitWords * 4;
   }
 };
 
-template <int TABLE, int BU>
+// KEYS: write every (user, row) key to part [B, m_pad] instead of selecting.
+template <int TABLE, int BU, bool KEYS>
 __global__ void __launch_bounds__(8 * BU, 64 / BU)
 topk_partial_kernel(const float* __restrict__ u, const void* __restrict__ table,
                     const float* __restrict__ scale,
@@ -357,7 +385,7 @@ topk_partial_kernel(const float* __restrict__ u, const void* __restrict__ table,
   float* score = reinterpret_cast<float*>(region);
   u64* lists = reinterpret_cast<u64*>(smem_raw + P::kRegion);  // [BU][kp]
   u64* scratch = lists + (size_t)BU * kp;  // [warps][256] tile survivors
-  u64* thr_s = scratch + P::kWarps * kTileRows;  // [BU]
+  u64* thr_s = scratch + (KEYS ? 0 : P::kWarps * kTileRows);  // [BU]
   unsigned* bits = reinterpret_cast<unsigned*>(thr_s + BU);  // [BU][8]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -595,6 +623,25 @@ topk_partial_kernel(const float* __restrict__ u, const void* __restrict__ table,
       live_c[c] = __ballot_sync(
           0xffffffffu, row < m_pad && (long long)row_offset + row < num_movies);
     }
+    if constexpr (KEYS) {  // every row's key; 0 where pass 1 takes nothing
+      for (int uu = warp; uu < n_users; uu += P::kWarps) {
+        u64* out = part + (size_t)(b0 + uu) * m_pad + r0;
+#pragma unroll
+        for (int c = 0; c < kBitWords; ++c) {
+          unsigned live = live_c[c];
+          if (seen != nullptr) live &= ~bits[uu * kBitWords + c];
+          const int row = c * 32 + lane;
+          const float sc = score[uu * kLdS + row];
+          if (r0 + row < m_pad)
+            out[row] = ((live >> lane) & 1u) && sc > -INFINITY
+                           ? make_key(sc, row_offset + r0 + row) : 0ull;
+        }
+        __syncwarp();  // every lane has read the bitmap before it clears
+        if (seen != nullptr && lane < kBitWords) bits[uu * kBitWords + lane] = 0u;
+      }
+      __syncthreads();  // the score tile and bitmap are free again
+      continue;
+    }
     for (int uu = warp; uu < n_users; uu += P::kWarps) {
       float tv;  // the threshold as (score, id): take s > tv, or s == tv
       int ti;    // with a lower id — the key order
@@ -622,6 +669,7 @@ topk_partial_kernel(const float* __restrict__ u, const void* __restrict__ table,
     }
     __syncthreads();  // the score tile and bitmap are free again
   }
+  if constexpr (KEYS) return;
   for (int uu = warp; uu < n_users; uu += P::kWarps) {
     const u64* L = lists + (size_t)uu * kp;
     u64* out = part + ((size_t)(b0 + uu) * splits + split) * k_top;
@@ -703,31 +751,162 @@ topk_merge_kernel(const u64* __restrict__ part, int splits, int k_top, int kp,
     for (int i = lane; i < k_top; i += 32) split_key(A[i], vo[i], io[i]);
 }
 
-template <int TABLE, int BU>
+// One CTA per user: the K-th largest of its m_pad keys by an MSB-first
+// radix select (8-bit digits), then every key at or above it (every
+// nonzero key when the K-th is 0, i.e. fewer than K are live) compacted
+// into cand[user, 0, kp), the rest 0.
+__global__ void __launch_bounds__(kSelThreads)
+topk_select_kernel(const u64* __restrict__ keys, int m_pad, int k_top, int kp,
+                   u64* __restrict__ cand) {
+  constexpr int kWarps = kSelThreads / 32;
+  __shared__ unsigned hist[kWarps][256];
+  __shared__ u64 s_prefix;
+  __shared__ int s_remaining, s_count;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const u64* kb = keys + (size_t)blockIdx.x * m_pad;
+  u64* cb = cand + (size_t)blockIdx.x * kp;
+  u64 prefix = 0ull;  // the K-th largest key, digit by digit
+  if (k_top < m_pad) {
+    u64 mask = 0ull;
+    int remaining = k_top;  // its rank among the keys under the prefix
+    for (int shift = 56; shift >= 0; shift -= 8) {
+      for (int i = tid; i < kWarps * 256; i += kSelThreads)
+        (&hist[0][0])[i] = 0u;
+      __syncthreads();
+      for (int base = warp * 32; base < m_pad; base += kSelThreads) {
+        const int i = base + lane;
+        const u64 key = i < m_pad ? kb[i] : 0ull;
+        const unsigned dig = i < m_pad && (key & mask) == prefix
+                                 ? (unsigned)(key >> shift) & 0xFFu : 256u;
+        const unsigned peers = __match_any_sync(0xffffffffu, dig);
+        if (dig < 256u && lane == __ffs(peers) - 1)
+          atomicAdd(&hist[warp][dig], (unsigned)__popc(peers));
+      }
+      __syncthreads();
+      if (tid < 256) {  // the digit's count over the warps
+        unsigned t = 0;
+        for (int w = 0; w < kWarps; ++w) t += hist[w][tid];
+        hist[0][tid] = t;
+      }
+      __syncthreads();
+      if (tid == 0) {  // the bucket holding the remaining-th largest
+        int above = 0, d = 255;
+        for (; d > 0 && above + (int)hist[0][d] < remaining; --d)
+          above += (int)hist[0][d];
+        s_prefix = prefix | ((u64)d << shift);
+        s_remaining = remaining - above;
+      }
+      __syncthreads();
+      prefix = s_prefix;
+      remaining = s_remaining;
+      mask |= 0xFFull << shift;
+    }
+  }
+  const u64 t = prefix > 0ull ? prefix : 1ull;
+  if (tid == 0) s_count = 0;
+  __syncthreads();
+  for (int base = warp * 32; base < m_pad; base += kSelThreads) {
+    const int i = base + lane;
+    const u64 key = i < m_pad ? kb[i] : 0ull;
+    const bool take = i < m_pad && key >= t;
+    const unsigned m = __ballot_sync(0xffffffffu, take);
+    int at = 0;
+    if (lane == 0 && m) at = atomicAdd(&s_count, __popc(m));
+    at = __shfl_sync(0xffffffffu, at, 0);
+    if (take) cb[at + __popc(m & ((1u << lane) - 1u))] = key;
+  }
+  __syncthreads();
+  for (int i = s_count + tid; i < kp; i += kSelThreads) cb[i] = 0ull;
+}
+
+// One compare-exchange stage of the bitonic sort over a[0, n/2 pairs):
+// pair (i, i + stride), descending where (base + i) & size is 0.
+__device__ __forceinline__ void sort_stage(u64* a, int n, int base, int size,
+                                           int stride) {
+  for (int p = threadIdx.x; p < (n >> 1); p += blockDim.x) {
+    const int i = 2 * p - (p & (stride - 1)), j = i + stride;
+    const u64 x = a[i], y = a[j];
+    if (((base + i) & size) == 0 ? x < y : x > y) {
+      a[i] = y;
+      a[j] = x;
+    }
+  }
+}
+
+// One CTA per user: cand[user, 0, kp) sorted descending (kp a power of
+// two), then its first K decoded into vals/ids.  Chunks of c = min(kp,
+// kSortChunk) keys run their stages of stride < c in shared memory; the
+// stages of longer strides run on the user's buffer in device memory.
+__global__ void __launch_bounds__(kSortThreads)
+topk_sort_kernel(u64* __restrict__ cand, int kp, int k_top,
+                 float* __restrict__ vals, int* __restrict__ ids) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  u64* sk = reinterpret_cast<u64*>(smem_raw);
+  u64* g = cand + (size_t)blockIdx.x * kp;
+  const int c = kp < kSortChunk ? kp : kSortChunk;
+  // stages of `size` from stride `from` down to 1, chunk by chunk
+  auto chunk_stages = [&](int size, int from) {
+    for (int c0 = 0; c0 < kp; c0 += c) {
+      for (int i = threadIdx.x; i < c; i += blockDim.x) sk[i] = g[c0 + i];
+      __syncthreads();
+      for (int s = from; s > 0; s >>= 1) {
+        sort_stage(sk, c, c0, size, s);
+        __syncthreads();
+      }
+      for (int i = threadIdx.x; i < c; i += blockDim.x) g[c0 + i] = sk[i];
+      __syncthreads();
+    }
+  };
+  for (int c0 = 0; c0 < kp; c0 += c) {  // sizes 2 … c inside each chunk
+    for (int i = threadIdx.x; i < c; i += blockDim.x) sk[i] = g[c0 + i];
+    __syncthreads();
+    for (int size = 2; size <= c; size <<= 1)
+      for (int s = size >> 1; s > 0; s >>= 1) {
+        sort_stage(sk, c, c0, size, s);
+        __syncthreads();
+      }
+    for (int i = threadIdx.x; i < c; i += blockDim.x) g[c0 + i] = sk[i];
+    __syncthreads();
+  }
+  for (int size = 2 * c; size <= kp; size <<= 1) {
+    int s = size >> 1;
+    for (; s >= c; s >>= 1) {
+      sort_stage(g, kp, 0, size, s);
+      __syncthreads();
+    }
+    chunk_stages(size, s);
+  }
+  float* vo = vals + (size_t)blockIdx.x * k_top;
+  int* io = ids + (size_t)blockIdx.x * k_top;
+  for (int i = threadIdx.x; i < k_top; i += blockDim.x)
+    split_key(g[i], vo[i], io[i]);
+}
+
+template <int TABLE, int BU, bool KEYS>
 cudaError_t launch_partial(int splits, int kp, cudaStream_t st,
                            const float* u, const void* table,
                            const float* scale, const int* seen, int seen_w,
                            int b, int k, int m_pad, int num_movies,
                            int row_offset, int tile_m, int k_top, int vec,
                            u64* part) {
-  const size_t smem = Pass1<TABLE, BU>::smem(kp);
+  const size_t smem = Pass1<TABLE, BU>::smem(kp, KEYS);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      topk_partial_kernel<TABLE, BU>,
+      topk_partial_kernel<TABLE, BU, KEYS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)  // room for two CTAs an SM
-    err = cudaFuncSetAttribute(topk_partial_kernel<TABLE, BU>,
+    err = cudaFuncSetAttribute(topk_partial_kernel<TABLE, BU, KEYS>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   const dim3 grid((b + BU - 1) / BU, splits);
-  topk_partial_kernel<TABLE, BU><<<grid, 8 * BU, smem, st>>>(
+  topk_partial_kernel<TABLE, BU, KEYS><<<grid, 8 * BU, smem, st>>>(
       u, table, scale, seen, seen_w, b, k, m_pad, num_movies, row_offset,
       tile_m, k_top, kp, splits, vec, part);
   return cudaGetLastError();
 }
 
-template <int BU>
+template <int BU, bool KEYS>
 cudaError_t launch_kind(int table_kind, int splits, int kp, cudaStream_t st,
                         const float* u, const void* table, const float* scale,
                         const int* seen, int seen_w, int b, int k, int m_pad,
@@ -735,17 +914,17 @@ cudaError_t launch_kind(int table_kind, int splits, int kp, cudaStream_t st,
                         int vec, u64* part) {
   switch (table_kind) {
     case kTableF32:
-      return launch_partial<kTableF32, BU>(splits, kp, st, u, table, scale,
+      return launch_partial<kTableF32, BU, KEYS>(splits, kp, st, u, table, scale,
                                            seen, seen_w, b, k, m_pad,
                                            num_movies, row_offset, tile_m,
                                            k_top, vec, part);
     case kTableBF16:
-      return launch_partial<kTableBF16, BU>(splits, kp, st, u, table, scale,
+      return launch_partial<kTableBF16, BU, KEYS>(splits, kp, st, u, table, scale,
                                             seen, seen_w, b, k, m_pad,
                                             num_movies, row_offset, tile_m,
                                             k_top, vec, part);
     default:
-      return launch_partial<kTableI8, BU>(splits, kp, st, u, table, scale,
+      return launch_partial<kTableI8, BU, KEYS>(splits, kp, st, u, table, scale,
                                           seen, seen_w, b, k, m_pad,
                                           num_movies, row_offset, tile_m,
                                           k_top, vec, part);
@@ -781,10 +960,10 @@ extern "C" int cfk_topk_scores(const float* u, const void* table,
   cudaStream_t st = (cudaStream_t)stream;
   u64* p = static_cast<u64*>(part);
   err = users_per_cta == 16
-            ? launch_kind<16>(table_kind, splits, kp, st, u, table, scale,
+            ? launch_kind<16, false>(table_kind, splits, kp, st, u, table, scale,
                               seen, seen_w, b, k, m_pad, num_movies,
                               row_offset, tile_m, k_top, vec, p)
-            : launch_kind<32>(table_kind, splits, kp, st, u, table, scale,
+            : launch_kind<32, false>(table_kind, splits, kp, st, u, table, scale,
                               seen, seen_w, b, k, m_pad, num_movies,
                               row_offset, tile_m, k_top, vec, p);
   if (err != cudaSuccess) return (int)err;
@@ -794,5 +973,52 @@ extern "C" int cfk_topk_scores(const float* u, const void* table,
   if (err != cudaSuccess) return (int)err;
   topk_merge_kernel<<<b, kMergeThreads, smem2, st>>>(p, splits, k_top, kp,
                                                      vals, ids);
+  return (int)cudaGetLastError();
+}
+
+// K > kMaxTop: pass 1 in KEYS mode into keys [B, m_pad], then the radix
+// select into cand [B, pow2(K)], then the sort and decode (three launches).
+extern "C" int cfk_topk_scores_large_k(
+    const float* u, const void* table, int table_kind, const float* scale,
+    const int* seen, int seen_w, int b, int k, int m_pad, int num_movies,
+    int row_offset, int tile_m, int k_top, int users_per_cta, int splits,
+    void* keys, void* cand, float* vals, int* ids, int device, void* stream) {
+  if (b == 0) return 0;
+  const int tiles = (m_pad + kTileRows - 1) / kTileRows;
+  if (k < 1 || k_top <= kMaxTop || k_top > (1 << 30) || splits < 1 ||
+      m_pad < 0 || splits > (tiles > 0 ? tiles : 1) ||
+      (users_per_cta != 16 && users_per_cta != 32) || tile_m < 1 ||
+      m_pad % tile_m != 0 || table_kind < kTableF32 ||
+      table_kind > kTableI8 || (table_kind == kTableI8) != (scale != nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int kp = pow2_ceil(k_top);
+  const int chunk = table_kind == kTableI8 ? 16 : table_kind == kTableBF16 ? 8 : 4;
+  const int vec = (k % chunk == 0) && ((uintptr_t)table % 16 == 0);
+  cudaStream_t st = (cudaStream_t)stream;
+  u64* kk = static_cast<u64*>(keys);
+  u64* cc = static_cast<u64*>(cand);
+  if (m_pad > 0) {
+    err = users_per_cta == 16
+              ? launch_kind<16, true>(table_kind, splits, 0, st, u, table,
+                                      scale, seen, seen_w, b, k, m_pad,
+                                      num_movies, row_offset, tile_m, k_top,
+                                      vec, kk)
+              : launch_kind<32, true>(table_kind, splits, 0, st, u, table,
+                                      scale, seen, seen_w, b, k, m_pad,
+                                      num_movies, row_offset, tile_m, k_top,
+                                      vec, kk);
+    if (err != cudaSuccess) return (int)err;
+  }
+  topk_select_kernel<<<b, kSelThreads, 0, st>>>(kk, m_pad, k_top, kp, cc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int smem = (kp < kSortChunk ? kp : kSortChunk) * (int)sizeof(u64);
+  err = cudaFuncSetAttribute(topk_sort_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return (int)err;
+  topk_sort_kernel<<<b, kSortThreads, smem, st>>>(cc, kp, k_top, vals, ids);
   return (int)cudaGetLastError();
 }

@@ -198,3 +198,15 @@ def binv_inv(a: torch.Tensor) -> torch.Tensor:
 
 
 binv_inv.launches = 0
+
+
+def ctas_per_sm(kernel: str, n: int, device: int = 0) -> int:
+    """CTAs of kernel ``"binv_solve_reg"`` at rank n, or ``"binv_inv"`` at
+    size n (eight systems a CTA), that one SM of the card holds at once —
+    CUDA's occupancy calculator on the launch's threads and shared memory."""
+    fn = _build.function(kernel, f"cfk_{kernel}_ctas_per_sm",
+                         (ctypes.c_int, ctypes.c_int,
+                          ctypes.POINTER(ctypes.c_int)))
+    out = ctypes.c_int(0)
+    _build.check(fn(n, device, ctypes.byref(out)), kernel)
+    return out.value

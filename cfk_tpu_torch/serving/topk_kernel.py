@@ -17,8 +17,12 @@ users: the scores above the user's running K-th best are sorted in
 registers and merged into the user's sorted top list, whose K-th key is the
 next tile's threshold.  Each split's top K per user goes to a [B, splits,
 K] partial; pass 2 merges a user's splits, sorted list by sorted list.  The
-rank is a loop bound (k is staged in slices); K is capped at ``MAX_K_TOP``
-because the per-user lists live in shared memory.
+rank is a loop bound (k is staged in slices).  The per-user lists live in
+shared memory, so that route takes K ≤ ``MAX_K_TOP``; above it
+``topk_scores_large_k`` runs three launches with its candidates in device
+memory: pass 1's products writing every (user, row) key to a [B, M_pad]
+workspace, a per-user radix select of the K-th key and compaction of the
+keys at or above it, and a per-user bitonic sort that decodes the first K.
 
 The function, exactly as the JAX fold ``_score_tile_fold`` defines it:
 
@@ -51,8 +55,9 @@ from cfk_tpu_torch.ops.kernels import on_cuda, require, stream_of
 # Seen-rectangle widths are multiples of this (``build_seen_tiles`` pads to
 # a power of two of at least it), as the JAX kernel requires.
 _SEEN_CHUNK = 16
-# The CUDA kernel's limit (csrc/topk_scores.cu): its per-user lists live in
-# shared memory, pow2(k_top) keys each.
+# The two-launch route's largest K (csrc/topk_scores.cu): its per-user
+# lists live in shared memory, pow2(k_top) keys each; a larger K takes the
+# large-K route (``topk_scores_large_k``).
 MAX_K_TOP = 1024
 _TILE_ROWS = 256  # table rows of one pass-1 CTA tile
 _CTAS_PER_SM = 2  # pass 1's grid aims at one wave of this many per SM
@@ -70,6 +75,9 @@ _ARGTYPES = (
     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_void_p,
 )
+# cfk_topk_scores_large_k: the same, with the keys and candidates
+# workspaces in place of the partial
+_LARGE_K_ARGTYPES = _ARGTYPES[:15] + (ctypes.c_void_p,) + _ARGTYPES[15:]
 
 
 def _pow2_ceil(x: int, floor: int = 1) -> int:
@@ -238,29 +246,20 @@ def split_plan(b: int, m_pad: int, k_top: int, num_sms: int
     return bu, max(min(want, tiles, cap), 1)
 
 
-def topk_scores(u, table, scale, seen_tiles, *, k_top, num_movies, tile_m,
-                row_offset=0):
-    """(scores [B, K] f32 descending, movie rows [B, K] int32).
+def large_k_plan(b: int, m_pad: int, num_sms: int) -> tuple[int, int]:
+    """(users per CTA, splits) of the large-K route's score pass: pass 1's
+    grid without per-user lists (so 32 users a CTA above B = 32 whatever
+    K), aimed at one wave of ``_CTAS_PER_SM`` CTAs per SM, never more
+    splits than tiles."""
+    bu = 16 if b <= 32 else 32
+    tiles = -(-m_pad // _TILE_ROWS)
+    return bu, max(min(_CTAS_PER_SM * num_sms // -(-b // bu), tiles), 1)
 
-    u [B, k] float32 (or bf16); table [M_pad, k] float32 / bfloat16 / int8
-    codes; scale [M_pad] float32 exactly when the table is int8; seen_tiles
-    [M_pad / tile_m, B, W] int32 (``build_seen_tiles``) or None.  Excluded
-    and padding rows score −inf; when fewer than K candidates exist the
-    tail ids are −1.  ``row_offset`` maps table rows to global ids (the
-    two-stage rescore passes R_pad − R to mask the shortlist's padding).
-    CPU tensors take ``topk_scores_plain``; CUDA tensors launch the kernel
-    (two launches: per-split top K, then the per-user merge) or raise.
-    """
-    _check_args(u, table, scale, seen_tiles, k_top=k_top, tile_m=tile_m)
-    if not on_cuda(u, table, scale, seen_tiles):
-        return topk_scores_plain(u, table, scale, seen_tiles, k_top=k_top,
-                                 num_movies=num_movies, tile_m=tile_m,
-                                 row_offset=row_offset)
+
+def _kernel_args(u, table, scale, seen_tiles, tile_m):
+    """Checks what the CUDA kernels take; (u as f32, seen width)."""
     b, k = u.shape
     m_pad = table.shape[0]
-    if k_top > MAX_K_TOP:
-        raise ValueError(f"topk_scores on CUDA supports k_top <= {MAX_K_TOP} "
-                         f"(per-user lists in shared memory), got {k_top}")
     if table.dtype not in _TABLE_KIND:
         raise TypeError(f"table must be float32, bfloat16 or int8, got "
                         f"{table.dtype}")
@@ -272,7 +271,81 @@ def topk_scores(u, table, scale, seen_tiles, *, k_top, num_movies, tile_m,
         w = seen_tiles.shape[2]
         require(seen_tiles, "seen_tiles", torch.int32,
                 (m_pad // tile_m, b, w))
-    u32 = u.to(torch.float32).contiguous()
+    return u.to(torch.float32).contiguous(), w
+
+
+def topk_scores_large_k(u, table, scale, seen_tiles, *, k_top, num_movies,
+                        tile_m, row_offset=0):
+    """``topk_scores`` for K > ``MAX_K_TOP`` (its arguments and result).
+
+    CPU tensors take ``topk_scores_plain``; CUDA tensors launch three
+    kernels (``csrc/topk_scores.cu``, ``cfk_topk_scores_large_k``): pass 1's
+    products writing every (user, row) key — score descending, id
+    ascending, 0 for a row it would not take — to a [B, M_pad] int64
+    workspace (B·M_pad·8 bytes: 122 MB at B = 256 and the ML-25M catalog),
+    a per-user radix select of the K-th key compacting the keys at or
+    above it into [B, pow2(K)], and a per-user bitonic sort decoding the
+    first K, empty slots as (−inf, −1)."""
+    _check_args(u, table, scale, seen_tiles, k_top=k_top, tile_m=tile_m)
+    if not on_cuda(u, table, scale, seen_tiles):
+        return topk_scores_plain(u, table, scale, seen_tiles, k_top=k_top,
+                                 num_movies=num_movies, tile_m=tile_m,
+                                 row_offset=row_offset)
+    if k_top <= MAX_K_TOP:
+        raise ValueError(f"topk_scores_large_k takes k_top > {MAX_K_TOP}, "
+                         f"got {k_top} (topk_scores runs it)")
+    b, k = u.shape
+    m_pad = table.shape[0]
+    u32, w = _kernel_args(u, table, scale, seen_tiles, tile_m)
+    dev = u.device
+    vals = torch.empty((b, k_top), dtype=torch.float32, device=dev)
+    ids = torch.empty((b, k_top), dtype=torch.int32, device=dev)
+    if b == 0:
+        return vals, ids
+    bu, splits = large_k_plan(b, m_pad, _num_sms(dev.index or 0))
+    keys = torch.empty((b, m_pad), dtype=torch.int64, device=dev)
+    cand = torch.empty((b, _pow2_ceil(k_top)), dtype=torch.int64, device=dev)
+    fn = _build.function("topk_scores", "cfk_topk_scores_large_k",
+                         _LARGE_K_ARGTYPES)
+    rc = fn(_build.ptr(u32), _build.ptr(table), _TABLE_KIND[table.dtype],
+            _build.ptr(scale), _build.ptr(seen_tiles), w, b, k, m_pad,
+            int(num_movies), int(row_offset), int(tile_m), int(k_top), bu,
+            splits, _build.ptr(keys), _build.ptr(cand), _build.ptr(vals),
+            _build.ptr(ids), dev.index or 0, stream_of(u32))
+    _build.check(rc, "topk_scores")
+    topk_scores_large_k.launches += 3
+    return vals, ids
+
+
+topk_scores_large_k.launches = 0
+
+
+def topk_scores(u, table, scale, seen_tiles, *, k_top, num_movies, tile_m,
+                row_offset=0):
+    """(scores [B, K] f32 descending, movie rows [B, K] int32).
+
+    u [B, k] float32 (or bf16); table [M_pad, k] float32 / bfloat16 / int8
+    codes; scale [M_pad] float32 exactly when the table is int8; seen_tiles
+    [M_pad / tile_m, B, W] int32 (``build_seen_tiles``) or None.  Excluded
+    and padding rows score −inf; when fewer than K candidates exist the
+    tail ids are −1.  ``row_offset`` maps table rows to global ids (the
+    two-stage rescore passes R_pad − R to mask the shortlist's padding).
+    CPU tensors take ``topk_scores_plain``; CUDA tensors launch the kernel
+    (two launches: per-split top K, then the per-user merge) or raise; a K
+    above ``MAX_K_TOP`` takes ``topk_scores_large_k`` (three launches).
+    """
+    _check_args(u, table, scale, seen_tiles, k_top=k_top, tile_m=tile_m)
+    if not on_cuda(u, table, scale, seen_tiles):
+        return topk_scores_plain(u, table, scale, seen_tiles, k_top=k_top,
+                                 num_movies=num_movies, tile_m=tile_m,
+                                 row_offset=row_offset)
+    if k_top > MAX_K_TOP:
+        return topk_scores_large_k(u, table, scale, seen_tiles, k_top=k_top,
+                                   num_movies=num_movies, tile_m=tile_m,
+                                   row_offset=row_offset)
+    b, k = u.shape
+    m_pad = table.shape[0]
+    u32, w = _kernel_args(u, table, scale, seen_tiles, tile_m)
     dev = u.device
     vals = torch.empty((b, k_top), dtype=torch.float32, device=dev)
     ids = torch.empty((b, k_top), dtype=torch.int32, device=dev)

@@ -48,8 +48,11 @@ Phases, each of which must pass:
              E = 17,770 accumulated movie Grams at k = 64 against K1's x;
              matrix mode at k = 128 on 59,047 count-scaled Grams with one
              shared SPD ridge YᵀY + λI (the ML-25M movie and user counts)
-             against K1's matrix mode and its plain version; ``binv_inv`` alone at n = 16 and 32 against its plain
-             version and ``torch.linalg.inv``; and
+             against K1's matrix mode, its plain version and
+             ``torch.linalg.solve``; ``binv_inv`` alone at n = 16 and 32
+             against its plain version and ``torch.linalg.inv``; the two
+             kernels' ptxas registers and spills and their CTAs per SM
+             (the occupancy calculator); and
              ``python -m cfk_tpu_torch.scripts.exp_binv`` (both modes) as a
              subprocess, exit 0;
 4. breakdown — where one iteration's time goes (measurement, no checks):
@@ -125,9 +128,15 @@ Phases, each of which must pass:
              its two launches from torch.profiler, the bound — for a bf16
              table at the tensor cores' bf16 rate — and the library's), and
              two-stage recall@100 vs the same engine's exact scan (>= 0.95,
-             no fallback); then K4 at rank 600 (above the earlier kernel's
-             512 cap) against its plain version on a small random table,
-             every table kind;
+             no fallback); then K = 2,000 (above the two-launch route's
+             1,024) at B = 256 through ``ServeEngine.topk`` with the f32 and
+             the int8 table: the large-K route's three launches counted
+             (zeroed just before, read just after; the two-launch route's
+             held at 0), its answer exactly the plain version's (values
+             and ids) and the engine's, each launch's device ms beside the
+             call's, the bound and ``torch.topk(addmm)``; then K4 at rank
+             600 (above the earlier kernel's 512 cap) against its plain
+             version on a small random table, every table kind;
 6. implicit — implicit-feedback training at the repo's implicit
              configuration (``bench.py`` ``ials_row``/``ialspp_row``: the
              ML-25M shape, 162,541 users x 59,047 movies x 25,000,095
@@ -219,6 +228,7 @@ from __future__ import annotations
 
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -322,7 +332,10 @@ REPLACES = {
     "gram_solve_tiles_dense": "cfk_tpu/ops/pallas/gram_kernel.py:920",
     "binv_solve_reg": "scripts/exp_binv.py:154",
     "binv_inv": "scripts/exp_binv.py:271",
+    # K4's route for k_top above 1,024: three more launches of its source
+    "topk_scores_large_k": "cfk_tpu/serving/topk_kernel.py:215",
 }
+SOURCES = {"topk_scores_large_k": "cfk_tpu_torch/csrc/topk_scores.cu"}
 # Fields of the kernels line beyond the contract's: K1 below one wave; the
 # split Grams at rank 256 (phase 4d, ``k256``: its launches, ms, bound).
 LINE_EXTRA = {"gauss_solve": ("ms_schur", "bound_ms_schur",
@@ -331,12 +344,21 @@ LINE_EXTRA = {"gauss_solve": ("ms_schur", "bound_ms_schur",
               "gram_tiles_dense": ("k256",),
               "gram_tiles_dense_gather": ("k256",),
               "topk_scores": ("configs",),
+              "topk_scores_large_k": ("configs",),
+              "binv_solve_reg": ("ctas_per_sm", "ms_k64", "bound_ms_k64",
+                                 "library_ms_k64", "ms_matrix",
+                                 "bound_ms_matrix", "library_ms_matrix"),
+              "binv_inv": ("ctas_per_sm", "ms_n16", "bound_ms_n16",
+                           "library_ms_n16"),
               "reg_solve": ("ms_k128_e1", "bound_ms_k128_e1", "ms_k128_e203",
                             "bound_ms_k128_e203")}
 # scripts/exp_binv.py's defaults (main :187-212): k = 128, --e 334·16
 # rounded down to a multiple of the 128-system tile, λ = 0.05; the main
 # path's movie Grams at k = 64; matrix mode at the ML-25M movie count.
 BINV = dict(k=128, e=(334 * 16 // 128) * 128, lam=0.05, matrix_e=59_047)
+# The serve phase's batch above the two-launch K4 route's k_top cap (1,024):
+# B = 256 of the serve pool through ServeEngine.topk, f32 and int8 tables.
+LARGE_K = dict(k=2_000, batch=256, table_dtypes=("float32", "int8"))
 SPLIT_ITERS = 2
 # Phase 4d: explicit ALS-WR at rank 256 on the main phase's Netflix blocks,
 # default knobs (every chunk takes the split schedule above 128), then the
@@ -411,6 +433,26 @@ def bound(bytes_moved: float, flops: float,
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ptxas_usage(text: str) -> list[dict]:
+    """Each function of an ``nvcc -Xptxas=-v`` report (kernels and the
+    device functions they call): its (mangled) name, stack frame and spill
+    bytes, and a kernel's registers."""
+    out = []
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            out.append(dict(function=m.group(1)))
+        elif out and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes "
+                                     r"spill stores, (\d+) bytes spill "
+                                     r"loads", line)):
+            out[-1].update(stack_frame=int(m.group(1)),
+                           spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        elif out and (m := re.search(r"Used (\d+) registers", line)):
+            out[-1]["registers"] = int(m.group(1))
+    return out
 
 
 def rel_err(got, want) -> tuple[float, float]:
@@ -1213,8 +1255,10 @@ class Smoke:
         import numpy as np
         import torch
 
+        from cfk_tpu_torch import _build
         from cfk_tpu_torch.ops.kernels.binv_kernel import (
-            binv_inv, binv_inv_plain, binv_solve_reg, binv_solve_reg_plain)
+            binv_inv, binv_inv_plain, binv_solve_reg, binv_solve_reg_plain,
+            ctas_per_sm)
         from cfk_tpu_torch.ops.kernels.solve_kernel import (
             add_ridge_plain, reg_solve)
         from cfk_tpu_torch.ops.tiled import accum_grams
@@ -1241,7 +1285,11 @@ class Smoke:
         for name, n in launches.items():
             self.check(n > 0, f"binv path launched {name} {n} times")
             self.kernels.setdefault(name, {})["launches"] = n
-        report = dict(k=k, e=e, lam=lam, launches=launches)
+        report = dict(k=k, e=e, lam=lam, launches=launches, ptxas={
+            name: ptxas_usage((_build.BUILD_DIR / f"{name}.ptxas.txt")
+                              .read_text())
+            for name in ("binv_solve_reg", "binv_inv")})
+        log(f"binv ptxas: {report['ptxas']}")
         plain = binv_solve_reg_plain(a, b, cnt, lam=lam)
         a_reg = add_ridge_plain(a, cnt, lam=lam, reg_mode="diag")
         k1_x = reg_solve(a, b, cnt, lam=lam)
@@ -1295,6 +1343,7 @@ class Smoke:
                        a, b, cnt, lam=lam), 3),
                    library_ms=time_ms(lambda: torch.linalg.solve(a_reg, b), 5),
                    bound_ms=b_ms, bound_by=by, e=e, k=k,
+                   ctas_per_sm=ctas_per_sm("binv_solve_reg", k),
                    reg_solve_ms=time_ms(lambda: reg_solve(a, b, cnt, lam=lam),
                                         10),
                    reg_solve_rel_err_vs_float64=k1_64[1],
@@ -1318,13 +1367,18 @@ class Smoke:
                        ms=time_ms(lambda: binv_inv(blk), 20),
                        plain_ms=time_ms(lambda: binv_inv_plain(blk), 3),
                        library_ms=time_ms(lambda: torch.linalg.inv(blk), 5),
-                       bound_ms=b_ms, bound_by=by, e=e, n=n)
+                       bound_ms=b_ms, bound_by=by, e=e, n=n,
+                       ctas_per_sm=ctas_per_sm("binv_inv", n))
             report[f"binv_inv_n{n}"] = row
             log(f"binv_inv (row 15) n={n} E={e}: {row}")
             self.check(rel < TOL["binv_inv"],
                        f"binv_inv n={n} rel err {rel}")
             if n == 32:
                 self.kernels["binv_inv"].update(row)
+            else:
+                self.kernels["binv_inv"].update(
+                    {f"{key}_n{n}": row[key]
+                     for key in ("ms", "bound_ms", "library_ms")})
         del a, b, cnt, a_reg, plain, got, k1_x
         # Row 14 on the main path's own batch: the movie half's accumulated
         # Grams of the trained U table with their counts, at k = 64 — the
@@ -1349,8 +1403,12 @@ class Smoke:
                        add_ridge_plain(a64, counts, lam=LAM,
                                        reg_mode="diag"), b64), 5),
                    bound_ms=bound(nbytes, flops)[0],
-                   bound_by=bound(nbytes, flops)[1])
+                   bound_by=bound(nbytes, flops)[1],
+                   ctas_per_sm=ctas_per_sm("binv_solve_reg", a64.shape[1]))
         report["main_path_k64"] = row
+        self.kernels["binv_solve_reg"].update(
+            {f"{key}_k64": row[key] for key in ("ms", "bound_ms",
+                                                 "library_ms")})
         log(f"binv_solve_reg (row 14) on the main path's movie Grams: {row}")
         for what in ("rel_err_vs_reg_solve", "rel_err_vs_plain"):
             self.check(row[what] < TOL["binv_solve_reg"],
@@ -1390,6 +1448,11 @@ class Smoke:
                    bound_ms=bound(nbytes, flops)[0],
                    bound_by=bound(nbytes, flops)[1])
         del k1_x
+        row["library_ms"] = time_ms(lambda: torch.linalg.solve(
+            add_ridge_plain(am, rm, lam=0.0, reg_mode="matrix"), bm), 2)
+        self.kernels["binv_solve_reg"].update(
+            {f"{key}_matrix": row[key] for key in ("ms", "bound_ms",
+                                                    "library_ms")})
         row["rel_err_vs_plain"] = rel_err(x, binv_solve_reg_plain(
             am, bm, rm, reg_mode="matrix"))[1]
         report["matrix_k128"] = row
@@ -2194,6 +2257,7 @@ class Smoke:
                                                    5)
                 log(f"serve {name}: {row}")
                 rows.append(row)
+            self.serve_large_k(engines, pool, captured)
         finally:
             engine_mod.topk_scores = twostage_mod.topk_scores = topk_scores
         self.report["serve"] = rows
@@ -2231,6 +2295,73 @@ class Smoke:
                        f"{par}")
         self.report["serve_rank600"] = high
         log(f"serve: K4 at rank 600 vs plain {high}")
+
+    def serve_large_k(self, engines, pool, captured):
+        """K above the two-launch K4 route's cap (``LARGE_K``): one batch
+        through ``ServeEngine.topk`` per table kind, the three large-K
+        launches counted (zeroed just before, read just after) and the
+        two-launch route's held at 0; K4's recorded arguments through the
+        wrapper again, exactly equal (values and ids) to
+        ``topk_scores_plain`` and to the engine's answer; each launch's
+        device ms beside the whole call's, the plain version, the bound and
+        ``torch.topk(addmm)`` at the same K.  The route writes a [B, M_pad]
+        key workspace by design, so the serve configurations' no-score-
+        matrix check does not apply to it."""
+        import numpy as np
+        import torch
+
+        from cfk_tpu_torch.serving.topk_kernel import (
+            topk_scores, topk_scores_large_k, topk_scores_plain)
+
+        k, b = LARGE_K["k"], LARGE_K["batch"]
+        rows = []
+        for td in LARGE_K["table_dtypes"]:
+            eng = engines[("exact", td)]
+            name = f"exact/{td}/B{b}/K{k}"
+            topk_scores.launches = topk_scores_large_k.launches = 0
+            vals, ids = eng.topk(pool[:b], k)
+            launches = topk_scores_large_k.launches
+            self.check(launches == 3 and topk_scores.launches == 0,
+                       f"serve {name}: {launches} large-K launches, "
+                       f"{topk_scores.launches} two-launch ones")
+            a, kw = captured["call"]
+            got = topk_scores(*a, **kw)
+            torch.cuda.synchronize()
+            want = topk_scores_plain(*a, **kw)
+            exact = bool(torch.equal(got[0], want[0])
+                         and torch.equal(got[1], want[1]))
+            self.check(exact, f"serve {name}: K4 not equal to plain")
+            self.check(vals.shape == (b, k) and bool(np.isfinite(vals).all())
+                       and np.array_equal(vals, want[0][:b].cpu().numpy())
+                       and np.array_equal(ids, want[1][:b].cpu().numpy()),
+                       f"serve {name}: the engine's answer is not the plain "
+                       "version's")
+            call = lambda: topk_scores(*a, **kw)  # noqa: E731
+            nbytes, flops, counts = topk_scores_work(a, kw, b)
+            b_ms, by = bound(nbytes, flops)
+            dense = dense_route(a, kw)
+            row = dict(config=name, launches=launches,
+                       max_abs_err=float((got[0] - want[0]).abs().max()),
+                       ms=time_ms(call, 10),
+                       score_ms=kernel_ms(call, 10, "topk_partial_kernel"),
+                       select_ms=kernel_ms(call, 10, "topk_select_kernel"),
+                       sort_ms=kernel_ms(call, 10, "topk_sort_kernel"),
+                       plain_ms=time_ms(lambda: topk_scores_plain(*a, **kw),
+                                        2),
+                       library_ms=time_ms(lambda: dense(k), 5),
+                       bound_ms=b_ms, bound_by=by, **counts)
+            log(f"serve {name}: {row}")
+            rows.append(row)
+        head = rows[0]
+        self.kernels["topk_scores_large_k"] = dict(
+            {key: head[key] for key in ("ms", "plain_ms", "library_ms",
+                                        "bound_ms", "bound_by")},
+            launches=sum(r["launches"] for r in rows),
+            max_abs_err=max(r["max_abs_err"] for r in rows),
+            configs=[{key: r[key] for key in (
+                "config", "ms", "score_ms", "select_ms", "sort_ms",
+                "bound_ms", "bound_by", "library_ms")} for r in rows])
+        self.report["serve_large_k"] = rows
 
     def implicit(self):
         import numpy as np
@@ -3272,7 +3403,7 @@ def main() -> int:
         row = smoke.kernels.get(name, {})
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"cfk_tpu_torch/csrc/{name}.cu",
+            "source": SOURCES.get(name, f"cfk_tpu_torch/csrc/{name}.cu"),
             "replaces": REPLACES[name],
             **{key: row.get(key) for key in (
                 "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

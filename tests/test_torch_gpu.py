@@ -65,6 +65,7 @@ from cfk_tpu_torch.ops.tiled import accum_chunk, dense_chunk
 from cfk_tpu_torch.serving.topk_kernel import (
     build_seen_tiles,
     topk_scores,
+    topk_scores_large_k,
     topk_scores_plain,
 )
 
@@ -837,13 +838,107 @@ def test_topk_scores_matches_plain(cuda, table_dtype, with_seen, case):
 
 @pytest.mark.parametrize("k_top", [1, 257, 1024])
 def test_topk_scores_large_k_and_wide_seen(cuda, k_top):
-    # K up to the kernel's limit; heavy users (W = 512) loop over W
+    # K up to the two-launch route's limit; heavy users (W = 512) loop over
+    # W; one past it takes the large-K route and answers exactly
     u, data, scale, st = _topk_problem(5, 12, 5000, 64, 512, 3000,
                                        "float32", cuda)
     _check_topk(u, data, scale, st, k_top=k_top, num_movies=4990, tile_m=512)
-    with pytest.raises(ValueError, match="k_top <= 1024"):
-        topk_scores(u, data, scale, st, k_top=1025, num_movies=4990,
-                    tile_m=512)
+    before = topk_scores_large_k.launches
+    _check_topk(u, data, scale, st, k_top=1025, num_movies=4990, tile_m=512)
+    assert topk_scores_large_k.launches == before + 3
+    _check_routes_agree(u, data, scale, st, k_top=1025, num_movies=4990,
+                        tile_m=512)
+
+
+def _check_routes_agree(u, data, scale, st, **kw):
+    """Both K4 routes compute every score in the same operations, so the
+    large-K route's first 1,024 are the two-launch route's K = 1,024, bit
+    for bit — whatever order the plain version's cuBLAS product sums in
+    (at B = 12, rank 64 it differs from the kernels' in the last bits)."""
+    big = topk_scores(u, data, scale, st, **kw)
+    small = topk_scores(u, data, scale, st, **dict(kw, k_top=1024))
+    assert torch.equal(big[0][:, :1024], small[0])
+    assert torch.equal(big[1][:, :1024], small[1])
+
+
+# K above 1,024: the large-K route (score pass into a [B, M_pad] key
+# workspace, radix select, bitonic sort) against the plain version,
+# exactly — values and ids.  f32 and int8 score in the plain version's
+# order; a bf16 table sums on the tensor cores in another order, so it
+# takes integer factors, whose sums are exact in any order (and tie often).
+@pytest.mark.parametrize("table_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("with_seen", [False, True])
+@pytest.mark.parametrize("m,k_top", [(5000, 1025), (5000, 2048),
+                                     (5000, 4096), (5000, "num_movies"),
+                                     (5000, "num_movies+37"),
+                                     (12000, 9000)])
+def test_topk_scores_above_1024_equals_plain(cuda, table_dtype, with_seen, m,
+                                             k_top):
+    # num_movies 10 below m: padding rows; K = num_movies + 37 leaves a
+    # (−inf, −1) tail; K = 9000 sorts 16,384 keys a user, past one
+    # shared-memory chunk of the sort
+    u, data, scale, st = _topk_problem(31, 40, m, 64, 512, 3000, table_dtype,
+                                       cuda, integer=table_dtype == "bfloat16")
+    nm = m - 10
+    kt = {"num_movies": nm, "num_movies+37": nm + 37}.get(k_top, k_top)
+    before, before_small = topk_scores_large_k.launches, topk_scores.launches
+    _check_topk(u, data, scale, st if with_seen else None, exact=True,
+                k_top=kt, num_movies=nm, tile_m=512)
+    assert topk_scores_large_k.launches == before + 3
+    assert topk_scores.launches == before_small
+    _check_routes_agree(u, data, scale, st if with_seen else None, k_top=kt,
+                        num_movies=nm, tile_m=512)
+
+
+@pytest.mark.parametrize("table_dtype", ["float32", "int8"])
+def test_topk_scores_above_1024_two_stage_shape_and_ties(cuda, table_dtype):
+    # the two-stage rescore's call (row_offset masks a padded shortlist's
+    # tail) at a serving batch, and planted exact ties across tiles
+    u, data, scale, st = _topk_problem(23, 256, 3000, 64, 256, 20,
+                                       table_dtype, cuda)
+    _check_topk(u, data, scale, st, exact=True, k_top=1500, num_movies=3072,
+                tile_m=256, row_offset=500)
+    u, data, scale, st = _topk_problem(19, 40, 3000, 16, 256, 30, table_dtype,
+                                       cuda, integer=True)
+    _check_topk(u, data, scale, st, exact=True, k_top=2000, num_movies=2950,
+                tile_m=256)
+
+
+@pytest.mark.parametrize("mode", ["exact", "two_stage"])
+def test_engine_topk_above_1024_on_the_card(cuda, mode):
+    """ServeEngine.topk at K = 1,500 reaches the large-K route, exact and
+    through the two-stage rescore; each call's K4 arguments, recorded
+    inside the engine, give exactly the plain version's answer."""
+    from cfk_tpu_torch.data.synthetic import serve_factors, serve_seen_csr
+    from cfk_tpu_torch.serving import ServeEngine
+    from cfk_tpu_torch.serving import engine as engine_mod
+    from cfk_tpu_torch.serving import twostage as twostage_mod
+
+    rng = np.random.default_rng(0)
+    u, m = serve_factors(400, 4000, 16, rng)
+    rows = np.arange(64)
+    seen, indptr = serve_seen_csr(400, 4000, 20_000, rows, rng)
+    eng = ServeEngine(u, m, num_users=400, num_movies=4000, seen_movies=seen,
+                      seen_indptr=indptr, tile_m=256, serve_mode=mode,
+                      clusters=8 if mode == "two_stage" else None,
+                      device="cuda")
+    calls = []
+
+    def recording(*a, **kw):
+        calls.append((a, kw))
+        return topk_scores(*a, **kw)
+
+    engine_mod.topk_scores = twostage_mod.topk_scores = recording
+    before = topk_scores_large_k.launches
+    try:
+        vals, ids = eng.topk(rows, 1500)
+    finally:
+        engine_mod.topk_scores = twostage_mod.topk_scores = topk_scores
+    assert eng.last_scan["serve_mode"] == mode
+    assert topk_scores_large_k.launches == before + 3 * len(calls) > before
+    assert vals.shape == (64, 1500) and np.isfinite(vals[:, :100]).all()
+    for a, kw in calls:
+        _check_topk(*a, exact=True, **kw)
 
 
 @pytest.mark.parametrize("table_dtype", ["float32", "bfloat16", "int8"])
@@ -907,13 +1002,14 @@ def _binv_inputs(k, e, device, reg_mode):
     return tuple(torch.as_tensor(x, device=device) for x in (a, b, reg))
 
 
-@pytest.mark.parametrize("k", [16, 32, 64, 128])
+@pytest.mark.parametrize("k", [1, 5, 16, 24, 32, 48, 64, 96, 128])
 @pytest.mark.parametrize("reg_mode", ["diag", "matrix"])
-def test_binv_solve_reg_matches_plain(cuda, k, reg_mode):
+@pytest.mark.parametrize("e", [1, 300, 5248])
+def test_binv_solve_reg_matches_plain(cuda, k, reg_mode, e):
     from cfk_tpu_torch.ops.kernels.binv_kernel import (
         binv_solve_reg, binv_solve_reg_plain)
 
-    a, b, reg = _binv_inputs(k, 300, cuda, reg_mode)
+    a, b, reg = _binv_inputs(k, e, cuda, reg_mode)
     before = binv_solve_reg.launches
     got = binv_solve_reg(a, b, reg, lam=0.05, reg_mode=reg_mode)
     torch.cuda.synchronize()
@@ -925,17 +1021,53 @@ def test_binv_solve_reg_matches_plain(cuda, k, reg_mode):
     assert _backward_err(got, a, b, reg, 0.05, reg_mode) < 1e-5
 
 
-@pytest.mark.parametrize("n", [1, 5, 16, 18, 24, 32])
-def test_binv_inv_matches_plain(cuda, n):
+@pytest.mark.parametrize("n", [1, 3, 5, 16, 18, 20, 24, 32])
+@pytest.mark.parametrize("e", [1, 9, 257, 5248])
+def test_binv_inv_matches_plain(cuda, n, e):
     from cfk_tpu_torch.ops.kernels.binv_kernel import binv_inv, binv_inv_plain
 
-    a, _, cnt = _binv_inputs(n, 257, cuda, "diag")
+    a, _, cnt = _binv_inputs(n, e, cuda, "diag")
     a = add_ridge_plain(a, cnt, lam=0.05, reg_mode="diag")
     before = binv_inv.launches
     got = binv_inv(a)
     torch.cuda.synchronize()
     assert binv_inv.launches == before + 1
-    assert _rel_err(got, binv_inv_plain(a)) < 1e-3
+    want = binv_inv_plain(a)
+    assert _rel_err(got, want) < 1e-3
+    if n <= 16:  # a leaf alone: the plain leaf's operations, one by one
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n,scale", [(16, 1e-30), (16, 1e30), (1, 3e38),
+                                     (1, 1e-39), (1, 1e-45), (1, 0.0)])
+def test_binv_leaf_reciprocal_at_every_scale(cuda, n, scale):
+    # the leaf's 1/pivot takes a fast path on most exponents and
+    # __frcp_rn's own routine on the rest (huge, subnormal, zero): either
+    # way the plain leaf's IEEE division, bit for bit
+    from cfk_tpu_torch.ops.kernels.binv_kernel import binv_inv, binv_inv_plain
+
+    a, _, cnt = _binv_inputs(n, 64, cuda, "diag")
+    a = add_ridge_plain(a, cnt, lam=0.05, reg_mode="diag") * scale
+    got, want = binv_inv(a), binv_inv_plain(a)
+    torch.cuda.synchronize()
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+
+
+@pytest.mark.parametrize("k,reg_mode", [(128, "diag"), (128, "matrix"),
+                                        (64, "diag"), (24, "matrix")])
+def test_binv_kernels_bit_stable(cuda, k, reg_mode):
+    # no atomics and no order that depends on the schedule: two launches
+    # of each kernel on the same inputs are bit-equal
+    from cfk_tpu_torch.ops.kernels.binv_kernel import binv_inv, binv_solve_reg
+
+    a, b, reg = _binv_inputs(k, 300, cuda, reg_mode)
+    first = binv_solve_reg(a, b, reg, lam=0.05, reg_mode=reg_mode)
+    assert torch.equal(first, binv_solve_reg(a, b, reg, lam=0.05,
+                                             reg_mode=reg_mode))
+    n = min(k, 32)
+    blk = (a[:, :n, :n] + 10 * torch.eye(n, device=cuda)).contiguous()
+    assert torch.equal(binv_inv(blk), binv_inv(blk))
 
 
 @pytest.mark.parametrize("k,leaves", [(64, 2), (128, 4)])

@@ -4,7 +4,8 @@ class of the implicit bucketed layout, for comparing two source trees on
 one card.
 
     python3 tools/gram_kernels_ab.py [--tree DIR] [--label NAME]
-        [--nnz N] [--rank K] [--cache FILE] [--parts grams,k1,k6,gj,k4]
+        [--nnz N] [--rank K] [--cache FILE]
+        [--parts grams,k1,k6,gj,k4,binv]
 
 ``--tree`` names the directory holding the ``cfk_tpu_torch`` package to
 measure (default: this checkout); its kernels are built from that tree's
@@ -55,7 +56,15 @@ on ``serve_factors``/``serve_seen_csr`` at seed 0, each on the arguments
 ``ServeEngine.topk`` gives K4 (recorded inside the engine, as the smoke's
 serve phase records them): pass 1's and pass 2's device ms a call and the
 whole call's device ms, from torch.profiler, and the call's ms from CUDA
-events, with a CRC-32 of its outputs.
+events, with a CRC-32 of its outputs; ``binv`` rows 14 (``binv_solve_reg``)
+and 15 (``binv_inv``), each kernel's device ms a launch from
+torch.profiler, with a CRC-32 of its outputs: row 14 on the prototype's
+inputs at k = 128, E = 5,248 (``exp_binv.make_inputs``, seed 0, λ 0.05;
+also its relative x error against a float64 solve), on count-scaled random
+Grams at k = 64, E = 17,770 (the Netflix movie half's shape) and in matrix
+mode on the k1 part's 59,047 implicit-shaped systems at k = 128; row 15 on
+the ridged k = 128 inputs' leading 32 x 32 and 16 x 16 blocks (E = 5,248,
+the Schur route's leaf operands).
 """
 
 from __future__ import annotations
@@ -137,6 +146,8 @@ def main() -> int:
         out.update(gj_rows(dev, crc, clocks))
     if "k4" in parts:
         out.update(k4_rows(dev, crc, clocks))
+    if "binv" in parts:
+        out.update(binv_rows(dev, crc, clocks))
     if "grams" in parts:
         out.update(gram_rows(args, dev, crc))
     card = subprocess.run(
@@ -284,6 +295,58 @@ def gj_rows(dev, crc: dict, clocks: list) -> dict:
     out[f"blocked_spd_solve_k128_e{e}_call"] = kernel_ms(
         lambda: blocked_spd_solve(am, bm), 3, "")
     del am, bm
+    torch.cuda.empty_cache()
+    return out
+
+
+def binv_rows(dev, crc: dict, clocks: list) -> dict:
+    import torch
+
+    from cfk_tpu_torch.ops.kernels.binv_kernel import binv_inv, binv_solve_reg
+    from cfk_tpu_torch.ops.kernels.solve_kernel import add_ridge_plain
+    from cfk_tpu_torch.scripts.exp_binv import float64_check, make_inputs
+
+    out = {}
+
+    def row(name, call, reps, kernel):
+        sample_clocks(clocks, name)
+        out[name] = kernel_ms(call, reps, kernel)
+        got = call()
+        crc_of(crc, name, got)
+        return got
+
+    k, e, lam = 128, 5_248, 0.05
+    a_np, b_np, cnt_np = make_inputs(k, e)
+    a, b, cnt = (torch.as_tensor(x, device=dev) for x in (a_np, b_np, cnt_np))
+    x = row(f"binv_solve_reg_k{k}_e{e}",
+            lambda: binv_solve_reg(a, b, cnt, lam=lam), 10,
+            "binv_solve_reg_kernel")
+    out[f"binv_solve_reg_k{k}_e{e}_rel_err_vs_float64"] = float64_check(
+        a_np, b_np, cnt_np, x.cpu().numpy(), lam)[1]
+    a_reg = add_ridge_plain(a, cnt, lam=lam, reg_mode="diag")
+    for n in (32, 16):
+        blk = a_reg[:, :n, :n].contiguous()
+        row(f"binv_inv_n{n}_e{e}", lambda: binv_inv(blk), 20,
+            "binv_inv_kernel")
+    del a, b, cnt, a_reg, blk
+    gen = torch.Generator(device=dev).manual_seed(64)
+    k, e = 64, 17_770
+    cnt = torch.randint(1, 400, (e,), generator=gen, device=dev)
+    xs = torch.randn((e, 2 * k, k), generator=gen, device=dev)
+    a = torch.einsum("enk,enl->ekl", xs, xs) * (
+        cnt.float() / (2 * k))[:, None, None]
+    b = torch.randn((e, k), generator=gen, device=dev)
+    del xs
+    row(f"binv_solve_reg_k{k}_e{e}",
+        lambda: binv_solve_reg(a, b, cnt, lam=lam), 10,
+        "binv_solve_reg_kernel")
+    del a, b, cnt
+    am, bm, rm = implicit_systems(dev, torch.Generator(
+        device=dev).manual_seed(128))
+    row(f"binv_solve_reg_matrix_k128_e{am.shape[0]}",
+        lambda: binv_solve_reg(am, bm, rm, reg_mode="matrix"), 3,
+        "binv_solve_reg_kernel")
+    del am, bm, rm
     torch.cuda.empty_cache()
     return out
 
