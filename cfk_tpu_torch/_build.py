@@ -8,6 +8,14 @@ started at once — and later calls reuse them.  A library's file name carries
 a hash of its sources and flags, so an edited source is rebuilt.  Wrappers
 pass tensor pointers and PyTorch's current stream as ``c_void_p``; every C
 entry returns ``cudaGetLastError()`` and the wrapper raises on non-zero.
+
+The host ingest library (``csrc/host/cfk_native.cpp``: the parsers, the
+counting-sort group-by and the presence-table indexer) is built the same
+way by the host C++ compiler (``c++ -O3 -shared -fPIC``) into the same
+directory, named by a hash of its source and flags, on first use by
+``data/_native.py``; it needs no CUDA.  Every build writes a file of its own
+and renames it into place, so processes building at once never load a
+half-written library.
 """
 
 from __future__ import annotations
@@ -32,6 +40,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+
+HOST_SOURCE = CSRC_DIR / "host" / "cfk_native.cpp"
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -93,6 +104,43 @@ def build_all(names=SOURCES) -> dict[str, Path]:
     if errors:
         raise RuntimeError("\n".join(errors))
     return paths
+
+
+def host_compiler() -> str:
+    """The host C++ compiler from PATH (``c++``, else ``g++``)."""
+    for name in ("c++", "g++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError(
+        "no host C++ compiler (c++ or g++) on PATH: the port's ingest "
+        "library is built from cfk_tpu_torch/csrc/host on first use"
+    )
+
+
+def host_library_path() -> Path:
+    h = hashlib.sha256(HOST_SOURCE.read_bytes())
+    h.update(" ".join(HOST_FLAGS).encode())
+    return BUILD_DIR / f"libcfk_native-{h.hexdigest()[:16]}.so"
+
+
+def compile_host_library() -> Path:
+    """Compile the host ingest library into a file of this call's own (a
+    temporary name beside ``host_library_path()``) and return it; the
+    caller loads it, checks it, and renames it into place.  Raises with the
+    compiler's output if the build fails."""
+    out = host_library_path()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(
+        f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    proc = subprocess.run(
+        [host_compiler(), *HOST_FLAGS, "-o", str(tmp), str(HOST_SOURCE)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"c++ failed for csrc/host/cfk_native.cpp "
+                           f"(exit {proc.returncode}):\n{proc.stdout}")
+    return tmp
 
 
 def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:

@@ -25,8 +25,11 @@ Everything runs on CUDA unless ``--device cpu`` is given.
 from __future__ import annotations
 
 import argparse
+import functools
+import os
 import sys
 import time
+import zipfile
 
 AUTO_LAYOUT_TILED_NNZ = 2_000_000  # at and above this, the tiled layout
 
@@ -35,12 +38,15 @@ def _eprint(*args) -> None:
     print(*args, file=sys.stderr)
 
 
-def resolve_auto_layout(num_ratings: int, algorithm: str = "als") -> str:
+def resolve_auto_layout(num_ratings: int, algorithm: str = "als",
+                        solve_chunk: int | None = None) -> str:
     """layout='auto': one padded rectangle for small data; once the data is
     big enough for it to matter, the tiled layout (accum + dense stream),
     or for a subspace optimizer (als++/ials++), which needs padded or
-    bucketed, the bucketed layout."""
-    if num_ratings < AUTO_LAYOUT_TILED_NNZ:
+    bucketed, the bucketed layout.  An explicit (deprecated) --solve-chunk
+    means something on the padded layout only, so it resolves to padded
+    (``cfk_tpu/cli.py:66-80``)."""
+    if solve_chunk is not None or num_ratings < AUTO_LAYOUT_TILED_NNZ:
         return "padded"
     return "tiled" if algorithm == "als" else "bucketed"
 
@@ -55,6 +61,113 @@ def _parse_ratings(path: str, fmt: str, min_rating: float):
     from cfk_tpu_torch.data.netflix import parse_netflix
 
     return parse_netflix(path)
+
+
+_CACHE_ERRORS = (ValueError, KeyError, OSError, zipfile.BadZipFile)
+
+
+def _load_dataset(path, fmt, min_rating, build, *, cache_dir=None,
+                  auto_key=None, auto_resolver=None):
+    """Parse ``path`` and build its ``Dataset`` (``build``: the
+    ``Dataset.from_coo`` keywords, ``layout`` possibly "auto",
+    ``auto_resolver(coo)`` resolving it) — or load it from the dataset
+    cache ``cache_dir``.  The port of ``cfk_tpu/cli.py:82-242``
+    ``_load_dataset`` for file data, one shard: the cache's build key is
+    the JAX package's (the data path, size and mtime, the format, the
+    layout flags), so a cache either package wrote for the same file and
+    flags serves both; a key that does not match is rebuilt and
+    overwritten, and a cache whose source file is gone still serves a key
+    that matches on everything else."""
+    from cfk_tpu_torch.data.blocks import Dataset, TiledBlocks
+
+    layout, dense_stream = build["layout"], build.get("dense_stream", False)
+    build_key = {
+        "data": os.path.abspath(path),
+        "format": fmt,
+        "min_rating": min_rating,
+        "num_shards": 1,
+        "pad_multiple": build["pad_multiple"],
+        "layout": layout,
+        "chunk_elems": build["chunk_elems"],
+    }
+    if dense_stream and layout == "tiled":
+        build_key["dense_stream"] = True
+    if layout == "auto" and auto_key:
+        build_key.update(auto_key)
+    # For layout='auto' the dense flag changes the blocks only when the
+    # resolution lands on tiled: saves record it iff the resolved build
+    # consumed it, loads accept the flagless key too unless that cache is
+    # tiled (a flagless tiled cache is a padded-stream build).
+    auto_dense = dense_stream and layout == "auto"
+    if os.path.exists(path):
+        st = os.stat(path)
+        build_key["data_size"] = st.st_size
+        build_key["data_mtime_ns"] = st.st_mtime_ns
+    else:
+        ds = _cache_sans_fingerprint(cache_dir, build_key, auto_dense)
+        if ds is not None:
+            _eprint(f"warning: data file {path!r} not found; using dataset "
+                    "cache without the size/mtime freshness check")
+            return ds
+    if cache_dir and os.path.exists(os.path.join(cache_dir, "meta.json")):
+        keys = ([{**build_key, "dense_stream": True}, build_key]
+                if auto_dense else [build_key])
+        err = None
+        for key in keys:
+            t0 = time.time()
+            try:
+                ds = Dataset.load(cache_dir, expect_build_key=key)
+            except _CACHE_ERRORS as e:
+                err = e  # a mismatched key or a broken cache: rebuild
+                continue
+            if (auto_dense and "dense_stream" not in key
+                    and isinstance(ds.user_blocks, TiledBlocks)):
+                err = ValueError("cached auto-layout dataset resolved to "
+                                 "tiled without the dense stream; dense run "
+                                 "rebuilds")
+                continue
+            _eprint(f"# dataset cache hit ({time.time() - t0:.1f}s load)")
+            return ds
+        _eprint(f"warning: ignoring dataset cache: {err}")
+    coo = _parse_ratings(path, fmt, min_rating)
+    resolved = auto_resolver(coo) if layout == "auto" else layout
+    use_dense = dense_stream and resolved == "tiled"
+    ds = Dataset.from_coo(coo, **{**build, "layout": resolved,
+                                  "dense_stream": use_dense})
+    if cache_dir:
+        key = ({**build_key, "dense_stream": True}
+               if auto_dense and use_dense else build_key)
+        ds.save(cache_dir, build_key=key)
+    return ds
+
+
+def _cache_sans_fingerprint(cache_dir, build_key, auto_dense=False):
+    """The cache at ``cache_dir`` when the data file it was built from is
+    gone, if its stored build key matches ``build_key`` on every field but
+    the file's size and mtime (``cfk_tpu/cli.py:245-283``); else None."""
+    from cfk_tpu_torch.data.blocks import Dataset, TiledBlocks
+    from cfk_tpu_torch.data.cache import read_build_key
+
+    if not cache_dir or not os.path.exists(os.path.join(cache_dir,
+                                                        "meta.json")):
+        return None
+    try:
+        stored = read_build_key(cache_dir)
+        if stored is None:
+            return None
+        ignore = ("data_size", "data_mtime_ns")
+        strip = lambda k: {x: v for x, v in k.items() if x not in ignore}  # noqa: E731
+        sk, bk = strip(stored), strip(build_key)
+        flagged_ok = auto_dense and sk == {**bk, "dense_stream": True}
+        if sk != bk and not flagged_ok:
+            return None
+        ds = Dataset.load(cache_dir, expect_build_key=stored)
+        if (auto_dense and not flagged_ok
+                and isinstance(ds.user_blocks, TiledBlocks)):
+            return None
+        return ds
+    except _CACHE_ERRORS:
+        return None
 
 
 def _save_predictions(model, output) -> str | None:
@@ -111,7 +224,7 @@ def _train(args) -> int:
     from cfk_tpu_torch.data.blocks import Dataset
     from cfk_tpu_torch.device import resolve_device
     from cfk_tpu_torch.eval.metrics import mse_rmse_from_model
-    from cfk_tpu_torch.models.als import train_als
+    from cfk_tpu_torch.models.als import _layout_of, train_als
     from cfk_tpu_torch.models.ials import IALSConfig, train_ials
 
     if args.eval_ranking and not args.implicit:
@@ -120,25 +233,37 @@ def _train(args) -> int:
         return 1
     dev = resolve_device(args.device)
     t0 = time.perf_counter()
-    coo = _parse_ratings(args.data, args.format, args.min_rating)
-    layout = (resolve_auto_layout(coo.num_ratings, args.algorithm)
-              if args.layout == "auto" else args.layout)
     common = dict(rank=args.rank, lam=args.lam,
                   num_iterations=args.iterations, seed=args.seed,
-                  layout=layout, solver=args.solver,
-                  hbm_chunk_elems=args.chunk_elems, algorithm=args.algorithm,
+                  solver=args.solver, hbm_chunk_elems=args.chunk_elems,
+                  solve_chunk=args.solve_chunk, algorithm=args.algorithm,
                   block_size=args.block_size, sweeps=args.sweeps,
                   in_kernel_gather=(None if args.in_kernel_gather == "auto"
                                     else args.in_kernel_gather == "on"))
-    # Validate the flags before the (possibly long) block build.
-    config = (IALSConfig(alpha=args.alpha, **common) if args.implicit
-              else ALSConfig(**common))
+    make_config = functools.partial(
+        IALSConfig, alpha=args.alpha) if args.implicit else ALSConfig
+    # Validate the flags before the (possibly long) block build; an
+    # explicit --solve-chunk resolves 'auto' to padded.
+    make_config(layout=("padded" if args.layout == "auto"
+                        and args.solve_chunk is not None else args.layout),
+                **common)
     # The tiled layout's many-entity side as the unpadded dense stream, as
     # the JAX CLI asks (cfk_tpu/cli.py:395); the subspace optimizers run on
     # the padded and bucketed layouts, where the flag has no side to reach.
-    build = dict(layout=layout, chunk_elems=args.chunk_elems,
+    build = dict(layout=args.layout, chunk_elems=args.chunk_elems,
+                 pad_multiple=args.pad_multiple,
                  dense_stream=args.algorithm not in ("als++", "ials++"))
-    ds = Dataset.from_coo(coo, **build)
+    ds = _load_dataset(
+        args.data, args.format, args.min_rating, build,
+        cache_dir=args.dataset_cache,
+        auto_key={"algorithm": args.algorithm,
+                  "solve_chunk": args.solve_chunk},
+        auto_resolver=lambda coo: resolve_auto_layout(
+            coo.num_ratings, args.algorithm, args.solve_chunk))
+    layout, num_ratings = _layout_of(ds), ds.coo_dense.num_ratings
+    build.update(layout=layout, dense_stream=build["dense_stream"]
+                 and layout == "tiled")
+    config = make_config(layout=layout, **common)
     heldout = train_coo = None
     if args.eval_ranking:
         from cfk_tpu_torch.eval.ranking import leave_one_out_split
@@ -191,7 +316,8 @@ def _train(args) -> int:
         if path is not None:
             _eprint(f"predictions written to {path}")
     print(" ".join([f"layout={layout}", f"device={dev}",
-                    f"num_ratings={coo.num_ratings}", f"prep_s={prep_s:.3f}",
+                    f"num_ratings={num_ratings}",
+                    f"prep_s={prep_s:.3f}",
                     f"train_s={train_s:.3f}",
                     f"s_per_iter={train_s / args.iterations:.4f}", *gauges]))
     return 0
@@ -383,18 +509,34 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--iterations", type=int, default=7)
     t.add_argument("--seed", type=int, default=42)
     t.add_argument(
-        "--layout", choices=["auto", "padded", "bucketed", "tiled"],
+        "--layout", choices=["auto", "padded", "bucketed", "segment",
+                             "tiled"],
         default="auto",
         help="InBlock layout: one rectangle per side (padded), power-of-two "
-        "width classes (bucketed) or accum + dense-stream tiles (tiled). "
-        "Default 'auto': padded below 2M ratings, tiled above (bucketed "
-        "for als++/ials++)",
+        "width classes (bucketed), flat sorted runs in nnz chunks with "
+        "entities straddling chunks (segment; exactly O(nnz) memory for "
+        "any skew) or accum + dense-stream tiles (tiled). Default 'auto': "
+        "padded below 2M ratings, tiled above (bucketed for als++/ials++)",
     )
+    t.add_argument("--pad-multiple", type=int, default=8,
+                   help="pad ragged neighbor lists to a multiple of this "
+                   "(padded/bucketed widths, segment chunk capacity)")
+    t.add_argument("--solve-chunk", type=int, default=None,
+                   help="DEPRECATED: explicit entities per padded-layout "
+                   "solve chunk; --chunk-elems is the one budget for every "
+                   "layout")
     t.add_argument(
         "--chunk-elems", type=int, default=1 << 20,
-        help="gather-cell budget per chunk: the tiled and bucketed layouts' "
-        "chunk size at build time; padded derives entities per solve chunk "
-        "from it",
+        help="gather-cell budget per chunk: the tiled, bucketed and segment "
+        "layouts' chunk size at build time (segment: chunk-elems // 64 "
+        "ratings, for its [C, k, k] Gram); padded derives entities per "
+        "solve chunk from it",
+    )
+    t.add_argument(
+        "--dataset-cache", default=None, metavar="DIR",
+        help="directory for the built-blocks cache: loaded if present and "
+        "its stored build key (data path/size/mtime + layout flags) matches, "
+        "rebuilt and overwritten otherwise",
     )
     t.add_argument(
         "--solver", choices=["auto", "cholesky"], default="auto",

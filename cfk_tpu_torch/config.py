@@ -21,10 +21,12 @@ class ALSConfig:
     num_iterations: int = 7
     seed: int = 42
     # InBlock layout: "padded" (one rectangle per side), "bucketed"
-    # (power-of-two width classes), "tiled" (accum + dense stream), "auto"
-    # (resolved by whoever builds the Dataset; the trainer follows the
-    # blocks).
-    layout: Literal["auto", "padded", "bucketed", "tiled"] = "padded"
+    # (power-of-two width classes), "segment" (flat sorted runs in nnz
+    # chunks, entities straddling chunks: exactly O(nnz) memory for any
+    # skew), "tiled" (accum + dense stream), "auto" (resolved by whoever
+    # builds the Dataset; the trainer follows the blocks).
+    layout: Literal["auto", "padded", "bucketed", "segment", "tiled"] = \
+        "padded"
     # "auto": the CUDA kernels on a GPU, their plain PyTorch versions on
     # the CPU.  "cholesky": the plain PyTorch route (torch.linalg.cholesky
     # solves, einsum Grams), CPU only — train_als raises for it on CUDA.
@@ -33,6 +35,9 @@ class ALSConfig:
     # entities per solve chunk = hbm_chunk_elems // rectangle width; tiled:
     # consumed at build time (Dataset.from_coo(chunk_elems=...)).
     hbm_chunk_elems: int | None = None
+    # DEPRECATED: entities per padded-layout solve chunk, overriding the
+    # one derived from hbm_chunk_elems (the JAX package's alias).
+    solve_chunk: int | None = None
     # Validated like cfk_tpu's; the port's solve kernels eliminate by
     # Cholesky, so only "auto" is accepted ("lu"/"gj" raise).
     reg_solve_algo: Literal["auto", "lu", "gj"] = "auto"
@@ -77,8 +82,11 @@ class ALSConfig:
         return 1 << 20 if self.hbm_chunk_elems is None else self.hbm_chunk_elems
 
     def padded_solve_chunk(self, width: int) -> int | None:
-        """Entities per padded-layout solve chunk under the cell budget;
-        None = solve the whole side at once."""
+        """Entities per padded-layout solve chunk under the cell budget (the
+        deprecated explicit ``solve_chunk`` wins when set); None = solve the
+        whole side at once."""
+        if self.solve_chunk is not None:
+            return self.solve_chunk
         if self.hbm_chunk_elems is None:
             return None
         return max(1, self.hbm_chunk_elems // max(width, 1))
@@ -112,11 +120,21 @@ class ALSConfig:
             raise ValueError(f"lam must be >= 0, got {self.lam}")
         if self.solver not in ("auto", "cholesky"):
             raise ValueError(f"unknown solver {self.solver!r}")
-        if self.layout not in ("auto", "padded", "bucketed", "tiled"):
+        if self.layout not in ("auto", "padded", "bucketed", "segment",
+                               "tiled"):
             raise ValueError(f"unknown layout {self.layout!r}")
         if self.hbm_chunk_elems is not None and self.hbm_chunk_elems < 1:
             raise ValueError(
                 f"hbm_chunk_elems must be >= 1, got {self.hbm_chunk_elems}"
+            )
+        if self.layout not in ("auto", "padded") and \
+                self.solve_chunk is not None:
+            raise ValueError(
+                f"solve_chunk (deprecated) applies to layout='padded' "
+                f"only; use hbm_chunk_elems — one budget for every layout "
+                f"(build-time layouts consume it via Dataset.from_coo(..., "
+                "chunk_elems=cfg.chunk_cells()), which the CLI's "
+                "--chunk-elems does)"
             )
         if self.algorithm not in self._valid_algorithms():
             raise ValueError(
@@ -124,7 +142,7 @@ class ALSConfig:
                 f"{type(self).__name__}; valid: {self._valid_algorithms()}"
             )
         if self.algorithm != "als":
-            if self.layout == "tiled":
+            if self.layout in ("segment", "tiled"):
                 raise ValueError(
                     f"{self.algorithm} supports the padded and bucketed "
                     f"layouts (bucketed is the at-scale one); the "
@@ -139,3 +157,9 @@ class ALSConfig:
                 )
             if self.sweeps < 1:
                 raise ValueError(f"sweeps must be >= 1, got {self.sweeps}")
+            if self.solve_chunk is not None:
+                raise ValueError(
+                    f"solve_chunk is not honored by {self.algorithm} (the "
+                    "subspace sweep has no entity-chunked padded path); use "
+                    "layout='bucketed' with chunk_elems to bound HBM"
+                )

@@ -10,6 +10,8 @@ The port's own copy of the host-side block builders of
 - ``PaddedBlocks`` — one [E, max_nnz] rectangle per side (small data);
 - ``BucketedBlocks`` — power-of-two width classes, one rectangle each (the
   subspace optimizers' at-scale layout);
+- ``SegmentBlocks`` — flat sorted runs packed into nnz chunks, entities
+  straddling chunk boundaries (exactly O(nnz) memory for any skew);
 - ``TiledBlocks`` — the tiled layout at scale: the few-entity side in
   ``accum`` mode (entries sorted by fixed-table slice, per-chunk tile owners,
   one accumulator over all chunks) and the many-entity side in ``stream``
@@ -79,7 +81,24 @@ def _round_up(x: int, multiple: int) -> int:
 
 
 def group_by_dense(keys: np.ndarray, num_keys: int):
-    """(stable argsort order, per-key counts int32, exclusive-prefix starts)."""
+    """(stable argsort order, per-key counts int32, exclusive-prefix starts).
+
+    The grouping step every block builder shares.  Dense keys admit an
+    O(n + k) counting sort, run by the host library (``data._native``,
+    ``csrc/host/cfk_native.cpp``) as in ``cfk_tpu/data/blocks.py:84-100``;
+    ``group_by_dense_numpy`` (the O(n log n) comparison argsort) is the
+    plain version, taken where no library could be built.  Both return the
+    same arrays, bit for bit."""
+    if 0 < num_keys < (1 << 31):
+        from cfk_tpu_torch.data import _native
+
+        if _native.available():
+            return _native.group_by(keys, num_keys)
+    return group_by_dense_numpy(keys, num_keys)
+
+
+def group_by_dense_numpy(keys: np.ndarray, num_keys: int):
+    """The plain version of ``group_by_dense``: numpy's stable argsort."""
     order = np.argsort(keys, kind="stable")
     count = np.bincount(keys, minlength=num_keys).astype(np.int32)
     start = np.zeros(num_keys, dtype=np.int64)
@@ -93,10 +112,31 @@ _PRESENCE_TABLE_MAX_RAW = 1 << 31
 def index_entities(raw: np.ndarray) -> tuple[IdMap, np.ndarray]:
     """(IdMap of the distinct raw ids, dense index per element).
 
-    Small non-negative ids (every rating dataset here) take an O(n + max_raw)
-    presence table; anything else takes the sort path
-    (``np.unique`` + ``searchsorted``).  Both give the same ascending map.
-    """
+    Small non-negative ids (every rating dataset here) take the host
+    library's O(n + max_raw) presence table (``cfk_tpu/data/blocks.py:
+    113-133``), gated on the id range both absolutely and relative to nnz;
+    ``index_entities_numpy`` is the plain version.  Both give the same
+    ascending map."""
+    if raw.size:
+        from cfk_tpu_torch.data import _native
+
+        if _native.available():
+            max_raw = int(raw.max())
+            if 0 <= max_raw <= min(_native.INDEX_DENSE_MAX_RAW,
+                                   64 * raw.size + (1 << 16)):
+                try:
+                    unique, dense = _native.index_dense(raw, max_raw)
+                except ValueError:
+                    pass  # negative ids: the sort path below
+                else:
+                    return IdMap(raw_ids=unique), dense
+    return index_entities_numpy(raw)
+
+
+def index_entities_numpy(raw: np.ndarray) -> tuple[IdMap, np.ndarray]:
+    """The plain version of ``index_entities``: a numpy presence table for
+    small non-negative ids, else the sort path (``np.unique`` +
+    ``searchsorted``)."""
     if raw.size:
         lo, hi = int(raw.min()), int(raw.max())
         if lo >= 0 and hi < min(_PRESENCE_TABLE_MAX_RAW,
@@ -376,6 +416,178 @@ def build_bucketed_blocks(
         rating_sum=rating_sum,
         num_entities=num_solve_entities,
         num_shards=num_shards,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentBlocks:
+    """Flat CSR-style InBlocks packed into fixed-size chunks (the segment
+    layout, ``cfk_tpu/data/blocks.py:381``).
+
+    Ratings stay one sorted run per side, cut into ``num_chunks`` chunks of
+    at most ``chunk_cap`` ratings covering at most ``chunk_entities``
+    consecutive entities (dense ids are compact, so an entity range is a
+    contiguous rating slice) — O(nnz) memory for any degree distribution.
+    **Entities may straddle chunk boundaries**: an entity with more ratings
+    than a chunk holds spans several, and the half-step carries its partial
+    Gram/RHS across them (``carry_in`` flags the continuation, ``last_seg``
+    indexes the straddling segment).  ``seg_rel`` holds each rating's entity
+    row relative to its chunk's first entity (padding entries: the trash row
+    ``chunk_entities``); ``chunk_entity``/``chunk_count`` give each chunk
+    row's entity and rating count, with the trash entity ``num_entities``
+    (count 0) for rows not finalized in that chunk (an entity continuing
+    into the next chunk, and padding).  ``group_sizes`` counts the entries
+    of every segment (trash last).  The fields are the JAX package's, so its
+    dataset caches load here; the port builds and trains one shard only
+    (``num_shards`` 1).
+    """
+
+    neighbor_idx: np.ndarray  # int32 [NC·C] dense idx into the fixed side (0 at padding)
+    rating: np.ndarray  # float32 [NC·C] (0 at padding)
+    mask: np.ndarray  # float32 [NC·C] 1.0 = real rating
+    seg_rel: np.ndarray  # int32 [NC·C] chunk-relative entity row, sorted per chunk
+    chunk_entity: np.ndarray  # int32 [NC·Ec] entity row (num_entities = trash)
+    chunk_count: np.ndarray  # int32 [NC·Ec] full rating count of finalized rows (0 else)
+    group_sizes: np.ndarray  # int32 [NC·(Ec+1)] entries per segment (trash last)
+    carry_in: np.ndarray  # float32 [NC] 1.0 = chunk's seg 0 continues the previous chunk
+    last_seg: np.ndarray  # int32 [NC] chunk-relative index of the last real segment
+    chunk_first: np.ndarray  # int32 [NC] entity of each chunk's seg 0
+    count: np.ndarray  # int32 [E] real nnz per entity
+    rating_sum: np.ndarray  # float32 [E] per-entity rating sum (for init)
+    num_entities: int
+    num_shards: int
+    num_chunks: int  # NC
+    chunk_cap: int  # C: ratings per chunk (padded)
+    chunk_entities: int  # Ec: entity rows per chunk (padded)
+
+    @property
+    def padded_entities(self) -> int:
+        return int(self.count.shape[0])
+
+    @property
+    def local_entities(self) -> int:
+        return self.padded_entities // self.num_shards
+
+    @property
+    def statics(self) -> tuple[int, int, int]:
+        """(num_chunks, chunk_cap, chunk_entities)."""
+        return (self.num_chunks, self.chunk_cap, self.chunk_entities)
+
+
+def build_segment_blocks(
+    solve_dense: np.ndarray,
+    fixed_dense: np.ndarray,
+    rating: np.ndarray,
+    num_solve_entities: int,
+    *,
+    pad_multiple: int = 8,
+    chunk_nnz: int | None = None,
+    chunk_entity_cap: int | None = None,
+) -> SegmentBlocks:
+    """Sort ratings by entity and pack them into nnz chunks (one shard).
+
+    ``chunk_nnz`` is the ratings-per-chunk capacity; a chunk also covers at
+    most ``chunk_entity_cap`` consecutive entities (default
+    ``min(chunk_nnz // 32, 16384)``), bounding the [Ec, k, k] Gram batch
+    even on all-degree-1 runs.  Entities whose degree exceeds the capacity
+    straddle chunks, so the capacity never grows with the degree
+    distribution's head.  ``None`` packs the side into one chunk.  Arrays
+    are bit-identical to ``cfk_tpu``'s ``build_segment_blocks`` at
+    ``num_shards=1``.
+    """
+    e = num_solve_entities
+    order, count, _ = group_by_dense(solve_dense, e)
+    s_sorted = solve_dense[order].astype(np.int32)
+    f_sorted = fixed_dense[order].astype(np.int32)
+    r_sorted = rating[order].astype(np.float32)
+    nnz = int(s_sorted.shape[0])
+    count = count.astype(np.int32)
+
+    if chunk_nnz is None:
+        cap = max(nnz, 1, pad_multiple)
+        e_cap = max(e, 1)
+    else:
+        # Never pad a chunk beyond the side's actual run.
+        cap = max(min(int(chunk_nnz), nnz), pad_multiple)
+        e_cap = (max(int(chunk_entity_cap), 1) if chunk_entity_cap is not None
+                 else max(1, min(cap // 32, 1 << 14)))
+    cap = _round_up(cap, pad_multiple)
+
+    # Greedy nnz packing: cut the sorted run every ``cap`` entries, or
+    # sooner where the slice would span more than ``e_cap`` entities.  A cut
+    # may fall inside an entity's run: that entity straddles chunks.
+    cum = np.zeros(e + 1, dtype=np.int64)  # run position of entity e's first entry
+    np.cumsum(count, out=cum[1:])
+    cuts = []
+    pos = 0
+    while pos < nnz:
+        end = min(pos + cap, nnz)
+        first = int(s_sorted[pos])
+        if int(s_sorted[end - 1]) - first + 1 > e_cap:
+            end = int(cum[first + e_cap])
+        cuts.append((pos, end))
+        pos = end
+
+    nc = max(len(cuts), 1)
+    e_c = max([int(s_sorted[p1 - 1]) - int(s_sorted[p0]) + 1
+               for p0, p1 in cuts], default=1)
+
+    neighbor = np.zeros(nc * cap, dtype=np.int32)
+    rmat = np.zeros(nc * cap, dtype=np.float32)
+    mask = np.zeros(nc * cap, dtype=np.float32)
+    seg = np.full(nc * cap, e_c, dtype=np.int32)  # trash
+    chunk_entity = np.full(nc * e_c, e, dtype=np.int32)
+    chunk_count = np.zeros(nc * e_c, dtype=np.int32)
+    group_sizes = np.zeros((nc, e_c + 1), dtype=np.int32)
+    group_sizes[:, e_c] = cap  # an all-padding chunk is one trash segment
+    carry_in = np.zeros(nc, dtype=np.float32)
+    last_seg = np.zeros(nc, dtype=np.int32)
+    chunk_first = np.zeros(nc, dtype=np.int32)
+
+    for c, (p0, p1) in enumerate(cuts):
+        n = p1 - p0
+        dst = c * cap
+        first = int(s_sorted[p0])
+        last = int(s_sorted[p1 - 1])
+        neighbor[dst:dst + n] = f_sorted[p0:p1]
+        rmat[dst:dst + n] = r_sorted[p0:p1]
+        mask[dst:dst + n] = 1.0
+        seg_chunk = (s_sorted[p0:p1] - first).astype(np.int64)
+        seg[dst:dst + n] = seg_chunk
+        sizes = np.bincount(seg_chunk, minlength=e_c + 1).astype(np.int32)
+        sizes[e_c] = cap - n  # the tail padding sits in the trash segment
+        group_sizes[c] = sizes
+        carry_in[c] = float(p0 > 0 and int(s_sorted[p0 - 1]) == first)
+        last_seg[c] = last - first
+        chunk_first[c] = first
+        # Rows are finalized here unless the last entity continues into the
+        # next chunk; only the finalizing chunk writes an entity's row.
+        cont_out = p1 < nnz and int(s_sorted[p1]) == last
+        n_final = (last - first + 1) - int(cont_out)
+        if n_final > 0:
+            chunk_entity[c * e_c:c * e_c + n_final] = np.arange(
+                first, first + n_final, dtype=np.int32)
+            chunk_count[c * e_c:c * e_c + n_final] = count[first:
+                                                           first + n_final]
+
+    return SegmentBlocks(
+        neighbor_idx=neighbor,
+        rating=rmat,
+        mask=mask,
+        seg_rel=seg,
+        chunk_entity=chunk_entity,
+        chunk_count=chunk_count,
+        group_sizes=group_sizes.reshape(-1),
+        carry_in=carry_in,
+        last_seg=last_seg,
+        chunk_first=chunk_first,
+        count=count,
+        rating_sum=_rating_sum(solve_dense, rating, e),
+        num_entities=e,
+        num_shards=1,
+        num_chunks=nc,
+        chunk_cap=cap,
+        chunk_entities=e_c,
     )
 
 
@@ -860,9 +1072,23 @@ class Dataset:
 
     movie_map: IdMap
     user_map: IdMap
-    movie_blocks: PaddedBlocks | BucketedBlocks | TiledBlocks  # neighbors: users
-    user_blocks: PaddedBlocks | BucketedBlocks | TiledBlocks  # neighbors: movies
+    movie_blocks: "PaddedBlocks | BucketedBlocks | SegmentBlocks | TiledBlocks"  # neighbors: users
+    user_blocks: "PaddedBlocks | BucketedBlocks | SegmentBlocks | TiledBlocks"  # neighbors: movies
     coo_dense: RatingsCOO  # dense-index COO (movie_raw/user_raw hold dense idx)
+
+    def save(self, path: str, build_key: dict | None = None) -> None:
+        """Cache the built dataset on disk; see ``data.cache``."""
+        from cfk_tpu_torch.data.cache import save_dataset
+
+        save_dataset(self, path, build_key=build_key)
+
+    @classmethod
+    def load(cls, path: str, expect_build_key: dict | None = None
+             ) -> "Dataset":
+        """Load a dataset cached with ``save`` (or by the JAX package)."""
+        from cfk_tpu_torch.data.cache import load_dataset
+
+        return load_dataset(path, expect_build_key=expect_build_key)
 
     @classmethod
     def from_coo(
@@ -880,13 +1106,26 @@ class Dataset:
 
         ``layout="padded"``: one rectangle per side.  ``layout="bucketed"``:
         power-of-two width classes, ``chunk_elems`` cells per solve chunk.
-        ``layout="tiled"``: accum mode for a side with at most
-        ``accum_max_entities`` entities, stream mode for the other (the
-        unpadded dense stream with ``dense_stream``, which the CLI asks
-        for)."""
+        ``layout="segment"``: flat sorted runs in nnz chunks, sized for the
+        ``segsum`` Gram — the JAX package's rule where its JAX has no ragged
+        matmul (``cfk_tpu/data/blocks.py:1535-1552``): that Gram holds a
+        [C, k, k] outer-product tensor, so a chunk takes ``max(64,
+        chunk_elems // 64)`` ratings.  The port has no ragged matmul, so it
+        builds by this rule always.  ``layout="tiled"``: accum mode for a
+        side with at most ``accum_max_entities`` entities, stream mode for
+        the other (the unpadded dense stream with ``dense_stream``, which the
+        CLI asks for)."""
         movie_map, m_dense = index_entities(coo.movie_raw)
         user_map, u_dense = index_entities(coo.user_raw)
-        if layout == "bucketed":
+        if layout == "segment":
+            chunk_nnz = (None if chunk_elems is None
+                         else max(64, chunk_elems // 64))
+
+            def build(s, f, ns, _nf):
+                return build_segment_blocks(
+                    s, f, coo.rating, ns, pad_multiple=pad_multiple,
+                    chunk_nnz=chunk_nnz)
+        elif layout == "bucketed":
             def build(s, f, ns, _nf):
                 return build_bucketed_blocks(
                     s, f, coo.rating, ns, pad_multiple=pad_multiple,
@@ -904,10 +1143,7 @@ class Dataset:
                 return build_padded_blocks(
                     s, f, coo.rating, ns, pad_multiple=pad_multiple)
         else:
-            raise ValueError(
-                f"unknown layout {layout!r} (the port builds 'padded', "
-                "'bucketed' and 'tiled')"
-            )
+            raise ValueError(f"unknown layout {layout!r}")
         nm, nu = movie_map.num_entities, user_map.num_entities
         return cls(
             movie_map=movie_map,

@@ -1,11 +1,13 @@
 """MovieLens CSV ingest (ml-25m ``ratings.csv`` format) — the port's copy of
-``cfk_tpu/data/movielens.py`` (its pure-Python parser).
+``cfk_tpu/data/movielens.py``.
 
 Grammar: optional header ``userId,movieId,rating,timestamp``, then rows
 ``userId,movieId,rating,timestamp``; timestamps are ignored.  For the
 implicit-feedback pipeline the rating column is the interaction strength;
 ``min_rating`` drops rows below a threshold (a common MovieLens-implicit
-protocol).
+protocol).  ``parse_movielens_csv`` takes the host library's C++ parser
+(``data._native``) as ``cfk_tpu/data/movielens.py:25-34`` does;
+``parse_movielens_csv_python`` is its plain version.
 """
 
 from __future__ import annotations
@@ -22,6 +24,18 @@ _INT64_MAX = 2**63 - 1
 
 
 def parse_movielens_csv(path: str, *, min_rating: float = 0.0) -> RatingsCOO:
+    """Parse a MovieLens CSV into COO arrays (the host library's parser,
+    else the pure-Python one)."""
+    from cfk_tpu_torch.data import _native
+
+    if _native.available():
+        return _native.parse_movielens(path, min_rating)
+    return parse_movielens_csv_python(path, min_rating=min_rating)
+
+
+def parse_movielens_csv_python(path: str, *,
+                               min_rating: float = 0.0) -> RatingsCOO:
+    """Pure-Python MovieLens CSV parser."""
     users: list[int] = []
     movies: list[int] = []
     ratings: list[float] = []

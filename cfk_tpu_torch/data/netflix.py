@@ -7,6 +7,12 @@ Grammar (matching ``producers/NetflixDataFormatProducer.java:44-50``):
 
 Movies with zero rating rows exist in the files and are dropped: the
 reference counts rated entities only.
+
+``parse_netflix`` takes the host library's single-pass C++ parser
+(``data._native``) as ``cfk_tpu/data/netflix.py:71-83`` takes the JAX
+package's; ``parse_netflix_python`` is its plain version, taken where no
+library could be built.  Both return the same arrays and raise ValueError
+naming the path and line of a malformed line.
 """
 
 from __future__ import annotations
@@ -59,4 +65,11 @@ def parse_netflix_python(path: str) -> RatingsCOO:
     )
 
 
-parse_netflix = parse_netflix_python
+def parse_netflix(path: str) -> RatingsCOO:
+    """Parse a Netflix-format ratings file into COO arrays (the host
+    library's parser, else the pure-Python one)."""
+    from cfk_tpu_torch.data import _native
+
+    if _native.available():
+        return _native.parse_netflix(path)
+    return parse_netflix_python(path)

@@ -25,6 +25,7 @@ from cfk_tpu_torch.data.blocks import (
     BucketedBlocks,
     Dataset,
     PaddedBlocks,
+    SegmentBlocks,
     TiledBlocks,
 )
 from cfk_tpu_torch.device import DEFAULT_DEVICE, resolve_device
@@ -36,6 +37,7 @@ from cfk_tpu_torch.ops.kernels.gram_units import (
 from cfk_tpu_torch.ops.solve import (
     als_half_step,
     als_half_step_bucketed,
+    als_half_step_segment,
     init_factors,
     init_factors_stats,
     use_kernels,
@@ -132,6 +134,34 @@ def _bucketed_device_setup(dataset: Dataset, device):
     return mblocks, ublocks, layout_kw
 
 
+SEGMENT_FIELDS = ("neighbor_idx", "rating", "mask", "seg_rel",
+                  "chunk_entity", "chunk_count", "carry_in", "last_seg")
+
+
+def _segment_to_device(blocks: SegmentBlocks, device) -> dict:
+    """Device tensors of one segment half (``cfk_tpu/models/als.py:116``;
+    ``group_sizes`` feeds only the JAX package's ragged-matmul Gram, which
+    the port does not have, so it stays on the host)."""
+    if blocks.num_shards != 1:
+        raise ValueError(
+            f"segment blocks were built for num_shards={blocks.num_shards}; "
+            "the port trains one device — rebuild with "
+            "Dataset.from_coo(..., layout='segment')")
+    return {f: torch.as_tensor(getattr(blocks, f), device=device)
+            for f in SEGMENT_FIELDS}
+
+
+def _segment_device_setup(dataset: Dataset, device):
+    """Device dicts of both segment halves and the static layout kwargs
+    (``cfk_tpu/models/als.py:222``)."""
+    mb, ub = dataset.movie_blocks, dataset.user_blocks
+    layout_kw = dict(m_chunks=mb.statics, u_chunks=ub.statics,
+                     m_entities=mb.padded_entities,
+                     u_entities=ub.padded_entities)
+    return (_segment_to_device(mb, device), _segment_to_device(ub, device),
+            layout_kw)
+
+
 def _tiled_to_device(blocks: TiledBlocks, device, fixed_rows: int,
                      weighted: bool = False) -> dict[str, torch.Tensor]:
     """Device tensors of one tiled half.  accum and stream: the blocks'
@@ -205,8 +235,8 @@ def _tiled_device_setup(dataset: Dataset, device, weighted: bool = False):
 
 
 def _layout_of(dataset: Dataset) -> str:
-    return {BucketedBlocks: "bucketed", TiledBlocks: "tiled"}.get(
-        type(dataset.movie_blocks), "padded")
+    return {BucketedBlocks: "bucketed", SegmentBlocks: "segment",
+            TiledBlocks: "tiled"}.get(type(dataset.movie_blocks), "padded")
 
 
 def device_setup(dataset: Dataset, config: ALSConfig, device, *,
@@ -218,13 +248,15 @@ def device_setup(dataset: Dataset, config: ALSConfig, device, *,
     if config.layout not in ("auto", built):
         raise ValueError(f"config.layout={config.layout!r} but the dataset "
                          f"was built with the {built} layout")
-    if config.algorithm != "als" and built == "tiled":
+    if config.algorithm != "als" and built in ("tiled", "segment"):
         raise ValueError(
             f"{config.algorithm} runs on the padded and bucketed layouts; "
-            "this dataset was built with the tiled layout")
+            f"this dataset was built with the {built} layout")
     mb, ub = dataset.movie_blocks, dataset.user_blocks
     if built == "tiled":
         return (*_tiled_device_setup(dataset, device, weighted), None)
+    if built == "segment":
+        return (*_segment_device_setup(dataset, device), None)
     if built == "bucketed":
         return (*_bucketed_device_setup(dataset, device), None)
     return (_blocks_to_device(mb, device), _blocks_to_device(ub, device), {},
@@ -259,7 +291,8 @@ def _half(fixed, blk, *, lam, solve_chunk, solver, chunks=None,
           entities=None, x_prev=None, algorithm="als", block_size=32,
           sweeps=1, fused_epilogue=None, in_kernel_gather=None):
     """Solve one side against fixed factors; dispatches on the layout
-    (tuple = width buckets, tiled statics, else one padded rectangle).
+    (tuple = width buckets, a dict with segment ids = the flat segment run,
+    tiled statics, else one padded rectangle).
     ``algorithm="als++"`` runs warm-started subspace sweeps from
     ``x_prev`` (padded/bucketed layouts); ``fused_epilogue`` reaches the
     tiled and bucketed half-steps and the sweeps' b×b solves (the padded
@@ -282,6 +315,9 @@ def _half(fixed, blk, *, lam, solve_chunk, solver, chunks=None,
                                       solver=solver,
                                       in_kernel_gather=in_kernel_gather,
                                       fused_epilogue=fused_epilogue)
+    if "seg_rel" in blk:
+        return als_half_step_segment(fixed, blk, chunks, entities, lam,
+                                     solver=solver)
     if chunks is not None:
         return tiled_half_step(fixed, blk, chunks, entities, lam,
                                solver=solver, fused_epilogue=fused_epilogue,

@@ -27,6 +27,7 @@ from cfk_tpu_torch.models.als import ALSModel, device_setup, init_user_factors
 from cfk_tpu_torch.ops.solve import (
     ials_half_step,
     ials_half_step_bucketed,
+    ials_half_step_segment,
     use_kernels,
 )
 from cfk_tpu_torch.ops.subspace import (
@@ -62,8 +63,9 @@ class IALSConfig(ALSConfig):
 def _ials_half(fixed, blk, *, lam, alpha, solver, chunks=None, entities=None,
                x_prev=None, algorithm="als", block_size=32, sweeps=1,
                fused_epilogue=None, in_kernel_gather=None):
-    """Dispatch on the block layout (tuple = width buckets, tiled statics,
-    else one padded rectangle); ``algorithm="ials++"`` runs warm-started
+    """Dispatch on the block layout (tuple = width buckets, a dict with
+    segment ids = the flat segment run, tiled statics, else one padded
+    rectangle); ``algorithm="ials++"`` runs warm-started
     subspace sweeps from ``x_prev`` (padded/bucketed layouts);
     ``fused_epilogue`` reaches the tiled and bucketed half-steps and the
     sweeps, ``in_kernel_gather`` the tiled and bucketed ones (as in
@@ -82,6 +84,9 @@ def _ials_half(fixed, blk, *, lam, alpha, solver, chunks=None, entities=None,
                                        solver=solver,
                                        in_kernel_gather=in_kernel_gather,
                                        fused_epilogue=fused_epilogue)
+    if "seg_rel" in blk:
+        return ials_half_step_segment(fixed, blk, chunks, entities, lam,
+                                      alpha, solver=solver)
     if chunks is not None:
         return ials_tiled_half_step(fixed, blk, chunks, entities, lam, alpha,
                                     solver=solver,

@@ -1,7 +1,8 @@
-"""Batched normal-equation solves on the padded and bucketed layouts.
+"""Batched normal-equation solves on the padded, bucketed and segment
+layouts.
 
-The port of ``cfk_tpu/ops/solve.py``'s padded and bucketed paths, explicit
-(ALS-WR) and implicit (iALS).  Explicit, per entity
+The port of ``cfk_tpu/ops/solve.py``'s padded, bucketed and segment paths,
+explicit (ALS-WR) and implicit (iALS).  Explicit, per entity
 
     A = Σ f fᵀ,  b = Σ r·f,  A += λ·n_ratings·I,  x = A⁻¹ b
 
@@ -373,6 +374,133 @@ def ials_half_step_bucketed(
                            chunk_plan(blk, 0)),
         solve_piece, fixed_factors.new_zeros(local_entities + 1, k))
     return out[:local_entities]
+
+
+def segment_gram(
+    fixed_factors: torch.Tensor,  # [F, k]
+    neighbor_idx: torch.Tensor,  # [C] one chunk's flat sorted run
+    weight: torch.Tensor,  # [C] Gram weight (1 explicit, α·r iALS)
+    rating: torch.Tensor,  # [C] RHS coefficient (r explicit, c iALS)
+    mask: torch.Tensor,  # [C] 1 = real entry
+    segment_ids: torch.Tensor,  # [C] chunk-relative entity row (trash last)
+    num_segments: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk's Gram/RHS contributions by segment, the ``segsum`` backend
+    of ``cfk_tpu/ops/solve.py::_segment_gram_flat`` :576: the masked gather
+    f, the per-entry outer products w·f fᵀ summed by ``index_add_`` into
+    A [num_segments, k, k], and r·f into b [num_segments, k], all float32.
+    Padding entries are masked to zero, so their (trash) segment gets
+    nothing.  The segment layout reaches no Pallas kernel in the JAX package
+    (its Gram is XLA's ragged matmul or segment sum), so this is plain
+    PyTorch on every device; the [C, k, k] tensor it holds is what the
+    builder's chunk size is cut for."""
+    f = fixed_factors[neighbor_idx.long()].float() * mask[:, None]
+    fw = f * weight[:, None]
+    k = f.shape[1]
+    a = f.new_zeros((num_segments, k, k)).index_add_(
+        0, segment_ids, fw[:, :, None] * f[:, None, :])
+    b = f.new_zeros((num_segments, k)).index_add_(
+        0, segment_ids, rating[:, None] * f)
+    return a, b
+
+
+def segment_scan(fixed_factors, chunk_gram, solve_rows, blk, statics,
+                 local_entities: int) -> torch.Tensor:
+    """The chunk loop both segment half-steps share (``cfk_tpu/ops/solve.py
+    ::_segment_scan`` :641; ``lax.scan`` becomes a Python loop).
+
+    ``chunk_gram(lo, hi)`` builds chunk entries [lo, hi)'s raw Gram/RHS
+    [Ec+1, k, k]/[Ec+1, k]; ``solve_rows(a, b, count) -> x`` solves the
+    chunk's Ec rows.  The entity straddling each chunk boundary carries its
+    partial (A, b): ``carry_in`` gates adding it to segment 0, and the next
+    carry is segment ``last_seg`` of the RAW sums — copied out before
+    ``solve_rows`` runs, since above k = 128 the split route adds the ridge
+    into ``a`` in place.  Each chunk's rows are scattered into the output
+    (rows not finalized there go to the trash row); rows that no chunk
+    finalizes stay exactly 0."""
+    nc, cap, e_c = statics
+    k = fixed_factors.shape[-1]
+    out = fixed_factors.new_zeros((local_entities + 1, k))
+    a0 = fixed_factors.new_zeros((k, k))
+    b0 = fixed_factors.new_zeros((k,))
+    carry_in, last_seg = blk["carry_in"], blk["last_seg"]
+    for c in range(nc):
+        a, b = chunk_gram(c * cap, (c + 1) * cap)
+        a[0] += carry_in[c] * a0
+        b[0] += carry_in[c] * b0
+        last = last_seg[c:c + 1]
+        a0 = a.index_select(0, last)[0]
+        b0 = b.index_select(0, last)[0]
+        rows = slice(c * e_c, (c + 1) * e_c)
+        x = solve_rows(a[:e_c], b[:e_c], blk["chunk_count"][rows])
+        out[blk["chunk_entity"][rows].long()] = x
+    return out[:local_entities]
+
+
+def als_half_step_segment(
+    fixed_factors: torch.Tensor,  # [F, k]
+    blk,  # device dict of one SegmentBlocks side (models.als)
+    statics: tuple[int, int, int],
+    local_entities: int,
+    lam: float,
+    *,
+    solver: str = "auto",
+) -> torch.Tensor:
+    """One ALS-WR half-iteration over the segment layout
+    (``cfk_tpu/ops/solve.py::als_half_step_segment`` :690): the same normal
+    equations and λ·max(n, 1)·I as every other layout, the Grams summed
+    chunk by chunk over the flat sorted run (``segment_gram``), each
+    chunk's Ec rows solved by ``regularized_solve`` — K1 on CUDA up to
+    k = 128, ``batched_spd_solve`` above, the plain version on the CPU —
+    with the straddling entity's partial sums carried across chunks."""
+    e_c = statics[2]
+
+    def chunk_gram(lo, hi):
+        rt = blk["rating"][lo:hi]
+        return segment_gram(fixed_factors, blk["neighbor_idx"][lo:hi],
+                            torch.ones_like(rt), rt, blk["mask"][lo:hi],
+                            blk["seg_rel"][lo:hi], e_c + 1)
+
+    def solve_rows(a, b, cnt):
+        return regularized_solve(a, b, cnt, lam, solver)
+
+    return segment_scan(fixed_factors, chunk_gram, solve_rows, blk, statics,
+                        local_entities)
+
+
+def ials_half_step_segment(
+    fixed_factors: torch.Tensor,  # [F, k]
+    blk,
+    statics: tuple[int, int, int],
+    local_entities: int,
+    lam: float,
+    alpha: float,
+    *,
+    gram: torch.Tensor | None = None,
+    solver: str = "auto",
+) -> torch.Tensor:
+    """Implicit-feedback half-iteration over the segment layout
+    (``cfk_tpu/ops/solve.py::ials_half_step_segment`` :738): per entity
+    A = YᵀY + Σ_obs (c−1)·f fᵀ + λI, b = Σ_obs c·f.  The chunk loop carries
+    the raw observed Gram of straddling entities; the shared YᵀY + λI is
+    added at solve time only (K1's matrix mode up to k = 128).  Rows with
+    no interaction stay exactly 0."""
+    if gram is None:
+        gram = global_gram(fixed_factors)
+    reg = implicit_reg(gram, lam)
+    e_c = statics[2]
+
+    def chunk_gram(lo, hi):
+        rt, mk = blk["rating"][lo:hi], blk["mask"][lo:hi]
+        return segment_gram(fixed_factors, blk["neighbor_idx"][lo:hi],
+                            alpha * rt, (1.0 + alpha * rt) * mk, mk,
+                            blk["seg_rel"][lo:hi], e_c + 1)
+
+    def solve_rows(a, b, _cnt):
+        return regularized_solve_matrix(a, b, reg, solver)
+
+    return segment_scan(fixed_factors, chunk_gram, solve_rows, blk, statics,
+                        local_entities)
 
 
 def pad_rows_to_multiple(tensors, multiple: int):

@@ -5,12 +5,18 @@
 Phases, each of which must pass:
 
 1. build   — compile the fifteen CUDA kernels from cfk_tpu_torch/csrc (one
-             nvcc per source, in parallel);
+             nvcc per source, in parallel) and the host ingest library
+             (``csrc/host/cfk_native.cpp``, the host C++ compiler; the phase
+             fails if it does not load — nothing runs on the numpy route);
 2. main    — train explicit ALS-WR with ``train_als`` at the Netflix Prize
              shape (480,189 users x 17,770 movies x 100,480,507 synthetic
              ratings, seed 0), tiled layout (accum movie half + dense-stream
              user half), rank 64, lambda 0.05, float32, 3 iterations, the
-             fused epilogue (K1-K3); every
+             fused epilogue (K1-K3); the "data:" line gives the generate,
+             group_by (the host library's counting sort of both sides'
+             keys) and block seconds, and the counting sort of the
+             100,480,507 movie keys is held to numpy's stable argsort
+             (order, count, start equal); every
              kernel's launch counter is zeroed just before and read just
              after, and each must be > 0; factors must be finite and the
              train RMSE below the ratings' standard deviation;
@@ -111,6 +117,19 @@ Phases, each of which must pass:
              ms on the movie accumulator and on the middle dense chunk's
              Grams; each half's device ms and a profiler pass over one
              iteration;
+4e. segment — the segment layout (flat sorted runs in 16,384-rating
+             chunks, ``Dataset.from_coo(layout="segment")`` of the main
+             phase's ratings) at the same shape, rank 64, λ 0.05: 2
+             iterations of ``train_als`` from the tiled run's u0 (the
+             segment-sum Grams in PyTorch, K1 once a chunk): K1's launch
+             count zeroed before and read after must equal the chunks of
+             the two iterations; the train RMSE guard; the first movie half
+             against the tiled run's first movie half from the same u0 (TOL
+             "segment_first_half": the same normal equations, float32 sums
+             in another order); s/iter, the device time and idle share of
+             a profiled window (each half's first 1,024 chunks, scaled to
+             the iteration's chunks), chunks and Ec per half, peak memory
+             and block-build seconds;
 5. serve   — top-K serving at the repo's serving configuration (``bench.py
              --serve``: 162,541 users x 59,047 movies, the ML-25M shape,
              rank 128, K = 100, tile_m 2048, seen lists at the ML-25M mean;
@@ -199,6 +218,13 @@ Phases, each of which must pass:
              ``batched_spd_solve``): launch counts, the objective must fall,
              the first movie half against ``first_half_reference`` on the
              five widest and five random movies;
+6e. segment_ml25m — one warm-started ``train_ials`` call from the implicit
+             phase's u0 on the segment layout of its ML-25M ratings (rank
+             128, K1 in matrix mode once a chunk): K1's launch count equals
+             the chunks, the objective falls, and the first movie half is
+             held to ``first_half_reference`` (float64) on the five widest
+             and five random movies at TOL "first_half_factors"; s/iter,
+             device time and idle share, chunks, Ec, peak memory, build s;
 7. small   — ``train_als`` on small padded, tiled (dense stream, and the
              stream mode fused and split) and bucketed datasets (ALS and
              ALS++) and ``train_ials`` on small tiled and bucketed ones (iALS
@@ -209,8 +235,11 @@ Phases, each of which must pass:
              on a small Netflix-format file (padded is chosen), then
              ``recommend``, ``predict``, ``evaluate`` on predict's CSV (the
              train MSE again) and ``serve`` (every request answered);
-             ``train --layout padded --rank 256`` on the card and the CPU
-             (MSEs within 1e-3 of each other); then
+             ``train --layout padded --rank 256`` and ``train --layout
+             segment`` on the card and the CPU (MSEs within 1e-3 of each
+             other); ``train --dataset-cache DIR`` twice on the card (the
+             second run hits the cache and checkpoints bit-equal factors);
+             then
              ``train --implicit --algorithm ials++ --eval-ranking 10`` on a
              small planted MovieLens-format file, whose Recall@10 and MPR on
              the card must equal the CPU run's.
@@ -229,6 +258,7 @@ from __future__ import annotations
 import functools
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -310,7 +340,8 @@ TOL = {"reg_solve": 1e-3, "gram_gather": 1e-4, "gram_solve_dense": 1e-3,
        "first_half_factors": 1e-3, "scores": 1e-3,
        "binv_solve_reg": 1e-3, "binv_inv": 1e-3, "binv_float64": 1e-2,
        "reg_solve_float64": 2 * 6.17e-5, "topk_exact": 0.0,
-       "gram_r256": 1e-5, "float64_r256": 1e-4}
+       "gram_r256": 1e-5, "float64_r256": 1e-4,
+       "segment_first_half": 1e-3}
 # K1's relative x error against float64 on the binv phase's inputs (k = 128,
 # condition numbers to 4.5e3) when it factored one column at a time
 # (NVIDIA H100 80GB HBM3, 700 W): the blocked solve is held to twice it
@@ -351,7 +382,8 @@ LINE_EXTRA = {"gauss_solve": ("ms_schur", "bound_ms_schur",
               "binv_inv": ("ctas_per_sm", "ms_n16", "bound_ms_n16",
                            "library_ms_n16"),
               "reg_solve": ("ms_k128_e1", "bound_ms_k128_e1", "ms_k128_e203",
-                            "bound_ms_k128_e203")}
+                            "bound_ms_k128_e203", "launches_segment",
+                            "launches_segment_implicit")}
 # scripts/exp_binv.py's defaults (main :187-212): k = 128, --e 334·16
 # rounded down to a multiple of the 128-system tile, λ = 0.05; the main
 # path's movie Grams at k = 64; matrix mode at the ML-25M movie count.
@@ -366,6 +398,12 @@ SPLIT_ITERS = 2
 # implicit phase's ML-25M blocks.  Nothing is cut.
 R256 = dict(rank=256, iterations=2, gather_off_iterations=1)
 GATHER_OFF_ITERS = 2  # the gather-off runs, fused and split
+# Phase 4e: the segment layout of the main phase's ratings at the CLI's
+# default chunk budget (2^20 cells: 16,384-rating chunks for its [C, k, k]
+# segment-sum Gram); 2 iterations; the profiler traces a steady window of
+# the first 1,024 chunks of each half (the whole iteration's ≈ 250,000
+# launches take the profiler about a minute to aggregate).
+SEGMENT = dict(chunk_elems=1 << 20, iterations=2, profile_chunks=1024)
 # bench.py's implicit rows (bench.py:448-503): the ML-25M shape at rank 128.
 ML25M = dict(num_users=162_541, num_movies=59_047, nnz=25_000_095)
 IMPLICIT = dict(rank=128, lam=0.1, alpha=40.0, iterations=3,
@@ -407,25 +445,44 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_ms(fn, reps: int, kernel: str) -> float:
-    """Device ms per call of the kernels whose name holds ``kernel``, from
-    torch.profiler's rows over ``reps`` calls after one warm-up: for a
-    launch so short that back-to-back calls would time the host's launch
-    path, not the card."""
+PROFILE_ATTEMPTS = 4  # fresh profiler sessions before a kernel counts unseen
+
+
+def kernels_ms(fn, reps: int, *kernels: str) -> dict[str, float]:
+    """Device ms per call of the kernels whose names hold each of
+    ``kernels``, from one torch.profiler session over ``reps`` calls after
+    one warm-up: for launches so short that back-to-back calls would time
+    the host's launch path, not the card.  A session that records none of
+    a kernel's launches (one on the H100 once recorded no pass-2 launch of
+    K4, which every call makes, right after a session that recorded its
+    pass 1) is traced again in a fresh one, up to ``PROFILE_ATTEMPTS``
+    sessions; a kernel no session sees raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if kernel in e.key)
-    if us <= 0:
-        raise RuntimeError(f"the profiler saw no {kernel} on the card")
-    return us / 1e3 / reps
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = prof.key_averages()
+        us = {k: sum(e.self_device_time_total for e in rows if k in e.key)
+              for k in kernels}
+        missed = [k for k, v in us.items() if v <= 0]
+        if not missed:
+            return {k: v / 1e3 / reps for k, v in us.items()}
+        log(f"profiler session {attempt}/{PROFILE_ATTEMPTS} recorded no "
+            f"{', '.join(missed)}")
+        time.sleep(0.5)
+    raise RuntimeError(f"the profiler saw no {', '.join(missed)} on the card "
+                       f"in {PROFILE_ATTEMPTS} sessions")
+
+
+def kernel_ms(fn, reps: int, kernel: str) -> float:
+    """``kernels_ms`` of one kernel."""
+    return kernels_ms(fn, reps, kernel)[kernel]
 
 
 def bound(bytes_moved: float, flops: float,
@@ -818,19 +875,27 @@ def ridge_condition(factors, lam) -> float:
     return float(w[-1] / w[0])
 
 
-def profile_calls(fn, n: int) -> dict:
+def profile_calls(fn, n: int, *, cpu: bool = True,
+                  warm: bool = True) -> dict:
     """Where ``n`` calls of ``fn`` spend their time (measurement only):
     host wall ms per call, device-busy ms per call from torch.profiler's
-    kernel rows, the idle share, and the top device rows.  Returns
-    ``{"error": ...}`` if the profiler cannot trace the card."""
+    kernel rows, the idle share, and the top device rows.  ``cpu=False``
+    traces the device alone (the segment phases launch ≈ 20 small ops a
+    chunk over thousands of chunks, whose host events would take minutes
+    to aggregate); ``warm=False`` skips the warm-up call where the caller
+    just ran ``fn``'s work.  Returns ``{"error": ...}`` if the profiler
+    cannot trace the card."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     try:
-        fn()
+        if warm:
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        activities = [ProfilerActivity.CUDA]
+        if cpu:
+            activities.insert(0, ProfilerActivity.CPU)
+        with profile(activities=activities) as prof:
             t0 = time.perf_counter()
             for _ in range(n):
                 fn()
@@ -913,7 +978,15 @@ class Smoke:
 
     def build(self):
         from cfk_tpu_torch import _build
+        from cfk_tpu_torch.data import _native
 
+        t0 = time.perf_counter()
+        _native.load_library()  # raises if the host library cannot be built
+        self.check(_native.available(), "host ingest library did not load")
+        host_s = time.perf_counter() - t0
+        log(f"host library {_build.host_library_path()} ({host_s:.1f} s)")
+        self.report["host_library"] = dict(
+            path=str(_build.host_library_path()), build_s=host_s)
         t0 = time.perf_counter()
         paths = _build.build_all()
         self.report["build_s"] = time.perf_counter() - t0
@@ -944,9 +1017,12 @@ class Smoke:
                               dense_stream=True)
         build_s = time.perf_counter() - t0
         mb, ub = ds.movie_blocks, ds.user_blocks
-        log(f"data: generate {gen_s:.1f} s, blocks {build_s:.1f} s; movie "
+        group_s, group_check = self.group_by_check(ds)
+        log(f"data: generate {gen_s:.1f} s, group_by {group_s:.2f} s (both "
+            f"sides, host library), blocks {build_s:.1f} s; movie "
             f"{mb.mode} {mb.statics} slices={mb.num_slices}, user {ub.mode} "
-            f"{ub.statics}")
+            f"{ub.statics}; movie keys vs numpy's stable argsort: "
+            f"{group_check}")
         self.check(mb.mode == "accum" and ub.mode == "dstream",
                    f"layout modes {mb.mode}/{ub.mode} != accum/dstream")
         config = ALSConfig(rank=RANK, lam=LAM, num_iterations=ITERS,
@@ -984,7 +1060,8 @@ class Smoke:
         }
         self.report["main"] = dict(
             shape=NETFLIX, rank=RANK, lam=LAM, iterations=ITERS,
-            generate_s=gen_s, blocks_s=build_s, train_s=train_s,
+            generate_s=gen_s, blocks_s=build_s, group_by_s=group_s,
+            group_by_vs_numpy=group_check, train_s=train_s,
             s_per_iter=train_s / ITERS, half_ms=half_ms, train_mse=mse,
             train_rmse=rmse, rating_std=std, peak_device_bytes=peak,
             launches=launches,
@@ -998,6 +1075,31 @@ class Smoke:
         for name, n in launches.items():
             self.kernels.setdefault(name, {})["launches"] = n
         return ds, model, blk_m, blk_u
+
+    def group_by_check(self, ds):
+        """The host library's counting sort on the full-size keys: seconds
+        for both sides' keys, then the movie keys against numpy's stable
+        argsort (order, count and start must be equal)."""
+        import numpy as np
+
+        from cfk_tpu_torch.data import _native
+        from cfk_tpu_torch.data.blocks import group_by_dense_numpy
+
+        d = ds.coo_dense
+        nm, nu = ds.movie_map.num_entities, ds.user_map.num_entities
+        t0 = time.perf_counter()
+        got = _native.group_by(d.movie_raw, nm)
+        _native.group_by(d.user_raw, nu)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = group_by_dense_numpy(d.movie_raw, nm)
+        numpy_s = time.perf_counter() - t0
+        equal = all(a.dtype == b.dtype and np.array_equal(a, b)
+                    for a, b in zip(got, want))
+        self.check(equal, "native group_by of the movie keys differs from "
+                   "numpy's stable argsort")
+        return native_s, dict(equal=equal, numpy_movie_keys_s=numpy_s,
+                              keys=int(d.movie_raw.shape[0]))
 
     def breakdown(self, ds, model, blk_m, blk_u):
         """Where one iteration's time goes (measurement only, no checks):
@@ -2084,6 +2186,177 @@ class Smoke:
                        f"rank256: {name} rel err {row['rel_err']}")
         return out[sibling]
 
+    def segment(self, ds, model, blk_m, blk_u):
+        """Phase 4e: explicit ALS-WR on the segment layout of the main
+        phase's ratings (see the module doc)."""
+        import numpy as np
+        import torch
+
+        from cfk_tpu_torch import ALSConfig, Dataset, train_als
+        from cfk_tpu_torch.eval.metrics import mse_rmse_from_model
+        from cfk_tpu_torch.models.als import (
+            _segment_device_setup,
+            init_user_factors,
+        )
+        from cfk_tpu_torch.ops.kernels.solve_kernel import reg_solve
+        from cfk_tpu_torch.ops.solve import als_half_step_segment
+        from cfk_tpu_torch.ops.tiled import tiled_half_step
+
+        c = SEGMENT
+        t0 = time.perf_counter()
+        sds = Dataset.from_coo(ds.coo_dense, layout="segment",
+                               chunk_elems=c["chunk_elems"])
+        build_s = time.perf_counter() - t0
+        smb, sub = sds.movie_blocks, sds.user_blocks
+        log(f"segment data: blocks {build_s:.1f} s; movie {smb.statics} "
+            f"({int(smb.carry_in.sum())} carried chunks), user "
+            f"{sub.statics}")
+        dev = torch.device("cuda")
+        cfg = ALSConfig(rank=RANK, lam=LAM, num_iterations=c["iterations"],
+                        seed=0, layout="segment")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reg_solve.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        smodel = train_als(sds, cfg, device=dev)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = reg_solve.launches
+        peak = torch.cuda.max_memory_allocated()
+        chunks = c["iterations"] * (smb.num_chunks + sub.num_chunks)
+        self.check(launches == chunks,
+                   f"segment: K1 launched {launches} times, {chunks} chunks")
+        u, m = smodel.user_factors, smodel.movie_factors
+        self.check(bool(torch.isfinite(u).all() and torch.isfinite(m).all()),
+                   "segment: non-finite factors")
+        mse, rmse = mse_rmse_from_model(smodel, sds)
+        std = float(np.std(ds.coo_dense.rating.astype(np.float64)))
+        self.check(rmse < std, f"segment: train RMSE {rmse} >= std {std}")
+        # The first movie half from the tiled run's u0 (the same seed, the
+        # same rating sums and counts), on both layouts.
+        u0, _ = init_user_factors(sds, None, cfg, dev, None)
+        mb = ds.movie_blocks
+        tiled_first = tiled_half_step(u0, blk_m, ("tiled", mb.mode)
+                                      + mb.statics, mb.padded_entities, LAM)
+        sblk_m, sblk_u, kw = _segment_device_setup(sds, dev)
+        seg_first = als_half_step_segment(u0, sblk_m, kw["m_chunks"],
+                                          kw["m_entities"], LAM)
+        first = rel_err(seg_first, tiled_first)[1]
+        self.check(first < TOL["segment_first_half"],
+                   f"segment: first movie half differs from the tiled "
+                   f"run's by {first}")
+        del tiled_first, seg_first
+        win = [(min(c["profile_chunks"], st[0]),) + st[1:]
+               for st in (kw["m_chunks"], kw["u_chunks"])]
+        movie = functools.partial(als_half_step_segment, u, sblk_m, win[0],
+                                  kw["m_entities"], LAM)
+        user = functools.partial(als_half_step_segment, m, sblk_u, win[1],
+                                 kw["u_entities"], LAM)
+        t0 = time.perf_counter()
+        prof = profile_calls(lambda: (movie(), user()), 1, cpu=False,
+                             warm=False)
+        prof["profile_s"] = time.perf_counter() - t0
+        prof["window_chunks"] = win[0][0] + win[1][0]
+        if "device_busy_ms" in prof:
+            prof["device_ms_per_iter"] = (
+                prof["device_busy_ms"] * (smb.num_chunks + sub.num_chunks)
+                / prof["window_chunks"])
+        self.report["segment"] = dict(
+            chunk_elems=c["chunk_elems"], iterations=c["iterations"],
+            blocks_s=build_s, train_s=train_s,
+            s_per_iter=train_s / c["iterations"], train_mse=mse,
+            train_rmse=rmse, rating_std=std, peak_device_bytes=peak,
+            k1_launches=launches, chunks_per_half=dict(
+                movie=smb.num_chunks, user=sub.num_chunks),
+            chunk_cap=smb.chunk_cap, ec=dict(movie=smb.chunk_entities,
+                                             user=sub.chunk_entities),
+            carried_chunks=dict(movie=int(smb.carry_in.sum()),
+                                user=int(sub.carry_in.sum())),
+            first_movie_half_vs_tiled=first, profile=prof)
+        self.kernels.setdefault("reg_solve", {})["launches_segment"] = \
+            launches
+        log(f"segment: {self.report['segment']}")
+
+    def segment_implicit(self, ds_t, ds_b, ds_s, u0, m0, runs):
+        """Phase 6e: one warm-started iALS call on the segment layout of the
+        implicit phase's ratings (see the module doc)."""
+        import numpy as np
+        import torch
+
+        from cfk_tpu_torch import Dataset
+        from cfk_tpu_torch.models.als import _segment_device_setup
+        from cfk_tpu_torch.models.ials import IALSConfig, train_ials
+        from cfk_tpu_torch.ops.kernels.solve_kernel import reg_solve
+        from cfk_tpu_torch.ops.solve import ials_half_step_segment
+
+        c = IMPLICIT
+        t0 = time.perf_counter()
+        sds = Dataset.from_coo(ds_t.coo_dense, layout="segment",
+                               chunk_elems=SEGMENT["chunk_elems"])
+        build_s = time.perf_counter() - t0
+        smb, sub = sds.movie_blocks, sds.user_blocks
+        dev = torch.device("cuda")
+        cfg = IALSConfig(rank=c["rank"], lam=c["lam"], alpha=c["alpha"],
+                         num_iterations=1, layout="segment")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reg_solve.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = train_ials(sds, cfg, device=dev, warm_start=(u0, m0))
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        launches = reg_solve.launches
+        peak = torch.cuda.max_memory_allocated()
+        chunks = smb.num_chunks + sub.num_chunks
+        self.check(launches == chunks, f"segment_ml25m: K1 launched "
+                   f"{launches} times, {chunks} chunks")
+        u, m = model.user_factors, model.movie_factors
+        self.check(bool(torch.isfinite(u).all() and torch.isfinite(m).all()),
+                   "segment_ml25m: non-finite factors")
+        d = ds_t.coo_dense
+        obs = [torch.as_tensor(x, device=dev) for x in (
+            d.user_raw.astype(np.int32), d.movie_raw.astype(np.int32),
+            d.rating)]
+        j0 = implicit_objective(torch.as_tensor(u0, device=dev),
+                                torch.as_tensor(m0, device=dev), *obs,
+                                c["lam"], c["alpha"])
+        j1 = implicit_objective(u, m, *obs, c["lam"], c["alpha"])
+        self.check(j1 < j0, f"segment_ml25m: objective {j0} -> {j1}")
+        nm = ML25M["num_movies"]
+        count = torch.bincount(obs[1].long(), minlength=nm)
+        sample = torch.cat([torch.topk(count, 5).indices, torch.as_tensor(
+            np.random.default_rng(0).choice(nm, 5, replace=False),
+            device=dev)])
+        ref = first_half_reference(u0, obs[1], obs[0], obs[2], sample,
+                                   c["lam"], c["alpha"])
+        got = m[sample].double()
+        vs64 = ((got - ref).abs().amax(1) / ref.abs().amax(1)).tolist()
+        self.check(max(vs64) < TOL["first_half_factors"],
+                   f"segment_ml25m: first movie half vs float64 {vs64}")
+        del obs
+        sblk_m, sblk_u, kw = _segment_device_setup(sds, dev)
+        half = functools.partial(ials_half_step_segment, lam=c["lam"],
+                                 alpha=c["alpha"])
+        t0 = time.perf_counter()
+        prof = profile_calls(lambda: (
+            half(u, sblk_m, kw["m_chunks"], kw["m_entities"]),
+            half(m, sblk_u, kw["u_chunks"], kw["u_entities"])), 1,
+            cpu=False, warm=False)
+        prof["profile_s"] = time.perf_counter() - t0
+        self.report["segment_ml25m"] = dict(
+            blocks_s=build_s, call_s=call_s, objective=[j0, j1],
+            peak_device_bytes=peak, k1_launches=launches,
+            chunks_per_half=dict(movie=smb.num_chunks, user=sub.num_chunks),
+            chunk_cap=smb.chunk_cap, ec=dict(movie=smb.chunk_entities,
+                                             user=sub.chunk_entities),
+            first_half_vs_float64=dict(movies=sample.tolist(), rel=vs64),
+            profile=prof)
+        self.kernels.setdefault("reg_solve", {})[
+            "launches_segment_implicit"] = launches
+        log(f"segment_ml25m: {self.report['segment_ml25m']}")
+
     def serve(self):
         import numpy as np
         import torch
@@ -2225,11 +2498,11 @@ class Smoke:
                 b_ms, by = bound(nbytes, flops, BF16_TC_FLOPS_PER_S
                                  if td == "bfloat16" else FP32_FLOPS_PER_S)
                 row.update(**counts)
+                passes = kernels_ms(lambda: topk_scores(*a, **kw), 20,
+                                    "topk_partial_kernel", "topk_merge_kernel")
                 row.update(
-                    pass1_ms=kernel_ms(lambda: topk_scores(*a, **kw), 20,
-                                       "topk_partial_kernel"),
-                    pass2_ms=kernel_ms(lambda: topk_scores(*a, **kw), 20,
-                                       "topk_merge_kernel"),
+                    pass1_ms=passes["topk_partial_kernel"],
+                    pass2_ms=passes["topk_merge_kernel"],
                     ms=time_ms(lambda: topk_scores(*a, **kw), 20),
                     plain_ms=time_ms(lambda: topk_scores_plain(*a, **kw), 3),
                     library_ms=time_ms(dense, 10), bound_ms=b_ms, bound_by=by,
@@ -2340,12 +2613,14 @@ class Smoke:
             nbytes, flops, counts = topk_scores_work(a, kw, b)
             b_ms, by = bound(nbytes, flops)
             dense = dense_route(a, kw)
+            parts = kernels_ms(call, 10, "topk_partial_kernel",
+                               "topk_select_kernel", "topk_sort_kernel")
             row = dict(config=name, launches=launches,
                        max_abs_err=float((got[0] - want[0]).abs().max()),
                        ms=time_ms(call, 10),
-                       score_ms=kernel_ms(call, 10, "topk_partial_kernel"),
-                       select_ms=kernel_ms(call, 10, "topk_select_kernel"),
-                       sort_ms=kernel_ms(call, 10, "topk_sort_kernel"),
+                       score_ms=parts["topk_partial_kernel"],
+                       select_ms=parts["topk_select_kernel"],
+                       sort_ms=parts["topk_sort_kernel"],
                        plain_ms=time_ms(lambda: topk_scores_plain(*a, **kw),
                                         2),
                        library_ms=time_ms(lambda: dense(k), 5),
@@ -3266,25 +3541,60 @@ class Smoke:
         self.check(abs(mse_eval - mse_train) <= 1e-4 * mse_train,
                    f"evaluate MSE {mse_eval} != train MSE {mse_train}")
         # Above the fused kernels' cap: rank 256 on the padded layout (the
-        # split schedule's ridge add and Cholesky), the card against the CPU.
-        r256 = {}
-        for device in ("cuda", "cpu"):
+        # split schedule's ridge add and Cholesky); and the segment layout
+        # (K1 a chunk); the card against the CPU.
+        card_cpu = {}
+        for name, extra in (("rank256", ["--layout", "padded", "--rank",
+                                         "256"]),
+                            ("segment", ["--layout", "segment", "--rank",
+                                         "8", "--chunk-elems",
+                                         str(64 * 4096)])):
+            for device in ("cuda", "cpu"):
+                out = subprocess.run(
+                    [sys.executable, "-m", "cfk_tpu_torch", "train",
+                     "--data", str(data), *extra, "--iterations", "2",
+                     "--device", device, "--output", "none"], cwd=ROOT,
+                    capture_output=True, text=True, timeout=300)
+                log(f"cli train {' '.join(extra)} ({device}) "
+                    f"rc={out.returncode}: {out.stdout.strip()} | "
+                    f"{out.stderr.strip()[-300:]}")
+                self.check(out.returncode == 0,
+                           f"cli train {name} ({device}) failed")
+                f = dict(kv.split("=", 1) for kv in out.stdout.split()
+                         if "=" in kv)
+                card_cpu.setdefault(name, {})[device] = float(
+                    f.get("mse", "nan"))
+            got, want = card_cpu[name]["cuda"], card_cpu[name]["cpu"]
+            self.check(abs(got - want) <= 1e-3 * want,
+                       f"cli train {name}: card MSE {got} vs CPU {want}")
+        r256 = card_cpu["rank256"]
+        # --dataset-cache: the second run loads the first run's blocks and
+        # checkpoints the same factors, bit for bit.
+        cache_runs = []
+        shutil.rmtree(work / "dataset_cache", ignore_errors=True)
+        for i in range(2):
+            ck = work / f"cache_ckpt{i}"
             out = subprocess.run(
                 [sys.executable, "-m", "cfk_tpu_torch", "train", "--data",
-                 str(data), "--layout", "padded", "--rank", "256",
-                 "--iterations", "2", "--device", device, "--output",
-                 "none"], cwd=ROOT, capture_output=True, text=True,
-                timeout=300)
-            log(f"cli train --rank 256 ({device}) rc={out.returncode}: "
-                f"{out.stdout.strip()} | {out.stderr.strip()[-300:]}")
-            self.check(out.returncode == 0,
-                       f"cli train --rank 256 ({device}) failed")
-            f = dict(kv.split("=", 1) for kv in out.stdout.split()
-                     if "=" in kv)
-            r256[device] = float(f.get("mse", "nan"))
-        self.check(abs(r256["cuda"] - r256["cpu"]) <= 1e-3 * r256["cpu"],
-                   f"cli train --rank 256: card MSE {r256['cuda']} vs CPU "
-                   f"{r256['cpu']}")
+                 str(data), "--rank", "8", "--iterations", "2", "--device",
+                 "cuda", "--output", "none", "--dataset-cache",
+                 str(work / "dataset_cache"), "--checkpoint-dir", str(ck)],
+                cwd=ROOT, capture_output=True, text=True, timeout=300)
+            hit = "# dataset cache hit" in out.stderr
+            log(f"cli train --dataset-cache (run {i + 1}) rc={out.returncode}"
+                f" hit={hit}: {out.stdout.strip()}")
+            self.check(out.returncode == 0 and hit == (i == 1),
+                       f"cli train --dataset-cache run {i + 1}: rc "
+                       f"{out.returncode}, cache hit {hit}")
+            cache_runs.append(ck)
+        from cfk_tpu_torch.transport.checkpoint import CheckpointManager
+
+        a, b = (CheckpointManager(str(ck)).restore() for ck in cache_runs)
+        cache_equal = bool(np.array_equal(a.user_factors, b.user_factors)
+                           and np.array_equal(a.movie_factors,
+                                              b.movie_factors))
+        self.check(cache_equal, "cli --dataset-cache: factors of the cached "
+                   "run differ from the building run's")
         # The serving verbs over the checkpoint train just wrote.
         serving = ["--checkpoint-dir", str(ckpt), "--data", str(data),
                    "--device", "cuda"]
@@ -3347,7 +3657,10 @@ class Smoke:
                    f"{ranking['cpu']}")
         self.check(mg < 0.4, f"cli implicit MPR {mg} not below chance")
         self.report["cli"] = dict(train=train.stdout.strip(),
-                                  rank256_mse=r256, evaluate_mse=mse_eval,
+                                  rank256_mse=r256,
+                                  segment_mse=card_cpu["segment"],
+                                  dataset_cache_bit_equal=cache_equal,
+                                  evaluate_mse=mse_eval,
                                   predict_mse=mse_pred, serve=row,
                                   implicit_ranking=ranking)
 
@@ -3380,6 +3693,8 @@ def main() -> int:
         smoke.phase("gather", smoke.gather, *main_out)
         torch.cuda.empty_cache()
         smoke.phase("rank256", smoke.rank256, *main_out)
+        torch.cuda.empty_cache()
+        smoke.phase("segment", smoke.segment, *main_out)
         del main_out
         torch.cuda.empty_cache()
     if built:
@@ -3392,6 +3707,9 @@ def main() -> int:
             smoke.phase("split_ml25m", smoke.split_implicit, *implicit_out)
             torch.cuda.empty_cache()
             smoke.phase("implicit_r256", smoke.implicit_r256, *implicit_out)
+            torch.cuda.empty_cache()
+            smoke.phase("segment_ml25m", smoke.segment_implicit,
+                        *implicit_out)
         del implicit_out
         torch.cuda.empty_cache()
     smoke.phase("small", smoke.small_parity)

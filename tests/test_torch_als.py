@@ -213,7 +213,7 @@ def test_cuda_without_cuda_raises_not_falls_back(coo, monkeypatch):
     (dict(num_iterations=0), "num_iterations must be >= 1"),
     (dict(lam=-1.0), "lam must be >= 0"),
     (dict(solver="pallas"), "unknown solver"),
-    (dict(layout="segment"), "unknown layout"),
+    (dict(layout="diagonal"), "unknown layout"),
     (dict(reg_solve_algo="qr"), "reg_solve_algo must be"),
     (dict(hbm_chunk_elems=0), "hbm_chunk_elems must be >= 1"),
 ])
@@ -244,7 +244,10 @@ def test_import_pulls_in_no_jax_and_no_cfk_tpu():
         "import cfk_tpu_torch.data.synthetic, cfk_tpu_torch.data.blocks\n"
         "import cfk_tpu_torch.models.ials, cfk_tpu_torch.ops.subspace\n"
         "import cfk_tpu_torch.ops.bucketed, cfk_tpu_torch.eval.ranking\n"
-        "import cfk_tpu_torch.data.movielens\n"
+        "import cfk_tpu_torch.data.movielens, cfk_tpu_torch.data.netflix\n"
+        "import cfk_tpu_torch.data._native, cfk_tpu_torch.data.cache\n"
+        "import cfk_tpu_torch.data.synth\n"
+        "assert cfk_tpu_torch.data._native.available()\n"
         "import cfk_tpu_torch.ops.kernels.binv_kernel\n"
         "import cfk_tpu_torch.scripts.exp_binv\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

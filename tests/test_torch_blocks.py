@@ -121,10 +121,17 @@ def test_sliced_accum_blocks_identical(coo, slice_rows, chunk_elems):
     assert jb.statics == tb.statics
 
 
+SEGMENT_FIELDS = ("neighbor_idx", "rating", "mask", "seg_rel",
+                  "chunk_entity", "chunk_count", "group_sizes", "carry_in",
+                  "last_seg", "chunk_first", "count", "rating_sum")
+
+
 def test_padded_stream_mode_not_ported(coo):
     # The padded stream mode was refused here until it was ported; the same
-    # call now builds it, identical to the JAX package's.  The segment
-    # layout is still not ported.
+    # call now builds it, identical to the JAX package's.  So does the
+    # segment layout, refused here until it was ported too: the port sizes
+    # its chunks for the segment-sum Gram (chunk_elems // 64 ratings), so
+    # it is held to the JAX package's builder at that chunk_nnz.
     jd = jblocks.Dataset.from_coo(coo, layout="tiled", dense_stream=False,
                                   accum_max_entities=200)
     td = tblocks.Dataset.from_coo(coo, layout="tiled", dense_stream=False,
@@ -132,5 +139,14 @@ def test_padded_stream_mode_not_ported(coo):
     assert td.user_blocks.mode == "stream"
     _assert_same(jd.user_blocks, td.user_blocks, TILED_FIELDS)
     assert jd.user_blocks.statics == td.user_blocks.statics
-    with pytest.raises(ValueError, match="unknown layout"):
-        tblocks.Dataset.from_coo(coo, layout="segment")
+    sd = tblocks.Dataset.from_coo(coo, layout="segment", chunk_elems=64 * 256)
+    d = jd.coo_dense
+    nm, nu = jd.movie_map.num_entities, jd.user_map.num_entities
+    for tb, args in ((sd.movie_blocks, (d.movie_raw, d.user_raw, d.rating,
+                                        nm)),
+                     (sd.user_blocks, (d.user_raw, d.movie_raw, d.rating,
+                                       nu))):
+        jb = jblocks.build_segment_blocks(*args, chunk_nnz=256)
+        _assert_same(jb, tb, SEGMENT_FIELDS)
+        assert jb.statics == tb.statics and tb.num_chunks > 1
+    assert sd.movie_blocks.carry_in.sum() > 0

@@ -1440,3 +1440,38 @@ def test_topk_scores_bit_equal_at_serve_shapes(cuda, table_dtype, b,
     if two_stage:
         kw.update(num_movies=6144, row_offset=1200)
     _check_topk(u, data, scale, st, exact=True, **kw)
+
+
+@pytest.mark.parametrize("k", [64, 128])
+@pytest.mark.parametrize("implicit", [False, True])
+def test_segment_half_step_matches_plain(cuda, k, implicit):
+    """The segment half-step on the card (PyTorch's gather and index_add_
+    Grams, K1 a chunk) against the same half-step's plain route on the CPU,
+    on a side whose hot movies straddle chunks; K1 launches once a chunk.
+    Float32 Grams summed in other orders, then solves: 1e-4 of the largest
+    |x|, the K1 batch tolerance."""
+    from cfk_tpu_torch.data.blocks import Dataset
+    from cfk_tpu_torch.models.als import _segment_to_device
+    from cfk_tpu_torch.ops.solve import (
+        als_half_step_segment,
+        ials_half_step_segment,
+    )
+
+    coo = synthetic_netflix_coo(3000, 400, 60_000, seed=1)
+    mb = Dataset.from_coo(coo, layout="segment",
+                          chunk_elems=64 * 4096).movie_blocks
+    assert mb.carry_in.sum() > 0 and mb.num_chunks > 4
+    fixed = np.random.default_rng(k).random((3000, k), dtype=np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        args = (torch.as_tensor(fixed, device=dev),
+                _segment_to_device(mb, dev), mb.statics, mb.padded_entities)
+        reg_solve.launches = 0
+        out[str(dev)] = (ials_half_step_segment(*args, 0.1, 2.0)
+                         if implicit else als_half_step_segment(*args, 0.05))
+        torch.cuda.synchronize()
+        if dev == cuda:
+            assert reg_solve.launches == mb.num_chunks
+    want, got = out["cpu"], out[str(cuda)].cpu()
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max() / want.abs().max()) < 1e-4
