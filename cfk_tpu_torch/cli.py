@@ -239,14 +239,21 @@ def _train(args) -> int:
                   solve_chunk=args.solve_chunk, algorithm=args.algorithm,
                   block_size=args.block_size, sweeps=args.sweeps,
                   in_kernel_gather=(None if args.in_kernel_gather == "auto"
-                                    else args.in_kernel_gather == "on"))
+                                    else args.in_kernel_gather == "on"),
+                  dtype=args.dtype, table_dtype=args.table_dtype,
+                  reg_solve_algo=args.reg_solve_algo)
     make_config = functools.partial(
         IALSConfig, alpha=args.alpha) if args.implicit else ALSConfig
     # Validate the flags before the (possibly long) block build; an
-    # explicit --solve-chunk resolves 'auto' to padded.
+    # explicit --solve-chunk resolves 'auto' to padded.  The table dtype's
+    # layout rule waits for the layout 'auto' resolves to (int8 needs
+    # tiled or bucketed), as in the JAX CLI, which builds its config after
+    # the blocks.
+    early = dict(common, table_dtype="float32") if (
+        args.layout == "auto" and args.solve_chunk is None) else common
     make_config(layout=("padded" if args.layout == "auto"
                         and args.solve_chunk is not None else args.layout),
-                **common)
+                **early)
     # The tiled layout's many-entity side as the unpadded dense stream, as
     # the JAX CLI asks (cfk_tpu/cli.py:395); the subspace optimizers run on
     # the padded and bucketed layouts, where the flag has no side to reach.
@@ -553,6 +560,28 @@ def build_parser() -> argparse.ArgumentParser:
         "device memory first and read back by the stream Gram kernels (A/B "
         "measurement; the factors agree either way)",
     )
+    t.add_argument(
+        "--table-dtype", choices=["float32", "bfloat16", "int8"],
+        default="float32",
+        help="gather-table dtype (cfk_tpu_torch.ops.quant): quantize the "
+        "fixed-side table each half-iteration gathers from — bfloat16 "
+        "halves the gather bytes, int8 (+ one f32 scale per row, folded "
+        "into the kernels' premultiply) quarters them; Gram/solve "
+        "accumulation stays float32 and the solved factors keep --dtype. "
+        "float32 (default) is the unquantized path. "
+        "int8 needs the tiled/bucketed layouts' weight streams",
+    )
+    t.add_argument(
+        "--reg-solve-algo", choices=["auto", "lu", "gj"], default="auto",
+        help="the fused reg+solve route's name, as in cfk_tpu: 'lu' (and "
+        "'auto') keeps ranks up to 128 on the fused kernels, 'gj' caps "
+        "them at 64 (64 < rank <= 128 takes the split schedule's blocked "
+        "solve); the port eliminates by one blocked Cholesky under both",
+    )
+    t.add_argument("--dtype", choices=["float32", "bfloat16"],
+                   default="float32",
+                   help="storage dtype of the factor matrices (bfloat16 "
+                   "halves their memory; Gram and solve stay float32)")
     t.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     t.add_argument(
         "--output", default="auto",

@@ -20,6 +20,20 @@ class ALSConfig:
     lam: float = 0.05
     num_iterations: int = 7
     seed: int = 42
+    # Storage dtype of the factor matrices: "bfloat16" halves their memory;
+    # each half-step's Gram and solve still run float32 (the solved rows are
+    # rounded to bf16 when stored), and a bf16 table is gathered as bf16
+    # operands with float32 sums (``ops.solve.gram_compute_dtype``).
+    dtype: Literal["float32", "bfloat16"] = "float32"
+    # Gather-table dtype (``ops.quant``): the fixed-side table each
+    # half-iteration gathers from is stored "float32" (the identity),
+    # "bfloat16" (half the gather bytes) or "int8" (a quarter, plus one f32
+    # scale per row, folded into the kernels' premultiply weight).  Gram and
+    # solve accumulate float32 for every choice, and the solved factors keep
+    # ``dtype``.  int8 needs the per-row scale threaded through a weight
+    # stream, which the tiled and bucketed layouts (and the subspace sweeps
+    # on them) have; padded/segment take float32/bfloat16 only.
+    table_dtype: Literal["float32", "bfloat16", "int8"] = "float32"
     # InBlock layout: "padded" (one rectangle per side), "bucketed"
     # (power-of-two width classes), "segment" (flat sorted runs in nnz
     # chunks, entities straddling chunks: exactly O(nnz) memory for any
@@ -38,8 +52,14 @@ class ALSConfig:
     # DEPRECATED: entities per padded-layout solve chunk, overriding the
     # one derived from hbm_chunk_elems (the JAX package's alias).
     solve_chunk: int | None = None
-    # Validated like cfk_tpu's; the port's solve kernels eliminate by
-    # Cholesky, so only "auto" is accepted ("lu"/"gj" raise).
+    # The fused reg+solve route's name, as in cfk_tpu: "lu" (and "auto",
+    # which means "lu" here) keeps every system up to k = 128 on the fused
+    # kernels (K1, K3, K6, rows 6, 7); "gj" caps them at k = 64, so
+    # 64 < k <= 128 takes the split schedule (the blocked Schur solve over
+    # rows 11 and 12), as the reference's Gauss-Jordan cap routes it
+    # (``ops.solve.fused_rank_cap``).  The port has one elimination, the
+    # blocked Cholesky of ``csrc/spd_solve.cuh``, under both names: the
+    # name picks the route, not an elimination order.
     reg_solve_algo: Literal["auto", "lu", "gj"] = "auto"
     # Per-entity optimizer.  "als" = the full k×k normal-equation solve
     # every half-iteration; "als++" = warm-started subspace block
@@ -102,15 +122,28 @@ class ALSConfig:
                 f"in_kernel_gather must be None/True/False, got "
                 f"{self.in_kernel_gather!r}"
             )
+        if self.dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"dtype must be 'float32' or 'bfloat16', got {self.dtype!r}")
+        if self.table_dtype not in ("float32", "bfloat16", "int8"):
+            raise ValueError(
+                f"table_dtype must be 'float32', 'bfloat16' or 'int8', "
+                f"got {self.table_dtype!r}"
+            )
+        if self.table_dtype == "int8" and self.layout not in (
+            "tiled", "bucketed"
+        ):
+            # ops.quant.validate_table_dtype_layout's refusal, kept inline
+            # as in cfk_tpu/config.py.
+            raise ValueError(
+                f"table_dtype='int8' supports layout='tiled'/'bucketed' "
+                f"(the per-row scale rides their weight streams); "
+                f"layout={self.layout!r} should use 'bfloat16' or 'float32'"
+            )
         if self.reg_solve_algo not in ("auto", "lu", "gj"):
             raise ValueError(
                 f"reg_solve_algo must be 'auto', 'lu' or 'gj', got "
                 f"{self.reg_solve_algo!r}"
-            )
-        if self.reg_solve_algo != "auto":
-            raise NotImplementedError(
-                f"reg_solve_algo={self.reg_solve_algo!r}: the port's solve "
-                "kernels eliminate by Cholesky only; use 'auto'"
             )
         if self.rank < 1:
             raise ValueError(f"rank must be >= 1, got {self.rank}")

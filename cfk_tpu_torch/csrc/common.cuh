@@ -7,11 +7,20 @@
 //
 // Everything is plain FP32 FMA on the CUDA cores: the JAX package pins its
 // Gram and solve contractions to full float32 (precision="highest",
-// cfk_tpu/ops/solve.py:30-51), so no TF32 tensor-core path is used.
+// cfk_tpu/ops/solve.py:30-51), so no TF32 tensor-core path is used.  A
+// quantized table or stream (bf16, or int8 codes with a per-row scale
+// folded into the weights, cfk_tpu/ops/quant.py) is loaded in its own type
+// and converted to float32 in registers: the stage the Gram reads is float32
+// for every element type, and a product of two bf16 values is exact in one
+// FP32 FMA, so the sums are a bf16-input, float32-accumulating matrix
+// unit's up to order.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cfk {
 
@@ -74,11 +83,18 @@ __device__ void add_ridge(float* A, int ld, int k, int reg_mode, float lam,
 // Staging buffer for kRows rows: row r holds the pass's r-th row g_r in
 // columns [0, k) and zeros up to KMAX; rt[r] is its b-coefficient.  nb and w
 // are the gather source's index and weight per slot (nb = -1: a zero row).
-// Each of the kThreads threads stages kPerThread of the kRows·KMAX elements,
-// element idx = threadIdx.x + i·kThreads (row idx / KMAX, column idx % KMAX:
-// a warp reads 32 neighbouring columns of one row).  The sources issue all
-// of a thread's loads before storing any, so a pass waits on one memory
-// latency, not on kPerThread of them in turn.
+// A float32 source stages element idx = threadIdx.x + i·kThreads (row idx /
+// KMAX, column idx % KMAX: a warp reads 32 neighbouring columns of one row)
+// for i < kPerThread; a bf16 or int8 source stages the kPerThread
+// neighbouring elements from idx = threadIdx.x·kPerThread on, one vector
+// load (load_chunk).  The sources issue all of a thread's loads before
+// storing any, so a pass waits on one memory latency, not on kPerThread of
+// them in turn.  Two mappings, measured: the chunked one for float32 too
+// gives the same sums bit for bit but other registers (8-90 fewer in the
+// Gram kernels, 9-68% fewer spill bytes in the fused ones at KMAX 64, 128)
+// and other times (rank 64: rows 4 and 9 about a fifth faster, row 5 5%
+// slower), so float32 keeps the strided mapping it had before the
+// quantized tables came, and the choice is left to speed work.
 template <int KMAX>
 struct RowStage {
   static constexpr int kPerThread = kRows * KMAX / kThreads;
@@ -93,7 +109,7 @@ struct RowStage {
 // slices of each row the block reads — columns [ci, ci + kBlk) into gi and
 // [cj, cj + kBlk) into gj, zeros past k — or one, gi, on the diagonal
 // (ci == cj).  Element idx of a slice is row idx / kBlk, column idx % kBlk,
-// as in RowStage<kBlk>.
+// as in RowStage<kBlk>'s float32 mapping, for every element type.
 constexpr int kBlk = 128;
 
 struct PairStage {
@@ -104,6 +120,121 @@ struct PairStage {
   float w[kRows];
   int nb[kRows];
 };
+
+// The element types a table or stream comes in (the C entries' `kind`):
+// float32, bf16, int8 codes.  Elem<T>::load reads one element as float32;
+// Elem<T>::weight is the premultiply as the reference rounds it (a bf16
+// table's weight is cast to bf16, cfk_tpu/compat.py:130-132); and
+// Elem<T>::premul forms g = x·w as the reference does: float32 for f32 and
+// int8 (w then carries the folded scale), one bf16 rounding of the exact
+// product of two bf16 values for bf16.
+enum Kind { kF32 = 0, kBF16 = 1, kI8 = 2 };
+
+template <class T>
+struct Elem;
+
+template <>
+struct Elem<float> {
+  __device__ static float load(const float* p) { return __ldg(p); }
+  __device__ static float weight(float w) { return w; }
+  __device__ static float premul(float x, float w) { return x * w; }
+};
+
+template <>
+struct Elem<__nv_bfloat16> {
+  __device__ static float load(const __nv_bfloat16* p) {
+    return __bfloat162float(__ldg(p));
+  }
+  __device__ static float weight(float w) {
+    return __bfloat162float(__float2bfloat16_rn(w));
+  }
+  __device__ static float premul(float x, float w) {
+    return __bfloat162float(__float2bfloat16_rn(x * w));
+  }
+};
+
+template <>
+struct Elem<int8_t> {
+  __device__ static float load(const int8_t* p) {
+    return (float)__ldg(reinterpret_cast<const signed char*>(p));
+  }
+  __device__ static float weight(float w) { return w; }
+  __device__ static float premul(float x, float w) { return x * w; }
+};
+
+// Four bytes of a bf16 or int8 row as float32: two bf16 values (the low
+// half first) or four int8 codes.
+__device__ __forceinline__ void unpack_word(uint32_t w, float* v,
+                                            const __nv_bfloat16*) {
+  v[0] = __uint_as_float(w << 16);
+  v[1] = __uint_as_float(w & 0xffff0000u);
+}
+
+__device__ __forceinline__ void unpack_word(uint32_t w, float* v,
+                                            const int8_t*) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[i] = (float)(int8_t)(w >> (8 * i));
+}
+
+// N neighbouring elements of a bf16 or int8 row from p as float32: 16-byte
+// loads (8 bf16, 16 int8 a load), or one 8- or 4-byte load when the N
+// elements are fewer bytes — p aligned to min(16, N·sizeof(T)) bytes.
+template <class T, int N>
+__device__ __forceinline__ void load_vec(const T* p, float* v) {
+  constexpr int kBytes = N * (int)sizeof(T);
+  constexpr int kPerWord = 4 / (int)sizeof(T);
+  static_assert(kBytes % 4 == 0, "whole 32-bit words");
+  if constexpr (kBytes >= 16) {
+    static_assert(kBytes % 16 == 0, "whole 16-byte vectors");
+#pragma unroll
+    for (int q = 0; q < kBytes / 16; ++q) {
+      const uint4 w = __ldg(reinterpret_cast<const uint4*>(p) + q);
+      float* d = v + q * 4 * kPerWord;
+      unpack_word(w.x, d, p);
+      unpack_word(w.y, d + kPerWord, p);
+      unpack_word(w.z, d + 2 * kPerWord, p);
+      unpack_word(w.w, d + 3 * kPerWord, p);
+    }
+  } else if constexpr (kBytes == 8) {
+    const uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
+    unpack_word(w.x, v, p);
+    unpack_word(w.y, v + kPerWord, p);
+  } else {
+    unpack_word(__ldg(reinterpret_cast<const uint32_t*>(p)), v, p);
+  }
+}
+
+// Thread t's chunk of a bf16 or int8 stage: the N = kPerThread elements of
+// stage row r = t·N / KMAX from column c0 = t·N % KMAX on (a row is KMAX / N
+// threads), read from `src` (the row's first element; null: a zero row) as
+// float32 — one vector load when the chunk lies inside [0, k) and its
+// address is aligned for it (a row stride of whole 16-byte vectors and an
+// aligned base make every chunk so), else element by element with zeros
+// past k.
+template <class T, int N>
+__device__ __forceinline__ void load_chunk(const T* src, int c0, int k,
+                                           float* v) {
+  constexpr unsigned kAlign = N * sizeof(T) < 16 ? N * sizeof(T) : 16;
+  if (src != nullptr && c0 + N <= k &&
+      (reinterpret_cast<uintptr_t>(src + c0) & (kAlign - 1)) == 0) {
+    load_vec<T, N>(src + c0, v);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    v[i] = src != nullptr && c0 + i < k ? Elem<T>::load(src + c0 + i) : 0.0f;
+}
+
+// Stores a thread's chunk of N float32 values into the stage at row r,
+// column c0, element by element: float4 stores would need the stage 16-byte
+// aligned, and aligning it changes the float32 instantiations' registers
+// and spills (ptxas), which element stores keep as a float32-only build's.
+template <int KMAX, int N>
+__device__ __forceinline__ void store_chunk(RowStage<KMAX>& st, int r, int c0,
+                                            const float* v) {
+#pragma unroll
+  for (int q = 0; q < N; ++q) st.g[r][c0 + q] = v[q];
+}
 
 // One work unit of a chunk (ops/kernels/gram_units.py): segment s (< 0: a
 // surplus slot, which exits at once), where its walk starts and ends (the
@@ -124,21 +255,27 @@ __device__ __forceinline__ Unit load_unit(const int* units, int u) {
 // their b-coefficients rt[0 .. n), and returns — the same on every thread,
 // after a barrier that makes the stage visible — whether the pass holds a
 // row that adds anything; a pass that holds none is not accumulated (its
-// terms would all be exact zeros: fmaf(0, x, a) == a).
+// terms would all be exact zeros: fmaf(0, x, a) == a).  Both sources take
+// their element type T (float, __nv_bfloat16, int8_t) as a template
+// parameter; the float32 instantiations run the element mapping and the
+// operations they always ran.
 //
 // GatherRows (K2, K3, K6, gram_tiles_dense_gather): g_p = table[nb_p]·wt_p,
-// gathered inside the kernel (wt null = 1).  An index outside [0, F) — F is
-// the table's virtual zero row — or a zero weight is a dead row; a pass
-// with no live row is skipped before anything is loaded, so padding costs
-// index reads only.
+// gathered inside the kernel (wt null = 1), formed as Elem<T>::premul.  An
+// index outside [0, F) — F is the table's virtual zero row — or a zero
+// weight is a dead row; a pass with no live row is skipped before anything
+// is loaded, so padding costs index reads only.  An int8 table's weights
+// carry the folded scale (the wrappers refuse int8 without them).
+template <class T>
 struct GatherRows {
-  const float* table;
+  const T* table;
   int F;
   const int* nb;
   const float* wt;
 
-  // The pass's indices, weights and b-coefficients into the stage; whether
-  // any of its rows is live (the same on every thread).
+  // The pass's indices, weights (as Elem<T>::weight rounds them) and
+  // b-coefficients into the stage; whether any of its rows is live (the
+  // same on every thread).
   template <class Stage>
   __device__ __forceinline__ bool stage_index(Stage& st, long p0, int n,
                                               const float* rt) const {
@@ -148,7 +285,8 @@ struct GatherRows {
       const bool valid = r < n;
       const int row = valid ? __ldg(nb + p0 + r) : -1;
       const float w =
-          valid ? (wt != nullptr ? __ldg(wt + p0 + r) : 1.0f) : 0.0f;
+          valid ? Elem<T>::weight(wt != nullptr ? __ldg(wt + p0 + r) : 1.0f)
+                : 0.0f;
       live = valid && row >= 0 && row < F && w != 0.0f;
       st.nb[r] = live ? row : -1;
       st.w[r] = w;
@@ -163,26 +301,38 @@ struct GatherRows {
     if (!stage_index(st, p0, n, rt)) return false;
     constexpr int kPer = RowStage<KMAX>::kPerThread;
     float v[kPer];
+    if constexpr (std::is_same<T, float>::value) {
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      const int r = idx / KMAX, c = idx % KMAX;
+      for (int i = 0; i < kPer; ++i) {
+        const int idx = threadIdx.x + i * kThreads;
+        const int r = idx / KMAX, c = idx % KMAX;
+        const int row = st.nb[r];
+        v[i] = row >= 0 && c < k
+                   ? __ldg(table + (size_t)row * k + c) * st.w[r] : 0.0f;
+      }
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int idx = threadIdx.x + i * kThreads;
+        st.g[idx / KMAX][idx % KMAX] = v[i];
+      }
+    } else {
+      const int idx = threadIdx.x * kPer;
+      const int r = idx / KMAX, c0 = idx % KMAX;
       const int row = st.nb[r];
-      v[i] = row >= 0 && c < k
-                 ? __ldg(table + (size_t)row * k + c) * st.w[r] : 0.0f;
-    }
+      load_chunk<T, kPer>(row >= 0 ? table + (size_t)row * k : nullptr, c0,
+                          k, v);
+      const float w = st.w[r];
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      st.g[idx / KMAX][idx % KMAX] = v[i];
+      for (int i = 0; i < kPer; ++i) v[i] = Elem<T>::premul(v[i], w);
+      store_chunk<KMAX, kPer>(st, r, c0, v);
     }
     __syncthreads();
     return true;
   }
 
   // The split Gram's block pass: the slices at columns ci and cj (one when
-  // ci == cj) of the same gathered rows.  Every load of both slices is
-  // issued before any store.
+  // ci == cj) of the same gathered rows, element by element for every T.
+  // Every load of both slices is issued before any store.
   __device__ __forceinline__ bool stage_pair(PairStage& st, int k, long p0,
                                              int n, const float* rt, int ci,
                                              int cj) const {
@@ -195,10 +345,13 @@ struct GatherRows {
       const int idx = threadIdx.x + i * kThreads;
       const int r = idx / kBlk, c = idx % kBlk;
       const int row = st.nb[r];
-      const float* src = table + (size_t)row * k;
-      vi[i] = row >= 0 && ci + c < k ? __ldg(src + ci + c) * st.w[r] : 0.0f;
-      vj[i] = two && row >= 0 && cj + c < k ? __ldg(src + cj + c) * st.w[r]
-                                            : 0.0f;
+      const T* src = table + (size_t)row * k;
+      vi[i] = row >= 0 && ci + c < k
+                  ? Elem<T>::premul(Elem<T>::load(src + ci + c), st.w[r])
+                  : 0.0f;
+      vj[i] = two && row >= 0 && cj + c < k
+                  ? Elem<T>::premul(Elem<T>::load(src + cj + c), st.w[r])
+                  : 0.0f;
     }
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
@@ -213,13 +366,15 @@ struct GatherRows {
 
 // StreamRows (gram_tiles, gram_solve_tiles, gram_tiles_dense,
 // gram_solve_tiles_dense): g_p read as it lies in the materialized [C, k]
-// stream (kernel K5 wrote it, zero rows included).  The kernel sees values
-// only, so it loads every pass, padding rows too, as the TPU kernels walk
-// them, and skips accumulating a pass whose rows are all zero — exactly
-// what its gather sibling adds for the same pass, so the two sources' sums
-// agree bit for bit on the same rows.
+// stream (kernel K5 wrote it, zero rows included), float32 or bf16 (K5's
+// stream of a bf16 table).  The kernel sees values only, so it loads every
+// pass, padding rows too, as the TPU kernels walk them, and skips
+// accumulating a pass whose rows are all zero — exactly what its gather
+// sibling adds for the same pass, so the two sources' sums agree bit for
+// bit on the same rows.
+template <class T>
 struct StreamRows {
-  const float* g;
+  const T* g;
 
   template <int KMAX>
   __device__ __forceinline__ bool stage(RowStage<KMAX>& st, int k, long p0,
@@ -228,20 +383,32 @@ struct StreamRows {
       st.rt[threadIdx.x] = threadIdx.x < n ? __ldg(rt + threadIdx.x) : 0.0f;
     constexpr int kPer = RowStage<KMAX>::kPerThread;
     float v[kPer];
+    if constexpr (std::is_same<T, float>::value) {
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      const int r = idx / KMAX, c = idx % KMAX;
-      v[i] = r < n && c < k ? __ldg(g + (size_t)(p0 + r) * k + c) : 0.0f;
-    }
-    bool nonzero = false;
+      for (int i = 0; i < kPer; ++i) {
+        const int idx = threadIdx.x + i * kThreads;
+        const int r = idx / KMAX, c = idx % KMAX;
+        v[i] = r < n && c < k ? __ldg(g + (size_t)(p0 + r) * k + c) : 0.0f;
+      }
+      bool nonzero = false;
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int idx = threadIdx.x + i * kThreads;
-      st.g[idx / KMAX][idx % KMAX] = v[i];
-      nonzero |= v[i] != 0.0f;
+      for (int i = 0; i < kPer; ++i) {
+        const int idx = threadIdx.x + i * kThreads;
+        st.g[idx / KMAX][idx % KMAX] = v[i];
+        nonzero |= v[i] != 0.0f;
+      }
+      return __syncthreads_or(nonzero);
+    } else {
+      const int idx = threadIdx.x * kPer;
+      const int r = idx / KMAX, c0 = idx % KMAX;
+      load_chunk<T, kPer>(r < n ? g + (size_t)(p0 + r) * k : nullptr, c0, k,
+                          v);
+      bool nonzero = false;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) nonzero |= v[i] != 0.0f;
+      store_chunk<KMAX, kPer>(st, r, c0, v);
+      return __syncthreads_or(nonzero);
     }
-    return __syncthreads_or(nonzero);
   }
 
   // The split Gram's block pass: the stream rows' slices at columns ci and
@@ -259,9 +426,9 @@ struct StreamRows {
     for (int i = 0; i < kPer; ++i) {
       const int idx = threadIdx.x + i * kThreads;
       const int r = idx / kBlk, c = idx % kBlk;
-      const float* src = g + (size_t)(p0 + r) * k;
-      vi[i] = r < n && ci + c < k ? __ldg(src + ci + c) : 0.0f;
-      vj[i] = two && r < n && cj + c < k ? __ldg(src + cj + c) : 0.0f;
+      const T* src = g + (size_t)(p0 + r) * k;
+      vi[i] = r < n && ci + c < k ? Elem<T>::load(src + ci + c) : 0.0f;
+      vj[i] = two && r < n && cj + c < k ? Elem<T>::load(src + cj + c) : 0.0f;
     }
     bool nonzero = false;
 #pragma unroll
@@ -274,6 +441,37 @@ struct StreamRows {
     return __syncthreads_or(nonzero);
   }
 };
+
+// Calls fn with a null pointer of the element type `kind` names (Kind):
+// the C entries' one switch from the wrapper's dtype to an instantiation
+// (with_kind: a gather table, float32, bf16 or int8; with_stream_kind: a
+// materialized stream, float32 or bf16 — K5 writes int8 tables' streams in
+// float32).
+template <class Fn>
+inline int with_kind(int kind, Fn&& fn) {
+  switch (kind) {
+    case kF32:
+      return fn((const float*)nullptr);
+    case kBF16:
+      return fn((const __nv_bfloat16*)nullptr);
+    case kI8:
+      return fn((const int8_t*)nullptr);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <class Fn>
+inline int with_stream_kind(int kind, Fn&& fn) {
+  switch (kind) {
+    case kF32:
+      return fn((const float*)nullptr);
+    case kBF16:
+      return fn((const __nv_bfloat16*)nullptr);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
 
 // The register sums of one work unit: thread (ti, tj) of the 16 x 16 CTA
 // owns the RT x RT block A[ti·RT.., tj·RT..] of the Gram, thread c < KMAX

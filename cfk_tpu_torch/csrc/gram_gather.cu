@@ -36,14 +36,19 @@
 // index reads only.  gram_tiles.cu is its twin on a materialized stream.
 #include "gram_kernels.cuh"
 
-extern "C" int cfk_gram_gather(const float* table, int F, int k,
-                               const int* nb, const float* wt, const float* rt,
-                               const int* units, int nu, const int* splits,
-                               int nsp, float* scratch, const float* ca,
-                               const float* cb, const float* cin,
-                               float* out_a, float* out_b, int device,
-                               void* stream) {
-  return cfk::launch_gram(cfk::GatherRows{table, F, nb, wt}, cfk::TileWalk{},
-                          k, cfk::Plan{units, nu, splits, nsp, scratch, nullptr},
-                          rt, ca, cb, cin, out_a, out_b, device, stream);
+extern "C" int cfk_gram_gather(const void* table, int kind, int F,
+                               int k, const int* nb, const float* wt,
+                               const float* rt, const int* units, int nu,
+                               const int* splits, int nsp, float* scratch,
+                               const float* ca, const float* cb,
+                               const float* cin, float* out_a, float* out_b,
+                               int device, void* stream) {
+  return cfk::with_kind(kind, [&](auto tag) {
+    using T = std::remove_const_t<std::remove_pointer_t<decltype(tag)>>;
+    return cfk::launch_gram(
+        cfk::GatherRows<T>{(const T*)table, F, nb, wt},
+        cfk::TileWalk{}, k,
+        cfk::Plan{units, nu, splits, nsp, scratch, nullptr}, rt, ca, cb, cin,
+        out_a, out_b, device, stream);
+  });
 }

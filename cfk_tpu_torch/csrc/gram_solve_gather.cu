@@ -35,14 +35,19 @@
 #include "gram_kernels.cuh"
 
 extern "C" int cfk_gram_solve_gather(
-    const float* table, int F, int k, const int* nb, const float* wt,
-    const float* rt, const int* units, int nu, const int* splits, int nsp,
-    float* scratch, int* tickets, const float* reg, int reg_mode, float lam,
-    const int* lseg, const float* ca, const float* cb, const float* cin,
-    float* x, float* ca_out, float* cb_out, int device, void* stream) {
-  return cfk::launch_gram_solve(
-      cfk::GatherRows{table, F, nb, wt}, cfk::TileWalk{}, k,
-      cfk::Plan{units, nu, splits, nsp, scratch, tickets}, rt,
-      cfk::SolveEpilogue{reg, reg_mode, lam, lseg, x, ca_out, cb_out}, ca, cb,
-      cin, device, stream);
+    const void* table, int kind, int F, int k, const int* nb,
+    const float* wt, const float* rt, const int* units, int nu,
+    const int* splits, int nsp, float* scratch, int* tickets,
+    const float* reg, int reg_mode, float lam, const int* lseg,
+    const float* ca, const float* cb, const float* cin, float* x,
+    float* ca_out, float* cb_out, int device, void* stream) {
+  return cfk::with_kind(kind, [&](auto tag) {
+    using T = std::remove_const_t<std::remove_pointer_t<decltype(tag)>>;
+    return cfk::launch_gram_solve(
+        cfk::GatherRows<T>{(const T*)table, F, nb, wt},
+        cfk::TileWalk{}, k,
+        cfk::Plan{units, nu, splits, nsp, scratch, tickets}, rt,
+        cfk::SolveEpilogue{reg, reg_mode, lam, lseg, x, ca_out, cb_out}, ca,
+        cb, cin, device, stream);
+  });
 }

@@ -26,14 +26,17 @@
 #include "gram_kernels.cuh"
 
 extern "C" int cfk_gram_solve_tiles(
-    const float* g, int k, const float* rt, const int* units, int nu,
-    const int* splits, int nsp, float* scratch, int* tickets,
-    const float* reg, int reg_mode, float lam, const int* lseg,
+    const void* g, int kind, int k, const float* rt,
+    const int* units, int nu, const int* splits, int nsp, float* scratch,
+    int* tickets, const float* reg, int reg_mode, float lam, const int* lseg,
     const float* ca, const float* cb, const float* cin, float* x,
     float* ca_out, float* cb_out, int device, void* stream) {
-  return cfk::launch_gram_solve(
-      cfk::StreamRows{g}, cfk::TileWalk{}, k,
-      cfk::Plan{units, nu, splits, nsp, scratch, tickets}, rt,
-      cfk::SolveEpilogue{reg, reg_mode, lam, lseg, x, ca_out, cb_out}, ca, cb,
-      cin, device, stream);
+  return cfk::with_stream_kind(kind, [&](auto tag) {
+    using T = std::remove_const_t<std::remove_pointer_t<decltype(tag)>>;
+    return cfk::launch_gram_solve(
+        cfk::StreamRows<T>{(const T*)g}, cfk::TileWalk{}, k,
+        cfk::Plan{units, nu, splits, nsp, scratch, tickets}, rt,
+        cfk::SolveEpilogue{reg, reg_mode, lam, lseg, x, ca_out, cb_out}, ca,
+        cb, cin, device, stream);
+  });
 }

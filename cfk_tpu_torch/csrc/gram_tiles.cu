@@ -26,13 +26,17 @@
 // writes from K2's operands it returns K2's bits.
 #include "gram_kernels.cuh"
 
-extern "C" int cfk_gram_tiles(const float* g, int k, const float* rt,
-                              const int* units, int nu, const int* splits,
-                              int nsp, float* scratch, const float* ca,
-                              const float* cb, const float* cin,
-                              float* out_a, float* out_b, int device,
-                              void* stream) {
-  return cfk::launch_gram(cfk::StreamRows{g}, cfk::TileWalk{}, k,
-                          cfk::Plan{units, nu, splits, nsp, scratch, nullptr},
-                          rt, ca, cb, cin, out_a, out_b, device, stream);
+extern "C" int cfk_gram_tiles(const void* g, int kind, int k,
+                              const float* rt, const int* units, int nu,
+                              const int* splits, int nsp, float* scratch,
+                              const float* ca, const float* cb,
+                              const float* cin, float* out_a, float* out_b,
+                              int device, void* stream) {
+  return cfk::with_stream_kind(kind, [&](auto tag) {
+    using T = std::remove_const_t<std::remove_pointer_t<decltype(tag)>>;
+    return cfk::launch_gram(
+        cfk::StreamRows<T>{(const T*)g}, cfk::TileWalk{}, k,
+        cfk::Plan{units, nu, splits, nsp, scratch, nullptr}, rt, ca, cb, cin,
+        out_a, out_b, device, stream);
+  });
 }

@@ -26,12 +26,17 @@
 #include "gram_kernels.cuh"
 
 extern "C" int cfk_gram_tiles_dense(
-    const float* g, int k, const float* rt, const int* meta, int nt, int ng,
-    int T, int BG, const int* units, int nu, const int* splits, int nsp,
-    float* scratch, const float* ca, const float* cb, const float* cin,
-    float* out_a, float* out_b, int device, void* stream) {
-  return cfk::launch_gram(cfk::StreamRows{g},
-                          cfk::DenseWalk{meta, nt, ng, T, BG}, k,
-                          cfk::Plan{units, nu, splits, nsp, scratch, nullptr},
-                          rt, ca, cb, cin, out_a, out_b, device, stream);
+    const void* g, int kind, int k, const float* rt,
+    const int* meta, int nt, int ng, int T, int BG, const int* units, int nu,
+    const int* splits, int nsp, float* scratch, const float* ca,
+    const float* cb, const float* cin, float* out_a, float* out_b, int device,
+    void* stream) {
+  return cfk::with_stream_kind(kind, [&](auto tag) {
+    using E = std::remove_const_t<std::remove_pointer_t<decltype(tag)>>;
+    return cfk::launch_gram(
+        cfk::StreamRows<E>{(const E*)g},
+        cfk::DenseWalk{meta, nt, ng, T, BG}, k,
+        cfk::Plan{units, nu, splits, nsp, scratch, nullptr}, rt, ca, cb, cin,
+        out_a, out_b, device, stream);
+  });
 }

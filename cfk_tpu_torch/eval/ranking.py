@@ -104,8 +104,10 @@ def ranks_from_model(model, train: RatingsCOO, heldout: Heldout,
     """``_ranks``'s semantics streamed from the factors: scores per
     held-out-user chunk ([chunk, num_movies] at a time, one matmul on the
     model's device), so U·Mᵀ is never materialized."""
-    u = model.user_factors[: model.num_users]
-    m = model.movie_factors[: model.num_movies]
+    # float32 scores (a bf16 model's factors upcast first, as predict_dense
+    # and the MSE do).
+    u = model.user_factors[: model.num_users].float()
+    m = model.movie_factors[: model.num_movies].float()
     _validate_index_space(train, u.shape[0], m.shape[0], "factor shapes")
     # CSR of train interactions by user, for per-chunk exclusion.
     order = np.argsort(train.user_raw, kind="stable")

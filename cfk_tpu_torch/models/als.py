@@ -9,7 +9,11 @@ reference's semantics (``apps/ALSApp.java:115-151``):
 
 ``lax.fori_loop`` becomes a Python loop over iterations; every half-step
 runs on ``device`` through the kernels of ``ops.kernels`` (CUDA) or their
-plain versions (CPU).
+plain versions (CPU).  ``ALSConfig.dtype`` is the factors' storage dtype
+(bf16: each solved half rounded to bf16, the next half gathering bf16 rows
+— ``cfk_tpu/models/als.py:452-476``), ``table_dtype`` the gather table's
+(``ops.quant``) and ``reg_solve_algo`` the fused route's rank cap; all three
+reach every half-step as in the reference's ``_half``.
 """
 
 from __future__ import annotations
@@ -30,10 +34,12 @@ from cfk_tpu_torch.data.blocks import (
 )
 from cfk_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from cfk_tpu_torch.ops.kernels.gram_units import (
+    chunk_plan,
     derive_dense_units,
     derive_tile_units,
     stage_plans,
 )
+from cfk_tpu_torch.ops.quant import gather_operand_view
 from cfk_tpu_torch.ops.solve import (
     als_half_step,
     als_half_step_bucketed,
@@ -64,9 +70,11 @@ class ALSModel:
 
     @functools.cached_property
     def _host_factors(self) -> tuple[np.ndarray, np.ndarray]:
-        u = self.user_factors[: self.num_users].detach().cpu().numpy()
-        m = self.movie_factors[: self.num_movies].detach().cpu().numpy()
-        return u.astype(np.float32), m.astype(np.float32)
+        # float32 first: numpy has no bfloat16 (a bf16 model's values are
+        # exact in float32).
+        u = self.user_factors[: self.num_users].detach().float().cpu()
+        m = self.movie_factors[: self.num_movies].detach().float().cpu()
+        return u.numpy(), m.numpy()
 
     def predict_dense(self, *, allow_huge: bool = False) -> np.ndarray:
         """Dense prediction matrix P = U·Mᵀ, [num_users, num_movies].
@@ -103,20 +111,28 @@ def _blocks_to_device(blocks: PaddedBlocks, device) -> dict[str, torch.Tensor]:
     }
 
 
+def _class_plan(rows: int, width: int, device):
+    """The Gram work-unit plan of ``rows`` entities of a width class, one
+    tile per entity (``ops.bucketed``)."""
+    seg = torch.arange(rows, dtype=torch.int32)
+    return stage_plans(derive_tile_units(seg[None], width, rows), device)
+
+
 def _bucketed_to_device(blocks: BucketedBlocks, device):
     """(tuple of per-bucket device dicts, per-bucket ``chunk_rows``).  Each
     dict also holds its width class's Gram work-unit plan (``units``,
-    ``unit_splits``, ``unit_scratch``: one tile per entity,
-    ``ops.bucketed``)."""
+    ``unit_splits``, ``unit_scratch``) and, for a class the blocks bound
+    by ``chunk_rows``, the plan every ``chunk_rows`` piece shares
+    (``piece_plan``, for the gather-off walk, ``ops.solve.bucket_plan``)."""
     trees, chunks = blocks.to_tree()
     out = []
-    for tree in trees:
+    for tree, chunk in zip(trees, chunks):
         d = {key: torch.as_tensor(v, device=device)
              for key, v in tree.items()}
         rows, width = tree["neighbor"].shape
-        seg = torch.arange(rows, dtype=torch.int32)
-        d.update(stage_plans(derive_tile_units(seg[None], width, rows),
-                             device))
+        d.update(_class_plan(rows, width, device))
+        if chunk is not None and chunk < rows:
+            d["piece_plan"] = chunk_plan(_class_plan(chunk, width, device), 0)
         out.append(d)
     return tuple(out), chunks
 
@@ -265,17 +281,20 @@ def device_setup(dataset: Dataset, config: ALSConfig, device, *,
 
 def init_user_factors(dataset: Dataset, ublocks, config: ALSConfig, device,
                       warm_start):
-    """(u, m_prev): the seeded factors of ``warm_start`` (host arrays or
-    tensors, ascending-id rows, shorter ones zero-padded), else the avg-rating +
-    U(0,1) init of the users and zero movies.  ``m_prev`` is what a
-    subspace optimizer's first movie half warm-starts from."""
+    """(u, m_prev) in ``config.dtype``: the seeded factors of ``warm_start``
+    (host arrays — bf16 ones too — or tensors, ascending-id rows, shorter
+    ones zero-padded), else the avg-rating + U(0,1) init of the users and
+    zero movies, cast as ``cfk_tpu/models/als.py:475`` casts them.
+    ``m_prev`` is what a subspace optimizer's first movie half warm-starts
+    from."""
     ub, mb = dataset.user_blocks, dataset.movie_blocks
     rank = config.rank
+    dt = storage_dtype(config)
     if warm_start is not None:
         return (_padded_seed(warm_start[0], ub.padded_entities, rank, "user",
-                             device),
+                             device, dt),
                 _padded_seed(warm_start[1], mb.padded_entities, rank,
-                             "movie", device))
+                             "movie", device, dt))
     gen = torch.Generator().manual_seed(config.seed)
     if isinstance(ub, PaddedBlocks):
         u = init_factors(gen, ublocks["rating"], ublocks["mask"],
@@ -284,12 +303,19 @@ def init_user_factors(dataset: Dataset, ublocks, config: ALSConfig, device,
         u = init_factors_stats(gen, torch.as_tensor(ub.rating_sum,
                                                     device=device),
                                torch.as_tensor(ub.count, device=device), rank)
-    return u, torch.zeros((mb.padded_entities, rank), device=device)
+    return (u.to(dt),
+            torch.zeros((mb.padded_entities, rank), dtype=dt, device=device))
+
+
+def storage_dtype(config: ALSConfig) -> torch.dtype:
+    """The torch dtype of ``config.dtype``, the factors' storage."""
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[config.dtype]
 
 
 def _half(fixed, blk, *, lam, solve_chunk, solver, chunks=None,
           entities=None, x_prev=None, algorithm="als", block_size=32,
-          sweeps=1, fused_epilogue=None, in_kernel_gather=None):
+          sweeps=1, fused_epilogue=None, in_kernel_gather=None,
+          reg_solve_algo=None, table_dtype=None):
     """Solve one side against fixed factors; dispatches on the layout
     (tuple = width buckets, a dict with segment ids = the flat segment run,
     tiled statics, else one padded rectangle).
@@ -300,10 +326,15 @@ def _half(fixed, blk, *, lam, solve_chunk, solver, chunks=None,
     ``in_kernel_gather`` the tiled and bucketed ones (the sweeps
     materialize their rectangle with K5 on either setting,
     ``ops.subspace``; the padded rectangle is gathered by PyTorch, as the
-    JAX package gathers it by XLA)."""
+    JAX package gathers it by XLA); ``reg_solve_algo`` every solve.
+    ``table_dtype`` (``ops.quant``): the tiled, bucketed and subspace
+    half-steps quantize and fold it themselves; the padded and segment ones
+    take the bf16 view here (the config refuses int8 for them), as
+    ``cfk_tpu/models/als.py:243-291`` does.  Returns float32 rows."""
     if algorithm == "als++":
         pp_kw = dict(block_size=block_size, sweeps=sweeps, solver=solver,
-                     fused_epilogue=fused_epilogue)
+                     fused_epilogue=fused_epilogue,
+                     reg_solve_algo=reg_solve_algo, table_dtype=table_dtype)
         if isinstance(blk, tuple):
             return als_pp_half_step_bucketed(fixed, x_prev, blk, chunks,
                                              entities, lam, **pp_kw)
@@ -312,32 +343,51 @@ def _half(fixed, blk, *, lam, solve_chunk, solver, chunks=None,
                                 lam, **pp_kw)
     if isinstance(blk, tuple):
         return als_half_step_bucketed(fixed, blk, entities, lam,
-                                      solver=solver,
+                                      chunk_rows=chunks, solver=solver,
                                       in_kernel_gather=in_kernel_gather,
-                                      fused_epilogue=fused_epilogue)
-    if "seg_rel" in blk:
-        return als_half_step_segment(fixed, blk, chunks, entities, lam,
-                                     solver=solver)
-    if chunks is not None:
+                                      fused_epilogue=fused_epilogue,
+                                      reg_solve_algo=reg_solve_algo,
+                                      table_dtype=table_dtype)
+    if chunks is not None and "seg_rel" not in blk:
         return tiled_half_step(fixed, blk, chunks, entities, lam,
                                solver=solver, fused_epilogue=fused_epilogue,
-                               in_kernel_gather=in_kernel_gather)
+                               in_kernel_gather=in_kernel_gather,
+                               reg_solve_algo=reg_solve_algo,
+                               table_dtype=table_dtype)
+    fixed = gather_operand_view(fixed, table_dtype)
+    if "seg_rel" in blk:
+        return als_half_step_segment(fixed, blk, chunks, entities, lam,
+                                     solver=solver,
+                                     reg_solve_algo=reg_solve_algo)
     return als_half_step(fixed, blk["neighbor_idx"], blk["rating"],
                          blk["mask"], blk["count"], lam,
-                         solve_chunk=solve_chunk, solver=solver)
+                         solve_chunk=solve_chunk, solver=solver,
+                         reg_solve_algo=reg_solve_algo)
 
 
-def _padded_seed(x, rows: int, rank: int, what: str, device) -> torch.Tensor:
-    """A seed table (host array or tensor on any device) as [rows, rank]
-    float32 on ``device``, missing rows zero."""
-    x = torch.as_tensor(x, dtype=torch.float32, device=device)
+def as_tensor(x, device) -> torch.Tensor:
+    """A host array or tensor as a tensor on ``device``, its dtype kept —
+    a numpy ``bfloat16`` array (ml_dtypes', what a JAX bf16 array converts
+    to) through its uint16 view, so no ml_dtypes import is needed."""
+    if isinstance(x, np.ndarray) and x.dtype.name == "bfloat16":
+        x = torch.from_numpy(np.array(x).view(np.uint16)).view(
+            torch.bfloat16)
+    return torch.as_tensor(x, device=device)
+
+
+def _padded_seed(x, rows: int, rank: int, what: str, device,
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A seed table (host array — bf16 too — or tensor on any device) as
+    [rows, rank] ``dtype`` on ``device`` (a float32 seed rounded to bf16 as
+    a cast rounds it), missing rows zero."""
+    x = as_tensor(x, device).to(dtype)
     if x.ndim != 2 or x.shape[0] > rows or x.shape[1] != rank:
         raise ValueError(
             f"warm_start {what} factors have shape {tuple(x.shape)}; this "
             f"dataset solves [{rows}, {rank}] — rebuild the seed against the "
             "same entity universe"
         )
-    out = torch.zeros((rows, rank), dtype=torch.float32, device=device)
+    out = torch.zeros((rows, rank), dtype=dtype, device=device)
     out[: x.shape[0]] = x
     return out
 
@@ -360,18 +410,21 @@ def train_als(dataset: Dataset, config: ALSConfig, *,
     mblocks, ublocks, layout_kw, solve_chunk = device_setup(dataset, config,
                                                             dev)
     u, m = init_user_factors(dataset, ublocks, config, dev, warm_start)
+    dt = storage_dtype(config)
     half = functools.partial(_half, lam=config.lam, solve_chunk=solve_chunk,
                              solver=config.solver,
                              algorithm=config.algorithm,
                              block_size=config.block_size,
                              sweeps=config.sweeps,
                              fused_epilogue=config.fused_epilogue,
-                             in_kernel_gather=config.in_kernel_gather)
+                             in_kernel_gather=config.in_kernel_gather,
+                             reg_solve_algo=config.reg_solve_algo,
+                             table_dtype=config.table_dtype)
     for _ in range(config.num_iterations):
         m = half(u, mblocks, chunks=layout_kw.get("m_chunks"),
-                 entities=layout_kw.get("m_entities"), x_prev=m)
+                 entities=layout_kw.get("m_entities"), x_prev=m).to(dt)
         u = half(m, ublocks, chunks=layout_kw.get("u_chunks"),
-                 entities=layout_kw.get("u_entities"), x_prev=u)
+                 entities=layout_kw.get("u_entities"), x_prev=u).to(dt)
     return ALSModel(
         user_factors=u,
         movie_factors=m,

@@ -23,7 +23,13 @@ import torch
 from cfk_tpu_torch.config import ALSConfig
 from cfk_tpu_torch.data.blocks import Dataset
 from cfk_tpu_torch.device import DEFAULT_DEVICE, resolve_device
-from cfk_tpu_torch.models.als import ALSModel, device_setup, init_user_factors
+from cfk_tpu_torch.models.als import (
+    ALSModel,
+    device_setup,
+    init_user_factors,
+    storage_dtype,
+)
+from cfk_tpu_torch.ops.quant import gather_operand_view
 from cfk_tpu_torch.ops.solve import (
     ials_half_step,
     ials_half_step_bucketed,
@@ -62,17 +68,21 @@ class IALSConfig(ALSConfig):
 
 def _ials_half(fixed, blk, *, lam, alpha, solver, chunks=None, entities=None,
                x_prev=None, algorithm="als", block_size=32, sweeps=1,
-               fused_epilogue=None, in_kernel_gather=None):
+               fused_epilogue=None, in_kernel_gather=None,
+               reg_solve_algo=None, table_dtype=None):
     """Dispatch on the block layout (tuple = width buckets, a dict with
     segment ids = the flat segment run, tiled statics, else one padded
     rectangle); ``algorithm="ials++"`` runs warm-started
     subspace sweeps from ``x_prev`` (padded/bucketed layouts);
     ``fused_epilogue`` reaches the tiled and bucketed half-steps and the
-    sweeps, ``in_kernel_gather`` the tiled and bucketed ones (as in
-    ``models.als._half``)."""
+    sweeps, ``in_kernel_gather`` the tiled and bucketed ones,
+    ``reg_solve_algo`` every solve and ``table_dtype`` the gather table (the
+    padded and segment layouts take its bf16 view here) — as in
+    ``models.als._half`` and ``cfk_tpu/models/ials.py:85-149``."""
     if algorithm == "ials++":
         pp_kw = dict(block_size=block_size, sweeps=sweeps, solver=solver,
-                     fused_epilogue=fused_epilogue)
+                     fused_epilogue=fused_epilogue,
+                     reg_solve_algo=reg_solve_algo, table_dtype=table_dtype)
         if isinstance(blk, tuple):
             return ials_pp_half_step_bucketed(fixed, x_prev, blk, chunks,
                                               entities, lam, alpha, **pp_kw)
@@ -81,29 +91,37 @@ def _ials_half(fixed, blk, *, lam, alpha, solver, chunks=None, entities=None,
                                  **pp_kw)
     if isinstance(blk, tuple):
         return ials_half_step_bucketed(fixed, blk, entities, lam, alpha,
-                                       solver=solver,
+                                       chunk_rows=chunks, solver=solver,
                                        in_kernel_gather=in_kernel_gather,
-                                       fused_epilogue=fused_epilogue)
-    if "seg_rel" in blk:
-        return ials_half_step_segment(fixed, blk, chunks, entities, lam,
-                                      alpha, solver=solver)
-    if chunks is not None:
+                                       fused_epilogue=fused_epilogue,
+                                       reg_solve_algo=reg_solve_algo,
+                                       table_dtype=table_dtype)
+    if chunks is not None and "seg_rel" not in blk:
         return ials_tiled_half_step(fixed, blk, chunks, entities, lam, alpha,
                                     solver=solver,
                                     fused_epilogue=fused_epilogue,
-                                    in_kernel_gather=in_kernel_gather)
+                                    in_kernel_gather=in_kernel_gather,
+                                    reg_solve_algo=reg_solve_algo,
+                                    table_dtype=table_dtype)
+    fixed = gather_operand_view(fixed, table_dtype)
+    if "seg_rel" in blk:
+        return ials_half_step_segment(fixed, blk, chunks, entities, lam,
+                                      alpha, solver=solver,
+                                      reg_solve_algo=reg_solve_algo)
     return ials_half_step(fixed, blk["neighbor_idx"], blk["rating"],
-                          blk["mask"], lam, alpha, solver=solver)
+                          blk["mask"], lam, alpha, solver=solver,
+                          reg_solve_algo=reg_solve_algo)
 
 
 def _ials_iteration_body(u, m_prev, movie_blocks, user_blocks, *, half,
-                         layout_kw):
+                         layout_kw, dtype=torch.float32):
     """One full iALS iteration: movies from users, then users from movies
-    (each subspace half warm-started from its side's previous factors)."""
+    (each subspace half warm-started from its side's previous factors),
+    each half's rows stored in ``dtype``."""
     m = half(u, movie_blocks, chunks=layout_kw.get("m_chunks"),
-             entities=layout_kw.get("m_entities"), x_prev=m_prev)
+             entities=layout_kw.get("m_entities"), x_prev=m_prev).to(dtype)
     u_new = half(m, user_blocks, chunks=layout_kw.get("u_chunks"),
-                 entities=layout_kw.get("u_entities"), x_prev=u)
+                 entities=layout_kw.get("u_entities"), x_prev=u).to(dtype)
     return u_new, m
 
 
@@ -147,10 +165,13 @@ def train_ials(dataset: Dataset, config: IALSConfig, *,
                              block_size=config.block_size,
                              sweeps=config.sweeps,
                              fused_epilogue=config.fused_epilogue,
-                             in_kernel_gather=config.in_kernel_gather)
+                             in_kernel_gather=config.in_kernel_gather,
+                             reg_solve_algo=config.reg_solve_algo,
+                             table_dtype=config.table_dtype)
     for _ in range(config.num_iterations):
         u, m = _ials_iteration_body(u, m, mblocks, ublocks, half=half,
-                                    layout_kw=layout_kw)
+                                    layout_kw=layout_kw,
+                                    dtype=storage_dtype(config))
     return ALSModel(
         user_factors=u,
         movie_factors=m,

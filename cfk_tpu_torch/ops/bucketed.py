@@ -19,6 +19,14 @@ as the JAX route pins ``fused=True`` on that solve: the knob toggles only
 the Gram's round trip through memory, not the solve.  The [rows, k, k]
 Gram batch of a class then exists at once (64 KB a row at k = 128).
 
+A quantized table (``ops.quant``: bf16, or int8 codes with their per-row
+scale) is read as the kernels take it; the int8 scale is folded into the
+piece's weights first (``fold_scale``, ``cfk_tpu/ops/bucketed.py:177``).
+With the gather off a class is walked in the blocks' ``chunk_rows``
+pieces (``ops.solve.bucket_chunks``), so no K5 stream exceeds
+chunk·width·k elements; each piece's entities are whole segments, so the
+pieces' rows are the whole class's bits.
+
 The JAX route's legacy fallback for widths below 16 (a Mosaic sublane
 constraint) and its ``_sub_rows`` scalar-prefetch budget have no
 counterpart: K6 reads its indices from device memory, its grid takes any row
@@ -42,6 +50,7 @@ from cfk_tpu_torch.ops.kernels.gram_kernel import (
     gram_tiles,
     gram_tiles_plain,
 )
+from cfk_tpu_torch.ops.quant import fold_scale
 from cfk_tpu_torch.ops.solve import (
     regularized_solve,
     regularized_solve_matrix,
@@ -63,7 +72,7 @@ def ials_reparam(rt: torch.Tensor, mk: torch.Tensor, alpha: float):
 
 
 def bucket_gram_solve(
-    table: torch.Tensor,  # [F, k] gather table
+    table: torch.Tensor,  # [F, k] gather table (f32 / bf16 / int8 codes)
     nb: torch.Tensor,  # [rows, width] int32 neighbor indices (< F)
     wt: torch.Tensor,  # [rows, width] premultiply (mask / √aw·mask)
     rt: torch.Tensor,  # [rows, width] b-side coefficients (0 at padding)
@@ -74,17 +83,20 @@ def bucket_gram_solve(
     solver: str = "auto",
     gather: str = "fused",
     fused: bool = True,
-    units=None,  # the class's Gram work-unit plan (None: derived on device)
+    units=None,  # the piece's Gram work-unit plan (None: derived on device)
+    scale: torch.Tensor | None = None,  # [F] int8 per-row dequant scales
+    algo: str | None = None,  # reg_solve_algo of the split route's K1 pass
 ) -> torch.Tensor:
     """One width-class piece: flatten to one tile per entity and solve every
     row — [rows, k].  ``gather="fused"``: K6 reads the table by index;
     ``"xla"`` (``ops.tiled.resolve_gather_mode``): K5 writes the piece's
     stream and ``gram_solve_tiles`` solves it.  ``fused=False``: K2 (or K5
-    and ``gram_tiles``) writes (A, b) and K1 solves it.  Plain versions on
-    the CPU."""
+    and ``gram_tiles``) writes (A, b) and K1 solves it (the split dispatch
+    past ``algo``'s cap).  Plain versions on the CPU."""
     rows, width = nb.shape
     kernels = use_kernels(solver, table.device)
     seg = torch.arange(rows, dtype=torch.int32, device=nb.device)
+    wt = fold_scale(wt, scale, nb)
     nb, wt = nb.reshape(-1), wt.reshape(-1).contiguous()
     kw = dict(rt=rt.reshape(-1).contiguous(), seg=seg, num_segments=rows,
               tile_rows=width, units=units)
@@ -99,8 +111,10 @@ def bucket_gram_solve(
                 table, nb=nb, wt=wt, **kw)
         del g
         if reg_mode == "diag":
-            return regularized_solve(a, b, reg, lam, solver, fused=True)
-        return regularized_solve_matrix(a, b, reg, solver, fused=True)
+            return regularized_solve(a, b, reg, lam, solver, fused=True,
+                                     algo=algo)
+        return regularized_solve_matrix(a, b, reg, solver, fused=True,
+                                        algo=algo)
     kw.update(reg=reg, lseg=rows - 1, lam=lam, reg_mode=reg_mode)
     if g is not None:
         x, _, _ = (gram_solve_tiles if kernels else gram_solve_tiles_plain)(

@@ -30,6 +30,19 @@ solves with ``batched_spd_solve`` — PyTorch's batched Cholesky, the
 counterpart of the XLA Cholesky the JAX package falls back to there: it has
 no kernel above that rank, so neither has the port.
 
+Gram operands follow the JAX package's compute-dtype rule
+(``gram_compute_dtype``, ``cfk_tpu/ops/solve.py:30-51``): a bf16 table (a
+``--dtype bfloat16`` master, or a ``--table-dtype bfloat16`` gather table) is
+gathered and weighted in bf16 — each weighted product rounded to bf16, as
+XLA rounds it — and the einsums run float32 on those values (bf16×bf16
+products are exact in float32, TF32 stays off), so the sums equal a
+bf16-input, float32-accumulating matrix unit's up to order; f32 and int8
+(dequantized to f32 before any product) tables run float32 throughout.
+
+``reg_solve_algo`` ("auto"/"lu"/"gj") picks the fused route's rank cap as in
+the reference (``fused_rank_cap``): 128 for "lu" (and "auto"), 64 for "gj",
+above which every system takes the split schedule.
+
 ``solver`` picks the route of every solve and Gram kernel: ``"auto"`` calls
 the kernel wrappers (the CUDA kernels for CUDA tensors, their plain versions
 for CPU tensors); ``"cholesky"`` names the plain PyTorch versions
@@ -52,6 +65,7 @@ from cfk_tpu_torch.ops.kernels.solve_kernel import (
     reg_solve_plain,
     spd_solve_plain,
 )
+from cfk_tpu_torch.ops.quant import dequantize_table, quantize_table
 
 SOLVERS = ("auto", "cholesky")
 
@@ -70,17 +84,41 @@ def use_kernels(solver: str, device: torch.device) -> bool:
     return solver == "auto"
 
 
+REG_SOLVE_ALGOS = ("auto", "lu", "gj")
+
+
+def gram_compute_dtype(table: torch.Tensor) -> torch.dtype:
+    """The dtype Gram operands are formed in: bf16 for a bf16 table (each
+    weighted product rounded to bf16; the sums float32), float32 for f32
+    and for int8 (whose rows are dequantized to f32) — the JAX package's
+    ``_gram_compute_dtype`` (``cfk_tpu/ops/solve.py:30-51``)."""
+    return torch.bfloat16 if table.dtype == torch.bfloat16 else torch.float32
+
+
+def fused_rank_cap(algo: str | None = None) -> int:
+    """The largest rank the fused reg+solve route takes under ``algo``: 128
+    for "lu" and "auto" (the port's default is "lu"), 64 for "gj" — the
+    reference's ``_fused_reg_rank_cap`` (``cfk_tpu/ops/pallas/
+    solve_kernel.py:277-284``)."""
+    if algo not in (None,) + REG_SOLVE_ALGOS:
+        raise ValueError(f"reg_solve_algo must be 'lu' or 'gj', got {algo!r}")
+    return GJ_MAX_RANK if algo == "gj" else MAX_RANK
+
+
 def gather_gram(
-    fixed_factors: torch.Tensor,  # [F, k]
+    fixed_factors: torch.Tensor,  # [F, k] f32 or bf16
     neighbor_idx: torch.Tensor,  # [E, P] int32
     rating: torch.Tensor,  # [E, P] float32 (0 at padding)
     mask: torch.Tensor,  # [E, P] float32 (1 = real)
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Gram matrices A = Σ f fᵀ and RHS b = Σ r·f for every entity:
-    (A [E, k, k], b [E, k]); padding contributes zero via the mask."""
-    gm = fixed_factors[neighbor_idx.long()] * mask[..., None]
+    (A [E, k, k], b [E, k]) float32; padding contributes zero via the mask.
+    The masked rows and the ratings are formed in ``gram_compute_dtype``."""
+    ct = gram_compute_dtype(fixed_factors)
+    gm = (fixed_factors[neighbor_idx.long()].to(ct)
+          * mask[..., None].to(ct)).float()
     a = torch.einsum("epk,epl->ekl", gm, gm)
-    b = torch.einsum("epk,ep->ek", gm, rating)
+    b = torch.einsum("epk,ep->ek", gm, rating.to(ct).float())
     return a, b
 
 
@@ -91,14 +129,16 @@ def resolve_fused_epilogue(fused: bool | None) -> bool:
     return True if fused is None else bool(fused)
 
 
-def resolve_fused_chunk(fused: bool | None, k: int) -> bool:
+def resolve_fused_chunk(fused: bool | None, k: int,
+                        algo: str | None = None) -> bool:
     """Whether a chunk or width class runs its fused Gram + solve kernel
     (K3 for the dense stream, K6 for the stream and the bucketed classes),
-    and whether a batch takes K1's one pass: the knob, and a rank those
-    kernels take.  A rank they refuse goes to the split schedule, as in
-    ``cfk_tpu/plan/registry.py:322-360`` and ``cfk_tpu/ops/solve.py:
-    441-443`` — both schedules run kernels."""
-    return resolve_fused_epilogue(fused) and 1 <= k <= MAX_RANK
+    and whether a batch takes K1's one pass: the knob, and a rank within
+    ``algo``'s fused cap (``fused_rank_cap``: 128, or 64 for "gj").  A rank
+    past it goes to the split schedule, as in ``cfk_tpu/plan/registry.py:
+    212-216, 322-360`` and ``cfk_tpu/ops/solve.py:441-443`` — both
+    schedules run kernels."""
+    return resolve_fused_epilogue(fused) and 1 <= k <= fused_rank_cap(algo)
 
 
 def batched_spd_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -162,16 +202,17 @@ def dispatch_spd_solve(a: torch.Tensor, b: torch.Tensor,
 
 def regularized_solve(a: torch.Tensor, b: torch.Tensor, count: torch.Tensor,
                       lam: float, solver: str = "auto",
-                      fused: bool | None = None) -> torch.Tensor:
+                      fused: bool | None = None,
+                      algo: str | None = None) -> torch.Tensor:
     """Apply ALS-WR regularization λ·max(n, 1)·I and solve.
 
-    Fused (the default, k ≤ 128): K1's one pass.  Split (``fused=False``,
-    or any k > 128, where K1 does not reach — ``resolve_fused_chunk``): the
-    ridge is added IN PLACE into ``a`` — the caller's batch is consumed (at
-    the ML-25M shape and rank 128 a second [E, k, k] copy would be 3.9 GB)
-    — λ·max(n, 1) rounded, then one add, as K1 adds it — and
-    ``dispatch_spd_solve`` solves."""
-    if resolve_fused_chunk(fused, a.shape[-1]):
+    Fused (the default, k ≤ 128; k ≤ 64 with ``algo="gj"``): K1's one pass.
+    Split (``fused=False``, or a k past ``algo``'s cap —
+    ``resolve_fused_chunk``): the ridge is added IN PLACE into ``a`` — the
+    caller's batch is consumed (at the ML-25M shape and rank 128 a second
+    [E, k, k] copy would be 3.9 GB) — λ·max(n, 1) rounded, then one add, as
+    K1 adds it — and ``dispatch_spd_solve`` solves."""
+    if resolve_fused_chunk(fused, a.shape[-1], algo):
         solve = reg_solve if use_kernels(solver, a.device) else reg_solve_plain
         return solve(a, b, count, lam=lam, reg_mode="diag")
     ridge = lam * count.to(torch.float32).clamp_min(1.0)
@@ -181,11 +222,13 @@ def regularized_solve(a: torch.Tensor, b: torch.Tensor, count: torch.Tensor,
 
 def regularized_solve_matrix(a: torch.Tensor, b: torch.Tensor,
                              reg: torch.Tensor, solver: str = "auto",
-                             fused: bool | None = None) -> torch.Tensor:
+                             fused: bool | None = None,
+                             algo: str | None = None) -> torch.Tensor:
     """Solve (A_e + R) x_e = b_e with one shared [k,k] term R (iALS:
-    YᵀY + λI): fused (k ≤ 128), K1's matrix mode; split, R added IN PLACE
-    into ``a`` (see ``regularized_solve``), then ``dispatch_spd_solve``."""
-    if resolve_fused_chunk(fused, a.shape[-1]):
+    YᵀY + λI): fused (within ``algo``'s cap), K1's matrix mode; split, R
+    added IN PLACE into ``a`` (see ``regularized_solve``), then
+    ``dispatch_spd_solve``."""
+    if resolve_fused_chunk(fused, a.shape[-1], algo):
         solve = reg_solve if use_kernels(solver, a.device) else reg_solve_plain
         return solve(a, b, reg, reg_mode="matrix")
     a.add_(reg.to(torch.float32))
@@ -199,17 +242,24 @@ def gather_gram_implicit(
     mask: torch.Tensor,  # [E, P]
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-entity observed-part Gram of iALS: (A_obs = Σ (c−1)·f fᵀ [E,k,k],
-    b = Σ c·f [E,k]); preferences are 1 at observed cells."""
-    gm = fixed_factors[neighbor_idx.long()] * mask[..., None]
-    gw = gm * confidence_m1[..., None]
+    b = Σ c·f [E,k]); preferences are 1 at observed cells.  Rows, weights
+    and weighted products in ``gram_compute_dtype`` (bf16 rounds (c−1)·f
+    and c), the sums float32."""
+    ct = gram_compute_dtype(fixed_factors)
+    gm = fixed_factors[neighbor_idx.long()].to(ct) * mask[..., None].to(ct)
+    gw = (gm * confidence_m1[..., None].to(ct)).float()
+    gm = gm.float()
     a = torch.einsum("epk,epl->ekl", gw, gm)
-    b = torch.einsum("epk,ep->ek", gm, (confidence_m1 + 1.0) * mask)
+    b = torch.einsum("epk,ep->ek", gm,
+                     ((confidence_m1 + 1.0) * mask).to(ct).float())
     return a, b
 
 
 def global_gram(factors: torch.Tensor) -> torch.Tensor:
-    """YᵀY over all rows — [k, k] float32 (a plain matmul, TF32 off)."""
-    return factors.T @ factors
+    """YᵀY over all rows — [k, k] float32 (a plain matmul, TF32 off; a
+    bf16 table's values are multiplied exactly in float32)."""
+    f = factors.to(gram_compute_dtype(factors)).float()
+    return f.T @ f
 
 
 # Block height of the blocked global-Gram reduction (the JAX package's
@@ -218,8 +268,9 @@ GRAM_BLOCK_ROWS = 4096
 
 
 def gram_block_add(acc: torch.Tensor, blk: torch.Tensor) -> torch.Tensor:
-    """One blocked-Gram step: ``acc + blkᵀblk``."""
-    return acc + blk.T @ blk
+    """One blocked-Gram step: ``acc + blkᵀblk`` (float32)."""
+    b = blk.to(gram_compute_dtype(blk)).float()
+    return acc + b.T @ b
 
 
 def global_gram_blocked(factors: torch.Tensor,
@@ -227,7 +278,7 @@ def global_gram_blocked(factors: torch.Tensor,
     """YᵀY by consecutive ``[block_rows, k]`` blocks accumulated in order —
     the summation order the bucketed implicit half-steps use."""
     k = factors.shape[-1]
-    acc = factors.new_zeros(k, k)
+    acc = factors.new_zeros((k, k), dtype=torch.float32)
     for lo in range(0, max(factors.shape[0], 1), block_rows):
         acc = gram_block_add(acc, factors[lo:lo + block_rows])
     return acc
@@ -240,7 +291,7 @@ def implicit_reg(gram: torch.Tensor, lam: float) -> torch.Tensor:
 
 
 def ials_half_step(
-    fixed_factors: torch.Tensor,  # [F, k] (full fixed side)
+    fixed_factors: torch.Tensor,  # [F, k] (full fixed side) f32 or bf16
     neighbor_idx: torch.Tensor,  # [E, P]
     rating: torch.Tensor,  # [E, P] interaction strengths; c = 1 + α·r
     mask: torch.Tensor,  # [E, P]
@@ -249,6 +300,7 @@ def ials_half_step(
     *,
     gram: torch.Tensor | None = None,
     solver: str = "auto",
+    reg_solve_algo: str | None = None,
 ) -> torch.Tensor:
     """Solve all entities of one side for implicit feedback (padded layout);
     plain λI regularization (Hu et al.), not ALS-WR's λ·n·I."""
@@ -256,123 +308,161 @@ def ials_half_step(
         gram = global_gram(fixed_factors)
     a_obs, b = gather_gram_implicit(fixed_factors, neighbor_idx,
                                     alpha * rating, mask)
-    return regularized_solve_matrix(a_obs, b, implicit_reg(gram, lam), solver)
+    return regularized_solve_matrix(a_obs, b, implicit_reg(gram, lam), solver,
+                                    algo=reg_solve_algo)
 
 
-def walk_buckets(buckets, chunk_rows, arrays_of, piece, out):
+def walk_buckets(buckets, chunk_rows, arrays_of, piece, out, plan_of=None):
     """The bucket scaffolding every width-bucketed half-step shares.
 
     For each bucket: extract its per-row arrays (``arrays_of(blk, out)`` —
     ``out`` is passed so warm-started optimizers can read the bucket's
     current factors), run ``piece(*arrays) -> [rows, k]`` — in [chunk, ...]
-    pieces when ``chunk_rows`` bounds the bucket — and scatter the result
-    into ``out`` at the bucket's entity rows (padding rows target the trash
-    slot; real rows are unique across buckets).  Only per-row arrays are
-    cut into pieces: a caller passing anything else (a Gram work-unit
-    plan) passes ``chunk_rows`` None.  The JAX package's
-    double-buffered chunk map is a plain loop here.
+    pieces when ``chunk_rows`` bounds the bucket, as the JAX package's walk
+    streams them (``cfk_tpu/ops/solve.py:206-230``) — and scatter the
+    result into ``out`` at the bucket's entity rows (padding rows target the
+    trash slot; real rows are unique across buckets).  Only the per-row
+    arrays are cut; ``plan_of(blk, rows)``, when given, hands each piece one
+    more argument, the Gram work-unit plan of a piece of ``rows`` rows (a
+    width class is one tile per entity, so every piece of a class has the
+    same plan).  The JAX package's double-buffered chunk map is a plain
+    loop here.
     """
     for blk, chunk in zip(buckets, chunk_rows):
         arrs = arrays_of(blk, out)
         rows = arrs[0].shape[0]
         if chunk is None or chunk >= rows:
-            x = piece(*arrs)
+            extra = () if plan_of is None else (plan_of(blk, rows),)
+            x = piece(*arrs, *extra)
         else:
             if rows % chunk != 0:
                 raise ValueError(
                     f"bucket rows {rows} not divisible by chunk {chunk}")
-            x = torch.cat([piece(*(a[lo:lo + chunk] for a in arrs))
+            extra = () if plan_of is None else (plan_of(blk, chunk),)
+            x = torch.cat([piece(*(a[lo:lo + chunk] for a in arrs), *extra)
                            for lo in range(0, rows, chunk)])
         out[blk["entity_local"].long()] = x
     return out
 
 
+def bucket_plan(blk, rows: int):
+    """The work-unit plan of a ``rows``-row piece of width class ``blk``:
+    the one the device upload staged for the whole class or for its
+    ``chunk_rows`` pieces (``piece_plan``), else None (the wrappers derive
+    it)."""
+    from cfk_tpu_torch.ops.kernels.gram_units import chunk_plan
+
+    if rows == blk["neighbor"].shape[0]:
+        return chunk_plan(blk, 0)
+    return blk.get("piece_plan")
+
+
+def bucket_chunks(buckets, chunk_rows, gather: str):
+    """The piece bound each width class is walked with: the blocks'
+    ``chunk_rows`` on the materialized-stream route (``gather="xla"``: K5
+    writes a piece's [chunk·width, k] stream, never a whole class's), one
+    piece per class on the gather route — K6 (and K2, split) materialize
+    neither the gathered rows nor, fused, the Gram batch, so cutting the
+    widest classes into short launches would only serialize their
+    entities."""
+    if gather != "xla" or chunk_rows is None:
+        return (None,) * len(buckets)
+    return tuple(chunk_rows)
+
+
 def als_half_step_bucketed(
-    fixed_factors: torch.Tensor,  # [F, k]
+    fixed_factors: torch.Tensor,  # [F, k] f32 or bf16
     buckets,  # sequence of dicts {neighbor, rating, mask, count, entity_local}
     local_entities: int,
     lam: float,
     *,
+    chunk_rows=None,  # the blocks' per-bucket piece bound (None: whole)
     solver: str = "auto",
     in_kernel_gather: bool | None = None,
     fused_epilogue: bool | None = None,
+    reg_solve_algo: str | None = None,
+    table_dtype: str | None = None,
 ) -> torch.Tensor:
     """One ALS-WR half-iteration over width-bucketed InBlocks: every width
     class through K6 with one tile per entity (``ops.bucketed``), or, with
-    ``in_kernel_gather=False``, through K5 and ``gram_solve_tiles``; with
-    ``fused_epilogue=False`` — or at k > 128, which K6 does not take — each
+    ``in_kernel_gather=False``, through K5 and ``gram_solve_tiles`` in
+    ``chunk_rows`` pieces (``bucket_chunks``); with ``fused_epilogue=False``
+    — or at a rank past the fused cap (``resolve_fused_chunk``) — each
     class's (A, b) goes to device memory (K2, or K5 and ``gram_tiles``) and
-    K1 solves it (the ridge add and ``batched_spd_solve`` above 128).  Rows
-    in no bucket (zero ratings) stay exactly 0.
-
-    Each width class is one launch: the builder's ``chunk_rows`` hints
-    bound a materialized [chunk, width, k] gather, and K6 materializes
-    neither the gathered rows nor the Gram batch, so the JAX route's
-    ``chunk_rows`` argument has no counterpart here (cutting the widest
-    classes into one-row launches would only serialize their entities).
-    The materialized stream of a class is rows·width·k·4 bytes at once."""
+    K1 solves it (the split dispatch past K1's cap).  ``table_dtype``
+    quantizes the gather table (``ops.quant``; int8's scale folded into each
+    piece's weights).  Rows in no bucket (zero ratings) stay exactly 0."""
     from cfk_tpu_torch.ops.bucketed import bucket_gram_solve
-    from cfk_tpu_torch.ops.kernels.gram_units import chunk_plan
     from cfk_tpu_torch.ops.tiled import resolve_gather_mode
 
     k = fixed_factors.shape[-1]
     gather = resolve_gather_mode(in_kernel_gather)
-    fused = resolve_fused_chunk(fused_epilogue, k)
+    fused = resolve_fused_chunk(fused_epilogue, k, reg_solve_algo)
+    data, scale = quantize_table(fixed_factors, table_dtype)
 
     def solve_piece(ni, rt, mk, cnt, units):
-        return bucket_gram_solve(fixed_factors, ni, mk, rt, cnt, lam=lam,
+        return bucket_gram_solve(data, ni, mk, rt, cnt, lam=lam,
                                  reg_mode="diag", solver=solver,
-                                 gather=gather, fused=fused, units=units)
+                                 gather=gather, fused=fused, units=units,
+                                 scale=scale, algo=reg_solve_algo)
 
     out = walk_buckets(
-        buckets, (None,) * len(buckets),
+        buckets, bucket_chunks(buckets, chunk_rows, gather),
         lambda blk, _out: (blk["neighbor"], blk["rating"], blk["mask"],
-                           blk["count"], chunk_plan(blk, 0)),
-        solve_piece, fixed_factors.new_zeros(local_entities + 1, k))
+                           blk["count"]),
+        solve_piece,
+        fixed_factors.new_zeros((local_entities + 1, k), dtype=torch.float32),
+        plan_of=bucket_plan)
     return out[:local_entities]
 
 
 def ials_half_step_bucketed(
-    fixed_factors: torch.Tensor,  # [F, k]
+    fixed_factors: torch.Tensor,  # [F, k] f32 or bf16
     buckets,  # sequence of dicts {neighbor, rating, mask, entity_local}
     local_entities: int,
     lam: float,
     alpha: float,
     *,
+    chunk_rows=None,  # the blocks' per-bucket piece bound (None: whole)
     gram: torch.Tensor | None = None,
     solver: str = "auto",
     in_kernel_gather: bool | None = None,
     fused_epilogue: bool | None = None,
+    reg_solve_algo: str | None = None,
+    table_dtype: str | None = None,
 ) -> torch.Tensor:
     """Implicit-feedback half-iteration over width-bucketed InBlocks: per
     entity YᵀY + Σ_obs (c−1)·f fᵀ + λI, every width class through K6 (or,
-    with ``in_kernel_gather=False``, K5 and ``gram_solve_tiles``) with the
-    sqrt-reparameterized weight stream (``ops.bucketed.ials_reparam``) and
-    the shared ridge in matrix mode, one launch per width class (see
-    ``als_half_step_bucketed``, also for ``fused_epilogue=False``: K2 + K1
-    matrix mode).  Zero-interaction rows stay 0."""
+    with ``in_kernel_gather=False``, K5 and ``gram_solve_tiles`` in
+    ``chunk_rows`` pieces) with the sqrt-reparameterized weight stream
+    (``ops.bucketed.ials_reparam``) and the shared ridge in matrix mode
+    (see ``als_half_step_bucketed``, also for ``fused_epilogue=False``: K2
+    + K1 matrix mode).  YᵀY sums the rows the kernels read (the
+    dequantized view of ``table_dtype``).  Zero-interaction rows stay 0."""
     from cfk_tpu_torch.ops.bucketed import bucket_gram_solve, ials_reparam
-    from cfk_tpu_torch.ops.kernels.gram_units import chunk_plan
     from cfk_tpu_torch.ops.tiled import resolve_gather_mode
 
     k = fixed_factors.shape[-1]
     gather = resolve_gather_mode(in_kernel_gather)
-    fused = resolve_fused_chunk(fused_epilogue, k)
+    fused = resolve_fused_chunk(fused_epilogue, k, reg_solve_algo)
+    data, scale = quantize_table(fixed_factors, table_dtype)
     if gram is None:
-        gram = global_gram_blocked(fixed_factors)
+        gram = global_gram_blocked(dequantize_table(data, scale))
     reg_m = implicit_reg(gram, lam)
 
     def solve_piece(ni, rt, mk, units):
         wt, rt_b = ials_reparam(rt, mk, alpha)
-        return bucket_gram_solve(fixed_factors, ni, wt, rt_b, reg_m,
+        return bucket_gram_solve(data, ni, wt, rt_b, reg_m,
                                  lam=0.0, reg_mode="matrix", solver=solver,
-                                 gather=gather, fused=fused, units=units)
+                                 gather=gather, fused=fused, units=units,
+                                 scale=scale, algo=reg_solve_algo)
 
     out = walk_buckets(
-        buckets, (None,) * len(buckets),
-        lambda blk, _out: (blk["neighbor"], blk["rating"], blk["mask"],
-                           chunk_plan(blk, 0)),
-        solve_piece, fixed_factors.new_zeros(local_entities + 1, k))
+        buckets, bucket_chunks(buckets, chunk_rows, gather),
+        lambda blk, _out: (blk["neighbor"], blk["rating"], blk["mask"]),
+        solve_piece,
+        fixed_factors.new_zeros((local_entities + 1, k), dtype=torch.float32),
+        plan_of=bucket_plan)
     return out[:local_entities]
 
 
@@ -393,9 +483,14 @@ def segment_gram(
     nothing.  The segment layout reaches no Pallas kernel in the JAX package
     (its Gram is XLA's ragged matmul or segment sum), so this is plain
     PyTorch on every device; the [C, k, k] tensor it holds is what the
-    builder's chunk size is cut for."""
-    f = fixed_factors[neighbor_idx.long()].float() * mask[:, None]
-    fw = f * weight[:, None]
+    blocks' chunk size is cut for.  A bf16 table forms f, w·f and r in
+    bf16 (``gram_compute_dtype``, as the reference's ragged backend feeds
+    its matrix unit), the outer products and sums float32."""
+    ct = gram_compute_dtype(fixed_factors)
+    f = fixed_factors[neighbor_idx.long()].to(ct) * mask[:, None].to(ct)
+    fw = (f * weight[:, None].to(ct)).float()
+    f = f.float()
+    rating = rating.to(ct).float()
     k = f.shape[1]
     a = f.new_zeros((num_segments, k, k)).index_add_(
         0, segment_ids, fw[:, :, None] * f[:, None, :])
@@ -420,9 +515,9 @@ def segment_scan(fixed_factors, chunk_gram, solve_rows, blk, statics,
     finalizes stay exactly 0."""
     nc, cap, e_c = statics
     k = fixed_factors.shape[-1]
-    out = fixed_factors.new_zeros((local_entities + 1, k))
-    a0 = fixed_factors.new_zeros((k, k))
-    b0 = fixed_factors.new_zeros((k,))
+    out = fixed_factors.new_zeros((local_entities + 1, k), dtype=torch.float32)
+    a0 = fixed_factors.new_zeros((k, k), dtype=torch.float32)
+    b0 = fixed_factors.new_zeros((k,), dtype=torch.float32)
     carry_in, last_seg = blk["carry_in"], blk["last_seg"]
     for c in range(nc):
         a, b = chunk_gram(c * cap, (c + 1) * cap)
@@ -445,6 +540,7 @@ def als_half_step_segment(
     lam: float,
     *,
     solver: str = "auto",
+    reg_solve_algo: str | None = None,
 ) -> torch.Tensor:
     """One ALS-WR half-iteration over the segment layout
     (``cfk_tpu/ops/solve.py::als_half_step_segment`` :690): the same normal
@@ -462,7 +558,8 @@ def als_half_step_segment(
                             blk["seg_rel"][lo:hi], e_c + 1)
 
     def solve_rows(a, b, cnt):
-        return regularized_solve(a, b, cnt, lam, solver)
+        return regularized_solve(a, b, cnt, lam, solver,
+                                 algo=reg_solve_algo)
 
     return segment_scan(fixed_factors, chunk_gram, solve_rows, blk, statics,
                         local_entities)
@@ -478,6 +575,7 @@ def ials_half_step_segment(
     *,
     gram: torch.Tensor | None = None,
     solver: str = "auto",
+    reg_solve_algo: str | None = None,
 ) -> torch.Tensor:
     """Implicit-feedback half-iteration over the segment layout
     (``cfk_tpu/ops/solve.py::ials_half_step_segment`` :738): per entity
@@ -497,7 +595,8 @@ def ials_half_step_segment(
                             blk["seg_rel"][lo:hi], e_c + 1)
 
     def solve_rows(a, b, _cnt):
-        return regularized_solve_matrix(a, b, reg, solver)
+        return regularized_solve_matrix(a, b, reg, solver,
+                                        algo=reg_solve_algo)
 
     return segment_scan(fixed_factors, chunk_gram, solve_rows, blk, statics,
                         local_entities)
@@ -518,9 +617,9 @@ def pad_rows_to_multiple(tensors, multiple: int):
 
 
 def _solve_chunk(fixed_factors, lam, neighbor_idx, rating, mask, count,
-                 solver="auto"):
+                 solver="auto", algo=None):
     a, b = gather_gram(fixed_factors, neighbor_idx, rating, mask)
-    return regularized_solve(a, b, count, lam, solver)
+    return regularized_solve(a, b, count, lam, solver, algo=algo)
 
 
 def als_half_step(
@@ -533,21 +632,23 @@ def als_half_step(
     *,
     solve_chunk: int | None = None,
     solver: str = "auto",
+    reg_solve_algo: str | None = None,
 ) -> torch.Tensor:
     """One ALS half-iteration on the padded layout: solve all [E] entities
-    against the fixed factors.  ``solve_chunk`` bounds the [chunk, P, k]
-    gather held at once by walking entity chunks (an indivisible E is padded
-    with inert rows that are sliced off)."""
+    against the fixed factors (f32, or bf16 — ``gather_gram``).
+    ``solve_chunk`` bounds the [chunk, P, k] gather held at once by walking
+    entity chunks (an indivisible E is padded with inert rows that are
+    sliced off)."""
     e = neighbor_idx.shape[0]
     if solve_chunk is None or solve_chunk >= e:
         return _solve_chunk(fixed_factors, lam, neighbor_idx, rating, mask,
-                            count, solver)
+                            count, solver, reg_solve_algo)
     (neighbor_idx, rating, mask, count), _ = pad_rows_to_multiple(
         (neighbor_idx, rating, mask, count), solve_chunk)
     out = [
         _solve_chunk(fixed_factors, lam, neighbor_idx[lo:lo + solve_chunk],
                      rating[lo:lo + solve_chunk], mask[lo:lo + solve_chunk],
-                     count[lo:lo + solve_chunk], solver)
+                     count[lo:lo + solve_chunk], solver, reg_solve_algo)
         for lo in range(0, neighbor_idx.shape[0], solve_chunk)
     ]
     return torch.cat(out)[:e]

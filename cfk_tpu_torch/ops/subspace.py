@@ -32,12 +32,19 @@ to XLA; the b×b solves run through K1 (``regularized_solve_matrix`` /
 the ridge add and the split dispatch (``ops.solve.dispatch_spd_solve``:
 ``gauss_solve`` at b ≤ 64), as the JAX sweep passes ``fused=`` on
 (``cfk_tpu/ops/subspace.py:158-175``).
+
+``table_dtype`` quantizes the gather table (``ops.quant``): K5 reads the
+bf16 rows or int8 codes, with the int8 per-row scale folded into the mask
+weight first, and writes the float32 rectangle (the JAX sweep asks
+``out_dtype=float32``), so the Gram blocks, the b-side and the score stream
+all read the dequantized values; YᵀY sums the same values.
 """
 
 from __future__ import annotations
 
 import torch
 
+from cfk_tpu_torch.ops import quant
 from cfk_tpu_torch.ops.kernels.gram_kernel import gather_rows, gather_rows_plain
 from cfk_tpu_torch.ops.solve import (
     global_gram,
@@ -49,12 +56,16 @@ from cfk_tpu_torch.ops.solve import (
 )
 
 
-def _sweep_gather(fixed, neighbor_idx, maskf, solver):
-    """The gathered rectangle ``fixed[nb]·mask`` [E, P, k] (K5 on CUDA)."""
+def _sweep_gather(fixed, scale, neighbor_idx, maskf, solver):
+    """The gathered rectangle ``fixed[nb]·mask`` [E, P, k] in float32 (K5 on
+    CUDA), an int8 table's scale folded into the mask first
+    (``cfk_tpu/ops/subspace.py:50-75``)."""
     e, p = neighbor_idx.shape
     gather = (gather_rows if use_kernels(solver, fixed.device)
               else gather_rows_plain)
-    g = gather(fixed, neighbor_idx.reshape(-1), maskf.reshape(-1).contiguous())
+    wt = quant.fold_scale(maskf, scale, neighbor_idx)
+    g = gather(fixed, neighbor_idx.reshape(-1), wt.reshape(-1).contiguous(),
+               torch.float32)
     return g.view(e, p, fixed.shape[-1])
 
 
@@ -71,6 +82,8 @@ def _sweep_rect(
     solver: str = "auto",
     count: torch.Tensor | None = None,  # [E] rating counts (explicit: λ·n·I)
     fused_epilogue: bool | None = None,
+    scale: torch.Tensor | None = None,  # [F] int8 per-row dequant scales
+    reg_solve_algo: str | None = None,
 ) -> torch.Tensor:
     """One sweep over all k/block_size coordinate blocks of a rectangle:
     implicit mode when ``gram`` is given, explicit (ALS-WR) when ``count``
@@ -83,7 +96,7 @@ def _sweep_rect(
         raise ValueError(f"rank {k} not divisible by block_size {block_size}")
     x = x.to(torch.float32, copy=True)
     maskf = mask.to(torch.float32)
-    gathered = _sweep_gather(fixed, neighbor_idx, maskf, solver)
+    gathered = _sweep_gather(fixed, scale, neighbor_idx, maskf, solver)
     if implicit:
         conf_m1 = alpha * rating.to(torch.float32) * maskf  # c−1 obs, 0 pad
         c_obs = conf_m1 + maskf  # c at observed, 0 at pad
@@ -102,14 +115,15 @@ def _sweep_rect(
             a_obs = torch.einsum("epb,epc->ebc", f_b * conf_m1[..., None], f_b)
             delta = regularized_solve_matrix(
                 a_obs, -g_b, gram[cols, cols] + lam * eye_b, solver,
-                fused=fused_epilogue)
+                fused=fused_epilogue, algo=reg_solve_algo)
         else:
             w = (s - rating.to(torch.float32)) * maskf  # residual at observed
             g_b = (reg_n[:, None] * x[:, cols]
                    + torch.einsum("epb,ep->eb", f_b, w))
             a_obs = torch.einsum("epb,epc->ebc", f_b, f_b)
             delta = regularized_solve(a_obs, -g_b, count, lam, solver,
-                                      fused=fused_epilogue)
+                                      fused=fused_epilogue,
+                                      algo=reg_solve_algo)
         x[:, cols] += delta
         s = s + torch.einsum("epb,eb->ep", f_b, delta)
     return x
@@ -117,12 +131,15 @@ def _sweep_rect(
 
 def als_pp_half_step(fixed, x_prev, neighbor_idx, rating, mask, count, lam,
                      *, block_size=32, sweeps=1, solver="auto",
-                     fused_epilogue=None):
+                     fused_epilogue=None, reg_solve_algo=None,
+                     table_dtype=None):
     """Explicit ALS-WR half-iteration by subspace sweeps (padded layout)."""
+    data, scale = quant.quantize_table(fixed, table_dtype)
     for _ in range(sweeps):
-        x_prev = _sweep_rect(fixed, x_prev, neighbor_idx, rating, mask, lam,
+        x_prev = _sweep_rect(data, x_prev, neighbor_idx, rating, mask, lam,
                              0.0, None, block_size, solver, count=count,
-                             fused_epilogue=fused_epilogue)
+                             fused_epilogue=fused_epilogue, scale=scale,
+                             reg_solve_algo=reg_solve_algo)
     return x_prev
 
 
@@ -147,14 +164,17 @@ def _warm_bucket_walk(k, x_prev, buckets, chunk_rows, local_entities,
 
 def als_pp_half_step_bucketed(fixed, x_prev, buckets, chunk_rows,
                               local_entities, lam, *, block_size=32,
-                              sweeps=1, solver="auto", fused_epilogue=None):
+                              sweeps=1, solver="auto", fused_epilogue=None,
+                              reg_solve_algo=None, table_dtype=None):
     """Explicit ALS-WR half-iteration by subspace sweeps over width buckets."""
+    data, scale = quant.quantize_table(fixed, table_dtype)
 
     def sweep_piece(xb, ni, rt, mk, cnt):
         for _ in range(sweeps):
-            xb = _sweep_rect(fixed, xb, ni, rt, mk, lam, 0.0, None,
+            xb = _sweep_rect(data, xb, ni, rt, mk, lam, 0.0, None,
                              block_size, solver, count=cnt,
-                             fused_epilogue=fused_epilogue)
+                             fused_epilogue=fused_epilogue, scale=scale,
+                             reg_solve_algo=reg_solve_algo)
         return xb
 
     return _warm_bucket_walk(fixed.shape[-1], x_prev, buckets, chunk_rows,
@@ -165,32 +185,38 @@ def als_pp_half_step_bucketed(fixed, x_prev, buckets, chunk_rows,
 
 def ials_pp_half_step(fixed, x_prev, neighbor_idx, rating, mask, lam, alpha,
                       *, gram=None, block_size=32, sweeps=1, solver="auto",
-                      fused_epilogue=None):
+                      fused_epilogue=None, reg_solve_algo=None,
+                      table_dtype=None):
     """iALS++ half-iteration over the padded rectangle layout."""
+    data, scale = quant.quantize_table(fixed, table_dtype)
     if gram is None:
-        gram = global_gram(fixed)
+        gram = global_gram(quant.dequantize_table(data, scale))
     for _ in range(sweeps):
-        x_prev = _sweep_rect(fixed, x_prev, neighbor_idx, rating, mask, lam,
+        x_prev = _sweep_rect(data, x_prev, neighbor_idx, rating, mask, lam,
                              alpha, gram, block_size, solver,
-                             fused_epilogue=fused_epilogue)
+                             fused_epilogue=fused_epilogue, scale=scale,
+                             reg_solve_algo=reg_solve_algo)
     return x_prev
 
 
 def ials_pp_half_step_bucketed(fixed, x_prev, buckets, chunk_rows,
                                local_entities, lam, alpha, *, gram=None,
                                block_size=32, sweeps=1, solver="auto",
-                               fused_epilogue=None):
+                               fused_epilogue=None, reg_solve_algo=None,
+                               table_dtype=None):
     """iALS++ half-iteration over width-bucketed InBlocks: each rated entity
     lives in exactly one bucket, so the sweep runs per bucket rectangle and
     scatters back."""
+    data, scale = quant.quantize_table(fixed, table_dtype)
     if gram is None:
-        gram = global_gram_blocked(fixed)
+        gram = global_gram_blocked(quant.dequantize_table(data, scale))
 
     def sweep_piece(xb, ni, rt, mk):
         for _ in range(sweeps):
-            xb = _sweep_rect(fixed, xb, ni, rt, mk, lam, alpha, gram,
+            xb = _sweep_rect(data, xb, ni, rt, mk, lam, alpha, gram,
                              block_size, solver,
-                             fused_epilogue=fused_epilogue)
+                             fused_epilogue=fused_epilogue, scale=scale,
+                             reg_solve_algo=reg_solve_algo)
         return xb
 
     return _warm_bucket_walk(fixed.shape[-1], x_prev, buckets, chunk_rows,

@@ -38,6 +38,11 @@ gs = √(α·r)·f — the tile-aligned ``wt`` of K2/K6 in accum and stream mode
 K3's stream-aligned ``wt`` in dense mode — with the b-coefficients
 rescaled to c/√(α·r).
 
+A quantized gather table (``table_dtype``, ``quantize_tiled_operand``) is
+read by every kernel of both schedules as it is stored — bf16 rows, or int8
+codes whose per-row scale is folded into the mode's weight stream — with
+float32 sums; K5 writes a bf16 stream for a bf16 table, f32 for int8.
+
 The chunk scans are plain Python loops (``lax.scan``/``prefetch_scan`` on
 the TPU route).
 """
@@ -46,6 +51,7 @@ from __future__ import annotations
 
 import torch
 
+from cfk_tpu_torch.ops import quant
 from cfk_tpu_torch.ops.bucketed import _SQRT_WEIGHT_EPS, ials_reparam
 from cfk_tpu_torch.ops.kernels.gram_units import chunk_plan
 from cfk_tpu_torch.ops.kernels.gram_kernel import (
@@ -155,30 +161,65 @@ def dense_chunk(blk, statics, c: int) -> dict:
                 tile_rows=t, num_tiles=nt, num_groups=ng, block_rows=bg)
 
 
+def quantize_tiled_operand(fixed_factors, blk, chunks, table_dtype):
+    """(table, blk): the gather table of a tiled half-step in
+    ``table_dtype`` (the f32 identity, the bf16 cast, int8 codes) and the
+    device dict with the int8 per-row scale folded into the mode's weight
+    stream — ``quant.fold_scale`` first, then the one g = data[nb]·wt
+    multiply, the order every gather route shares
+    (``cfk_tpu/ops/tiled.py:323-370``).  Accum and stream: the tile-aligned
+    ``weight`` (the 0/1 mask, or √aw·mask for iALS); the indices are
+    already absolute rows with F as the zero row (the device setup rebased
+    them), so the fold indexes them directly.  Dense stream: the
+    stream-aligned ``aweight_dense``, synthesized as ones for explicit ALS,
+    which has no weight channel (dense padding indexes the zero row, whose
+    appended scale is 0)."""
+    data, scale = quant.quantize_table(fixed_factors, table_dtype)
+    if scale is None:
+        return data, blk
+    blk = dict(blk)
+    nb = blk["neighbor_idx"]
+    if chunks[1] == "dstream":
+        wt = blk.get("aweight_dense")
+        if wt is None:
+            wt = torch.ones(nb.shape, dtype=torch.float32, device=nb.device)
+        blk["aweight_dense"] = quant.fold_scale(wt, scale, nb)
+    else:
+        blk["weight"] = quant.fold_scale(blk["weight"], scale, nb)
+    return data, blk
+
+
 def tiled_half_step(fixed_factors, blk, chunks, local_entities, lam, *,
                     solver="auto", implicit_reg=None, fused_epilogue=None,
-                    in_kernel_gather=None):
+                    in_kernel_gather=None, reg_solve_algo=None,
+                    table_dtype=None):
     """Mode dispatch: ``chunks`` is the static tuple ``("tiled", mode,
     *statics)`` and ``blk`` the device dict of ``models.als._tiled_to_device``.
     ``implicit_reg`` = the iALS [k,k] ridge YᵀY + λI (matrix mode; ``blk``
     then carries the reparameterized weights), None = ALS-WR's λ·n.
     ``fused_epilogue`` = the fused (None/True) or split (False) schedule;
     ``in_kernel_gather`` = the gather inside the kernels (None/True) or the
-    materialized stream (False, ``resolve_gather_mode``)."""
+    materialized stream (False, ``resolve_gather_mode``);
+    ``reg_solve_algo`` = the fused route's rank cap (``ops.solve.
+    fused_rank_cap``); ``table_dtype`` = the gather table's dtype
+    (``quantize_tiled_operand``; the solved rows are float32)."""
     half = {"accum": als_half_step_tiled_accum,
             "stream": als_half_step_tiled,
             "dstream": als_half_step_tiled_dense}.get(chunks[1])
     if half is None:
         raise ValueError(f"unknown tiled mode {chunks[1]!r}")
-    return half(fixed_factors, blk, local_entities, lam,
+    table, blk = quantize_tiled_operand(fixed_factors, blk, chunks,
+                                        table_dtype)
+    return half(table, blk, local_entities, lam,
                 statics=tuple(chunks[2:]), solver=solver,
                 implicit_reg=implicit_reg, fused_epilogue=fused_epilogue,
-                in_kernel_gather=in_kernel_gather)
+                in_kernel_gather=in_kernel_gather,
+                reg_solve_algo=reg_solve_algo)
 
 
 def _chunk_scan(fixed_factors, blk, local_entities, lam, nc, e_c, chunk,
                 mode, *, solver, implicit_reg, fused_epilogue,
-                in_kernel_gather):
+                in_kernel_gather, reg_solve_algo=None):
     """The stream and dense-stream chunk scans: ``chunk(c)`` gives chunk
     c's operands (with its ridge counts ``reg``, carry-out row ``lseg``
     and carry flag ``cin``); per chunk the fused kernel returns (x, carry
@@ -192,15 +233,16 @@ def _chunk_scan(fixed_factors, blk, local_entities, lam, nc, e_c, chunk,
     ``chunk_entity`` once, after the loop; non-finalized positions all
     route to the trash row E (dropped)."""
     k = fixed_factors.shape[-1]
-    fused = resolve_fused_chunk(fused_epilogue, k)
+    fused = resolve_fused_chunk(fused_epilogue, k, reg_solve_algo)
     gather = resolve_gather_mode(in_kernel_gather)
     pick = 0 if use_kernels(solver, fixed_factors.device) else 1
     solve_gram, gram = (fns[pick] for fns in _SCAN_KERNELS[mode, gather])
     gather_fn = (gather_rows, gather_rows_plain)[pick]
     reg_mode = "diag" if implicit_reg is None else "matrix"
-    a0 = fixed_factors.new_zeros(k, k)
-    b0 = fixed_factors.new_zeros(k)
-    xs = fixed_factors.new_empty(nc, e_c, k)
+    f32 = dict(dtype=torch.float32)
+    a0 = fixed_factors.new_zeros((k, k), **f32)
+    b0 = fixed_factors.new_zeros((k,), **f32)
+    xs = fixed_factors.new_empty((nc, e_c, k), **f32)
     for c in range(nc):
         args = dict(chunk(c), units=chunk_plan(blk, c))
         cin, lseg, reg = args.pop("cin"), args.pop("lseg"), args.pop("reg")
@@ -220,11 +262,13 @@ def _chunk_scan(fixed_factors, blk, local_entities, lam, nc, e_c, chunk,
             ls = lseg.long()
             a0, b0 = a.index_select(0, ls)[0], b.index_select(0, ls)[0]
             if implicit_reg is None:
-                x = regularized_solve(a, b, reg, lam, solver, fused=True)
+                x = regularized_solve(a, b, reg, lam, solver, fused=True,
+                                      algo=reg_solve_algo)
             else:
-                x = regularized_solve_matrix(a, b, reg, solver, fused=True)
+                x = regularized_solve_matrix(a, b, reg, solver, fused=True,
+                                             algo=reg_solve_algo)
         xs[c] = x[:e_c]
-    out = fixed_factors.new_zeros(local_entities + 1, k)
+    out = fixed_factors.new_zeros((local_entities + 1, k), **f32)
     out[blk["chunk_entity"].long()] = xs.view(nc * e_c, k)
     return out[:local_entities]
 
@@ -249,8 +293,10 @@ def accum_grams(
     k = fixed_factors.shape[-1]
     kernels = use_kernels(solver, fixed_factors.device)
     xla = resolve_gather_mode(in_kernel_gather) == "xla"
-    acc_a = fixed_factors.new_zeros(local_entities + 1, k, k)
-    acc_b = fixed_factors.new_zeros(local_entities + 1, k)
+    acc_a = fixed_factors.new_zeros((local_entities + 1, k, k),
+                                    dtype=torch.float32)
+    acc_b = fixed_factors.new_zeros((local_entities + 1, k),
+                                    dtype=torch.float32)
     ent = blk["chunk_entity"].long().view(nc, e_c)
     for c in range(nc):
         args = dict(accum_chunk(blk, statics, c), units=chunk_plan(blk, c))
@@ -279,19 +325,21 @@ def als_half_step_tiled_accum(
     implicit_reg: torch.Tensor | None = None,  # [k,k] YᵀY + λI (iALS)
     fused_epilogue: bool | None = None,
     in_kernel_gather: bool | None = None,
+    reg_solve_algo: str | None = None,
 ) -> torch.Tensor:
     """Accumulator-mode half-iteration: K2 per chunk (or K5 + ``gram_tiles``
     with ``in_kernel_gather=False``), then one solve of the accumulator
     (λ·n diag, or the shared ``implicit_reg`` in matrix mode): K1 fused;
-    split, the ridge added in place and the split solve dispatch
-    (``cfk_tpu/ops/tiled.py:1250-1266``)."""
+    split (or past ``reg_solve_algo``'s cap), the ridge added in place and
+    the split solve dispatch (``cfk_tpu/ops/tiled.py:1250-1266``)."""
     a, b = accum_grams(fixed_factors, blk, local_entities, statics=statics,
                        solver=solver, in_kernel_gather=in_kernel_gather)
     if implicit_reg is None:
         return regularized_solve(a, b, blk["count"], lam, solver,
-                                 fused=fused_epilogue)
+                                 fused=fused_epilogue, algo=reg_solve_algo)
     return regularized_solve_matrix(a, b, implicit_reg, solver,
-                                    fused=fused_epilogue)
+                                    fused=fused_epilogue,
+                                    algo=reg_solve_algo)
 
 
 def als_half_step_tiled(
@@ -307,6 +355,7 @@ def als_half_step_tiled(
     implicit_reg: torch.Tensor | None = None,  # [k,k] YᵀY + λI (iALS)
     fused_epilogue: bool | None = None,
     in_kernel_gather: bool | None = None,
+    reg_solve_algo: str | None = None,
 ) -> torch.Tensor:
     """Stream-mode half-iteration (``cfk_tpu/ops/tiled.py:529``): per
     chunk K6 (fused) or K2 then K1 (split) — on the materialized stream
@@ -316,7 +365,8 @@ def als_half_step_tiled(
         fixed_factors, blk, local_entities, lam, statics[0], statics[2],
         lambda c: stream_chunk(blk, statics, c), "stream",
         solver=solver, implicit_reg=implicit_reg,
-        fused_epilogue=fused_epilogue, in_kernel_gather=in_kernel_gather)
+        fused_epilogue=fused_epilogue, in_kernel_gather=in_kernel_gather,
+        reg_solve_algo=reg_solve_algo)
 
 
 def als_half_step_tiled_dense(
@@ -331,6 +381,7 @@ def als_half_step_tiled_dense(
     implicit_reg: torch.Tensor | None = None,  # [k,k] YᵀY + λI (iALS)
     fused_epilogue: bool | None = None,
     in_kernel_gather: bool | None = None,
+    reg_solve_algo: str | None = None,
 ) -> torch.Tensor:
     """Dense-stream half-iteration: K3 per chunk (fused), or
     ``gram_tiles_dense_gather`` then K1 (split), carry threaded across; on
@@ -348,14 +399,15 @@ def als_half_step_tiled_dense(
 
     def chunk(c):
         args = dense_chunk(blk, statics, c)
-        if implicit_reg is not None:
+        if "aweight_dense" in blk:
             args["wt"] = blk["aweight_dense"][c * cap:(c + 1) * cap]
         return args
 
     return _chunk_scan(
         fixed_factors, blk, local_entities, lam, nc, e_c, chunk, "dstream",
         solver=solver, implicit_reg=implicit_reg,
-        fused_epilogue=fused_epilogue, in_kernel_gather=in_kernel_gather)
+        fused_epilogue=fused_epilogue, in_kernel_gather=in_kernel_gather,
+        reg_solve_algo=reg_solve_algo)
 
 
 def ials_tiled_weights(blk: dict, mode: str, alpha: float) -> dict:
@@ -388,17 +440,23 @@ def ials_tiled_weights(blk: dict, mode: str, alpha: float) -> dict:
 
 def ials_tiled_half_step(fixed_factors, blk, chunks, local_entities, lam,
                          alpha, *, gram=None, solver="auto",
-                         fused_epilogue=None, in_kernel_gather=None):
+                         fused_epilogue=None, in_kernel_gather=None,
+                         reg_solve_algo=None, table_dtype=None):
     """Implicit-feedback (Hu et al. 2008) half-iteration on tiled blocks:
     per entity A = YᵀY + Σ_obs (c−1)·f fᵀ + λI, b = Σ_obs c·f, c = 1 + α·r,
     through the reparameterized weights of ``ials_tiled_weights`` and the
-    shared ridge in matrix mode.  Negative strengths are refused by the
-    trainer (``models.ials``)."""
+    shared ridge in matrix mode.  YᵀY sums the rows the kernels read
+    (``quant.gather_operand_view`` of ``table_dtype``,
+    ``cfk_tpu/ops/tiled.py:473-482``).  Negative strengths are refused by
+    the trainer (``models.ials``)."""
     if gram is None:
-        gram = global_gram(fixed_factors)
+        gram = global_gram(quant.gather_operand_view(fixed_factors,
+                                                     table_dtype))
     return tiled_half_step(fixed_factors,
                            ials_tiled_weights(blk, chunks[1], alpha), chunks,
                            local_entities, lam, solver=solver,
                            implicit_reg=implicit_ridge(gram, lam),
                            fused_epilogue=fused_epilogue,
-                           in_kernel_gather=in_kernel_gather)
+                           in_kernel_gather=in_kernel_gather,
+                           reg_solve_algo=reg_solve_algo,
+                           table_dtype=table_dtype)

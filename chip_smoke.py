@@ -130,6 +130,28 @@ Phases, each of which must pass:
              a profiled window (each half's first 1,024 chunks, scaled to
              the iteration's chunks), chunks and Ec per half, peak memory
              and block-build seconds;
+4f. quant — quantized training (``ALSConfig.table_dtype``, ``dtype``) on the
+             main phase's tiled blocks, rank 64, λ 0.05: 2 iterations of
+             ``train_als`` each from the tiled run's u0 (seed 0) at float32,
+             with a bf16 gather table, an int8 one (the per-row scale
+             folded into the weights) and bf16 factor storage; launch counts
+             zeroed before and read after (K1-K3 > 0), the train RMSE of
+             each against the float32 run's (ratios ≤ 1.01, 1.10, 1.01:
+             the JAX package's contract on its planted fixture), s/iter and
+             the device time of one profiled iteration each; then, on the
+             trained factors quantized to bf16 and to int8, K2 and K6 on the
+             middle accum chunk, K3 and row 9 on the middle dense chunk (the
+             carry its previous chunks hand it), K5 on each chunk's operands
+             and rows 4-7 on K5's stream (bf16 for the bf16 table, float32
+             for int8), each launched twice (bit-equal), held to its plain
+             version at TOL and each stream twin to its gather sibling (bit-
+             equal), with ms and the bound at 2 B or 1 B a table element
+             (an int8 row's scale rides in the weights the kernel reads)
+             and, for bf16 operands, the Gram's products at the tensor
+             cores' bf16 rate (the kernels line's ``ms_bf16``/``ms_int8``,
+             ``bound_ms_bf16``/``bound_ms_int8``); and the first movie and
+             user halves with the gather off against on from u0 at each
+             table dtype (bit-equal);
 5. serve   — top-K serving at the repo's serving configuration (``bench.py
              --serve``: 162,541 users x 59,047 movies, the ML-25M shape,
              rank 128, K = 100, tile_m 2048, seen lists at the ML-25M mean;
@@ -218,6 +240,14 @@ Phases, each of which must pass:
              ``batched_spd_solve``): launch counts, the objective must fall,
              the first movie half against ``first_half_reference`` on the
              five widest and five random movies;
+6f. quant_ml25m — iALS (b) with an int8 gather table, one ``train_ials``
+             call from the implicit phase's u0: K6 launched, the objective
+             falls below the start's, beside (b)'s float32 first iteration;
+             then (b)'s gather-off half-steps (K5 + row 6 per width class)
+             for one iteration from u0, walked whole (one piece a
+             class) and in the blocks' ``chunk_rows`` pieces: the two
+             bit-equal, the peak device memory of each, the largest K5
+             stream of each;
 6e. segment_ml25m — one warm-started ``train_ials`` call from the implicit
              phase's u0 on the segment layout of its ML-25M ratings (rank
              128, K1 in matrix mode once a chunk): K1's launch count equals
@@ -269,8 +299,9 @@ ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores
-# H100 SXM dense bf16 on the tensor cores: K4's bound for a bf16 table (its
-# products run there, by mma.sync); every other kernel is held to FP32.
+# H100 SXM dense bf16 on the tensor cores: the rate for products of bf16
+# operands (K4's bf16 table; the Gram kernels' bf16 rows, which still run
+# FP32 FMAs), every other operation held to FP32.
 BF16_TC_FLOPS_PER_S = 989e12
 NETFLIX = dict(num_users=480_189, num_movies=17_770, nnz=100_480_507)
 RANK, LAM, ITERS = 64, 0.05, 3
@@ -368,12 +399,20 @@ REPLACES = {
 }
 SOURCES = {"topk_scores_large_k": "cfk_tpu_torch/csrc/topk_scores.cu"}
 # Fields of the kernels line beyond the contract's: K1 below one wave; the
-# split Grams at rank 256 (phase 4d, ``k256``: its launches, ms, bound).
+# split Grams at rank 256 (phase 4d, ``k256``: its launches, ms, bound);
+# rows 2-10 on quantized tables (phase 4f: ms and bound at a bf16 and an
+# int8 table).
+QUANT_FIELDS = ("ms_bf16", "bound_ms_bf16", "bound_by_bf16", "ms_int8",
+                "bound_ms_int8", "bound_by_int8")
 LINE_EXTRA = {"gauss_solve": ("ms_schur", "bound_ms_schur",
                               "library_ms_schur"),
-              "gram_gather": ("k256",), "gram_tiles": ("k256",),
-              "gram_tiles_dense": ("k256",),
-              "gram_tiles_dense_gather": ("k256",),
+              **{name: QUANT_FIELDS for name in (
+                  "gram_solve_dense", "gram_solve_tiles",
+                  "gram_solve_tiles_dense", "gram_solve_gather",
+                  "gather_rows")},
+              **{name: ("k256",) + QUANT_FIELDS for name in (
+                  "gram_gather", "gram_tiles", "gram_tiles_dense",
+                  "gram_tiles_dense_gather")},
               "topk_scores": ("configs",),
               "topk_scores_large_k": ("configs",),
               "binv_solve_reg": ("ctas_per_sm", "ms_k64", "bound_ms_k64",
@@ -404,6 +443,12 @@ GATHER_OFF_ITERS = 2  # the gather-off runs, fused and split
 # the first 1,024 chunks of each half (the whole iteration's ≈ 250,000
 # launches take the profiler about a minute to aggregate).
 SEGMENT = dict(chunk_elems=1 << 20, iterations=2, profile_chunks=1024)
+# Phase 4f: the quantized runs on the main phase's blocks (2 iterations
+# each) and the RMSE ratio each is held to against the float32 run's (the
+# JAX package's contract, tests/test_quant_table.py:185-200).
+QUANT = dict(iterations=2, rmse_ratio={"table_bfloat16": 1.01,
+                                       "table_int8": 1.10,
+                                       "dtype_bfloat16": 1.01})
 # bench.py's implicit rows (bench.py:448-503): the ML-25M shape at rank 128.
 ML25M = dict(num_users=162_541, num_movies=59_047, nnz=25_000_095)
 IMPLICIT = dict(rank=128, lam=0.1, alpha=40.0, iterations=3,
@@ -794,6 +839,38 @@ def stream_dense_work(g, args, reg_mode=None) -> tuple[float, float, dict]:
         flops += s * (k ** 3 / 3 + 2 * k * k + k)
     return nbytes, flops, dict(chunk_rows=c, window_rows=int(rows.numel()),
                                live_window_rows=n_live, segments=s)
+
+
+def quant_bound(work, td: str, k: int, *, gram_rows: str | None = None,
+                stream=None, out=None, weights: int = 0) -> tuple[float, str]:
+    """(ms, "bytes" or "operations") of a work function's float32 count at
+    table dtype ``td``.  Bytes: each distinct table row read as k elements
+    of its size (2 B bf16, 1 B int8 — an int8 row's scale is already folded
+    into the weights, so the kernel reads no scale); a stream read at its
+    element size; K5's output (``out``) written at its; plus ``weights``
+    float32 weights the float32 call does not read (the int8 dense chunk's
+    folded scale stream).  Operations: the Gram's k² + 3k a row
+    (``counts[gram_rows]`` rows) at the peak for the operands' type — the
+    bf16 tensor cores for bf16 rows, FP32 otherwise (an int8 row times its
+    float32 weight is float32) — and the rest (solves, K5's multiplies) at
+    FP32."""
+    import torch
+
+    nbytes, flops, counts = work
+    size = {"float32": 4, "bfloat16": 2, "int8": 1}[td]
+    if stream is not None:
+        nbytes -= stream.shape[0] * k * (4 - stream.element_size())
+    else:
+        nbytes -= counts["distinct_table_rows"] * k * (4 - size)
+    if out is not None:
+        nbytes -= counts["entries"] * k * (
+            4 - torch.empty((), dtype=out).element_size())
+    nbytes += 4 * weights
+    gram = counts[gram_rows] * (k * k + 3 * k) if gram_rows else 0.0
+    rate = BF16_TC_FLOPS_PER_S if td == "bfloat16" else FP32_FLOPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (gram / rate + (flops - gram) / FP32_FLOPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def implicit_objective(u, m, users, movies, rating, lam, alpha,
@@ -2357,6 +2434,335 @@ class Smoke:
             "launches_segment_implicit"] = launches
         log(f"segment_ml25m: {self.report['segment_ml25m']}")
 
+    def quant(self, ds, model, blk_m, blk_u):
+        """Phase 4f: quantized training on the main phase's blocks (see the
+        module doc)."""
+        import torch
+
+        from cfk_tpu_torch import ALSConfig, train_als
+        from cfk_tpu_torch.eval.metrics import mse_rmse_from_model
+        from cfk_tpu_torch.models.als import init_user_factors
+        from cfk_tpu_torch.ops.kernels import gram_kernel as gk
+        from cfk_tpu_torch.ops.kernels.solve_kernel import reg_solve
+        from cfk_tpu_torch.ops.tiled import tiled_half_step
+
+        c = QUANT
+        dev = torch.device("cuda")
+        kernels = (gk.gather_rows, gk.gram_gather, gk.gram_solve_dense,
+                   gk.gram_tiles_dense_gather, gk.gram_solve_gather,
+                   gk.gram_tiles, gk.gram_solve_tiles, gk.gram_tiles_dense,
+                   gk.gram_solve_tiles_dense, reg_solve)
+        mb, ub = ds.movie_blocks, ds.user_blocks
+        mc, uc = (("tiled", b.mode) + b.statics for b in (mb, ub))
+        em, eu = mb.padded_entities, ub.padded_entities
+        report = {}
+        for name, kw in (("float32", {}),
+                         ("table_bfloat16", dict(table_dtype="bfloat16")),
+                         ("table_int8", dict(table_dtype="int8")),
+                         ("dtype_bfloat16", dict(dtype="bfloat16"))):
+            cfg = ALSConfig(rank=RANK, lam=LAM,
+                            num_iterations=c["iterations"], seed=0,
+                            layout="tiled", **kw)
+            for fn in kernels:
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run = train_als(ds, cfg, device=dev)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in kernels}
+            for kname in ("reg_solve", "gram_gather", "gram_solve_dense"):
+                self.check(launches[kname] > 0, f"quant {name}: {kname} "
+                           f"launched {launches[kname]} times")
+            u, m = run.user_factors, run.movie_factors
+            self.check(bool(torch.isfinite(u).all()
+                            and torch.isfinite(m).all()),
+                       f"quant {name}: non-finite factors")
+            _, rmse = mse_rmse_from_model(run, ds)
+            td = kw.get("table_dtype", "float32")
+            movie = functools.partial(tiled_half_step, u, blk_m, mc, em, LAM,
+                                      table_dtype=td)
+            user = functools.partial(tiled_half_step, m, blk_u, uc, eu, LAM,
+                                     table_dtype=td)
+            report[name] = dict(
+                iterations=c["iterations"], train_s=train_s,
+                s_per_iter=train_s / c["iterations"], train_rmse=rmse,
+                factor_dtype=str(u.dtype), launches=launches,
+                profile=profile_calls(lambda: (movie(), user()), 1))
+            log(f"quant {name}: {report[name]}")
+            del run, u, m, movie, user
+        for name, limit in c["rmse_ratio"].items():
+            ratio = (report[name]["train_rmse"]
+                     / report["float32"]["train_rmse"])
+            report[name]["rmse_ratio_vs_float32"] = ratio
+            self.check(ratio <= limit, f"quant {name}: train RMSE ratio "
+                       f"{ratio} > {limit}")
+        # The first halves with the gather off against on, from u0.
+        u0, _ = init_user_factors(ds, blk_u, ALSConfig(rank=RANK, seed=0),
+                                  dev, None)
+        halves = {}
+        for td in ("bfloat16", "int8"):
+            out = {}
+            for on in (True, False):
+                knob = None if on else False
+                out["movie", on] = tiled_half_step(
+                    u0, blk_m, mc, em, LAM, table_dtype=td,
+                    in_kernel_gather=knob)
+                out["user", on] = tiled_half_step(
+                    out["movie", True], blk_u, uc, eu, LAM, table_dtype=td,
+                    in_kernel_gather=knob)
+            halves[td] = {side: bool(torch.equal(out[side, True],
+                                                 out[side, False]))
+                          for side in ("movie", "user")}
+            for side, same in halves[td].items():
+                self.check(same, f"quant {td}: first {side} half with the "
+                           "gather off differs from on")
+            del out
+        report["first_halves_off_bit_equal_on"] = halves
+        log(f"quant first halves, gather off vs on bit-equal: {halves}")
+        report["kernels"] = self.quant_kernel_checks(ds, model, blk_m, blk_u)
+        self.report["quant"] = report
+
+    def quant_kernel_checks(self, ds, model, blk_m, blk_u):
+        """Rows 2-10 on the trained factors quantized to bf16 and to int8,
+        and in float32 on the same operands for comparison: the middle
+        accum chunk (K2, K6, K5, rows 5 and 6) and the middle dense chunk
+        (K3, row 9, K5, rows 4 and 7, with the carry its previous chunks
+        hand it), each launched twice, held to its plain version and each
+        stream twin to its gather sibling; ms beside the bound at the
+        table's element size (phase 4f)."""
+        import torch
+
+        from cfk_tpu_torch.ops.kernels import gram_kernel as gk
+        from cfk_tpu_torch.ops.quant import fold_scale, quantize_table
+        from cfk_tpu_torch.ops.tiled import accum_chunk, dense_chunk
+
+        dev = torch.device("cuda")
+        k = RANK
+        u, m = model.user_factors, model.movie_factors
+        st_m, st_u = ds.movie_blocks.statics, ds.user_blocks.statics
+        mid_m, mid_u = st_m[0] // 2, st_u[0] // 2
+        out = {}
+
+        def check(name, td, fn, plain, bound_, sibling=None):
+            got, again = fn(), fn()
+            torch.cuda.synchronize()
+            want = plain()
+            got_t, again_t, want_t = (x if isinstance(x, tuple) else (x,)
+                                      for x in (got, again, want))
+            errs = [rel_err(x.float(), w.float())
+                    for x, w in zip(got_t, want_t)]
+            b_ms, by = bound_
+            row = dict(max_abs_err=max(e[0] for e in errs),
+                       rel_err=max(e[1] for e in errs),
+                       two_launches_bit_equal=all(
+                           torch.equal(x, y) for x, y in zip(got_t, again_t)),
+                       ms=time_ms(fn, 10), plain_ms=time_ms(plain, 2),
+                       bound_ms=b_ms, bound_by=by)
+            if sibling is not None:
+                row["equal_to_gather_sibling"] = all(
+                    torch.equal(x, y) for x, y in zip(got_t, sibling))
+                self.check(row["equal_to_gather_sibling"],
+                           f"quant {td} {name}: differs from its sibling")
+            out.setdefault(name, {})[td] = row
+            if td != "float32":
+                short = "bf16" if td == "bfloat16" else td
+                self.kernels.setdefault(name, {}).update({
+                    f"ms_{short}": row["ms"], f"bound_ms_{short}": b_ms,
+                    f"bound_by_{short}": by})
+            log(f"quant {td} {name}: {row}")
+            self.check(row["rel_err"] <= TOL[name],
+                       f"quant {td} {name}: rel err {row['rel_err']}")
+            self.check(row["two_launches_bit_equal"],
+                       f"quant {td} {name}: two launches differ")
+            return got_t
+
+        for td in ("float32", "bfloat16", "int8"):
+            data_u, scale_u = quantize_table(u, td)
+            data_m, scale_m = quantize_table(m, td)
+            # The middle accum chunk: K2, K5, row 5; K6 and row 6 with the
+            # chunk's rows per segment as the diag ridge's counts.
+            a = with_plan(accum_chunk(blk_m, st_m, mid_m), blk_m, mid_m)
+            nb, wt = a.pop("nb"), a.pop("wt")
+            wt = fold_scale(wt, scale_u, nb)
+            full = dict(a, nb=nb, wt=wt)
+            gram = check("gram_gather", td,
+                         lambda: gk.gram_gather(data_u, nb, wt, **a),
+                         lambda: gk.gram_gather_plain(data_u, nb, wt, **a),
+                         quant_bound(gram_gather_work(data_u, full), td, k,
+                                     gram_rows="live_rows"))
+            g = check("gather_rows", td,
+                      lambda: gk.gather_rows(data_u, nb, wt),
+                      lambda: gk.gather_rows_plain(data_u, nb, wt),
+                      quant_bound(gather_rows_work(data_u, nb, wt), td, k,
+                                 out=gk.stream_dtype(data_u)))[0]
+            check("gram_tiles", td, lambda: gk.gram_tiles(g, **a),
+                  lambda: gk.gram_tiles_plain(g, **a),
+                  quant_bound(stream_gram_work(g, a), td, k,
+                              gram_rows="live_rows", stream=g),
+                  sibling=gram)
+            s = a["num_segments"]
+            rows = (torch.bincount(a["seg"].long(), minlength=s)
+                    * a["tile_rows"]).to(torch.int32)
+            sa = dict(a, reg=rows, lseg=s - 2, lam=LAM)
+            solved = check(
+                "gram_solve_gather", td,
+                lambda: gk.gram_solve_gather(data_u, nb, wt, **sa),
+                lambda: gk.gram_solve_gather_plain(data_u, nb, wt, **sa),
+                quant_bound(gram_solve_gather_work(
+                    data_u, dict(sa, nb=nb, wt=wt), "diag"), td, k,
+                    gram_rows="live_entries"))
+            check("gram_solve_tiles", td,
+                  lambda: gk.gram_solve_tiles(g, **sa),
+                  lambda: gk.gram_solve_tiles_plain(g, **sa),
+                  quant_bound(stream_gram_work(g, sa, "diag"), td, k,
+                              gram_rows="live_rows", stream=g),
+                  sibling=solved)
+            del g, gram, solved
+            # The middle dense chunk with its real carry (K3 on the
+            # quantized table over the chunks before it); explicit ALS has
+            # unit weights, an int8 chunk its bare scale stream.
+            a0 = torch.zeros((k, k), device=dev)
+            b0 = torch.zeros((k,), device=dev)
+            for ci in range(mid_u + 1):
+                d = with_plan(dense_chunk(blk_u, st_u, ci), blk_u, ci)
+                cin, nb, wt = d.pop("cin"), d.pop("nb"), d.pop("wt")
+                if scale_m is not None:
+                    wt = fold_scale(torch.ones(nb.shape, device=dev),
+                                    scale_m, nb)
+                carry = (a0, b0, cin)
+                if ci < mid_u:
+                    _, a0, b0 = gk.gram_solve_dense(data_m, nb, wt, **d,
+                                                    lam=LAM, carry=carry)
+            dg = {n: v for n, v in d.items() if n not in ("reg", "lseg")}
+            # An int8 chunk's bare scale stream: weights the f32 call lacks.
+            extra_wt = 0 if wt is None else nb.numel()
+            solved = check(
+                "gram_solve_dense", td,
+                lambda: gk.gram_solve_dense(data_m, nb, wt, **d, lam=LAM,
+                                            carry=carry),
+                lambda: gk.gram_solve_dense_plain(data_m, nb, wt, **d,
+                                                  lam=LAM, carry=carry),
+                quant_bound(gram_solve_dense_work(data_m, dict(d, nb=nb)),
+                            td, k, gram_rows="window_rows",
+                            weights=extra_wt))
+            gram = check(
+                "gram_tiles_dense_gather", td,
+                lambda: gk.gram_tiles_dense_gather(data_m, nb, wt, **dg,
+                                                   carry=carry),
+                lambda: gk.gram_tiles_dense_gather_plain(
+                    data_m, nb, wt, **dg, carry=carry),
+                quant_bound(gram_tiles_dense_gather_work(
+                    data_m, dict(d, nb=nb)), td, k, gram_rows="window_rows",
+                    weights=extra_wt))
+            g = gk.gather_rows(data_m, nb, wt)
+            check("gram_tiles_dense", td,
+                  lambda: gk.gram_tiles_dense(g, **dg, carry=carry),
+                  lambda: gk.gram_tiles_dense_plain(g, **dg, carry=carry),
+                  quant_bound(stream_dense_work(g, dg), td, k,
+                              gram_rows="live_window_rows", stream=g),
+                  sibling=gram)
+            check("gram_solve_tiles_dense", td,
+                  lambda: gk.gram_solve_tiles_dense(g, **d, lam=LAM,
+                                                    carry=carry),
+                  lambda: gk.gram_solve_tiles_dense_plain(
+                      g, **d, lam=LAM, carry=carry),
+                  quant_bound(stream_dense_work(g, d, "diag"), td, k,
+                              gram_rows="live_window_rows", stream=g),
+                  sibling=solved)
+            del g, gram, solved, data_u, data_m
+        return out
+
+    def quant_implicit(self, ds_t, ds_b, ds_s, u0, m0, runs):
+        """Phase 6f: iALS (b) with an int8 table, and (b)'s gather-off
+        half-steps walked whole and in ``chunk_rows`` pieces (see the
+        module doc)."""
+        import numpy as np
+        import torch
+
+        from cfk_tpu_torch.models.als import _bucketed_to_device
+        from cfk_tpu_torch.models.ials import IALSConfig, train_ials
+        from cfk_tpu_torch.ops import bucketed
+        from cfk_tpu_torch.ops.kernels import gram_kernel as gk
+        from cfk_tpu_torch.ops.solve import ials_half_step_bucketed
+
+        c = IMPLICIT
+        dev = torch.device("cuda")
+        k = c["rank"]
+        d = ds_t.coo_dense
+        obs = [torch.as_tensor(x, device=dev) for x in (
+            d.user_raw.astype(np.int32), d.movie_raw.astype(np.int32),
+            d.rating)]
+        j0 = self.report["implicit"]["objective_init"]
+        cfg = IALSConfig(rank=k, lam=c["lam"], alpha=c["alpha"],
+                         num_iterations=1, layout="bucketed",
+                         table_dtype="int8")
+        gk.gram_solve_gather.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = train_ials(ds_b, cfg, device=dev, warm_start=(u0, m0))
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        launches = gk.gram_solve_gather.launches
+        obj = implicit_objective(model.user_factors, model.movie_factors,
+                                 *obs, c["lam"], c["alpha"])
+        f32 = self.report["implicit"]["ials_bucketed"]["objective"][0]
+        report = dict(int8_call_s=call_s, int8_k6_launches=launches,
+                      objective_init=j0, int8_objective=obj,
+                      float32_objective=f32,
+                      int8_vs_float32_objective=obj / f32,
+                      int8_scores_vs_float32=score_rel_err(
+                          (model.user_factors, model.movie_factors),
+                          runs["ials_bucketed"][0], obs[0], obs[1]))
+        self.check(launches > 0, f"quant_ml25m int8 (b): K6 launched "
+                   f"{launches} times")
+        self.check(obj < j0, f"quant_ml25m int8 (b): objective {obj} did "
+                   f"not fall below the start's {j0}")
+        del model
+        # (b)'s gather-off iteration from u0, each width class walked whole
+        # (one piece a class) and in the blocks' chunk_rows pieces.
+        mtrees, mchunks = _bucketed_to_device(ds_b.movie_blocks, dev)
+        utrees, uchunks = _bucketed_to_device(ds_b.user_blocks, dev)
+        streams = []
+        real = bucketed.gather_rows
+
+        def spy(table, nb, wt=None, out_dtype=None):
+            streams.append(nb.numel())
+            return real(table, nb, wt, out_dtype)
+
+        walks = {}
+        bucketed.gather_rows = spy
+        try:
+            for walk, (cm, cu) in (("whole", (None, None)),
+                                   ("chunk_rows", (mchunks, uchunks))):
+                streams.clear()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                mv = ials_half_step_bucketed(
+                    torch.as_tensor(u0, device=dev), mtrees,
+                    ds_b.movie_blocks.padded_entities, c["lam"], c["alpha"],
+                    chunk_rows=cm, in_kernel_gather=False)
+                us = ials_half_step_bucketed(
+                    mv, utrees, ds_b.user_blocks.padded_entities, c["lam"],
+                    c["alpha"], chunk_rows=cu, in_kernel_gather=False)
+                torch.cuda.synchronize()
+                walks[walk] = dict(
+                    s=time.perf_counter() - t0, factors=(us, mv),
+                    peak_device_bytes=torch.cuda.max_memory_allocated() - base,
+                    k5_launches=len(streams),
+                    largest_stream_bytes=max(streams) * k * 4)
+        finally:
+            bucketed.gather_rows = real
+        same = all(torch.equal(x, y) for x, y in zip(
+            walks["whole"].pop("factors"), walks["chunk_rows"].pop("factors")))
+        report.update(gather_off_walks=walks, gather_off_bit_equal=same)
+        self.check(same, "quant_ml25m: (b) gather off, chunk_rows pieces "
+                   "differ from whole classes")
+        log(f"quant_ml25m: {report}")
+        self.report["quant_ml25m"] = report
+
     def serve(self):
         import numpy as np
         import torch
@@ -3695,6 +4101,8 @@ def main() -> int:
         smoke.phase("rank256", smoke.rank256, *main_out)
         torch.cuda.empty_cache()
         smoke.phase("segment", smoke.segment, *main_out)
+        torch.cuda.empty_cache()
+        smoke.phase("quant", smoke.quant, *main_out)
         del main_out
         torch.cuda.empty_cache()
     if built:
@@ -3710,6 +4118,8 @@ def main() -> int:
             torch.cuda.empty_cache()
             smoke.phase("segment_ml25m", smoke.segment_implicit,
                         *implicit_out)
+            torch.cuda.empty_cache()
+            smoke.phase("quant_ml25m", smoke.quant_implicit, *implicit_out)
         del implicit_out
         torch.cuda.empty_cache()
     smoke.phase("small", smoke.small_parity)

@@ -224,10 +224,17 @@ def test_config_validation_matches_reference_messages(kw, match):
 
 @pytest.mark.parametrize("algo", ["lu", "gj"])
 def test_reg_solve_algo_other_than_auto_is_refused(algo):
-    """The port's kernels eliminate by Cholesky only; naming the TPU
-    kernel's LU or Gauss-Jordan raises instead of being ignored."""
-    with pytest.raises(NotImplementedError, match="Cholesky"):
-        ALSConfig(reg_solve_algo=algo)
+    """"lu" and "gj" are accepted (no longer refused) and route as the
+    reference's fused cap does: LU keeps rank 96 on the fused route, GJ
+    (cap 64) sends it to the split schedule; both keep rank 64 fused."""
+    from cfk_tpu.ops.pallas.solve_kernel import _fused_reg_rank_cap
+
+    from cfk_tpu_torch.ops.solve import fused_rank_cap, resolve_fused_chunk
+
+    assert ALSConfig(reg_solve_algo=algo).reg_solve_algo == algo
+    assert fused_rank_cap(algo) == _fused_reg_rank_cap(algo)
+    assert resolve_fused_chunk(None, 96, algo) == (algo == "lu")
+    assert resolve_fused_chunk(None, 64, algo)
 
 
 def test_import_pulls_in_no_jax_and_no_cfk_tpu():
@@ -250,8 +257,8 @@ def test_import_pulls_in_no_jax_and_no_cfk_tpu():
         "assert cfk_tpu_torch.data._native.available()\n"
         "import cfk_tpu_torch.ops.kernels.binv_kernel\n"
         "import cfk_tpu_torch.scripts.exp_binv\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'cfk_tpu' or m.startswith('cfk_tpu.')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in"
+        " ('jax', 'cfk_tpu', 'ml_dtypes')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

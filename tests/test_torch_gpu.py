@@ -472,12 +472,20 @@ def test_gather_rows_matches_plain(cuda, k, weighted):
 
 
 def test_gather_rows_refuses_what_it_does_not_take(cuda):
+    """float32, bf16 and int8 tables are taken (the quantized tables);
+    float16 is not, nor an int8 table without the weights that carry its
+    scale, nor a bf16 stream of an int8 table."""
     table = torch.zeros((10, 8), device=cuda)
     nb = torch.zeros(4, dtype=torch.int32, device=cuda)
-    with pytest.raises(TypeError, match="table must be torch.float32"):
-        gather_rows(table.to(torch.bfloat16), nb)
+    with pytest.raises(TypeError, match="table must be one of"):
+        gather_rows(table.to(torch.float16), nb)
     with pytest.raises(TypeError, match="nb must be torch.int32"):
         gather_rows(table, nb.long())
+    with pytest.raises(ValueError, match="int8 table needs"):
+        gather_rows(table.to(torch.int8), nb)
+    with pytest.raises(TypeError, match="writes"):
+        gather_rows(table.to(torch.int8), nb, torch.ones(4, device=cuda),
+                    out_dtype=torch.bfloat16)
 
 
 def _segments(rng, nt, num_segments, empty):
@@ -747,8 +755,8 @@ def test_stream_kernels_refuse_what_they_do_not_take(cuda):
                        match="gram_solve_tiles supports rank 1..128"):
         gram_solve_tiles(torch.zeros((g.shape[0], 129), device=cuda),
                          **args, reg=reg, lseg=0)
-    with pytest.raises(TypeError, match="g must be torch.float32"):
-        gram_tiles(g.to(torch.bfloat16), **args)
+    with pytest.raises(TypeError, match="g must be one of"):
+        gram_tiles(g.to(torch.int8), **args)
     reg = torch.ones(args["num_segments"], device=cuda)
     with pytest.raises(ValueError, match="rt shape"):
         gram_solve_tiles(g, **dict(args, rt=args["rt"][:-1]), reg=reg,
@@ -1475,3 +1483,218 @@ def test_segment_half_step_matches_plain(cuda, k, implicit):
     want, got = out["cpu"], out[str(cuda)].cpu()
     assert torch.isfinite(got).all()
     assert float((got - want).abs().max() / want.abs().max()) < 1e-4
+
+
+# The quantized gather tables (ops.quant): every Gram kernel and K5 on a
+# bf16 table and on int8 codes whose per-row scale is folded into the
+# weights (fold_scale), against their plain versions — rows 2-10 at k = 8
+# (the CPU tests' rank: bf16 rows of 16 bytes take the vector loads, int8
+# rows of 8 the scalar path), 16 (int8's vector width), 64, 128, and past
+# 128 for the split Grams (the block-pair staging).  K5 is bit-equal to its
+# plain version (one conversion, at most one product and one rounding per
+# element); the Grams' sums within 1e-5 (bf16 products are exact in
+# float32: only the order differs); the solves by backward error as above.
+# Each stream twin fed K5's stream returns its gather sibling's bits.
+
+QUANT_KS = [8, 16, 64, 128]
+
+
+def _quantized(table, nb, wt, table_dtype):
+    """(data, wt'): the table in ``table_dtype`` and the weights with an
+    int8 table's scale folded in (an unweighted int8 chunk gets ones)."""
+    from cfk_tpu_torch.ops.quant import fold_scale
+
+    data, scale = quantize_table(table, table_dtype)
+    if scale is not None and wt is None:
+        wt = torch.ones(nb.shape, device=nb.device)
+    return data, fold_scale(wt, scale, nb) if scale is not None else wt
+
+
+@pytest.mark.parametrize("table_dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("k", [5, 8, 16, 64, 128])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_quant_gather_rows_matches_plain(cuda, table_dtype, k, weighted):
+    """K5 on a quantized table: bf16 → bf16 stream (and float32 on
+    request), int8 → float32; bit-equal to the plain version, the zero row
+    and out-of-table indices zeros."""
+    rng = np.random.default_rng(k)
+    f, c = 1000, 4099
+    table = torch.as_tensor(rng.standard_normal((f, k), dtype=np.float32),
+                            device=cuda)
+    nb = rng.integers(0, f, c).astype(np.int32)
+    nb[::7] = f
+    nb[5::13] = -1
+    nb = torch.as_tensor(nb, device=cuda)
+    wt = (torch.as_tensor(rng.random(c, dtype=np.float32), device=cuda)
+          if weighted else None)
+    data, wt = _quantized(table, nb, wt, table_dtype)
+    outs = [None] + ([torch.float32] if table_dtype == "bfloat16" else [])
+    for out_dtype in outs:
+        got = gather_rows(data, nb, wt, out_dtype)
+        torch.cuda.synchronize()
+        want = gather_rows_plain(data, nb, wt, out_dtype)
+        assert got.dtype == want.dtype
+        assert got.dtype == (torch.bfloat16 if table_dtype == "bfloat16"
+                             and out_dtype is None else torch.float32)
+        assert torch.equal(got, want)
+        assert torch.all(got[::7] == 0)
+
+
+@pytest.mark.parametrize("table_dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("k", QUANT_KS)
+def test_quant_tile_kernels_match_plain(cuda, table_dtype, k):
+    """K2 and K6 on a quantized table, rows 5 and 6 on its K5 stream: each
+    against its plain version, each twin bit-equal to its sibling, and two
+    launches of each bit-equal."""
+    table, nb, wt, args, carry, empty = _stream_chunk(k, cuda, 7 * k)
+    data, wt = _quantized(table, nb, wt, table_dtype)
+    g = gather_rows(data, nb, wt)
+    a, b = gram_gather(data, nb, wt, **args, carry=carry)
+    again = gram_gather(data, nb, wt, **args, carry=carry)
+    twin = gram_tiles(g, **args, carry=carry)
+    torch.cuda.synchronize()
+    wa, wb = gram_gather_plain(data, nb, wt, **args, carry=carry)
+    assert _rel_err(a, wa) < 1e-5 and _rel_err(b, wb) < 1e-5
+    assert torch.equal(a, again[0]) and torch.equal(b, again[1])
+    assert torch.equal(a, twin[0]) and torch.equal(b, twin[1])
+    ta, tb = gram_tiles_plain(g, **args, carry=carry)
+    assert _rel_err(twin[0], ta) < 1e-5 and _rel_err(twin[1], tb) < 1e-5
+    lseg = int(args["seg"][-1])
+    for reg_mode, reg in _ridges(k, args["num_segments"], cuda, k).items():
+        kw = dict(reg=reg, lseg=lseg, lam=0.05, reg_mode=reg_mode,
+                  carry=carry)
+        x, ca, cb = gram_solve_gather(data, nb, wt, **args, **kw)
+        sib = gram_solve_tiles(g, **args, **kw)
+        torch.cuda.synchronize()
+        wx, wca, wcb = gram_solve_gather_plain(data, nb, wt, **args, **kw)
+        assert _backward_err(x, wa, wb, reg, 0.05, reg_mode) < 1e-5
+        assert _rel_err(x, wx) < 1e-2
+        assert _rel_err(ca, wca) < 1e-5 and _rel_err(cb, wcb) < 1e-5
+        assert all(torch.equal(p, q) for p, q in zip((x, ca, cb), sib))
+
+
+@pytest.mark.parametrize("table_dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("k", QUANT_KS)
+def test_quant_dense_kernels_match_plain(cuda, table_dtype, k):
+    """K3 and row 9 on a quantized table over every dense chunk of a real
+    side (explicit: unit weights — an int8 chunk carries its bare scale
+    stream — and the carry threaded), rows 7 and 4 on K5's stream of the
+    same operands: against the plain versions, twins bit-equal."""
+    blocks, blk, table = _tiled_side(k, 16, 4096, cuda, accum=False)
+    a0 = torch.zeros((k, k), device=cuda)
+    b0 = torch.zeros((k,), device=cuda)
+    for c in range(blocks.num_chunks):
+        args = dense_chunk(blk, blocks.statics, c)
+        cin, reg, lseg = args.pop("cin"), args.pop("reg"), args.pop("lseg")
+        nb, wt = args.pop("nb"), args.pop("wt")
+        data, wt = _quantized(table, nb, wt, table_dtype)
+        carry = (a0, b0, cin)
+        a, b = gram_tiles_dense_gather(data, nb, wt, **args, carry=carry)
+        torch.cuda.synchronize()
+        wa, wb = gram_tiles_dense_gather_plain(data, nb, wt, **args,
+                                               carry=carry)
+        assert _rel_err(a, wa) < 1e-5 and _rel_err(b, wb) < 1e-5
+        kw = dict(reg=reg, lseg=lseg, lam=0.05, carry=carry)
+        x, ca, cb = gram_solve_dense(data, nb, wt, **args, **kw)
+        torch.cuda.synchronize()
+        assert _backward_err(x, wa, wb, reg, 0.05, "diag") < 1e-5
+        wx, wca, wcb = gram_solve_dense_plain(data, nb, wt, **args, **kw)
+        assert _rel_err(x, wx) < 1e-2
+        assert _rel_err(ca, wca) < 1e-5 and _rel_err(cb, wcb) < 1e-5
+        g = gather_rows(data, nb, wt)
+        twin = gram_tiles_dense(g, **args, carry=carry)
+        solved = gram_solve_tiles_dense(g, **args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(twin[0], a) and torch.equal(twin[1], b)
+        assert all(torch.equal(p, q) for p, q in zip(solved, (x, ca, cb)))
+        pa, pb = gram_tiles_dense_plain(g, **args, carry=carry)
+        assert _rel_err(twin[0], pa) < 1e-5 and _rel_err(twin[1], pb) < 1e-5
+        a0, b0 = wca, wcb
+
+
+@pytest.mark.parametrize("table_dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("k", [8, 64, 136])
+def test_quant_accum_gram_matches_plain(cuda, table_dtype, k):
+    """K2 on every accum chunk of a real side with a quantized table (the
+    absolute indices, F the zero row, under the fold), and row 5 on K5's
+    stream, at and past the block-pair rank."""
+    blocks, blk, table = _tiled_side(k, 16, 4096, cuda, accum=True)
+    for c in range(blocks.num_chunks):
+        args = accum_chunk(blk, blocks.statics, c)
+        nb, wt = args.pop("nb"), args.pop("wt")
+        data, wt = _quantized(table, nb, wt, table_dtype)
+        a, b = gram_gather(data, nb, wt, **args)
+        twin = gram_tiles(gather_rows(data, nb, wt), **args)
+        torch.cuda.synchronize()
+        wa, wb = gram_gather_plain(data, nb, wt, **args)
+        assert _rel_err(a, wa) < 1e-5 and _rel_err(b, wb) < 1e-5
+        assert torch.equal(twin[0], a) and torch.equal(twin[1], b)
+
+
+@pytest.mark.parametrize("table_dtype", ["bfloat16", "int8"])
+def test_quant_split_dense_grams_past_128(cuda, table_dtype):
+    """Row 9 and row 4 at k = 136 (the block-pair kernel's element-wise
+    conversion) on a quantized table: against plain, twin bit-equal."""
+    k = 136
+    blocks, blk, table = _tiled_side(k, 16, 4096, cuda, accum=False)
+    args = dense_chunk(blk, blocks.statics, 1)
+    for key in ("cin", "reg", "lseg"):
+        args.pop(key)
+    nb, wt = args.pop("nb"), args.pop("wt")
+    data, wt = _quantized(table, nb, wt, table_dtype)
+    a, b = gram_tiles_dense_gather(data, nb, wt, **args)
+    twin = gram_tiles_dense(gather_rows(data, nb, wt), **args)
+    torch.cuda.synchronize()
+    wa, wb = gram_tiles_dense_gather_plain(data, nb, wt, **args)
+    assert _rel_err(a, wa) < 1e-5 and _rel_err(b, wb) < 1e-5
+    assert torch.equal(twin[0], a) and torch.equal(twin[1], b)
+
+
+def test_quant_kernels_refuse_unweighted_int8(cuda):
+    """An int8 table's scale rides only in the weights: the dense Grams
+    (whose weights are optional) refuse an int8 call without them."""
+    blocks, blk, table = _tiled_side(8, 16, 4096, cuda, accum=False)
+    args = dense_chunk(blk, blocks.statics, 0)
+    cin = args.pop("cin")
+    data, _ = quantize_table(table, "int8")
+    with pytest.raises(ValueError, match="int8 table needs"):
+        gram_solve_dense(data, **args, lam=0.05)
+    for key in ("reg", "lseg"):
+        args.pop(key)
+    with pytest.raises(ValueError, match="int8 table needs"):
+        gram_tiles_dense_gather(data, **args)
+    assert cin is not None
+
+
+@pytest.mark.parametrize("table_dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("layout", ["tiled", "bucketed"])
+def test_quant_training_on_the_card(cuda, table_dtype, layout):
+    """train_als and train_ials with a quantized table on the card: one
+    iteration's movie half against the plain versions on the CPU from the
+    same start (1e-4: the kernels' sums differ from the einsums' only in
+    order; later halves gather their own rounded tables, where a last-bit
+    difference can move a bf16 or int8 rounding, so the runs are held to
+    each other one half at a time), and two iterations with the gather off
+    bit-equal to the gather on."""
+    from cfk_tpu_torch import ALSConfig, Dataset, train_als
+    from cfk_tpu_torch.models.ials import IALSConfig, train_ials
+
+    coo = synthetic_netflix_coo(600, 150, 9000, seed=4)
+    ds = Dataset.from_coo(coo, layout=layout, chunk_elems=2048,
+                          dense_stream=True)
+    rng = np.random.default_rng(0)
+    u0 = rng.random((ds.user_blocks.padded_entities, 8), dtype=np.float32)
+    m0 = np.zeros((ds.movie_blocks.padded_entities, 8), np.float32)
+    for make, train in ((ALSConfig, train_als), (IALSConfig, train_ials)):
+        runs = {}
+        for dev, gather, iters in ((cuda, None, 1), ("cpu", None, 1),
+                                   (cuda, None, 2), (cuda, False, 2)):
+            cfg = make(rank=8, num_iterations=iters, layout=layout,
+                       table_dtype=table_dtype, in_kernel_gather=gather)
+            runs[str(dev), gather, iters] = train(ds, cfg, device=dev,
+                                                  warm_start=(u0, m0))
+        card, cpu = runs["cuda", None, 1], runs["cpu", None, 1]
+        assert _rel_err(card.movie_factors.cpu(), cpu.movie_factors) < 1e-4
+        on, off = runs["cuda", None, 2], runs["cuda", False, 2]
+        assert torch.equal(on.user_factors, off.user_factors)
+        assert torch.equal(on.movie_factors, off.movie_factors)

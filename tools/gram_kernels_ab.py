@@ -4,7 +4,7 @@ class of the implicit bucketed layout, for comparing two source trees on
 one card.
 
     python3 tools/gram_kernels_ab.py [--tree DIR] [--label NAME]
-        [--nnz N] [--rank K] [--cache FILE]
+        [--nnz N] [--rank K] [--cache FILE] [--table-dtype DTYPE]
         [--parts grams,k1,k6,gj,k4,binv]
 
 ``--tree`` names the directory holding the ``cfk_tpu_torch`` package to
@@ -13,7 +13,11 @@ measure (default: this checkout); its kernels are built from that tree's
 them only within it.  The dataset is the Netflix shape's entity counts with
 a cut rating count (``--nnz``, seed 0: the same chunk shapes, a lighter
 Zipf head), tiled with the dense stream as ``chip_smoke.py`` builds it,
-random factor tables at ``--rank``.  Per kernel: the sum over all chunks of
+random factor tables at ``--rank``, stored in ``--table-dtype`` (float32,
+the default and the only dtype a tree before the quantized tables takes;
+bfloat16; int8, its per-row scale folded into each chunk's weights — the
+dense chunks' bare scale stream — as the tiled half-steps fold it).  Per
+kernel: the sum over all chunks of
 its device ms (CUDA events around each launch; the best of ``--reps``
 passes), with the gather kernels K2 (accum chunks), K3 and
 ``gram_tiles_dense_gather`` (dense chunks) and, where the tree has them,
@@ -45,7 +49,9 @@ matrix-mode systems with their ridge, A₁₁ handed over as the blocked solve
 hands it (a view of the [E, 128, 128] batch); row 11 on the Schur
 complement that follows (k = 64, E = 59,047); and the whole blocked solve
 (``blocked_spd_solve``, k = 128) on those systems.  Prints the card
-(``nvidia-smi``) and one JSON line; its ``crc32`` holds a CRC-32 of the
+(``nvidia-smi``) and one JSON line; its ``ptxas`` holds each built
+kernel's registers and spill bytes from the tree's ``-Xptxas=-v`` reports,
+its ``crc32`` a CRC-32 of the
 outputs of K1 at each shape, of K6 over all classes and of rows 11 and 12
 at each shape, for telling two trees' bits apart, and its ``clocks`` the
 card's clocks, power draw and temperature before each row 11 and 12
@@ -117,6 +123,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=2)
     ap.add_argument("--cache", default=None)
     ap.add_argument("--parts", default="grams,k1")
+    ap.add_argument("--table-dtype", default="float32",
+                    choices=("float32", "bfloat16", "int8"))
     args = ap.parse_args()
     parts = set(args.parts.split(","))
     tree = Path(args.tree).resolve()
@@ -156,9 +164,35 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(card)
     print(json.dumps(dict(label=args.label, tree=str(tree), nnz=args.nnz,
-                          rank=args.rank, build_s=build_s, total_ms=out,
-                          crc32=crc, clocks=clocks)))
+                          rank=args.rank, table_dtype=args.table_dtype,
+                          build_s=build_s, total_ms=out, crc32=crc,
+                          clocks=clocks, ptxas=ptxas_report(_build))))
     return 0
+
+
+def ptxas_report(build) -> dict:
+    """Library → [(kernel, registers, spill stores, spill loads)] from the
+    ``-Xptxas=-v`` reports the build kept (``<name>.ptxas.txt``), kernels
+    only (entries that report registers), in the report's order."""
+    import re
+
+    out = {}
+    for path in sorted(build.BUILD_DIR.glob("*.ptxas.txt")):
+        rows, cur, props = [], None, None
+        for line in path.read_text().splitlines():
+            if m := re.search(r"Compiling entry function '(\S+)'", line):
+                cur = [m.group(1), None, 0, 0]
+                rows.append(cur)
+            elif m := re.search(r"Function properties for (\S+)", line):
+                props = m.group(1)
+            elif cur and props == cur[0] and (m := re.search(
+                    r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                    line)):
+                cur[2], cur[3] = int(m.group(1)), int(m.group(2))
+            elif cur and (m := re.search(r"Used (\d+) registers", line)):
+                cur[1] = int(m.group(1))
+        out[path.name.split(".")[0]] = [r for r in rows if r[1] is not None]
+    return out
 
 
 def mean_ms(fn, reps: int) -> float:
@@ -502,6 +536,13 @@ def gram_rows(args, dev, crc) -> dict:
                     generator=gen, device=dev)
     m = torch.randn((ds.movie_blocks.padded_entities, args.rank),
                     generator=gen, device=dev)
+    scales = (None, None)
+    if args.table_dtype != "float32":
+        from cfk_tpu_torch.ops.quant import quantize_table
+
+        (u, su), (m, sm) = (quantize_table(t, args.table_dtype)
+                            for t in (u, m))
+        scales = (su, sm)
     st_m, st_u = ds.movie_blocks.statics, ds.user_blocks.statics
     try:  # the work-unit plans the device upload staged, where the tree has them
         from cfk_tpu_torch.ops.kernels.gram_units import chunk_plan
@@ -511,13 +552,23 @@ def gram_rows(args, dev, crc) -> dict:
     except ImportError:
         def with_plan(a, blk, c):
             return a
-    accum = [with_plan(accum_chunk(blk_m, st_m, c), blk_m, c)
-             for c in range(st_m[0])]
+    def folded(a, scale):
+        """An int8 table's scale folded into the chunk's weights."""
+        if scale is None:
+            return a
+        from cfk_tpu_torch.ops.quant import fold_scale
+
+        wt = a["wt"] if a["wt"] is not None else torch.ones_like(
+            a["nb"], dtype=torch.float32)
+        return dict(a, wt=fold_scale(wt, scale, a["nb"]))
+
+    accum = [folded(with_plan(accum_chunk(blk_m, st_m, c), blk_m, c),
+                    scales[0]) for c in range(st_m[0])]
     dense = []
     for c in range(st_u[0]):
         a = with_plan(dense_chunk(blk_u, st_u, c), blk_u, c)
         a.pop("cin")
-        dense.append(a)
+        dense.append(folded(a, scales[1]))
 
     def total_ms(calls):
         """Best over reps of the summed device ms of ``calls``; each call
