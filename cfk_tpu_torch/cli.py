@@ -11,13 +11,19 @@
   or the subspace sweeps (``--algorithm als++`` / ``ials++``); layout
   (``auto`` = padded below 2M ratings, above it tiled — bucketed for a
   subspace optimizer — as ``cfk_tpu/cli.py:66-79``), rank, λ, iterations,
-  seed, chunk budget, solver route, device and prediction-CSV output.
+  seed, chunk budget, solver route, device and prediction-CSV output;
+  ``--no-overlap`` pins the serial chunk schedule (``ALSConfig.overlap``);
+  ``--profile-dir`` (a torch.profiler trace), ``--trace-dir`` (the host
+  span trace), ``--metrics-jsonl`` (periodic registry snapshots) and
+  ``--metrics`` (the exit row's format) are its telemetry.
 - ``evaluate`` — offline MSE/RMSE of a prediction CSV against a ratings file.
 - ``recommend`` — top-K movies for given users from checkpointed factors
   (``train --checkpoint-dir``, or the JAX package's checkpoint directory).
 - ``predict`` — the prediction CSV from checkpointed factors, no training.
 - ``serve`` — the top-K request server over an in-memory log, driven by the
-  built-in open-loop load generator; prints one JSON row (QPS, p50, p99).
+  built-in open-loop load generator; prints one JSON row (QPS, p50, p99);
+  ``--metrics-port`` serves ``GET /metrics`` (Prometheus text) while it
+  runs, ``--trace-dir`` writes its host span trace.
 
 Everything runs on CUDA unless ``--device cpu`` is given.
 """
@@ -25,6 +31,7 @@ Everything runs on CUDA unless ``--device cpu`` is given.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import os
 import sys
@@ -217,7 +224,47 @@ def _run_reference_form(args) -> int:
     return 0
 
 
+@contextlib.contextmanager
+def _telemetry_session(args, metrics=None):
+    """The telemetry of one CLI command, as ``cfk_tpu/cli.py``'s: ``--trace-
+    dir`` installs the host span tracer (its Chrome-trace JSON written at
+    exit); the flight recorder dumps into the trace directory, else the
+    checkpoint directory, and an uncaught exception dumps it;
+    ``--metrics-jsonl`` streams periodic snapshots of ``metrics``."""
+    from cfk_tpu_torch import telemetry
+
+    trace_dir = getattr(args, "trace_dir", None)
+    dump_dir = trace_dir or getattr(args, "checkpoint_dir", None)
+    tracer = telemetry.configure(trace_dir=trace_dir) if trace_dir else None
+    if dump_dir:
+        telemetry.get_recorder().configure(dump_dir=dump_dir)
+        telemetry.install_crash_hooks()
+    emitter = None
+    jsonl = getattr(args, "metrics_jsonl", None)
+    if jsonl and metrics is not None:
+        emitter = telemetry.MetricsEmitter(
+            metrics, jsonl,
+            interval_s=getattr(args, "metrics_interval_s", 10.0)).start()
+    try:
+        yield
+    finally:
+        if emitter is not None:
+            emitter.stop()
+        if tracer is not None:
+            path = telemetry.shutdown(write=True)
+            if path:
+                _eprint(f"host span trace written to {path}")
+
+
 def _train(args) -> int:
+    from cfk_tpu_torch.telemetry import Metrics
+
+    metrics = Metrics()
+    with _telemetry_session(args, metrics):
+        return _train_impl(args, metrics)
+
+
+def _train_impl(args, metrics) -> int:
     import torch
 
     from cfk_tpu_torch.config import ALSConfig
@@ -226,6 +273,7 @@ def _train(args) -> int:
     from cfk_tpu_torch.eval.metrics import mse_rmse_from_model
     from cfk_tpu_torch.models.als import _layout_of, train_als
     from cfk_tpu_torch.models.ials import IALSConfig, train_ials
+    from cfk_tpu_torch.utils.metrics import maybe_profile
 
     if args.eval_ranking and not args.implicit:
         _eprint("error: --eval-ranking requires --implicit (it is a "
@@ -241,7 +289,8 @@ def _train(args) -> int:
                   in_kernel_gather=(None if args.in_kernel_gather == "auto"
                                     else args.in_kernel_gather == "on"),
                   dtype=args.dtype, table_dtype=args.table_dtype,
-                  reg_solve_algo=args.reg_solve_algo)
+                  reg_solve_algo=args.reg_solve_algo,
+                  overlap=not args.no_overlap)
     make_config = functools.partial(
         IALSConfig, alpha=args.alpha) if args.implicit else ALSConfig
     # Validate the flags before the (possibly long) block build; an
@@ -288,22 +337,37 @@ def _train(args) -> int:
             )
             return 1
     prep_s = time.perf_counter() - t0
+    metrics.phases["prep"] += prep_s
     t0 = time.perf_counter()
     trainer = train_ials if args.implicit else train_als
-    model = trainer(ds, config, device=dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    with metrics.phase("train"), maybe_profile(args.profile_dir):
+        model = trainer(ds, config, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     train_s = time.perf_counter() - t0
+    metrics.incr("iterations", args.iterations)
+    pipe = model.pipeline
+    metrics.note("pipeline_route", f"{pipe['route']}: {pipe['reason']}")
+    for key in ("capture_s", "instantiate_s"):
+        if pipe.get(key) is not None:
+            metrics.gauge(key, round(pipe[key], 6))
+    _eprint(f"# pipeline: {pipe['route']} ({pipe['reason']})")
     gauges = []
     if not args.implicit:
-        mse, rmse = mse_rmse_from_model(model, ds)
+        with metrics.phase("eval_mse"):
+            mse, rmse = mse_rmse_from_model(model, ds)
+        metrics.gauge("mse", round(mse, 6))
+        metrics.gauge("rmse", round(rmse, 6))
         _eprint(f"train MSE={mse:.4f} RMSE={rmse:.4f}")
         gauges += [f"mse={mse:.6f}", f"rmse={rmse:.6f}"]
     if heldout is not None:
         from cfk_tpu_torch.eval.ranking import ranking_metrics_from_model
 
-        rec, mpr = ranking_metrics_from_model(model, train_coo, heldout,
-                                              k=args.eval_ranking)
+        with metrics.phase("eval_ranking"):
+            rec, mpr = ranking_metrics_from_model(model, train_coo, heldout,
+                                                  k=args.eval_ranking)
+        metrics.gauge(f"recall_at_{args.eval_ranking}", round(rec, 6))
+        metrics.gauge("mpr", round(mpr, 6))
         _eprint(f"leave-one-out Recall@{args.eval_ranking}={rec:.4f} "
                 f"MPR={mpr:.4f}")
         gauges += [f"recall_at_{args.eval_ranking}={rec:.6f}",
@@ -322,6 +386,12 @@ def _train(args) -> int:
             model, None if args.output == "auto" else args.output)
         if path is not None:
             _eprint(f"predictions written to {path}")
+    metrics.gauge("s_per_iter", round(train_s / args.iterations, 6))
+    metrics.note("layout", layout)
+    metrics.note("device", str(dev))
+    if args.metrics == "json":
+        print(metrics.json_line())
+        return 0
     print(" ".join([f"layout={layout}", f"device={dev}",
                     f"num_ratings={num_ratings}",
                     f"prep_s={prep_s:.3f}",
@@ -407,7 +477,14 @@ def _predict(args) -> int:
 def _serve(args) -> int:
     """The request server over an in-memory log, driven by the open-loop
     load generator at --loadgen-qps for --loadgen-requests requests; prints
-    one JSON row of the measured QPS and latency."""
+    one JSON row of the measured QPS and latency.  ``--metrics-port``
+    serves the server's registry on ``GET /metrics`` while it runs;
+    ``--trace-dir`` writes the host span trace."""
+    with _telemetry_session(args):
+        return _serve_impl(args)
+
+
+def _serve_impl(args) -> int:
     import json
 
     from cfk_tpu_torch.serving import (
@@ -436,16 +513,22 @@ def _serve(args) -> int:
             f"{warm['prewarm_s']:.2f}s")
     transport = InMemoryBroker()
     ensure_serve_topics(transport)
-    server = RecommendServer(engine, transport, max_batch=args.max_batch)
-    client = ServeClient(transport)
-    pool = zipf_user_rows(ds.user_map.num_entities, args.loadgen_requests,
-                          seed=args.seed)
-    warm_serve_programs(client, server, pool, args.k,
-                        min(args.max_batch, pool.shape[0]))
-    report = run_open_loop(
-        client, rate_qps=args.loadgen_qps,
-        num_requests=args.loadgen_requests, user_rows=pool, k=args.k,
-        server=server, drive_server=True)
+    server = RecommendServer(engine, transport, max_batch=args.max_batch,
+                             metrics_port=args.metrics_port)
+    if server.metrics_server is not None:
+        _eprint(f"metrics endpoint: {server.metrics_server.url}")
+    try:
+        client = ServeClient(transport)
+        pool = zipf_user_rows(ds.user_map.num_entities,
+                              args.loadgen_requests, seed=args.seed)
+        warm_serve_programs(client, server, pool, args.k,
+                            min(args.max_batch, pool.shape[0]))
+        report = run_open_loop(
+            client, rate_qps=args.loadgen_qps,
+            num_requests=args.loadgen_requests, user_rows=pool, k=args.k,
+            server=server, drive_server=True)
+    finally:
+        server.close()
     print(json.dumps({
         "users": ds.user_map.num_entities,
         "movies": ds.movie_map.num_entities,
@@ -590,6 +673,33 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--checkpoint-dir", default=None,
                    help="save the trained factors here as one checkpoint "
                    "step (for recommend / predict / serve)")
+    t.add_argument(
+        "--no-overlap", action="store_true",
+        help="pin the serial chunk schedule instead of the default "
+        "pipelined one (side-stream prefetch of the gather-off streams); "
+        "A/B measurement — the factors are bit-identical either way",
+    )
+    t.add_argument("--profile-dir", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the training loop "
+                   "(Chrome-trace JSON) here")
+    t.add_argument(
+        "--trace-dir", default=None, metavar="DIR",
+        help="write the host span trace (Chrome-trace JSON) here at exit; "
+        "pass the same directory as --profile-dir to line the host "
+        "timeline up with the device trace",
+    )
+    t.add_argument(
+        "--metrics-jsonl", default=None, metavar="PATH",
+        help="stream periodic metrics-registry snapshots (one JSON line "
+        "per interval, and one at exit) for live dashboards",
+    )
+    t.add_argument("--metrics-interval-s", type=float, default=10.0,
+                   help="seconds between --metrics-jsonl snapshots")
+    t.add_argument(
+        "--metrics", choices=["json", "logfmt"], default="logfmt",
+        help="the exit row: 'logfmt' (default) the key=value row, 'json' "
+        "the metrics registry as one JSON line",
+    )
     t.set_defaults(fn=_train)
 
     e = sub.add_parser("evaluate", help="offline MSE/RMSE of a prediction CSV")
@@ -645,6 +755,12 @@ def build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--loadgen-qps", type=float, default=100.0)
     sv.add_argument("--loadgen-requests", type=int, default=256)
     sv.add_argument("--seed", type=int, default=0)
+    sv.add_argument("--metrics-port", type=int, default=None,
+                    help="serve GET /metrics (Prometheus text) on this "
+                    "port while the server runs (0 = ephemeral)")
+    sv.add_argument("--trace-dir", default=None, metavar="DIR",
+                    help="write the host span trace (batch assemble/"
+                    "compute/respond timeline) here at exit")
     sv.set_defaults(fn=_serve)
     return p
 

@@ -93,6 +93,24 @@ class ALSConfig:
     # switch (``cfk_tpu/config.py:238-252``).  The subspace sweeps
     # materialize their rectangle with K5 on either setting.
     in_kernel_gather: bool | None = None
+    # The chunk pipeline (``ops.pipeline``), the default: every chunk scan
+    # and bucket walk is a ``prefetch_scan``, and with the gather off each
+    # chunk's K5 stream is written on a side stream while the previous
+    # chunk's Gram runs.  False pins the serial schedule (one stream, no
+    # capture) — the A/B baseline of ``train --no-overlap``.  Factors are
+    # bit-identical either way (the segment layout's float atomics aside).
+    # The reference's ring overlap, its ``apply_overlap_xla_flags`` and the
+    # async collective permute have no counterpart until the port trains
+    # on several cards.
+    overlap: bool = True
+    # With ``overlap`` on, on a card, for two or more iterations: replay
+    # one captured iteration (a CUDA graph, ``ops.pipeline.CapturedStep``)
+    # after an eager first one, so the host issues nothing per chunk.  Off
+    # by default: on an H100 a replay saves at most 7% of an iteration
+    # (iALS++, whose sweeps the host issues) and the capture costs 0.04-0.4
+    # s (10 s on the segment layout), so no route gained at 7 iterations
+    # and iALS++ broke even at 15 (PERF.md §6; ``tools/pipeline_ab.py``).
+    capture: bool = False
 
     def _valid_algorithms(self) -> tuple[str, ...]:
         return ("als", "als++")

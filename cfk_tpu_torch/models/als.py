@@ -7,13 +7,16 @@ reference's semantics (``apps/ALSApp.java:115-151``):
   - per iteration: solve movies from users, then users from movies
   - prediction P = U·Mᵀ, rows = users ascending id, cols = movies ascending id.
 
-``lax.fori_loop`` becomes a Python loop over iterations; every half-step
-runs on ``device`` through the kernels of ``ops.kernels`` (CUDA) or their
-plain versions (CPU).  ``ALSConfig.dtype`` is the factors' storage dtype
-(bf16: each solved half rounded to bf16, the next half gathering bf16 rows
-— ``cfk_tpu/models/als.py:452-476``), ``table_dtype`` the gather table's
-(``ops.quant``) and ``reg_solve_algo`` the fused route's rank cap; all three
-reach every half-step as in the reference's ``_half``.
+``lax.fori_loop`` becomes the iteration loop of ``run_iterations``: a
+Python loop, or, on a card with ``ALSConfig.capture``, iteration 1 eager
+and one captured iteration (a CUDA graph, ``ops.pipeline.CapturedStep``)
+replayed for the rest.  Every half-step runs on ``device`` through the kernels of
+``ops.kernels`` (CUDA) or their plain versions (CPU).  ``ALSConfig.dtype``
+is the factors' storage dtype (bf16: each solved half rounded to bf16, the
+next half gathering bf16 rows — ``cfk_tpu/models/als.py:452-476``),
+``table_dtype`` the gather table's (``ops.quant``) and ``reg_solve_algo``
+the fused route's rank cap; all three reach every half-step as in the
+reference's ``_half``.
 """
 
 from __future__ import annotations
@@ -63,6 +66,9 @@ class ALSModel:
     movie_factors: torch.Tensor  # [num_movies, k]
     num_users: int
     num_movies: int
+    # How the trainer ran its iterations (``run_iterations``): the route
+    # ("captured", "prefetched", "serial"), why, and a capture's seconds.
+    pipeline: dict = dataclasses.field(default_factory=dict, compare=False)
 
     def host_factors(self) -> tuple[np.ndarray, np.ndarray]:
         """float32 host copies of (U, M), fetched from the device once."""
@@ -315,7 +321,7 @@ def storage_dtype(config: ALSConfig) -> torch.dtype:
 def _half(fixed, blk, *, lam, solve_chunk, solver, chunks=None,
           entities=None, x_prev=None, algorithm="als", block_size=32,
           sweeps=1, fused_epilogue=None, in_kernel_gather=None,
-          reg_solve_algo=None, table_dtype=None):
+          reg_solve_algo=None, table_dtype=None, overlap=None):
     """Solve one side against fixed factors; dispatches on the layout
     (tuple = width buckets, a dict with segment ids = the flat segment run,
     tiled statics, else one padded rectangle).
@@ -330,7 +336,9 @@ def _half(fixed, blk, *, lam, solve_chunk, solver, chunks=None,
     ``table_dtype`` (``ops.quant``): the tiled, bucketed and subspace
     half-steps quantize and fold it themselves; the padded and segment ones
     take the bf16 view here (the config refuses int8 for them), as
-    ``cfk_tpu/models/als.py:243-291`` does.  Returns float32 rows."""
+    ``cfk_tpu/models/als.py:243-291`` does.  ``overlap`` reaches the tiled
+    and bucketed walks, where it puts the gather-off K5 fetch on a side
+    stream (``ops.pipeline``).  Returns float32 rows."""
     if algorithm == "als++":
         pp_kw = dict(block_size=block_size, sweeps=sweeps, solver=solver,
                      fused_epilogue=fused_epilogue,
@@ -347,13 +355,14 @@ def _half(fixed, blk, *, lam, solve_chunk, solver, chunks=None,
                                       in_kernel_gather=in_kernel_gather,
                                       fused_epilogue=fused_epilogue,
                                       reg_solve_algo=reg_solve_algo,
-                                      table_dtype=table_dtype)
+                                      table_dtype=table_dtype,
+                                      overlap=overlap)
     if chunks is not None and "seg_rel" not in blk:
         return tiled_half_step(fixed, blk, chunks, entities, lam,
                                solver=solver, fused_epilogue=fused_epilogue,
                                in_kernel_gather=in_kernel_gather,
                                reg_solve_algo=reg_solve_algo,
-                               table_dtype=table_dtype)
+                               table_dtype=table_dtype, overlap=overlap)
     fixed = gather_operand_view(fixed, table_dtype)
     if "seg_rel" in blk:
         return als_half_step_segment(fixed, blk, chunks, entities, lam,
@@ -392,6 +401,98 @@ def _padded_seed(x, rows: int, rank: int, what: str, device,
     return out
 
 
+def pipeline_route(config: ALSConfig, device) -> tuple[str, str]:
+    """How ``run_iterations`` runs ``config``'s iterations on ``device``,
+    decided from the configuration before anything is launched: ``(route,
+    reason)`` with route "captured" (``config.capture``: iteration 1 eager,
+    the rest replays of one captured iteration), "prefetched" (the
+    pipelined chunk walks, every iteration eager) or "serial"
+    (``overlap=False``)."""
+    if not config.overlap:
+        return "serial", "overlap off: the serial schedule"
+    if torch.device(device).type != "cuda":
+        return "prefetched", ("the CPU: the pipelined calls run in order on "
+                              "one thread")
+    if not config.capture:
+        return "prefetched", "capture off (the default)"
+    if config.num_iterations < 2:
+        return "prefetched", "one iteration: nothing to replay"
+    return "captured", "one iteration captured, replayed for the rest"
+
+
+def iteration_step(half, mblocks, ublocks, layout_kw, dtype):
+    """One training iteration — movies from users, then users from movies
+    (each subspace half warm-started from its side's previous factors),
+    each half's rows stored in ``dtype`` — as ``step(state, out)`` for
+    ``run_iterations``: ``state = (u, m)``; ``out`` None returns new
+    tensors, ``out`` a pair writes each half into it in place as soon as
+    it is solved (the captured form; ``out`` may be ``state``)."""
+    def step(state, out):
+        u, m = state
+        m_new = half(u, mblocks, chunks=layout_kw.get("m_chunks"),
+                     entities=layout_kw.get("m_entities"),
+                     x_prev=m).to(dtype)
+        if out is not None:
+            m_new = out[1].copy_(m_new)
+        u_new = half(m_new, ublocks, chunks=layout_kw.get("u_chunks"),
+                     entities=layout_kw.get("u_entities"),
+                     x_prev=u).to(dtype)
+        if out is not None:
+            u_new = out[0].copy_(u_new)
+        return u_new, m_new
+
+    return step
+
+
+def run_iterations(step, u, m, config: ALSConfig, device):
+    """``config.num_iterations`` iterations of ``step`` from (u, m) on the
+    route ``pipeline_route`` picks, under the ``train/fused_loop`` span;
+    records ``fused_loop_done`` (with a capture's seconds).  Returns (u, m,
+    the pipeline record)."""
+    from cfk_tpu_torch.ops.pipeline import CapturedStep
+    from cfk_tpu_torch.telemetry import record_event, span
+
+    route, reason = pipeline_route(config, device)
+    n = config.num_iterations
+    stats: dict = {}
+    with span("train/fused_loop", iters=n, route=route):
+        if route == "captured":
+            captured = CapturedStep(step)
+            u, m = captured.run((u, m), n)
+            stats = captured.stats
+        else:
+            for _ in range(n):
+                u, m = step((u, m), None)
+        if u.device.type == "cuda":
+            torch.cuda.synchronize(u.device)
+    fields = {key: stats[key] for key in ("capture_s", "instantiate_s",
+                                          "replays", "graph_pool_bytes")
+              if key in stats}
+    record_event("train", "fused_loop_done", iters=n, route=route, **fields)
+    return u, m, dict(route=route, reason=reason, **stats)
+
+
+def als_iteration(dataset: Dataset, config: ALSConfig, dev, warm_start):
+    """(step, u, m): both halves' blocks uploaded to ``dev``, the initial
+    factors, and one ALS iteration as ``iteration_step``'s ``step`` — what
+    ``train_als`` runs ``config.num_iterations`` times."""
+    mblocks, ublocks, layout_kw, solve_chunk = device_setup(dataset, config,
+                                                            dev)
+    u, m = init_user_factors(dataset, ublocks, config, dev, warm_start)
+    half = functools.partial(_half, lam=config.lam, solve_chunk=solve_chunk,
+                             solver=config.solver,
+                             algorithm=config.algorithm,
+                             block_size=config.block_size,
+                             sweeps=config.sweeps,
+                             fused_epilogue=config.fused_epilogue,
+                             in_kernel_gather=config.in_kernel_gather,
+                             reg_solve_algo=config.reg_solve_algo,
+                             table_dtype=config.table_dtype,
+                             overlap=config.overlap)
+    return (iteration_step(half, mblocks, ublocks, layout_kw,
+                           storage_dtype(config)), u, m)
+
+
 def train_als(dataset: Dataset, config: ALSConfig, *,
               device: str | torch.device = DEFAULT_DEVICE,
               warm_start=None) -> ALSModel:
@@ -403,31 +504,19 @@ def train_als(dataset: Dataset, config: ALSConfig, *,
     (host arrays or tensors, ascending-id rows, shorter ones zero-padded)
     seeds the factors instead of the avg-rating + U(0,1) init — how the
     parity tests hand the JAX package's initial factors to the port, and how
-    a run resumes from an earlier one's factors.
+    a run resumes from an earlier one's factors.  ``config.overlap`` and
+    ``config.capture`` pick the pipelined (captured or not) or the serial
+    schedule (``pipeline_route``; the model's ``pipeline`` says which
+    ran).
     """
     use_kernels(config.solver, torch.device(device))  # cholesky: CPU only
     dev = resolve_device(device)
-    mblocks, ublocks, layout_kw, solve_chunk = device_setup(dataset, config,
-                                                            dev)
-    u, m = init_user_factors(dataset, ublocks, config, dev, warm_start)
-    dt = storage_dtype(config)
-    half = functools.partial(_half, lam=config.lam, solve_chunk=solve_chunk,
-                             solver=config.solver,
-                             algorithm=config.algorithm,
-                             block_size=config.block_size,
-                             sweeps=config.sweeps,
-                             fused_epilogue=config.fused_epilogue,
-                             in_kernel_gather=config.in_kernel_gather,
-                             reg_solve_algo=config.reg_solve_algo,
-                             table_dtype=config.table_dtype)
-    for _ in range(config.num_iterations):
-        m = half(u, mblocks, chunks=layout_kw.get("m_chunks"),
-                 entities=layout_kw.get("m_entities"), x_prev=m).to(dt)
-        u = half(m, ublocks, chunks=layout_kw.get("u_chunks"),
-                 entities=layout_kw.get("u_entities"), x_prev=u).to(dt)
+    step, u, m = als_iteration(dataset, config, dev, warm_start)
+    u, m, pipeline = run_iterations(step, u, m, config, dev)
     return ALSModel(
         user_factors=u,
         movie_factors=m,
         num_users=dataset.user_map.num_entities,
         num_movies=dataset.movie_map.num_entities,
+        pipeline=pipeline,
     )

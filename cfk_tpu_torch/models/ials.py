@@ -27,6 +27,8 @@ from cfk_tpu_torch.models.als import (
     ALSModel,
     device_setup,
     init_user_factors,
+    iteration_step,
+    run_iterations,
     storage_dtype,
 )
 from cfk_tpu_torch.ops.quant import gather_operand_view
@@ -69,7 +71,7 @@ class IALSConfig(ALSConfig):
 def _ials_half(fixed, blk, *, lam, alpha, solver, chunks=None, entities=None,
                x_prev=None, algorithm="als", block_size=32, sweeps=1,
                fused_epilogue=None, in_kernel_gather=None,
-               reg_solve_algo=None, table_dtype=None):
+               reg_solve_algo=None, table_dtype=None, overlap=None):
     """Dispatch on the block layout (tuple = width buckets, a dict with
     segment ids = the flat segment run, tiled statics, else one padded
     rectangle); ``algorithm="ials++"`` runs warm-started
@@ -77,8 +79,9 @@ def _ials_half(fixed, blk, *, lam, alpha, solver, chunks=None, entities=None,
     ``fused_epilogue`` reaches the tiled and bucketed half-steps and the
     sweeps, ``in_kernel_gather`` the tiled and bucketed ones,
     ``reg_solve_algo`` every solve and ``table_dtype`` the gather table (the
-    padded and segment layouts take its bf16 view here) — as in
-    ``models.als._half`` and ``cfk_tpu/models/ials.py:85-149``."""
+    padded and segment layouts take its bf16 view here), ``overlap`` the
+    tiled and bucketed walks' side stream (``ops.pipeline``) — as in ``models.als._half`` and
+    ``cfk_tpu/models/ials.py:85-149``."""
     if algorithm == "ials++":
         pp_kw = dict(block_size=block_size, sweeps=sweeps, solver=solver,
                      fused_epilogue=fused_epilogue,
@@ -95,14 +98,15 @@ def _ials_half(fixed, blk, *, lam, alpha, solver, chunks=None, entities=None,
                                        in_kernel_gather=in_kernel_gather,
                                        fused_epilogue=fused_epilogue,
                                        reg_solve_algo=reg_solve_algo,
-                                       table_dtype=table_dtype)
+                                       table_dtype=table_dtype,
+                                       overlap=overlap)
     if chunks is not None and "seg_rel" not in blk:
         return ials_tiled_half_step(fixed, blk, chunks, entities, lam, alpha,
                                     solver=solver,
                                     fused_epilogue=fused_epilogue,
                                     in_kernel_gather=in_kernel_gather,
                                     reg_solve_algo=reg_solve_algo,
-                                    table_dtype=table_dtype)
+                                    table_dtype=table_dtype, overlap=overlap)
     fixed = gather_operand_view(fixed, table_dtype)
     if "seg_rel" in blk:
         return ials_half_step_segment(fixed, blk, chunks, entities, lam,
@@ -111,18 +115,6 @@ def _ials_half(fixed, blk, *, lam, alpha, solver, chunks=None, entities=None,
     return ials_half_step(fixed, blk["neighbor_idx"], blk["rating"],
                           blk["mask"], lam, alpha, solver=solver,
                           reg_solve_algo=reg_solve_algo)
-
-
-def _ials_iteration_body(u, m_prev, movie_blocks, user_blocks, *, half,
-                         layout_kw, dtype=torch.float32):
-    """One full iALS iteration: movies from users, then users from movies
-    (each subspace half warm-started from its side's previous factors),
-    each half's rows stored in ``dtype``."""
-    m = half(u, movie_blocks, chunks=layout_kw.get("m_chunks"),
-             entities=layout_kw.get("m_entities"), x_prev=m_prev).to(dtype)
-    u_new = half(m, user_blocks, chunks=layout_kw.get("u_chunks"),
-                 entities=layout_kw.get("u_entities"), x_prev=u).to(dtype)
-    return u_new, m
 
 
 def _check_nonnegative_strengths(dataset: Dataset) -> None:
@@ -141,6 +133,26 @@ def _check_nonnegative_strengths(dataset: Dataset) -> None:
         )
 
 
+def ials_iteration(dataset: Dataset, config: IALSConfig, dev, warm_start):
+    """(step, u, m): both halves' blocks (with the weighted channels)
+    uploaded to ``dev``, the initial factors, and one iALS iteration as
+    ``models.als.iteration_step``'s ``step`` — what ``train_ials`` runs."""
+    mblocks, ublocks, layout_kw, _ = device_setup(dataset, config, dev,
+                                                  weighted=True)
+    u, m = init_user_factors(dataset, ublocks, config, dev, warm_start)
+    half = functools.partial(_ials_half, lam=config.lam, alpha=config.alpha,
+                             solver=config.solver, algorithm=config.algorithm,
+                             block_size=config.block_size,
+                             sweeps=config.sweeps,
+                             fused_epilogue=config.fused_epilogue,
+                             in_kernel_gather=config.in_kernel_gather,
+                             reg_solve_algo=config.reg_solve_algo,
+                             table_dtype=config.table_dtype,
+                             overlap=config.overlap)
+    return (iteration_step(half, mblocks, ublocks, layout_kw,
+                           storage_dtype(config)), u, m)
+
+
 def train_ials(dataset: Dataset, config: IALSConfig, *,
                device: str | torch.device = DEFAULT_DEVICE,
                warm_start=None) -> ALSModel:
@@ -152,29 +164,18 @@ def train_ials(dataset: Dataset, config: IALSConfig, *,
     the plain PyTorch versions).  ``warm_start=(u0, m0)`` seeds the factors
     as in ``train_als`` — how the parity tests hand the JAX package's
     initial factors (drawn with jax's threefry) to the port; ``m0`` is the
-    first movie half's warm start under ``ials++``.
+    first movie half's warm start under ``ials++``.  ``config.overlap``
+    picks the schedule as in ``train_als`` (``models.als.pipeline_route``).
     """
     _check_nonnegative_strengths(dataset)
     use_kernels(config.solver, torch.device(device))  # cholesky: CPU only
     dev = resolve_device(device)
-    mblocks, ublocks, layout_kw, _ = device_setup(dataset, config, dev,
-                                                  weighted=True)
-    u, m = init_user_factors(dataset, ublocks, config, dev, warm_start)
-    half = functools.partial(_ials_half, lam=config.lam, alpha=config.alpha,
-                             solver=config.solver, algorithm=config.algorithm,
-                             block_size=config.block_size,
-                             sweeps=config.sweeps,
-                             fused_epilogue=config.fused_epilogue,
-                             in_kernel_gather=config.in_kernel_gather,
-                             reg_solve_algo=config.reg_solve_algo,
-                             table_dtype=config.table_dtype)
-    for _ in range(config.num_iterations):
-        u, m = _ials_iteration_body(u, m, mblocks, ublocks, half=half,
-                                    layout_kw=layout_kw,
-                                    dtype=storage_dtype(config))
+    step, u, m = ials_iteration(dataset, config, dev, warm_start)
+    u, m, pipeline = run_iterations(step, u, m, config, dev)
     return ALSModel(
         user_factors=u,
         movie_factors=m,
         num_users=dataset.user_map.num_entities,
         num_movies=dataset.movie_map.num_entities,
+        pipeline=pipeline,
     )

@@ -27,11 +27,17 @@ pieces (``ops.solve.bucket_chunks``), so no K5 stream exceeds
 chunk·width·k elements; each piece's entities are whole segments, so the
 pieces' rows are the whole class's bits.
 
-The JAX route's legacy fallback for widths below 16 (a Mosaic sublane
-constraint) and its ``_sub_rows`` scalar-prefetch budget have no
-counterpart: K6 reads its indices from device memory, its grid takes any row
-count and its shared memory does not depend on the width (see
-``csrc/gram_solve_gather.cu``), so no class is split for the kernel's sake.
+The classes the JAX route's gate refuses (``bucket_port_supported``: widths
+below 16 or not a multiple of 16 — a Mosaic sublane limit — and widths whose
+one-row piece overflows its scalar-prefetch SMEM budget) run its legacy
+schedule there, and so they do here: a gather, an einsum and the ridge +
+solve (``ops.solve``), which rounds a bf16 table's weighted products where
+the reference's legacy schedule rounds them.  The gate depends on the shape
+alone, so the CPU and the card take the same classes.  K6 itself has no such
+limit (it reads its indices from device memory, its grid takes any row count
+and its shared memory does not depend on the width, see
+``csrc/gram_solve_gather.cu``), so the JAX route's ``_sub_rows`` budget has
+no counterpart and no class is split for the kernel's sake.
 """
 
 from __future__ import annotations
@@ -57,9 +63,27 @@ from cfk_tpu_torch.ops.solve import (
     use_kernels,
 )
 
+# The JAX route's scalar-prefetch SMEM budget of its gather kernels
+# (``cfk_tpu/ops/pallas/gram_kernel.py:1083``): a width class whose one-row
+# piece (width indices, 3 meta words and lseg, 4 bytes each) exceeds it
+# keeps the legacy schedule.
+_GATHER_SMEM_BYTES_CAP = 512 << 10
+
 # The tiled reparameterization's clamp: an α·r = 0 entry's A-term becomes
 # ε·f fᵀ (far below the λ ridge) while b stays exact — (c/√ε)·(√ε·f) = c·f.
 _SQRT_WEIGHT_EPS = 1e-12
+
+
+def bucket_port_supported(rows: int, width: int, k: int) -> bool:
+    """Whether a width class runs the tiled-kernel route (K6, or K2 + K1)
+    — the JAX package's gate (``cfk_tpu/ops/bucketed.py:60-73``): a width
+    of at least 16 and a multiple of 16, and one row's scalar prefetch
+    within the SMEM budget (``in_kernel_gather_supported(width, 3,
+    width)``).  Refused classes take the legacy schedule (``ops.solve``).
+    ``rows`` and ``k`` do not enter the gate, as in the reference."""
+    if width < 16 or width % 16:
+        return False
+    return (width + 3 + 1) * 4 <= _GATHER_SMEM_BYTES_CAP
 
 
 def ials_reparam(rt: torch.Tensor, mk: torch.Tensor, alpha: float):
@@ -69,6 +93,18 @@ def ials_reparam(rt: torch.Tensor, mk: torch.Tensor, alpha: float):
     ε clamp.  Returns (wt, rt_scaled)."""
     aw = torch.sqrt(torch.clamp_min(alpha * rt, _SQRT_WEIGHT_EPS))
     return aw * mk, (1.0 + alpha * rt) * mk / aw
+
+
+def bucket_stream(table, nb, wt, scale, out=None, *, solver="auto"):
+    """A width-class piece's materialized stream g = table[nb]·wt
+    [rows·width, k] (K5 on CUDA), an int8 table's scale folded into ``wt``
+    first — the fetch of the gather-off walk (``ops.solve.walk_buckets``),
+    written into ``out`` when given."""
+    wt = fold_scale(wt, scale, nb).reshape(-1).contiguous()
+    if use_kernels(solver, table.device):
+        return gather_rows(table, nb.reshape(-1), wt, None, out)
+    g = gather_rows_plain(table, nb.reshape(-1), wt)
+    return g if out is None else out.copy_(g)
 
 
 def bucket_gram_solve(
@@ -86,23 +122,27 @@ def bucket_gram_solve(
     units=None,  # the piece's Gram work-unit plan (None: derived on device)
     scale: torch.Tensor | None = None,  # [F] int8 per-row dequant scales
     algo: str | None = None,  # reg_solve_algo of the split route's K1 pass
+    g: torch.Tensor | None = None,  # the piece's stream, fetched by the walk
 ) -> torch.Tensor:
     """One width-class piece: flatten to one tile per entity and solve every
     row — [rows, k].  ``gather="fused"``: K6 reads the table by index;
     ``"xla"`` (``ops.tiled.resolve_gather_mode``): K5 writes the piece's
-    stream and ``gram_solve_tiles`` solves it.  ``fused=False``: K2 (or K5
-    and ``gram_tiles``) writes (A, b) and K1 solves it (the split dispatch
-    past ``algo``'s cap).  Plain versions on the CPU."""
+    stream (``bucket_stream``, unless the walk has fetched it as ``g``) and
+    ``gram_solve_tiles`` solves it.  ``fused=False``: K2 (or K5 and
+    ``gram_tiles``) writes (A, b) and K1 solves it (the split dispatch past
+    ``algo``'s cap).  Plain versions on the CPU.  The carry-out row is the
+    last segment, taken on the device (``seg[-1:]``): a captured piece
+    copies nothing from the host."""
     rows, width = nb.shape
     kernels = use_kernels(solver, table.device)
     seg = torch.arange(rows, dtype=torch.int32, device=nb.device)
-    wt = fold_scale(wt, scale, nb)
-    nb, wt = nb.reshape(-1), wt.reshape(-1).contiguous()
     kw = dict(rt=rt.reshape(-1).contiguous(), seg=seg, num_segments=rows,
               tile_rows=width, units=units)
-    g = None
-    if gather == "xla":
-        g = (gather_rows if kernels else gather_rows_plain)(table, nb, wt)
+    if gather == "xla" and g is None:
+        g = bucket_stream(table, nb, wt, scale, solver=solver)
+    if g is None:
+        wt = fold_scale(wt, scale, nb)
+        nb, wt = nb.reshape(-1), wt.reshape(-1).contiguous()
     if not fused:
         if g is not None:
             a, b = (gram_tiles if kernels else gram_tiles_plain)(g, **kw)
@@ -115,7 +155,7 @@ def bucket_gram_solve(
                                      algo=algo)
         return regularized_solve_matrix(a, b, reg, solver, fused=True,
                                         algo=algo)
-    kw.update(reg=reg, lseg=rows - 1, lam=lam, reg_mode=reg_mode)
+    kw.update(reg=reg, lseg=seg[-1:], lam=lam, reg_mode=reg_mode)
     if g is not None:
         x, _, _ = (gram_solve_tiles if kernels else gram_solve_tiles_plain)(
             g, **kw)

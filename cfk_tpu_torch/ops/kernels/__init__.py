@@ -45,7 +45,15 @@ def stream_of(t: torch.Tensor) -> ctypes.c_void_p:
 def scalar_on(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """``x`` (a Python number or a 0-d/1-element tensor) as a 1-element tensor
     on ``device`` — kernels read per-chunk scalars from device memory, so the
-    main path never syncs to the host for them."""
+    main path never syncs to the host for them.  A Python number is copied
+    from the host, which a CUDA graph capture cannot hold: it is refused
+    while the current stream captures (the captured half-steps pass device
+    tensors)."""
     if isinstance(x, torch.Tensor):
         return x.reshape(1).to(device=device, dtype=dtype)
+    if torch.device(device).type == "cuda" and \
+            torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"scalar {x!r} would be copied from the host during a CUDA "
+            "graph capture; pass it as a device tensor")
     return torch.tensor([x], device=device, dtype=dtype)

@@ -165,7 +165,8 @@ def table_kind(t: torch.Tensor, name: str, shape, dtypes) -> int:
 
 def gather_rows(table: torch.Tensor, nb: torch.Tensor,
                 wt: torch.Tensor | None = None,
-                out_dtype: torch.dtype | None = None) -> torch.Tensor:
+                out_dtype: torch.dtype | None = None,
+                out: torch.Tensor | None = None) -> torch.Tensor:
     """K5: the gathered stream ``out [C,k] = table[nb]·wt``.
 
     table [F,k] f32, bf16 or int8 (raw: no zero row); nb [C] int32 — an
@@ -174,11 +175,15 @@ def gather_rows(table: torch.Tensor, nb: torch.Tensor,
     ``out_dtype`` None: ``stream_dtype`` (bf16 for a bf16 table, else
     float32); float32 asks a bf16 table for a float32 stream (the subspace
     sweeps, as ``cfk_tpu/ops/subspace.py:50-75`` asks ``out_dtype=f32``).
+    ``out`` [C,k] of that dtype, contiguous: the buffer to write (the
+    pipelined chunk walks' double buffer, ``ops.pipeline.prefetch_scan``);
+    None allocates it.
     """
     c = nb.shape[0]
     f, k = table.shape
     if not on_cuda(table, nb, wt):
-        return gather_rows_plain(table, nb, wt, out_dtype)
+        g = gather_rows_plain(table, nb, wt, out_dtype)
+        return g if out is None else out.copy_(g)
     kind = table_kind(table, "table", (f, k), TABLE_DTYPES)
     _check_int8_weights(table, wt, "gather_rows")
     out_dtype = stream_dtype(table) if out_dtype is None else out_dtype
@@ -188,7 +193,9 @@ def gather_rows(table: torch.Tensor, nb: torch.Tensor,
     require(nb, "nb", torch.int32, (c,))
     if wt is not None:
         require(wt, "wt", torch.float32, (c,))
-    out = torch.empty((c, k), dtype=out_dtype, device=table.device)
+    if out is None:
+        out = torch.empty((c, k), dtype=out_dtype, device=table.device)
+    require(out, "out", out_dtype, (c, k))
     # Vector moves: k a multiple of the output's 16-byte vector (4 floats,
     # 8 bf16) and an aligned table base.
     vec = int(k % (16 // out.element_size()) == 0

@@ -54,6 +54,8 @@ counterpart of the JAX package's ``_resolve_solver``
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from cfk_tpu_torch.ops.kernels.solve_kernel import (
@@ -105,6 +107,35 @@ def fused_rank_cap(algo: str | None = None) -> int:
     return GJ_MAX_RANK if algo == "gj" else MAX_RANK
 
 
+# Rows a gathered Gram sums in one product: a wider rectangle is summed in
+# blocks of this many rows, each block from zero, the block sums then
+# added — the two-level sum of the Gram kernels' work units
+# (``ops.kernels.gram_units.UNIT_ROWS``).  One float32 product over a
+# million rows (a Zipf-head entity on the legacy schedule) put the solved
+# row 2.8e-3 of max|x| from float64 on an H100 at the ML-25M shape; summed
+# in 1,024-row blocks as the kernels sum it, 5.5e-5.
+GRAM_SUM_ROWS = 1024
+
+
+def _gram_sums(gw: torch.Tensor, gm: torch.Tensor, coef: torch.Tensor):
+    """(Σ_p gw gmᵀ [E,k,k], Σ_p gm·coef [E,k]) over the P rows of each
+    entity's float32 rectangles gw, gm [E,P,k] and coef [E,P]: one einsum
+    up to ``GRAM_SUM_ROWS`` rows, else per block of that many rows (the
+    last zero-padded) with the block sums added."""
+    e, p, k = gm.shape
+    if p <= GRAM_SUM_ROWS:
+        return (torch.einsum("epk,epl->ekl", gw, gm),
+                torch.einsum("epk,ep->ek", gm, coef))
+    pad = -p % GRAM_SUM_ROWS
+    blocks = (p + pad) // GRAM_SUM_ROWS
+    gw, gm = (torch.nn.functional.pad(x, (0, 0, 0, pad)).view(
+        e, blocks, GRAM_SUM_ROWS, k) for x in (gw, gm))
+    coef = torch.nn.functional.pad(coef, (0, pad)).view(e, blocks,
+                                                        GRAM_SUM_ROWS)
+    return (torch.einsum("ebpk,ebpl->ebkl", gw, gm).sum(1),
+            torch.einsum("ebpk,ebp->ebk", gm, coef).sum(1))
+
+
 def gather_gram(
     fixed_factors: torch.Tensor,  # [F, k] f32 or bf16
     neighbor_idx: torch.Tensor,  # [E, P] int32
@@ -113,13 +144,12 @@ def gather_gram(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Gram matrices A = Σ f fᵀ and RHS b = Σ r·f for every entity:
     (A [E, k, k], b [E, k]) float32; padding contributes zero via the mask.
-    The masked rows and the ratings are formed in ``gram_compute_dtype``."""
+    The masked rows and the ratings are formed in ``gram_compute_dtype``;
+    the sums run in ``GRAM_SUM_ROWS``-row blocks (``_gram_sums``)."""
     ct = gram_compute_dtype(fixed_factors)
     gm = (fixed_factors[neighbor_idx.long()].to(ct)
           * mask[..., None].to(ct)).float()
-    a = torch.einsum("epk,epl->ekl", gm, gm)
-    b = torch.einsum("epk,ep->ek", gm, rating.to(ct).float())
-    return a, b
+    return _gram_sums(gm, gm, rating.to(ct).float())
 
 
 def resolve_fused_epilogue(fused: bool | None) -> bool:
@@ -145,12 +175,15 @@ def batched_spd_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The SPD solve above k = 128: a [E,k,k], b [E,k] → x [E,k] by
     PyTorch's batched Cholesky (``cholesky_ex``, so a system that is not SPD
     gives a non-finite row, as the kernels do, instead of raising) and two
-    triangular solves.  The counterpart of ``cfk_tpu/ops/solve.py:79-91``,
-    XLA's Cholesky, which the JAX package runs at k > 128 outside any Pallas
-    kernel; chosen by rank before any launch.  Reads only the lower
-    triangle of ``a``."""
+    batched triangular solves (``solve_triangular``: cuBLAS on the card,
+    which a CUDA graph captures — ``cholesky_solve``'s batched route
+    allocates device memory inside the library and cannot be captured).
+    The counterpart of ``cfk_tpu/ops/solve.py:79-91``, XLA's Cholesky,
+    which the JAX package runs at k > 128 outside any Pallas kernel; chosen
+    by rank before any launch.  Reads only the lower triangle of ``a``."""
     chol, _ = torch.linalg.cholesky_ex(a)
-    return torch.cholesky_solve(b.unsqueeze(-1), chol).squeeze(-1)
+    y = torch.linalg.solve_triangular(chol, b.unsqueeze(-1), upper=False)
+    return torch.linalg.solve_triangular(chol.mT, y, upper=True).squeeze(-1)
 
 
 def blocked_spd_solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -244,15 +277,12 @@ def gather_gram_implicit(
     """Per-entity observed-part Gram of iALS: (A_obs = Σ (c−1)·f fᵀ [E,k,k],
     b = Σ c·f [E,k]); preferences are 1 at observed cells.  Rows, weights
     and weighted products in ``gram_compute_dtype`` (bf16 rounds (c−1)·f
-    and c), the sums float32."""
+    and c), the sums float32 in ``GRAM_SUM_ROWS``-row blocks."""
     ct = gram_compute_dtype(fixed_factors)
     gm = fixed_factors[neighbor_idx.long()].to(ct) * mask[..., None].to(ct)
     gw = (gm * confidence_m1[..., None].to(ct)).float()
-    gm = gm.float()
-    a = torch.einsum("epk,epl->ekl", gw, gm)
-    b = torch.einsum("epk,ep->ek", gm,
-                     ((confidence_m1 + 1.0) * mask).to(ct).float())
-    return a, b
+    return _gram_sums(gw, gm.float(),
+                      ((confidence_m1 + 1.0) * mask).to(ct).float())
 
 
 def global_gram(factors: torch.Tensor) -> torch.Tensor:
@@ -312,37 +342,86 @@ def ials_half_step(
                                     algo=reg_solve_algo)
 
 
-def walk_buckets(buckets, chunk_rows, arrays_of, piece, out, plan_of=None):
+def walk_buckets(buckets, chunk_rows, arrays_of, piece, out, plan_of=None,
+                 *, overlap=None, stream=None):
     """The bucket scaffolding every width-bucketed half-step shares.
 
     For each bucket: extract its per-row arrays (``arrays_of(blk, out)`` —
     ``out`` is passed so warm-started optimizers can read the bucket's
     current factors), run ``piece(*arrays) -> [rows, k]`` — in [chunk, ...]
     pieces when ``chunk_rows`` bounds the bucket, as the JAX package's walk
-    streams them (``cfk_tpu/ops/solve.py:206-230``) — and scatter the
+    streams them (``cfk_tpu/ops/solve.py:206-237``) — and scatter the
     result into ``out`` at the bucket's entity rows (padding rows target the
     trash slot; real rows are unique across buckets).  Only the per-row
     arrays are cut; ``plan_of(blk, rows)``, when given, hands each piece one
     more argument, the Gram work-unit plan of a piece of ``rows`` rows (a
     width class is one tile per entity, so every piece of a class has the
-    same plan).  The JAX package's double-buffered chunk map is a plain
-    loop here.
+    same plan).
+
+    The pieces of all classes are one pipelined walk by default
+    (``ops.pipeline.prefetch_scan``): piece i+1's operands are fetched
+    before piece i runs.  ``stream`` (a ``BucketStream``, the gather-off
+    walks) makes the fetch write each streamed piece's K5 stream into one
+    of two buffers — on a side stream on the card, in order on the CPU —
+    and hands it to ``piece`` as ``g=``.  ``overlap`` only picks where
+    that fetch runs: on a side stream (on, on a card) or in order on the
+    current stream (off — the serial schedule, the A/B baseline; and the
+    CPU).  Both make the same calls on the same operands into disjoint
+    rows: the same bits.
     """
+    from cfk_tpu_torch.ops.pipeline import fetch_stream, prefetch_scan
+
+    pieces = []  # (arrays, lo, hi, extra, entity rows, streamed)
     for blk, chunk in zip(buckets, chunk_rows):
         arrs = arrays_of(blk, out)
         rows = arrs[0].shape[0]
-        if chunk is None or chunk >= rows:
-            extra = () if plan_of is None else (plan_of(blk, rows),)
-            x = piece(*arrs, *extra)
-        else:
-            if rows % chunk != 0:
-                raise ValueError(
-                    f"bucket rows {rows} not divisible by chunk {chunk}")
-            extra = () if plan_of is None else (plan_of(blk, chunk),)
-            x = torch.cat([piece(*(a[lo:lo + chunk] for a in arrs), *extra)
-                           for lo in range(0, rows, chunk)])
-        out[blk["entity_local"].long()] = x
+        step = rows if chunk is None or chunk >= rows else chunk
+        if rows % step != 0:
+            raise ValueError(f"bucket rows {rows} not divisible by chunk "
+                             f"{step}")
+        extra = () if plan_of is None else (plan_of(blk, step),)
+        ent = blk["entity_local"].long()
+        streamed = stream is not None and stream.wants(blk)
+        pieces += [(arrs, lo, lo + step, extra, ent, streamed)
+                   for lo in range(0, rows, step)]
+    cells = max(((hi - lo) * arrs[0].shape[1]
+                 for arrs, lo, hi, _, _, streamed in pieces if streamed),
+                default=0)
+    side = bufs = None
+    if cells:
+        side = fetch_stream(out.device, overlap)
+        bufs = [torch.empty((cells, stream.k), dtype=stream.dtype,
+                            device=out.device) for _ in range(2)]
+
+    def fetch(i):
+        arrs, lo, hi, _, _, streamed = pieces[i]
+        views = tuple(a[lo:hi] for a in arrs)
+        if not streamed:
+            return views, None
+        n = (hi - lo) * arrs[0].shape[1]
+        return views, stream.fetch(views, bufs[i % 2][:n])
+
+    def compute(carry, buf, _x, i):
+        views, g = buf
+        _, lo, hi, extra, ent, _ = pieces[i]
+        x = piece(*views, *extra, **({} if g is None else {"g": g}))
+        out[ent[lo:hi]] = x
+        return carry, None
+
+    prefetch_scan(fetch, compute, len(pieces), None, stream=side)
     return out
+
+
+class BucketStream(NamedTuple):
+    """The gather-off walk's fetch (``walk_buckets``): ``fetch(arrays,
+    buf) -> g`` writes a piece's stream into ``buf`` [cells, k] of
+    ``dtype``; ``wants(blk)`` says whether a class streams (a class on the
+    legacy schedule gathers in its own einsum)."""
+
+    fetch: object
+    wants: object
+    dtype: torch.dtype
+    k: int
 
 
 def bucket_plan(blk, rows: int):
@@ -357,17 +436,45 @@ def bucket_plan(blk, rows: int):
     return blk.get("piece_plan")
 
 
-def bucket_chunks(buckets, chunk_rows, gather: str):
+def class_supported(blk, k: int) -> bool:
+    """Whether width class ``blk`` runs the tiled-kernel route
+    (``ops.bucketed.bucket_port_supported``) rather than the legacy
+    schedule."""
+    from cfk_tpu_torch.ops.bucketed import bucket_port_supported
+
+    rows, width = blk["neighbor"].shape
+    return bucket_port_supported(rows, width, k)
+
+
+def bucket_chunks(buckets, chunk_rows, gather: str, k: int):
     """The piece bound each width class is walked with: the blocks'
     ``chunk_rows`` on the materialized-stream route (``gather="xla"``: K5
-    writes a piece's [chunk·width, k] stream, never a whole class's), one
+    writes a piece's [chunk·width, k] stream, never a whole class's); one
     piece per class on the gather route — K6 (and K2, split) materialize
     neither the gathered rows nor, fused, the Gram batch, so cutting the
-    widest classes into short launches would only serialize their
-    entities."""
+    widest classes into short launches would only serialize their entities
+    — and on the legacy schedule (``class_supported``), whose gather and
+    einsum run once over the class, so a class's rows are the same bits
+    whichever walk reaches them (a batched product's order may follow its
+    batch count on the card)."""
     if gather != "xla" or chunk_rows is None:
         return (None,) * len(buckets)
-    return tuple(chunk_rows)
+    return tuple(c if class_supported(blk, k) else None
+                 for blk, c in zip(buckets, chunk_rows))
+
+
+def _bucket_stream(data, scale, k, solver, wt_of) -> BucketStream:
+    """The ``BucketStream`` of a gather-off bucketed half-step: K5 over each
+    kernel-route piece's (nb, ``wt_of(arrays)``) — the class's mask, or,
+    for iALS, its reparameterized weights."""
+    from cfk_tpu_torch.ops.bucketed import bucket_stream
+    from cfk_tpu_torch.ops.kernels.gram_kernel import stream_dtype
+
+    return BucketStream(
+        fetch=lambda arrs, buf: bucket_stream(data, arrs[0], wt_of(arrs),
+                                              scale, buf, solver=solver),
+        wants=lambda blk: class_supported(blk, k),
+        dtype=stream_dtype(data), k=k)
 
 
 def als_half_step_bucketed(
@@ -382,6 +489,7 @@ def als_half_step_bucketed(
     fused_epilogue: bool | None = None,
     reg_solve_algo: str | None = None,
     table_dtype: str | None = None,
+    overlap: bool | None = None,
 ) -> torch.Tensor:
     """One ALS-WR half-iteration over width-bucketed InBlocks: every width
     class through K6 with one tile per entity (``ops.bucketed``), or, with
@@ -389,30 +497,46 @@ def als_half_step_bucketed(
     ``chunk_rows`` pieces (``bucket_chunks``); with ``fused_epilogue=False``
     — or at a rank past the fused cap (``resolve_fused_chunk``) — each
     class's (A, b) goes to device memory (K2, or K5 and ``gram_tiles``) and
-    K1 solves it (the split dispatch past K1's cap).  ``table_dtype``
-    quantizes the gather table (``ops.quant``; int8's scale folded into each
-    piece's weights).  Rows in no bucket (zero ratings) stay exactly 0."""
-    from cfk_tpu_torch.ops.bucketed import bucket_gram_solve
+    K1 solves it (the split dispatch past K1's cap).  A class the JAX
+    package's gate refuses (``ops.bucketed.bucket_port_supported``) takes
+    its legacy schedule, as there: the gather + einsum of ``_solve_chunk``
+    on the dequantized table, then the ridge + solve (K1 on CUDA).
+    ``table_dtype`` quantizes the gather table (``ops.quant``; int8's scale
+    folded into each piece's weights).  ``overlap`` pipelines the walk
+    (``walk_buckets``).  Rows in no bucket (zero ratings) stay exactly 0."""
+    from cfk_tpu_torch.ops.bucketed import (
+        bucket_gram_solve,
+        bucket_port_supported,
+    )
     from cfk_tpu_torch.ops.tiled import resolve_gather_mode
 
     k = fixed_factors.shape[-1]
     gather = resolve_gather_mode(in_kernel_gather)
     fused = resolve_fused_chunk(fused_epilogue, k, reg_solve_algo)
     data, scale = quantize_table(fixed_factors, table_dtype)
+    legacy = not all(class_supported(blk, k) for blk in buckets)
+    view = dequantize_table(data, scale) if legacy else None
 
-    def solve_piece(ni, rt, mk, cnt, units):
+    def solve_piece(ni, rt, mk, cnt, units, g=None):
+        rows, width = ni.shape
+        if not bucket_port_supported(rows, width, k):
+            return _solve_chunk(view, lam, ni, rt, mk, cnt, solver,
+                                reg_solve_algo)
         return bucket_gram_solve(data, ni, mk, rt, cnt, lam=lam,
                                  reg_mode="diag", solver=solver,
                                  gather=gather, fused=fused, units=units,
-                                 scale=scale, algo=reg_solve_algo)
+                                 scale=scale, algo=reg_solve_algo, g=g)
 
+    stream = None
+    if gather == "xla":
+        stream = _bucket_stream(data, scale, k, solver, lambda a: a[2])
     out = walk_buckets(
-        buckets, bucket_chunks(buckets, chunk_rows, gather),
+        buckets, bucket_chunks(buckets, chunk_rows, gather, k),
         lambda blk, _out: (blk["neighbor"], blk["rating"], blk["mask"],
                            blk["count"]),
         solve_piece,
         fixed_factors.new_zeros((local_entities + 1, k), dtype=torch.float32),
-        plan_of=bucket_plan)
+        plan_of=bucket_plan, overlap=overlap, stream=stream)
     return out[:local_entities]
 
 
@@ -430,6 +554,7 @@ def ials_half_step_bucketed(
     fused_epilogue: bool | None = None,
     reg_solve_algo: str | None = None,
     table_dtype: str | None = None,
+    overlap: bool | None = None,
 ) -> torch.Tensor:
     """Implicit-feedback half-iteration over width-bucketed InBlocks: per
     entity YᵀY + Σ_obs (c−1)·f fᵀ + λI, every width class through K6 (or,
@@ -437,32 +562,55 @@ def ials_half_step_bucketed(
     ``chunk_rows`` pieces) with the sqrt-reparameterized weight stream
     (``ops.bucketed.ials_reparam``) and the shared ridge in matrix mode
     (see ``als_half_step_bucketed``, also for ``fused_epilogue=False``: K2
-    + K1 matrix mode).  YᵀY sums the rows the kernels read (the
-    dequantized view of ``table_dtype``).  Zero-interaction rows stay 0."""
-    from cfk_tpu_torch.ops.bucketed import bucket_gram_solve, ials_reparam
+    + K1 matrix mode).  A class the JAX package's gate refuses takes its
+    legacy schedule: ``gather_gram_implicit`` on the dequantized table
+    (which rounds a bf16 table's (c−1)·f where the reference's legacy
+    route rounds it), its symmetric part, then the shared ridge and the
+    solve.  YᵀY sums the rows the kernels read (the dequantized view of
+    ``table_dtype``).  Zero-interaction rows stay 0."""
+    from cfk_tpu_torch.ops.bucketed import (
+        bucket_gram_solve,
+        bucket_port_supported,
+        ials_reparam,
+    )
     from cfk_tpu_torch.ops.tiled import resolve_gather_mode
 
     k = fixed_factors.shape[-1]
     gather = resolve_gather_mode(in_kernel_gather)
     fused = resolve_fused_chunk(fused_epilogue, k, reg_solve_algo)
     data, scale = quantize_table(fixed_factors, table_dtype)
+    view = dequantize_table(data, scale)
     if gram is None:
-        gram = global_gram_blocked(dequantize_table(data, scale))
+        gram = global_gram_blocked(view)
     reg_m = implicit_reg(gram, lam)
 
-    def solve_piece(ni, rt, mk, units):
+    def solve_piece(ni, rt, mk, units, g=None):
+        rows, width = ni.shape
+        if not bucket_port_supported(rows, width, k):
+            a_obs, b = gather_gram_implicit(view, ni, alpha * rt, mk)
+            # Σ (c−1)·f fᵀ from the rounded (c−1)·f is symmetric only to
+            # rounding (to 2^-9 relative on a bf16 table); the kernels read
+            # one triangle, so hand them its symmetric part, as the
+            # reference's Cholesky symmetrizes its input.
+            a_obs = (a_obs + a_obs.mT) * 0.5
+            return regularized_solve_matrix(a_obs, b, reg_m, solver,
+                                            algo=reg_solve_algo)
         wt, rt_b = ials_reparam(rt, mk, alpha)
         return bucket_gram_solve(data, ni, wt, rt_b, reg_m,
                                  lam=0.0, reg_mode="matrix", solver=solver,
                                  gather=gather, fused=fused, units=units,
-                                 scale=scale, algo=reg_solve_algo)
+                                 scale=scale, algo=reg_solve_algo, g=g)
 
+    stream = None
+    if gather == "xla":
+        stream = _bucket_stream(data, scale, k, solver,
+                                lambda a: ials_reparam(a[1], a[2], alpha)[0])
     out = walk_buckets(
-        buckets, bucket_chunks(buckets, chunk_rows, gather),
+        buckets, bucket_chunks(buckets, chunk_rows, gather, k),
         lambda blk, _out: (blk["neighbor"], blk["rating"], blk["mask"]),
         solve_piece,
         fixed_factors.new_zeros((local_entities + 1, k), dtype=torch.float32),
-        plan_of=bucket_plan)
+        plan_of=bucket_plan, overlap=overlap, stream=stream)
     return out[:local_entities]
 
 
@@ -499,36 +647,52 @@ def segment_gram(
     return a, b
 
 
+# The flat run's per-entry fields a segment chunk reads (its fetch).
+SEGMENT_RUN = ("neighbor_idx", "rating", "mask", "seg_rel")
+
+
 def segment_scan(fixed_factors, chunk_gram, solve_rows, blk, statics,
                  local_entities: int) -> torch.Tensor:
     """The chunk loop both segment half-steps share (``cfk_tpu/ops/solve.py
-    ::_segment_scan`` :641; ``lax.scan`` becomes a Python loop).
+    ::_segment_scan`` :641, a ``prefetch_scan`` there and here:
+    ``ops.pipeline``; its fetch is a slice, so it needs no side stream and
+    runs the serial loop's calls in its order).
 
-    ``chunk_gram(lo, hi)`` builds chunk entries [lo, hi)'s raw Gram/RHS
-    [Ec+1, k, k]/[Ec+1, k]; ``solve_rows(a, b, count) -> x`` solves the
-    chunk's Ec rows.  The entity straddling each chunk boundary carries its
-    partial (A, b): ``carry_in`` gates adding it to segment 0, and the next
-    carry is segment ``last_seg`` of the RAW sums — copied out before
+    Chunk c's fetch slices its [cap] window of the flat run (``SEGMENT_RUN``
+    → views, ``index_fetch``); ``chunk_gram(run)`` builds its raw Gram/RHS
+    [Ec+1, k, k]/[Ec+1, k]; ``solve_rows(a, b, count) -> x`` solves its Ec
+    rows.  The entity straddling each chunk boundary carries its partial
+    (A, b): ``carry_in`` gates adding it to segment 0, and the next carry
+    is segment ``last_seg`` of the RAW sums — copied out before
     ``solve_rows`` runs, since above k = 128 the split route adds the ridge
     into ``a`` in place.  Each chunk's rows are scattered into the output
     (rows not finalized there go to the trash row); rows that no chunk
     finalizes stay exactly 0."""
+    from cfk_tpu_torch.ops.pipeline import index_fetch, prefetch_scan
+
     nc, cap, e_c = statics
     k = fixed_factors.shape[-1]
     out = fixed_factors.new_zeros((local_entities + 1, k), dtype=torch.float32)
     a0 = fixed_factors.new_zeros((k, k), dtype=torch.float32)
     b0 = fixed_factors.new_zeros((k,), dtype=torch.float32)
     carry_in, last_seg = blk["carry_in"], blk["last_seg"]
-    for c in range(nc):
-        a, b = chunk_gram(c * cap, (c + 1) * cap)
-        a[0] += carry_in[c] * a0
-        b[0] += carry_in[c] * b0
+    fetches = {f: index_fetch(blk[f], cap) for f in SEGMENT_RUN}
+
+    def fetch(c):
+        return {f: fn(c) for f, fn in fetches.items()}
+
+    def compute(carry, run, _x, c):
+        a, b = chunk_gram(run)
+        a[0] += carry_in[c] * carry[0]
+        b[0] += carry_in[c] * carry[1]
         last = last_seg[c:c + 1]
-        a0 = a.index_select(0, last)[0]
-        b0 = b.index_select(0, last)[0]
+        carry = (a.index_select(0, last)[0], b.index_select(0, last)[0])
         rows = slice(c * e_c, (c + 1) * e_c)
         x = solve_rows(a[:e_c], b[:e_c], blk["chunk_count"][rows])
         out[blk["chunk_entity"][rows].long()] = x
+        return carry, None
+
+    prefetch_scan(fetch, compute, nc, (a0, b0))
     return out[:local_entities]
 
 
@@ -551,11 +715,11 @@ def als_half_step_segment(
     with the straddling entity's partial sums carried across chunks."""
     e_c = statics[2]
 
-    def chunk_gram(lo, hi):
-        rt = blk["rating"][lo:hi]
-        return segment_gram(fixed_factors, blk["neighbor_idx"][lo:hi],
-                            torch.ones_like(rt), rt, blk["mask"][lo:hi],
-                            blk["seg_rel"][lo:hi], e_c + 1)
+    def chunk_gram(run):
+        rt = run["rating"]
+        return segment_gram(fixed_factors, run["neighbor_idx"],
+                            torch.ones_like(rt), rt, run["mask"],
+                            run["seg_rel"], e_c + 1)
 
     def solve_rows(a, b, cnt):
         return regularized_solve(a, b, cnt, lam, solver,
@@ -588,11 +752,11 @@ def ials_half_step_segment(
     reg = implicit_reg(gram, lam)
     e_c = statics[2]
 
-    def chunk_gram(lo, hi):
-        rt, mk = blk["rating"][lo:hi], blk["mask"][lo:hi]
-        return segment_gram(fixed_factors, blk["neighbor_idx"][lo:hi],
+    def chunk_gram(run):
+        rt, mk = run["rating"], run["mask"]
+        return segment_gram(fixed_factors, run["neighbor_idx"],
                             alpha * rt, (1.0 + alpha * rt) * mk, mk,
-                            blk["seg_rel"][lo:hi], e_c + 1)
+                            run["seg_rel"], e_c + 1)
 
     def solve_rows(a, b, _cnt):
         return regularized_solve_matrix(a, b, reg, solver,
@@ -638,19 +802,20 @@ def als_half_step(
     against the fixed factors (f32, or bf16 — ``gather_gram``).
     ``solve_chunk`` bounds the [chunk, P, k] gather held at once by walking
     entity chunks (an indivisible E is padded with inert rows that are
-    sliced off)."""
+    sliced off), pipelined by ``ops.pipeline.chunk_map``."""
+    from cfk_tpu_torch.ops.pipeline import chunk_map
+
     e = neighbor_idx.shape[0]
     if solve_chunk is None or solve_chunk >= e:
         return _solve_chunk(fixed_factors, lam, neighbor_idx, rating, mask,
                             count, solver, reg_solve_algo)
-    (neighbor_idx, rating, mask, count), _ = pad_rows_to_multiple(
-        (neighbor_idx, rating, mask, count), solve_chunk)
-    out = [
-        _solve_chunk(fixed_factors, lam, neighbor_idx[lo:lo + solve_chunk],
-                     rating[lo:lo + solve_chunk], mask[lo:lo + solve_chunk],
-                     count[lo:lo + solve_chunk], solver, reg_solve_algo)
-        for lo in range(0, neighbor_idx.shape[0], solve_chunk)
-    ]
+    arrs, _ = pad_rows_to_multiple((neighbor_idx, rating, mask, count),
+                                   solve_chunk)
+    n = arrs[0].shape[0] // solve_chunk
+    out = chunk_map(
+        lambda ni, rt, mk, cnt: _solve_chunk(fixed_factors, lam, ni, rt, mk,
+                                             cnt, solver, reg_solve_algo),
+        tuple(a.reshape(n, solve_chunk, *a.shape[1:]) for a in arrs), n)
     return torch.cat(out)[:e]
 
 

@@ -149,7 +149,9 @@ def _warm_bucket_walk(k, x_prev, buckets, chunk_rows, local_entities,
     the output (plus the trash row) starts from ``x_prev``, every bucket's
     current rows and ``bucket_keys`` arrays go through ``sweep_piece`` (in
     ``chunk_rows`` pieces: the gathered rectangle is materialized, so the
-    builder's cell budget bounds it), and the result is scattered back.
+    blocks' cell budget bounds it), and the result is scattered back —
+    one pipelined walk over the pieces (``ops.solve.walk_buckets``; the
+    sweeps gather inside each piece, so the walk has no side stream).
     Entities in no bucket keep their previous value."""
     out = x_prev.new_zeros((local_entities + 1, k), dtype=torch.float32)
     n = min(x_prev.shape[0], local_entities)

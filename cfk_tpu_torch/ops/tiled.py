@@ -43,8 +43,13 @@ read by every kernel of both schedules as it is stored — bf16 rows, or int8
 codes whose per-row scale is folded into the mode's weight stream — with
 float32 sums; K5 writes a bf16 stream for a bf16 table, f32 for int8.
 
-The chunk scans are plain Python loops (``lax.scan``/``prefetch_scan`` on
-the TPU route).
+The chunk scans are ``ops.pipeline.prefetch_scan``s, as on the TPU route
+(``overlap``, on by default): with the gather off each chunk's K5 stream is
+the fetch, written on a side stream into one of two buffers while the
+previous chunk's Gram runs; with the gather inside the kernels the fetch is
+the chunk's slices.  ``overlap=False`` keeps the K5 fetch on the current
+stream: the serial schedule, the same calls in the same order on one
+stream, the same bits.
 """
 
 from __future__ import annotations
@@ -73,7 +78,9 @@ from cfk_tpu_torch.ops.kernels.gram_kernel import (
     gram_tiles_dense_gather_plain,
     gram_tiles_dense_plain,
     gram_tiles_plain,
+    stream_dtype,
 )
+from cfk_tpu_torch.ops.pipeline import fetch_stream, prefetch_scan
 from cfk_tpu_torch.ops.solve import (
     global_gram,
     implicit_reg as implicit_ridge,
@@ -192,7 +199,7 @@ def quantize_tiled_operand(fixed_factors, blk, chunks, table_dtype):
 def tiled_half_step(fixed_factors, blk, chunks, local_entities, lam, *,
                     solver="auto", implicit_reg=None, fused_epilogue=None,
                     in_kernel_gather=None, reg_solve_algo=None,
-                    table_dtype=None):
+                    table_dtype=None, overlap=None):
     """Mode dispatch: ``chunks`` is the static tuple ``("tiled", mode,
     *statics)`` and ``blk`` the device dict of ``models.als._tiled_to_device``.
     ``implicit_reg`` = the iALS [k,k] ridge YᵀY + λI (matrix mode; ``blk``
@@ -202,7 +209,8 @@ def tiled_half_step(fixed_factors, blk, chunks, local_entities, lam, *,
     materialized stream (False, ``resolve_gather_mode``);
     ``reg_solve_algo`` = the fused route's rank cap (``ops.solve.
     fused_rank_cap``); ``table_dtype`` = the gather table's dtype
-    (``quantize_tiled_operand``; the solved rows are float32)."""
+    (``quantize_tiled_operand``; the solved rows are float32); ``overlap``
+    = the pipelined chunk scan (None/True) or the serial one (False)."""
     half = {"accum": als_half_step_tiled_accum,
             "stream": als_half_step_tiled,
             "dstream": als_half_step_tiled_dense}.get(chunks[1])
@@ -214,12 +222,37 @@ def tiled_half_step(fixed_factors, blk, chunks, local_entities, lam, *,
                 statics=tuple(chunks[2:]), solver=solver,
                 implicit_reg=implicit_reg, fused_epilogue=fused_epilogue,
                 in_kernel_gather=in_kernel_gather,
-                reg_solve_algo=reg_solve_algo)
+                reg_solve_algo=reg_solve_algo, overlap=overlap)
+
+
+def _chunk_fetch(fixed_factors, operands, gather_fn, overlap):
+    """A chunk scan's fetch and the stream it runs on.  ``operands(c)`` is
+    chunk c's dict of views (``nb``, ``wt``, …).  Without ``gather_fn``
+    (the gather inside the kernels) the fetch is those views, on the
+    current stream.  With it (the materialized-stream schedule) the fetch
+    also runs K5 (``gather_fn``), writing the chunk's [C, k] stream into
+    buffer ``c % 2`` of a double buffer allocated here, on the current
+    stream, before the scan, and runs on a side stream
+    (``ops.pipeline.prefetch_scan``'s contract).  Returns ``(fetch,
+    stream)``; ``fetch(c) -> (g or None, operands)``."""
+    if gather_fn is None:
+        return (lambda c: (None, operands(c))), None
+    cap = operands(0)["nb"].shape[0]
+    bufs = [fixed_factors.new_empty((cap, fixed_factors.shape[-1]),
+                                    dtype=stream_dtype(fixed_factors))
+            for _ in range(2)]
+
+    def fetch(c):
+        args = operands(c)
+        return gather_fn(fixed_factors, args["nb"], args["wt"],
+                         out=bufs[c % 2]), args
+
+    return fetch, fetch_stream(fixed_factors.device, overlap)
 
 
 def _chunk_scan(fixed_factors, blk, local_entities, lam, nc, e_c, chunk,
                 mode, *, solver, implicit_reg, fused_epilogue,
-                in_kernel_gather, reg_solve_algo=None):
+                in_kernel_gather, reg_solve_algo=None, overlap=None):
     """The stream and dense-stream chunk scans: ``chunk(c)`` gives chunk
     c's operands (with its ridge counts ``reg``, carry-out row ``lseg``
     and carry flag ``cin``); per chunk the fused kernel returns (x, carry
@@ -228,30 +261,34 @@ def _chunk_scan(fixed_factors, blk, local_entities, lam, nc, e_c, chunk,
     trip through device memory, ``cfk_tpu/ops/tiled.py:640-652``) and the
     carry row is taken by index on the device, without a host sync.  On
     the materialized-stream schedule each chunk's (nb, wt) first become
-    its stream g = table[nb]·wt (K5), which the stream twins read
-    (``_SCAN_KERNELS``).  Finalized rows [NC, Ec, k] are scattered by
-    ``chunk_entity`` once, after the loop; non-finalized positions all
-    route to the trash row E (dropped)."""
+    its stream g = table[nb]·wt (K5, the scan's fetch), which the stream
+    twins read (``_SCAN_KERNELS``).  Finalized rows [NC, Ec, k] are
+    scattered by ``chunk_entity`` once, after the loop; non-finalized
+    positions all route to the trash row E (dropped)."""
     k = fixed_factors.shape[-1]
     fused = resolve_fused_chunk(fused_epilogue, k, reg_solve_algo)
     gather = resolve_gather_mode(in_kernel_gather)
     pick = 0 if use_kernels(solver, fixed_factors.device) else 1
     solve_gram, gram = (fns[pick] for fns in _SCAN_KERNELS[mode, gather])
-    gather_fn = (gather_rows, gather_rows_plain)[pick]
     reg_mode = "diag" if implicit_reg is None else "matrix"
     f32 = dict(dtype=torch.float32)
-    a0 = fixed_factors.new_zeros((k, k), **f32)
-    b0 = fixed_factors.new_zeros((k,), **f32)
     xs = fixed_factors.new_empty((nc, e_c, k), **f32)
-    for c in range(nc):
-        args = dict(chunk(c), units=chunk_plan(blk, c))
+    fetch, stream = _chunk_fetch(
+        fixed_factors, chunk,
+        (gather_rows, gather_rows_plain)[pick] if gather == "xla" else None,
+        overlap)
+
+    def compute(carry, buf, _x, c):
+        a0, b0 = carry
+        g, args = buf
+        args = dict(args, units=chunk_plan(blk, c))
         cin, lseg, reg = args.pop("cin"), args.pop("lseg"), args.pop("reg")
         if implicit_reg is not None:
             reg = implicit_reg
-        if gather == "xla":
-            rows = gather_fn(fixed_factors, args.pop("nb"), args.pop("wt"))
-        else:
-            rows = fixed_factors
+        rows = fixed_factors
+        if g is not None:
+            del args["nb"], args["wt"]
+            rows = g
         if fused:
             x, a0, b0 = solve_gram(rows, **args, reg=reg, lseg=lseg, lam=lam,
                                    reg_mode=reg_mode, carry=(a0, b0, cin))
@@ -268,6 +305,11 @@ def _chunk_scan(fixed_factors, blk, local_entities, lam, nc, e_c, chunk,
                 x = regularized_solve_matrix(a, b, reg, solver, fused=True,
                                              algo=reg_solve_algo)
         xs[c] = x[:e_c]
+        return (a0, b0), None
+
+    init = (fixed_factors.new_zeros((k, k), **f32),
+            fixed_factors.new_zeros((k,), **f32))
+    prefetch_scan(fetch, compute, nc, init, stream=stream)
     out = fixed_factors.new_zeros((local_entities + 1, k), **f32)
     out[blk["chunk_entity"].long()] = xs.view(nc * e_c, k)
     return out[:local_entities]
@@ -282,13 +324,14 @@ def accum_grams(
     statics: tuple[int, int, int, int, int],  # (NC, C, T, H, Ec)
     solver: str = "auto",
     in_kernel_gather: bool | None = None,
+    overlap: bool | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The accum side's summed normal equations (A [E, k, k], b [E, k]):
-    K2 per chunk (materialized stream: K5 then ``gram_tiles``), folded into
-    one accumulator by ``index_add_``.  The table indices are absolute, so
-    the stream is K5 over the whole table: the TPU route's per-slice
-    gather windows (``ops/tiled.py:1083-1140``) have no counterpart on
-    either schedule."""
+    K2 per chunk (materialized stream: K5, the scan's fetch, then
+    ``gram_tiles``), folded into one accumulator by ``index_add_``.  The
+    table indices are absolute, so the stream is K5 over the whole table:
+    the TPU route's per-slice gather windows (``ops/tiled.py:1083-1140``)
+    have no counterpart on either schedule."""
     nc, _cap, _t, _h, e_c = statics
     k = fixed_factors.shape[-1]
     kernels = use_kernels(solver, fixed_factors.device)
@@ -298,11 +341,17 @@ def accum_grams(
     acc_b = fixed_factors.new_zeros((local_entities + 1, k),
                                     dtype=torch.float32)
     ent = blk["chunk_entity"].long().view(nc, e_c)
-    for c in range(nc):
-        args = dict(accum_chunk(blk, statics, c), units=chunk_plan(blk, c))
-        if xla:
-            g = (gather_rows if kernels else gather_rows_plain)(
-                fixed_factors, args.pop("nb"), args.pop("wt"))
+
+    fetch, stream = _chunk_fetch(
+        fixed_factors, lambda c: accum_chunk(blk, statics, c),
+        (gather_rows if kernels else gather_rows_plain) if xla else None,
+        overlap)
+
+    def compute(carry, buf, _x, c):
+        g, args = buf
+        args = dict(args, units=chunk_plan(blk, c))
+        if g is not None:
+            del args["nb"], args["wt"]
             a, b = (gram_tiles if kernels else gram_tiles_plain)(g, **args)
         else:
             a, b = (gram_gather if kernels else gram_gather_plain)(
@@ -311,6 +360,9 @@ def accum_grams(
         # chunk_entity; the trash segment a[e_c] is dropped.
         acc_a.index_add_(0, ent[c], a[:e_c])
         acc_b.index_add_(0, ent[c], b[:e_c])
+        return carry, None
+
+    prefetch_scan(fetch, compute, nc, None, stream=stream)
     return acc_a[:local_entities], acc_b[:local_entities]
 
 
@@ -326,6 +378,7 @@ def als_half_step_tiled_accum(
     fused_epilogue: bool | None = None,
     in_kernel_gather: bool | None = None,
     reg_solve_algo: str | None = None,
+    overlap: bool | None = None,
 ) -> torch.Tensor:
     """Accumulator-mode half-iteration: K2 per chunk (or K5 + ``gram_tiles``
     with ``in_kernel_gather=False``), then one solve of the accumulator
@@ -333,7 +386,8 @@ def als_half_step_tiled_accum(
     split (or past ``reg_solve_algo``'s cap), the ridge added in place and
     the split solve dispatch (``cfk_tpu/ops/tiled.py:1250-1266``)."""
     a, b = accum_grams(fixed_factors, blk, local_entities, statics=statics,
-                       solver=solver, in_kernel_gather=in_kernel_gather)
+                       solver=solver, in_kernel_gather=in_kernel_gather,
+                       overlap=overlap)
     if implicit_reg is None:
         return regularized_solve(a, b, blk["count"], lam, solver,
                                  fused=fused_epilogue, algo=reg_solve_algo)
@@ -356,6 +410,7 @@ def als_half_step_tiled(
     fused_epilogue: bool | None = None,
     in_kernel_gather: bool | None = None,
     reg_solve_algo: str | None = None,
+    overlap: bool | None = None,
 ) -> torch.Tensor:
     """Stream-mode half-iteration (``cfk_tpu/ops/tiled.py:529``): per
     chunk K6 (fused) or K2 then K1 (split) — on the materialized stream
@@ -366,7 +421,7 @@ def als_half_step_tiled(
         lambda c: stream_chunk(blk, statics, c), "stream",
         solver=solver, implicit_reg=implicit_reg,
         fused_epilogue=fused_epilogue, in_kernel_gather=in_kernel_gather,
-        reg_solve_algo=reg_solve_algo)
+        reg_solve_algo=reg_solve_algo, overlap=overlap)
 
 
 def als_half_step_tiled_dense(
@@ -382,6 +437,7 @@ def als_half_step_tiled_dense(
     fused_epilogue: bool | None = None,
     in_kernel_gather: bool | None = None,
     reg_solve_algo: str | None = None,
+    overlap: bool | None = None,
 ) -> torch.Tensor:
     """Dense-stream half-iteration: K3 per chunk (fused), or
     ``gram_tiles_dense_gather`` then K1 (split), carry threaded across; on
@@ -407,7 +463,7 @@ def als_half_step_tiled_dense(
         fixed_factors, blk, local_entities, lam, nc, e_c, chunk, "dstream",
         solver=solver, implicit_reg=implicit_reg,
         fused_epilogue=fused_epilogue, in_kernel_gather=in_kernel_gather,
-        reg_solve_algo=reg_solve_algo)
+        reg_solve_algo=reg_solve_algo, overlap=overlap)
 
 
 def ials_tiled_weights(blk: dict, mode: str, alpha: float) -> dict:
@@ -441,7 +497,8 @@ def ials_tiled_weights(blk: dict, mode: str, alpha: float) -> dict:
 def ials_tiled_half_step(fixed_factors, blk, chunks, local_entities, lam,
                          alpha, *, gram=None, solver="auto",
                          fused_epilogue=None, in_kernel_gather=None,
-                         reg_solve_algo=None, table_dtype=None):
+                         reg_solve_algo=None, table_dtype=None,
+                         overlap=None):
     """Implicit-feedback (Hu et al. 2008) half-iteration on tiled blocks:
     per entity A = YᵀY + Σ_obs (c−1)·f fᵀ + λI, b = Σ_obs c·f, c = 1 + α·r,
     through the reparameterized weights of ``ials_tiled_weights`` and the
@@ -459,4 +516,4 @@ def ials_tiled_half_step(fixed_factors, blk, chunks, local_entities, lam,
                            fused_epilogue=fused_epilogue,
                            in_kernel_gather=in_kernel_gather,
                            reg_solve_algo=reg_solve_algo,
-                           table_dtype=table_dtype)
+                           table_dtype=table_dtype, overlap=overlap)

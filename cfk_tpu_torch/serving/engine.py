@@ -39,6 +39,7 @@ from cfk_tpu_torch.serving.topk_kernel import (
     build_seen_tiles,
     topk_scores,
 )
+from cfk_tpu_torch.telemetry import dump_flight, record_event, span
 
 # The smallest pow2 batch bucket, the k-means seed of the two-stage index,
 # and the share of in-place-updated index rows past which two-stage degrades
@@ -319,19 +320,21 @@ class ServeEngine:
         if not 1 <= k <= self.num_movies:
             raise ValueError(f"k must be in [1, {self.num_movies}], got {k}")
         b = _pow2_ceil(n, _BATCH_QUANTUM)
-        with self._lock:
-            table, scale = self._table
-            cluster = self._cluster
-            u = np.zeros((b, self._u_base.shape[1]), np.float32)
-            u[:n] = self._gather_users(user_rows)
-            seen = self._batch_seen(user_rows) if exclude_seen else None
-        seen_pad = None
-        if seen is not None:
-            movies, indptr = seen
-            # padding slots carry EMPTY seen lists, so they do not widen W
-            seen_pad = (movies, np.concatenate(
-                [indptr, np.full(b - n, indptr[-1], np.int64)]))
-        u_dev = self._to_device(u)
+        with span("serve/batch/assemble", n=n, b=b):
+            with self._lock:
+                table, scale = self._table
+                cluster = self._cluster
+                u = np.zeros((b, self._u_base.shape[1]), np.float32)
+                u[:n] = self._gather_users(user_rows)
+                seen = self._batch_seen(user_rows) if exclude_seen else None
+            seen_pad = None
+            if seen is not None:
+                movies, indptr = seen
+                # padding slots carry EMPTY seen lists, so they do not
+                # widen W
+                seen_pad = (movies, np.concatenate(
+                    [indptr, np.full(b - n, indptr[-1], np.int64)]))
+            u_dev = self._to_device(u)
         if (self.serve_mode == "two_stage" and not force_exact
                 and not self._two_stage_disabled):
             out = self._topk_two_stage(cluster, u_dev, n, b, k, seen_pad)
@@ -345,12 +348,13 @@ class ServeEngine:
                 num_movies=self.num_movies, tile_m=self.tile_m,
                 num_tiles=self.table_rows // self.tile_m,
             ))
-        vals, ids = topk_scores(u_dev, table, scale, seen_tiles, k_top=k,
-                                num_movies=self.num_movies,
-                                tile_m=self.tile_m)
-        _SHAPES.add(("exact", b, table.shape[0],
-                     0 if seen_tiles is None else seen_tiles.shape[2], k))
-        vals, ids = vals[:n].cpu().numpy(), ids[:n].cpu().numpy()
+        with span("serve/batch/compute", n=n, b=b, k=k):
+            vals, ids = topk_scores(u_dev, table, scale, seen_tiles, k_top=k,
+                                    num_movies=self.num_movies,
+                                    tile_m=self.tile_m)
+            _SHAPES.add(("exact", b, table.shape[0],
+                         0 if seen_tiles is None else seen_tiles.shape[2], k))
+            vals, ids = vals[:n].cpu().numpy(), ids[:n].cpu().numpy()
         self._record_scan(mode="exact", b=b, k=k)
         return vals, ids
 
@@ -379,34 +383,45 @@ class ServeEngine:
                 f"{_MAX_STALE_FRACTION} bound (awaiting table swap)")
             return None
         probe = min(max(self.probe_clusters, 1), index.num_clusters)
-        cvals, cids = coarse(u_dev, qc, qcs, probe=probe)
-        if not bool(torch.isfinite(cvals[:n]).all()):
-            self._two_stage_fault("non-finite coarse scores")
-            return None
-        # the union over the REAL rows only: padding rows would vote junk
-        shortlist = build_shortlist(index, cids[:n].cpu().numpy().ravel(),
-                                    tile_m=self.tile_m, min_rows=k)
-        seen_tiles = None
-        if seen_pad is not None:
-            seen_tiles = self._to_device(shortlist_seen_tiles(
-                index, shortlist, seen_pad[0], seen_pad[1], b,
-                tile_m=self.tile_m))
-        indices = self._to_device(shortlist.indices.astype(np.int64))
-        vals, ids = rescore(u_dev, indices, ctable, cscale, seen_tiles,
-                            shortlist.offset, k_top=k, tile_m=self.tile_m)
-        _SHAPES.add(("two_stage", b, shortlist.rows_padded,
-                     0 if seen_tiles is None else seen_tiles.shape[2], k))
-        vals = vals[:n].cpu().numpy()
-        ids = map_shortlist_ids(ids[:n].cpu().numpy(), shortlist)
+        with span("serve/candidate", n=n, b=b, probe=probe):
+            cvals, cids = coarse(u_dev, qc, qcs, probe=probe)
+            if not bool(torch.isfinite(cvals[:n]).all()):
+                self._two_stage_fault("non-finite coarse scores")
+                return None
+            # the union over the REAL rows only: padding rows would vote
+            # junk
+            shortlist = build_shortlist(index,
+                                        cids[:n].cpu().numpy().ravel(),
+                                        tile_m=self.tile_m, min_rows=k)
+            seen_tiles = None
+            if seen_pad is not None:
+                seen_tiles = self._to_device(shortlist_seen_tiles(
+                    index, shortlist, seen_pad[0], seen_pad[1], b,
+                    tile_m=self.tile_m))
+        with span("serve/rescore", n=n, b=b, k=k, rows=shortlist.rows,
+                  rows_padded=shortlist.rows_padded):
+            indices = self._to_device(shortlist.indices.astype(np.int64))
+            vals, ids = rescore(u_dev, indices, ctable, cscale, seen_tiles,
+                                shortlist.offset, k_top=k,
+                                tile_m=self.tile_m)
+            _SHAPES.add(("two_stage", b, shortlist.rows_padded,
+                         0 if seen_tiles is None else seen_tiles.shape[2],
+                         k))
+            vals = vals[:n].cpu().numpy()
+            ids = map_shortlist_ids(ids[:n].cpu().numpy(), shortlist)
         self._record_scan(mode="two_stage", b=b, k=k, shortlist=shortlist,
                           probe=probe, index=index)
         return vals, ids
 
     def _two_stage_fault(self, reason: str) -> None:
-        """Degrade to the exact scan until the next table swap."""
+        """Degrade to the exact scan until the next table swap; the fault is
+        recorded (flight-recorder event and dump, the fallback counter)."""
         self._two_stage_disabled = True
         self.two_stage_fallbacks += 1
         self.last_fault = reason
+        record_event("serve", "two_stage_fault", reason=reason,
+                     fallbacks=self.two_stage_fallbacks)
+        dump_flight(f"two_stage_fallback: {reason}")
         if self.metrics is not None:
             self.metrics.incr("serve/two_stage_fallbacks")
 
@@ -453,6 +468,10 @@ class ServeEngine:
         users), so the kernels are built and the device warm before real
         traffic; flips ``ready``.  Returns ``{"programs", "new_traces",
         "prewarm_s"}`` (new_traces: launch shapes not served before)."""
+        with span("serve/prewarm", k=k, max_batch=max_batch):
+            return self._prewarm(k, max_batch, user_rows, exclude_seen)
+
+    def _prewarm(self, k, max_batch, user_rows, exclude_seen) -> dict:
         t0 = time.time()
         top = _pow2_ceil(max(max_batch or _BATCH_QUANTUM, 1), _BATCH_QUANTUM)
         rows = (np.arange(min(top, self.num_users), dtype=np.int64)

@@ -19,6 +19,7 @@ import time
 import numpy as np
 
 from cfk_tpu_torch.serving.topk_kernel import _pow2_ceil
+from cfk_tpu_torch.telemetry import record_event, span
 from cfk_tpu_torch.telemetry.metrics import Metrics
 from cfk_tpu_torch.transport.serdes import (
     ScoreRequest,
@@ -64,7 +65,7 @@ class RecommendServer:
                  requests_topic: str = REQUESTS_TOPIC,
                  responses_topic: str = RESPONSES_TOPIC,
                  max_batch: int = 256, poll_wait_s: float = 0.002,
-                 metrics=None) -> None:
+                 metrics=None, metrics_port: int | None = None) -> None:
         self.engine = engine
         self.transport = transport
         self.requests_topic = requests_topic
@@ -77,10 +78,27 @@ class RecommendServer:
         self.requests_served = 0
         self.batches = 0
         self.malformed_requests = 0
+        # Live export: with a port, GET /metrics answers the Prometheus text
+        # of ``self.metrics`` while batches are in flight (0 binds an
+        # ephemeral port: read it back from ``metrics_server.port``);
+        # /readyz reports the engine's readiness.  ``close()`` stops it.
+        self.metrics_server = None
+        if metrics_port is not None:
+            from cfk_tpu_torch.telemetry import MetricsHTTPServer
+
+            self.metrics_server = MetricsHTTPServer(
+                self.metrics, port=int(metrics_port),
+                ready_fn=lambda: self.ready).start()
 
     @property
     def ready(self) -> bool:
         return bool(getattr(self.engine, "ready", True))
+
+    def close(self) -> None:
+        """Stop the /metrics endpoint, if one runs."""
+        if self.metrics_server is not None:
+            self.metrics_server.stop()
+            self.metrics_server = None
 
     def _poll_requests(self) -> list[ScoreRequest]:
         """Everything pending, up to ``max_batch``, in (partition, offset)
@@ -119,19 +137,24 @@ class RecommendServer:
             return 0
         t_batch = time.perf_counter()
         epoch = int(getattr(self.engine, "epoch", 0))
-        with self.metrics.phase("serve_batch"):
-            valid: list[ScoreRequest] = []
-            errors: list[ScoreRequest] = []
-            for r in reqs:
-                ok = (0 <= r.user < self.engine.num_users
-                      and 1 <= r.k <= self.engine.num_movies)
-                (valid if ok else errors).append(r)
+        # No admission queue (the fleet's) in the port yet: nothing is shed.
+        with self.metrics.phase("serve_batch"), \
+                span("serve/batch", requests=len(reqs), shed=0):
+            with span("serve/batch/validate", requests=len(reqs)):
+                valid: list[ScoreRequest] = []
+                errors: list[ScoreRequest] = []
+                for r in reqs:
+                    ok = (0 <= r.user < self.engine.num_users
+                          and 1 <= r.k <= self.engine.num_movies)
+                    (valid if ok else errors).append(r)
             responses: list[tuple[int, ScoreResponse]] = []
             if valid:
                 k_pad = min(_pow2_ceil(max(r.k for r in valid),
                                        min(8, self.engine.num_movies)),
                             self.engine.num_movies)
                 rows = np.asarray([r.user for r in valid], np.int64)
+                # engine.topk opens the serve/batch/assemble and compute
+                # spans: the kernel side of this batch's timeline
                 scores, ids = self.engine.topk(rows, k_pad)
                 for i, r in enumerate(valid):
                     responses.append((r.reply_partition, ScoreResponse(
@@ -145,10 +168,12 @@ class RecommendServer:
                            f"[0, {self.engine.num_users}) or k {r.k} "
                            f"outside [1, {self.engine.num_movies}]"),
                     epoch=epoch)))
-            for part, resp in responses:
-                self.transport.produce(
-                    self.responses_topic, key=int(resp.req_id % (1 << 31)),
-                    value=encode_score_response(resp), partition=part)
+            with span("serve/batch/respond", responses=len(responses)):
+                for part, resp in responses:
+                    self.transport.produce(
+                        self.responses_topic,
+                        key=int(resp.req_id % (1 << 31)),
+                        value=encode_score_response(resp), partition=part)
         self.requests_served += len(reqs)
         self.batches += 1
         self.metrics.incr("serve_requests", len(reqs))
@@ -156,6 +181,7 @@ class RecommendServer:
         self.metrics.observe("serve_batch_ms",
                              (time.perf_counter() - t_batch) * 1e3)
         self.metrics.observe("serve_batch_size", len(reqs))
+        record_event("serve", "batch", requests=len(reqs), batch=self.batches)
         return len(reqs)
 
     def serve_forever(self, *, max_requests: int | None = None,

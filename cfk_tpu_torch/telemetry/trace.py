@@ -1,0 +1,325 @@
+"""Hierarchical span tracing: a low-overhead, thread-aware host tracer.
+
+The port's copy of ``cfk_tpu/telemetry/trace.py`` (pure Python, no JAX).
+Accumulated phase seconds (``Metrics.phase``) answer "how long"; a timeline
+answers questions of SHAPE — where a serve batch's latency goes between
+assembly, kernel and respond, or how long one fused training loop held the
+host.  Spans are kept per thread and exported as Chrome-trace/Perfetto JSON
+(``--trace-dir``), written next to the ``maybe_profile`` torch.profiler
+trace (``--profile-dir``) so the host and device timelines can be read side
+by side.
+
+Design constraints:
+
+- **Off is near-free and bit-identical.**  No tracer installed ⇒
+  ``span()`` returns a module-level null context manager: one global read
+  and one function call, no allocation.  Tracing never touches device
+  values, so on/off factors are bit-identical by construction.
+- **Thread-aware.**  Every event records its OS thread.
+- **Async edges.**  ``begin()``/``end()`` return/consume an explicit
+  token for spans whose begin and end live on different code paths (or
+  different threads); they bypass the per-thread nesting stack.
+
+Span naming: callers pass the FULL taxonomy path (``train/fused_loop``,
+``serve/batch/compute``) — explicit at the call site, zero path-joining
+overhead in the hot path; the names are the reference's.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+
+# Hard cap on buffered events: a runaway loop must degrade to dropped
+# events (counted), never to unbounded memory.
+MAX_EVENTS = 1_000_000
+
+
+class _NullSpan:
+    """The telemetry-off fast path: a reusable no-op context manager."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class SpanToken:
+    """An open span's identity for the explicit begin/end (async) API."""
+
+    __slots__ = ("name", "attrs", "t0_us", "tid", "closed")
+
+    def __init__(self, name: str, attrs: dict, t0_us: int, tid: int) -> None:
+        self.name = name
+        self.attrs = attrs
+        self.t0_us = t0_us
+        self.tid = tid
+        self.closed = False
+
+
+class _SpanCM:
+    """One with-block span; allocated per use (only when tracing is ON)."""
+
+    __slots__ = ("_tracer", "_name", "_attrs", "_t0")
+
+    def __init__(self, tracer: "Tracer", name: str, attrs: dict) -> None:
+        self._tracer = tracer
+        self._name = name
+        self._attrs = attrs
+
+    def __enter__(self) -> "_SpanCM":
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        t1 = time.perf_counter_ns()
+        if exc_type is not None:
+            # annotate, never swallow — a span that died mid-fault is
+            # exactly the event a flight-recorder reader wants labelled
+            self._attrs = dict(self._attrs, error=exc_type.__name__)
+        # ts and dur both derive from the μs-truncated endpoints (not
+        # dur = (t1-t0)//1000): truncating the difference independently
+        # can make a child span's end exceed its parent's by 1μs, which
+        # would read as a malformed tree.
+        ts = self._t0 // 1000
+        self._tracer._emit(
+            self._name, ts, t1 // 1000 - ts,
+            threading.get_ident(), self._attrs,
+        )
+        return False
+
+
+class Tracer:
+    """Collect host spans; export Chrome-trace JSON.
+
+    Events are appended to one shared list under a small lock (append is
+    tens of nanoseconds; span granularity here is per-iteration /
+    per-window / per-batch, so contention is negligible against the ≤2%
+    budget).  Nesting needs no bookkeeping: with-block spans close in
+    LIFO order per thread and ts/dur derive from shared µs-truncated
+    endpoints, so the exported tree's well-formedness is checkable from
+    the events alone (``validate_span_tree``)."""
+
+    def __init__(self, trace_dir: str | None = None) -> None:
+        self.trace_dir = trace_dir
+        self._events: list[dict] = []
+        self._lock = threading.Lock()
+        self._thread_names: dict[int, str] = {}
+        self.dropped = 0
+        self.begin_count = 0
+        self.end_count = 0
+
+    # -- recording -----------------------------------------------------------
+
+    def _append(self, event: dict) -> None:
+        """One locked append with the cap + thread-name bookkeeping —
+        shared by complete spans and instant markers so the drop
+        accounting can never diverge between them."""
+        with self._lock:
+            if len(self._events) >= MAX_EVENTS:
+                self.dropped += 1
+                return
+            tid = event["tid"]
+            if tid not in self._thread_names:
+                self._thread_names[tid] = threading.current_thread().name
+            self._events.append(event)
+
+    def _emit(self, name: str, ts_us: int, dur_us: int, tid: int,
+              attrs: dict) -> None:
+        self._append({
+            "name": name, "ph": "X", "ts": ts_us, "dur": dur_us,
+            "pid": os.getpid(), "tid": tid, "args": attrs,
+        })
+
+    def span(self, name: str, **attrs) -> _SpanCM:
+        return _SpanCM(self, name, attrs)
+
+    def begin(self, name: str, **attrs) -> SpanToken:
+        """Open an async-edge span (end may happen on another thread)."""
+        tid = threading.get_ident()
+        with self._lock:
+            self.begin_count += 1
+            # Register the BEGIN thread's name now: end() may run on a
+            # different thread, and the event lands on this tid's row —
+            # deferring the mapping would mislabel it with the closer's
+            # name if no other span emits from this thread first.
+            if tid not in self._thread_names:
+                self._thread_names[tid] = threading.current_thread().name
+        return SpanToken(name, attrs, time.perf_counter_ns() // 1000, tid)
+
+    def end(self, token: SpanToken, **extra) -> None:
+        """Close an async-edge span; extra attrs merge over begin's.
+        Idempotent, including against concurrent double-ends (the
+        check-and-set happens under the tracer lock)."""
+        with self._lock:
+            if token.closed:
+                return
+            token.closed = True
+            self.end_count += 1
+        t1 = time.perf_counter_ns() // 1000
+        attrs = dict(token.attrs, **extra) if extra else token.attrs
+        # attributed to the BEGINNING thread's row (the async span's
+        # home); the closing thread is recorded for forensics
+        if threading.get_ident() != token.tid:
+            attrs = dict(attrs, end_thread=threading.current_thread().name)
+        self._emit(token.name, token.t0_us, max(t1 - token.t0_us, 0),
+                   token.tid, attrs)
+
+    def instant(self, name: str, **attrs) -> None:
+        """A zero-duration marker event."""
+        self._append({
+            "name": name, "ph": "i", "s": "t",
+            "ts": time.perf_counter_ns() // 1000,
+            "pid": os.getpid(), "tid": threading.get_ident(),
+            "args": attrs,
+        })
+
+    # -- export --------------------------------------------------------------
+
+    def events(self) -> list[dict]:
+        with self._lock:
+            return list(self._events)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._events.clear()
+            self.dropped = 0
+
+    def chrome_trace(self) -> dict:
+        """The Chrome-trace JSON object (Perfetto / chrome://tracing)."""
+        events = self.events()
+        with self._lock:
+            names = dict(self._thread_names)
+        meta = [
+            {
+                "name": "thread_name", "ph": "M", "pid": os.getpid(),
+                "tid": tid, "args": {"name": tname},
+            }
+            for tid, tname in sorted(names.items())
+        ]
+        return {"traceEvents": meta + events, "displayTimeUnit": "ms"}
+
+    def write(self, path: str | None = None) -> str | None:
+        """Atomically write the Chrome trace; returns the path (None when
+        no directory is configured and no path given)."""
+        if path is None:
+            if self.trace_dir is None:
+                return None
+            os.makedirs(self.trace_dir, exist_ok=True)
+            path = os.path.join(
+                self.trace_dir, f"cfk_host_trace_{os.getpid()}.json"
+            )
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(self.chrome_trace(), f)
+        os.replace(tmp, path)
+        return path
+
+
+# -- module-level singleton + fast-path API ----------------------------------
+
+_TRACER: Tracer | None = None
+
+
+def configure(trace_dir: str | None = None) -> Tracer:
+    """Install (and return) the process tracer.  Until this is called,
+    every ``span()`` is the null fast path."""
+    global _TRACER
+    _TRACER = Tracer(trace_dir=trace_dir)
+    return _TRACER
+
+
+def get_tracer() -> Tracer | None:
+    return _TRACER
+
+
+def shutdown(write: bool = True) -> str | None:
+    """Uninstall the tracer; optionally write its trace first."""
+    global _TRACER
+    t = _TRACER
+    _TRACER = None
+    if t is not None and write:
+        return t.write()
+    return None
+
+
+def span(name: str, **attrs):
+    """A span context manager — the null singleton when tracing is off."""
+    t = _TRACER
+    if t is None:
+        return _NULL_SPAN
+    return t.span(name, **attrs)
+
+
+def begin_span(name: str, **attrs) -> SpanToken | None:
+    t = _TRACER
+    if t is None:
+        return None
+    return t.begin(name, **attrs)
+
+
+def end_span(token: SpanToken | None, **extra) -> None:
+    t = _TRACER
+    if t is not None and token is not None:
+        t.end(token, **extra)
+
+
+def instant(name: str, **attrs) -> None:
+    t = _TRACER
+    if t is not None:
+        t.instant(name, **attrs)
+
+
+# -- analysis helpers --------------------------------------------------------
+
+def validate_span_tree(events: list[dict]) -> dict[int, int]:
+    """Check the exported complete-span events form a well-formed tree per
+    thread: within one tid, spans either nest or are disjoint (the
+    property the per-thread enter/exit stack guarantees — a torn pair
+    shows up here as an overlap that is not containment).  Returns
+    {tid: span_count}; raises ValueError naming the first violation."""
+    by_tid: dict[int, list[dict]] = {}
+    for e in events:
+        if e.get("ph") == "X":
+            by_tid.setdefault(e["tid"], []).append(e)
+    counts: dict[int, int] = {}
+    for tid, evs in by_tid.items():
+        counts[tid] = len(evs)
+        evs = sorted(evs, key=lambda e: (e["ts"], -e["dur"]))
+        stack: list[tuple[int, int, str]] = []  # (start, end, name)
+        for e in evs:
+            s, d = e["ts"], e["ts"] + e["dur"]
+            while stack and s >= stack[-1][1]:
+                stack.pop()
+            if stack and d > stack[-1][1]:
+                raise ValueError(
+                    f"tid {tid}: span {e['name']!r} [{s}, {d}] overlaps "
+                    f"but does not nest inside {stack[-1][2]!r} "
+                    f"[{stack[-1][0]}, {stack[-1][1]}]"
+                )
+            stack.append((s, d, e["name"]))
+    return counts
+
+
+def stage_overlap_from_events(events: list[dict]) -> float | None:
+    """The share of staging work hidden behind compute, from trace spans
+    alone: 1 − (consumer wait)/(worker busy), where busy is the summed
+    duration of ``window_stage`` spans and wait the summed duration of
+    ``window_wait`` spans (the reference's out-of-core staging engine emits
+    them; the port's out-of-core tier will).  Returns None when no staging
+    spans are present."""
+    busy = sum(e["dur"] for e in events
+               if e.get("ph") == "X" and e["name"].endswith("window_stage"))
+    stall = sum(e["dur"] for e in events
+                if e.get("ph") == "X" and e["name"].endswith("window_wait"))
+    if busy <= 0:
+        return None
+    return max(0.0, 1.0 - stall / busy)

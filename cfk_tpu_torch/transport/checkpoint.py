@@ -28,6 +28,8 @@ import zlib
 import numpy as np
 import torch
 
+from cfk_tpu_torch.telemetry.recorder import dump_flight, record_event
+
 _MANIFEST = "manifest.json"
 _STEP_PREFIX = "step_"
 _PAYLOADS = ("user.npy", "movie.npy")
@@ -124,6 +126,10 @@ class CheckpointManager:
                 shutil.rmtree(final)
             os.rename(tmp, final)
             _fsync(self.directory)
+            # Flight-record the commit after the rename: the event means
+            # "this step is durably on disk".
+            record_event("checkpoint", "checkpoint_committed",
+                         iteration=iteration)
             return final
         except BaseException:
             shutil.rmtree(tmp, ignore_errors=True)
@@ -181,6 +187,10 @@ class CheckpointManager:
                 self.verify(it)
             except CheckpointCorruptError as e:
                 warnings.warn(f"skipping corrupt checkpoint: {e}")
+                # Falling back past a corrupt step leaves a forensic trail.
+                record_event("checkpoint", "corrupt_checkpoint_skipped",
+                             iteration=it, error=str(e))
+                dump_flight("corrupt_checkpoint")
                 continue
             return it
         return None

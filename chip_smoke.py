@@ -152,6 +152,34 @@ Phases, each of which must pass:
              ``bound_ms_bf16``/``bound_ms_int8``); and the first movie and
              user halves with the gather off against on from u0 at each
              table dtype (bit-equal);
+4g. pipeline — the chunk pipeline (``ALSConfig.overlap``) on the main
+             phase's dataset, rank 64, 3 iterations from the seeded init:
+             the fused, split, gather-off fused and gather-off split
+             schedules, each trained with overlap on and ``capture=True``
+             (iteration 1 eager, iterations 2-3 replays of one captured
+             iteration; with the gather off K5 writes each chunk's stream
+             on a side stream) and off (the serial loop), every launch
+             counter zeroed before each run: the factors bit-equal
+             (``torch.equal``); the counters of the captured run (its
+             eager iteration 1) plus two replays of the launches its
+             capture recorded equal to the serial run's counters, and the
+             graph holding one kernel node of each recorded launch's
+             kernel (``ops.pipeline.replay_launches``, read from the
+             libcuda); the route each configuration takes by default
+             (``pipeline_route``: prefetched, since capture is opt-in);
+             s/iter on and off, the capture and instantiation seconds and
+             the graph's pool; then one eager iteration (off) and one replay
+             of a captured iteration (on) profiled (``device_timeline``:
+             CUDA activity alone; the union of kernel intervals a call,
+             the idle share, whether CUPTI reports the kernels inside the
+             replay, the graph's node count, and with the gather off the
+             ms K5 ran while the Gram kernels ran).  The segment (4e,
+             2 iterations; on and off held to "segment_first_half": the
+             float atomics of its ``index_add_`` Grams reorder its sums
+             from run to run, shown by the first movie half run twice) and
+             rank-256 (4d, 2 iterations, bit-equal) cases run in their
+             phases, the pipeline phase's report holds them, and those
+             phases read their launch counts from the serial run;
 5. serve   — top-K serving at the repo's serving configuration (``bench.py
              --serve``: 162,541 users x 59,047 movies, the ML-25M shape,
              rank 128, K = 100, tile_m 2048, seen lists at the ML-25M mean;
@@ -255,6 +283,9 @@ Phases, each of which must pass:
              held to ``first_half_reference`` (float64) on the five widest
              and five random movies at TOL "first_half_factors"; s/iter,
              device time and idle share, chunks, Ec, peak memory, build s;
+6g. pipeline_ml25m — as 4g on the implicit phase's datasets from its u0:
+             iALS (a) tiled, (b) bucketed, (c) iALS++ bucketed (b = 32),
+             (e) the stream mode, 3 iterations each, on and off;
 7. small   — ``train_als`` on small padded, tiled (dense stream, and the
              stream mode fused and split) and bucketed datasets (ALS and
              ALS++) and ``train_ials`` on small tiled and bucketed ones (iALS
@@ -269,7 +300,9 @@ Phases, each of which must pass:
              segment`` on the card and the CPU (MSEs within 1e-3 of each
              other); ``train --dataset-cache DIR`` twice on the card (the
              second run hits the cache and checkpoints bit-equal factors);
-             then
+             ``train --profile-dir D --trace-dir D --metrics-jsonl F`` on
+             the card (the Chrome traces parse, ``validate_span_tree``
+             accepts the host trace, the JSONL lines parse); then
              ``train --implicit --algorithm ials++ --eval-ranking 10`` on a
              small planted MovieLens-format file, whose Recall@10 and MPR on
              the card must equal the CPU run's.
@@ -449,6 +482,15 @@ SEGMENT = dict(chunk_elems=1 << 20, iterations=2, profile_chunks=1024)
 QUANT = dict(iterations=2, rmse_ratio={"table_bfloat16": 1.01,
                                        "table_int8": 1.10,
                                        "dtype_bfloat16": 1.01})
+# The pipeline phases: each run with overlap on and every route captured
+# (``capture=True``: iteration 1 eager, the rest replays of one captured
+# iteration) and off (the serial loop) from the
+# same start, 3 iterations at the Netflix and ML-25M shapes; the segment
+# and rank-256 cases (2 iterations) ride in their own phases.  The segment
+# layout sums its Grams with index_add_'s float atomics, so its on and off
+# runs are held to each other at its first-half tolerance instead of bit
+# for bit.
+PIPELINE = dict(iterations=3)
 # bench.py's implicit rows (bench.py:448-503): the ML-25M shape at rank 128.
 ML25M = dict(num_users=162_541, num_movies=59_047, nnz=25_000_095)
 IMPLICIT = dict(rank=128, lam=0.1, alpha=40.0, iterations=3,
@@ -989,6 +1031,103 @@ def profile_calls(fn, n: int, *, cpu: bool = True,
                     idle_share=1 - busy / wall_ms, top=rows[:8])
     except Exception:  # measurement only: keep the smoke's verdict
         return {"error": traceback.format_exc()[-400:]}
+
+
+def _merged(intervals):
+    """The union of [start, end) intervals as sorted disjoint intervals."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _overlap(intervals, merged) -> float:
+    """Summed overlap of ``intervals`` with the disjoint ``merged`` ones."""
+    total = 0.0
+    for a, b in intervals:
+        for c, d in merged:
+            if c >= b:
+                break
+            total += max(0.0, min(b, d) - max(a, c))
+    return total
+
+
+def device_timeline(fn, n: int = 1) -> dict:
+    """Where ``n`` calls of ``fn`` spend the card's time (measurement only),
+    from torch.profiler's CUDA activity alone (CUPTI; no host events, so the
+    profiler adds no host work to an eager route's launches): the wall ms a
+    call (host clock, ending in a sync), ``device_ms`` a call (the union of
+    the kernel, memcpy and memset intervals: two streams' overlap counted
+    once), the idle share, the kernels counted (for a replay: whether
+    CUPTI reports the kernels inside a CUDA graph), the streams seen, the
+    top kernels by time, and the ms K5 (``gather_rows``) ran while another
+    stream's kernels ran.  ``{"error": ...}`` if the profiler
+    cannot trace the card."""
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / n
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in (
+            "kernel", "gpu_memcpy", "gpu_memset")]
+        spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                 for e in dev]
+        busy = sum(b - a for a, b in _merged(spans)) / 1e3 / n
+        by_name: dict = {}
+        for e in dev:
+            key = e["name"][:60]
+            by_name[key] = by_name.get(key, 0.0) + float(e["dur"]) / 1e3 / n
+        k5 = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e.get(
+            "args", {}).get("stream")) for e in dev
+            if "gather_rows" in e["name"]]
+        k5_overlap = 0.0
+        for stream in {s for _, _, s in k5}:
+            others = _merged([sp for sp, e in zip(spans, dev)
+                              if e.get("args", {}).get("stream") != stream])
+            k5_overlap += _overlap([(a, b) for a, b, s in k5 if s == stream],
+                                   others)
+        return dict(
+            wall_ms=wall_ms, device_ms=busy, idle_share=1 - busy / wall_ms,
+            kernels=sum(e.get("cat") == "kernel" for e in dev) / n,
+            streams=sorted({str(e.get("args", {}).get("stream"))
+                            for e in dev}),
+            k5_ms=sum(b - a for a, b, _ in k5) / 1e3 / n,
+            k5_overlap_ms=k5_overlap / 1e3 / n,
+            top=sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
+    except Exception:  # measurement only: keep the smoke's verdict
+        return {"error": traceback.format_exc()[-400:]}
+
+
+def graph_nodes(graph) -> int | None:
+    """The node count of a captured graph (libcuda's ``cuGraphGetNodes``
+    on ``raw_cuda_graph()``), None where it cannot be read."""
+    import ctypes
+
+    try:
+        lib = ctypes.CDLL("libcuda.so.1")
+        n = ctypes.c_size_t(0)
+        rc = lib.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()),
+                                 None, ctypes.byref(n))
+        return int(n.value) if rc == 0 else None
+    except (OSError, AttributeError, RuntimeError):
+        return None
 
 
 def dense_route(args, kw):
@@ -2096,15 +2235,29 @@ class Smoke:
             config = ALSConfig(rank=k, lam=LAM, num_iterations=iters,
                                seed=0, layout="tiled",
                                in_kernel_gather=gather)
-            torch.cuda.reset_peak_memory_stats()
-            for fn in grams + refused:
-                fn.launches = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            run = train_als(ds, config, device=dev)
-            torch.cuda.synchronize()
-            train_s = time.perf_counter() - t0
-            n = {fn.__name__: fn.launches for fn in grams + refused}
+            if name == "gather_on":
+                # The path with overlap on (captured: cholesky_ex and the
+                # cuBLAS triangular solves included) and off, bit-equal;
+                # the counts are the serial run's, every launch through its
+                # wrapper (its default route makes the same calls).
+                run = self.pipeline_case("rank256", ds, config, None,
+                                         implicit=False,
+                                         timeline=False)[False]
+                off = self.report["pipeline"]["rank256"]["off"]
+                train_s, peak = off["train_s"], off["peak_device_bytes"]
+                n = {fn.__name__: off["launches"].get(fn.__name__, 0)
+                     for fn in grams + refused}
+            else:
+                torch.cuda.reset_peak_memory_stats()
+                for fn in grams + refused:
+                    fn.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run = train_als(ds, config, device=dev)
+                torch.cuda.synchronize()
+                train_s = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated()
+                n = {fn.__name__: fn.launches for fn in grams + refused}
             launches[name] = n
             for kname in n:
                 want_some = kname in needed
@@ -2130,7 +2283,7 @@ class Smoke:
                 iterations=iters, train_s=train_s, s_per_iter=train_s / iters,
                 train_mse=mse, train_rmse=rmse, rating_std=std, launches=n,
                 launches_per_iter={key: v / iters for key, v in n.items()},
-                peak_device_bytes=torch.cuda.max_memory_allocated())
+                peak_device_bytes=peak)
             log(f"rank256 {name}: {report[name]}")
             del run, u, m
         torch.cuda.empty_cache()
@@ -2291,16 +2444,18 @@ class Smoke:
         dev = torch.device("cuda")
         cfg = ALSConfig(rank=RANK, lam=LAM, num_iterations=c["iterations"],
                         seed=0, layout="segment")
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        reg_solve.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        smodel = train_als(sds, cfg, device=dev)
-        torch.cuda.synchronize()
-        train_s = time.perf_counter() - t0
-        launches = reg_solve.launches
-        peak = torch.cuda.max_memory_allocated()
+        # The path with overlap on (captured) and off (the pipeline case):
+        # index_add_'s float atomics reorder the sums from run to run, so
+        # the two are held to each other at the segment tolerance.  The
+        # counts are the serial run's, whose every launch goes through its
+        # wrapper (the segment layout is not captured by default, and its
+        # default route makes the serial run's calls).
+        smodel = self.pipeline_case(
+            "segment", sds, cfg, None, implicit=False,
+            tol=TOL["segment_first_half"], timeline=False)[False]
+        run = self.report["pipeline"]["segment"]["off"]
+        train_s, peak = run["train_s"], run["peak_device_bytes"]
+        launches = run["launches"].get("reg_solve", 0)
         chunks = c["iterations"] * (smb.num_chunks + sub.num_chunks)
         self.check(launches == chunks,
                    f"segment: K1 launched {launches} times, {chunks} chunks")
@@ -2323,7 +2478,16 @@ class Smoke:
         self.check(first < TOL["segment_first_half"],
                    f"segment: first movie half differs from the tiled "
                    f"run's by {first}")
-        del tiled_first, seg_first
+        # The same calls again, serially: do two runs of one schedule
+        # differ (the float atomics), as the on and off runs may?
+        again = als_half_step_segment(u0, sblk_m, kw["m_chunks"],
+                                      kw["m_entities"], LAM)
+        self.report["pipeline"]["segment"]["first_half_twice"] = dict(
+            bit_equal=bool(torch.equal(again, seg_first)),
+            max_rel_diff=rel_err(again, seg_first)[1])
+        log(f"segment: the first movie half twice: "
+            f"{self.report['pipeline']['segment']['first_half_twice']}")
+        del tiled_first, seg_first, again
         win = [(min(c["profile_chunks"], st[0]),) + st[1:]
                for st in (kw["m_chunks"], kw["u_chunks"])]
         movie = functools.partial(als_half_step_segment, u, sblk_m, win[0],
@@ -2726,9 +2890,9 @@ class Smoke:
         streams = []
         real = bucketed.gather_rows
 
-        def spy(table, nb, wt=None, out_dtype=None):
+        def spy(table, nb, wt=None, out_dtype=None, out=None):
             streams.append(nb.numel())
-            return real(table, nb, wt, out_dtype)
+            return real(table, nb, wt, out_dtype, out)
 
         walks = {}
         bucketed.gather_rows = spy
@@ -3850,6 +4014,159 @@ class Smoke:
         report["kernel_modes"] = modes
         log(f"K1-K3 implicit modes: {modes}")
 
+    def pipeline_case(self, name, ds, config, warm_start, *, implicit,
+                      tol=None, timeline=True):
+        """One pipeline case: ``config`` trained with overlap on and every
+        iteration after the first captured (``capture=True``), and with
+        overlap off, from ``warm_start`` (None: the config's seeded init),
+        every launch counter zeroed before each run; the factors bit-equal
+        (or within ``tol`` of the largest |factor|); the captured run's
+        counters (its eager iteration 1) plus the replays of what its
+        capture recorded equal to the serial run's counters, and the graph
+        holding one node of each recorded launch's kernel
+        (``replay_launches``); the route the configuration takes by
+        default; s/iter, capture and instantiation seconds, the graph's
+        pool; with ``timeline``, one eager iteration (overlap off) and one
+        replay of a captured iteration profiled (``device_timeline``).
+        Returns the two models, keyed by overlap."""
+        import dataclasses
+
+        import torch
+
+        from cfk_tpu_torch.models.als import (
+            als_iteration, pipeline_route, train_als)
+        from cfk_tpu_torch.models.ials import ials_iteration, train_ials
+        from cfk_tpu_torch.ops.pipeline import (
+            CapturedStep, launch_counters, replay_launches)
+
+        dev = torch.device("cuda")
+        train = train_ials if implicit else train_als
+        iters = config.num_iterations
+        out = dict(iterations=iters, route_default=pipeline_route(
+            config, dev), card=card_line())
+        models = {}
+        for overlap in (True, False):
+            cfg = dataclasses.replace(config, overlap=overlap,
+                                      capture=overlap)
+            for fn in launch_counters():
+                fn.launches = 0
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model = train(ds, cfg, device=dev, warm_start=warm_start)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            models[overlap] = model
+            out["on" if overlap else "off"] = dict(
+                train_s=train_s, s_per_iter=train_s / iters,
+                peak_device_bytes=torch.cuda.max_memory_allocated(),
+                launches={fn.__name__: fn.launches
+                          for fn in launch_counters()},
+                **model.pipeline)
+        on, off = models[True], models[False]
+        pairs = ((on.user_factors, off.user_factors),
+                 (on.movie_factors, off.movie_factors))
+        out["bit_equal"] = all(torch.equal(a, b) for a, b in pairs)
+        out["max_rel_diff"] = max(rel_err(a.float(), b.float())[1]
+                                  for a, b in pairs)
+        finite = all(bool(torch.isfinite(a).all()) for pair in pairs
+                     for a in pair)
+        self.check(finite, f"pipeline {name}: non-finite factors")
+        if tol is None:
+            self.check(out["bit_equal"], f"pipeline {name}: overlap on and "
+                       f"off differ by {out['max_rel_diff']}")
+        else:
+            self.check(out["max_rel_diff"] <= tol, f"pipeline {name}: "
+                       f"overlap on and off differ by {out['max_rel_diff']} "
+                       f"> {tol}")
+        # A replay runs no wrapper: the captured run counts iteration 1,
+        # and its graph must hold every launch its capture recorded.
+        rec = out["on"].get("launches_per_replay") or {}
+        names = set(out["on"]["launches"]) | set(out["off"]["launches"])
+        out["on"]["launches_with_replays"] = {
+            n: out["on"]["launches"][n] + (iters - 1) * rec.get(n, 0)
+            for n in names}
+        self.check(bool(rec) and out["on"]["launches_with_replays"]
+                   == out["off"]["launches"],
+                   f"pipeline {name}: iteration 1 + replays of the recorded "
+                   f"launches {out['on']['launches_with_replays']} != the "
+                   f"serial run's {out['off']['launches']}")
+        replays = replay_launches(out["on"])
+        out["on"]["replay_launches"] = replays
+        self.check(bool(replays) and all(
+            calls == nodes for calls, nodes in replays.values()),
+            f"pipeline {name}: the graph's kernel nodes against the "
+            f"recorded launches: {replays}")
+        self.check(out["on"]["route"] == "captured"
+                   and out["off"]["route"] == "serial",
+                   f"pipeline {name}: routes {out['on']['route']}/"
+                   f"{out['off']['route']}")
+        if timeline:
+            make = ials_iteration if implicit else als_iteration
+            step, u, m = make(ds, dataclasses.replace(config, overlap=False),
+                              dev, warm_start)
+            state = step((u, m), None)
+            out["off"]["timeline"] = device_timeline(
+                lambda: step(state, None))
+            del step, state, u, m
+            step, u, m = make(ds, config, dev, warm_start)
+            captured = CapturedStep(step)
+            state = captured.run((u, m), 2)
+            out["on"]["timeline"] = device_timeline(captured.graph.replay)
+            out["on"]["graph_nodes"] = graph_nodes(captured.graph)
+            out["on"]["profiled_capture"] = captured.stats
+            # Does CUPTI report the kernels inside a replay?  (Their count
+            # is the eager iteration's, up to the pipelined walks' own
+            # scatters: the bucketed walk scatters each piece.)
+            out["replay_kernels_reported"] = bool(
+                out["on"]["timeline"].get("kernels"))
+            del step, state, u, m, captured
+            torch.cuda.empty_cache()
+        out["on"]["launches"] = {k: v for k, v in out["on"]["launches"]
+                                 .items() if v}
+        out["off"]["launches"] = {k: v for k, v in out["off"]["launches"]
+                                  .items() if v}
+        self.report.setdefault("pipeline", {})[name] = out
+        log(f"pipeline {name}: {out}")
+        return models
+
+    def pipeline(self, ds, model, blk_m, blk_u):
+        """The chunk pipeline at the Netflix shape (phase 4g): the dense
+        stream, rank 64, 3 iterations, fused, split, and the gather off
+        fused and split (K5 on the side stream)."""
+        from cfk_tpu_torch import ALSConfig
+
+        for name, knobs in (
+                ("netflix_fused", {}),
+                ("netflix_split", dict(fused_epilogue=False)),
+                ("netflix_gather_off", dict(in_kernel_gather=False)),
+                ("netflix_gather_off_split", dict(in_kernel_gather=False,
+                                                  fused_epilogue=False))):
+            config = ALSConfig(rank=RANK, lam=LAM,
+                               num_iterations=PIPELINE["iterations"], seed=0,
+                               layout="tiled", **knobs)
+            self.pipeline_case(name, ds, config, None, implicit=False)
+
+    def pipeline_implicit(self, ds_t, ds_b, ds_s, u0, m0, runs):
+        """The chunk pipeline at the ML-25M shape (phase 6g): iALS (a)
+        tiled, (b) bucketed, (c) iALS++ bucketed (b = 32) and (e) the
+        stream mode, 3 iterations each from the implicit phase's u0."""
+        from cfk_tpu_torch.models.ials import IALSConfig
+
+        c = IMPLICIT
+        for name, ds, layout, algorithm in (
+                ("ials_tiled", ds_t, "tiled", "als"),
+                ("ials_bucketed", ds_b, "bucketed", "als"),
+                ("ialspp_bucketed", ds_b, "bucketed", "ials++"),
+                ("ials_stream", ds_s, "tiled", "als")):
+            config = IALSConfig(rank=c["rank"], lam=c["lam"],
+                                alpha=c["alpha"],
+                                num_iterations=PIPELINE["iterations"],
+                                layout=layout, algorithm=algorithm,
+                                block_size=c["block_size"])
+            self.pipeline_case(name, ds, config, (u0, m0), implicit=True)
+
     def small_parity(self):
         import numpy as np
         import torch
@@ -3905,6 +4222,57 @@ class Smoke:
             self.check(rel < 1e-3, f"small {name}: kernels vs plain {rel}")
         self.report["small_parity_rel"] = out
         log(f"small parity (kernels on the card vs plain on the CPU): {out}")
+
+    def cli_telemetry(self, work, data) -> dict:
+        """``train --profile-dir D --trace-dir D --metrics-jsonl F`` on the
+        card: the torch.profiler trace and the host span trace parse (the
+        device trace with kernel records), ``validate_span_tree`` accepts
+        the host trace, and every JSONL line parses."""
+        import tempfile
+
+        from cfk_tpu_torch.telemetry import validate_span_tree
+
+        # The traces (tens of MB) go to a directory deleted after the check.
+        tmp = tempfile.TemporaryDirectory()
+        d = Path(tmp.name)
+        jsonl = d / "metrics.jsonl"
+        out = subprocess.run(
+            [sys.executable, "-m", "cfk_tpu_torch", "train", "--data",
+             str(data), "--rank", "8", "--iterations", "3", "--layout",
+             "tiled", "--chunk-elems", str(1 << 16), "--device", "cuda",
+             "--output", "none", "--profile-dir", str(d), "--trace-dir",
+             str(d), "--metrics-jsonl", str(jsonl), "--metrics-interval-s",
+             "0.2"], cwd=ROOT, capture_output=True, text=True, timeout=300)
+        log(f"cli train --profile-dir/--trace-dir/--metrics-jsonl "
+            f"rc={out.returncode}: {out.stdout.strip()} | "
+            f"{out.stderr.strip()[-300:]}")
+        self.check(out.returncode == 0, "cli train with telemetry failed")
+        report = {}
+        try:
+            (dev_trace,) = d.glob("cfk_device_trace_*.json")
+            (host_trace,) = d.glob("cfk_host_trace_*.json")
+            dev_events = json.loads(dev_trace.read_text())["traceEvents"]
+            host_events = json.loads(host_trace.read_text())["traceEvents"]
+            spans = validate_span_tree(host_events)
+            lines = [json.loads(x) for x in jsonl.read_text().splitlines()]
+            report = dict(
+                device_trace_events=len(dev_events),
+                device_kernels=sum(e.get("cat") == "kernel"
+                                   for e in dev_events),
+                host_spans=sorted({e["name"] for e in host_events
+                                   if e.get("ph") == "X"}),
+                host_span_tree=spans, jsonl_lines=len(lines),
+                route=[ln for ln in out.stderr.splitlines()
+                       if ln.startswith("# pipeline")])
+            self.check(report["device_kernels"] > 0 and lines
+                       and "train/fused_loop" in report["host_spans"],
+                       f"cli telemetry: {report}")
+        except (ValueError, KeyError, OSError) as e:
+            self.check(False, f"cli telemetry files: {type(e).__name__}: {e}")
+        finally:
+            tmp.cleanup()
+        log(f"cli telemetry: {report}")
+        return report
 
     def cli(self):
         import numpy as np
@@ -4062,7 +4430,9 @@ class Smoke:
                    f"cli implicit ranking card {ranking['cuda']} vs CPU "
                    f"{ranking['cpu']}")
         self.check(mg < 0.4, f"cli implicit MPR {mg} not below chance")
+        telemetry = self.cli_telemetry(work, data)
         self.report["cli"] = dict(train=train.stdout.strip(),
+                                  telemetry=telemetry,
                                   rank256_mse=r256,
                                   segment_mse=card_cpu["segment"],
                                   dataset_cache_bit_equal=cache_equal,
@@ -4103,6 +4473,8 @@ def main() -> int:
         smoke.phase("segment", smoke.segment, *main_out)
         torch.cuda.empty_cache()
         smoke.phase("quant", smoke.quant, *main_out)
+        torch.cuda.empty_cache()
+        smoke.phase("pipeline", smoke.pipeline, *main_out)
         del main_out
         torch.cuda.empty_cache()
     if built:
@@ -4120,6 +4492,9 @@ def main() -> int:
                         *implicit_out)
             torch.cuda.empty_cache()
             smoke.phase("quant_ml25m", smoke.quant_implicit, *implicit_out)
+            torch.cuda.empty_cache()
+            smoke.phase("pipeline_ml25m", smoke.pipeline_implicit,
+                        *implicit_out)
         del implicit_out
         torch.cuda.empty_cache()
     smoke.phase("small", smoke.small_parity)

@@ -1698,3 +1698,214 @@ def test_quant_training_on_the_card(cuda, table_dtype, layout):
         on, off = runs["cuda", None, 2], runs["cuda", False, 2]
         assert torch.equal(on.user_factors, off.user_factors)
         assert torch.equal(on.movie_factors, off.movie_factors)
+
+
+# -- the chunk pipeline: captured iterations and the side-stream prefetch ----
+
+_PIPE_CASES = [
+    # (layout, dataset kw, config kw)
+    ("padded", {}, dict(solve_chunk=64)),
+    ("tiled", dict(dense_stream=True, accum_max_entities=200), {}),
+    ("tiled", dict(dense_stream=True, accum_max_entities=200),
+     dict(fused_epilogue=False)),
+    ("tiled", dict(dense_stream=True, accum_max_entities=200),
+     dict(in_kernel_gather=False)),
+    ("tiled", dict(dense_stream=True, accum_max_entities=200),
+     dict(in_kernel_gather=False, fused_epilogue=False)),
+    ("tiled", dict(accum_max_entities=200), dict(in_kernel_gather=False)),
+    ("tiled", dict(dense_stream=True, accum_max_entities=200),
+     dict(table_dtype="int8")),
+    ("tiled", dict(dense_stream=True, accum_max_entities=200),
+     dict(dtype="bfloat16")),
+    ("bucketed", {}, {}),
+    ("bucketed", {}, dict(in_kernel_gather=False, table_dtype="bfloat16")),
+    ("bucketed", {}, dict(fused_epilogue=False)),
+    ("bucketed", {}, dict(algorithm="++", block_size=4)),
+    ("segment", {}, {}),
+]
+
+
+def _pipe_runs(cuda, layout, ds_kw, cfg_kw, implicit, k=8, iters=3):
+    """train_als / train_ials with overlap on and every iteration after the
+    first captured (``capture=True``), and with overlap off, on the card
+    from the same start, every kernel's launch counter zeroed before each
+    run."""
+    from cfk_tpu_torch import ALSConfig, Dataset, train_als
+    from cfk_tpu_torch.models.ials import IALSConfig, train_ials
+    from cfk_tpu_torch.ops.pipeline import launch_counters
+
+    coo = synthetic_netflix_coo(600, 150, 9000, seed=4)
+    ds = Dataset.from_coo(coo, layout=layout, chunk_elems=2048, **ds_kw)
+    rng = np.random.default_rng(0)
+    u0 = rng.random((ds.user_blocks.padded_entities, k), dtype=np.float32)
+    m0 = np.zeros((ds.movie_blocks.padded_entities, k), np.float32)
+    cfg_kw = dict(cfg_kw)
+    if cfg_kw.get("algorithm") == "++":
+        cfg_kw["algorithm"] = "ials++" if implicit else "als++"
+    make, train = (IALSConfig, train_ials) if implicit else (ALSConfig,
+                                                            train_als)
+    runs = {}
+    for overlap in (True, False):
+        for fn in launch_counters():
+            fn.launches = 0
+        model = train(ds, make(rank=k, num_iterations=iters, layout=layout,
+                               overlap=overlap, capture=overlap, **cfg_kw),
+                      device=cuda, warm_start=(u0, m0))
+        torch.cuda.synchronize()
+        runs[overlap] = (model, {fn.__name__: fn.launches
+                                 for fn in launch_counters() if fn.launches})
+    return runs
+
+
+def _check_replays(on, n_on, n_off, iters):
+    """A captured run's counters (iteration 1) and its graph against the
+    serial run's counters over ``iters`` iterations."""
+    from cfk_tpu_torch.ops.pipeline import replay_launches
+
+    rec = on.pipeline["launches_per_replay"]
+    assert rec and on.pipeline["capture_s"] > 0
+    names = set(n_on) | set(rec) | set(n_off)
+    assert {name: n_on.get(name, 0) + (iters - 1) * rec.get(name, 0)
+            for name in names} == {name: n_off.get(name, 0)
+                                   for name in names}
+    replays = replay_launches(on.pipeline)
+    assert replays and all(calls == nodes
+                           for calls, nodes in replays.values()), replays
+
+
+@pytest.mark.parametrize("implicit", [False, True], ids=["als", "ials"])
+@pytest.mark.parametrize("layout,ds_kw,cfg_kw", _PIPE_CASES)
+def test_captured_iterations_match_eager(cuda, layout, ds_kw, cfg_kw,
+                                         implicit):
+    """Overlap on (iteration 1 eager, 2 and 3 replays of one captured
+    iteration) against the serial eager loop: bit-equal factors; the
+    counters show iteration 1's launches, the serial run's are those plus
+    two iterations of what the capture recorded, and the graph holds one
+    kernel node for each recorded launch (``replay_launches``, read from
+    libcuda).  The segment layout sums its Grams
+    with ``index_add_``'s float atomics, whose order changes from run to
+    run, so there the runs agree within 1e-4 of the largest |factor|
+    (float32 reorderings compounded through six chained solves; 1.6e-5 on
+    an H100)."""
+    runs = _pipe_runs(cuda, layout, ds_kw, cfg_kw, implicit)
+    (on, n_on), (off, n_off) = runs[True], runs[False]
+    assert on.pipeline["route"] == "captured"
+    assert off.pipeline["route"] == "serial"
+    _check_replays(on, n_on, n_off, 3)
+    for got, want in ((on.user_factors, off.user_factors),
+                      (on.movie_factors, off.movie_factors)):
+        assert torch.isfinite(got).all()
+        if layout == "segment":
+            assert _rel_err(got.float(), want.float()) < 1e-4
+        else:
+            assert torch.equal(got, want)
+
+
+def test_replay_reads_factors_updated_in_place(cuda):
+    """The captured graph reads the static factor tensors: writing new
+    values into them in place and replaying gives the eager iteration from
+    those values, bit for bit."""
+    from cfk_tpu_torch import ALSConfig, Dataset
+    from cfk_tpu_torch.models.als import (
+        _half,
+        device_setup,
+        iteration_step,
+    )
+    from cfk_tpu_torch.ops.pipeline import CapturedStep
+    import functools
+
+    coo = synthetic_netflix_coo(600, 150, 9000, seed=4)
+    ds = Dataset.from_coo(coo, layout="tiled", chunk_elems=2048,
+                          dense_stream=True, accum_max_entities=200)
+    cfg = ALSConfig(rank=8, layout="tiled")
+    mblocks, ublocks, layout_kw, _ = device_setup(ds, cfg, cuda)
+    step = iteration_step(functools.partial(_half, lam=0.05,
+                                            solve_chunk=None, solver="auto"),
+                          mblocks, ublocks, layout_kw, torch.float32)
+    rng = np.random.default_rng(1)
+    u = torch.as_tensor(rng.random((ds.user_blocks.padded_entities, 8),
+                                   dtype=np.float32), device=cuda)
+    m = torch.zeros((ds.movie_blocks.padded_entities, 8), device=cuda)
+    captured = CapturedStep(step)
+    su, sm = captured.run((u, m), 2)
+    u2 = torch.as_tensor(rng.random(tuple(su.shape), dtype=np.float32),
+                         device=cuda)
+    su.copy_(u2)
+    sm.zero_()
+    captured.graph.replay()
+    want_u, want_m = step((u2, torch.zeros_like(m)), None)
+    torch.cuda.synchronize()
+    assert torch.equal(su, want_u) and torch.equal(sm, want_m)
+
+
+@pytest.mark.parametrize("mode", ["accum", "dstream", "stream"])
+def test_side_stream_prefetch_matches_serial(cuda, mode):
+    """The gather-off chunk scans with K5 on a side stream (overlap on, no
+    capture) against the serial loop: bit-equal halves, the same K5 and
+    Gram launch counts."""
+    from cfk_tpu_torch import Dataset
+    from cfk_tpu_torch.ops.kernels import gram_kernel as gk
+    from cfk_tpu_torch.ops.pipeline import launch_counters
+    from cfk_tpu_torch.ops.tiled import tiled_half_step
+
+    coo = synthetic_netflix_coo(600, 150, 9000, seed=4)
+    ds = Dataset.from_coo(coo, layout="tiled", chunk_elems=2048,
+                          dense_stream=mode != "stream",
+                          accum_max_entities=200)
+    blocks = ds.movie_blocks if mode == "accum" else ds.user_blocks
+    assert blocks.mode == mode
+    other = ds.user_blocks if mode == "accum" else ds.movie_blocks
+    blk = _tiled_to_device(blocks, cuda, other.padded_entities)
+    chunks = ("tiled", blocks.mode) + blocks.statics
+    assert blocks.num_chunks > 2
+    table = torch.as_tensor(np.random.default_rng(2).random(
+        (other.padded_entities, 16), dtype=np.float32), device=cuda)
+    out = {}
+    for overlap in (True, False):
+        for fn in launch_counters():
+            fn.launches = 0
+        x = tiled_half_step(table, blk, chunks, blocks.padded_entities, 0.05,
+                            in_kernel_gather=False, overlap=overlap)
+        torch.cuda.synchronize()
+        out[overlap] = (x, {fn.__name__: fn.launches
+                            for fn in launch_counters() if fn.launches})
+    assert torch.equal(out[True][0], out[False][0])
+    assert out[True][1] == out[False][1]
+    assert out[True][1]["gather_rows"] == blocks.num_chunks
+    assert gk.gather_rows.launches == blocks.num_chunks
+
+
+def test_rank_above_128_captured(cuda):
+    """Above rank 128 every solve takes the library Cholesky route
+    (``batched_spd_solve``: ``cholesky_ex`` and two cuBLAS triangular
+    solves), which a CUDA graph captures: the replays are bit-equal to the
+    serial loop."""
+    runs = _pipe_runs(cuda, "tiled", dict(dense_stream=True,
+                                          accum_max_entities=200),
+                      dict(in_kernel_gather=False), False, k=136, iters=2)
+    (on, n_on), (off, n_off) = runs[True], runs[False]
+    assert on.pipeline["route"] == "captured"
+    _check_replays(on, n_on, n_off, 2)
+    assert torch.equal(on.user_factors, off.user_factors)
+    assert torch.equal(on.movie_factors, off.movie_factors)
+
+
+def test_batched_spd_solve_captures(cuda):
+    """The k > 128 solve captured into a CUDA graph and replayed returns the
+    eager call's bits, at a Netflix dense chunk's batch."""
+    g = torch.Generator().manual_seed(3)
+    e, k = 4879, 256
+    x = torch.randn((e, k + 8, k), generator=g)
+    a = torch.einsum("enk,enl->ekl", x, x).to(cuda)
+    a.diagonal(dim1=1, dim2=2).add_(1.0)
+    b = torch.randn((e, k), generator=g).to(cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        want = batched_spd_solve(a, b)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = batched_spd_solve(a, b)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.isfinite(got).all()

@@ -116,6 +116,18 @@ def _jit(fn, *args, **statics):
     return jax.jit(functools.partial(fn, **statics))(*args)
 
 
+def _eager(fn, *args, **statics):
+    """``fn(*args, **statics)`` run op by op.  For bf16 iALS: the
+    reference's program rounds each weighted product (c−1)·f to bf16
+    (``cfk_tpu/ops/solve.py:_gram_compute_dtype``), and compiled with
+    ``jax.jit`` XLA's default excess precision keeps those products in
+    float32 instead (5.5e-4 of max|x| apart on the 8-wide class of the
+    fixture), so the half-steps that reach its legacy schedule with a bf16
+    table are held to the program as written."""
+    with jax.disable_jit():
+        return fn(*args, **statics)
+
+
 NM, NU = 80, 200
 
 
@@ -227,27 +239,20 @@ def test_tiled_half_step_matches_reference(coo, mode, td):
 @pytest.mark.parametrize("implicit", [False, True])
 def test_bucketed_half_step_matches_reference(coo, u0, td, implicit):
     """One bucketed half-step (chunk_rows pieces on the gather-off route)
-    with a quantized table: within 1e-4 of the reference's knobs-off
-    route; the port's gather on and off bit-equal.  At the default
-    ``pad_multiple`` (an 8-wide class) except for bf16 iALS, whose widths
-    are multiples of 16 here: the reference runs narrower classes on its
-    legacy schedule (a Mosaic sublane limit the port's kernels do not
-    have), which for iALS rounds (c−1)·f to bf16 where its tiled-kernel
-    route — and the port's, for every width — rounds √(α·r)·f (the next
-    test shows and bounds that difference)."""
+    with a quantized table, at the default ``pad_multiple`` (an 8-wide
+    class): within 1e-4 of the reference's knobs-off route; the port's
+    gather on and off bit-equal."""
     kw = dict(layout="bucketed", chunk_elems=256)
-    if implicit and td == "bfloat16":
-        kw["pad_multiple"] = 16
     jb = JDataset.from_coo(coo, **kw).movie_blocks
     tb = Dataset.from_coo(coo, **kw).movie_blocks
     trees, jchunks = jb.to_tree()
     jtrees = tuple({k: jnp.asarray(v) for k, v in t.items()} for t in trees)
     ttrees, chunks = _bucketed_to_device(tb, CPU)
     if implicit:
-        want = _jit(j_ials_bucketed, jnp.asarray(u0), jtrees,
-                    chunk_rows=jchunks, local_entities=jb.padded_entities,
-                    lam=LAM, alpha=ALPHA, table_dtype=td, overlap=False,
-                    **KNOBS_OFF)
+        want = (_eager if td == "bfloat16" else _jit)(
+            j_ials_bucketed, jnp.asarray(u0), jtrees, chunk_rows=jchunks,
+            local_entities=jb.padded_entities, lam=LAM, alpha=ALPHA,
+            table_dtype=td, overlap=False, **KNOBS_OFF)
         run = lambda g: ials_half_step_bucketed(  # noqa: E731
             T(u0), ttrees, tb.padded_entities, LAM, ALPHA, chunk_rows=chunks,
             table_dtype=td, in_kernel_gather=g)
@@ -263,23 +268,28 @@ def test_bucketed_half_step_matches_reference(coo, u0, td, implicit):
     assert torch.equal(on, off)
 
 
-def test_bf16_ials_narrow_bucketed_class_is_a_known_difference(coo, u0):
-    """A known difference (ROADMAP queue 3), shown and bounded at the
-    default ``pad_multiple`` (8).  The reference runs width classes
-    narrower than 16 on its legacy schedule, which for bf16 iALS rounds
-    (c−1)·f to bf16; the port runs every class on the tiled-kernel route,
-    which rounds √(α·r)·f.  Entities of the classes 16 and wider match the
-    reference within 1e-4 of max|x|; those of the 8-wide class differ by
-    more, within 1e-2 (two roundings of 2^-9 each in different places,
-    through a rank-8 solve)."""
+def test_bf16_ials_narrow_bucketed_class_matches_reference(coo, u0):
+    """At the default ``pad_multiple`` (8) the 8-wide width class is one the
+    reference's gate refuses (``bucket_port_supported``: width < 16), so
+    both packages run it on the legacy schedule — a gather and an einsum
+    that round (c−1)·f to bf16 — and the wider classes on the tiled-kernel
+    route, which rounds √(α·r)·f: every entity within 1e-4 of max|x| of the
+    reference's knobs-off route, the narrow class's and the wider ones'
+    (the reference run op by op, ``_eager``; the legacy route's Gram is
+    symmetric only to bf16 rounding, and both packages solve its
+    symmetric part)."""
+    from cfk_tpu_torch.ops.bucketed import bucket_port_supported
+
     kw = dict(layout="bucketed", chunk_elems=256)
     jb = JDataset.from_coo(coo, **kw).movie_blocks
     tb = Dataset.from_coo(coo, **kw).movie_blocks
     assert min(b.width for b in tb.buckets) == 8
+    assert not bucket_port_supported(1, 8, K)
+    assert bucket_port_supported(1, 16, K)
     trees, jchunks = jb.to_tree()
     jtrees = tuple({k: jnp.asarray(v) for k, v in t.items()} for t in trees)
     ttrees, chunks = _bucketed_to_device(tb, CPU)
-    want = np.asarray(_jit(
+    want = np.asarray(_eager(
         j_ials_bucketed, jnp.asarray(u0), jtrees, chunk_rows=jchunks,
         local_entities=jb.padded_entities, lam=LAM, alpha=ALPHA,
         table_dtype="bfloat16", overlap=False, **KNOBS_OFF), np.float64)
@@ -293,8 +303,9 @@ def test_bf16_ials_narrow_bucketed_class_is_a_known_difference(coo, u0):
                            if b.width >= 16])
     narrow = narrow[narrow < tb.padded_entities]
     wide = wide[wide < tb.padded_entities]
+    assert narrow.size and wide.size
     assert err[wide].max() < 1e-4
-    assert 1e-4 < err[narrow].max() < 1e-2
+    assert err[narrow].max() < 1e-4
 
 
 @pytest.mark.parametrize("layout", ["padded", "segment"])
