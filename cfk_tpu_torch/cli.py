@@ -15,7 +15,12 @@
   ``--no-overlap`` pins the serial chunk schedule (``ALSConfig.overlap``);
   ``--profile-dir`` (a torch.profiler trace), ``--trace-dir`` (the host
   span trace), ``--metrics-jsonl`` (periodic registry snapshots) and
-  ``--metrics`` (the exit row's format) are its telemetry.
+  ``--metrics`` (the exit row's format) are its telemetry;
+  ``--checkpoint-dir`` checkpoints every ``--checkpoint-every`` iterations
+  (``--keep-last-n``) and resumes, with a preemption guard armed unless
+  ``--no-preempt-save``, and ``--health-check-every``,
+  ``--health-norm-limit``, ``--max-recoveries``, ``--lam-escalation`` and
+  ``--on-unrecoverable`` arm the sentinel and the recovery ladder.
 - ``evaluate`` — offline MSE/RMSE of a prediction CSV against a ratings file.
 - ``recommend`` — top-K movies for given users from checkpointed factors
   (``train --checkpoint-dir``, or the JAX package's checkpoint directory).
@@ -273,6 +278,7 @@ def _train_impl(args, metrics) -> int:
     from cfk_tpu_torch.eval.metrics import mse_rmse_from_model
     from cfk_tpu_torch.models.als import _layout_of, train_als
     from cfk_tpu_torch.models.ials import IALSConfig, train_ials
+    from cfk_tpu_torch.resilience.loop import validate_cadence
     from cfk_tpu_torch.utils.metrics import maybe_profile
 
     if args.eval_ranking and not args.implicit:
@@ -290,7 +296,12 @@ def _train_impl(args, metrics) -> int:
                                     else args.in_kernel_gather == "on"),
                   dtype=args.dtype, table_dtype=args.table_dtype,
                   reg_solve_algo=args.reg_solve_algo,
-                  overlap=not args.no_overlap)
+                  overlap=not args.no_overlap,
+                  health_check_every=args.health_check_every,
+                  health_norm_limit=args.health_norm_limit,
+                  max_recoveries=args.max_recoveries,
+                  lam_escalation=args.lam_escalation,
+                  on_unrecoverable=args.on_unrecoverable)
     make_config = functools.partial(
         IALSConfig, alpha=args.alpha) if args.implicit else ALSConfig
     # Validate the flags before the (possibly long) block build; an
@@ -338,14 +349,45 @@ def _train_impl(args, metrics) -> int:
             return 1
     prep_s = time.perf_counter() - t0
     metrics.phases["prep"] += prep_s
+    validate_cadence(args.checkpoint_every)
+    manager = None
+    if args.checkpoint_dir:
+        from cfk_tpu_torch.transport.checkpoint import CheckpointManager
+
+        manager = CheckpointManager(args.checkpoint_dir,
+                                    keep_last_n=args.keep_last_n)
+    # Preemption tolerance is on whenever a checkpoint store exists: an
+    # eviction SIGTERM (or Ctrl-C) commits one final checkpoint, drains the
+    # writer and the process exits resumable — re-run the same command to
+    # continue (``resilience.preempt``).
+    guard_cm = contextlib.nullcontext(None)
+    if manager is not None and not args.no_preempt_save:
+        from cfk_tpu_torch.resilience.preempt import PreemptionGuard
+
+        guard_cm = PreemptionGuard()
     t0 = time.perf_counter()
     trainer = train_ials if args.implicit else train_als
-    with metrics.phase("train"), maybe_profile(args.profile_dir):
-        model = trainer(ds, config, device=dev)
+    with maybe_profile(args.profile_dir), guard_cm as guard:
+        model = trainer(ds, config, device=dev, metrics=metrics,
+                        checkpoint_manager=manager,
+                        checkpoint_every=args.checkpoint_every,
+                        preemption_guard=guard)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
     train_s = time.perf_counter() - t0
-    metrics.incr("iterations", args.iterations)
+    if guard is not None and guard.triggered:
+        # Exit inside the platform's grace window: the checkpoint is
+        # committed and drained, so evaluation and the CSV dump of the
+        # partial model would only risk a SIGKILL.  The metrics row still
+        # goes out, with its "preempted" note.
+        _eprint(
+            f"preempted ({guard.signal_name}): a final checkpoint was "
+            "committed — re-run this command to resume; skipping "
+            "evaluation and output for the partial run"
+        )
+        print(metrics.json_line() if args.metrics == "json"
+              else metrics.logfmt())
+        return 0
     pipe = model.pipeline
     metrics.note("pipeline_route", f"{pipe['route']}: {pipe['reason']}")
     for key in ("capture_s", "instantiate_s"):
@@ -372,15 +414,9 @@ def _train_impl(args, metrics) -> int:
                 f"MPR={mpr:.4f}")
         gauges += [f"recall_at_{args.eval_ranking}={rec:.6f}",
                    f"mpr={mpr:.6f}"]
-    if args.checkpoint_dir:
-        from cfk_tpu_torch.transport.checkpoint import CheckpointManager
-
-        step = CheckpointManager(args.checkpoint_dir).save(
-            args.iterations, model.user_factors, model.movie_factors,
-            meta={"rank": args.rank,
-                  "model": "ials" if args.implicit else "als",
-                  "num_shards": 1})
-        _eprint(f"factors checkpointed to {step}")
+    if manager is not None:
+        _eprint(f"factors checkpointed to {args.checkpoint_dir} (step "
+                f"{manager.latest_iteration()})")
     if args.output != "none":
         path = _save_predictions(
             model, None if args.output == "auto" else args.output)
@@ -670,9 +706,56 @@ def build_parser() -> argparse.ArgumentParser:
         "--output", default="auto",
         help="'auto' = predictions/prediction_matrix_<ts>, 'none', or a path",
     )
+    t.add_argument(
+        "--health-check-every", type=int, default=None, metavar="N",
+        help="arm the numerical-health sentinel: probe the factor state "
+        "(isfinite + norm watchdogs) every N iterations; a tripped probe "
+        "rolls back to the last good checkpoint and escalates (retry, then "
+        "lam x LAM_ESCALATION, then split epilogue, then the GJ route).  "
+        "Default: off",
+    )
+    t.add_argument(
+        "--health-norm-limit", type=float, default=1e6,
+        help="factor-row 2-norm above which the sentinel's watchdog trips "
+        "even while values are still finite (catches slow divergence "
+        "before overflow)",
+    )
+    t.add_argument(
+        "--max-recoveries", type=int, default=4,
+        help="total sentinel trips tolerated before the run stops "
+        "retrying (see --on-unrecoverable)",
+    )
+    t.add_argument(
+        "--lam-escalation", type=float, default=10.0,
+        help="multiplier applied to lam on the recovery ladder's "
+        "regularization rung",
+    )
+    t.add_argument(
+        "--on-unrecoverable", choices=["degrade", "raise"],
+        default="degrade",
+        help="after max-recoveries trips: 'degrade' returns the last-good "
+        "factors with a diagnostic report in the metrics (a stale model "
+        "beats no model); 'raise' fails the run",
+    )
     t.add_argument("--checkpoint-dir", default=None,
-                   help="save the trained factors here as one checkpoint "
-                   "step (for recommend / predict / serve)")
+                   help="checkpoint the factors here every "
+                   "--checkpoint-every iterations and at the end (for "
+                   "recommend / predict / serve), resuming from its newest "
+                   "intact step")
+    t.add_argument("--checkpoint-every", type=int, default=1)
+    t.add_argument(
+        "--keep-last-n", type=int, default=None,
+        help="garbage-collect checkpoint steps beyond the newest N after "
+        "each save (the last verified-good step the recovery ladder "
+        "points at is always pinned); default keeps every step",
+    )
+    t.add_argument(
+        "--no-preempt-save", action="store_true",
+        help="disable the SIGTERM/SIGINT preemption guard that is armed "
+        "whenever --checkpoint-dir is set: by default an eviction signal "
+        "drains the async checkpoint writer, commits one final "
+        "checkpoint, and exits resumable instead of dying mid-iteration",
+    )
     t.add_argument(
         "--no-overlap", action="store_true",
         help="pin the serial chunk schedule instead of the default "

@@ -98,7 +98,7 @@ class ALSConfig:
     # chunk's K5 stream is written on a side stream while the previous
     # chunk's Gram runs.  False pins the serial schedule (one stream, no
     # capture) — the A/B baseline of ``train --no-overlap``.  Factors are
-    # bit-identical either way (the segment layout's float atomics aside).
+    # bit-identical either way.
     # The reference's ring overlap, its ``apply_overlap_xla_flags`` and the
     # async collective permute have no counterpart until the port trains
     # on several cards.
@@ -111,6 +111,26 @@ class ALSConfig:
     # s (10 s on the segment layout), so no route gained at 7 iterations
     # and iALS++ broke even at 15 (PERF.md §6; ``tools/pipeline_ab.py``).
     capture: bool = False
+    # --- self-healing (``cfk_tpu_torch.resilience``) ----------------------
+    # Numerical-health sentinel cadence: probe the factor state (all
+    # finite, max row norm; O(E·k)) every N completed iterations and at the
+    # last.  None disables it.  The eager stepped loop fetches the probe
+    # word on this cadence only; the other routes fold it into a device
+    # word (inside the captured iteration too) read once after the loop.
+    health_check_every: int | None = None
+    # Factor-row 2-norm above which the watchdog trips although every value
+    # is still finite (the slow blow-up that precedes overflow).
+    health_norm_limit: float = 1e6
+    # Recovery ladder bounds (``resilience.policy``): total sentinel trips
+    # tolerated before the run stops retrying; each trip rolls back to the
+    # last good state and climbs one rung (retry → λ×lam_escalation → split
+    # epilogue → "gj" route; the default of 4 reaches the whole ladder).
+    max_recoveries: int = 4
+    lam_escalation: float = 10.0
+    # When retries are exhausted: "degrade" returns the last-good factors
+    # with a diagnostic report in the metrics, "raise" raises
+    # ``TrainingDivergedError``.
+    on_unrecoverable: Literal["degrade", "raise"] = "degrade"
 
     def _valid_algorithms(self) -> tuple[str, ...]:
         return ("als", "als++")
@@ -186,6 +206,31 @@ class ALSConfig:
                 f"(build-time layouts consume it via Dataset.from_coo(..., "
                 "chunk_elems=cfg.chunk_cells()), which the CLI's "
                 "--chunk-elems does)"
+            )
+        if self.health_check_every is not None and self.health_check_every < 1:
+            raise ValueError(
+                f"health_check_every must be >= 1 (iterations between "
+                f"sentinel probes), got {self.health_check_every}; use "
+                "health_check_every=None to disable the health sentinel"
+            )
+        if self.health_norm_limit <= 0:
+            raise ValueError(
+                f"health_norm_limit must be > 0 (a factor-row 2-norm "
+                f"bound), got {self.health_norm_limit}"
+            )
+        if self.max_recoveries < 0:
+            raise ValueError(
+                f"max_recoveries must be >= 0, got {self.max_recoveries}"
+            )
+        if self.lam_escalation <= 1:
+            raise ValueError(
+                f"lam_escalation must be > 1 (it multiplies λ on "
+                f"escalation), got {self.lam_escalation}"
+            )
+        if self.on_unrecoverable not in ("degrade", "raise"):
+            raise ValueError(
+                f"on_unrecoverable must be 'degrade' or 'raise', got "
+                f"{self.on_unrecoverable!r}"
             )
         if self.algorithm not in self._valid_algorithms():
             raise ValueError(

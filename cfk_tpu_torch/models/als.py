@@ -10,7 +10,8 @@ reference's semantics (``apps/ALSApp.java:115-151``):
 ``lax.fori_loop`` becomes the iteration loop of ``run_iterations``: a
 Python loop, or, on a card with ``ALSConfig.capture``, iteration 1 eager
 and one captured iteration (a CUDA graph, ``ops.pipeline.CapturedStep``)
-replayed for the rest.  Every half-step runs on ``device`` through the kernels of
+replayed for the rest; the reference's stepped loop is ``resilience.loop``
+(``train_loop`` routes between them).  Every half-step runs on ``device`` through the kernels of
 ``ops.kernels`` (CUDA) or their plain versions (CPU).  ``ALSConfig.dtype``
 is the factors' storage dtype (bf16: each solved half rounded to bf16, the
 next half gathering bf16 rows — ``cfk_tpu/models/als.py:452-476``),
@@ -157,20 +158,27 @@ def _bucketed_device_setup(dataset: Dataset, device):
 
 
 SEGMENT_FIELDS = ("neighbor_idx", "rating", "mask", "seg_rel",
-                  "chunk_entity", "chunk_count", "carry_in", "last_seg")
+                  "chunk_entity", "chunk_count", "carry_in", "last_seg",
+                  "group_sizes")
 
 
 def _segment_to_device(blocks: SegmentBlocks, device) -> dict:
-    """Device tensors of one segment half (``cfk_tpu/models/als.py:116``;
-    ``group_sizes`` feeds only the JAX package's ragged-matmul Gram, which
-    the port does not have, so it stays on the host)."""
+    """Device tensors of one segment half (``cfk_tpu/models/als.py:116``)
+    and every chunk's K2 work-unit plan over its flat run — one-row tiles
+    owned by ``seg_rel`` (``ops.solve._segment_k2``); ``group_sizes`` (the
+    entries of each chunk's segments) feeds only the bf16 iALS chunk Gram
+    (``ops.solve.segment_gram_rounded``)."""
     if blocks.num_shards != 1:
         raise ValueError(
             f"segment blocks were built for num_shards={blocks.num_shards}; "
             "the port trains one device — rebuild with "
             "Dataset.from_coo(..., layout='segment')")
-    return {f: torch.as_tensor(getattr(blocks, f), device=device)
-            for f in SEGMENT_FIELDS}
+    d = {f: torch.as_tensor(getattr(blocks, f), device=device)
+         for f in SEGMENT_FIELDS}
+    nc, cap, e_c = blocks.statics
+    d.update(stage_plans(derive_tile_units(d["seg_rel"].view(nc, cap), 1,
+                                           e_c + 1), device))
+    return d
 
 
 def _segment_device_setup(dataset: Dataset, device):
@@ -401,13 +409,20 @@ def _padded_seed(x, rows: int, rank: int, what: str, device,
     return out
 
 
-def pipeline_route(config: ALSConfig, device) -> tuple[str, str]:
-    """How ``run_iterations`` runs ``config``'s iterations on ``device``,
-    decided from the configuration before anything is launched: ``(route,
-    reason)`` with route "captured" (``config.capture``: iteration 1 eager,
-    the rest replays of one captured iteration), "prefetched" (the
+def pipeline_route(config: ALSConfig, device,
+                   stepped_by: tuple[str, ...] = ()) -> tuple[str, str]:
+    """How the trainer runs ``config``'s iterations on ``device``, decided
+    from its arguments before anything is launched: ``(route, reason)``
+    with route "stepped" (``stepped_by`` names the trainer arguments — a
+    checkpoint manager, a fault injector, a preemption guard, a watchdog —
+    that need iteration boundaries: the eager resilient loop,
+    ``resilience.loop``), "captured" (``config.capture``: iteration 1
+    eager, the rest replays of one captured iteration), "prefetched" (the
     pipelined chunk walks, every iteration eager) or "serial"
-    (``overlap=False``)."""
+    (``overlap=False``) — the last three ``run_iterations``'s."""
+    if stepped_by:
+        return "stepped", (f"{', '.join(stepped_by)}: the eager resilient "
+                           "loop")
     if not config.overlap:
         return "serial", "overlap off: the serial schedule"
     if torch.device(device).type != "cuda":
@@ -444,58 +459,197 @@ def iteration_step(half, mblocks, ublocks, layout_kw, dtype):
     return step
 
 
-def run_iterations(step, u, m, config: ALSConfig, device):
+def run_iterations(step, u, m, config: ALSConfig, device, health=None):
     """``config.num_iterations`` iterations of ``step`` from (u, m) on the
-    route ``pipeline_route`` picks, under the ``train/fused_loop`` span;
-    records ``fused_loop_done`` (with a capture's seconds).  Returns (u, m,
-    the pipeline record)."""
+    route ``pipeline_route`` picks, under the ``train/fused_loop`` span.
+    ``health`` (a ``resilience.sentinel.HealthConfig``) folds the probe
+    into a device word after each iteration on its cadence
+    (``resilience.loop.make_probed_step``; inside the captured iteration
+    too), read once after the loop: the record's ``health`` is its summary
+    ("healthy", or the first bad iteration and its reasons).  Records
+    ``fused_loop_done`` (with a capture's seconds) when healthy.  Returns
+    (u, m, the pipeline record)."""
     from cfk_tpu_torch.ops.pipeline import CapturedStep
+    from cfk_tpu_torch.resilience import loop as rloop
+    from cfk_tpu_torch.resilience.sentinel import report_from_carry
     from cfk_tpu_torch.telemetry import record_event, span
 
     route, reason = pipeline_route(config, device)
     n = config.num_iterations
     stats: dict = {}
+    state = (u, m)
+    if health is not None:
+        step = rloop.make_probed_step(step, health, n)
+        state = rloop.probed_state(u, m)
     with span("train/fused_loop", iters=n, route=route):
         if route == "captured":
             captured = CapturedStep(step)
-            u, m = captured.run((u, m), n)
+            state = captured.run(state, n)
             stats = captured.stats
         else:
             for _ in range(n):
-                u, m = step((u, m), None)
-        if u.device.type == "cuda":
-            torch.cuda.synchronize(u.device)
+                state = step(state, None)
+        if state[0].device.type == "cuda":
+            torch.cuda.synchronize(state[0].device)
+    u, m = state[:2]
     fields = {key: stats[key] for key in ("capture_s", "instantiate_s",
                                           "replays", "graph_pool_bytes")
               if key in stats}
-    record_event("train", "fused_loop_done", iters=n, route=route, **fields)
-    return u, m, dict(route=route, reason=reason, **stats)
+    record = dict(route=route, reason=reason, **stats)
+    if health is not None:
+        record["health"] = report_from_carry(state[2].cpu()).summary()
+    if record.get("health", "healthy") == "healthy":
+        record_event("train", "fused_loop_done", iters=n, route=route,
+                     **fields)
+    return u, m, record
 
 
-def als_iteration(dataset: Dataset, config: ALSConfig, dev, warm_start):
-    """(step, u, m): both halves' blocks uploaded to ``dev``, the initial
-    factors, and one ALS iteration as ``iteration_step``'s ``step`` — what
-    ``train_als`` runs ``config.num_iterations`` times."""
+def _stepped_by(**resilience) -> tuple[str, ...]:
+    """The trainer arguments that send a run to the eager stepped loop."""
+    return tuple(name for name in ("checkpoint_manager", "fault_injector",
+                                   "preemption_guard", "watchdog")
+                 if resilience.get(name) is not None)
+
+
+def train_loop(dataset: Dataset, config: ALSConfig, dev, make_step, u0, m0,
+               *, model: str, checkpoint_manager=None,
+               checkpoint_every: int = 1, metrics=None, fault_injector=None,
+               preemption_guard=None, watchdog=None):
+    """The iterations of both trainers from (u0, m0): ``run_iterations``
+    on the route ``pipeline_route`` picks, or the eager resilient loop
+    (``resilience.loop.resilient_train_loop``) when a checkpoint manager,
+    a fault injector, a preemption guard or a watchdog needs iteration
+    boundaries — ``cfk_tpu/models/als.py:617-684``'s routing.  With only
+    the sentinel armed (``config.health_check_every``), the probe folds
+    into a device word read after the loop (captured or not), and a trip
+    discards that run and replays it through the resilient loop from the
+    initial factors (the graph is never replayed after a rollback): the
+    reference's fused-loop trip, with its ``fused_loop_trip`` note.
+    ``make_step(Overrides)`` builds one iteration's ``step(state, out)``;
+    λ and the fused epilogue come from ``config`` (then the ladder's
+    rungs), so one ``make_step`` serves configs that differ in them.
+    Returns (u, m, pipeline record)."""
+    import warnings
+
+    from cfk_tpu_torch.resilience.loop import (
+        resilient_train_loop,
+        validate_cadence,
+    )
+    from cfk_tpu_torch.resilience.policy import policy_from_config
+    from cfk_tpu_torch.resilience.sentinel import health_from_config
+    from cfk_tpu_torch.telemetry.metrics import Metrics
+
+    health = health_from_config(config)
+    validate_cadence(checkpoint_every, health)
+    metrics = metrics if metrics is not None else Metrics()
+    metrics.gauge("num_users", dataset.user_map.num_entities)
+    metrics.gauge("num_movies", dataset.movie_map.num_entities)
+    metrics.gauge("num_ratings", int(dataset.movie_blocks.count.sum()))
+    stepped_by = _stepped_by(checkpoint_manager=checkpoint_manager,
+                             fault_injector=fault_injector,
+                             preemption_guard=preemption_guard,
+                             watchdog=watchdog)
+    base = base_overrides(config)
+    if not stepped_by:
+        train_s_before = metrics.phases.get("train", 0.0)
+        with metrics.phase("train"):
+            u, m, record = run_iterations(make_step(base), u0, m0, config,
+                                          dev, health=health)
+        trip = record.get("health", "healthy")
+        if trip == "healthy":
+            metrics.incr("iterations", config.num_iterations)
+            return u, m, record
+        # The tripped run is discarded and replayed: its wall time moves to
+        # "train_discarded" and its iterations are not counted (the replay
+        # re-detects the trip and does the rollback accounting once).
+        del u, m
+        discarded = metrics.phases.get("train", 0.0) - train_s_before
+        metrics.phases["train"] = train_s_before
+        metrics.phases["train_discarded"] += discarded
+        metrics.note("fused_loop_trip", trip)
+        warnings.warn(
+            f"health sentinel tripped in the {record['route']} training "
+            f"loop ({trip}); replaying through the resilient stepped loop")
+        stepped_by = (f"a health trip on the {record['route']} route",)
+
+    def make_stepped(ov):
+        step = make_step(ov)
+        return lambda u, m: step((u, m), None)
+
+    u, m = resilient_train_loop(
+        checkpoint_manager, model=model, rank=config.rank,
+        num_iterations=config.num_iterations,
+        u_shape=tuple(u0.shape), m_shape=tuple(m0.shape), dtype=u0.dtype,
+        init_fn=lambda: (u0.clone(), m0.clone()), make_step=make_stepped,
+        base_overrides=base,
+        metrics=metrics, checkpoint_every=checkpoint_every, health=health,
+        policy=policy_from_config(config), fault_injector=fault_injector,
+        device=dev, preemption_guard=preemption_guard, watchdog=watchdog)
+    if u.device.type == "cuda":
+        torch.cuda.synchronize(u.device)
+    route, reason = pipeline_route(config, dev, stepped_by)
+    return u, m, dict(route=route, reason=reason)
+
+
+def _half_kwargs(config: ALSConfig, ov) -> dict:
+    """The half-step knobs of ``config`` under the escalation overrides
+    ``ov`` (``base_overrides(config)`` before any rung): λ, the fused
+    epilogue and the solve route (``Overrides.reg_solve_algo`` or the
+    config's)."""
+    return dict(lam=ov.lam, fused_epilogue=ov.fused_epilogue,
+                reg_solve_algo=ov.reg_solve_algo or config.reg_solve_algo)
+
+
+def base_overrides(config: ALSConfig):
+    """The ladder's first ``Overrides``: the config's own λ and fused
+    epilogue — what ``make_step`` builds the plain iteration with."""
+    from cfk_tpu_torch.resilience.policy import Overrides
+
+    return Overrides(lam=config.lam, fused_epilogue=config.fused_epilogue)
+
+
+def timed_steps(steps, dataset, config, dev, warm_start, metrics):
+    """``steps(dataset, config, dev, warm_start)`` (``als_steps`` or
+    ``ials_steps``: the block upload, the work-unit plans, the initial
+    factors) under ``metrics``' ``blocks_to_device`` phase, as the
+    reference times it (``cfk_tpu/models/als.py:595``)."""
+    with metrics.phase("blocks_to_device"):
+        out = steps(dataset, config, dev, warm_start)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    return out
+
+
+def als_steps(dataset: Dataset, config: ALSConfig, dev, warm_start):
+    """(make_step, u, m): both halves' blocks uploaded to ``dev``, the
+    initial factors, and ``make_step(Overrides)`` building one ALS
+    iteration as ``iteration_step``'s ``step`` — what ``train_als`` runs
+    and what the recovery ladder rebuilds with its overrides."""
     mblocks, ublocks, layout_kw, solve_chunk = device_setup(dataset, config,
                                                             dev)
     u, m = init_user_factors(dataset, ublocks, config, dev, warm_start)
-    half = functools.partial(_half, lam=config.lam, solve_chunk=solve_chunk,
-                             solver=config.solver,
-                             algorithm=config.algorithm,
-                             block_size=config.block_size,
-                             sweeps=config.sweeps,
-                             fused_epilogue=config.fused_epilogue,
-                             in_kernel_gather=config.in_kernel_gather,
-                             reg_solve_algo=config.reg_solve_algo,
-                             table_dtype=config.table_dtype,
-                             overlap=config.overlap)
-    return (iteration_step(half, mblocks, ublocks, layout_kw,
-                           storage_dtype(config)), u, m)
+
+    def make_step(ov):
+        half = functools.partial(_half, solve_chunk=solve_chunk,
+                                 solver=config.solver,
+                                 algorithm=config.algorithm,
+                                 block_size=config.block_size,
+                                 sweeps=config.sweeps,
+                                 in_kernel_gather=config.in_kernel_gather,
+                                 table_dtype=config.table_dtype,
+                                 overlap=config.overlap,
+                                 **_half_kwargs(config, ov))
+        return iteration_step(half, mblocks, ublocks, layout_kw,
+                              storage_dtype(config))
+
+    return make_step, u, m
 
 
 def train_als(dataset: Dataset, config: ALSConfig, *,
               device: str | torch.device = DEFAULT_DEVICE,
-              warm_start=None) -> ALSModel:
+              warm_start=None, checkpoint_manager=None,
+              checkpoint_every: int = 1, metrics=None, fault_injector=None,
+              preemption_guard=None, watchdog=None) -> ALSModel:
     """Train ALS-WR (or ALS++ with ``config.algorithm="als++"``) on one
     device; factors in ascending-id order.
 
@@ -503,16 +657,35 @@ def train_als(dataset: Dataset, config: ALSConfig, *,
     ``device="cpu"`` for the plain PyTorch versions.  ``warm_start=(u0, m0)``
     (host arrays or tensors, ascending-id rows, shorter ones zero-padded)
     seeds the factors instead of the avg-rating + U(0,1) init — how the
-    parity tests hand the JAX package's initial factors to the port, and how
-    a run resumes from an earlier one's factors.  ``config.overlap`` and
-    ``config.capture`` pick the pipelined (captured or not) or the serial
-    schedule (``pipeline_route``; the model's ``pipeline`` says which
-    ran).
+    parity tests hand the JAX package's initial factors to the port.
+    ``config.overlap`` and ``config.capture`` pick the pipelined (captured
+    or not) or the serial schedule (``pipeline_route``; the model's
+    ``pipeline`` says which ran).
+
+    Resilience (``cfk_tpu_torch.resilience``, the reference's arguments):
+    ``checkpoint_manager`` saves the factors every ``checkpoint_every``
+    iterations and resumes from its newest intact step (which wins over
+    ``warm_start``); ``config.health_check_every`` arms the sentinel,
+    whose trip rolls back and climbs the escalation ladder;
+    ``fault_injector`` (chaos testing), ``preemption_guard`` and
+    ``watchdog`` act at iteration boundaries.  A manager, an injector, a
+    guard or a watchdog sends the run to the eager stepped loop; ``metrics``
+    (``telemetry.Metrics``) records phases, counters and the recovery
+    notes.  See ``train_loop``.
     """
+    from cfk_tpu_torch.telemetry.metrics import Metrics
+
     use_kernels(config.solver, torch.device(device))  # cholesky: CPU only
     dev = resolve_device(device)
-    step, u, m = als_iteration(dataset, config, dev, warm_start)
-    u, m, pipeline = run_iterations(step, u, m, config, dev)
+    metrics = metrics if metrics is not None else Metrics()
+    make_step, u, m = timed_steps(als_steps, dataset, config, dev,
+                                  warm_start, metrics)
+    u, m, pipeline = train_loop(
+        dataset, config, dev, make_step, u, m, model="als",
+        checkpoint_manager=checkpoint_manager,
+        checkpoint_every=checkpoint_every, metrics=metrics,
+        fault_injector=fault_injector, preemption_guard=preemption_guard,
+        watchdog=watchdog)
     return ALSModel(
         user_factors=u,
         movie_factors=m,

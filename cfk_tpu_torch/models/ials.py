@@ -8,8 +8,10 @@ preferences 1 at observed cells.  The global Gram YᵀY is computed once per
 half-iteration.  ``algorithm="ials++"`` swaps the full k×k solves for
 warm-started subspace sweeps (``ops.subspace``).
 
-Left for later slices: the checkpointed/resilient stepped loop, the health
-sentinel, the out-of-core ``host_window`` tier and ``train_ials_sharded``.
+The checkpointed/resilient stepped loop, the health sentinel and the fault
+hooks are ``models.als.train_loop``'s, shared with ``train_als``.  Left for
+later slices: the out-of-core ``host_window`` tier and
+``train_ials_sharded`` (with ``make_ials_training_step``).
 """
 
 from __future__ import annotations
@@ -26,10 +28,12 @@ from cfk_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from cfk_tpu_torch.models.als import (
     ALSModel,
     device_setup,
+    _half_kwargs,
     init_user_factors,
     iteration_step,
-    run_iterations,
     storage_dtype,
+    timed_steps,
+    train_loop,
 )
 from cfk_tpu_torch.ops.quant import gather_operand_view
 from cfk_tpu_torch.ops.solve import (
@@ -133,29 +137,37 @@ def _check_nonnegative_strengths(dataset: Dataset) -> None:
         )
 
 
-def ials_iteration(dataset: Dataset, config: IALSConfig, dev, warm_start):
-    """(step, u, m): both halves' blocks (with the weighted channels)
-    uploaded to ``dev``, the initial factors, and one iALS iteration as
-    ``models.als.iteration_step``'s ``step`` — what ``train_ials`` runs."""
+def ials_steps(dataset: Dataset, config: IALSConfig, dev, warm_start):
+    """(make_step, u, m): both halves' blocks (with the weighted channels)
+    uploaded to ``dev``, the initial factors, and ``make_step(Overrides)``
+    building one iALS iteration as ``models.als.iteration_step``'s
+    ``step`` — the single-device ``make_step`` of
+    ``cfk_tpu/models/ials.py:441-480``."""
     mblocks, ublocks, layout_kw, _ = device_setup(dataset, config, dev,
                                                   weighted=True)
     u, m = init_user_factors(dataset, ublocks, config, dev, warm_start)
-    half = functools.partial(_ials_half, lam=config.lam, alpha=config.alpha,
-                             solver=config.solver, algorithm=config.algorithm,
-                             block_size=config.block_size,
-                             sweeps=config.sweeps,
-                             fused_epilogue=config.fused_epilogue,
-                             in_kernel_gather=config.in_kernel_gather,
-                             reg_solve_algo=config.reg_solve_algo,
-                             table_dtype=config.table_dtype,
-                             overlap=config.overlap)
-    return (iteration_step(half, mblocks, ublocks, layout_kw,
-                           storage_dtype(config)), u, m)
+
+    def make_step(ov):
+        half = functools.partial(_ials_half, alpha=config.alpha,
+                                 solver=config.solver,
+                                 algorithm=config.algorithm,
+                                 block_size=config.block_size,
+                                 sweeps=config.sweeps,
+                                 in_kernel_gather=config.in_kernel_gather,
+                                 table_dtype=config.table_dtype,
+                                 overlap=config.overlap,
+                                 **_half_kwargs(config, ov))
+        return iteration_step(half, mblocks, ublocks, layout_kw,
+                              storage_dtype(config))
+
+    return make_step, u, m
 
 
 def train_ials(dataset: Dataset, config: IALSConfig, *,
                device: str | torch.device = DEFAULT_DEVICE,
-               warm_start=None) -> ALSModel:
+               warm_start=None, checkpoint_manager=None,
+               checkpoint_every: int = 1, metrics=None, fault_injector=None,
+               preemption_guard=None, watchdog=None) -> ALSModel:
     """Single-device implicit ALS; ratings are interaction strengths
     (counts, play time, stars — anything ≥ 0).  Factors in ascending-id
     order.
@@ -165,13 +177,23 @@ def train_ials(dataset: Dataset, config: IALSConfig, *,
     as in ``train_als`` — how the parity tests hand the JAX package's
     initial factors (drawn with jax's threefry) to the port; ``m0`` is the
     first movie half's warm start under ``ials++``.  ``config.overlap``
-    picks the schedule as in ``train_als`` (``models.als.pipeline_route``).
+    picks the schedule, and the checkpoint, health, fault, preemption and
+    watchdog arguments act, as in ``train_als`` (``models.als.train_loop``).
     """
     _check_nonnegative_strengths(dataset)
+    from cfk_tpu_torch.telemetry.metrics import Metrics
+
     use_kernels(config.solver, torch.device(device))  # cholesky: CPU only
     dev = resolve_device(device)
-    step, u, m = ials_iteration(dataset, config, dev, warm_start)
-    u, m, pipeline = run_iterations(step, u, m, config, dev)
+    metrics = metrics if metrics is not None else Metrics()
+    make_step, u, m = timed_steps(ials_steps, dataset, config, dev,
+                                  warm_start, metrics)
+    u, m, pipeline = train_loop(
+        dataset, config, dev, make_step, u, m, model="ials",
+        checkpoint_manager=checkpoint_manager,
+        checkpoint_every=checkpoint_every, metrics=metrics,
+        fault_injector=fault_injector, preemption_guard=preemption_guard,
+        watchdog=watchdog)
     return ALSModel(
         user_factors=u,
         movie_factors=m,

@@ -614,36 +614,34 @@ def ials_half_step_bucketed(
     return out[:local_entities]
 
 
-def segment_gram(
-    fixed_factors: torch.Tensor,  # [F, k]
+def segment_gram_rounded(
+    fixed_factors: torch.Tensor,  # [F, k] bf16
     neighbor_idx: torch.Tensor,  # [C] one chunk's flat sorted run
-    weight: torch.Tensor,  # [C] Gram weight (1 explicit, α·r iALS)
-    rating: torch.Tensor,  # [C] RHS coefficient (r explicit, c iALS)
+    confidence_m1: torch.Tensor,  # [C] c−1 = α·r
     mask: torch.Tensor,  # [C] 1 = real entry
-    segment_ids: torch.Tensor,  # [C] chunk-relative entity row (trash last)
-    num_segments: int,
+    lengths: torch.Tensor,  # [Ec+1] entries per segment (trash last)
+    carry,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One chunk's Gram/RHS contributions by segment, the ``segsum`` backend
-    of ``cfk_tpu/ops/solve.py::_segment_gram_flat`` :576: the masked gather
-    f, the per-entry outer products w·f fᵀ summed by ``index_add_`` into
-    A [num_segments, k, k], and r·f into b [num_segments, k], all float32.
-    Padding entries are masked to zero, so their (trash) segment gets
-    nothing.  The segment layout reaches no Pallas kernel in the JAX package
-    (its Gram is XLA's ragged matmul or segment sum), so this is plain
-    PyTorch on every device; the [C, k, k] tensor it holds is what the
-    blocks' chunk size is cut for.  A bf16 table forms f, w·f and r in
-    bf16 (``gram_compute_dtype``, as the reference's ragged backend feeds
-    its matrix unit), the outer products and sums float32."""
+    """One chunk's raw iALS Gram/RHS for a bf16 table in the JAX package's
+    rounding order (``cfk_tpu/ops/solve.py::_segment_gram_flat`` :576):
+    (c−1)·f and c formed in bf16 (each product rounded), A_s = Σ
+    [(c−1)·f] fᵀ and b_s = Σ c·f summed float32 over segment s's entries in
+    entry order by ``torch.segment_reduce`` (a sequential loop per output
+    element: the same sums on every run, no atomics), then cin·(ca, cb) of
+    ``carry`` folded into segment 0.  A is symmetric only to that rounding:
+    the solve takes its symmetric part (``ials_half_step_segment``)."""
     ct = gram_compute_dtype(fixed_factors)
     f = fixed_factors[neighbor_idx.long()].to(ct) * mask[:, None].to(ct)
-    fw = (f * weight[:, None].to(ct)).float()
+    fw = (f * confidence_m1[:, None].to(ct)).float()
     f = f.float()
-    rating = rating.to(ct).float()
-    k = f.shape[1]
-    a = f.new_zeros((num_segments, k, k)).index_add_(
-        0, segment_ids, fw[:, :, None] * f[:, None, :])
-    b = f.new_zeros((num_segments, k)).index_add_(
-        0, segment_ids, rating[:, None] * f)
+    rt = ((confidence_m1 + 1.0) * mask).to(ct).float()
+    a = torch.segment_reduce(fw[:, :, None] * f[:, None, :], "sum",
+                             lengths=lengths, unsafe=True)
+    b = torch.segment_reduce(rt[:, None] * f, "sum", lengths=lengths,
+                             unsafe=True)
+    ca, cb, cin = carry
+    a[0] += cin[0] * ca
+    b[0] += cin[0] * cb
     return a, b
 
 
@@ -659,11 +657,12 @@ def segment_scan(fixed_factors, chunk_gram, solve_rows, blk, statics,
     runs the serial loop's calls in its order).
 
     Chunk c's fetch slices its [cap] window of the flat run (``SEGMENT_RUN``
-    → views, ``index_fetch``); ``chunk_gram(run)`` builds its raw Gram/RHS
-    [Ec+1, k, k]/[Ec+1, k]; ``solve_rows(a, b, count) -> x`` solves its Ec
-    rows.  The entity straddling each chunk boundary carries its partial
-    (A, b): ``carry_in`` gates adding it to segment 0, and the next carry
-    is segment ``last_seg`` of the RAW sums — copied out before
+    → views, ``index_fetch``); ``chunk_gram(run, carry, c)`` builds its raw
+    Gram/RHS [Ec+1, k, k]/[Ec+1, k] with ``carry`` = (ca, cb, cin) folded
+    into segment 0 as cin·(ca, cb); ``solve_rows(a, b, count) -> x`` solves
+    its Ec rows.  The entity straddling each chunk boundary carries its
+    partial (A, b): ``carry_in`` gates adding it to segment 0, and the next
+    carry is segment ``last_seg`` of the RAW sums — copied out before
     ``solve_rows`` runs, since above k = 128 the split route adds the ridge
     into ``a`` in place.  Each chunk's rows are scattered into the output
     (rows not finalized there go to the trash row); rows that no chunk
@@ -682,9 +681,7 @@ def segment_scan(fixed_factors, chunk_gram, solve_rows, blk, statics,
         return {f: fn(c) for f, fn in fetches.items()}
 
     def compute(carry, run, _x, c):
-        a, b = chunk_gram(run)
-        a[0] += carry_in[c] * carry[0]
-        b[0] += carry_in[c] * carry[1]
+        a, b = chunk_gram(run, (carry[0], carry[1], carry_in[c:c + 1]), c)
         last = last_seg[c:c + 1]
         carry = (a.index_select(0, last)[0], b.index_select(0, last)[0])
         rows = slice(c * e_c, (c + 1) * e_c)
@@ -694,6 +691,26 @@ def segment_scan(fixed_factors, chunk_gram, solve_rows, blk, statics,
 
     prefetch_scan(fetch, compute, nc, (a0, b0))
     return out[:local_entities]
+
+
+def _segment_k2(fixed_factors, blk, run, wt, rt, carry, c, e_c):
+    """Chunk ``c``'s Gram/RHS through K2 (``gram_gather``) with one-row
+    tiles: g = table[nb]·wt, A_s = Σ g gᵀ and b_s = Σ rt·g over the
+    entries segment s owns (``seg_rel``), float32 sums, the carry folded
+    into segment 0.  The run is sorted by owner, so K2's work units (the
+    chunk's plan, staged at block upload: ``models.als._segment_to_device``)
+    sum each segment's partials in unit order: the sums are the same on
+    every run, with no atomics and no [C, k, k] tensor.  Padding weighs 0,
+    so the trash segment gets nothing.  On the CPU K2's plain version runs:
+    the per-entry outer products summed by ``index_add_`` in entry order,
+    as the JAX package's segment sum does."""
+    from cfk_tpu_torch.ops.kernels.gram_kernel import gram_gather
+    from cfk_tpu_torch.ops.kernels.gram_units import chunk_plan
+
+    return gram_gather(fixed_factors, run["neighbor_idx"], wt.contiguous(),
+                       rt.contiguous(), run["seg_rel"],
+                       num_segments=e_c + 1, tile_rows=1, carry=carry,
+                       units=chunk_plan(blk, c))
 
 
 def als_half_step_segment(
@@ -709,17 +726,18 @@ def als_half_step_segment(
     """One ALS-WR half-iteration over the segment layout
     (``cfk_tpu/ops/solve.py::als_half_step_segment`` :690): the same normal
     equations and λ·max(n, 1)·I as every other layout, the Grams summed
-    chunk by chunk over the flat sorted run (``segment_gram``), each
-    chunk's Ec rows solved by ``regularized_solve`` — K1 on CUDA up to
-    k = 128, ``batched_spd_solve`` above, the plain version on the CPU —
-    with the straddling entity's partial sums carried across chunks."""
+    chunk by chunk over the flat sorted run by K2 (``_segment_k2``: wt =
+    mask, rt = r·mask; a bf16 table's rows stay exact, its weights being
+    0/1), each chunk's Ec rows solved by ``regularized_solve`` — K1 on CUDA
+    up to k = 128, ``batched_spd_solve`` above, the plain version on the
+    CPU — with the straddling entity's partial sums carried across
+    chunks."""
     e_c = statics[2]
 
-    def chunk_gram(run):
-        rt = run["rating"]
-        return segment_gram(fixed_factors, run["neighbor_idx"],
-                            torch.ones_like(rt), rt, run["mask"],
-                            run["seg_rel"], e_c + 1)
+    def chunk_gram(run, carry, c):
+        mk = run["mask"]
+        return _segment_k2(fixed_factors, blk, run, mk, run["rating"] * mk,
+                           carry, c, e_c)
 
     def solve_rows(a, b, cnt):
         return regularized_solve(a, b, cnt, lam, solver,
@@ -746,19 +764,35 @@ def ials_half_step_segment(
     A = YᵀY + Σ_obs (c−1)·f fᵀ + λI, b = Σ_obs c·f.  The chunk loop carries
     the raw observed Gram of straddling entities; the shared YᵀY + λI is
     added at solve time only (K1's matrix mode up to k = 128).  Rows with
-    no interaction stay exactly 0."""
+    no interaction stay exactly 0.  A float32 table's chunk Grams go
+    through K2 with the sqrt reparameterization of the tiled layout
+    (``ops.bucketed.ials_reparam``: g = √(α·r)·f, b-coefficient
+    c/√(α·r)).  A bf16 table keeps the JAX package's rounding order on this
+    layout — (c−1)·f rounded to bf16, where the reparameterization would
+    round √(α·r)·f — so its chunks take ``segment_gram_rounded`` (the
+    chunk's ``group_sizes`` as segment lengths) and each solve reads the
+    symmetric part of its A, as the JAX package's Cholesky symmetrizes its
+    input."""
+    from cfk_tpu_torch.ops.bucketed import ials_reparam
+
     if gram is None:
         gram = global_gram(fixed_factors)
     reg = implicit_reg(gram, lam)
     e_c = statics[2]
+    rounded = gram_compute_dtype(fixed_factors) == torch.bfloat16
 
-    def chunk_gram(run):
-        rt, mk = run["rating"], run["mask"]
-        return segment_gram(fixed_factors, run["neighbor_idx"],
-                            alpha * rt, (1.0 + alpha * rt) * mk, mk,
-                            run["seg_rel"], e_c + 1)
+    def chunk_gram(run, carry, c):
+        if rounded:
+            sizes = blk["group_sizes"][c * (e_c + 1):(c + 1) * (e_c + 1)]
+            return segment_gram_rounded(
+                fixed_factors, run["neighbor_idx"], alpha * run["rating"],
+                run["mask"], sizes, carry)
+        wt, rt_b = ials_reparam(run["rating"], run["mask"], alpha)
+        return _segment_k2(fixed_factors, blk, run, wt, rt_b, carry, c, e_c)
 
     def solve_rows(a, b, _cnt):
+        if rounded:
+            a = (a + a.mT) * 0.5
         return regularized_solve_matrix(a, b, reg, solver,
                                         algo=reg_solve_algo)
 

@@ -1,0 +1,251 @@
+"""Deterministic fault injection: prove recovery works, don't assume it.
+
+The port's copy of the single-process injectors of
+``cfk_tpu/resilience/faults.py``, with the reference's names, fields and
+seeded row choices, so the same fault plan corrupts the same rows in both
+packages.  Every fault is seeded and replayable; ``tests/
+test_torch_resilience.py`` and ``cfk_tpu_torch.scripts.chaos_lab`` assert
+that each one is detected, rolled back and recovered:
+
+- ``FactorCorruption`` — NaN/Inf written into seeded rows of a factor
+  table just before iteration ``k`` (an HBM bit-flip or a bad copy);
+- ``SingularChunk`` — zero the fixed side's rows feeding some entities'
+  normal equations, so with λ = 0 their Grams are exactly singular (the
+  policy's λ bump is the designed fix);
+- ``TornCheckpointManager`` / ``SlowDiskCheckpointManager`` — a torn step
+  write (caught by the crc32 manifest) and a slow disk (absorbed by the
+  async writer);
+- ``PreemptAt`` — SIGTERM to this process before an iteration.
+
+The others (the host-window, hot-cache, staging and store faults, the
+flaky fleet, broker, transport and delta-stream faults, the backend
+outage) belong to the slices that port what they break.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+
+import numpy as np
+
+from cfk_tpu_torch.transport.checkpoint import (
+    CheckpointManager as _BaseCheckpointManager,
+)
+from cfk_tpu_torch.transport.checkpoint import _crc32_file
+
+# --- factor-table faults ---------------------------------------------------
+
+
+def _with_rows(target, rows, value):
+    """A copy of ``target`` with ``rows`` (a slice or host indices) set to
+    ``value`` — the caller's tensor is left as it was."""
+    out = target.clone()
+    out[rows] = value
+    return out
+
+
+@dataclasses.dataclass
+class FactorCorruption:
+    """Write ``value`` into ``num_rows`` seeded rows of one side's factors
+    before iteration ``iteration`` (0-based).  ``persistent`` re-fires on
+    every pass through that iteration (a rollback replays into the same
+    fault — the escalation path must fix the math); one-shot faults model
+    transients that a plain rollback+retry clears.  ``rows=(lo, hi)``
+    corrupts that contiguous slice instead of seeded random rows."""
+
+    iteration: int
+    side: str = "u"  # "u" | "m"
+    value: float = float("nan")
+    num_rows: int = 4
+    seed: int = 0
+    persistent: bool = False
+    rows: tuple[int, int] | None = None
+    fired: int = 0
+
+    def apply(self, i: int, u, m):
+        if i != self.iteration or (self.fired and not self.persistent):
+            return u, m
+        self.fired += 1
+        target = u if self.side == "u" else m
+        if self.rows is not None:
+            rows = slice(*self.rows)
+        else:
+            rows = np.random.default_rng(self.seed).choice(
+                target.shape[0], size=min(self.num_rows, target.shape[0]),
+                replace=False)
+            rows = [int(r) for r in rows]
+        target = _with_rows(target, rows, self.value)
+        return (target, m) if self.side == "u" else (u, target)
+
+
+@dataclasses.dataclass
+class SingularChunk:
+    """Zero a contiguous slice of the fixed side's factor rows before
+    iteration ``iteration``, so the entities whose neighbors all lie in it
+    assemble an exactly singular A = Σ f·fᵀ (run with λ = 0 to remove the
+    SPD repair; the ladder's λ bump is then the recovery).  ``rows=None``
+    zeroes the whole side."""
+
+    iteration: int
+    side: str = "u"
+    rows: tuple[int, int] | None = None
+    persistent: bool = True
+    fired: int = 0
+
+    def apply(self, i: int, u, m):
+        if i != self.iteration or (self.fired and not self.persistent):
+            return u, m
+        self.fired += 1
+        target = u if self.side == "u" else m
+        lo, hi = self.rows if self.rows is not None else (0, target.shape[0])
+        target = _with_rows(target, slice(lo, hi), 0.0)
+        return (target, m) if self.side == "u" else (u, target)
+
+
+class FaultInjector:
+    """The hook the resilient loop calls: a seeded plan of factor faults.
+
+    ``before_step(i, u, m)`` applies every armed fault due at iteration
+    ``i`` and returns the (possibly corrupted) pair.  Passing an injector
+    to a trainer sends it to the eager stepped loop, where faults fire at
+    iteration boundaries.
+    """
+
+    def __init__(self, *faults):
+        self.faults = list(faults)
+
+    def before_step(self, i: int, u, m):
+        for f in self.faults:
+            u, m = f.apply(i, u, m)
+        return u, m
+
+    @property
+    def fired(self) -> int:
+        return sum(f.fired for f in self.faults)
+
+
+# --- checkpoint faults -----------------------------------------------------
+
+
+class TornCheckpointManager:
+    """Wrap a ``CheckpointManager`` so the save at ``tear_at`` is torn.
+
+    ``mode="truncate"`` halves one npy payload after the step directory is
+    committed (a torn write that raced the rename); ``mode="scramble"``
+    flips bytes in place (silent media corruption); ``mode="manifest"``
+    truncates ``manifest.json`` itself.  The crc32 manifest verification
+    catches all three on restore and falls back to the previous step.
+    """
+
+    def __init__(self, inner, tear_at: int, mode: str = "truncate",
+                 victim: str = "user.npy"):
+        if mode not in ("truncate", "scramble", "manifest"):
+            raise ValueError(f"unknown tear mode {mode!r}")
+        self.inner = inner
+        self.tear_at = tear_at
+        self.mode = mode
+        self.victim = victim
+        self.torn: list[str] = []
+
+    def __getattr__(self, name):  # delegate everything else
+        return getattr(self.inner, name)
+
+    def save_async(self, iteration, user_factors, movie_factors, meta=None):
+        # The sync path: the inner writer thread would call inner.save and
+        # route around the tear, which must land before training moves on.
+        self.save(iteration, user_factors, movie_factors, meta=meta)
+
+    def save(self, iteration, user_factors, movie_factors, meta=None):
+        path = self.inner.save(iteration, user_factors, movie_factors,
+                               meta=meta)
+        if iteration == self.tear_at:
+            victim = os.path.join(
+                path, "manifest.json" if self.mode == "manifest"
+                else self.victim)
+            with open(victim, "rb") as f:
+                data = f.read()
+            if self.mode == "scramble":
+                torn = bytes(b ^ 0xFF for b in data[: len(data) // 2])
+                torn += data[len(data) // 2:]
+            else:
+                torn = data[: max(1, len(data) // 2)]
+            with open(victim, "wb") as f:
+                f.write(torn)
+            self.torn.append(victim)
+        return path
+
+
+class SlowDiskCheckpointManager(_BaseCheckpointManager):
+    """Checkpoint store on a pathologically slow disk: every step write
+    sleeps ``delay_s`` before touching the filesystem.  A subclass, so the
+    inherited ``save_async`` hands this slow ``save`` to the writer thread;
+    ``writes``/``max_pending_seen`` record that the fault fired."""
+
+    def __init__(self, directory, *, delay_s=0.05, **kw):
+        super().__init__(directory, **kw)
+        self.delay_s = delay_s
+        self.writes = 0
+        self.max_pending_seen = 0
+
+    def save(self, iteration, user_factors, movie_factors, meta=None):
+        self.max_pending_seen = max(self.max_pending_seen,
+                                    self.pending_count)
+        time.sleep(self.delay_s)
+        self.writes += 1
+        return super().save(iteration, user_factors, movie_factors,
+                            meta=meta)
+
+
+@dataclasses.dataclass
+class PreemptAt:
+    """Deliver ``signum`` (default SIGTERM) to this very process before
+    iteration ``iteration`` — the eviction notice a preempted machine gets.
+    A ``PreemptionGuard`` must be armed: its handler turns the signal into
+    the graceful save-and-exit the loop polls for."""
+
+    iteration: int
+    signum: int = 15  # signal.SIGTERM
+    fired: int = 0
+
+    def apply(self, i: int, u, m):
+        if i != self.iteration or self.fired:
+            return u, m
+        self.fired += 1
+        os.kill(os.getpid(), self.signum)
+        return u, m
+
+
+# --- fixtures ----------------------------------------------------------------
+
+
+def blockstructured_coo(num_users: int = 24, num_movies: int = 16,
+                        isolated_movies: int = 4, isolated_users: int = 8,
+                        seed: int = 0):
+    """Small dense-ish COO where the first ``isolated_movies`` movies are
+    rated ONLY by the first ``isolated_users`` users (who also rate the
+    shared movies).  Zeroing those users' rows (``SingularChunk``) makes
+    exactly the isolated movies' normal equations singular under λ = 0,
+    while every entity has enough neighbors that the fault-free λ = 0 run
+    is non-singular.  The reference's fixture, the same arrays."""
+    from cfk_tpu_torch.data.blocks import RatingsCOO
+
+    rng = np.random.default_rng(seed)
+    movies, users = [], []
+    for mv in range(num_movies):
+        raters = (range(isolated_users) if mv < isolated_movies
+                  else range(num_users))
+        for us in raters:
+            movies.append(mv)
+            users.append(us)
+    movies = np.asarray(movies, np.int64)
+    users = np.asarray(users, np.int64)
+    ratings = rng.integers(1, 6, size=movies.shape[0]).astype(np.float32)
+    return RatingsCOO(movie_raw=movies, user_raw=users, rating=ratings)
+
+
+def crc32_file(path: str) -> int:
+    """crc32 of a file's bytes — the checkpoint manifest's payload
+    checksum (one implementation, ``transport.checkpoint``)."""
+    return _crc32_file(path)

@@ -257,6 +257,10 @@ def test_import_pulls_in_no_jax_and_no_cfk_tpu():
         "assert cfk_tpu_torch.data._native.available()\n"
         "import cfk_tpu_torch.ops.kernels.binv_kernel\n"
         "import cfk_tpu_torch.scripts.exp_binv\n"
+        "import cfk_tpu_torch.resilience, cfk_tpu_torch.resilience.loop\n"
+        "import cfk_tpu_torch.resilience.faults\n"
+        "import cfk_tpu_torch.resilience.retry\n"
+        "import cfk_tpu_torch.scripts.chaos_lab\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'cfk_tpu', 'ml_dtypes')]\n"
         "print(bad)\n"

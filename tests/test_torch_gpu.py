@@ -1453,8 +1453,8 @@ def test_topk_scores_bit_equal_at_serve_shapes(cuda, table_dtype, b,
 @pytest.mark.parametrize("k", [64, 128])
 @pytest.mark.parametrize("implicit", [False, True])
 def test_segment_half_step_matches_plain(cuda, k, implicit):
-    """The segment half-step on the card (PyTorch's gather and index_add_
-    Grams, K1 a chunk) against the same half-step's plain route on the CPU,
+    """The segment half-step on the card (K2's one-row-tile Grams and K1,
+    once a chunk each) against the same half-step's plain route on the CPU,
     on a side whose hot movies straddle chunks; K1 launches once a chunk.
     Float32 Grams summed in other orders, then solves: 1e-4 of the largest
     |x|, the K1 batch tolerance."""
@@ -1782,11 +1782,8 @@ def test_captured_iterations_match_eager(cuda, layout, ds_kw, cfg_kw,
     counters show iteration 1's launches, the serial run's are those plus
     two iterations of what the capture recorded, and the graph holds one
     kernel node for each recorded launch (``replay_launches``, read from
-    libcuda).  The segment layout sums its Grams
-    with ``index_add_``'s float atomics, whose order changes from run to
-    run, so there the runs agree within 1e-4 of the largest |factor|
-    (float32 reorderings compounded through six chained solves; 1.6e-5 on
-    an H100)."""
+    libcuda).  Every layout, the segment one too: its Grams go through K2's
+    work units, which sum each segment in a fixed order."""
     runs = _pipe_runs(cuda, layout, ds_kw, cfg_kw, implicit)
     (on, n_on), (off, n_off) = runs[True], runs[False]
     assert on.pipeline["route"] == "captured"
@@ -1795,10 +1792,7 @@ def test_captured_iterations_match_eager(cuda, layout, ds_kw, cfg_kw,
     for got, want in ((on.user_factors, off.user_factors),
                       (on.movie_factors, off.movie_factors)):
         assert torch.isfinite(got).all()
-        if layout == "segment":
-            assert _rel_err(got.float(), want.float()) < 1e-4
-        else:
-            assert torch.equal(got, want)
+        assert torch.equal(got, want)
 
 
 def test_replay_reads_factors_updated_in_place(cuda):
@@ -1909,3 +1903,206 @@ def test_batched_spd_solve_captures(cuda):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(got, want) and torch.isfinite(got).all()
+
+
+# -- the segment layout's Gram through K2 (one-row tiles) ----------------------
+
+def _segment_half(k=8, seed=4):
+    from cfk_tpu_torch import Dataset
+
+    coo = synthetic_netflix_coo(600, 150, 9000, seed=seed)
+    ds = Dataset.from_coo(coo, layout="segment", chunk_elems=k * 512)
+    mb = ds.movie_blocks
+    assert mb.num_chunks > 2 and mb.carry_in.sum() > 0
+    return ds, mb
+
+
+@pytest.mark.parametrize("implicit,dtype", [
+    (False, torch.float32), (True, torch.float32), (True, torch.bfloat16)],
+    ids=["als", "ials", "ials_bf16"])
+def test_segment_half_step_bit_stable_k2_per_chunk(cuda, implicit, dtype):
+    """A segment half twice on the card: bit-equal (K2's work units sum
+    each segment in unit order — no atomics), K2 and K1 launched once a
+    chunk, and within 1e-4 of the plain route on the CPU.  iALS with a
+    bf16 table keeps the JAX package's rounding order on this layout
+    (``ops.solve.segment_gram_rounded``: sorted segment sums, no atomics):
+    bit-equal too, with K1 once a chunk and no K2."""
+    from cfk_tpu_torch.models.als import _segment_to_device
+    from cfk_tpu_torch.ops import solve as t_solve
+
+    ds, mb = _segment_half()
+    fixed = np.abs(np.random.default_rng(0).standard_normal(
+        (ds.user_blocks.padded_entities, 8)).astype(np.float32))
+
+    def half(dev):
+        blk = _segment_to_device(mb, dev)
+        f = torch.as_tensor(fixed, device=dev).to(dtype)
+        if implicit:
+            return t_solve.ials_half_step_segment(
+                f, blk, mb.statics, mb.padded_entities, 0.1, 40.0)
+        return t_solve.als_half_step_segment(f, blk, mb.statics,
+                                             mb.padded_entities, 0.05)
+
+    gram_gather.launches = reg_solve.launches = 0
+    first = half(cuda)
+    k2 = 0 if dtype == torch.bfloat16 else mb.num_chunks
+    assert (gram_gather.launches, reg_solve.launches) == (k2, mb.num_chunks)
+    assert torch.equal(half(cuda), first)
+    assert _rel_err(first.cpu(), half(torch.device("cpu"))) < 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("weighted", [False, True],
+                         ids=["explicit", "weighted"])
+@pytest.mark.parametrize("k", [8, 64, 136])
+def test_gram_gather_one_row_tiles_matches_plain(cuda, k, weighted, dtype):
+    """K2 at ``tile_rows = 1`` on segment chunks — the flat run, one owner
+    per entry (``seg_rel``), the trash segment last, the staged work-unit
+    plan, the carry folded into segment 0 — against its plain version
+    (1e-5 of the largest |value|), launched twice (bit-equal); k = 136 on
+    the block-pair grid.  Weighted: the iALS √(α·r) weights and their
+    b-coefficients (``ops.bucketed.ials_reparam``)."""
+    from cfk_tpu_torch.models.als import _segment_to_device
+    from cfk_tpu_torch.ops.bucketed import ials_reparam
+    from cfk_tpu_torch.ops.kernels.gram_units import chunk_plan
+
+    ds, mb = _segment_half(k=k)
+    nc, cap, e_c = mb.statics
+    blk = _segment_to_device(mb, cuda)
+    g = torch.Generator().manual_seed(k)
+    table = torch.rand((ds.user_blocks.padded_entities, k),
+                       generator=g).to(cuda, dtype)
+    for c in sorted({1, nc // 2, nc - 1}):
+        sl = slice(c * cap, (c + 1) * cap)
+        nb, rt, mk = (blk[f][sl] for f in ("neighbor_idx", "rating", "mask"))
+        if weighted:
+            wt, rt = ials_reparam(rt, mk, 40.0)
+        else:
+            wt, rt = mk, rt * mk
+        seg = blk["seg_rel"][sl]
+        # The carry is a raw Gram, symmetric (the block-pair grid folds
+        # its lower blocks and mirrors them).
+        x = torch.rand((k, 2 * k), generator=g)
+        ca = x @ x.T
+        carry = (((ca + ca.T) * 0.5).to(cuda),
+                 torch.rand((k,), generator=g).to(cuda),
+                 blk["carry_in"][c:c + 1])
+        kw = dict(num_segments=e_c + 1, tile_rows=1, carry=carry)
+        a, b = gram_gather(table, nb, wt, rt, seg, units=chunk_plan(blk, c),
+                           **kw)
+        a2, b2 = gram_gather(table, nb, wt, rt, seg,
+                             units=chunk_plan(blk, c), **kw)
+        assert torch.equal(a, a2) and torch.equal(b, b2)
+        pa, pb = gram_gather_plain(table, nb, wt, rt, seg, **kw)
+        assert _rel_err(a, pa) < 1e-5 and _rel_err(b, pb) < 1e-5
+
+
+# -- resilience on the card ---------------------------------------------------
+
+@pytest.mark.parametrize("layout", ["tiled", "bucketed", "segment"])
+def test_nan_trip_recovers_bit_equal(cuda, layout):
+    """NaN rows injected before iteration 2: the probe trips, the loop
+    rolls back to its last-good device copy and replays — the final
+    factors ``torch.equal`` to the fault-free run's."""
+    from cfk_tpu_torch import ALSConfig, Dataset, train_als
+    from cfk_tpu_torch.resilience.faults import (
+        FactorCorruption,
+        FaultInjector,
+    )
+    from cfk_tpu_torch.telemetry import Metrics
+
+    coo = synthetic_netflix_coo(600, 150, 9000, seed=4)
+    ds = Dataset.from_coo(coo, layout=layout, chunk_elems=2048,
+                          dense_stream=layout == "tiled")
+    cfg = ALSConfig(rank=8, num_iterations=4, layout=layout,
+                    health_check_every=1)
+    free = train_als(ds, cfg, device=cuda)
+    metrics = Metrics()
+    inj = FaultInjector(FactorCorruption(iteration=2))
+    got = train_als(ds, cfg, device=cuda, metrics=metrics,
+                    fault_injector=inj)
+    assert inj.fired == 1 and metrics.counters["health_trips"] == 1
+    assert metrics.counters["rollbacks"] == 1
+    assert got.pipeline["route"] == "stepped"
+    assert torch.equal(got.user_factors, free.user_factors)
+    assert torch.equal(got.movie_factors, free.movie_factors)
+
+
+def test_captured_health_trip_replays_bit_equal_to_stepped(cuda):
+    """λ = 0 on power-law data is singular on its own: with ``capture=True``
+    and only the sentinel armed, the probe folded into the captured
+    iteration trips, the run is replayed through the eager resilient loop
+    from its initial factors (the graph is not replayed again), and the
+    ladder's λ bump ends it finite — bit-equal to the same plan run on the
+    eager stepped loop from the start (a fault injector with no faults)."""
+    import warnings
+
+    from cfk_tpu_torch import ALSConfig, Dataset, train_als
+    from cfk_tpu_torch.resilience.faults import FaultInjector
+    from cfk_tpu_torch.telemetry import Metrics
+
+    coo = synthetic_netflix_coo(600, 150, 9000, seed=4)
+    ds = Dataset.from_coo(coo, layout="tiled", chunk_elems=2048,
+                          dense_stream=True, accum_max_entities=200)
+    cfg = ALSConfig(rank=8, num_iterations=4, lam=0.0, layout="tiled",
+                    capture=True, health_check_every=1)
+    runs = {}
+    for name, kw in (("captured", {}),
+                     ("stepped", dict(fault_injector=FaultInjector()))):
+        metrics = Metrics()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            model = train_als(ds, cfg, device=cuda, metrics=metrics, **kw)
+        runs[name] = model, metrics
+    (cap, cap_m), (step, step_m) = runs["captured"], runs["stepped"]
+    assert "fused_loop_trip" in cap_m.notes
+    assert "fused_loop_trip" not in step_m.notes
+    assert cap_m.counters["health_trips"] == step_m.counters["health_trips"]
+    assert step_m.counters["health_trips"] >= 1
+    assert torch.isfinite(cap.user_factors).all()
+    assert torch.equal(cap.user_factors, step.user_factors)
+    assert torch.equal(cap.movie_factors, step.movie_factors)
+
+
+def test_health_probe_in_captured_iteration_matches_off(cuda):
+    """A healthy captured run with the probe in its graph: the factors
+    bit-equal to the captured run without the sentinel."""
+    import dataclasses
+
+    from cfk_tpu_torch import ALSConfig, Dataset, train_als
+
+    coo = synthetic_netflix_coo(600, 150, 9000, seed=4)
+    ds = Dataset.from_coo(coo, layout="tiled", chunk_elems=2048,
+                          dense_stream=True, accum_max_entities=200)
+    base = ALSConfig(rank=8, num_iterations=4, layout="tiled", capture=True)
+    off = train_als(ds, base, device=cuda)
+    on = train_als(ds, dataclasses.replace(base, health_check_every=1),
+                   device=cuda)
+    assert on.pipeline["route"] == "captured"
+    assert on.pipeline["health"] == "healthy"
+    assert torch.equal(on.user_factors, off.user_factors)
+    assert torch.equal(on.movie_factors, off.movie_factors)
+
+
+def test_save_async_snapshot_isolated_from_in_place_updates(cuda, tmp_path):
+    """``save_async`` of CUDA tensors that the caller updates in place at
+    once (as the captured route writes its factors): the committed step
+    holds the values at the call, bit for bit."""
+    from cfk_tpu_torch.transport.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(str(tmp_path))
+    g = torch.Generator().manual_seed(0)
+    u = torch.rand((50_000, 64), generator=g).to(cuda)
+    m = torch.rand((3_000, 64), generator=g).to(cuda)
+    want = []
+    for it in range(1, 4):
+        want.append((u.cpu().numpy(), m.cpu().numpy()))
+        mgr.save_async(it, u, m)
+        u.mul_(1.5).add_(1.0)  # queued behind the snapshot's copy
+        m.zero_()
+    mgr.wait_pending()
+    for it, (wu, wm) in enumerate(want, start=1):
+        st = mgr.restore(it)
+        np.testing.assert_array_equal(st.user_factors, wu)
+        np.testing.assert_array_equal(st.movie_factors, wm)

@@ -194,6 +194,53 @@ def test_train_segment_matches_reference(coo, u0, model):
     assert _rel(got.predict_dense(), want) <= 1e-3
 
 
+@pytest.mark.parametrize("what", ["half", "train"])
+def test_bf16_ials_segment_matches_reference(coo, u0, movie_half, what):
+    """iALS with a bf16 table on the segment layout keeps the JAX package's
+    rounding order — (c−1)·f rounded to bf16, the solve on the symmetric
+    part of A — at the half-step's 1e-4 and the 2-iteration 1e-3.  The
+    reference runs op by op (``jax.disable_jit``): compiled with
+    ``jax.jit``, XLA's excess precision keeps those bf16 products in
+    float32, which is not the program as written."""
+    import jax
+
+    if what == "half":
+        mb, fixed = movie_half
+        fixed = np.abs(fixed)
+        rows = mb.padded_entities + 2
+        with jax.disable_jit():
+            want = j_ials_segment(
+                jnp.asarray(fixed).astype(jnp.bfloat16),
+                *(jnp.asarray(getattr(mb, f)) for f in (
+                    "neighbor_idx", "rating", "mask", "seg_rel",
+                    "chunk_entity", "group_sizes", "carry_in", "last_seg")),
+                rows, LAM, ALPHA, statics=mb.statics)
+        got = t_solve.ials_half_step_segment(
+            T(fixed).bfloat16(), _segment_to_device(mb, CPU), mb.statics,
+            rows, LAM, ALPHA)
+        assert _rel(got, want) <= 1e-4
+        assert torch.all(got[mb.padded_entities:] == 0)
+        return
+    chunk = 200
+    jd = JDataset.from_coo(coo, layout="segment", chunk_elems=chunk)
+    td = Dataset.from_coo(coo, layout="segment", chunk_elems=64 * chunk)
+    m0 = np.zeros((NM, K), np.float32)
+    mblk, ublk, _, layout_kw = j_segment_setup(jd)
+    u, m = jnp.asarray(u0), jnp.asarray(m0)
+    with jax.disable_jit():
+        for _ in range(2):
+            u, m = j_one_iteration(u, m, mblk, ublk, lam=LAM, alpha=ALPHA,
+                                   dtype="float32", table_dtype="bfloat16",
+                                   **layout_kw)
+    want = factors_from_numpy(np.asarray(u), np.asarray(m),
+                              device="cpu").predict_dense()
+    got = train_ials(td, IALSConfig(rank=K, lam=LAM, alpha=ALPHA,
+                                    num_iterations=2, layout="segment",
+                                    table_dtype="bfloat16"),
+                     device="cpu", warm_start=(u0, m0))
+    assert _rel(got.predict_dense(), want) <= 1e-3
+
+
 def test_rank_above_cap_takes_cholesky_with_the_raw_carry(coo, monkeypatch):
     """k = 136: every chunk's rows go to ``batched_spd_solve`` (the ridge
     added into the Gram batch in place), never K1; the straddling entity's

@@ -17,8 +17,8 @@ taken, the capture and instantiation seconds, the graph's pool, and for a
 captured run iteration 1's seconds and the replays' (each ending in a
 sync); the segment and rank-256 routes, seconds an iteration, run only the
 counts up to ``--slow-max`` (7); per pair,
-whether the factors are bit-equal (the segment layout's float atomics may
-reorder them: its largest relative difference); for the captured run at the
+whether the factors are bit-equal (and else their largest relative
+difference); for the captured run at the
 first count, what a replay launches against what the capture recorded
 (``ops.pipeline.replay_launches``).  Routes (``chip_smoke.py``'s shapes):
 ``netflix`` (the main path: the Netflix shape, 100,480,507 ratings, seed 0,
@@ -158,22 +158,27 @@ def run_route(name, ds, config, warm, implicit, counts) -> dict:
 
     import torch
 
-    from cfk_tpu_torch.models.als import als_iteration, run_iterations
-    from cfk_tpu_torch.models.ials import ials_iteration
+    from cfk_tpu_torch.models.als import (
+        als_steps,
+        base_overrides,
+        run_iterations,
+    )
+    from cfk_tpu_torch.models.ials import ials_steps
     from cfk_tpu_torch.ops.pipeline import replay_launches
 
-    make = ials_iteration if implicit else als_iteration
+    steps = ials_steps if implicit else als_steps
     dev = torch.device("cuda")
 
     def once(iters, capture):
         cfg = dataclasses.replace(config, num_iterations=iters,
                                   capture=capture)
-        step, u, m = make(ds, cfg, dev, warm)
+        make_step, u, m = steps(ds, cfg, dev, warm)
+        step = make_step(base_overrides(cfg))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         u, m, pipe = run_iterations(step, u, m, cfg, dev)
         loop_s = time.perf_counter() - t0
-        del step
+        del step, make_step
         return u, m, pipe, loop_s
 
     once(1, False)  # warm-up: cuBLAS handles, kernel loads, the allocator
