@@ -20,17 +20,31 @@
   (``--keep-last-n``) and resumes, with a preemption guard armed unless
   ``--no-preempt-save``, and ``--health-check-every``,
   ``--health-norm-limit``, ``--max-recoveries``, ``--lam-escalation`` and
-  ``--on-unrecoverable`` arm the sentinel and the recovery ladder.
+  ``--on-unrecoverable`` arm the sentinel and the recovery ladder;
+  ``--checkpoint-journal DIR --journal-partitions N`` journals the factors
+  as FeatureRecord frames through a FileBroker directory instead (the
+  reference's topics-as-checkpoint store; exclusive with
+  ``--checkpoint-dir``).
 - ``evaluate`` — offline MSE/RMSE of a prediction CSV against a ratings file.
 - ``recommend`` — top-K movies for given users from checkpointed factors
-  (``train --checkpoint-dir``, or the JAX package's checkpoint directory).
+  (``--checkpoint-dir``: ``train --checkpoint-dir``, or the JAX package's
+  checkpoint directory; or ``--checkpoint-journal``: a journal either
+  package wrote).
 - ``predict`` — the prediction CSV from checkpointed factors, no training.
 - ``serve`` — the top-K request server over an in-memory log, driven by the
   built-in open-loop load generator; prints one JSON row (QPS, p50, p99);
   ``--metrics-port`` serves ``GET /metrics`` (Prometheus text) while it
   runs, ``--trace-dir`` writes its host span trace.
+- ``stream`` — exactly-once streaming fold-in: consume rating updates from
+  a FileBroker directory (``--updates``), fold each micro-batch into the
+  live factors on the card, commit factors + offset cursor atomically in
+  ``--stream-dir``; re-running resumes.  ``--produce-csv`` is the producer
+  side.
 
-Everything runs on CUDA unless ``--device cpu`` is given.
+Everything runs on CUDA unless ``--device cpu`` is given.  The reference's
+``tcp://HOST:PORT`` targets (``--updates``, ``--checkpoint-journal``,
+``train --data``) need its TCP broker transport, which the port does not
+have yet: they exit 2 and nothing falls back.
 """
 
 from __future__ import annotations
@@ -48,6 +62,64 @@ AUTO_LAYOUT_TILED_NNZ = 2_000_000  # at and above this, the tiled layout
 
 def _eprint(*args) -> None:
     print(*args, file=sys.stderr)
+
+
+_TCP_MISSING = (
+    "{what} {url!r}: tcp:// targets need the TCP broker transport "
+    "(cfk_tpu's transport/tcp.py), which the port does not have yet; "
+    "use a FileBroker directory"
+)
+
+
+def _refuse_tcp(what: str, url: str | None) -> bool:
+    """True (after printing the error) when ``url`` is a ``tcp://`` target:
+    the caller exits 2 — nothing falls back to another transport."""
+    if url and url.startswith("tcp://"):
+        _eprint("error: " + _TCP_MISSING.format(what=what, url=url))
+        return True
+    return False
+
+
+def _file_broker(directory: str, *, fsync: bool):
+    """The FileBroker of a --checkpoint-journal or --updates directory (the
+    caller has refused ``tcp://`` targets)."""
+    from cfk_tpu_torch.transport.filelog import FileBroker
+
+    return FileBroker(directory, fsync=fsync)
+
+
+def _make_checkpoint_manager(args):
+    """The checkpoint store the train flags select: the npz directory
+    (``--checkpoint-dir``, the fast local default), the transport journal
+    (``--checkpoint-journal``, factors as FeatureRecord frames through a
+    FileBroker directory — the reference's topics-as-durable-checkpoint
+    design, ``setup.sh:18-21``), or None.  Returns an int exit code on
+    flag errors."""
+    journal = args.checkpoint_journal
+    if args.checkpoint_dir and journal:
+        _eprint("error: --checkpoint-dir and --checkpoint-journal are "
+                "mutually exclusive")
+        return 2
+    if args.checkpoint_dir:
+        from cfk_tpu_torch.transport.checkpoint import CheckpointManager
+
+        return CheckpointManager(args.checkpoint_dir,
+                                 keep_last_n=args.keep_last_n)
+    if journal:
+        from cfk_tpu_torch.transport.journal import JournalCheckpointManager
+
+        if _refuse_tcp("--checkpoint-journal", journal):
+            return 2
+        try:
+            # fsync per append for the training journal: the commit marker
+            # must never reach disk before the factor frames it commits.
+            transport = _file_broker(journal, fsync=True)
+        except (ValueError, OSError) as e:
+            _eprint(f"error: {e}")
+            return 2
+        return JournalCheckpointManager(
+            transport, num_partitions=args.journal_partitions)
+    return None
 
 
 def resolve_auto_layout(num_ratings: int, algorithm: str = "als",
@@ -281,6 +353,12 @@ def _train_impl(args, metrics) -> int:
     from cfk_tpu_torch.resilience.loop import validate_cadence
     from cfk_tpu_torch.utils.metrics import maybe_profile
 
+    if _refuse_tcp("--data", args.data):
+        return 2
+    # The store's flags are checked before the (possibly long) block build.
+    manager = _make_checkpoint_manager(args)
+    if isinstance(manager, int):
+        return manager
     if args.eval_ranking and not args.implicit:
         _eprint("error: --eval-ranking requires --implicit (it is a "
                 "top-K ranking protocol, not a rating-error one)")
@@ -350,12 +428,6 @@ def _train_impl(args, metrics) -> int:
     prep_s = time.perf_counter() - t0
     metrics.phases["prep"] += prep_s
     validate_cadence(args.checkpoint_every)
-    manager = None
-    if args.checkpoint_dir:
-        from cfk_tpu_torch.transport.checkpoint import CheckpointManager
-
-        manager = CheckpointManager(args.checkpoint_dir,
-                                    keep_last_n=args.keep_last_n)
     # Preemption tolerance is on whenever a checkpoint store exists: an
     # eviction SIGTERM (or Ctrl-C) commits one final checkpoint, drains the
     # writer and the process exits resumable — re-run the same command to
@@ -415,7 +487,8 @@ def _train_impl(args, metrics) -> int:
         gauges += [f"recall_at_{args.eval_ranking}={rec:.6f}",
                    f"mpr={mpr:.6f}"]
     if manager is not None:
-        _eprint(f"factors checkpointed to {args.checkpoint_dir} (step "
+        _eprint(f"factors checkpointed to "
+                f"{args.checkpoint_dir or args.checkpoint_journal} (step "
                 f"{manager.latest_iteration()})")
     if args.output != "none":
         path = _save_predictions(
@@ -459,17 +532,46 @@ def _evaluate(args) -> int:
     return 0
 
 
+def _serving_state(args):
+    """Restore factors for the serving verbs from either store:
+    --checkpoint-dir (npz directory; a missing or torn one raises, which
+    ``main`` turns into exit 1) or --checkpoint-journal (a FileBroker
+    journal directory; an empty or uncommitted one prints the error and
+    gives None, exit 2, as the reference's does)."""
+    if bool(args.checkpoint_dir) == bool(args.checkpoint_journal):
+        _eprint("error: pass exactly one of --checkpoint-dir / "
+                "--checkpoint-journal")
+        return None
+    if args.checkpoint_dir:
+        from cfk_tpu_torch.transport.checkpoint import CheckpointManager
+
+        return CheckpointManager(args.checkpoint_dir).restore()
+    if _refuse_tcp("--checkpoint-journal", args.checkpoint_journal):
+        return None
+    from cfk_tpu_torch.transport.journal import JournalCheckpointManager
+
+    try:
+        transport = _file_broker(args.checkpoint_journal, fsync=False)
+        return JournalCheckpointManager(transport).restore()
+    except (ValueError, OSError) as e:
+        # An empty or uncommitted journal is a common operator mistake; a
+        # clean error beats a traceback.
+        _eprint(f"error: {e}")
+        return None
+
+
 def _serving_model(args):
-    """(RatingsIndex of --data, ALSModel from --checkpoint-dir on --device,
-    the step's iteration).  Only the id maps and seen lists are built —
-    never training blocks."""
+    """(RatingsIndex of --data, ALSModel from the checkpoint store on
+    --device, the step's iteration), or None after an error was printed.
+    Only the id maps and seen lists are built — never training blocks."""
     from cfk_tpu_torch.data.blocks import RatingsIndex
-    from cfk_tpu_torch.transport.checkpoint import CheckpointManager
     from cfk_tpu_torch.weights import model_from_state
 
+    state = _serving_state(args)
+    if state is None:
+        return None
     ds = RatingsIndex.from_coo(
         _parse_ratings(args.data, args.format, args.min_rating))
-    state = CheckpointManager(args.checkpoint_dir).restore()
     model = model_from_state(state, num_users=ds.user_map.num_entities,
                              num_movies=ds.movie_map.num_entities,
                              device=args.device)
@@ -481,7 +583,10 @@ def _recommend(args) -> int:
     ``<user>\\t<movie>:<score>,...``."""
     import numpy as np
 
-    ds, model, _ = _serving_model(args)
+    served = _serving_model(args)
+    if served is None:
+        return 2
+    ds, model, _ = served
     if args.users == "all":
         rows = np.arange(ds.user_map.num_entities)
     else:
@@ -500,7 +605,10 @@ def _recommend(args) -> int:
 def _predict(args) -> int:
     """The prediction CSV from checkpointed factors, without training (the
     reference's final collection, ``processors/FeatureCollector.java``)."""
-    ds, model, iteration = _serving_model(args)
+    served = _serving_model(args)
+    if served is None:
+        return 2
+    ds, model, iteration = served
     path = _save_predictions(
         model, None if args.output == "auto" else args.output)
     if path is None:
@@ -534,7 +642,10 @@ def _serve_impl(args) -> int:
     )
     from cfk_tpu_torch.transport.broker import InMemoryBroker
 
-    ds, model, _ = _serving_model(args)
+    served = _serving_model(args)
+    if served is None:
+        return 2
+    ds, model, _ = served
     engine = engine_from_model(
         model, None if args.include_seen else ds,
         table_dtype=args.table_dtype, tile_m=args.tile_m,
@@ -577,10 +688,205 @@ def _serve_impl(args) -> int:
     return 0
 
 
+def _stream(args) -> int:
+    """Streaming fold-in: consume rating updates, fold them into live
+    factors, commit factors + offset cursor atomically per micro-batch.
+
+    Bootstrap: with no resumable state in --stream-dir, a base model is
+    trained from --data first (same config), then streaming starts from
+    offset 0.  Re-running the identical command resumes from the committed
+    cursor — including after a crash or an eviction SIGTERM.
+    ``--produce-csv`` instead appends "user,movie,rating" lines to the
+    updates topic and exits (the producer side of the loop).
+    ``--metrics-port`` serves the live registry as Prometheus text on
+    ``GET /metrics`` for the duration of the stream."""
+    from cfk_tpu_torch.telemetry import Metrics
+
+    metrics = Metrics()
+    with _telemetry_session(args, metrics):
+        http = None
+        if args.metrics_port is not None:
+            from cfk_tpu_torch.telemetry import MetricsHTTPServer
+
+            http = MetricsHTTPServer(metrics, port=args.metrics_port).start()
+            _eprint(f"metrics endpoint: {http.url}")
+        try:
+            return _stream_impl(args, metrics)
+        finally:
+            if http is not None:
+                http.stop()
+
+
+def _produce_csv(args, transport) -> int:
+    """``stream --produce-csv``: parse the whole file first, then one bulk
+    append per partition (``send_many`` → ``FileBroker.produce_frames``) —
+    per-line sends would pay one fsync'd append each, and parsing first
+    makes a malformed line all-or-nothing instead of leaving a
+    half-produced file in the log."""
+    from cfk_tpu_torch.streaming import StreamProducer
+
+    prod = StreamProducer(transport, num_partitions=args.partitions)
+    users: list[int] = []
+    movies: list[int] = []
+    ratings: list[float] = []
+    with open(args.produce_csv) as f:
+        for lineno, line in enumerate(f, start=1):
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            try:
+                user_s, movie_s, rating_s = line.split(",", 2)
+                users.append(int(user_s))
+                movies.append(int(movie_s))
+                ratings.append(float(rating_s))
+            except ValueError as e:
+                _eprint(f"error: {args.produce_csv}:{lineno}: malformed "
+                        f"update {line!r} ({e})")
+                return 1
+    prod.send_many(users, movies, ratings)
+    transport.flush()
+    _eprint(f"produced {len(users)} updates (next seq {prod.next_seq})")
+    return 0
+
+
+def _stream_impl(args, metrics) -> int:
+    import numpy as np
+
+    from cfk_tpu_torch.config import ALSConfig
+    from cfk_tpu_torch.device import resolve_device
+
+    if _refuse_tcp("--updates", args.updates):
+        return 2
+    try:
+        # fsync'd appends: the updates topic is the system of record the
+        # crash replay consumes.
+        transport = _file_broker(args.updates, fsync=True)
+    except (ValueError, OSError) as e:
+        _eprint(f"error: {e}")
+        return 2
+    if args.produce_csv:
+        return _produce_csv(args, transport)
+
+    from cfk_tpu_torch.streaming import (
+        StreamConfig,
+        StreamSession,
+        ensure_updates_topic,
+    )
+    from cfk_tpu_torch.transport.checkpoint import CheckpointManager
+
+    dev = resolve_device(args.device)
+    config = ALSConfig(
+        rank=args.rank,
+        lam=args.lam,
+        num_iterations=args.iterations,
+        seed=args.seed,
+        layout=args.layout,
+        solver=args.solver,
+        dtype=args.dtype,
+        # threaded so retrain()'s merged-dataset rebuild honors the same
+        # chunk budget as the base dataset built below
+        hbm_chunk_elems=args.chunk_elems,
+        health_check_every=args.health_check_every,
+        health_norm_limit=args.health_norm_limit,
+        max_recoveries=args.max_recoveries,
+        lam_escalation=args.lam_escalation,
+        on_unrecoverable=args.on_unrecoverable,
+    )
+    # Ensure the topic BEFORE the (possibly long) base train: a fresh topic
+    # is created empty and followed, instead of training a base model only
+    # to crash on an unknown-topic lookup afterwards.
+    ensure_updates_topic(transport, num_partitions=args.partitions)
+    with metrics.phase("ingest"):
+        ds = _load_dataset(
+            args.data, args.format, args.min_rating,
+            dict(layout=args.layout, chunk_elems=args.chunk_elems,
+                 pad_multiple=8, dense_stream=args.layout == "tiled"),
+            cache_dir=args.dataset_cache)
+    manager = CheckpointManager(args.stream_dir,
+                                keep_last_n=args.keep_last_n)
+    base_model = None
+    if manager.latest_valid_iteration() is None:
+        _eprint("no stream state yet: training the base model first")
+        from cfk_tpu_torch.models.als import train_als
+
+        with metrics.phase("base_train"):
+            base_model = train_als(ds, config, device=dev, metrics=metrics)
+    stream = StreamConfig(
+        batch_records=args.batch_records,
+        foldin_layout=args.foldin_layout,
+        retrain_every=args.retrain_every,
+    )
+    guard_cm = contextlib.nullcontext(None)
+    if not args.no_preempt_save:
+        from cfk_tpu_torch.resilience.preempt import PreemptionGuard
+
+        guard_cm = PreemptionGuard()
+    with guard_cm as guard:
+        session = StreamSession(
+            ds, config, transport, manager, stream=stream,
+            base_model=base_model, metrics=metrics,
+            preemption_guard=guard, device=dev,
+        )
+        if args.prewarm:
+            warm = session.prewarm()
+            _eprint(
+                f"prewarmed {warm['programs']} fold-in programs "
+                f"({warm['new_traces']} new program keys) in "
+                f"{warm['prewarm_s']:.2f}s"
+            )
+        model = session.run(max_batches=args.max_batches, follow=args.follow)
+    metrics.gauge("stream_step", session.stream_step)
+    metrics.gauge("users", session.state.num_users)
+    metrics.gauge("backlog", session.backlog())
+    if guard is not None and guard.triggered:
+        _eprint(
+            f"preempted ({guard.signal_name}): factor+cursor step "
+            f"{session.stream_step} is committed — re-run to resume"
+        )
+    elif not args.no_eval:
+        import dataclasses
+
+        import torch
+
+        from cfk_tpu_torch.data.blocks import Dataset
+        from cfk_tpu_torch.eval.metrics import mse_rmse_from_model
+
+        with metrics.phase("eval_mse"):
+            # Against the merged (base + committed upserts) rating state;
+            # the merged dataset re-sorts ALL users ascending by raw id
+            # while session rows are base-ascending THEN appended new
+            # users, so the factors are permuted into the merged row order
+            # (the permutation the warm retrain applies) or every user past
+            # a new user's insertion point would score against the wrong
+            # row.
+            merged = Dataset.from_coo(session.state.to_coo())
+            perm = merged.user_map.to_dense(session.state.user_raw_ids())
+            u_sess = session.user_factors
+            u_eval = np.zeros((merged.user_blocks.padded_entities,
+                               u_sess.shape[1]), np.float32)
+            u_eval[perm] = u_sess[: session.state.num_users]
+            eval_model = dataclasses.replace(
+                model, user_factors=torch.as_tensor(u_eval, device=dev),
+                movie_factors=model.movie_factors.float(),
+                num_users=merged.user_map.num_entities,
+            )
+            mse, rmse = mse_rmse_from_model(eval_model, merged)
+        metrics.gauge("mse", round(mse, 6))
+        metrics.gauge("rmse", round(rmse, 6))
+        _eprint(f"merged-state MSE={mse:.4f} RMSE={rmse:.4f}")
+    print(metrics.json_line() if args.metrics == "json"
+          else metrics.logfmt())
+    return 0
+
+
 def _serving_args(p, *, data_help: str) -> None:
-    p.add_argument("--checkpoint-dir", required=True,
+    p.add_argument("--checkpoint-dir", default=None,
                    help="checkpoint directory (train --checkpoint-dir, or "
                    "the JAX package's); its newest valid step is served")
+    p.add_argument("--checkpoint-journal", default=None, metavar="DIR",
+                   help="serve from a transport journal instead "
+                   "(train --checkpoint-journal: a FileBroker directory "
+                   "either package wrote); exactly one of the two stores")
     p.add_argument("--data", required=True, help=data_help)
     p.add_argument("--format", choices=["netflix", "movielens"],
                    default="netflix")
@@ -742,6 +1048,13 @@ def build_parser() -> argparse.ArgumentParser:
                    "--checkpoint-every iterations and at the end (for "
                    "recommend / predict / serve), resuming from its newest "
                    "intact step")
+    t.add_argument(
+        "--checkpoint-journal", default=None, metavar="DIR",
+        help="journal factors as FeatureRecord frames through a FileBroker "
+        "directory (the reference's topics-as-checkpoint design); "
+        "mutually exclusive with --checkpoint-dir")
+    t.add_argument("--journal-partitions", type=int, default=1,
+                   help="partitions per factor topic in the journal")
     t.add_argument("--checkpoint-every", type=int, default=1)
     t.add_argument(
         "--keep-last-n", type=int, default=None,
@@ -845,6 +1158,92 @@ def build_parser() -> argparse.ArgumentParser:
                     help="write the host span trace (batch assemble/"
                     "compute/respond timeline) here at exit")
     sv.set_defaults(fn=_serve)
+
+    st = sub.add_parser(
+        "stream",
+        help="exactly-once streaming fold-in: consume rating updates and "
+        "fold them into live factors (rate → fold-in → resume)",
+    )
+    st.add_argument("--data", required=True,
+                    help="base ratings (the training corpus the stream "
+                    "updates; also the crash replay's state seed)")
+    st.add_argument("--format", choices=["netflix", "movielens"],
+                    default="netflix")
+    st.add_argument("--min-rating", type=float, default=0.0)
+    st.add_argument("--updates", required=True,
+                    help="the durable updates topic's home: a FileBroker "
+                    "directory (tcp://HOST:PORT needs the TCP broker "
+                    "transport, which the port does not have yet)")
+    st.add_argument("--stream-dir", required=True,
+                    help="checkpoint store for the atomic factor+cursor "
+                    "commits; re-run with the same dir to resume")
+    st.add_argument("--produce-csv", default=None, metavar="FILE",
+                    help="producer mode: append 'user,movie,rating' lines "
+                    "from FILE to the updates topic and exit")
+    st.add_argument("--partitions", type=int, default=1,
+                    help="updates-topic partitions when creating it "
+                    "(--produce-csv on a fresh topic)")
+    st.add_argument("--rank", type=int, default=5)
+    st.add_argument("--lam", type=float, default=0.05)
+    st.add_argument("--iterations", type=int, default=7,
+                    help="base-train / warm-retrain iteration count")
+    st.add_argument("--seed", type=int, default=42)
+    st.add_argument("--layout", choices=["padded", "tiled"],
+                    default="padded",
+                    help="base dataset layout; also the fold-in default "
+                    "(tiled runs the at-scale kernels, K2 + K1)")
+    st.add_argument("--foldin-layout", choices=["auto", "padded", "tiled"],
+                    default="auto",
+                    help="fold-in solve layout ('auto' follows --layout)")
+    st.add_argument("--solver", choices=["auto", "cholesky"],
+                    default="auto",
+                    help="auto = the CUDA kernels on a GPU (their plain "
+                    "PyTorch versions on the CPU); cholesky = the plain "
+                    "PyTorch route, with --device cpu only")
+    st.add_argument("--dtype", choices=["float32", "bfloat16"],
+                    default="float32")
+    st.add_argument("--chunk-elems", type=int, default=1 << 20)
+    st.add_argument("--batch-records", type=int, default=256,
+                    help="log records per partition per micro-batch; part "
+                    "of the replay contract (committed with the cursor)")
+    st.add_argument("--max-batches", type=int, default=None,
+                    help="stop after N micro-batches (default: drain)")
+    st.add_argument("--follow", action="store_true",
+                    help="keep polling an idle topic instead of exiting "
+                    "when caught up")
+    st.add_argument("--retrain-every", type=int, default=None, metavar="N",
+                    help="warm full retrain (movie side included) every N "
+                    "stream commits, current factors as the seed")
+    st.add_argument("--health-check-every", type=int, default=1,
+                    help="probe every fold-in batch before commit "
+                    "(default 1; the ladder escalates on trips and "
+                    "quarantines batches that defeat it)")
+    st.add_argument("--health-norm-limit", type=float, default=1e6)
+    st.add_argument("--max-recoveries", type=int, default=4)
+    st.add_argument("--lam-escalation", type=float, default=10.0)
+    st.add_argument("--on-unrecoverable", choices=["degrade", "raise"],
+                    default="degrade")
+    st.add_argument("--keep-last-n", type=int, default=8,
+                    help="stream commits retained (per-batch commits grow "
+                    "fast; default 8, None-like large values keep more)")
+    st.add_argument("--no-preempt-save", action="store_true")
+    st.add_argument("--prewarm", action="store_true",
+                    help="walk the padded fold-in's pow2 bucket grid before "
+                    "the first batch: the first real micro-batch then meets "
+                    "no new fold-in program (padded fold layout)")
+    st.add_argument("--metrics-port", type=int, default=None,
+                    help="serve GET /metrics (Prometheus text) on this "
+                    "port while the stream runs (0 = ephemeral)")
+    st.add_argument("--trace-dir", default=None, metavar="DIR",
+                    help="write the host span trace (stream batch stage/"
+                    "solve/probe/commit timeline) here at exit")
+    st.add_argument("--no-eval", action="store_true",
+                    help="skip the merged-state RMSE evaluation at exit")
+    st.add_argument("--dataset-cache", default=None)
+    st.add_argument("--metrics", choices=["json", "logfmt"],
+                    default="logfmt")
+    st.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    st.set_defaults(fn=_stream)
     return p
 
 

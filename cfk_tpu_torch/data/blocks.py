@@ -34,6 +34,7 @@ always have n ≥ 1, so their math is the reference's,
 from __future__ import annotations
 
 import dataclasses
+import functools
 import heapq
 
 import numpy as np
@@ -1038,8 +1039,31 @@ def _concat_aranges(lengths: np.ndarray) -> np.ndarray:
     return out - np.repeat(starts, lengths)
 
 
+class _UserCSR:
+    """``user_csr`` for an index with ``coo_dense`` and ``user_map``
+    (``RatingsIndex``, ``Dataset``)."""
+
+    @functools.cached_property
+    def user_csr(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(movie rows int32, ratings f32, indptr int64) of the ratings
+        grouped by user in numpy's stable argsort order (the counting sort
+        ``group_by_dense``); read-only, built on first use and kept with
+        the index, so every ``streaming.StreamState`` over it shares one."""
+        coo = self.coo_dense
+        n = self.user_map.num_entities
+        order, counts, _ = group_by_dense(coo.user_raw, n)
+        # Cast before the random gather: half the bytes move out of order.
+        movies = coo.movie_raw.astype(np.int32)[order]
+        ratings = coo.rating.astype(np.float32, copy=False)[order]
+        indptr = np.zeros(n + 1, np.int64)
+        np.cumsum(counts, out=indptr[1:])
+        for a in (movies, ratings, indptr):
+            a.flags.writeable = False
+        return movies, ratings, indptr
+
+
 @dataclasses.dataclass(frozen=True)
-class RatingsIndex:
+class RatingsIndex(_UserCSR):
     """Id maps + dense-index COO without any solve-block build.
 
     The subset of ``Dataset`` that serving needs (raw↔dense id mapping and
@@ -1067,7 +1091,7 @@ class RatingsIndex:
 
 
 @dataclasses.dataclass(frozen=True)
-class Dataset:
+class Dataset(_UserCSR):
     """A fully indexed rating dataset: id maps + both solve-side block sets."""
 
     movie_map: IdMap

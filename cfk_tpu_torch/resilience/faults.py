@@ -15,10 +15,13 @@ that each one is detected, rolled back and recovered:
 - ``TornCheckpointManager`` / ``SlowDiskCheckpointManager`` — a torn step
   write (caught by the crc32 manifest) and a slow disk (absorbed by the
   async writer);
-- ``PreemptAt`` — SIGTERM to this process before an iteration.
+- ``PreemptAt`` — SIGTERM to this process before an iteration;
+- ``FlakyTransport`` (with its ``FlakyPlan``) — record-level duplicate,
+  reorder and drop faults between a durable log and its reader (the
+  streaming consumer must heal all three).
 
 The others (the host-window, hot-cache, staging and store faults, the
-flaky fleet, broker, transport and delta-stream faults, the backend
+flaky fleet, the TCP broker proxy and the delta-stream tamper, the backend
 outage) belong to the slices that port what they break.
 """
 
@@ -215,6 +218,107 @@ class PreemptAt:
         self.fired += 1
         os.kill(os.getpid(), self.signum)
         return u, m
+
+
+# --- transport delivery faults ---------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FlakyPlan:
+    """Deterministic misbehavior schedule for the broker fault proxies.
+
+    Byte-level faults (the TCP broker proxy of the serving-transport
+    slice; kept here so a plan is the reference's):
+
+    ``drop_first_connects`` — accept then immediately close that many
+    connections (a broker still binding its listener / a dying LB
+    backend); the client's connect/request retry must back off and win.
+    ``delay_frames`` — hold each forwarded chunk of the first surviving
+    connection for ``frame_delay`` seconds (congestion); the client's
+    read timeout must be patient enough or retry.
+
+    Record-level delivery faults (``FlakyTransport``, a ``Transport``
+    proxy — the at-least-once semantics a Kafka consumer actually faces,
+    which raw TCP byte faults cannot express without corrupting framing):
+
+    ``duplicate`` — re-deliver every ``duplicate``-th consumed record a
+    second time (at-least-once redelivery); the streaming consumer must
+    drop the copy by offset.
+    ``reorder`` — shuffle delivery order within seeded windows of this
+    many records (interleaved fetches / a racy poll); the consumer must
+    heal order by offset sort.
+    ``drop`` — omit every ``drop``-th record from a delivery pass, at
+    most ``drop_passes`` times per record (a lost fetch; the transport
+    still HAS the record — re-polling must recover it).
+    ``seed`` — the reorder shuffle's PRNG seed.
+    """
+
+    drop_first_connects: int = 0
+    delay_frames: int = 0
+    frame_delay: float = 0.05
+    duplicate: int = 0
+    reorder: int = 0
+    drop: int = 0
+    drop_passes: int = 1
+    seed: int = 0
+
+
+class FlakyTransport:
+    """A ``Transport`` proxy that misdelivers records per a ``FlakyPlan``.
+
+    Produce/admin calls pass through untouched — the faults live purely in
+    ``consume``, i.e. between the durable log and the reader, which is
+    exactly where Kafka's at-least-once semantics misbehave: records may
+    arrive duplicated (``plan.duplicate``), out of order within a window
+    (``plan.reorder``), or missing from a pass (``plan.drop``, recovered
+    on a later poll — the transport never loses the record, only a
+    delivery of it).  Each fault is counted (``duplicated``/``reordered``/
+    ``dropped``) so chaos tests can assert the fault actually fired.
+    Deterministic: the reorder shuffle is seeded per (partition, pass) and
+    the duplicate/drop cadences are positional.
+    """
+
+    def __init__(self, inner, plan: FlakyPlan):
+        self.inner = inner
+        self.plan = plan
+        self.duplicated = 0
+        self.reordered = 0
+        self.dropped = 0
+        self._passes = 0
+        self._drop_seen: dict[tuple[str, int, int], int] = {}
+
+    def __getattr__(self, name):  # produce/create_topic/end_offset/... pass through
+        return getattr(self.inner, name)
+
+    def consume(self, topic, partition, start_offset=0):
+        records = list(self.inner.consume(topic, partition, start_offset))
+        self._passes += 1
+        plan = self.plan
+        out = []
+        for i, rec in enumerate(records):
+            if plan.drop:
+                key = (topic, partition, rec.offset)
+                if (i + 1) % plan.drop == 0 and \
+                        self._drop_seen.get(key, 0) < plan.drop_passes:
+                    self._drop_seen[key] = self._drop_seen.get(key, 0) + 1
+                    self.dropped += 1
+                    continue
+            out.append(rec)
+            if plan.duplicate and (i + 1) % plan.duplicate == 0:
+                out.append(rec)
+                self.duplicated += 1
+        if plan.reorder and len(out) > 1:
+            rng = np.random.default_rng(
+                (plan.seed, partition, self._passes)
+            )
+            w = max(2, plan.reorder)
+            for lo in range(0, len(out), w):
+                window = out[lo:lo + w]
+                perm = rng.permutation(len(window))
+                if not np.array_equal(perm, np.arange(len(window))):
+                    self.reordered += len(window)
+                out[lo:lo + w] = [window[j] for j in perm]
+        yield from out
 
 
 # --- fixtures ----------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Chaos lab of the port: inject each single-process fault class into a
-small deterministic training run and report the outcome — the port of
-``scripts/chaos_lab.py``'s ``nan``, ``inf``, ``singular_chunk``,
-``torn_checkpoint``, ``preemption``, ``slow_disk`` and
-``telemetry_overhead`` scenarios.  Run::
+small deterministic training or streaming run and report the outcome — the
+port of ``scripts/chaos_lab.py``'s ``nan``, ``inf``, ``singular_chunk``,
+``torn_checkpoint``, ``preemption``, ``slow_disk``, ``telemetry_overhead``,
+``quantized_table``, ``stream_duplicates``, ``stream_crash_replay``,
+``stream_poison_batch`` and ``serve_under_foldin`` scenarios.  Run::
 
     python -m cfk_tpu_torch.scripts.chaos_lab --device cpu
     python -m cfk_tpu_torch.scripts.chaos_lab --device cuda \\
@@ -24,6 +25,17 @@ bumped).  Every scenario also checks the flight recorder's dump names the
 fault.  Datasets: the reference's synthetic 60 × 30 × 900 ratings (seed 0)
 and its block-structured fixture for the singular scenario, rank 4,
 6 iterations, the sentinel every iteration.
+
+``quantized_table`` drives the recovery ladder through every rung (retry,
+λ bump, split epilogue, "gj") on the tiled layout with a bfloat16 gather
+table whatever ``--layout`` says; its λ bumps move the factors, so it is
+held to the reference's RMSE contract and to the final overrides pinning
+both the split and the "gj" rung, not to a crc.  The streaming scenarios
+fold a seeded update log into a base model trained on the lab's layout
+(rank 4, 4 iterations): delivery faults and a crash replay must end
+crc-equal to the clean stream, a poison batch must be quarantined, and a
+``ServeEngine`` attached to the session must serve each commit fresh and
+never a torn row.
 """
 
 from __future__ import annotations
@@ -90,24 +102,29 @@ class Lab:
                           + np.ascontiguousarray(m).tobytes())
 
     def row(self, name, *, fired, metrics, base, rec, ds, detected=None,
-            ok_extra=True, **extra):
+            ok_extra=True, crc=True, layout=None, **extra):
+        """The scenario's row; ``crc=False`` holds the recovery to the RMSE
+        contract alone (a run whose recovery moves λ cannot end crc-equal
+        to the fault-free one)."""
         base_rmse, rec_rmse = self.rmse(base, ds), self.rmse(rec, ds)
         if detected is None:
             detected = metrics.counters.get("health_trips", 0) >= 1
         within = bool(np.isfinite(rec_rmse) and abs(rec_rmse - base_rmse)
                       <= RMSE_RTOL * max(base_rmse, 1e-9))
         crc_equal = self.crc(rec) == self.crc(base)
+        crc_ok = crc_equal or not crc
         return {
-            "scenario": name, "device": self.device, "layout": self.layout,
+            "scenario": name, "device": self.device,
+            "layout": layout or self.layout,
             "fault_fired": bool(fired), "detected": bool(detected),
-            "recovered": bool(within and crc_equal),
+            "recovered": bool(within and crc_ok),
             "crc_equal": bool(crc_equal),
             "rollbacks": metrics.counters.get("rollbacks", 0),
             "escalation_level": metrics.gauges.get("escalation_level", 0),
             "fault_free_rmse": float(base_rmse),
             "recovered_rmse": float(rec_rmse),
             "notes": dict(metrics.notes), **extra,
-            "ok": bool(fired and detected and within and crc_equal
+            "ok": bool(fired and detected and within and crc_ok
                        and ok_extra),
         }
 
@@ -327,9 +344,357 @@ class Lab:
             train_spans=train_spans,
             overhead_factor_wall=min(t_on) / max(min(t_off), 1e-9))
 
+    def quantized_table(self):
+        """The ladder's split-epilogue and "gj" rungs with a bfloat16
+        gather table on the tiled layout: four one-shot NaN corruptions on
+        consecutive iterations force retry, λ bump, split epilogue and
+        "gj", so the run ends with the split schedule and the "gj" route
+        pinned while every half-step gathers from the bf16 table; the
+        recovered RMSE within the reference's bound of the fault-free
+        run's proves those rungs solve correctly under quantization
+        (``lam_escalation=1.5`` keeps the two λ bumps inside that bound, as
+        the reference sets it)."""
+        from cfk_tpu_torch.config import ALSConfig
+        from cfk_tpu_torch.data.blocks import Dataset
+        from cfk_tpu_torch.data.synthetic import synthetic_netflix_coo
+        from cfk_tpu_torch.resilience.faults import (
+            FactorCorruption,
+            FaultInjector,
+        )
+        from cfk_tpu_torch.telemetry import Metrics
+
+        ds = Dataset.from_coo(synthetic_netflix_coo(60, 30, 900, seed=0),
+                              layout="tiled", chunk_elems=512, tile_rows=16)
+        cfg = ALSConfig(rank=4, num_iterations=6, health_check_every=1,
+                        layout="tiled", table_dtype="bfloat16",
+                        max_recoveries=5, lam_escalation=1.5)
+        base = self.train(ds, cfg)
+        inj = FaultInjector(*[FactorCorruption(iteration=i, side="u")
+                              for i in (1, 2, 3, 4)])
+        metrics = Metrics()
+        rec = self.train(ds, cfg, metrics=metrics, fault_injector=inj)
+        level = metrics.gauges.get("escalation_level", 0)
+        final = metrics.notes.get(f"escalation_{level}", "")
+        pinned = "fused=False" in final and "algo=gj" in final
+        # Level 4 = the "gj" rung was reached (3 = the split epilogue).
+        return self.row("quantized_table", fired=inj.fired, metrics=metrics,
+                        base=base, rec=rec, ds=ds, crc=False, layout="tiled",
+                        ok_extra=level >= 4 and pinned,
+                        final_overrides=final, split_and_gj_pinned=pinned)
+
+    # -- streaming fold-in ------------------------------------------------
+
+    def stream_fixture(self, parts=2, n=60, new_users=(4242,)):
+        """(dataset, config, base model, in-memory broker holding a seeded
+        update stream) — the reference's ``_stream_fixture``."""
+        from cfk_tpu_torch.config import ALSConfig
+        from cfk_tpu_torch.streaming import StreamProducer
+        from cfk_tpu_torch.transport import InMemoryBroker
+
+        ds = self.dataset()
+        cfg = ALSConfig(rank=4, num_iterations=4, health_check_every=1,
+                        layout=self.layout)
+        base = self.train(ds, cfg)
+        broker = InMemoryBroker()
+        prod = StreamProducer(broker, num_partitions=parts)
+        rng = np.random.default_rng(11)
+        prod.send_many(
+            rng.choice(ds.user_map.raw_ids, n),
+            rng.choice(ds.movie_map.raw_ids, n),
+            rng.integers(1, 6, n).astype(np.float32),
+        )
+        for raw in new_users:
+            prod.send(raw, int(ds.movie_map.raw_ids[0]), 4.0)
+        return ds, cfg, base, broker
+
+    def session(self, ds, cfg, transport, manager, **kw):
+        from cfk_tpu_torch.streaming import StreamConfig, StreamSession
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return StreamSession(
+                ds, cfg, transport, manager,
+                stream=StreamConfig(batch_records=kw.pop("batch_records", 8)),
+                device=self.device, **kw)
+
+    def stream_run(self, ds, cfg, transport, mgr_dir, base=None,
+                   max_batches=None):
+        from cfk_tpu_torch.transport import CheckpointManager
+
+        sess = self.session(ds, cfg, transport, CheckpointManager(mgr_dir),
+                            base_model=base)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            sess.run(max_batches=max_batches)
+        return sess, zlib.crc32(sess.user_factors.tobytes())
+
+    def stream_row(self, name, **fields):
+        return {"scenario": name, "device": self.device,
+                "layout": self.layout, **fields}
+
+    def stream_duplicates(self):
+        """Duplicated + reordered + dropped delivery of the same update log
+        folds in to factors crc-equal to clean delivery: the exactly-once
+        assembly (dedup by offset, offset sort, gap re-poll) plus the seq
+        dedup make misdelivery invisible to the math."""
+        import tempfile
+
+        from cfk_tpu_torch.resilience.faults import FlakyPlan, FlakyTransport
+
+        ds, cfg, base, broker = self.stream_fixture()
+        with tempfile.TemporaryDirectory() as da, \
+                tempfile.TemporaryDirectory() as db:
+            _, crc_clean = self.stream_run(ds, cfg, broker, da, base=base)
+            flaky = FlakyTransport(
+                broker, FlakyPlan(duplicate=3, reorder=5, drop=7, seed=1))
+            sess, crc_flaky = self.stream_run(ds, cfg, flaky, db, base=base)
+        fired = bool(flaky.duplicated and flaky.reordered and flaky.dropped)
+        exact = crc_clean == crc_flaky
+        detected = bool(
+            sess.metrics.counters.get("delivery_duplicates", 0) > 0
+            and sess.metrics.counters.get("delivery_gap_repolls", 0) > 0)
+        return self.stream_row(
+            "stream_duplicates", fault_fired=fired,
+            duplicated=flaky.duplicated, reordered=flaky.reordered,
+            dropped=flaky.dropped, detected=detected, recovered=exact,
+            factors_bit_exact=exact, clean_crc32=crc_clean,
+            faulty_crc32=crc_flaky, ok=bool(fired and detected and exact))
+
+    def stream_crash_replay(self):
+        """A crash mid-stream whose last commit is also torn: the resumed
+        session falls back to the last intact factor+cursor step, replays
+        the uncommitted log suffix and ends crc-equal to an uninterrupted
+        run."""
+        import tempfile
+
+        from cfk_tpu_torch.resilience.faults import TornCheckpointManager
+        from cfk_tpu_torch.transport import CheckpointManager
+
+        ds, cfg, base, broker = self.stream_fixture()
+        with tempfile.TemporaryDirectory() as da, \
+                tempfile.TemporaryDirectory() as db:
+            _, crc_clean = self.stream_run(ds, cfg, broker, da, base=base)
+            # 2 batches commit, the 3rd commit is torn, the process "dies".
+            torn = TornCheckpointManager(CheckpointManager(db), tear_at=3)
+            crashed = self.session(ds, cfg, broker, torn, base_model=base)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                crashed.run(max_batches=3)
+            del crashed
+            resumed = self.session(ds, cfg, broker, CheckpointManager(db))
+            resumed_from = resumed.stream_step
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                resumed.run()
+            crc_replayed = zlib.crc32(resumed.user_factors.tobytes())
+        exact = crc_clean == crc_replayed
+        return self.stream_row(
+            "stream_crash_replay", fault_fired=bool(torn.torn),
+            detected=bool(resumed_from == 2), recovered=exact,
+            resumed_from_step=resumed_from,
+            replayed_updates=resumed.metrics.counters.get(
+                "replayed_updates", 0),
+            factors_bit_exact=exact, clean_crc32=crc_clean,
+            replayed_crc32=crc_replayed,
+            ok=bool(torn.torn and resumed_from == 2 and exact))
+
+    def stream_poison_batch(self):
+        """A singular micro-batch (λ = 0, a new one-rating user) that the
+        ladder's λ bump fixes, then a NaN-rating batch that defeats every
+        rung and is quarantined: the served factors untouched, its offsets
+        consumed, the good batch after it applied."""
+        import tempfile
+
+        from cfk_tpu_torch.config import ALSConfig
+        from cfk_tpu_torch.data.blocks import Dataset
+        from cfk_tpu_torch.resilience.faults import blockstructured_coo
+        from cfk_tpu_torch.streaming import StreamProducer
+        from cfk_tpu_torch.transport import CheckpointManager, InMemoryBroker
+
+        ds = Dataset.from_coo(blockstructured_coo(seed=0))
+        cfg = ALSConfig(rank=4, num_iterations=4, lam=0.0,
+                        health_check_every=1)
+        base = self.train(ds, cfg)
+        broker = InMemoryBroker()
+        prod = StreamProducer(broker)
+        victim = int(ds.user_map.raw_ids[0])
+        good_user = int(ds.user_map.raw_ids[1])
+        prod.send(777, int(ds.movie_map.raw_ids[0]), 5.0)  # singular batch
+        prod.send(victim, int(ds.movie_map.raw_ids[1]), float("nan"))
+        prod.send(good_user, int(ds.movie_map.raw_ids[2]), 4.0)
+        with tempfile.TemporaryDirectory() as d:
+            sess = self.session(ds, cfg, broker, CheckpointManager(d),
+                                base_model=base, batch_records=1)
+            u_before = np.array(sess.user_factors)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                sess.run()
+        u_after = sess.user_factors
+        vrow = sess.state.user_row(victim)
+        grow = sess.state.user_row(good_user)
+        trips = sess.metrics.counters.get("health_trips", 0)
+        escalated = sess.metrics.gauges.get("stream_escalation_level", 0) >= 1
+        quarantined = len(sess.quarantined) == 1
+        intact = bool(np.array_equal(u_after[vrow], u_before[vrow]))
+        applied = not np.array_equal(u_after[grow], u_before[grow])
+        finite = bool(np.all(np.isfinite(u_after)))
+        drained = sess.backlog() == 0
+        return {
+            "scenario": "stream_poison_batch", "device": self.device,
+            "layout": "padded", "fault_fired": True,
+            "detected": bool(trips >= 2),
+            "recovered": bool(escalated and quarantined and intact
+                              and finite),
+            "health_trips": int(trips), "lambda_escalated": bool(escalated),
+            "quarantined_batches": sess.quarantined,
+            "served_factors_intact": intact,
+            "good_batch_after_poison_applied": bool(applied),
+            "stream_drained": bool(drained),
+            "ok": bool(trips >= 2 and escalated and quarantined and intact
+                       and applied and finite and drained),
+        }
+
+    def serve_under_foldin(self):
+        """Serving stays correct while fold-in commits land: a
+        ``RecommendServer`` thread answers a continuous request stream for
+        a victim user while the main thread folds in batches that re-solve
+        that user's row, the engine attached to the session.  FRESHNESS: a
+        request issued after a commit scores exactly the committed row and
+        excludes the just-rated movie; NO TORN READS: every response the
+        hammering thread saw equals the answer of exactly one committed
+        snapshot of the victim's row."""
+        import tempfile
+        import threading
+        import time
+
+        from cfk_tpu_torch.resilience.loop import drain_checkpoints
+        from cfk_tpu_torch.serving import (
+            RecommendServer,
+            ServeClient,
+            ServeEngine,
+            engine_from_model,
+            ensure_serve_topics,
+        )
+        from cfk_tpu_torch.streaming import StreamProducer
+        from cfk_tpu_torch.transport import CheckpointManager
+
+        ds, cfg, base, broker = self.stream_fixture(parts=1, n=24,
+                                                    new_users=())
+        victim = int(ds.user_map.raw_ids[0])
+        prod = StreamProducer(broker)
+        rated = [int(mv) for mv in ds.movie_map.raw_ids[3:6]]
+        for mv in rated:  # three extra batches each re-solving the victim
+            prod.send(victim, mv, 5.0)
+        k = 5
+        eng = engine_from_model(base, ds)
+        vrow = int(ds.user_map.to_dense(np.asarray([victim]))[0])
+        ensure_serve_topics(broker, response_partitions=2)
+        server = RecommendServer(eng, broker, poll_wait_s=0.001)
+        main_cli = ServeClient(broker, reply_partition=0)
+        # Committed snapshots of the victim's (factor row, seen set): the
+        # base first, then one per commit, through the engine's channel.
+        snapshots = [(np.array(eng._gather_users(np.asarray([vrow]))[0]),
+                      tuple())]
+
+        def snap_listener(event):
+            if event.get("retrain") or vrow not in (
+                    event.get("touched_rows") or ()):
+                return
+            i = event["touched_rows"].index(vrow)
+            extra = tuple(mv for row, mv in event["cells"] if row == vrow)
+            snapshots.append((np.array(event["rows"][i]),
+                              snapshots[-1][1] + extra))
+
+        hammered: list = []
+        post: list = []
+        with tempfile.TemporaryDirectory() as d:
+            sess = self.session(ds, cfg, broker, CheckpointManager(d),
+                                base_model=base, batch_records=1)
+            sess.add_commit_listener(snap_listener)
+            eng.attach_session(sess)
+            main_cli.ask([vrow], k, server=server)  # warm the serve path
+            stop = threading.Event()
+
+            def hammer():
+                cli = ServeClient(broker, reply_partition=1)
+                while not stop.is_set():
+                    rid = cli.request(vrow, k)
+                    deadline = time.monotonic() + 5.0
+                    got = None
+                    while got is None:
+                        for resp in cli.poll_responses():
+                            if resp.req_id == rid:
+                                got = resp
+                        if time.monotonic() > deadline:
+                            return
+                        time.sleep(0.0005)
+                    hammered.append(got)
+
+            threads = [
+                threading.Thread(target=server.serve_forever,
+                                 kwargs={"stop": stop.is_set}, daemon=True),
+                threading.Thread(target=hammer, daemon=True)]
+            for t in threads:
+                t.start()
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                while sess.step() is not None:
+                    # A request issued strictly AFTER this commit returned.
+                    post.append(next(iter(main_cli.ask([vrow], k).values())))
+            stop.set()
+            for t in threads:
+                t.join(timeout=10)
+            drain_checkpoints(sess.manager)
+        commits = len(snapshots) - 1
+        m_host = base.host_factors()[1]
+
+        def expected_for(u_row, extra_seen):
+            # A one-row engine scoring exactly this committed snapshot (the
+            # victim's base seen list remapped onto row 0).
+            lo = int(eng._seen_indptr[vrow])
+            hi = int(eng._seen_indptr[vrow + 1])
+            e2 = ServeEngine(
+                u_row[None, :], m_host, num_users=1,
+                num_movies=eng.num_movies,
+                seen_movies=eng._seen_movies[lo:hi],
+                seen_indptr=np.asarray([0, hi - lo], np.int64),
+                device=eng.device)
+            if extra_seen:
+                e2._seen_hot[0] = list(extra_seen)
+            sc, ids = e2.topk(np.asarray([0]), k)
+            return np.asarray(sc)[0], np.asarray(ids)[0]
+
+        expected = [expected_for(u, seen) for u, seen in snapshots]
+        final_scores, final_ids = expected[-1]
+        fresh = bool(
+            post
+            and np.array_equal(np.asarray(post[-1].scores), final_scores)
+            and np.array_equal(np.asarray(post[-1].movie_rows), final_ids))
+        rated_rows = {int(ds.movie_map.to_dense(np.asarray([mv]))[0])
+                      for mv in rated}
+        excluded = bool(post) and not (
+            {int(x) for x in np.asarray(post[-1].movie_rows)} & rated_rows)
+        torn = [
+            resp.req_id for resp in hammered
+            if not any(np.array_equal(np.asarray(resp.scores), ev)
+                       and np.array_equal(np.asarray(resp.movie_rows), ei)
+                       for ev, ei in expected)]
+        return self.stream_row(
+            "serve_under_foldin",
+            fault_fired=bool(commits >= 3 and hammered),
+            detected=bool(eng.invalidations >= 3),
+            recovered=bool(fresh and excluded and not torn),
+            commits=commits, cache_invalidations=int(eng.invalidations),
+            concurrent_responses=len(hammered), post_commit_fresh=fresh,
+            just_rated_excluded=excluded, torn_responses=torn,
+            ok=bool(commits >= 3 and hammered and eng.invalidations >= 3
+                    and fresh and excluded and not torn))
+
 
 SCENARIOS = ("nan", "inf", "singular_chunk", "torn_checkpoint", "preemption",
-             "slow_disk", "telemetry_overhead")
+             "slow_disk", "telemetry_overhead", "quantized_table",
+             "stream_duplicates", "stream_crash_replay",
+             "stream_poison_batch", "serve_under_foldin")
 # What the flight recorder's last dump must name, per scenario.
 FLIGHT_EXPECT = {
     "nan": ("nonfinite",),
@@ -339,8 +704,16 @@ FLIGHT_EXPECT = {
     "preemption": ("preempt",),
     "slow_disk": ("checkpoint_committed",),
     "telemetry_overhead": ("telemetry_overhead",),
+    "quantized_table": ("health_trip", "nonfinite"),
+    "stream_duplicates": ("delivery_duplicates",),
+    "stream_crash_replay": ("stream_resumed", "corrupt_checkpoint"),
+    "stream_poison_batch": ("quarantine",),
+    "serve_under_foldin": ("commit", "serve"),
 }
 _FLIGHT_TAIL = 50  # events searched at the dump's tail
+# Scenarios that build their own dataset whatever the layout: run once, on
+# the first layout given.
+LAYOUT_FREE = ("quantized_table", "stream_poison_batch")
 
 
 def run_scenario(lab: Lab, name: str) -> dict:
@@ -401,9 +774,11 @@ def main(argv=None) -> int:
     if args.device == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
     ok, rows = True, []
-    for layout in args.layout:
+    for i, layout in enumerate(args.layout):
         lab = Lab(args.device, layout)
         for name in args.scenario:
+            if i and name in LAYOUT_FREE:
+                continue
             row = run_scenario(lab, name)
             rows.append(row)
             print(json.dumps(row, default=repr), flush=True)

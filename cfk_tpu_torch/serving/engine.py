@@ -198,6 +198,13 @@ class ServeEngine:
 
     # -- live updates --------------------------------------------------------
 
+    def attach_session(self, session) -> None:
+        """Subscribe to a ``StreamSession``'s commits: fold-in rows refresh
+        the hot-row overlay, rated cells extend the seen overlay, retrains
+        swap the whole table.  Fired AFTER each durable commit, so a
+        request served after the commit returns reflects it."""
+        session.add_commit_listener(self.on_commit)
+
     def on_commit(self, event: dict) -> None:
         """Apply one commit event: ``rows``/``touched_rows`` refresh the
         hot-row overlay, ``cells`` extend the seen overlay, ``movie_rows``/

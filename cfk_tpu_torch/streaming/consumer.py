@@ -1,0 +1,188 @@
+"""Offset-cursor consumer: exactly-once micro-batch assembly from the log.
+
+The port's copy of ``cfk_tpu/streaming/consumer.py``.
+
+At-least-once transports deliver duplicated, reordered, and dropped
+records (the failure modes the reference's README recounts — its EOF race,
+its hang on a lost message).  ``StreamConsumer`` turns that into an
+exactly-once batch contract the fold-in math can rely on:
+
+- A micro-batch is a CONTIGUOUS log-offset range ``[cursor, target)`` per
+  partition, where ``target = min(end_offset, cursor + batch_records)``.
+  The batch's content is a pure function of the durable log — never of
+  delivery behavior.
+- Duplicated delivery is dropped by offset (first copy wins; a conflicting
+  second copy at the same offset is corruption and raises), reordered
+  delivery is healed by the offset sort, and a gap (dropped delivery) is
+  re-polled until the range is complete — bounded by ``gap_retries``, then
+  a loud ``StreamGapError`` naming the missing offsets instead of the
+  reference's forever-hang.
+
+Because batch boundaries are offsets, a crash replay from a committed
+cursor re-assembles bit-identical batches, and since the fold-in solve is
+deterministic per batch, recovered factors are bit-identical to an
+uninterrupted run (``tests/test_torch_streaming.py``,
+``python -m cfk_tpu_torch.scripts.chaos_lab --scenario stream_crash_replay``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+from cfk_tpu_torch.streaming.producer import UPDATES_TOPIC
+from cfk_tpu_torch.transport.broker import Transport
+from cfk_tpu_torch.transport.serdes import RatingUpdate, decode_rating_update
+
+
+class StreamGapError(RuntimeError):
+    """A batch's offset range stayed incomplete past the re-poll budget."""
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamBatch:
+    """One assembled micro-batch: updates in canonical (partition, offset)
+    order plus the cursor movement its commit must persist."""
+
+    updates: tuple[RatingUpdate, ...]
+    cursors_before: dict[int, int]
+    cursors_after: dict[int, int]
+    duplicates_dropped: int = 0
+    gap_repolls: int = 0
+
+    @property
+    def num_records(self) -> int:
+        return sum(
+            self.cursors_after[p] - self.cursors_before[p]
+            for p in self.cursors_after
+        )
+
+
+class StreamConsumer:
+    """Assemble exactly-once micro-batches from the updates topic."""
+
+    def __init__(
+        self,
+        transport: Transport,
+        *,
+        topic: str = UPDATES_TOPIC,
+        cursors: dict[int, int] | None = None,
+        gap_retries: int = 20,
+        gap_wait_s: float = 0.05,
+    ) -> None:
+        self.transport = transport
+        self.topic = topic
+        self.num_partitions = transport.num_partitions(topic)
+        self.cursors = {p: 0 for p in range(self.num_partitions)}
+        if cursors:
+            for p, off in cursors.items():
+                p = int(p)
+                if p not in self.cursors:
+                    raise ValueError(
+                        f"cursor for partition {p} but topic {topic!r} has "
+                        f"{self.num_partitions} partitions — was the topic "
+                        "re-partitioned under a live cursor?"
+                    )
+                self.cursors[p] = int(off)
+        self.gap_retries = gap_retries
+        self.gap_wait_s = gap_wait_s
+
+    def backlog(self) -> int:
+        """Records appended but not yet consumed (across partitions)."""
+        return sum(
+            max(0, self.transport.end_offset(self.topic, p) - self.cursors[p])
+            for p in range(self.num_partitions)
+        )
+
+    def _collect_range(self, p: int, lo: int, hi: int):
+        """All records of partition ``p`` with offsets exactly [lo, hi) —
+        deduped by offset, sorted, gaps re-polled (at-least-once healing)."""
+        seen: dict[int, bytes] = {}
+        dups = 0
+        repolls = 0
+        attempts = 0
+        while True:
+            this_pass: set[int] = set()
+            for rec in self.transport.consume(self.topic, p, start_offset=lo):
+                if rec.offset >= hi:
+                    # Transports re-deliver from a *position*, so anything
+                    # past the target belongs to the next batch.  Once the
+                    # range is complete, the first past-target record ends
+                    # the pass (reading on to the log's END would make
+                    # every poll O(log tail) and a full drain quadratic in
+                    # log length) — but only then, so an in-range duplicate
+                    # delivered at the range's tail is still seen and
+                    # counted before the break.
+                    if len(seen) == hi - lo:
+                        break
+                    continue
+                if rec.offset < lo:
+                    continue
+                prev = seen.get(rec.offset)
+                if prev is None:
+                    seen[rec.offset] = rec.value
+                    this_pass.add(rec.offset)
+                elif prev != rec.value:
+                    raise StreamGapError(
+                        f"partition {p} offset {rec.offset}: two deliveries "
+                        "with different payloads — the log is corrupt, not "
+                        "merely duplicated"
+                    )
+                elif rec.offset in this_pass:
+                    # Only a second copy within ONE delivery pass is a
+                    # transport duplicate; re-seeing offsets on a gap
+                    # re-poll is our own doing and must not inflate the
+                    # duplicate counter (it would misattribute a drop
+                    # fault as a duplication fault).
+                    dups += 1
+            missing = [o for o in range(lo, hi) if o not in seen]
+            if not missing:
+                return [seen[o] for o in range(lo, hi)], dups, repolls
+            attempts += 1
+            if attempts > self.gap_retries:
+                raise StreamGapError(
+                    f"partition {p}: offsets {missing[:8]}{'...' if len(missing) > 8 else ''} "
+                    f"never delivered after {self.gap_retries} re-polls; the "
+                    "log claims end_offset past them, so the transport is "
+                    "dropping records persistently (the reference hangs "
+                    "forever in this state — we fail loudly)"
+                )
+            repolls += 1
+            time.sleep(self.gap_wait_s)
+
+    def poll(self, batch_records: int) -> StreamBatch | None:
+        """Assemble the next micro-batch, or None when fully caught up.
+
+        ``batch_records`` bounds the records taken per PARTITION this poll
+        (the batch boundary is offset-determined, so replays re-cut the
+        same batches).  Updates are returned in (partition, offset) order —
+        the canonical order the dedup/fold-in applies them in.
+        """
+        if batch_records < 1:
+            raise ValueError(f"batch_records must be >= 1, got {batch_records}")
+        before = dict(self.cursors)
+        after = dict(self.cursors)
+        updates: list[RatingUpdate] = []
+        dups = 0
+        repolls = 0
+        for p in range(self.num_partitions):
+            lo = self.cursors[p]
+            hi = min(self.transport.end_offset(self.topic, p),
+                     lo + batch_records)
+            if hi <= lo:
+                continue
+            values, d, r = self._collect_range(p, lo, hi)
+            dups += d
+            repolls += r
+            updates.extend(decode_rating_update(v) for v in values)
+            after[p] = hi
+        if after == before:
+            return None
+        self.cursors = after
+        return StreamBatch(
+            updates=tuple(updates),
+            cursors_before=before,
+            cursors_after=after,
+            duplicates_dropped=dups,
+            gap_repolls=repolls,
+        )

@@ -1,0 +1,296 @@
+"""Durable file-backed Transport: an append-only partitioned log on disk.
+
+The port's copy of ``cfk_tpu/transport/filelog.py``, with its on-disk
+layout, so a log written by either package reads in the other:
+``<dir>/<topic>/meta.json`` and ``<dir>/<topic>/p%05d.log`` per partition,
+frames ``>iI`` (int32 key, uint32 value length) then the value.
+
+The reference's durability is Kafka's: topics retained unboundedly
+(``dev/env/kafka.env`` ``KAFKA_LOG_RETENTION_HOURS=-1``) are the only thing
+that survives a crash, and recovery is a from-scratch replay
+(``apps/BaseKafkaApp.java:36,55``; SURVEY.md §5).  ``FileBroker`` provides the
+same durable-log contract without a broker process: one append-only segment
+file per partition, length-prefixed big-endian frames (the framing style of
+the reference's hand-rolled serdes, ``serdes/IdRatingPairMessage/*``), torn
+trailing writes truncated away on reopen — Kafka-style log recovery.
+
+It implements the same ``Transport`` protocol as ``InMemoryBroker``, so the
+ingest EOF-barrier protocol and checkpoint journaling run unchanged on top.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import struct
+from typing import Iterator
+
+import numpy as np
+
+from cfk_tpu_torch.transport.broker import Record, mod_partition
+
+# Frame: int32 key ‖ uint32 value length ‖ value bytes (big-endian, matching
+# the DataOutputStream framing of the reference serdes).
+_HEADER = struct.Struct(">iI")
+_META = "meta.json"
+# Sparse byte index granularity: byte position of every K-th record is kept
+# so consume(start_offset=...) seeks near the target instead of decoding the
+# whole log (checkpoint-journal resumes read only the tail).
+_INDEX_EVERY = 1024
+
+
+def _log_path(topic_dir: str, partition: int) -> str:
+    return os.path.join(topic_dir, f"p{partition:05d}.log")
+
+
+def _scan_log(path: str) -> tuple[int, int, list[int]]:
+    """(record_count, valid_byte_length, sparse_index) of a segment file.
+
+    A torn final frame (partial header or short value — a crash mid-append)
+    ends the valid region; everything before it is intact.  ``sparse_index``
+    holds the byte position of record i·_INDEX_EVERY.
+    """
+    count = 0
+    pos = 0
+    index: list[int] = []
+    size = os.path.getsize(path)
+    with open(path, "rb") as f:
+        while pos + _HEADER.size <= size:
+            header = f.read(_HEADER.size)
+            if len(header) < _HEADER.size:
+                break
+            _, vlen = _HEADER.unpack(header)
+            if pos + _HEADER.size + vlen > size:
+                break
+            if count % _INDEX_EVERY == 0:
+                index.append(pos)
+            f.seek(vlen, os.SEEK_CUR)
+            pos += _HEADER.size + vlen
+            count += 1
+    return count, pos, index
+
+
+class FileBroker:
+    """On-disk Transport rooted at ``directory``; safe to reopen after a crash.
+
+    ``fsync=True`` fsyncs every append (the durable default for checkpoint
+    journals); ``fsync=False`` leaves flushing to the OS page cache — faster
+    for bulk ingest, still crash-consistent up to the torn tail.
+    """
+
+    def __init__(self, directory: str, *, fsync: bool = True) -> None:
+        self.directory = directory
+        self._fsync = fsync
+        self._files: dict[tuple[str, int], object] = {}
+        self._counts: dict[tuple[str, int], int] = {}
+        self._bytes: dict[tuple[str, int], int] = {}
+        self._index: dict[tuple[str, int], list[int]] = {}
+        self._partitions: dict[str, int] = {}
+        os.makedirs(directory, exist_ok=True)
+        for topic in sorted(os.listdir(directory)):
+            meta_path = os.path.join(directory, topic, _META)
+            if not os.path.isfile(meta_path):
+                continue
+            with open(meta_path) as f:
+                self._partitions[topic] = int(json.load(f)["num_partitions"])
+            for p in range(self._partitions[topic]):
+                path = _log_path(os.path.join(directory, topic), p)
+                if os.path.exists(path):
+                    count, valid, index = _scan_log(path)
+                    if valid < os.path.getsize(path):  # torn tail: truncate
+                        with open(path, "r+b") as f:
+                            f.truncate(valid)
+                    self._counts[(topic, p)] = count
+                    self._bytes[(topic, p)] = valid
+                    self._index[(topic, p)] = index
+                else:
+                    self._counts[(topic, p)] = 0
+                    self._bytes[(topic, p)] = 0
+                    self._index[(topic, p)] = []
+
+    # -- Transport protocol -------------------------------------------------
+
+    def create_topic(self, name: str, num_partitions: int) -> None:
+        if num_partitions < 1:
+            raise ValueError(f"num_partitions must be >= 1, got {num_partitions}")
+        if name in self._partitions:
+            raise ValueError(f"topic {name!r} already exists")
+        if os.sep in name or name.startswith("."):
+            raise ValueError(f"invalid topic name {name!r}")
+        topic_dir = os.path.join(self.directory, name)
+        os.makedirs(topic_dir, exist_ok=True)
+        tmp = os.path.join(topic_dir, _META + ".tmp")
+        with open(tmp, "w") as f:
+            json.dump({"num_partitions": num_partitions}, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, os.path.join(topic_dir, _META))
+        self._partitions[name] = num_partitions
+        for p in range(num_partitions):
+            self._counts[(name, p)] = 0
+            self._bytes[(name, p)] = 0
+            self._index[(name, p)] = []
+
+    def delete_topic(self, name: str) -> None:
+        if name not in self._partitions:
+            return
+        for p in range(self._partitions[name]):
+            fh = self._files.pop((name, p), None)
+            if fh is not None:
+                fh.close()
+            self._counts.pop((name, p), None)
+            self._bytes.pop((name, p), None)
+            self._index.pop((name, p), None)
+        del self._partitions[name]
+        shutil.rmtree(os.path.join(self.directory, name), ignore_errors=True)
+
+    def _num_partitions_checked(self, topic: str) -> int:
+        try:
+            return self._partitions[topic]
+        except KeyError:
+            raise KeyError(
+                f"unknown topic {topic!r}; create_topic first (the reference "
+                "had the same split: setup.sh provisions topics before the app runs)"
+            ) from None
+
+    def produce(
+        self, topic: str, key: int, value: bytes, partition: int | None = None
+    ) -> None:
+        n = self._num_partitions_checked(topic)
+        if partition is None:
+            partition = mod_partition(key, n)
+        if not 0 <= partition < n:
+            raise IndexError(f"partition {partition} out of range for {topic!r}")
+        fh = self._files.get((topic, partition))
+        if fh is None:
+            fh = open(_log_path(os.path.join(self.directory, topic), partition), "ab")
+            self._files[(topic, partition)] = fh
+        record = _HEADER.pack(key, len(value)) + value
+        fh.write(record)
+        # The seek index is only touched AFTER pack and write both succeed:
+        # an entry appended ahead of a failure (key overflow, ENOSPC) would
+        # duplicate on retry and silently mislabel every indexed consume.
+        if self._counts[(topic, partition)] % _INDEX_EVERY == 0:
+            self._index[(topic, partition)].append(self._bytes[(topic, partition)])
+        if self._fsync:
+            fh.flush()
+            os.fsync(fh.fileno())
+        self._counts[(topic, partition)] += 1
+        self._bytes[(topic, partition)] += _HEADER.size + len(value)
+
+    def produce_frames(
+        self, topic: str, keys, frames, partition: int
+    ) -> None:
+        """Bulk append of n equal-size values in one write syscall.
+
+        ``keys`` is an int array [n], ``frames`` a uint8 array [n, vbytes]
+        (each row one record value).  Semantically identical to n ``produce``
+        calls; exists because checkpoint journaling appends ~500k factor-row
+        frames per iteration and the per-record path would dominate save
+        time with Python-loop and syscall overhead.
+        """
+        keys = np.asarray(keys)
+        frames = np.asarray(frames, dtype=np.uint8)
+        n, vbytes = frames.shape
+        if keys.shape != (n,):
+            raise ValueError(f"keys shape {keys.shape} != ({n},)")
+        if n and (keys.min() < -(2**31) or keys.max() >= 2**31):
+            # Match the per-record path, where struct.pack('>i') raises on
+            # overflow — astype('>i4') below would silently wrap instead.
+            raise OverflowError(
+                f"record keys must fit int32, got range "
+                f"[{int(keys.min())}, {int(keys.max())}]"
+            )
+        nparts = self._num_partitions_checked(topic)
+        if not 0 <= partition < nparts:
+            raise IndexError(f"partition {partition} out of range for {topic!r}")
+        fh = self._files.get((topic, partition))
+        if fh is None:
+            fh = open(_log_path(os.path.join(self.directory, topic), partition), "ab")
+            self._files[(topic, partition)] = fh
+        blob = np.empty((n, _HEADER.size + vbytes), np.uint8)
+        blob[:, 0:4] = (
+            np.ascontiguousarray(keys.astype(">i4")).view(np.uint8).reshape(n, 4)
+        )
+        blob[:, 4:8] = np.frombuffer(np.array(vbytes, ">u4").tobytes(), np.uint8)
+        blob[:, 8:] = frames
+        base_count = self._counts[(topic, partition)]
+        base_bytes = self._bytes[(topic, partition)]
+        rec_bytes = _HEADER.size + vbytes
+        fh.write(blob.tobytes())
+        # Index entries only after the write succeeds (see produce()).
+        index = self._index[(topic, partition)]
+        first = (-base_count) % _INDEX_EVERY
+        for i in range(first, n, _INDEX_EVERY):
+            index.append(base_bytes + i * rec_bytes)
+        if self._fsync:
+            fh.flush()
+            os.fsync(fh.fileno())
+        self._counts[(topic, partition)] = base_count + n
+        self._bytes[(topic, partition)] = base_bytes + n * rec_bytes
+
+    def consume(
+        self, topic: str, partition: int, start_offset: int = 0
+    ) -> Iterator[Record]:
+        self._num_partitions_checked(topic)
+        end = self._counts[(topic, partition)]
+        fh = self._files.get((topic, partition))
+        if fh is not None:
+            fh.flush()
+        path = _log_path(os.path.join(self.directory, topic), partition)
+        if not os.path.exists(path):
+            return
+        # Seek to the nearest indexed record at/before start_offset, then
+        # header-skip the remainder — resume cost is O(bytes after the
+        # nearest index point), not O(whole log).
+        index = self._index[(topic, partition)]
+        offset = 0
+        seek_to = 0
+        if start_offset > 0 and index:
+            i = min(start_offset // _INDEX_EVERY, len(index) - 1)
+            offset = i * _INDEX_EVERY
+            seek_to = index[i]
+        with open(path, "rb") as f:
+            f.seek(seek_to)
+            while offset < end:
+                header = f.read(_HEADER.size)
+                if len(header) < _HEADER.size:
+                    return
+                key, vlen = _HEADER.unpack(header)
+                if offset < start_offset:
+                    f.seek(vlen, os.SEEK_CUR)
+                else:
+                    value = f.read(vlen)
+                    if len(value) < vlen:
+                        return
+                    yield Record(key=key, value=value, offset=offset)
+                offset += 1
+
+    def num_partitions(self, topic: str) -> int:
+        return self._num_partitions_checked(topic)
+
+    def end_offset(self, topic: str, partition: int) -> int:
+        self._num_partitions_checked(topic)
+        return self._counts[(topic, partition)]
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def flush(self) -> None:
+        for fh in self._files.values():
+            fh.flush()
+            os.fsync(fh.fileno())
+
+    def close(self) -> None:
+        for fh in self._files.values():
+            fh.close()
+        self._files.clear()
+
+    def __enter__(self) -> "FileBroker":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def topics(self) -> list[str]:
+        return sorted(self._partitions)

@@ -1,14 +1,21 @@
-"""Score-request and score-response frames of the serving path.
+"""Wire-format codecs of the port, byte-identical to ``cfk_tpu/transport/serdes.py``.
 
-Byte-identical to ``cfk_tpu/transport/serdes.py``'s frames, big-endian like
-the reference's ``DataOutputStream`` serdes:
+The reference frames everything big-endian via ``DataOutputStream`` with no
+schema registry, and so does every frame here:
 
-- ``ScoreRequest``: int64 req_id | int64 user | int32 k | int32
-  reply_partition — 24 bytes;
-- ``ScoreResponse``: int64 req_id | int32 n | uint16 error_len | uint8 flags
-  | int32 epoch | int32 staleness — a 23-byte header, then the UTF-8 error
-  text and the parallel >i4 movie rows / >f4 scores.  ``flags`` bit 0 marks
-  a retriable refusal.
+- ``IdRatingPair``: int32 id + int16 rating — 6 bytes; ``id == -1`` is the
+  EOF control message, ``rating`` then carrying the sender's partition id.
+- ``RatingUpdate``: int64 seq | int64 user | int64 movie | float32 rating —
+  28 bytes, the streaming fold-in's upsert.
+- ``ScoreRequest`` / ``ScoreResponse``: the serving path's query and answer.
+- ``FeatureRecord``: int32 id ‖ int32 count + int32 dependentIds ‖ int32 len
+  + float32 features.
+- ``FactorDelta``: a 37-byte header, then the payload arrays.
+- float[]: int32 length + float32s; List<Integer>: int32 size + int32s.
+
+Decoders trust the embedded counts (any rank decodes without globals) and
+refuse a corrupt or truncated frame with ``ValueError``, as the reference's
+do.
 """
 
 from __future__ import annotations
@@ -18,14 +25,88 @@ import struct
 
 import numpy as np
 
+EOF_ID = -1
+
+_ID_RATING = struct.Struct(">ih")  # int32 id, int16 rating
+_I32 = struct.Struct(">i")
+# RatingUpdate: int64 seq | int64 user | int64 movie | float32 rating.
+# A superset of IdRatingPair for the streaming fold-in path: the rating is
+# float (re-rates and synthetic streams are not star-quantized) and the
+# producer-assigned sequence number is what makes replayed/duplicated
+# delivery idempotent (last-seq-wins per (user, movie) cell).
+_RATING_UPDATE = struct.Struct(">qqqf")
+
+
+@dataclasses.dataclass(frozen=True)
+class IdRatingPair:
+    """A (id, rating) record; ``id == EOF_ID`` marks the EOF control message,
+    with ``rating`` carrying the sending partition index."""
+
+    id: int
+    rating: int
+
+    @property
+    def is_eof(self) -> bool:
+        return self.id == EOF_ID
+
+
+def encode_id_rating(msg: IdRatingPair) -> bytes:
+    return _ID_RATING.pack(msg.id, msg.rating)
+
+
+def decode_id_rating(data: bytes) -> IdRatingPair:
+    if len(data) != _ID_RATING.size:
+        raise ValueError(f"IdRatingPair frame must be 6 bytes, got {len(data)}")
+    id_, rating = _ID_RATING.unpack(data)
+    return IdRatingPair(id=id_, rating=rating)
+
+
+@dataclasses.dataclass(frozen=True)
+class RatingUpdate:
+    """One streaming rating upsert: user re-/rates movie.
+
+    ``seq`` is assigned by the producer, strictly increasing per logical
+    update (``cfk_tpu_torch.streaming.StreamProducer``): when the same (user,
+    movie) cell is written twice, the higher ``seq`` wins regardless of
+    delivery order, and a retried append (same seq twice in the log) is a
+    no-op on the second application — the idempotency key of the fold-in
+    pipeline.  Ids are RAW external ids (the partition key is the user id,
+    mod-N — same ``PureModPartitioner`` rule as ingest).
+    """
+
+    seq: int
+    user: int
+    movie: int
+    rating: float
+
+
+def encode_rating_update(msg: RatingUpdate) -> bytes:
+    return _RATING_UPDATE.pack(msg.seq, msg.user, msg.movie, msg.rating)
+
+
+def decode_rating_update(data: bytes) -> RatingUpdate:
+    if len(data) != _RATING_UPDATE.size:
+        raise ValueError(
+            f"RatingUpdate frame must be {_RATING_UPDATE.size} bytes, "
+            f"got {len(data)}"
+        )
+    seq, user, movie, rating = _RATING_UPDATE.unpack(data)
+    return RatingUpdate(seq=seq, user=user, movie=movie, rating=rating)
+
+
+# ScoreRequest: int64 req_id | int64 user | int32 k | int32 reply_partition.
+# The serving path's query frame: ``user`` is a user id in the
+# server's id space (dense row for the in-process engine; the CLI resolves
+# raw ids before producing), ``k`` the requested top-K, ``reply_partition``
+# the response-topic partition this client consumes (one partition per
+# client, so responses need no broker-side routing beyond the partition).
 _SCORE_REQUEST = struct.Struct(">qqii")
-_SCORE_RESPONSE_HDR = struct.Struct(">qiHBii")
-_FLAG_RETRIABLE = 0x01
 
 
 @dataclasses.dataclass(frozen=True)
 class ScoreRequest:
-    """One top-K query: ``req_id`` is client-assigned and echoed back."""
+    """One top-K query in flight: ``req_id`` is client-assigned and echoed
+    on the response — the client's latency clock and dedup key."""
 
     req_id: int
     user: int
@@ -48,11 +129,27 @@ def decode_score_request(data: bytes) -> ScoreRequest:
     return ScoreRequest(req_id=req_id, user=user, k=k, reply_partition=reply)
 
 
+# ScoreResponse header: int64 req_id | int32 n | uint16 error_len |
+# uint8 flags | int32 epoch | int32 staleness — 23 bytes, then the error
+# text and the parallel >i4/>f4 arrays.  ``flags`` bit0 = RETRIABLE: the
+# request was refused by admission control (overload shed), not by
+# validation — the client may re-send it, unlike a permanent error.
+# ``epoch``/``staleness`` stamp every answer with the factor
+# table's epoch and the serving replica's delta-log backlog at score
+# time — the per-response staleness bound of the fleet contract.
+_SCORE_RESPONSE_HDR = struct.Struct(">qiHBii")
+_FLAG_RETRIABLE = 0x01
+
+
 @dataclasses.dataclass(frozen=True)
 class ScoreResponse:
-    """Top-K answer: parallel (movie row, score) arrays, ids −1 where fewer
-    than K candidates exist.  A non-empty ``error`` marks a refused request
-    (arrays empty); ``epoch`` is the factor-table epoch that scored it."""
+    """Top-K answer: parallel (movie row, score) arrays, ids −1-padded when
+    fewer than K candidates exist (the kernel's empty-slot convention).
+    ``error`` non-empty marks a refused request — ids/scores are then
+    empty; ``retriable`` distinguishes an admission-control shed (re-send
+    later) from a permanent refusal (unknown user, bad k).  ``epoch`` is
+    the factor-table epoch that scored the answer and ``staleness`` the
+    replica's unapplied delta backlog at score time (frames)."""
 
     req_id: int
     movie_rows: np.ndarray  # int32 [k]
@@ -90,7 +187,7 @@ def decode_score_response(data: bytes) -> ScoreResponse:
             f"corrupt ScoreResponse frame: count {n}, error len {elen}, "
             f"{len(data)} bytes"
         )
-    err = data[off:off + elen].decode("utf-8", "replace")
+    err = data[off : off + elen].decode("utf-8", "replace")
     off += elen
     ids = np.frombuffer(data, dtype=">i4", count=n, offset=off).astype(np.int32)
     off += 4 * n
@@ -98,3 +195,215 @@ def decode_score_response(data: bytes) -> ScoreResponse:
     return ScoreResponse(req_id=req_id, movie_rows=ids, scores=sc, error=err,
                          retriable=bool(flags & _FLAG_RETRIABLE),
                          epoch=epoch, staleness=staleness)
+
+
+@dataclasses.dataclass(frozen=True)
+class FeatureRecord:
+    """A factor vector in flight, tagged with destination-side dependent rows
+    (the analog of ``messages/FeatureMessage.java:6-24`` — immutable here;
+    the reference mutates + re-forwards one object per target partition)."""
+
+    id: int
+    dependent_ids: tuple[int, ...]
+    features: np.ndarray  # float32 [k]
+
+
+def encode_feature(msg: FeatureRecord) -> bytes:
+    feats = np.ascontiguousarray(msg.features, dtype=">f4")
+    out = bytearray()
+    out += _I32.pack(msg.id)
+    out += _I32.pack(len(msg.dependent_ids))
+    out += np.asarray(msg.dependent_ids, dtype=">i4").tobytes()
+    out += _I32.pack(feats.shape[0])
+    out += feats.tobytes()
+    return bytes(out)
+
+
+def _read_i32(data: bytes, off: int, what: str) -> int:
+    """int32 read with a ValueError (not struct.error) on truncation, keeping
+    the module's corrupt-frame → ValueError contract for all decoders."""
+    if off + 4 > len(data):
+        raise ValueError(f"corrupt {what}: truncated at byte {off} of {len(data)}")
+    return _I32.unpack_from(data, off)[0]
+
+
+def decode_feature(data: bytes) -> FeatureRecord:
+    off = 0
+    id_ = _read_i32(data, off, "FeatureRecord")
+    off += 4
+    ndep = _read_i32(data, off, "FeatureRecord")
+    off += 4
+    if ndep < 0 or off + 4 * ndep > len(data):
+        raise ValueError(f"corrupt FeatureRecord: dependent count {ndep}")
+    dep = np.frombuffer(data, dtype=">i4", count=ndep, offset=off)
+    off += 4 * ndep
+    nfeat = _read_i32(data, off, "FeatureRecord")
+    off += 4
+    if nfeat < 0 or off + 4 * nfeat != len(data):
+        raise ValueError(f"corrupt FeatureRecord: feature count {nfeat}")
+    feats = np.frombuffer(data, dtype=">f4", count=nfeat, offset=off)
+    return FeatureRecord(
+        id=id_,
+        dependent_ids=tuple(int(x) for x in dep),
+        features=feats.astype(np.float32),
+    )
+
+
+def encode_float_array(arr: np.ndarray) -> bytes:
+    a = np.ascontiguousarray(arr, dtype=">f4")
+    return _I32.pack(a.shape[0]) + a.tobytes()
+
+
+def decode_float_array(data: bytes) -> np.ndarray:
+    n = _read_i32(data, 0, "float array frame")
+    if n < 0 or 4 + 4 * n != len(data):
+        raise ValueError(f"corrupt float array frame: count {n}, {len(data)} bytes")
+    return np.frombuffer(data, dtype=">f4", count=n, offset=4).astype(np.float32)
+
+
+# FactorDelta header: int32 epoch | int64 seq | uint8 kind |
+# int32 num_users | int32 rank | int32 H (eager user rows) | int32 L
+# (lazy user rows) | int32 C (seen cells) | int32 M (movie rows) —
+# 37 bytes, then the payload arrays in declaration order.  ``seq`` is
+# publisher-assigned, strictly increasing across epochs — the replica's
+# gap detector compares consecutive frames' seqs, and a hole means a
+# lost delta that only a full epoch-snapshot resync can recover.
+_FACTOR_DELTA_HDR = struct.Struct(">iqBiiiiii")
+
+DELTA_KIND_ROWS = 0  # per-commit factor rows + seen cells
+DELTA_KIND_EPOCH = 1  # epoch rollover announcement (snapshot in the store)
+
+_DELTA_KIND_NAMES = {DELTA_KIND_ROWS: "rows", DELTA_KIND_EPOCH: "epoch"}
+_DELTA_KIND_CODES = {v: k for k, v in _DELTA_KIND_NAMES.items()}
+
+
+@dataclasses.dataclass(frozen=True)
+class FactorDelta:
+    """One versioned factor-shipping frame on the durable deltas topic.
+
+    ``kind="rows"`` ships a fold-in commit: ``user_rows``/``user_factors``
+    are the EAGER (hot) rows with factors in-frame; ``lazy_user_rows``
+    name cold rows whose factors live only in the epoch snapshot store
+    (replicas pull them on demand — the hot/cold split applied to
+    shipping); ``cells`` are the commit's rated (user_row, movie_row)
+    seen-list extensions; ``movie_rows``/``movie_factors`` carry item-side
+    per-row deltas when the commit re-solved movie rows.
+    ``kind="epoch"`` announces a warm-retrain rollover: the full snapshot
+    is in the ``SnapshotStore`` under ``epoch``; the frame itself carries
+    no factors (a multi-GB table does not belong in one log record)."""
+
+    epoch: int
+    seq: int
+    kind: str  # "rows" | "epoch"
+    num_users: int
+    user_rows: np.ndarray  # int32 [H] eager rows
+    user_factors: np.ndarray  # float32 [H, k]
+    lazy_user_rows: np.ndarray  # int32 [L] cold rows (factors in the store)
+    cells: np.ndarray  # int32 [C, 2] (user_row, movie_row)
+    movie_rows: np.ndarray  # int32 [M]
+    movie_factors: np.ndarray  # float32 [M, k]
+
+
+def make_factor_delta(epoch: int, seq: int, kind: str = "rows", *,
+                      num_users: int = 0, user_rows=(), user_factors=None,
+                      lazy_user_rows=(), cells=(), movie_rows=(),
+                      movie_factors=None, rank: int = 0) -> FactorDelta:
+    """Normalize python lists/arrays into a well-formed ``FactorDelta``
+    (contiguous dtypes, consistent rank) — the one constructor the
+    publisher uses, so encode never sees ragged input."""
+    ur = np.asarray(user_rows, np.int32).reshape(-1)
+    uf = (np.zeros((0, rank), np.float32) if user_factors is None
+          else np.asarray(user_factors, np.float32).reshape(ur.shape[0], -1))
+    mr = np.asarray(movie_rows, np.int32).reshape(-1)
+    mf = (np.zeros((0, uf.shape[1] if uf.size else rank), np.float32)
+          if movie_factors is None
+          else np.asarray(movie_factors, np.float32).reshape(mr.shape[0], -1))
+    cl = np.asarray(list(cells), np.int32).reshape(-1, 2)
+    return FactorDelta(
+        epoch=int(epoch), seq=int(seq), kind=kind, num_users=int(num_users),
+        user_rows=ur, user_factors=uf,
+        lazy_user_rows=np.asarray(lazy_user_rows, np.int32).reshape(-1),
+        cells=cl, movie_rows=mr, movie_factors=mf,
+    )
+
+
+def encode_factor_delta(msg: FactorDelta) -> bytes:
+    if msg.kind not in _DELTA_KIND_CODES:
+        raise ValueError(f"unknown FactorDelta kind {msg.kind!r}")
+    ur = np.ascontiguousarray(msg.user_rows, dtype=">i4")
+    uf = np.ascontiguousarray(msg.user_factors, dtype=">f4")
+    lz = np.ascontiguousarray(msg.lazy_user_rows, dtype=">i4")
+    cl = np.ascontiguousarray(msg.cells, dtype=">i4")
+    mr = np.ascontiguousarray(msg.movie_rows, dtype=">i4")
+    mf = np.ascontiguousarray(msg.movie_factors, dtype=">f4")
+    rank = int(uf.shape[1]) if uf.ndim == 2 and uf.shape[0] else (
+        int(mf.shape[1]) if mf.ndim == 2 and mf.shape[0] else 0
+    )
+    if uf.shape[0] != ur.shape[0] or mf.shape[0] != mr.shape[0]:
+        raise ValueError(
+            f"rows/factors mismatch: {ur.shape[0]}/{uf.shape[0]} user, "
+            f"{mr.shape[0]}/{mf.shape[0]} movie"
+        )
+    hdr = _FACTOR_DELTA_HDR.pack(
+        msg.epoch, msg.seq, _DELTA_KIND_CODES[msg.kind], msg.num_users,
+        rank, ur.shape[0], lz.shape[0], cl.shape[0], mr.shape[0],
+    )
+    return (hdr + ur.tobytes() + uf.tobytes() + lz.tobytes()
+            + cl.tobytes() + mr.tobytes() + mf.tobytes())
+
+
+def decode_factor_delta(data: bytes) -> FactorDelta:
+    hdr = _FACTOR_DELTA_HDR.size
+    if len(data) < hdr:
+        raise ValueError(f"FactorDelta frame truncated at {len(data)} bytes")
+    epoch, seq, kind, num_users, rank, h, lz, c, m = (
+        _FACTOR_DELTA_HDR.unpack_from(data, 0)
+    )
+    if kind not in _DELTA_KIND_NAMES:
+        raise ValueError(f"corrupt FactorDelta frame: unknown kind {kind}")
+    if min(rank, h, lz, c, m) < 0:
+        raise ValueError(
+            f"corrupt FactorDelta frame: negative count "
+            f"(rank {rank}, H {h}, L {lz}, C {c}, M {m})"
+        )
+    expect = hdr + 4 * h + 4 * h * rank + 4 * lz + 8 * c + 4 * m + 4 * m * rank
+    if expect != len(data):
+        raise ValueError(
+            f"corrupt FactorDelta frame: {len(data)} bytes, "
+            f"expected {expect} for (rank {rank}, H {h}, L {lz}, "
+            f"C {c}, M {m})"
+        )
+    off = hdr
+    ur = np.frombuffer(data, dtype=">i4", count=h, offset=off)
+    off += 4 * h
+    uf = np.frombuffer(data, dtype=">f4", count=h * rank, offset=off)
+    off += 4 * h * rank
+    lzr = np.frombuffer(data, dtype=">i4", count=lz, offset=off)
+    off += 4 * lz
+    cl = np.frombuffer(data, dtype=">i4", count=2 * c, offset=off)
+    off += 8 * c
+    mr = np.frombuffer(data, dtype=">i4", count=m, offset=off)
+    off += 4 * m
+    mf = np.frombuffer(data, dtype=">f4", count=m * rank, offset=off)
+    return FactorDelta(
+        epoch=epoch, seq=seq, kind=_DELTA_KIND_NAMES[kind],
+        num_users=num_users,
+        user_rows=ur.astype(np.int32),
+        user_factors=uf.astype(np.float32).reshape(h, rank),
+        lazy_user_rows=lzr.astype(np.int32),
+        cells=cl.astype(np.int32).reshape(c, 2),
+        movie_rows=mr.astype(np.int32),
+        movie_factors=mf.astype(np.float32).reshape(m, rank),
+    )
+
+
+def encode_int_list(values) -> bytes:
+    a = np.asarray(list(values), dtype=">i4")
+    return _I32.pack(a.shape[0]) + a.tobytes()
+
+
+def decode_int_list(data: bytes) -> list[int]:
+    n = _read_i32(data, 0, "int list frame")
+    if n < 0 or 4 + 4 * n != len(data):
+        raise ValueError(f"corrupt int list frame: count {n}, {len(data)} bytes")
+    return [int(x) for x in np.frombuffer(data, dtype=">i4", count=n, offset=4)]

@@ -203,6 +203,29 @@ Phases, each of which must pass:
              the eager stepped loop; SIGTERM before iteration 2 of 4 under
              a ``PreemptionGuard``: step 3 committed, the resume bit-equal
              to the uninterrupted run;
+4i. stream — streaming fold-in (``cfk_tpu_torch.streaming``) on the main
+             phase's dataset and trained rank-64 model: ``StreamState`` of
+             the 100,480,507 ratings (its seconds); 16,384 seeded updates
+             (users and movies drawn from the dataset's raw ids, ratings
+             1-5, 64 new users) produced into a ``FileBroker`` (fsync on, 4
+             partitions); a session with ``batch_records`` 256 (16 batches
+             of at most 1,024 records), ``foldin_layout="auto"`` (the
+             tiled fold-in: K2 + K1), the sentinel every batch, async
+             commits, ``keep_last_n`` 2 — with K1's and K2's counts zeroed
+             just before and read just after (each > 0), updates/s, p50 and
+             max batch seconds, the seconds of stage, foldin_solve,
+             health_check and commit, peak device memory, the fold-in's
+             kernel ms (torch.profiler, one batch); every touched row
+             within TOL "reg_solve" of ``fold_in_rows`` on the CPU (the
+             plain versions) on the same neighbor lists and movie factors,
+             every untouched row equal to the base model's; a crash after 8
+             batches resumed from the store, and a ``FlakyTransport``
+             (duplicate 3, reorder 5, drop 7) delivery, each crc-equal to
+             the clean run; a ``ServeEngine`` attached to the clean session
+             answering a top-100 for 64 touched users through K4 (its count
+             recorded) with ids equal to an engine built from the committed
+             step; the padded fold-in (K1, its count recorded) of 256 users
+             of a 1,000,000-rating synthetic set against its plain version;
 5. serve   — top-K serving at the repo's serving configuration (``bench.py
              --serve``: 162,541 users x 59,047 movies, the ML-25M shape,
              rank 128, K = 100, tile_m 2048, seen lists at the ML-25M mean;
@@ -335,10 +358,19 @@ Phases, each of which must pass:
              --checkpoint-every 100 --keep-last-n 2`` for 3,000 iterations
              sent SIGTERM after its first step: exit 0 within 30 s with a
              final step committed, the same command again resumes to the
-             end (every kept step verifies); ``python -m
+             end (every kept step verifies); ``stream --produce-csv``
+             then ``stream`` until it drains, the same command again
+             (resumes, no new batch), ``stream --follow`` sent SIGTERM
+             after its first commit (exit 0, cursor committed; the re-run
+             ends crc-equal to the drained run); ``train
+             --checkpoint-journal DIR --journal-partitions 2`` then
+             ``recommend --checkpoint-journal DIR`` (the same output as the
+             ``--checkpoint-dir`` chain's); ``python -m
              cfk_tpu_torch.scripts.chaos_lab --device cuda`` on the padded,
-             tiled, bucketed and segment layouts (its seven single-process
-             scenarios: each fired, detected, recovered crc-equal); then
+             tiled, bucketed and segment layouts (its twelve
+             scenarios — the stream ones on each layout, ``quantized_table``
+             and ``stream_poison_batch`` once — each fired, detected,
+             recovered); then
              ``train --implicit --algorithm ials++ --eval-ranking 10`` on a
              small planted MovieLens-format file, whose Recall@10 and MPR
              on the card must equal the CPU run's.
@@ -367,6 +399,7 @@ import subprocess
 import sys
 import time
 import traceback
+import zlib
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -497,7 +530,11 @@ LINE_EXTRA = {"gauss_solve": ("ms_schur", "bound_ms_schur",
                            "library_ms_n16"),
               "reg_solve": ("ms_k128_e1", "bound_ms_k128_e1", "ms_k128_e203",
                             "bound_ms_k128_e203", "launches_segment",
-                            "launches_segment_implicit")}
+                            "launches_segment_implicit", "foldin",
+                            "foldin_padded")}
+# The stream phase's launches and device ms of the kernels fold-in reaches.
+LINE_EXTRA["gram_gather"] += ("foldin",)
+LINE_EXTRA["topk_scores"] += ("foldin",)
 # scripts/exp_binv.py's defaults (main :187-212): k = 128, --e 334·16
 # rounded down to a multiple of the 128-system tile, λ = 0.05; the main
 # path's movie Grams at k = 64; matrix mode at the ML-25M movie count.
@@ -536,6 +573,15 @@ PIPELINE = dict(iterations=3)
 # may climb past the default 4 rungs (λ from 0: 1e-4, split, 1e-3 and gj,
 # then ×10 a rung).
 RESILIENCE = dict(iterations=3, max_recoveries=8)
+# Phase 4i: the stream phase's log (16,384 updates, 64 of them by new
+# users, 4 partitions), its micro-batches (256 records a partition), the
+# crashed run's batches, the freshness check's users and K, and the padded
+# fold-in's synthetic set (below the padded layout's 2M-rating scale) and
+# touched users.
+STREAM = dict(updates=16_384, new_users=64, partitions=4, batch_records=256,
+              seed=5, crash_after=8, serve_users=64, k=100,
+              padded_shape=dict(num_users=20_000, num_movies=2_000,
+                                nnz=1_000_000), padded_users=256)
 # Phase 8: the chaos lab's layouts on the card; the CLI's preemption run
 # (SIGTERM arrives after its first committed step, every 100 iterations)
 # and the grace window its exit must fit in.
@@ -4456,6 +4502,276 @@ class Smoke:
         self.report["resilience"] = report
         log(f"resilience: {report}")
 
+    def stream(self, ds, model, blk_m, blk_u):
+        """Phase 4i: streaming fold-in at the Netflix shape (see the module
+        doc) — the main phase's dataset and trained model, rank 64."""
+        import tempfile
+        import zlib
+
+        import numpy as np
+        import torch
+
+        from cfk_tpu_torch import ALSConfig
+        from cfk_tpu_torch.data.blocks import RatingsIndex
+        from cfk_tpu_torch.data.synthetic import synthetic_netflix_coo
+        from cfk_tpu_torch.models.als import _tiled_to_device
+        from cfk_tpu_torch.ops.kernels.gram_kernel import gram_gather
+        from cfk_tpu_torch.ops.kernels.solve_kernel import reg_solve
+        from cfk_tpu_torch.ops.tiled import accum_chunk
+        from cfk_tpu_torch.resilience.faults import FlakyPlan, FlakyTransport
+        from cfk_tpu_torch.resilience.loop import drain_checkpoints
+        from cfk_tpu_torch.serving import ServeEngine, engine_from_model
+        from cfk_tpu_torch.serving.topk_kernel import topk_scores
+        from cfk_tpu_torch.streaming import (
+            StreamConfig, StreamProducer, StreamSession, StreamState,
+            fold_in_rows)
+        from cfk_tpu_torch.streaming.foldin import tiled_blocks
+        from cfk_tpu_torch.transport import CheckpointManager, FileBroker
+
+        c = STREAM
+        dev = torch.device("cuda")
+        report = dict(card=card_line(), updates=c["updates"],
+                      partitions=c["partitions"],
+                      batch_records=c["batch_records"])
+        t0 = time.perf_counter()
+        StreamState(ds)
+        report["state_s"] = time.perf_counter() - t0
+        # The log: seeded raw ids of the dataset, ratings 1-5, the new
+        # users' updates spread through it; fsync'd appends, 4 partitions.
+        rng = np.random.default_rng(c["seed"])
+        n_new = c["new_users"]
+        users = np.concatenate([
+            rng.choice(ds.user_map.raw_ids, c["updates"] - n_new),
+            int(ds.user_map.raw_ids.max()) + 1 + np.arange(n_new)])
+        users = users[rng.permutation(users.shape[0])]
+        movies = rng.choice(ds.movie_map.raw_ids, c["updates"])
+        ratings = rng.integers(1, 6, c["updates"]).astype(np.float32)
+        tmp = tempfile.TemporaryDirectory()
+        root = Path(tmp.name)
+        broker = FileBroker(str(root / "log"), fsync=True)
+        t0 = time.perf_counter()
+        StreamProducer(broker, num_partitions=c["partitions"]).send_many(
+            users, movies, ratings)
+        report["produce_s"] = time.perf_counter() - t0
+        config = ALSConfig(rank=RANK, lam=LAM, num_iterations=ITERS, seed=0,
+                           layout="tiled", health_check_every=1)
+
+        def session(name, transport, **kw):
+            return StreamSession(
+                ds, config, transport,
+                CheckpointManager(str(root / name), keep_last_n=2),
+                stream=StreamConfig(batch_records=c["batch_records"]),
+                device=dev, **kw)
+
+        def drain(sess, max_batches=None):
+            """Step through the batches (each one's seconds), then drain
+            the async writer (its seconds)."""
+            secs = []
+            while max_batches is None or len(secs) < max_batches:
+                t0 = time.perf_counter()
+                if sess.step() is None:
+                    break
+                secs.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            drain_checkpoints(sess.manager)
+            return secs, time.perf_counter() - t0
+
+        def crc(sess):
+            return zlib.crc32(sess.user_factors.tobytes())
+
+        # (a) The clean run, an engine attached; K1's and K2's counts
+        # zeroed just before and read just after.
+        for fn in (reg_solve, gram_gather):
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        clean = session("clean", broker, base_model=model)
+        init_s = time.perf_counter() - t0
+        eng = engine_from_model(model, None)
+        eng.attach_session(clean)
+        secs, drain_s = drain(clean)
+        launches = {fn.__name__: fn.launches for fn in (reg_solve, gram_gather)}
+        peak = torch.cuda.max_memory_allocated()
+        phases = {k: clean.metrics.phases.get(k, 0.0) for k in (
+            "stage", "foldin_solve", "health_check", "commit")}
+        run = dict(
+            batches=len(secs), session_init_s=init_s, batch_s=secs,
+            p50_batch_s=float(np.median(secs)) if secs else None,
+            max_batch_s=max(secs) if secs else None, drain_s=drain_s,
+            updates_per_s=c["updates"] / (sum(secs) + drain_s),
+            phase_s=phases, peak_device_bytes=peak, launches=launches,
+            counters=dict(clean.metrics.counters),
+            touched_users=len(clean.state._delta),
+            users=clean.state.num_users, layout=clean._layout)
+        report["run"] = run
+        log(f"stream: {len(secs)} batches, {run['updates_per_s']:.0f} "
+            f"updates/s, p50 {run['p50_batch_s']:.3f} s max "
+            f"{run['max_batch_s']:.3f} s, phases {phases}, drain "
+            f"{drain_s:.2f} s, peak {peak / 2**30:.2f} GiB, launches "
+            f"{launches} ({report['card']})")
+        self.check(len(secs) >= c["updates"] // (c["batch_records"]
+                                                 * c["partitions"])
+                   and clean.backlog() == 0 and clean._layout == "tiled",
+                   f"stream: the clean run {run}")
+        for name, n in launches.items():
+            self.check(n > 0, f"stream: fold-in launched {name} {n} times")
+        # Parity: every touched row against the plain versions on the same
+        # neighbor lists and movie factors; untouched rows as the base's.
+        u_clean = clean.user_factors.copy()
+        touched = np.asarray(sorted(clean.state._delta), np.int64)
+        nd = [clean.state.neighbors(int(r)) for r in touched]
+        m_cpu = clean.movie_factors.cpu()
+        lam = clean._overrides.lam
+        t0 = time.perf_counter()
+        want = fold_in_rows(m_cpu, nd, lam=lam, layout="tiled")
+        plain_s = time.perf_counter() - t0
+        diff, rel = rel_err(torch.from_numpy(u_clean[touched]),
+                            torch.from_numpy(want))
+        base_u = model.user_factors.float().cpu().numpy()
+        untouched = np.setdiff1d(np.arange(base_u.shape[0]), touched)
+        untouched_equal = bool(np.array_equal(u_clean[untouched],
+                                              base_u[untouched]))
+        report["parity"] = dict(rows=int(touched.shape[0]), max_abs=diff,
+                                rel=rel, tol=TOL["reg_solve"],
+                                plain_s=plain_s,
+                                untouched_equal=untouched_equal)
+        self.check(rel <= TOL["reg_solve"] and untouched_equal,
+                   f"stream: fold-in vs plain {report['parity']}")
+        # The fold-in's kernels on one batch-sized set of touched users
+        # (device ms per call, torch.profiler), beside the plain versions.
+        batch = nd[: c["batch_records"] * c["partitions"]]
+        rows_b = sum(mv.shape[0] for mv, _ in batch)
+        # K2's work on this batch: gram_gather_work over the chunks the
+        # fold-in stages, and its reduce kernel's time where a plan splits
+        # a segment across units.
+        m_dev = clean.movie_factors
+        bb = tiled_blocks(batch, int(m_dev.shape[0]))
+        self.check(bb.mode == "accum", f"stream: fold-in blocks {bb.mode}")
+        blk_b = _tiled_to_device(bb, dev, int(m_dev.shape[0]))
+        args_b = [with_plan(accum_chunk(blk_b, bb.statics, ch), blk_b, ch)
+                  for ch in range(bb.statics[0])]
+        work = [gram_gather_work(m_dev, a) for a in args_b]
+        splits = sum(int((a["units"].splits >= 0).sum()) for a in args_b)
+        del blk_b, args_b
+        call = lambda: fold_in_rows(m_dev, batch,  # noqa: E731
+                                    lam=lam, layout="tiled")
+        k2_names = ("gram_kernel",) + (("gram_reduce_kernel",) if splits
+                                       else ())
+        k_ms = kernels_ms(call, 3, *k2_names, "reg_solve_kernel")
+        k2_ms = sum(k_ms[n] for n in k2_names)
+        wall_ms = time_ms(call, 3)
+        t0 = time.perf_counter()
+        fold_in_rows(m_cpu, batch, lam=lam, layout="tiled")
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        k2_bound = bound(sum(w[0] for w in work), sum(w[1] for w in work))
+        k1_bound = bound(*reg_solve_work(len(batch), RANK))
+        self.kernels.setdefault("gram_gather", {})["foldin"] = dict(
+            launches=launches["gram_gather"], users=len(batch),
+            ratings=rows_b, chunks=len(work), split_segments=splits,
+            distinct_table_rows=sum(w[2]["distinct_table_rows"]
+                                    for w in work),
+            ms=k2_ms, bound_ms=k2_bound[0], bound_by=k2_bound[1],
+            call_ms=wall_ms, plain_call_ms=plain_ms)
+        self.kernels.setdefault("reg_solve", {})["foldin"] = dict(
+            launches=launches["reg_solve"], users=len(batch),
+            ms=k_ms["reg_solve_kernel"], bound_ms=k1_bound[0],
+            bound_by=k1_bound[1])
+        report["batch_kernels"] = dict(k_ms, k2_ms=k2_ms, call_ms=wall_ms,
+                                       plain_call_ms=plain_ms,
+                                       users=len(batch), ratings=rows_b)
+        # (b) Serving freshness: the attached engine's top-100 for 64
+        # touched users against an engine built from the committed step.
+        rows = touched[: c["serve_users"]]
+        topk_scores.launches = 0
+        _, ids_hot = eng.topk(rows, c["k"], exclude_seen=False)
+        k4 = topk_scores.launches
+        st = CheckpointManager(str(root / "clean")).restore()
+        fresh = ServeEngine(st.user_factors, st.movie_factors,
+                            num_users=clean.state.num_users,
+                            num_movies=ds.movie_map.num_entities, device=dev)
+        _, ids_fresh = fresh.topk(rows, c["k"], exclude_seen=False)
+        k4_ms = time_ms(lambda: eng.topk(rows, c["k"], exclude_seen=False),
+                        5)
+        serve = dict(users=int(rows.shape[0]), k=c["k"], launches=k4,
+                     ids_equal=bool(np.array_equal(ids_hot, ids_fresh)),
+                     invalidations=eng.invalidations, call_ms=k4_ms,
+                     committed_step=st.iteration)
+        self.kernels.setdefault("topk_scores", {})["foldin"] = dict(
+            launches=k4, users=int(rows.shape[0]), k=c["k"], call_ms=k4_ms)
+        report["serve"] = serve
+        self.check(serve["ids_equal"] and k4 > 0,
+                   f"stream: attached engine vs fresh {serve}")
+        del eng, fresh, st
+        # (c) A crash after 8 batches, resumed from the store.
+        crash = session("crash", broker, base_model=model)
+        drain(crash, c["crash_after"])
+        del crash
+        t0 = time.perf_counter()
+        resumed = session("crash", broker)
+        resume_s = time.perf_counter() - t0
+        resumed_from = resumed.stream_step
+        secs_r, _ = drain(resumed)
+        report["crash_replay"] = dict(
+            resumed_from=resumed_from, resume_s=resume_s,
+            replayed_updates=resumed.metrics.counters.get(
+                "replayed_updates", 0), batches_after=len(secs_r),
+            crc_equal=crc(resumed) == crc(clean))
+        self.check(resumed_from == c["crash_after"]
+                   and report["crash_replay"]["crc_equal"],
+                   f"stream: crash replay {report['crash_replay']}")
+        del resumed
+        # (d) Duplicated, reordered and dropped delivery.
+        flaky = FlakyTransport(broker, FlakyPlan(duplicate=3, reorder=5,
+                                                 drop=7, seed=1))
+        fs = session("flaky", flaky, base_model=model)
+        secs_f, _ = drain(fs)
+        report["flaky"] = dict(
+            duplicated=flaky.duplicated, reordered=flaky.reordered,
+            dropped=flaky.dropped, batches=len(secs_f),
+            run_s=sum(secs_f), crc_equal=crc(fs) == crc(clean),
+            duplicates_dropped=fs.metrics.counters.get(
+                "delivery_duplicates", 0),
+            gap_repolls=fs.metrics.counters.get("delivery_gap_repolls", 0))
+        self.check(bool(flaky.duplicated and flaky.reordered
+                        and flaky.dropped)
+                   and report["flaky"]["crc_equal"],
+                   f"stream: delivery faults {report['flaky']}")
+        del fs, clean
+        broker.close()
+        tmp.cleanup()
+        # (e) The padded fold-in (K1) at the padded layout's scale: 256
+        # touched users of a 1,000,000-rating synthetic set, seeded movie
+        # factors, against its plain version.
+        pidx = RatingsIndex.from_coo(synthetic_netflix_coo(
+            **c["padded_shape"], seed=3))
+        pstate = StreamState(pidx)
+        prow = rng.choice(pstate.num_users, c["padded_users"], replace=False)
+        pnd = [pstate.neighbors(int(r)) for r in prow]
+        m_np = np.random.default_rng(c["seed"]).standard_normal(
+            (pidx.movie_map.num_entities, RANK)).astype(np.float32)
+        m_dev = torch.as_tensor(m_np, device=dev)
+        reg_solve.launches = 0
+        got = fold_in_rows(m_dev, pnd, lam=LAM, layout="padded")
+        k1_padded = reg_solve.launches
+        want = fold_in_rows(torch.from_numpy(m_np), pnd, lam=LAM,
+                            layout="padded")
+        pdiff, prel = rel_err(torch.from_numpy(got), torch.from_numpy(want))
+        width = max(mv.shape[0] for mv, _ in pnd)
+        padded = dict(users=len(pnd), width=int(width), launches=k1_padded,
+                      max_abs=pdiff, rel=prel,
+                      call_ms=time_ms(lambda: fold_in_rows(
+                          m_dev, pnd, lam=LAM, layout="padded"), 3),
+                      k1_ms=kernel_ms(lambda: fold_in_rows(
+                          m_dev, pnd, lam=LAM, layout="padded"), 3,
+                          "reg_solve_kernel"))
+        self.kernels["reg_solve"]["foldin_padded"] = padded
+        report["padded"] = padded
+        self.check(k1_padded > 0 and prel <= TOL["reg_solve"],
+                   f"stream: padded fold-in {padded}")
+        self.report["stream"] = report
+        log(f"stream: {report}")
+
     def resilience_implicit(self, ds_t, ds_b, ds_s, u0, m0, runs):
         """Phase 6h: one iALS (b) call at the ML-25M shape (the implicit
         phase's bucketed blocks and u0) with NaN rows before iteration 1
@@ -4611,6 +4927,49 @@ class Smoke:
         log(f"cli telemetry: {report}")
         return report
 
+    def cli_stream_checks(self, res, fields) -> dict:
+        """The cli phase's stream and journal chains: the drained run, the
+        resume that finds nothing to do, the SIGTERM'd follower and its
+        re-run (crc-equal to the drained run), and ``recommend`` from the
+        journal (the ``--checkpoint-dir`` chain's output)."""
+        out = {}
+        st = res["stream"]
+        first, again = st["first"], st["again"]
+        for name in ("produce", "first", "again"):
+            self.check(st[name].returncode == 0, f"cli stream {name} failed")
+        f1, f2 = fields(first), fields(again)
+        out["drained"] = dict(step_crc=st["step_crc"],
+                              stream_step=f1.get("g.stream_step"),
+                              commits=f1.get("ctr.stream_commits"),
+                              rmse=f1.get("g.rmse"))
+        out["again"] = dict(stream_step=f2.get("g.stream_step"),
+                            commits=f2.get("ctr.stream_commits"),
+                            replayed=f2.get("ctr.replayed_updates"))
+        self.check(f1.get("g.backlog") == "0"
+                   and f2.get("g.stream_step") == f1.get("g.stream_step")
+                   and "ctr.stream_commits" not in f2,
+                   f"cli stream resume: {out}")
+        fo = res["stream_follow"]
+        out["follow"] = {k: v for k, v in fo.items() if k != "again"}
+        self.check(fo["produce_rc"] == 0 and fo["rc"] == 0
+                   and fo["preempted"] and fo["committed_step"] >= 1
+                   and fo["again"].returncode == 0
+                   and fo["step_crc"] is not None
+                   and fo["step_crc"] == st["step_crc"],
+                   f"cli stream --follow SIGTERM: {out['follow']}")
+        jr = res["journal"]
+        main = res["main"]
+        self.check(jr["train"].returncode == 0
+                   and jr["recommend"].returncode == 0,
+                   "cli train/recommend --checkpoint-journal failed")
+        same = ("recommend" in main and jr["recommend"].stdout
+                == main["recommend"].stdout)
+        out["journal_recommend_equal"] = same
+        self.check(same, "cli recommend --checkpoint-journal differs from "
+                   "--checkpoint-dir")
+        log(f"cli stream/journal: {out}")
+        return out
+
     def cli(self):
         """Phase 8 (see the module doc): the CLI verbs as subprocesses, the
         independent ones concurrently — one chain a thread (train, then the
@@ -4729,6 +5088,84 @@ class Smoke:
                         resumed_to=mgr.latest_valid_iteration(),
                         kept=mgr.iterations(), err=err[-300:])
 
+        # The stream verb's log: 2,000 updates of the file's users and
+        # movies (seed 3) and 8 by new users, 2 partitions.
+        rng = np.random.default_rng(3)
+        updates = work / "updates.csv"
+        with open(updates, "w") as f:
+            for uid, mid, r in zip(
+                    np.concatenate([rng.choice(np.unique(coo.user_raw), 2000),
+                                    10**7 + np.arange(8)]),
+                    rng.choice(np.unique(coo.movie_raw), 2008),
+                    rng.integers(1, 6, 2008)):
+                f.write(f"{uid},{mid},{r}\n")
+
+        def stream_args(name):
+            return ["stream", "--data", data, "--updates",
+                    work / f"{name}_log", "--stream-dir",
+                    work / f"{name}_dir", "--rank", 8, "--iterations", 3,
+                    "--batch-records", 64, "--device", "cuda"]
+
+        def stream_crc(name):
+            st = CheckpointManager(str(work / f"{name}_dir")).restore()
+            return st.iteration, zlib.crc32(np.ascontiguousarray(
+                st.user_factors).tobytes())
+
+        def stream_chain():
+            """``stream --produce-csv``, ``stream`` until it drains, then
+            the same command again (resumes, no new batch)."""
+            argv = stream_args("stream")
+            prod = cli(*argv, "--produce-csv", updates, "--partitions", 2)
+            first = cli(*argv)
+            again = cli(*argv)
+            return dict(produce=prod, first=first, again=again,
+                        step_crc=stream_crc("stream")
+                        if first.returncode == 0 else None)
+
+        def stream_follow_chain():
+            """``stream --follow`` sent SIGTERM after its first commit past
+            the bootstrap: exit 0 with the cursor committed; the same
+            command without --follow then drains the log."""
+            argv = stream_args("follow")
+            prod = cli(*argv, "--produce-csv", updates, "--partitions", 2)
+            p = subprocess.Popen(
+                [sys.executable, "-m", "cfk_tpu_torch",
+                 *map(str, argv), "--follow"], cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env=CLI_ENV)
+            sd = work / "follow_dir"
+            deadline = time.time() + 240
+            while time.time() < deadline and p.poll() is None and not (
+                    sd.exists() and any(sd.glob("step_*/manifest.json"))
+                    and any(int(x.parent.name[5:]) > 0
+                            for x in sd.glob("step_*/manifest.json"))):
+                time.sleep(0.05)
+            p.send_signal(15)
+            out, err = p.communicate(timeout=120)
+            committed = CheckpointManager(str(sd)).restore()
+            again = cli(*argv)
+            return dict(produce_rc=prod.returncode, rc=p.returncode,
+                        preempted="preempted (SIGTERM)" in err,
+                        committed_step=committed.iteration,
+                        committed_offsets=committed.meta.get("offsets"),
+                        again=again, err=err[-300:],
+                        step_crc=stream_crc("follow")
+                        if again.returncode == 0 else None)
+
+        def journal_chain():
+            """``train --checkpoint-journal DIR --journal-partitions 2``
+            (the main chain's train flags), then ``recommend
+            --checkpoint-journal DIR`` for the main chain's users."""
+            jd = work / "journal"
+            train = cli("train", "--data", data, "--layout", "auto",
+                        "--rank", 8, "--iterations", 3, "--device", "cuda",
+                        "--output", "none", "--checkpoint-journal", jd,
+                        "--journal-partitions", 2)
+            rec = cli("recommend", "--users", ",".join(users), "-k", 5,
+                      "--checkpoint-journal", jd, "--data", data,
+                      "--device", "cuda")
+            return dict(train=train, recommend=rec)
+
         def chaos():
             out = subprocess.run(
                 [sys.executable, "-m", "cfk_tpu_torch.scripts.chaos_lab",
@@ -4752,6 +5189,9 @@ class Smoke:
                 "preempt": pool.submit(preempt_chain),
                 "chaos": pool.submit(chaos),
                 "telemetry": pool.submit(self.cli_telemetry, work, data),
+                "stream": pool.submit(stream_chain),
+                "stream_follow": pool.submit(stream_follow_chain),
+                "journal": pool.submit(journal_chain),
                 **{("pair",) + key: pool.submit(
                     cli, "train", "--data", data, *extra, "--iterations", 2,
                     "--device", key[1], "--output", "none")
@@ -4852,6 +5292,7 @@ class Smoke:
                    and pre["resumed_to"] == CLI_PREEMPT["iterations"]
                    and len(pre["kept"]) <= 2,
                    f"cli preemption: {pre}")
+        stream_out = self.cli_stream_checks(res, fields)
         chaos_out = res["chaos"]
         log(f"chaos_lab --device cuda: rc={chaos_out['rc']} "
             f"{chaos_out['summary']}")
@@ -4869,11 +5310,11 @@ class Smoke:
                                   evaluate_mse=mse_eval,
                                   predict_mse=mse_pred, serve=row,
                                   implicit_ranking=ranking,
-                                  preemption=pre)
+                                  preemption=pre, stream=stream_out)
 
 
 MAIN_PHASES = ("kernels", "binv", "breakdown", "split", "gather", "rank256",
-               "segment", "quant", "pipeline", "resilience")
+               "segment", "quant", "pipeline", "resilience", "stream")
 IMPLICIT_PHASES = ("gather_ml25m", "split_ml25m", "implicit_r256",
                    "segment_ml25m", "quant_ml25m", "pipeline_ml25m",
                    "resilience_ml25m")

@@ -261,6 +261,11 @@ def test_import_pulls_in_no_jax_and_no_cfk_tpu():
         "import cfk_tpu_torch.resilience.faults\n"
         "import cfk_tpu_torch.resilience.retry\n"
         "import cfk_tpu_torch.scripts.chaos_lab\n"
+        "import cfk_tpu_torch.streaming, cfk_tpu_torch.streaming.session\n"
+        "import cfk_tpu_torch.streaming.foldin\n"
+        "import cfk_tpu_torch.transport.filelog\n"
+        "import cfk_tpu_torch.transport.ingest\n"
+        "import cfk_tpu_torch.transport.journal\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'cfk_tpu', 'ml_dtypes')]\n"
         "print(bad)\n"

@@ -2106,3 +2106,103 @@ def test_save_async_snapshot_isolated_from_in_place_updates(cuda, tmp_path):
         st = mgr.restore(it)
         np.testing.assert_array_equal(st.user_factors, wu)
         np.testing.assert_array_equal(st.movie_factors, wm)
+
+
+# -- streaming fold-in -------------------------------------------------------
+
+
+def _stream_fixture(layout, parts=2, n=60, new_users=(4242,)):
+    """The chaos lab's stream fixture on the card: 60 × 30 × 900 ratings,
+    rank 4, a base model trained there, a seeded update log."""
+    from cfk_tpu_torch.config import ALSConfig
+    from cfk_tpu_torch.data.blocks import Dataset
+    from cfk_tpu_torch.models.als import train_als
+    from cfk_tpu_torch.streaming import StreamProducer
+    from cfk_tpu_torch.transport import InMemoryBroker
+
+    coo = synthetic_netflix_coo(60, 30, 900, seed=0)
+    ds = (Dataset.from_coo(coo) if layout == "padded" else Dataset.from_coo(
+        coo, layout="tiled", chunk_elems=256, dense_stream=True))
+    cfg = ALSConfig(rank=4, num_iterations=4, health_check_every=1,
+                    layout=layout)
+    base = train_als(ds, cfg, device="cuda")
+    broker = InMemoryBroker()
+    prod = StreamProducer(broker, num_partitions=parts)
+    rng = np.random.default_rng(11)
+    prod.send_many(rng.choice(ds.user_map.raw_ids, n),
+                   rng.choice(ds.movie_map.raw_ids, n),
+                   rng.integers(1, 6, n).astype(np.float32))
+    for raw in new_users:
+        prod.send(raw, int(ds.movie_map.raw_ids[0]), 4.0)
+    return ds, cfg, base, broker
+
+
+@pytest.mark.parametrize("layout", ["padded", "tiled"])
+def test_fold_in_rows_matches_plain(cuda, layout):
+    """The fold-in on the card (K1; K2 + K1 tiled) against the plain
+    versions on the CPU, on the same neighbor lists and movie factors."""
+    from cfk_tpu_torch.data.blocks import RatingsIndex
+    from cfk_tpu_torch.ops.kernels.gram_kernel import gram_gather
+    from cfk_tpu_torch.streaming import StreamState, fold_in_rows
+
+    idx = RatingsIndex.from_coo(synthetic_netflix_coo(3000, 400, 60_000,
+                                                      seed=2))
+    state = StreamState(idx)
+    rng = np.random.default_rng(0)
+    rows = rng.choice(state.num_users, 200, replace=False)
+    nd = [state.neighbors(int(r)) for r in rows]
+    m = rng.standard_normal((idx.movie_map.num_entities, 32)).astype(
+        np.float32)
+    reg_solve.launches = gram_gather.launches = 0
+    got = fold_in_rows(torch.as_tensor(m, device="cuda"), nd, lam=0.05,
+                       layout=layout)
+    assert reg_solve.launches > 0
+    assert (gram_gather.launches > 0) == (layout == "tiled")
+    want = fold_in_rows(torch.from_numpy(m), nd, lam=0.05, layout=layout)
+    scale = np.abs(want).max()
+    assert np.abs(got - want).max() <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("layout", ["padded", "tiled"])
+def test_stream_session_runs_bit_equal_and_crash_replay(cuda, layout,
+                                                        tmp_path):
+    """Two sessions over the same log end bit-equal; a crash after 3
+    batches resumed from its store ends crc-equal to them."""
+    import zlib
+
+    from cfk_tpu_torch.streaming import StreamConfig, StreamSession
+    from cfk_tpu_torch.transport import CheckpointManager
+
+    ds, cfg, base, broker = _stream_fixture(layout)
+
+    def session(name, **kw):
+        return StreamSession(ds, cfg, broker,
+                             CheckpointManager(str(tmp_path / name)),
+                             stream=StreamConfig(batch_records=8),
+                             device="cuda", **kw)
+
+    runs = []
+    for name in ("a", "b"):
+        s = session(name, base_model=base)
+        s.run()
+        runs.append(s.user_factors.copy())
+    assert np.array_equal(runs[0], runs[1])
+    crashed = session("c", base_model=base)
+    crashed.run(max_batches=3)
+    del crashed
+    resumed = session("c")
+    assert resumed.stream_step == 3
+    resumed.run()
+    assert zlib.crc32(resumed.user_factors.tobytes()) == zlib.crc32(
+        runs[0].tobytes())
+
+
+def test_quantized_table_scenario_on_the_card(cuda):
+    """The chaos lab's quantized_table scenario on the card: the ladder's
+    every rung with a bf16 gather table, the recovered RMSE within the
+    reference's bound, the split and "gj" rungs pinned."""
+    from cfk_tpu_torch.scripts.chaos_lab import Lab
+
+    row = Lab("cuda", "tiled").quantized_table()
+    assert row["ok"], row
+    assert row["split_and_gj_pinned"]
