@@ -13,9 +13,12 @@ The host ingest library (``csrc/host/cfk_native.cpp``: the parsers, the
 counting-sort group-by and the presence-table indexer) is built the same
 way by the host C++ compiler (``c++ -O3 -shared -fPIC``) into the same
 directory, named by a hash of its source and flags, on first use by
-``data/_native.py``; it needs no CUDA.  Every build writes a file of its own
-and renames it into place, so processes building at once never load a
-half-written library.
+``data/_native.py``; it needs no CUDA.  The log broker
+(``csrc/host/cfk_broker.cpp``) is an executable built the same way (the
+flags of the JAX package's ``native/Makefile``) on first use by
+``transport/tcp.py``.  Every build writes a file of its own and renames it
+into place, so processes building at once never load or run a half-written
+file.
 """
 
 from __future__ import annotations
@@ -43,6 +46,9 @@ NVCC_FLAGS = (
 
 HOST_SOURCE = CSRC_DIR / "host" / "cfk_native.cpp"
 HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
+BROKER_SOURCE = CSRC_DIR / "host" / "cfk_broker.cpp"
+BROKER_FLAGS = ("-O3", "-Wall", "-Wextra", "-fPIC", "-std=c++17")
+BROKER_LIBS = ("-lpthread",)
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -141,6 +147,34 @@ def compile_host_library() -> Path:
         raise RuntimeError(f"c++ failed for csrc/host/cfk_native.cpp "
                            f"(exit {proc.returncode}):\n{proc.stdout}")
     return tmp
+
+
+def broker_binary_path() -> Path:
+    h = hashlib.sha256(BROKER_SOURCE.read_bytes())
+    h.update(" ".join(BROKER_FLAGS + BROKER_LIBS).encode())
+    return BUILD_DIR / f"cfk_broker-{h.hexdigest()[:16]}"
+
+
+def build_broker() -> Path:
+    """The log broker executable, compiled first if missing (into a file of
+    this call's own, renamed into place).  Raises with the compiler's
+    output if the build fails."""
+    out = broker_binary_path()
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(
+        f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    proc = subprocess.run(
+        [host_compiler(), *BROKER_FLAGS, "-o", str(tmp), str(BROKER_SOURCE),
+         *BROKER_LIBS],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"c++ failed for csrc/host/cfk_broker.cpp "
+                           f"(exit {proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, out)
+    return out
 
 
 def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:

@@ -21,30 +21,39 @@
   ``--no-preempt-save``, and ``--health-check-every``,
   ``--health-norm-limit``, ``--max-recoveries``, ``--lam-escalation`` and
   ``--on-unrecoverable`` arm the sentinel and the recovery ladder;
-  ``--checkpoint-journal DIR --journal-partitions N`` journals the factors
-  as FeatureRecord frames through a FileBroker directory instead (the
-  reference's topics-as-checkpoint store; exclusive with
-  ``--checkpoint-dir``).
+  ``--checkpoint-journal DIR|URL --journal-partitions N`` journals the
+  factors as FeatureRecord frames through a FileBroker directory or a
+  ``tcp://`` broker instead (the reference's topics-as-checkpoint store;
+  exclusive with ``--checkpoint-dir``); ``--data tcp://HOST:PORT/TOPIC``
+  collects the ratings a ``produce`` wrote.
 - ``evaluate`` — offline MSE/RMSE of a prediction CSV against a ratings file.
 - ``recommend`` — top-K movies for given users from checkpointed factors
   (``--checkpoint-dir``: ``train --checkpoint-dir``, or the JAX package's
   checkpoint directory; or ``--checkpoint-journal``: a journal either
   package wrote).
 - ``predict`` — the prediction CSV from checkpointed factors, no training.
-- ``serve`` — the top-K request server over an in-memory log, driven by the
-  built-in open-loop load generator; prints one JSON row (QPS, p50, p99);
+- ``serve`` — the top-K request server: over an in-memory log driven by
+  the built-in open-loop load generator (prints one JSON row: QPS, p50,
+  p99), or with ``--broker tcp://HOST:PORT`` over the broker's serve
+  topics until ^C; ``--replicas N`` serves through the replicated fleet
+  (user-keyed routing, ``--admission-queue``, per-replica /metrics);
   ``--metrics-port`` serves ``GET /metrics`` (Prometheus text) while it
   runs, ``--trace-dir`` writes its host span trace.
 - ``stream`` — exactly-once streaming fold-in: consume rating updates from
-  a FileBroker directory (``--updates``), fold each micro-batch into the
-  live factors on the card, commit factors + offset cursor atomically in
-  ``--stream-dir``; re-running resumes.  ``--produce-csv`` is the producer
-  side.
+  a FileBroker directory or a ``tcp://`` broker (``--updates``), fold each
+  micro-batch into the live factors on the card, commit factors + offset
+  cursor atomically in ``--stream-dir``; re-running resumes.
+  ``--produce-csv`` is the producer side.
+- ``broker`` — the port's TCP log broker (``csrc/host/cfk_broker.cpp``,
+  built on first use), memory-only or over ``--data-dir``; ``topics``
+  (list/create/delete/recreate) and ``produce`` (a ratings file into a
+  topic, for ``train --data tcp://HOST:PORT/TOPIC``) act on it.
 
-Everything runs on CUDA unless ``--device cpu`` is given.  The reference's
-``tcp://HOST:PORT`` targets (``--updates``, ``--checkpoint-journal``,
-``train --data``) need its TCP broker transport, which the port does not
-have yet: they exit 2 and nothing falls back.
+Everything runs on CUDA unless ``--device cpu`` is given.  Every
+``tcp://HOST:PORT`` target (``train --data``, ``--checkpoint-journal``,
+``stream --updates``, ``serve --broker``) needs a running broker: an
+unreachable one is a clean error with a nonzero exit, and nothing falls
+back to another transport.
 """
 
 from __future__ import annotations
@@ -64,36 +73,45 @@ def _eprint(*args) -> None:
     print(*args, file=sys.stderr)
 
 
-_TCP_MISSING = (
-    "{what} {url!r}: tcp:// targets need the TCP broker transport "
-    "(cfk_tpu's transport/tcp.py), which the port does not have yet; "
-    "use a FileBroker directory"
-)
+def _parse_tcp_url(url: str, topic_optional: bool = False):
+    """``tcp://HOST:PORT[/TOPIC]`` → (host, port, topic).  Without a /TOPIC
+    segment: the ratings topic, or None when ``topic_optional`` (commands
+    that act on the whole broker)."""
+    from cfk_tpu_torch.transport.ingest import RATINGS_TOPIC
+
+    bad = f"bad broker url {url!r}; expected tcp://HOST:PORT[/TOPIC]"
+    if not url.startswith("tcp://"):
+        raise ValueError(bad)
+    addr, _, topic = url[len("tcp://"):].partition("/")
+    host, _, port_s = addr.rpartition(":")
+    if not host or not port_s.isdigit():
+        raise ValueError(bad)
+    return host, int(port_s), topic or (None if topic_optional
+                                        else RATINGS_TOPIC)
 
 
-def _refuse_tcp(what: str, url: str | None) -> bool:
-    """True (after printing the error) when ``url`` is a ``tcp://`` target:
-    the caller exits 2 — nothing falls back to another transport."""
-    if url and url.startswith("tcp://"):
-        _eprint("error: " + _TCP_MISSING.format(what=what, url=url))
-        return True
-    return False
+def _log_transport(target: str, *, fsync: bool):
+    """The transport of a --checkpoint-journal or --updates target: a
+    ``tcp://HOST:PORT`` broker or a FileBroker directory.  Raises
+    ValueError on a malformed URL and OSError when the broker is
+    unreachable (nothing falls back to a file broker); callers turn both
+    into clean CLI errors."""
+    if target.startswith("tcp://"):
+        from cfk_tpu_torch.transport.tcp import TcpBrokerClient
 
-
-def _file_broker(directory: str, *, fsync: bool):
-    """The FileBroker of a --checkpoint-journal or --updates directory (the
-    caller has refused ``tcp://`` targets)."""
+        host, port, _ = _parse_tcp_url(target, topic_optional=True)
+        return TcpBrokerClient(host, port)
     from cfk_tpu_torch.transport.filelog import FileBroker
 
-    return FileBroker(directory, fsync=fsync)
+    return FileBroker(target, fsync=fsync)
 
 
 def _make_checkpoint_manager(args):
     """The checkpoint store the train flags select: the npz directory
     (``--checkpoint-dir``, the fast local default), the transport journal
     (``--checkpoint-journal``, factors as FeatureRecord frames through a
-    FileBroker directory — the reference's topics-as-durable-checkpoint
-    design, ``setup.sh:18-21``), or None.  Returns an int exit code on
+    FileBroker directory or a ``tcp://`` broker — the reference's
+    topics-as-durable-checkpoint design, ``setup.sh:18-21``), or None.  Returns an int exit code on
     flag errors."""
     journal = args.checkpoint_journal
     if args.checkpoint_dir and journal:
@@ -108,12 +126,10 @@ def _make_checkpoint_manager(args):
     if journal:
         from cfk_tpu_torch.transport.journal import JournalCheckpointManager
 
-        if _refuse_tcp("--checkpoint-journal", journal):
-            return 2
         try:
             # fsync per append for the training journal: the commit marker
             # must never reach disk before the factor frames it commits.
-            transport = _file_broker(journal, fsync=True)
+            transport = _log_transport(journal, fsync=True)
         except (ValueError, OSError) as e:
             _eprint(f"error: {e}")
             return 2
@@ -152,21 +168,24 @@ _CACHE_ERRORS = (ValueError, KeyError, OSError, zipfile.BadZipFile)
 
 def _load_dataset(path, fmt, min_rating, build, *, cache_dir=None,
                   auto_key=None, auto_resolver=None):
-    """Parse ``path`` and build its ``Dataset`` (``build``: the
-    ``Dataset.from_coo`` keywords, ``layout`` possibly "auto",
-    ``auto_resolver(coo)`` resolving it) — or load it from the dataset
-    cache ``cache_dir``.  The port of ``cfk_tpu/cli.py:82-242``
-    ``_load_dataset`` for file data, one shard: the cache's build key is
-    the JAX package's (the data path, size and mtime, the format, the
-    layout flags), so a cache either package wrote for the same file and
-    flags serves both; a key that does not match is rebuilt and
-    overwritten, and a cache whose source file is gone still serves a key
-    that matches on everything else."""
+    """Parse ``path`` — a ratings file, or ``tcp://HOST:PORT/TOPIC`` on the
+    broker — and build its ``Dataset`` (``build``: the ``Dataset.from_coo``
+    keywords, ``layout`` possibly "auto", ``auto_resolver(coo)`` resolving
+    it), or load it from the dataset cache ``cache_dir``.  The port of
+    ``cfk_tpu/cli.py:82-283`` ``_load_dataset`` for one shard: the cache's
+    build key is the JAX package's (the data path, or the broker URL, the
+    format, the layout flags, and a content fingerprint: the file's size
+    and mtime, or the topic's per-partition end offsets), so a cache either
+    package wrote for the same data and flags serves both; a key that does
+    not match is rebuilt and overwritten, and a cache whose fingerprint
+    cannot be read (the file gone, the broker down) still serves a key that
+    matches on everything else."""
     from cfk_tpu_torch.data.blocks import Dataset, TiledBlocks
 
+    tcp = path.startswith("tcp://")
     layout, dense_stream = build["layout"], build.get("dense_stream", False)
     build_key = {
-        "data": os.path.abspath(path),
+        "data": path if tcp else os.path.abspath(path),
         "format": fmt,
         "min_rating": min_rating,
         "num_shards": 1,
@@ -183,52 +202,99 @@ def _load_dataset(path, fmt, min_rating, build, *, cache_dir=None,
     # consumed it, loads accept the flagless key too unless that cache is
     # tiled (a flagless tiled cache is a padded-stream build).
     auto_dense = dense_stream and layout == "auto"
+
+    def cache_or_build(parse):
+        if cache_dir and os.path.exists(os.path.join(cache_dir,
+                                                     "meta.json")):
+            keys = ([{**build_key, "dense_stream": True}, build_key]
+                    if auto_dense else [build_key])
+            err = None
+            for key in keys:
+                t0 = time.time()
+                try:
+                    ds = Dataset.load(cache_dir, expect_build_key=key)
+                except _CACHE_ERRORS as e:
+                    err = e  # a mismatched key or a broken cache: rebuild
+                    continue
+                if (auto_dense and "dense_stream" not in key
+                        and isinstance(ds.user_blocks, TiledBlocks)):
+                    err = ValueError("cached auto-layout dataset resolved "
+                                     "to tiled without the dense stream; "
+                                     "dense run rebuilds")
+                    continue
+                _eprint(f"# dataset cache hit ({time.time() - t0:.1f}s "
+                        "load)")
+                return ds
+            _eprint(f"warning: ignoring dataset cache: {err}")
+        coo = parse()
+        resolved = auto_resolver(coo) if layout == "auto" else layout
+        use_dense = dense_stream and resolved == "tiled"
+        ds = Dataset.from_coo(coo, **{**build, "layout": resolved,
+                                      "dense_stream": use_dense})
+        if cache_dir:
+            key = ({**build_key, "dense_stream": True}
+                   if auto_dense and use_dense else build_key)
+            ds.save(cache_dir, build_key=key)
+        return ds
+
+    def offline(ignore, why):
+        ds = _cache_sans_fingerprint(cache_dir, build_key, ignore, auto_dense)
+        if ds is not None:
+            _eprint(f"warning: {why}; using dataset cache without the "
+                    "freshness check")
+        return ds
+
+    if tcp:
+        from cfk_tpu_torch.transport.ingest import collect_ratings
+        from cfk_tpu_torch.transport.tcp import (
+            BrokerRequestError,
+            TcpBrokerClient,
+        )
+
+        if fmt != "netflix" or min_rating:
+            # Broker records are already-parsed (movie, user, rating)
+            # frames: the file-parse flags have nothing to apply to.
+            _eprint("warning: --format/--min-rating are ignored for tcp:// "
+                    "ingest (records on the broker are already parsed)")
+        host, port, topic = _parse_tcp_url(path)
+        try:
+            client = TcpBrokerClient(host, port)
+        except OSError as e:
+            ds = offline(("end_offsets",), f"broker unreachable ({e})")
+            if ds is not None:
+                return ds
+            raise
+        with client:
+            if cache_dir:
+                try:
+                    build_key["end_offsets"] = [
+                        client.end_offset(topic, p)
+                        for p in range(client.num_partitions(topic))]
+                except (BrokerRequestError, KeyError) as e:
+                    ds = offline(("end_offsets",),
+                                 f"topic unavailable ({e})")
+                    if ds is not None:
+                        return ds
+                    raise
+            return cache_or_build(lambda: collect_ratings(client,
+                                                          topic=topic))
     if os.path.exists(path):
         st = os.stat(path)
         build_key["data_size"] = st.st_size
         build_key["data_mtime_ns"] = st.st_mtime_ns
     else:
-        ds = _cache_sans_fingerprint(cache_dir, build_key, auto_dense)
+        ds = offline(("data_size", "data_mtime_ns"),
+                     f"data file {path!r} not found")
         if ds is not None:
-            _eprint(f"warning: data file {path!r} not found; using dataset "
-                    "cache without the size/mtime freshness check")
             return ds
-    if cache_dir and os.path.exists(os.path.join(cache_dir, "meta.json")):
-        keys = ([{**build_key, "dense_stream": True}, build_key]
-                if auto_dense else [build_key])
-        err = None
-        for key in keys:
-            t0 = time.time()
-            try:
-                ds = Dataset.load(cache_dir, expect_build_key=key)
-            except _CACHE_ERRORS as e:
-                err = e  # a mismatched key or a broken cache: rebuild
-                continue
-            if (auto_dense and "dense_stream" not in key
-                    and isinstance(ds.user_blocks, TiledBlocks)):
-                err = ValueError("cached auto-layout dataset resolved to "
-                                 "tiled without the dense stream; dense run "
-                                 "rebuilds")
-                continue
-            _eprint(f"# dataset cache hit ({time.time() - t0:.1f}s load)")
-            return ds
-        _eprint(f"warning: ignoring dataset cache: {err}")
-    coo = _parse_ratings(path, fmt, min_rating)
-    resolved = auto_resolver(coo) if layout == "auto" else layout
-    use_dense = dense_stream and resolved == "tiled"
-    ds = Dataset.from_coo(coo, **{**build, "layout": resolved,
-                                  "dense_stream": use_dense})
-    if cache_dir:
-        key = ({**build_key, "dense_stream": True}
-               if auto_dense and use_dense else build_key)
-        ds.save(cache_dir, build_key=key)
-    return ds
+    return cache_or_build(lambda: _parse_ratings(path, fmt, min_rating))
 
 
-def _cache_sans_fingerprint(cache_dir, build_key, auto_dense=False):
-    """The cache at ``cache_dir`` when the data file it was built from is
-    gone, if its stored build key matches ``build_key`` on every field but
-    the file's size and mtime (``cfk_tpu/cli.py:245-283``); else None."""
+def _cache_sans_fingerprint(cache_dir, build_key, ignore, auto_dense=False):
+    """The cache at ``cache_dir`` when the content fingerprint of its data
+    cannot be read (the file gone, the broker down), if its stored build
+    key matches ``build_key`` on every field outside ``ignore``
+    (``cfk_tpu/cli.py:245-283``); else None."""
     from cfk_tpu_torch.data.blocks import Dataset, TiledBlocks
     from cfk_tpu_torch.data.cache import read_build_key
 
@@ -239,7 +305,6 @@ def _cache_sans_fingerprint(cache_dir, build_key, auto_dense=False):
         stored = read_build_key(cache_dir)
         if stored is None:
             return None
-        ignore = ("data_size", "data_mtime_ns")
         strip = lambda k: {x: v for x, v in k.items() if x not in ignore}  # noqa: E731
         sk, bk = strip(stored), strip(build_key)
         flagged_ok = auto_dense and sk == {**bk, "dense_stream": True}
@@ -353,8 +418,6 @@ def _train_impl(args, metrics) -> int:
     from cfk_tpu_torch.resilience.loop import validate_cadence
     from cfk_tpu_torch.utils.metrics import maybe_profile
 
-    if _refuse_tcp("--data", args.data):
-        return 2
     # The store's flags are checked before the (possibly long) block build.
     manager = _make_checkpoint_manager(args)
     if isinstance(manager, int):
@@ -536,8 +599,9 @@ def _serving_state(args):
     """Restore factors for the serving verbs from either store:
     --checkpoint-dir (npz directory; a missing or torn one raises, which
     ``main`` turns into exit 1) or --checkpoint-journal (a FileBroker
-    journal directory; an empty or uncommitted one prints the error and
-    gives None, exit 2, as the reference's does)."""
+    journal directory or a ``tcp://`` broker; an empty or uncommitted one,
+    or an unreachable broker, prints the error and gives None, exit 2, as
+    the reference's does)."""
     if bool(args.checkpoint_dir) == bool(args.checkpoint_journal):
         _eprint("error: pass exactly one of --checkpoint-dir / "
                 "--checkpoint-journal")
@@ -546,16 +610,14 @@ def _serving_state(args):
         from cfk_tpu_torch.transport.checkpoint import CheckpointManager
 
         return CheckpointManager(args.checkpoint_dir).restore()
-    if _refuse_tcp("--checkpoint-journal", args.checkpoint_journal):
-        return None
     from cfk_tpu_torch.transport.journal import JournalCheckpointManager
 
     try:
-        transport = _file_broker(args.checkpoint_journal, fsync=False)
+        transport = _log_transport(args.checkpoint_journal, fsync=False)
         return JournalCheckpointManager(transport).restore()
     except (ValueError, OSError) as e:
-        # An empty or uncommitted journal is a common operator mistake; a
-        # clean error beats a traceback.
+        # A malformed URL, an unreachable broker, or an empty or
+        # uncommitted journal: a clean error beats a traceback.
         _eprint(f"error: {e}")
         return None
 
@@ -619,13 +681,39 @@ def _predict(args) -> int:
 
 
 def _serve(args) -> int:
-    """The request server over an in-memory log, driven by the open-loop
-    load generator at --loadgen-qps for --loadgen-requests requests; prints
-    one JSON row of the measured QPS and latency.  ``--metrics-port``
-    serves the server's registry on ``GET /metrics`` while it runs;
-    ``--trace-dir`` writes the host span trace."""
+    """The request server.  Without --broker: over an in-memory log, driven
+    by the open-loop load generator at --loadgen-qps for --loadgen-requests
+    requests; prints one JSON row of the measured QPS and latency (with
+    --replicas N, through a fleet of N replicas, user-keyed, plus the
+    fleet's shed, retry and batch counts).  With --broker tcp://HOST:PORT:
+    joins the broker's serve topics and answers until ^C (SIGINT), one
+    server or --replicas N, then prints what was served.  ``--metrics-port``
+    serves each server's registry on ``GET /metrics`` (and ``/readyz``)
+    while it runs; ``--trace-dir`` writes the host span trace."""
     with _telemetry_session(args):
         return _serve_impl(args)
+
+
+def _serve_fleet(args, transport, engine, make_engine, model):
+    """A prewarmed ``ServeFleet`` of --replicas engines over ``transport``
+    (replica 0 serves ``engine``), its snapshot store seeded with the
+    model's factors."""
+    from cfk_tpu_torch.serving import ServeFleet
+
+    fleet = ServeFleet(
+        lambda i: engine if i == 0 else make_engine(), transport,
+        replicas=args.replicas, max_batch=args.max_batch,
+        response_partitions=args.response_partitions,
+        admission_max_queue=args.admission_queue or None,
+        metrics_ports=args.metrics_port is not None)
+    u, m = model.host_factors()
+    fleet.seed_store(u, m, num_users=model.num_users)
+    fleet.prewarm(args.k, max_batch=args.max_batch)
+    for r in fleet.replicas:
+        ms = r.server.metrics_server
+        if ms is not None:
+            _eprint(f"replica {r.index} metrics endpoint: {ms.url}")
+    return fleet
 
 
 def _serve_impl(args) -> int:
@@ -642,15 +730,30 @@ def _serve_impl(args) -> int:
     )
     from cfk_tpu_torch.transport.broker import InMemoryBroker
 
+    if args.replicas < 1:
+        _eprint(f"error: --replicas must be >= 1, got {args.replicas}")
+        return 2
+    transport = None
+    if args.broker:
+        # The broker first: an unreachable one fails before the (possibly
+        # long) restore and prewarm.
+        from cfk_tpu_torch.transport.tcp import TcpBrokerClient
+
+        host, port, _ = _parse_tcp_url(args.broker, topic_optional=True)
+        transport = TcpBrokerClient(host, port)
     served = _serving_model(args)
     if served is None:
         return 2
     ds, model, _ = served
-    engine = engine_from_model(
-        model, None if args.include_seen else ds,
-        table_dtype=args.table_dtype, tile_m=args.tile_m,
-        serve_mode=args.serve_mode, clusters=args.clusters or None,
-        probe_clusters=args.probe_clusters or None)
+
+    def make_engine():
+        return engine_from_model(
+            model, None if args.include_seen else ds,
+            table_dtype=args.table_dtype, tile_m=args.tile_m,
+            serve_mode=args.serve_mode, clusters=args.clusters or None,
+            probe_clusters=args.probe_clusters or None)
+
+    engine = make_engine()
     if engine.serve_mode == "two_stage":
         _eprint(f"two-stage retrieval: {engine.clusters} clusters, "
                 f"{engine.probe_clusters} probed per user (the exact scan "
@@ -658,7 +761,70 @@ def _serve_impl(args) -> int:
     warm = engine.prewarm(args.k, max_batch=args.max_batch)
     _eprint(f"prewarmed {warm['programs']} batch sizes in "
             f"{warm['prewarm_s']:.2f}s")
+    shape = {"users": ds.user_map.num_entities,
+             "movies": ds.movie_map.num_entities, "k": args.k,
+             "table_dtype": engine.table_dtype,
+             "serve_mode": engine.serve_mode, "device": str(engine.device)}
+    if transport is not None:
+        if args.replicas > 1:
+            fleet = _serve_fleet(args, transport, engine, make_engine, model)
+            fleet.start()
+            _eprint(f"serving fleet: {args.replicas} replicas over broker "
+                    f"{host}:{port} (user-keyed routing; ^C to stop)")
+            try:
+                while True:
+                    time.sleep(1.0)
+            except KeyboardInterrupt:
+                pass
+            finally:
+                fleet.stop()
+            c = fleet.counters()
+            _eprint(f"fleet served {c['served']} requests ({c['shed']} "
+                    f"shed) in {c['batches']} batches")
+            return 0
+        ensure_serve_topics(transport,
+                            request_partitions=args.request_partitions,
+                            response_partitions=args.response_partitions)
+        server = RecommendServer(engine, transport, max_batch=args.max_batch,
+                                 metrics_port=args.metrics_port)
+        if server.metrics_server is not None:
+            _eprint(f"metrics endpoint: {server.metrics_server.url}")
+        _eprint(f"serving {shape['users']} users x {shape['movies']} movies "
+                f"(rank {model.user_factors.shape[-1]}, table "
+                f"{engine.table_dtype}) from broker {host}:{port}; ^C to "
+                "stop")
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            server.close()
+        _eprint(f"served {server.requests_served} requests in "
+                f"{server.batches} batches")
+        return 0
     transport = InMemoryBroker()
+    pool = zipf_user_rows(ds.user_map.num_entities, args.loadgen_requests,
+                          seed=args.seed)
+    if args.replicas > 1:
+        fleet = _serve_fleet(args, transport, engine, make_engine, model)
+        client = ServeClient(transport, route_by_user=True)
+        fleet.start()
+        try:
+            report = run_open_loop(
+                client, rate_qps=args.loadgen_qps,
+                num_requests=args.loadgen_requests, user_rows=pool, k=args.k)
+        finally:
+            fleet.stop()
+        c = fleet.counters()
+        print(json.dumps({
+            **shape, "replicas": args.replicas, "shed": c["shed"],
+            "client_retries": client.retries, **report.as_row(),
+            # the load generator cannot see the fleet's servers: batch
+            # accounting comes from the fleet's counters
+            "batches": c["batches"],
+            "mean_batch": (round(c["served"] / c["batches"], 1)
+                           if c["batches"] else 0.0)}))
+        return 0
     ensure_serve_topics(transport)
     server = RecommendServer(engine, transport, max_batch=args.max_batch,
                              metrics_port=args.metrics_port)
@@ -666,8 +832,6 @@ def _serve_impl(args) -> int:
         _eprint(f"metrics endpoint: {server.metrics_server.url}")
     try:
         client = ServeClient(transport)
-        pool = zipf_user_rows(ds.user_map.num_entities,
-                              args.loadgen_requests, seed=args.seed)
         warm_serve_programs(client, server, pool, args.k,
                             min(args.max_batch, pool.shape[0]))
         report = run_open_loop(
@@ -676,15 +840,77 @@ def _serve_impl(args) -> int:
             server=server, drive_server=True)
     finally:
         server.close()
-    print(json.dumps({
-        "users": ds.user_map.num_entities,
-        "movies": ds.movie_map.num_entities,
-        "k": args.k,
-        "table_dtype": engine.table_dtype,
-        "serve_mode": engine.serve_mode,
-        "device": str(engine.device),
-        **report.as_row(),
-    }))
+    print(json.dumps({**shape, **report.as_row()}))
+    return 0
+
+
+def _broker(args) -> int:
+    """Run the port's log broker in the foreground (built from
+    ``csrc/host/cfk_broker.cpp`` first if needed): this process becomes
+    the broker, so ^C or SIGTERM stops it and nothing is left behind."""
+    from cfk_tpu_torch.transport.tcp import build_broker
+
+    path = build_broker()
+    argv = [path, str(args.port)]
+    if args.data_dir or args.bind != "127.0.0.1":
+        argv.append(args.data_dir or "")
+    if args.bind != "127.0.0.1":
+        argv.append(args.bind)
+    sys.stdout.flush()
+    os.execv(path, argv)
+
+
+def _topics(args) -> int:
+    """Topic administration against a running broker (the reference's
+    ``setup.sh`` role): list, create, delete, recreate."""
+    from cfk_tpu_torch.transport.tcp import TcpBrokerClient
+
+    host, port, topic = _parse_tcp_url(args.broker, topic_optional=True)
+    with TcpBrokerClient(host, port) as client:
+        if args.action == "list":
+            for name in client.topics():
+                nparts = client.num_partitions(name)
+                print(f"{name}\tpartitions={nparts}\t" + "\t".join(
+                    f"p{p}={client.end_offset(name, p)}"
+                    for p in range(nparts)))
+            return 0
+        if topic is None:
+            _eprint(f"error: {args.action} needs tcp://HOST:PORT/TOPIC")
+            return 1
+        if args.action in ("delete", "recreate"):
+            client.delete_topic(topic)
+        if args.action in ("create", "recreate"):
+            client.create_topic(topic, args.partitions)
+    return 0
+
+
+def _produce(args) -> int:
+    """Stream a Netflix-format ratings file into a broker topic (the
+    reference's producer, ``apps/ALSAppRunner.java:30-33``, as a process
+    of its own; ``train --data tcp://…`` is the consumer)."""
+    from cfk_tpu_torch.transport.ingest import produce_ratings_file
+    from cfk_tpu_torch.transport.tcp import TcpBrokerClient
+
+    host, port, topic = _parse_tcp_url(args.broker)
+    if args.partitions < 1:
+        _eprint(f"error: --partitions must be >= 1, got {args.partitions}")
+        return 1
+    with TcpBrokerClient(host, port) as client:
+        try:
+            client.create_topic(topic, args.partitions)
+        except ValueError as e:
+            if "already exists" not in str(e):
+                raise
+            if not args.append:
+                _eprint(f"error: topic {topic!r} already exists (use "
+                        "--append to add to a topic produced with --no-eof; "
+                        "a finalized topic's EOF records would fail the "
+                        "ingest barrier)")
+                return 1
+        n = produce_ratings_file(client, args.data, topic=topic,
+                                 send_eof=not args.no_eof)
+    state = "open (no EOF yet)" if args.no_eof else "finalized"
+    _eprint(f"produced {n} ratings to {topic!r} on {host}:{port} [{state}]")
     return 0
 
 
@@ -755,12 +981,10 @@ def _stream_impl(args, metrics) -> int:
     from cfk_tpu_torch.config import ALSConfig
     from cfk_tpu_torch.device import resolve_device
 
-    if _refuse_tcp("--updates", args.updates):
-        return 2
     try:
         # fsync'd appends: the updates topic is the system of record the
         # crash replay consumes.
-        transport = _file_broker(args.updates, fsync=True)
+        transport = _log_transport(args.updates, fsync=True)
     except (ValueError, OSError) as e:
         _eprint(f"error: {e}")
         return 2
@@ -883,10 +1107,11 @@ def _serving_args(p, *, data_help: str) -> None:
     p.add_argument("--checkpoint-dir", default=None,
                    help="checkpoint directory (train --checkpoint-dir, or "
                    "the JAX package's); its newest valid step is served")
-    p.add_argument("--checkpoint-journal", default=None, metavar="DIR",
+    p.add_argument("--checkpoint-journal", default=None, metavar="DIR|URL",
                    help="serve from a transport journal instead "
-                   "(train --checkpoint-journal: a FileBroker directory "
-                   "either package wrote); exactly one of the two stores")
+                   "(train --checkpoint-journal: a FileBroker directory or "
+                   "a tcp://HOST:PORT broker either package wrote); "
+                   "exactly one of the two stores")
     p.add_argument("--data", required=True, help=data_help)
     p.add_argument("--format", choices=["netflix", "movielens"],
                    default="netflix")
@@ -911,7 +1136,9 @@ def build_parser() -> argparse.ArgumentParser:
     r.set_defaults(fn=_run_reference_form)
 
     t = sub.add_parser("train", help="full-flag training")
-    t.add_argument("--data", required=True)
+    t.add_argument("--data", required=True,
+                   help="a ratings file, or tcp://HOST:PORT[/TOPIC] to "
+                   "collect a produced topic from the broker")
     t.add_argument("--format", choices=["netflix", "movielens"],
                    default="netflix")
     t.add_argument("--implicit", action="store_true",
@@ -1049,10 +1276,11 @@ def build_parser() -> argparse.ArgumentParser:
                    "recommend / predict / serve), resuming from its newest "
                    "intact step")
     t.add_argument(
-        "--checkpoint-journal", default=None, metavar="DIR",
+        "--checkpoint-journal", default=None, metavar="DIR|URL",
         help="journal factors as FeatureRecord frames through a FileBroker "
-        "directory (the reference's topics-as-checkpoint design); "
-        "mutually exclusive with --checkpoint-dir")
+        "directory or a tcp://HOST:PORT broker (the reference's "
+        "topics-as-checkpoint design); mutually exclusive with "
+        "--checkpoint-dir")
     t.add_argument("--journal-partitions", type=int, default=1,
                    help="partitions per factor topic in the journal")
     t.add_argument("--checkpoint-every", type=int, default=1)
@@ -1124,10 +1352,30 @@ def build_parser() -> argparse.ArgumentParser:
     pd.set_defaults(fn=_predict)
 
     sv = sub.add_parser(
-        "serve", help="top-K request server (score + top-K kernel) over an "
-        "in-memory log, measured by the open-loop load generator")
+        "serve", help="top-K request server (score + top-K kernel): over a "
+        "broker until ^C, or over an in-memory log measured by the "
+        "open-loop load generator")
     _serving_args(sv, data_help="training data file (raw-id mapping + "
                   "exclude-seen)")
+    sv.add_argument("--broker", default=None, metavar="tcp://HOST:PORT",
+                    help="join this broker's serve topics and answer until "
+                    "^C; omit for the built-in open-loop load generator "
+                    "against an in-memory log")
+    sv.add_argument("--replicas", type=int, default=1,
+                    help="serving fleet size: N replicas behind the request "
+                    "log with user-keyed routing, per-replica /metrics and "
+                    "/readyz, admission control, and kill/failover at the "
+                    "committed cursor")
+    sv.add_argument("--admission-queue", type=int, default=0,
+                    help="fleet admission-control queue depth per poll (0 = "
+                    "unbounded); backlog beyond it is answered with explicit "
+                    "retriable rejections, never dropped")
+    sv.add_argument("--request-partitions", type=int, default=1,
+                    help="(--broker, one server) request-topic partitions "
+                    "when creating it")
+    sv.add_argument("--response-partitions", type=int, default=1,
+                    help="response-topic partitions when creating it (one "
+                    "per client)")
     sv.add_argument("-k", type=int, default=10, help="top-K per request")
     sv.add_argument("--include-seen", action="store_true",
                     help="do not exclude already-rated movies")
@@ -1159,6 +1407,40 @@ def build_parser() -> argparse.ArgumentParser:
                     "compute/respond timeline) here at exit")
     sv.set_defaults(fn=_serve)
 
+    b = sub.add_parser(
+        "broker", help="run the port's TCP log broker "
+        "(csrc/host/cfk_broker.cpp, built on first use)")
+    b.add_argument("--port", type=int, default=29092,
+                   help="0 picks an ephemeral port (printed on stdout)")
+    b.add_argument("--data-dir", default=None,
+                   help="persist logs here (the FileBroker format); default "
+                   "is memory-only")
+    b.add_argument("--bind", default="127.0.0.1",
+                   help="listen address; 0.0.0.0 accepts other hosts")
+    b.set_defaults(fn=_broker)
+
+    tp = sub.add_parser(
+        "topics", help="broker topic admin (the reference's setup.sh role)")
+    tp.add_argument("action", choices=["list", "create", "delete", "recreate"])
+    tp.add_argument("--broker", required=True,
+                    help="tcp://HOST:PORT (list) or tcp://HOST:PORT/TOPIC")
+    tp.add_argument("--partitions", type=int, default=4)
+    tp.set_defaults(fn=_topics)
+
+    pr = sub.add_parser(
+        "produce", help="stream a Netflix-format ratings file into a broker")
+    pr.add_argument("--broker", required=True, help="tcp://HOST:PORT[/TOPIC]")
+    pr.add_argument("--data", required=True)
+    pr.add_argument("--partitions", type=int, default=4)
+    pr.add_argument("--append", action="store_true",
+                    help="produce into an existing topic (only sound if "
+                    "every earlier produce used --no-eof; EOF means "
+                    "end-of-ingest)")
+    pr.add_argument("--no-eof", action="store_true",
+                    help="skip the EOF fan-out, leaving the topic open for "
+                    "more files; the final produce must omit this flag")
+    pr.set_defaults(fn=_produce)
+
     st = sub.add_parser(
         "stream",
         help="exactly-once streaming fold-in: consume rating updates and "
@@ -1172,8 +1454,7 @@ def build_parser() -> argparse.ArgumentParser:
     st.add_argument("--min-rating", type=float, default=0.0)
     st.add_argument("--updates", required=True,
                     help="the durable updates topic's home: a FileBroker "
-                    "directory (tcp://HOST:PORT needs the TCP broker "
-                    "transport, which the port does not have yet)")
+                    "directory or tcp://HOST:PORT (the port's broker)")
     st.add_argument("--stream-dir", required=True,
                     help="checkpoint store for the atomic factor+cursor "
                     "commits; re-run with the same dir to resume")

@@ -18,17 +18,25 @@ that each one is detected, rolled back and recovered:
 - ``PreemptAt`` — SIGTERM to this process before an iteration;
 - ``FlakyTransport`` (with its ``FlakyPlan``) — record-level duplicate,
   reorder and drop faults between a durable log and its reader (the
-  streaming consumer must heal all three).
+  streaming consumer must heal all three);
+- ``FlakyBrokerProxy`` — a localhost TCP proxy in front of the broker that
+  drops the first connections and delays frames (the TCP client's connect
+  and read retries must win);
+- ``DeltaStreamTamper`` — a frame of the serving fleet's factor-delta
+  topic hidden for good (or truncated): the replica's gap detector and its
+  snapshot resync must fire.
 
 The others (the host-window, hot-cache, staging and store faults, the
-flaky fleet, the TCP broker proxy and the delta-stream tamper, the backend
-outage) belong to the slices that port what they break.
+elastic offload fleet's membership faults, the backend outage) belong to
+the slices that port what they break.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import socket
+import threading
 import time
 
 import numpy as np
@@ -227,8 +235,7 @@ class PreemptAt:
 class FlakyPlan:
     """Deterministic misbehavior schedule for the broker fault proxies.
 
-    Byte-level faults (the TCP broker proxy of the serving-transport
-    slice; kept here so a plan is the reference's):
+    Byte-level faults (``FlakyBrokerProxy``):
 
     ``drop_first_connects`` — accept then immediately close that many
     connections (a broker still binding its listener / a dying LB
@@ -261,6 +268,90 @@ class FlakyPlan:
     drop: int = 0
     drop_passes: int = 1
     seed: int = 0
+
+
+class FlakyBrokerProxy:
+    """A localhost TCP proxy in front of a real broker, misbehaving to plan.
+
+    Forwards bytes both ways once a connection survives the plan; every
+    drop/delay is counted so tests assert the fault actually happened
+    (a chaos test that passes without injecting anything proves nothing).
+
+    This proxy owns the BYTE-level faults of a ``FlakyPlan`` (connection
+    drops, frame delays).  The plan's RECORD-level delivery faults —
+    ``duplicate``/``reorder``/``drop`` — are applied by ``FlakyTransport``
+    instead: duplicating raw TCP bytes would corrupt the length-prefixed
+    framing into garbage, whereas real at-least-once brokers duplicate and
+    reorder *records* with intact payloads, which is the failure mode the
+    streaming consumer's exactly-once assembly must survive.
+    """
+
+    def __init__(self, upstream_port: int, plan: FlakyPlan):
+        self.upstream_port = upstream_port
+        self.plan = plan
+        self.dropped = 0
+        self.delayed = 0
+        self._lsock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._lsock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._lsock.bind(("127.0.0.1", 0))
+        self._lsock.listen(8)
+        self.port = self._lsock.getsockname()[1]
+        self._stop = threading.Event()
+        self._threads: list[threading.Thread] = []
+        self._accepted = 0
+        t = threading.Thread(target=self._accept_loop, daemon=True)
+        t.start()
+        self._threads.append(t)
+
+    def _accept_loop(self):
+        while not self._stop.is_set():
+            try:
+                conn, _ = self._lsock.accept()
+            except OSError:
+                return
+            self._accepted += 1
+            if self._accepted <= self.plan.drop_first_connects:
+                self.dropped += 1
+                conn.close()
+                continue
+            up = socket.create_connection(("127.0.0.1", self.upstream_port))
+            for src, dst, slow in ((conn, up, False), (up, conn, True)):
+                t = threading.Thread(
+                    target=self._pump, args=(src, dst, slow), daemon=True
+                )
+                t.start()
+                self._threads.append(t)
+
+    def _pump(self, src, dst, slow):
+        frames = 0
+        try:
+            while True:
+                data = src.recv(65536)
+                if not data:
+                    break
+                if slow and frames < self.plan.delay_frames:
+                    frames += 1
+                    self.delayed += 1
+                    time.sleep(self.plan.frame_delay)
+                dst.sendall(data)
+        except OSError:
+            pass
+        finally:
+            for s in (src, dst):
+                try:
+                    s.shutdown(socket.SHUT_RDWR)
+                except OSError:
+                    pass
+
+    def close(self):
+        self._stop.set()
+        self._lsock.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
 
 class FlakyTransport:
@@ -319,6 +410,50 @@ class FlakyTransport:
                     self.reordered += len(window)
                 out[lo:lo + w] = [window[j] for j in perm]
         yield from out
+
+
+class DeltaStreamTamper:
+    """A ``Transport`` proxy that PERMANENTLY hides chosen frames of one
+    topic from consumers — the factor-delta gap fault of the serving fleet.
+
+    ``FlakyTransport.drop`` models a missed *delivery*: the record comes
+    back on a later pass, which seq-ordered apply absorbs silently.  This
+    wrapper models the loss the delta protocol must detect LOUDLY — a
+    frame that never arrives (compacted away, crossed a retention
+    boundary, or corrupted at rest): offsets in ``hide`` (per ``topic``)
+    vanish from every consume pass, so the replica's next frame skips a
+    seq and the gap→snapshot-resync path has to fire.  ``mode="truncate"``
+    instead delivers the frame with its payload cut in half — the
+    undecodable-frame spelling of the same gap.  ``hidden``/``truncated``
+    count firings so the chaos test can assert the fault actually
+    happened."""
+
+    def __init__(self, inner, *, topic: str, hide=(), mode: str = "hide"):
+        if mode not in ("hide", "truncate"):
+            raise ValueError(f"mode must be hide|truncate, got {mode!r}")
+        self.inner = inner
+        self.topic = topic
+        self.hide = set(int(o) for o in hide)
+        self.mode = mode
+        self.hidden = 0
+        self.truncated = 0
+
+    def __getattr__(self, name):  # produce/create_topic/... pass through
+        return getattr(self.inner, name)
+
+    def consume(self, topic, partition, start_offset=0):
+        for rec in self.inner.consume(topic, partition, start_offset):
+            if topic == self.topic and rec.offset in self.hide:
+                if self.mode == "hide":
+                    self.hidden += 1
+                    continue
+                import dataclasses
+
+                self.truncated += 1
+                rec = dataclasses.replace(
+                    rec, value=rec.value[: max(1, len(rec.value) // 2)]
+                )
+            yield rec
 
 
 # --- fixtures ----------------------------------------------------------------

@@ -290,6 +290,12 @@ def _run_loop_body(*, manager, num_iterations, start_iter, u, m, step,
                         "a fixed step_fn; retrying with unchanged settings"
                     )
             continue
+        if health is not None and saving and hasattr(manager, "pin"):
+            # keep_last_n must never collect the step the ladder would roll
+            # back to.  The pin moves before the enqueue: the async writer
+            # may commit this step and run its retention before
+            # save_async returns, and must then already see it pinned.
+            manager.pin(done)
         if saving:
             with metrics.phase("checkpoint"), \
                     span("train/checkpoint", i=done):
@@ -300,10 +306,6 @@ def _run_loop_body(*, manager, num_iterations, start_iter, u, m, step,
             # checkpoint store it follows the health cadence (only ever at
             # a probed-healthy iteration).
             good = (done, _device_copy(u, m))
-            if manager is not None and hasattr(manager, "pin"):
-                # keep_last_n must never collect the step the ladder
-                # would roll back to.
-                manager.pin(done)
         if evicting:
             # The final checkpoint rode the forced save point above; drain
             # the writer so it is on disk before the process exits.

@@ -3,7 +3,9 @@ small deterministic training or streaming run and report the outcome — the
 port of ``scripts/chaos_lab.py``'s ``nan``, ``inf``, ``singular_chunk``,
 ``torn_checkpoint``, ``preemption``, ``slow_disk``, ``telemetry_overhead``,
 ``quantized_table``, ``stream_duplicates``, ``stream_crash_replay``,
-``stream_poison_batch`` and ``serve_under_foldin`` scenarios.  Run::
+``stream_poison_batch``, ``serve_under_foldin``, ``two_stage_fallback``,
+``flaky_broker``, ``serve_replica_kill``, ``serve_delta_gap`` and
+``serve_rollover`` scenarios.  Run::
 
     python -m cfk_tpu_torch.scripts.chaos_lab --device cpu
     python -m cfk_tpu_torch.scripts.chaos_lab --device cuda \\
@@ -35,7 +37,13 @@ fold a seeded update log into a base model trained on the lab's layout
 (rank 4, 4 iterations): delivery faults and a crash replay must end
 crc-equal to the clean stream, a poison batch must be quarantined, and a
 ``ServeEngine`` attached to the session must serve each commit fresh and
-never a torn row.
+never a torn row.  The serving scenarios use their own small factors
+whatever ``--layout`` says: a corrupted two-stage index must degrade to
+the exact scan bit for bit and recover at the next table swap; the TCP
+client must survive dropped connections and delayed frames to the port's
+broker; and a replicated fleet (48 users x 64 movies, rank 6) must answer
+through a replica kill, resync crc-exact after a lost delta frame, and
+roll an epoch over under traffic with no mixed-epoch answer.
 """
 
 from __future__ import annotations
@@ -690,11 +698,305 @@ class Lab:
             ok=bool(commits >= 3 and hammered and eng.invalidations >= 3
                     and fresh and excluded and not torn))
 
+    # -- serving: the exact fallback, the broker, the fleet -----------------
+
+    def two_stage_fallback(self):
+        """A corrupted two-stage cluster index never corrupts answers: NaN
+        in one centroid row under a two-stage engine (256 clusters, 32
+        probed, pinned as the reference's plan resolves them).  Contract:
+        DETECTED — the index probe trips before any shortlist is scored
+        (one fallback, the batch ran exact); DEGRADED BIT-EXACTLY — the
+        faulted batch equals a pure-exact engine's on the same factors;
+        STABLE — the next batch is still exact, with no second firing;
+        RECOVERED — a retrain commit rebuilds the index and two-stage
+        resumes at or above the recall floor.  The reference also checks a
+        plan-provenance transition naming the fault; the port has no
+        planner yet, so that check waits for it."""
+        from cfk_tpu_torch.serving import ServeEngine, recall_at_k
+        from cfk_tpu_torch.serving.twostage import SERVE_MIN_RECALL
+
+        rng = np.random.default_rng(7)
+        users, movies, rank, k = 96, 1024, 16, 5
+        uf = rng.standard_normal((users, rank)).astype(np.float32) * 0.3
+        mf = rng.standard_normal((movies, rank)).astype(np.float32) * 0.3
+        eng = ServeEngine(uf, mf, num_users=users, num_movies=movies,
+                          serve_mode="two_stage", clusters=256,
+                          probe_clusters=32, device=self.device)
+        exact = ServeEngine(uf, mf, num_users=users, num_movies=movies,
+                            table_dtype=eng.table_dtype, tile_m=eng.tile_m,
+                            serve_mode="exact", device=self.device)
+        rows = np.arange(8)
+        eng.topk(rows, k)
+        healthy_mode = eng.last_scan.get("serve_mode")
+        eng._cluster[0].centroids[5, :] = np.nan  # the coarse stage's table
+        fv, fi = eng.topk(rows, k)  # the faulted batch
+        ev, ei = exact.topk(rows, k)
+        bit_exact = bool(np.array_equal(fv, ev) and np.array_equal(fi, ei))
+        detected = bool(eng.two_stage_fallbacks == 1
+                        and eng.last_scan.get("serve_mode") == "exact")
+        eng.topk(rows, k)
+        degraded_stable = bool(eng.two_stage_fallbacks == 1
+                               and eng.last_scan.get("serve_mode") == "exact")
+        mf2 = mf + rng.standard_normal(mf.shape).astype(np.float32) * 0.01
+        eng.on_commit({"retrain": True, "user_factors": uf,
+                       "movie_factors": mf2})
+        _, pi = eng.topk(rows, k)
+        post_mode = eng.last_scan.get("serve_mode")
+        _, oracle = eng.topk(rows, k, force_exact=True)
+        post_recall = float(recall_at_k(pi, oracle))
+        recovered = bool(post_mode == "two_stage"
+                         and not eng._two_stage_disabled
+                         and post_recall >= SERVE_MIN_RECALL)
+        fired = healthy_mode == "two_stage"
+        return self.stream_row(
+            "two_stage_fallback", fault_fired=fired, detected=detected,
+            recovered=recovered, fallbacks=int(eng.two_stage_fallbacks),
+            last_fault=eng.last_fault, fallback_bit_exact=bit_exact,
+            degraded_stable=degraded_stable,
+            post_recovery_recall=round(post_recall, 4),
+            ok=bool(fired and detected and bit_exact and degraded_stable
+                    and recovered))
+
+    def flaky_broker(self):
+        """The TCP client against the port's broker behind a proxy that
+        drops the first two connections and delays two response frames:
+        the connect retries and the patient reads win, and every record
+        arrives intact."""
+        from cfk_tpu_torch.resilience.faults import FlakyBrokerProxy, FlakyPlan
+        from cfk_tpu_torch.transport.tcp import BrokerProcess, TcpBrokerClient
+
+        payload = [bytes([i]) * 64 for i in range(32)]
+        with BrokerProcess() as bp, FlakyBrokerProxy(
+                bp.port, FlakyPlan(drop_first_connects=2, delay_frames=2,
+                                   frame_delay=0.1)) as proxy:
+            with TcpBrokerClient("127.0.0.1", proxy.port, connect_retries=5,
+                                 retry_base=0.02, read_timeout=0.05,
+                                 read_retries=20) as c:
+                c.create_topic("chaos", 1)
+                for i, v in enumerate(payload):
+                    c.produce("chaos", key=i, value=v)
+                got = [r.value for r in c.consume("chaos", 0)]
+            dropped, delayed = proxy.dropped, proxy.delayed
+        intact = got == payload
+        fired = bool(dropped and delayed)
+        return self.stream_row(
+            "flaky_broker", fault_fired=fired,
+            detected=True,  # the retries are the detection
+            recovered=intact, connections_dropped=dropped,
+            frames_delayed=delayed, records_intact=intact,
+            ok=bool(fired and intact))
+
+    def fleet_fixture(self, replicas, transport=None, seed=0, users=48,
+                      movies=64, rank=6, **fleet_kw):
+        """(fleet, publisher, broker, (u, m), oracle engine): a prewarmed
+        fleet over seeded factors with the store seeded; the oracle is a
+        fresh engine over the same factors (the reference's
+        ``_fleet_fixture``)."""
+        from cfk_tpu_torch.serving import DeltaPublisher, ServeEngine, ServeFleet
+        from cfk_tpu_torch.transport import InMemoryBroker
+
+        rng = np.random.default_rng(seed)
+        u = rng.standard_normal((users, rank)).astype(np.float32)
+        m = rng.standard_normal((movies, rank)).astype(np.float32)
+
+        def engine(i=0):
+            return ServeEngine(u, m, num_users=users, num_movies=movies,
+                               tile_m=16, device=self.device)
+
+        broker = InMemoryBroker()
+        fleet = ServeFleet(engine, transport if transport is not None
+                           else broker, replicas=replicas, **fleet_kw)
+        fleet.seed_store(u, m, num_users=users)
+        fleet.prewarm(5, max_batch=16)
+        pub = DeltaPublisher(broker, fleet.store)
+        return fleet, pub, broker, (u, m), engine()
+
+    def serve_replica_kill(self):
+        """Killing a serving replica mid-traffic loses nothing: a
+        2-replica fleet answers a user-keyed stream and replica 0 dies
+        abruptly (no cursor commit) after wave 3.  Contract: every request
+        answered (zero timeouts; rejections re-sent), every answer equal
+        to the oracle engine's, every answer stamped, and the victim's
+        partition moved to the survivor at the committed cursor."""
+        from cfk_tpu_torch.serving import ServeClient
+
+        fleet, _, broker, _, oracle = self.fleet_fixture(replicas=2)
+        k = 5
+        client = ServeClient(broker, route_by_user=True)
+        answered, timeouts = [], 0
+        fleet.start()
+        try:
+            for wave in range(6):
+                if wave == 3:
+                    fleet.kill_replica(0)
+                for user in range(16):
+                    try:
+                        got = client.ask([user], k, timeout_s=20)
+                        answered.append((user, next(iter(got.values()))))
+                    except TimeoutError:
+                        timeouts += 1
+        finally:
+            fleet.stop()
+        torn, stamped = [], True
+        for user, resp in answered:
+            sc, ids = oracle.topk(np.asarray([user]), k)
+            if not (np.array_equal(np.asarray(resp.scores), sc[0])
+                    and np.array_equal(np.asarray(resp.movie_rows), ids[0])):
+                torn.append(user)
+            stamped &= resp.staleness >= 0
+        c = fleet.counters()
+        fired = bool(c["failovers"] == 1 and not fleet.replicas[0].alive)
+        recovered = bool(timeouts == 0 and len(answered) == 96 and not torn)
+        return self.stream_row(
+            "serve_replica_kill", fault_fired=fired,
+            detected=bool(c["failovers"] == 1), recovered=recovered,
+            requests_answered=len(answered), timeouts=timeouts,
+            torn_responses=torn, staleness_stamped=bool(stamped),
+            client_retries=int(client.retries),
+            client_rejections=int(client.rejections),
+            survivor_served=int(fleet.replicas[1].server.requests_served),
+            ok=bool(fired and recovered and stamped))
+
+    def serve_delta_gap(self):
+        """A lost factor-delta frame is detected loudly and recovered
+        bit-exactly: a ``DeltaStreamTamper`` hides frame 2 of the deltas
+        topic for good while the publisher ships six commits.  Contract:
+        the seq hole fires the gap path; the snapshot resync leaves the
+        user table crc-equal to a fresh engine that applied every commit
+        (``table_crc``); a request after the resync for a row shipped
+        only in the hidden frame gets the re-solved factors' answer."""
+        from cfk_tpu_torch.resilience.faults import DeltaStreamTamper
+        from cfk_tpu_torch.serving import (
+            DeltaPublisher,
+            ServeClient,
+            ensure_serve_topics,
+            table_crc,
+        )
+        from cfk_tpu_torch.transport import InMemoryBroker
+
+        broker = InMemoryBroker()
+        tampered = DeltaStreamTamper(broker, topic="factor-deltas", hide=[2])
+        fleet, _, _, _, oracle = self.fleet_fixture(replicas=1,
+                                                    transport=tampered)
+        # the publisher writes to the real log under the tamper
+        pub = DeltaPublisher(broker, fleet.store)
+        ensure_serve_topics(broker)
+        rng = np.random.default_rng(3)
+        replica = fleet.replicas[0]
+        victim_rows = None
+        for i in range(6):
+            rows = rng.integers(0, 48, size=3)
+            ev = {"touched_rows": [int(r) for r in rows],
+                  "rows": rng.standard_normal((3, 6)).astype(np.float32),
+                  "cells": [], "retrain": False, "num_users": 48}
+            if i == 2:
+                victim_rows = [int(r) for r in rows]
+            pub.on_commit(ev)
+            oracle.on_commit(ev)
+        replica.pump()
+        crc_match = table_crc(replica.engine) == table_crc(oracle)
+        got = ServeClient(broker).ask([victim_rows[0]], 5,
+                                      server=replica.server)
+        resp = next(iter(got.values()))
+        sc, ids = oracle.topk(np.asarray([victim_rows[0]]), 5)
+        fresh = bool(np.array_equal(np.asarray(resp.scores), sc[0])
+                     and np.array_equal(np.asarray(resp.movie_rows), ids[0]))
+        fired = bool(tampered.hidden >= 1)
+        detected = bool(replica.gaps_detected >= 1)
+        recovered = bool(replica.resyncs >= 1 and crc_match and fresh)
+        return self.stream_row(
+            "serve_delta_gap", fault_fired=fired, detected=detected,
+            recovered=recovered, frames_hidden=int(tampered.hidden),
+            gaps_detected=int(replica.gaps_detected),
+            resyncs=int(replica.resyncs),
+            applied_seq=int(replica.applied_seq),
+            crc_exact_vs_fresh_engine=bool(crc_match),
+            post_resync_fresh=fresh,
+            ok=bool(fired and detected and recovered))
+
+    def serve_rollover(self):
+        """A warm-retrain epoch rollover under continuous traffic answers
+        every request and never a mixed-epoch table: the publisher
+        announces epoch 1 after ten asks; the replica builds and prewarms
+        the new engine on a background thread and flips one reference at
+        a batch boundary.  Contract: zero timeouts; every answer equals the
+        epoch-0 or the epoch-1 oracle's, with the matching epoch stamp;
+        after the flip, answers come from epoch 1."""
+        import time
+
+        from cfk_tpu_torch.serving import ServeClient, ServeEngine
+
+        fleet, pub, broker, (u, m), oracle0 = self.fleet_fixture(replicas=1)
+        rng = np.random.default_rng(9)
+        u2 = rng.standard_normal(u.shape).astype(np.float32)
+        m2 = rng.standard_normal(m.shape).astype(np.float32)
+        oracle1 = ServeEngine(u2, m2, num_users=u.shape[0],
+                              num_movies=m.shape[0], tile_m=16,
+                              device=self.device)
+        k = 5
+        client = ServeClient(broker, route_by_user=True)
+        answered, timeouts = [], 0
+        fleet.start()
+        replica = fleet.replicas[0]
+        try:
+            deadline = time.monotonic() + 60
+            asks = post_flip = 0
+            while time.monotonic() < deadline:
+                user = asks % 16
+                try:
+                    got = client.ask([user], k, timeout_s=20)
+                    answered.append((user, next(iter(got.values()))))
+                except TimeoutError:
+                    timeouts += 1
+                asks += 1
+                if asks == 10:
+                    pub.on_commit({"retrain": True, "user_factors": u2,
+                                   "movie_factors": m2, "num_users": 48})
+                if replica.rollovers >= 1:
+                    # a few post-flip asks, stopping before their batch
+                    # events push the rollover out of the dump's tail
+                    post_flip += 1
+                    if post_flip >= 8:
+                        break
+        finally:
+            fleet.stop()
+        mixed, stamp_wrong, post_flip_new = [], [], False
+        for user, resp in answered:
+            s0, i0 = oracle0.topk(np.asarray([user]), k)
+            s1, i1 = oracle1.topk(np.asarray([user]), k)
+            got_s, got_i = np.asarray(resp.scores), np.asarray(resp.movie_rows)
+            is0 = bool(np.array_equal(got_s, s0[0])
+                       and np.array_equal(got_i, i0[0]))
+            is1 = bool(np.array_equal(got_s, s1[0])
+                       and np.array_equal(got_i, i1[0]))
+            if not (is0 or is1):
+                mixed.append(user)
+            elif is1 and not is0:
+                post_flip_new = True
+                if resp.epoch != 1:
+                    stamp_wrong.append(user)
+            elif is0 and not is1 and resp.epoch != 0:
+                stamp_wrong.append(user)
+        fired = bool(replica.rollovers >= 1)
+        detected = bool(replica.engine.epoch == 1)
+        return self.stream_row(
+            "serve_rollover", fault_fired=fired, detected=detected,
+            recovered=bool(timeouts == 0 and not mixed and post_flip_new),
+            requests_answered=len(answered), timeouts=timeouts,
+            rollovers=int(replica.rollovers),
+            rollover_times=replica.rollover_times,
+            mixed_epoch_responses=mixed, epoch_stamp_mismatches=stamp_wrong,
+            served_from_new_epoch=post_flip_new,
+            ok=bool(fired and detected and timeouts == 0 and not mixed
+                    and not stamp_wrong and post_flip_new))
+
 
 SCENARIOS = ("nan", "inf", "singular_chunk", "torn_checkpoint", "preemption",
              "slow_disk", "telemetry_overhead", "quantized_table",
              "stream_duplicates", "stream_crash_replay",
-             "stream_poison_batch", "serve_under_foldin")
+             "stream_poison_batch", "serve_under_foldin",
+             "two_stage_fallback", "flaky_broker", "serve_replica_kill",
+             "serve_delta_gap", "serve_rollover")
 # What the flight recorder's last dump must name, per scenario.
 FLIGHT_EXPECT = {
     "nan": ("nonfinite",),
@@ -709,11 +1011,18 @@ FLIGHT_EXPECT = {
     "stream_crash_replay": ("stream_resumed", "corrupt_checkpoint"),
     "stream_poison_batch": ("quarantine",),
     "serve_under_foldin": ("commit", "serve"),
+    "two_stage_fallback": ("two_stage_fault",),
+    "flaky_broker": ("retryable_failure",),
+    "serve_replica_kill": ("replica_kill", "failover"),
+    "serve_delta_gap": ("delta_gap", "resync"),
+    "serve_rollover": ("rollover_begin", "rollover_flip"),
 }
 _FLIGHT_TAIL = 50  # events searched at the dump's tail
 # Scenarios that build their own dataset whatever the layout: run once, on
 # the first layout given.
-LAYOUT_FREE = ("quantized_table", "stream_poison_batch")
+LAYOUT_FREE = ("quantized_table", "stream_poison_batch",
+               "two_stage_fallback", "flaky_broker", "serve_replica_kill",
+               "serve_delta_gap", "serve_rollover")
 
 
 def run_scenario(lab: Lab, name: str) -> dict:

@@ -1,0 +1,816 @@
+"""Replicated serving fleet: failover, admission control, versioned
+factor-delta shipping, zero-downtime epoch rollover.
+
+The port of ``cfk_tpu/serving/fleet.py``.  Each replica's ``ServeEngine``
+scores on its own device table through K4 (``topk_scores``); everything
+here is host code around it.  Engines are built by ``engine_factory`` on
+whatever device it names (the card unless asked for the CPU).
+
+The reference's single-partition ``FeatureCollector`` was the serving
+ceiling the paper never solved; one ``RecommendServer`` inherits it.  At
+the ALX fleet regime (arXiv 2112.02194) the serving tier must match the
+training tier's shape, and the iALS++ fold-in cadence (arXiv 2110.14044)
+means fresh factor rows arrive continuously.  This module puts N replicas
+behind the request log and makes the robustness claims testable:
+
+- **Routing** — the requests topic carries one partition per replica and
+  clients route user-keyed (``user % N``, the PureModPartitioner rule),
+  so a user's traffic always lands on the replica holding their hot-row
+  overlay.
+- **Delta shipping** — the ``StreamSession`` commit listener is framed as
+  epoch+seq-tagged ``FactorDelta`` messages on a durable single-partition
+  deltas topic (``DeltaPublisher``).  Seq is strictly increasing; the
+  hot/cold split (running touch counts → ``knee_hot_rows``) decides
+  which rows ship EAGERLY with factors in-frame and which ship as lazy
+  ids whose factors live only in the ``SnapshotStore`` — replicas pull
+  those in bulk before the next batch they serve (staleness bounded by
+  one poll cycle, recorded per response).
+- **Gap recovery** — a replica applies deltas strictly in seq order; a
+  hole (lost/tampered frame) is detected LOUDLY (flight-recorder event +
+  dump) and recovered by a full epoch-snapshot resync from the store —
+  bit-exact vs a fresh engine, which ``table_crc`` lets tests pin.
+- **Rollover** — a warm retrain announces a new epoch (``kind="epoch"``
+  frame; the snapshot itself goes to the store, not the log).  The
+  replica builds + ``prewarm()``s the new-epoch engine on a BACKGROUND
+  thread while the old epoch keeps answering, then flips one reference
+  at a batch boundary — zero downtime, and no request ever observes a
+  mixed-epoch table (each batch captures exactly one engine).  On the card
+  the new engine's uploads and prewarm run on the rollover thread's current
+  stream; an event recorded after ``prewarm`` is waited on by the serving
+  thread's stream at the flip, so no batch reads a half-uploaded table.
+- **Admission control** — ``AdmissionController`` bounds the per-poll
+  queue depth (fed from loadgen-measured capacity); backlog beyond it is
+  answered with explicit RETRIABLE rejections, never silently dropped.
+- **Failover** — ``kill_replica`` stops a replica abruptly (mid-batch,
+  worst case); the supervisor reassigns its partition to a survivor at
+  the victim's COMMITTED cursor (advanced only after responses flushed),
+  so every accepted request is re-served — at-least-once, deduped
+  client-side by req_id, the consumer-group-rebalance analog.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+import zlib
+
+import numpy as np
+
+from cfk_tpu_torch.serving.server import (
+    REQUESTS_TOPIC,
+    RESPONSES_TOPIC,
+    RecommendServer,
+    ensure_serve_topics,
+)
+from cfk_tpu_torch.telemetry import dump_flight, record_event, span
+from cfk_tpu_torch.telemetry.metrics import Metrics
+from cfk_tpu_torch.transport.serdes import (
+    FactorDelta,
+    decode_factor_delta,
+    encode_factor_delta,
+    make_factor_delta,
+)
+
+DELTAS_TOPIC = "factor-deltas"
+
+
+def ensure_deltas_topic(transport, *, topic: str = DELTAS_TOPIC) -> None:
+    """Create the deltas topic if absent — ONE partition by design: seq
+    order is the gap detector's whole contract, and a multi-partition
+    delta log would interleave it away."""
+    try:
+        transport.num_partitions(topic)
+    except KeyError:
+        transport.create_topic(topic, 1)
+
+
+def table_crc(engine) -> int:
+    """crc32 of the engine's EFFECTIVE user factor table (base snapshot
+    with the hot overlay applied, ``num_users`` rows) — the bit-exactness
+    witness of the resync contract: a resynced replica must match a fresh
+    engine that applied every commit."""
+    with engine._lock:
+        k = engine._u_base.shape[1]
+        u = np.zeros((engine.num_users, k), np.float32)
+        n = min(engine._u_base.shape[0], engine.num_users)
+        u[:n] = engine._u_base[:n]
+        for row, f in engine._u_hot.items():
+            if 0 <= row < engine.num_users:
+                u[row] = np.asarray(f, np.float32)
+    return zlib.crc32(u.tobytes())
+
+
+def _stream_marker(device):
+    """An event recorded on this thread's current stream of ``device`` (a
+    CUDA device), else None: what a flip waits on before serving the
+    engine this thread built."""
+    if getattr(device, "type", "cpu") != "cuda":
+        return None
+    import torch
+
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+class SnapshotStore:
+    """Durable epoch snapshots + a compacted per-row overlay.
+
+    The side channel next to the deltas topic (the compacted-topic analog
+    — Kafka ships state changes on a log and full state in a compacted
+    store; we do the same): the publisher writes every epoch's full
+    factor snapshot here, plus EVERY shipped row synchronously before the
+    delta frame is produced, so a replica recovering from a gap can
+    always rebuild bit-exact state no matter which frames it lost.  Lazy
+    (cold) rows are served from the same overlay on demand."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._epochs: dict[int, dict] = {}
+        self.latest_epoch = 0
+        self.lazy_reads = 0
+
+    def put_epoch(self, epoch: int, user_factors, movie_factors, *,
+                  num_users: int, seq: int) -> None:
+        """Install a full snapshot for ``epoch`` (copies taken).  ``seq``
+        is the last delta seq the snapshot already contains — a resync
+        from this epoch resumes strictly after it."""
+        with self._lock:
+            self._epochs[int(epoch)] = {
+                "user_factors": np.array(user_factors, np.float32),
+                "movie_factors": np.array(movie_factors, np.float32),
+                "num_users": int(num_users),
+                "seq": int(seq),
+                "overlay": {},
+                "cells": [],
+            }
+            self.latest_epoch = max(self.latest_epoch, int(epoch))
+
+    def put_rows(self, epoch: int, rows, factors, cells=(),
+                 *, num_users: int | None = None, seq: int | None = None
+                 ) -> None:
+        """Fold one commit's rows/cells into the epoch's overlay — called
+        by the publisher BEFORE the delta frame is produced, so the store
+        is never behind the log."""
+        with self._lock:
+            e = self._epochs[int(epoch)]
+            f = np.asarray(factors, np.float32)
+            for i, row in enumerate(np.asarray(rows).reshape(-1)):
+                e["overlay"][int(row)] = np.array(f[i], np.float32)
+            e["cells"].extend((int(r), int(m)) for r, m in cells)
+            if num_users is not None:
+                e["num_users"] = max(e["num_users"], int(num_users))
+            if seq is not None:
+                e["seq"] = max(e["seq"], int(seq))
+
+    def get_rows(self, epoch: int, rows) -> np.ndarray:
+        """Factors for ``rows`` from the epoch's overlay (falling back to
+        the base snapshot) — the lazy-pull path for cold rows."""
+        with self._lock:
+            e = self._epochs[int(epoch)]
+            base = e["user_factors"]
+            out = np.zeros((len(rows), base.shape[1]), np.float32)
+            for i, row in enumerate(rows):
+                row = int(row)
+                hot = e["overlay"].get(row)
+                if hot is not None:
+                    out[i] = hot
+                elif row < base.shape[0]:
+                    out[i] = base[row]
+            self.lazy_reads += len(rows)
+        return out
+
+    def state(self, epoch: int | None = None) -> dict:
+        """A consistent copy of one epoch's full state (base + overlay +
+        cells + last seq) — the resync/rollover payload."""
+        with self._lock:
+            e = self._epochs[
+                self.latest_epoch if epoch is None else int(epoch)
+            ]
+            return {
+                "epoch": (self.latest_epoch if epoch is None
+                          else int(epoch)),
+                "user_factors": np.array(e["user_factors"]),
+                "movie_factors": np.array(e["movie_factors"]),
+                "num_users": e["num_users"],
+                "seq": e["seq"],
+                "overlay": {r: np.array(f)
+                            for r, f in e["overlay"].items()},
+                "cells": list(e["cells"]),
+            }
+
+
+class DeltaPublisher:
+    """Frame ``StreamSession`` commits as ``FactorDelta`` messages.
+
+    Attach with ``session.add_commit_listener(pub.on_commit)`` (or
+    ``pub.attach(session)``).  Every commit becomes one seq-tagged frame
+    on the deltas topic; the hot/cold split (running per-row touch
+    counts → ``offload.hot.knee_hot_rows``) decides
+    eager-push (factors in-frame) vs lazy (ids only; factors reach
+    replicas through the ``SnapshotStore`` overlay).  A retrain commit
+    snapshots the new epoch into the store and announces it with a
+    ``kind="epoch"`` frame."""
+
+    def __init__(self, transport, store: SnapshotStore, *,
+                 topic: str = DELTAS_TOPIC, epoch: int = 0,
+                 metrics=None) -> None:
+        self.transport = transport
+        self.store = store
+        self.topic = topic
+        self.epoch = int(epoch)
+        self.metrics = metrics
+        self.seq = 0
+        self.eager_rows = 0
+        self.lazy_rows = 0
+        self._touch = np.zeros(0, np.int64)
+        self._lock = threading.Lock()
+        ensure_deltas_topic(transport, topic=self.topic)
+
+    def attach(self, session) -> None:
+        session.add_commit_listener(self.on_commit)
+
+    def _split_hot_cold(self, rows: np.ndarray
+                        ) -> tuple[np.ndarray, np.ndarray]:
+        """(eager mask over ``rows``) via the knee of the running touch
+        counts — a row re-solved often enough to sit above the knee ships
+        eagerly; the long tail goes lazy.  First touches always ship
+        eagerly (no history to justify deferring a brand-new row)."""
+        from cfk_tpu_torch.offload.hot import knee_hot_rows, select_hot_rows
+
+        hi = int(rows.max()) + 1 if rows.size else 0
+        if hi > self._touch.shape[0]:
+            grown = np.zeros(hi, np.int64)
+            grown[: self._touch.shape[0]] = self._touch
+            self._touch = grown
+        first = self._touch[rows] == 0
+        self._touch[rows] += 1
+        f = knee_hot_rows(self._touch)
+        if f <= 0:
+            return np.ones(rows.shape[0], bool), np.zeros(rows.shape[0],
+                                                          bool)
+        hot = set(int(r) for r in select_hot_rows(self._touch, f))
+        eager = np.asarray(
+            [bool(first[i]) or int(r) in hot for i, r in enumerate(rows)],
+            bool,
+        )
+        return eager, ~eager
+
+    def _produce(self, delta: FactorDelta) -> None:
+        self.transport.produce(
+            self.topic, key=delta.seq % (1 << 31),
+            value=encode_factor_delta(delta), partition=0,
+        )
+        flush = getattr(self.transport, "flush", None)
+        if flush is not None:
+            flush()
+        if self.metrics is not None:
+            self.metrics.incr("fleet_deltas_published")
+
+    def on_commit(self, event: dict) -> None:
+        """One commit → one frame (the durable unit replicas apply)."""
+        with self._lock:
+            if event.get("retrain"):
+                self.epoch += 1
+                self.seq += 1
+                self.store.put_epoch(
+                    self.epoch, event["user_factors"],
+                    event["movie_factors"],
+                    num_users=int(event.get(
+                        "num_users",
+                        np.asarray(event["user_factors"]).shape[0],
+                    )),
+                    seq=self.seq,
+                )
+                delta = make_factor_delta(
+                    self.epoch, self.seq, "epoch",
+                    num_users=int(event.get("num_users", 0)),
+                )
+                record_event("fleet", "epoch_published", epoch=self.epoch,
+                             seq=self.seq)
+                self._produce(delta)
+                return
+            touched = np.asarray(event.get("touched_rows") or (),
+                                 np.int64)
+            rows = event.get("rows")
+            cells = list(event.get("cells") or ())
+            if touched.size == 0 and not cells:
+                return
+            f = (np.asarray(rows, np.float32) if rows is not None
+                 else np.zeros((0, 0), np.float32))
+            eager, lazy = (self._split_hot_cold(touched)
+                           if touched.size
+                           else (np.zeros(0, bool), np.zeros(0, bool)))
+            self.seq += 1
+            # store FIRST (every row, hot and cold), frame second — the
+            # store is the recovery source and must never trail the log
+            if touched.size:
+                self.store.put_rows(
+                    self.epoch, touched, f, cells,
+                    num_users=event.get("num_users"), seq=self.seq,
+                )
+            elif cells:
+                self.store.put_rows(self.epoch, (), f, cells,
+                                    num_users=event.get("num_users"),
+                                    seq=self.seq)
+            self.eager_rows += int(eager.sum())
+            self.lazy_rows += int(lazy.sum())
+            if self.metrics is not None:
+                self.metrics.incr("fleet_eager_rows", int(eager.sum()))
+                self.metrics.incr("fleet_lazy_rows", int(lazy.sum()))
+            delta = make_factor_delta(
+                self.epoch, self.seq, "rows",
+                num_users=int(event.get("num_users", 0)),
+                user_rows=touched[eager], user_factors=f[eager],
+                lazy_user_rows=touched[lazy], cells=cells,
+                rank=f.shape[1] if f.ndim == 2 else 0,
+            )
+            self._produce(delta)
+
+
+class AdmissionController:
+    """Bounded queue depth with explicit retriable shedding.
+
+    ``max_queue`` is the most requests one poll may admit — fed from
+    loadgen-measured capacity (``capacity_qps × max_queue_s``: the
+    backlog the replica can clear within the latency budget).  Backlog
+    beyond it is returned as ``shed`` and the server answers each with a
+    RETRIABLE rejection — bounded latency for what's admitted, an honest
+    "try again" for the rest, never a silent drop."""
+
+    def __init__(self, *, max_queue: int | None = None,
+                 capacity_qps: float | None = None,
+                 max_queue_s: float = 0.05, metrics=None) -> None:
+        if max_queue is None:
+            if capacity_qps is None:
+                raise ValueError("pass max_queue or capacity_qps")
+            max_queue = max(1, int(capacity_qps * max_queue_s))
+        self.max_queue = int(max_queue)
+        self.metrics = metrics
+        self.admitted = 0
+        self.shed = 0
+
+    def admit(self, reqs: list) -> tuple[list, list]:
+        """(admitted, shed) split of one poll's backlog, FIFO — the
+        oldest requests keep their place in line."""
+        take, rest = reqs[: self.max_queue], reqs[self.max_queue:]
+        self.admitted += len(take)
+        self.shed += len(rest)
+        if rest and self.metrics is not None:
+            self.metrics.incr("admission_shed", len(rest))
+        return take, rest
+
+
+class FleetReplica:
+    """One serving replica: a ``RecommendServer`` over its own request
+    partition, a delta-apply loop, gap→resync recovery, and background
+    epoch rollover.  Driven by its own thread (``ServeFleet``) or
+    manually via ``pump()`` in single-threaded tests."""
+
+    def __init__(self, index: int, engine, transport, store: SnapshotStore,
+                 *, requests_topic: str = REQUESTS_TOPIC,
+                 responses_topic: str = RESPONSES_TOPIC,
+                 deltas_topic: str = DELTAS_TOPIC, max_batch: int = 256,
+                 admission: AdmissionController | None = None,
+                 metrics=None, metrics_port: int | None = None,
+                 poll_wait_s: float = 0.001, prewarm_k: int = 10,
+                 prewarm_batch: int | None = None) -> None:
+        self.index = int(index)
+        self.engine = engine
+        self.transport = transport
+        self.store = store
+        self.deltas_topic = deltas_topic
+        self.metrics = metrics if metrics is not None else Metrics()
+        self.prewarm_k = int(prewarm_k)
+        self.prewarm_batch = prewarm_batch or max_batch
+        self.server = RecommendServer(
+            engine, transport, requests_topic=requests_topic,
+            responses_topic=responses_topic, max_batch=max_batch,
+            poll_wait_s=poll_wait_s, metrics=self.metrics,
+            metrics_port=metrics_port, partitions=[self.index],
+            admission=admission, staleness_fn=self.staleness,
+            labels={"replica": self.index},
+        )
+        self._delta_cursor = 0
+        self.applied_seq = 0
+        self.deltas_applied = 0
+        self.gaps_detected = 0
+        self.resyncs = 0
+        self.resync_s = None  # the last resync's seconds
+        self.rollovers = 0
+        self.lazy_pending: set[int] = set()
+        self.lazy_pulls = 0
+        self.rollover_times: dict = {}
+        self._deferred: list[FactorDelta] = []
+        self._pending: tuple[int, object, int] | None = None
+        self._pending_thread: threading.Thread | None = None
+        self._stop = threading.Event()
+        self._kill = threading.Event()
+        self._stopped = False
+        self._thread: threading.Thread | None = None
+
+    # -- delta application ---------------------------------------------------
+
+    def staleness(self) -> int:
+        """Unapplied delta backlog (frames): the per-response staleness
+        bound every answer is stamped with."""
+        end = self.transport.end_offset(self.deltas_topic, 0)
+        return max(int(end) - self._delta_cursor, 0)
+
+    def apply_deltas(self) -> int:
+        """Drain the deltas topic in order; returns frames applied.
+        ``seq`` must advance by exactly one — anything else is a GAP,
+        detected loudly and recovered by a full snapshot resync."""
+        applied = 0
+        for rec in self.transport.consume(
+            self.deltas_topic, 0, self._delta_cursor
+        ):
+            self._delta_cursor += 1
+            try:
+                d = decode_factor_delta(rec.value)
+            except ValueError as e:
+                # a tampered frame is a gap with a different spelling —
+                # its seq is unknowable, so resync is the only recovery
+                self._gap(expected=self.applied_seq + 1,
+                          got=None, reason=f"undecodable frame: {e}")
+                continue
+            if d.seq <= self.applied_seq:
+                continue  # duplicate / already covered by a resync
+            if d.seq != self.applied_seq + 1:
+                self._gap(expected=self.applied_seq + 1, got=d.seq,
+                          reason="seq hole")
+                if d.seq <= self.applied_seq:
+                    continue  # the resync already covered this frame
+            self._apply(d)
+            self.applied_seq = max(self.applied_seq, d.seq)
+            applied += 1
+        if applied:
+            self.deltas_applied += applied
+            self.metrics.incr("fleet_deltas_applied", applied)
+        return applied
+
+    def _apply(self, d: FactorDelta) -> None:
+        if d.kind == "epoch":
+            self._begin_rollover(d.epoch)
+            return
+        if d.epoch != int(getattr(self.engine, "epoch", 0)):
+            # rows for an epoch we have not flipped to yet: hold them in
+            # seq order and replay at the flip
+            self._deferred.append(d)
+            return
+        event = {
+            "touched_rows": [int(r) for r in d.user_rows],
+            "rows": d.user_factors,
+            "cells": [(int(r), int(m)) for r, m in d.cells],
+            "retrain": False,
+        }
+        if d.num_users:
+            event["num_users"] = int(d.num_users)
+        if d.movie_rows.size:
+            event["movie_rows"] = d.movie_rows
+            event["movie_row_factors"] = d.movie_factors
+        self.engine.on_commit(event)
+        # cold rows: factors are in the store, not the frame — remember
+        # them and pull in bulk before the next served batch
+        self.lazy_pending.update(int(r) for r in d.lazy_user_rows)
+
+    def pull_lazy(self) -> int:
+        """Bulk-pull pending cold rows from the store overlay into the
+        engine's hot cache — called right before serving, so a lazy row's
+        staleness is bounded by one poll cycle."""
+        if not self.lazy_pending:
+            return 0
+        rows = sorted(self.lazy_pending)
+        self.lazy_pending.clear()
+        factors = self.store.get_rows(
+            int(getattr(self.engine, "epoch", 0)), rows
+        )
+        self.engine.on_commit({
+            "touched_rows": rows, "rows": factors, "cells": [],
+            "retrain": False,
+        })
+        self.lazy_pulls += len(rows)
+        self.metrics.incr("fleet_lazy_pulled", len(rows))
+        return len(rows)
+
+    def _gap(self, *, expected: int, got, reason: str) -> None:
+        self.gaps_detected += 1
+        self.metrics.incr("fleet_delta_gaps")
+        record_event("fleet", "delta_gap", replica=self.index,
+                     expected_seq=expected, got_seq=got, reason=reason)
+        dump_flight(f"serve_delta_gap replica={self.index}")
+        self.resync()
+
+    def resync(self) -> None:
+        """Full epoch-snapshot recovery: rebuild the engine's user-side
+        state from the store's consistent copy — bit-exact vs a fresh
+        engine (``table_crc`` pins it) — and resume strictly after the
+        snapshot's last folded seq."""
+        t0 = time.perf_counter()
+        with span("serve/fleet/resync", replica=self.index):
+            snap = self.store.state()
+            same_epoch = (snap["epoch"]
+                          == int(getattr(self.engine, "epoch", 0)))
+            self.engine.load_state(
+                snap["user_factors"],
+                None if same_epoch else snap["movie_factors"],
+                hot_rows=snap["overlay"], seen_cells=snap["cells"],
+                num_users=snap["num_users"], epoch=snap["epoch"],
+            )
+            self.applied_seq = snap["seq"]
+            self.lazy_pending.clear()
+            self._deferred = [d for d in self._deferred
+                              if d.seq > snap["seq"]]
+        self.resync_s = time.perf_counter() - t0
+        self.resyncs += 1
+        self.metrics.incr("fleet_resyncs")
+        record_event("fleet", "resync", replica=self.index,
+                     epoch=snap["epoch"], seq=snap["seq"])
+
+    # -- epoch rollover ------------------------------------------------------
+
+    def _begin_rollover(self, epoch: int) -> None:
+        """Prewarm the new epoch OFF the serving path: a background
+        thread builds a fresh engine from the epoch snapshot and runs the
+        ``prewarm()`` readiness gate; the old epoch keeps answering until
+        ``maybe_flip`` swaps one reference at a batch boundary."""
+        if self._pending_thread is not None \
+                and self._pending_thread.is_alive():
+            return  # a newer epoch frame will re-trigger after the flip
+        record_event("fleet", "rollover_begin", replica=self.index,
+                     epoch=epoch)
+
+        def build() -> None:
+            from cfk_tpu_torch.serving.engine import ServeEngine
+
+            t0 = time.perf_counter()
+            with span("serve/fleet/rollover", replica=self.index,
+                      epoch=epoch):
+                snap = self.store.state(epoch)
+                old = self.engine
+                eng = ServeEngine(
+                    snap["user_factors"], snap["movie_factors"],
+                    num_users=snap["num_users"],
+                    num_movies=old.num_movies,
+                    seen_movies=old._seen_movies,
+                    seen_indptr=old._seen_indptr,
+                    table_dtype=old.table_dtype, tile_m=old.tile_m,
+                    serve_mode=old.serve_mode,
+                    clusters=old.clusters or None,
+                    probe_clusters=old.probe_clusters or None,
+                    metrics=self.metrics, device=old.device,
+                )
+                eng.epoch = snap["epoch"]
+                for row, f in snap["overlay"].items():
+                    eng._u_hot[int(row)] = np.asarray(f, np.float32)
+                for row, mv in snap["cells"]:
+                    eng._seen_hot.setdefault(int(row), []).append(int(mv))
+                t1 = time.perf_counter()
+                eng.prewarm(self.prewarm_k, max_batch=self.prewarm_batch)
+                self.rollover_times = {"build_s": t1 - t0,
+                                       "prewarm_s": time.perf_counter() - t1}
+                self._pending = (snap["epoch"], eng, snap["seq"],
+                                 _stream_marker(eng.device))
+
+        t = threading.Thread(target=build, daemon=True,
+                             name=f"cfk-rollover-{self.index}")
+        self._pending_thread = t
+        t.start()
+
+    def maybe_flip(self) -> bool:
+        """The single pointer flip: if a prewarmed new-epoch engine is
+        ready, swap it in between batches and replay any deferred
+        new-epoch deltas.  Returns True on a flip."""
+        pending = self._pending
+        if pending is None:
+            return False
+        epoch, eng, base_seq, marker = pending
+        self._pending = None
+        if marker is not None:
+            # the rollover thread's uploads precede this stream's batches
+            import torch
+
+            torch.cuda.current_stream(eng.device).wait_event(marker)
+        old_epoch = int(getattr(self.engine, "epoch", 0))
+        self.engine = eng
+        self.server.engine = eng  # the atomic handoff: one assignment
+        self.applied_seq = max(self.applied_seq, base_seq)
+        deferred, self._deferred = self._deferred, []
+        for d in sorted(deferred, key=lambda x: x.seq):
+            if d.seq > base_seq:
+                self._apply(d)
+                self.applied_seq = max(self.applied_seq, d.seq)
+        self.rollovers += 1
+        self.metrics.incr("fleet_rollovers")
+        self.metrics.gauge("fleet_epoch", epoch)
+        record_event("fleet", "rollover_flip", replica=self.index,
+                     old_epoch=old_epoch, epoch=epoch)
+        return True
+
+    # -- serve loop ----------------------------------------------------------
+
+    def pump(self) -> int:
+        """One supervised iteration: flip if a new epoch is ready, apply
+        deltas, pull lazy rows, serve one coalesced batch."""
+        self.maybe_flip()
+        self.apply_deltas()
+        self.pull_lazy()
+        return self.server.step()
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            if self._kill.is_set():
+                return  # abrupt death: no cursor commit, no farewell
+            got = self.pump()
+            if self._kill.is_set():
+                return
+            if not got:
+                time.sleep(self.server.poll_wait_s)
+
+    def start(self) -> "FleetReplica":
+        if self._thread is None or not self._thread.is_alive():
+            self._stop.clear()
+            self._stopped = False
+            self._thread = threading.Thread(
+                target=self._run, daemon=True,
+                name=f"cfk-replica-{self.index}",
+            )
+            self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._stopped = True
+        if self._thread is not None:
+            self._thread.join(timeout=10.0)
+            self._thread = None
+        if self._pending_thread is not None:
+            self._pending_thread.join(timeout=30.0)
+            self._pending_thread = None
+        self.server.close()
+
+    def kill(self) -> None:
+        """Abrupt termination (the SIGKILL stand-in): the loop exits at
+        the next instruction boundary WITHOUT committing cursors — polled
+        but unanswered requests are left for the survivor to re-serve."""
+        self._kill.set()
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10.0)
+            self._thread = None
+        self.server.close()
+
+    @property
+    def alive(self) -> bool:
+        """Not killed, and (when threaded) the loop is still running — a
+        constructed-but-unstarted replica counts as alive: it serves via
+        ``pump()`` and is a valid failover heir."""
+        if self._kill.is_set() or self._stopped:
+            return False
+        return self._thread is None or self._thread.is_alive()
+
+
+class ServeFleet:
+    """N replicas behind the request log, one supervisor.
+
+    ``engine_factory(i)`` builds replica i's engine (a full table copy
+    each, on the device the factory names).  The fleet
+    creates the topics (requests: N partitions — one per replica;
+    responses: per client; deltas: 1), wires the publisher's store into
+    every replica, prewarms (the readiness gate), and runs one thread per
+    replica.  ``kill_replica`` + automatic failover reassigns the
+    victim's partition to a survivor at the committed cursor."""
+
+    def __init__(self, engine_factory, transport, *, replicas: int = 2,
+                 store: SnapshotStore | None = None,
+                 requests_topic: str = REQUESTS_TOPIC,
+                 responses_topic: str = RESPONSES_TOPIC,
+                 deltas_topic: str = DELTAS_TOPIC,
+                 response_partitions: int = 1, max_batch: int = 256,
+                 admission_max_queue: int | None = None,
+                 capacity_qps: float | None = None,
+                 metrics_ports: bool = False, prewarm_k: int = 10,
+                 poll_wait_s: float = 0.001) -> None:
+        if replicas < 1:
+            raise ValueError(f"replicas must be >= 1, got {replicas}")
+        self.transport = transport
+        self.replicas: list[FleetReplica] = []
+        self.requests_topic = requests_topic
+        self.store = store if store is not None else SnapshotStore()
+        ensure_serve_topics(
+            transport, requests_topic=requests_topic,
+            responses_topic=responses_topic,
+            request_partitions=replicas,
+            response_partitions=response_partitions,
+        )
+        ensure_deltas_topic(transport, topic=deltas_topic)
+        nparts = transport.num_partitions(requests_topic)
+        if nparts < replicas:
+            raise ValueError(
+                f"requests topic has {nparts} partitions for "
+                f"{replicas} replicas — one per replica required"
+            )
+        for i in range(replicas):
+            admission = None
+            if admission_max_queue is not None or capacity_qps is not None:
+                admission = AdmissionController(
+                    max_queue=admission_max_queue,
+                    capacity_qps=capacity_qps,
+                )
+            self.replicas.append(FleetReplica(
+                i, engine_factory(i), transport, self.store,
+                requests_topic=requests_topic,
+                responses_topic=responses_topic,
+                deltas_topic=deltas_topic, max_batch=max_batch,
+                admission=admission,
+                metrics_port=0 if metrics_ports else None,
+                poll_wait_s=poll_wait_s, prewarm_k=prewarm_k,
+                prewarm_batch=max_batch,
+            ))
+        self.failovers: list[dict] = []
+
+    @property
+    def num_replicas(self) -> int:
+        return len(self.replicas)
+
+    def seed_store(self, user_factors, movie_factors, *,
+                   num_users: int) -> None:
+        """Install the epoch-0 base snapshot (the resync floor)."""
+        self.store.put_epoch(0, user_factors, movie_factors,
+                             num_users=num_users, seq=0)
+
+    def prewarm(self, k: int | None = None,
+                max_batch: int | None = None) -> dict:
+        """Prewarm every replica's engine (the /readyz gate); returns the
+        per-replica prewarm summaries."""
+        out = {}
+        for r in self.replicas:
+            out[r.index] = r.engine.prewarm(
+                k if k is not None else r.prewarm_k,
+                max_batch=max_batch or r.prewarm_batch,
+            )
+        return out
+
+    @property
+    def ready(self) -> bool:
+        return all(r.server.ready for r in self.replicas if r.alive)
+
+    def start(self) -> "ServeFleet":
+        for r in self.replicas:
+            r.start()
+        return self
+
+    def stop(self) -> None:
+        for r in self.replicas:
+            if r.alive:
+                r.stop()
+            else:
+                r.server.close()
+
+    def kill_replica(self, index: int, *, failover: bool = True) -> None:
+        """Kill replica ``index`` abruptly; with ``failover`` (default)
+        its partition moves to a survivor at the COMMITTED cursor."""
+        victim = self.replicas[index]
+        record_event("fleet", "replica_kill", replica=index)
+        dump_flight(f"serve_replica_kill replica={index}")
+        victim.kill()
+        if failover:
+            self.failover(index)
+
+    def failover(self, index: int) -> None:
+        """Reassign the dead replica's partition to the next live one,
+        starting at the victim's committed cursor — at-least-once: the
+        survivor re-serves anything the victim polled but never answered
+        (clients dedup by req_id)."""
+        victim = self.replicas[index]
+        survivors = [r for r in self.replicas if r.alive]
+        if not survivors:
+            raise RuntimeError("no live replica to absorb the partition")
+        heir = survivors[index % len(survivors)]
+        with span("serve/fleet/failover", dead=index, heir=heir.index):
+            for p, cursor in victim.server.committed_cursors.items():
+                heir.server.adopt_partition(p, cursor)
+        self.failovers.append({"dead": index, "heir": heir.index})
+        record_event("fleet", "failover", dead=index, heir=heir.index)
+
+    def counters(self) -> dict:
+        """Fleet-wide accounting for bench rows and chaos assertions."""
+        return {
+            "replicas": len(self.replicas),
+            "alive": sum(r.alive for r in self.replicas),
+            "served": sum(r.server.requests_served for r in self.replicas),
+            "shed": sum(r.server.shed for r in self.replicas),
+            "batches": sum(r.server.batches for r in self.replicas),
+            "deltas_applied": sum(r.deltas_applied for r in self.replicas),
+            "gaps_detected": sum(r.gaps_detected for r in self.replicas),
+            "resyncs": sum(r.resyncs for r in self.replicas),
+            "rollovers": sum(r.rollovers for r in self.replicas),
+            "lazy_pulls": sum(r.lazy_pulls for r in self.replicas),
+            "failovers": len(self.failovers),
+        }
+
+    def __enter__(self) -> "ServeFleet":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()

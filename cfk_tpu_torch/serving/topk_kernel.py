@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -68,6 +69,8 @@ _MERGE_ENTRIES = 32768
 # its row of a [B, M_pad] f32 score matrix, which K4 never writes.
 _PARTIAL_SHARE = 2
 _TABLE_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# The fleet's replica threads launch K4 at once: its counts take a lock.
+_COUNT_LOCK = threading.Lock()
 _ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -313,11 +316,30 @@ def topk_scores_large_k(u, table, scale, seen_tiles, *, k_top, num_movies,
             splits, _build.ptr(keys), _build.ptr(cand), _build.ptr(vals),
             _build.ptr(ids), dev.index or 0, stream_of(u32))
     _build.check(rc, "topk_scores")
-    topk_scores_large_k.launches += 3
+    _count(topk_scores_large_k, 3)
     return vals, ids
 
 
+def _count(wrapper, n: int) -> None:
+    """Add ``n`` launches to ``wrapper.launches`` and to the calling
+    thread's entry of ``wrapper.launches_by_thread``."""
+    name = threading.current_thread().name
+    with _COUNT_LOCK:
+        wrapper.launches += n
+        by = wrapper.launches_by_thread
+        by[name] = by.get(name, 0) + n
+
+
+def reset_launches() -> None:
+    """Zero both K4 wrappers' counts, the per-thread ones included."""
+    with _COUNT_LOCK:
+        for wrapper in (topk_scores, topk_scores_large_k):
+            wrapper.launches = 0
+            wrapper.launches_by_thread = {}
+
+
 topk_scores_large_k.launches = 0
+topk_scores_large_k.launches_by_thread = {}
 
 
 def topk_scores(u, table, scale, seen_tiles, *, k_top, num_movies, tile_m,
@@ -361,8 +383,9 @@ def topk_scores(u, table, scale, seen_tiles, *, k_top, num_movies, tile_m,
             splits, _build.ptr(part), _build.ptr(vals), _build.ptr(ids),
             dev.index or 0, stream_of(u32))
     _build.check(rc, "topk_scores")
-    topk_scores.launches += 2
+    _count(topk_scores, 2)
     return vals, ids
 
 
 topk_scores.launches = 0
+topk_scores.launches_by_thread = {}

@@ -1,5 +1,6 @@
-"""The port's transport: the partitioned log (in memory and on disk),
-ingest, the wire codecs, and the two checkpoint stores."""
+"""The port's transport: the partitioned log (in memory, on disk, and over
+TCP to the port's broker process), ingest, the wire codecs, and the two
+checkpoint stores."""
 
 from cfk_tpu_torch.transport.broker import (
     InMemoryBroker,
@@ -36,8 +37,15 @@ from cfk_tpu_torch.transport.serdes import (
     encode_int_list,
     encode_rating_update,
 )
+from cfk_tpu_torch.transport.tcp import (
+    BrokerProcess,
+    BrokerRequestError,
+    TcpBrokerClient,
+)
 
 __all__ = [
+    "BrokerProcess",
+    "BrokerRequestError",
     "CheckpointCorruptError",
     "CheckpointManager",
     "CheckpointState",
@@ -51,6 +59,7 @@ __all__ = [
     "RATINGS_TOPIC",
     "RatingUpdate",
     "Record",
+    "TcpBrokerClient",
     "Transport",
     "collect_ratings",
     "decode_feature",

@@ -252,6 +252,36 @@ Phases, each of which must pass:
              call's, the bound and ``torch.topk(addmm)``; then K4 at rank
              600 (above the earlier kernel's 512 cap) against its plain
              version on a small random table, every table kind;
+5b. fleet  — the replicated serving fleet (``cfk_tpu_torch.serving.fleet``)
+             at the serve shape (exact, f32 table, k = 100, tile_m 2048; the
+             serve phase's factors and a seen CSR over the phase's users,
+             seed 2): the port's broker (``BrokerProcess``, memory-only, on
+             localhost), a ``ServeFleet`` of 2 replicas over one shared
+             ``TcpBrokerClient`` with a ``DeltaStreamTamper`` hiding the
+             delta frame at offset 3, the store seeded; a closed burst of
+             2,048 user-keyed requests measures the fleet's capacity, then
+             8 open-loop waves of 1,024 Zipf users at 70% of it
+             (``FLEET``); before wave 3 a ``DeltaPublisher`` ships 8 commits
+             of 1,024 touched users (after wave 3 both replicas have
+             detected the gap and resynced, and their ``table_crc`` equals a
+             fresh engine's that applied every commit); after wave 4
+             ``kill_replica(0)`` and a probe for a victim user (the failover
+             gap); before wave 5 a retrain epoch, which the survivor builds
+             and prewarms on a background thread and flips.  Every request
+             answered (a retriable rejection re-sent), zero timeouts, every
+             answer stamped; every answer from wave 4 on held to the oracle
+             engine of its epoch stamp (``compare_topk``, TOL
+             "topk_scores": no mixed-epoch table); K4 launched on each
+             replica's thread (the wrapper's own counts, under its lock and
+             per launching thread, two a call; the kernels line's
+             ``fleet_launches``) and two captured launches of each held to
+             its plain version (``compare_topk``, TOL "topk_scores";
+             bit-equality recorded); QPS, p50/p99, shed, retries, mean
+             batch, the failover gap, the resync and rollover seconds, the
+             card's timeline (device ms, idle share) over the burst and
+             over wave 2 with both replicas serving, and ``engine.topk``
+             alone at B = 256 outside the fleet printed; the phase within
+             60 s;
 6. implicit — implicit-feedback training at the repo's implicit
              configuration (``bench.py`` ``ials_row``/``ialspp_row``: the
              ML-25M shape, 162,541 users x 59,047 movies x 25,000,095
@@ -367,10 +397,19 @@ Phases, each of which must pass:
              ``recommend --checkpoint-journal DIR`` (the same output as the
              ``--checkpoint-dir`` chain's); ``python -m
              cfk_tpu_torch.scripts.chaos_lab --device cuda`` on the padded,
-             tiled, bucketed and segment layouts (its twelve
-             scenarios — the stream ones on each layout, ``quantized_table``
-             and ``stream_poison_batch`` once — each fired, detected,
-             recovered); then
+             tiled, bucketed and segment layouts (its seventeen
+             scenarios — the stream ones on each layout, ``quantized_table``,
+             ``stream_poison_batch`` and the five serving ones once — each
+             fired, detected, recovered); ``serve --replicas 2`` (the
+             in-memory load generator: every request answered); the broker
+             chain: ``broker --port 0 --data-dir``, ``topics create``,
+             ``produce --append``, ``train --data tcp://…/ratings
+             --checkpoint-journal tcp://…`` (the journal chain's MSE),
+             ``stream --produce-csv`` and ``stream --updates tcp://…``
+             (crc-equal to the FileBroker stream chain), ``topics list``,
+             and ``serve --broker tcp://… --replicas 2`` in the
+             background, whose fleet answers a client's 8 requests and
+             exits 0 on SIGINT; then
              ``train --implicit --algorithm ials++ --eval-ranking 10`` on a
              small planted MovieLens-format file, whose Recall@10 and MPR
              on the card must equal the CPU run's.
@@ -535,6 +574,8 @@ LINE_EXTRA = {"gauss_solve": ("ms_schur", "bound_ms_schur",
 # The stream phase's launches and device ms of the kernels fold-in reaches.
 LINE_EXTRA["gram_gather"] += ("foldin",)
 LINE_EXTRA["topk_scores"] += ("foldin",)
+# The fleet phase's K4 launches: the wrapper's own counts on every thread.
+LINE_EXTRA["topk_scores"] += ("fleet_launches",)
 # scripts/exp_binv.py's defaults (main :187-212): k = 128, --e 334·16
 # rounded down to a multiple of the 128-system tile, λ = 0.05; the main
 # path's movie Grams at k = 64; matrix mode at the ML-25M movie count.
@@ -598,6 +639,15 @@ IMPLICIT = dict(rank=128, lam=0.1, alpha=40.0, iterations=3,
 # bench.py --serve's configuration (bench.py:3236-3262).
 SERVE = dict(num_users=162_541, num_movies=59_047, nnz=25_000_095,
              rank=128, k=100, tile_m=2048, requests=256, clusters=1024)
+# The fleet phase at the serve shape: two replicas over the port's broker,
+# 8 waves of 1,024 user-keyed requests at 70% of the capacity a closed
+# burst of 2,048 measures first; 8 commits of 1,024 touched users with the
+# delta frame at offset 3 hidden; replica 0 killed after wave 4; the retrain
+# epoch announced before wave 5; the card's timeline profiled over wave 2.
+FLEET = dict(replicas=2, waves=8, wave_requests=1024, burst=2048, load=0.7,
+             commits=8, touched=1024, hidden_offset=3, kill_after_wave=4,
+             epoch_before_wave=5, max_batch=256, profile_wave=2,
+             budget_s=60.0)
 SERVE_CONFIGS = (("exact", "float32", 16), ("exact", "float32", 64),
                  ("exact", "float32", 256), ("exact", "bfloat16", 256),
                  ("exact", "int8", 256), ("two_stage", "float32", 256))
@@ -613,6 +663,69 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def profiled_wave(run) -> tuple[dict, dict]:
+    """``run()`` (one fleet wave) under ``device_timeline``: its result and
+    the card's timeline over the wave's wall time (every replica thread's
+    kernels; ``kernels`` 0 when CUPTI missed the session).  A profiler that
+    fails before the wave ran leaves the wave to run unprofiled."""
+    box: list = []
+    timeline = device_timeline(lambda: box.append(run()), 1)
+    return (box[0] if box else run()), timeline
+
+
+def fleet_wave(client, users, rate_qps: float, k: int,
+               timeout_s: float = 60.0) -> dict:
+    """One open-loop wave through a fleet: request i is sent at ``i /
+    rate_qps`` (latency counted from that scheduled time); a retriable
+    rejection is re-sent at once under a new req_id; a request still
+    unanswered ``timeout_s`` after the last send is a timeout.  Returns the
+    final (user, response) pairs in send order, their latencies, the wall
+    s, the rejections, the re-sends and the timeouts."""
+    import numpy as np
+
+    users = np.asarray(users, np.int64)
+    sched: dict[int, tuple[int, float]] = {}  # req_id -> (index, scheduled)
+    final: dict[int, object] = {}
+    lat: dict[int, float] = {}
+    rejections = resent = 0
+
+    def drain():
+        nonlocal rejections, resent
+        for resp in client.poll_responses():
+            got = sched.pop(resp.req_id, None)
+            if got is None:
+                continue  # a duplicate of an answered request
+            i, t = got
+            if resp.retriable:
+                rejections += 1
+                sched[client.request(int(users[i]), k)] = (i, t)
+                client.flush()
+                resent += 1
+                continue
+            final[i] = resp
+            lat[i] = (time.perf_counter() - t) * 1e3
+
+    t0 = time.perf_counter()
+    for i, user in enumerate(users):
+        t = t0 + i / rate_qps
+        while time.perf_counter() < t:
+            drain()
+            time.sleep(min(max(t - time.perf_counter(), 0.0), 0.0005))
+        sched[client.request(int(user), k)] = (i, t)
+        client.flush()
+    deadline = time.perf_counter() + timeout_s
+    while sched and time.perf_counter() < deadline:
+        drain()
+        if sched:
+            time.sleep(0.0005)
+    wall = time.perf_counter() - t0
+    order = sorted(final)
+    return dict(pairs=[(int(users[i]), final[i]) for i in order],
+                lat_ms=[lat[i] for i in order], wall_s=wall,
+                rejections=rejections, resent=resent, timeouts=len(sched),
+                requests=int(users.shape[0]))
 
 
 def time_ms(fn, reps: int) -> float:
@@ -1294,6 +1407,7 @@ class Smoke:
     def build(self):
         from cfk_tpu_torch import _build
         from cfk_tpu_torch.data import _native
+        from cfk_tpu_torch.transport.tcp import build_broker
 
         t0 = time.perf_counter()
         _native.load_library()  # raises if the host library cannot be built
@@ -1302,6 +1416,11 @@ class Smoke:
         log(f"host library {_build.host_library_path()} ({host_s:.1f} s)")
         self.report["host_library"] = dict(
             path=str(_build.host_library_path()), build_s=host_s)
+        t0 = time.perf_counter()
+        broker = build_broker()  # raises with the compiler's output
+        self.report["broker"] = dict(path=broker,
+                                     build_s=time.perf_counter() - t0)
+        log(f"broker {broker} ({self.report['broker']['build_s']:.1f} s)")
         t0 = time.perf_counter()
         paths = _build.build_all()
         self.report["build_s"] = time.perf_counter() - t0
@@ -3382,6 +3501,330 @@ class Smoke:
                 "bound_ms", "bound_by", "library_ms")} for r in rows])
         self.report["serve_large_k"] = rows
 
+    def fleet(self):
+        """The replicated serving fleet at the serve shape (module doc,
+        phase 5b).  K4's launches of the driven run are the wrapper's own
+        counts (taken under its lock, per launching thread), zeroed just
+        before the first request and read after the fleet stops; they go
+        to the kernels line as ``fleet_launches``, beside the serve
+        phase's ``launches``."""
+        import threading
+
+        import numpy as np
+        import torch
+
+        from cfk_tpu_torch.data.synthetic import serve_factors, serve_seen_csr
+        from cfk_tpu_torch.resilience.faults import DeltaStreamTamper
+        from cfk_tpu_torch.serving import (
+            DELTAS_TOPIC,
+            DeltaPublisher,
+            ServeClient,
+            ServeEngine,
+            ServeFleet,
+            table_crc,
+            zipf_user_rows,
+        )
+        from cfk_tpu_torch.serving import engine as engine_mod
+        from cfk_tpu_torch.serving.topk_kernel import (
+            reset_launches,
+            topk_scores,
+            topk_scores_large_k,
+            topk_scores_plain,
+        )
+        from cfk_tpu_torch.transport.tcp import BrokerProcess, TcpBrokerClient
+
+        sys.path.insert(0, str(ROOT / "tests"))
+        from _torch_topk import compare_topk
+
+        s, f = SERVE, FLEET
+        nu, nm, k, rank = s["num_users"], s["num_movies"], s["k"], s["rank"]
+        t_phase = time.perf_counter()
+        nreq = f["waves"] * f["wave_requests"]
+        traffic = zipf_user_rows(nu, nreq, seed=4)
+        burst = zipf_user_rows(nu, f["burst"], seed=5)
+        rng = np.random.default_rng(2)
+        u, m = serve_factors(nu, nm, rank, rng)
+        seen, indptr = serve_seen_csr(
+            nu, nm, s["nnz"], np.concatenate([
+                zipf_user_rows(nu, 4096, seed=1), traffic, burst]), rng)
+        crng = np.random.default_rng(6)
+        hot_users = np.unique(traffic)
+        commits = []
+        for _ in range(f["commits"]):
+            rows = np.unique(np.concatenate([
+                crng.choice(hot_users, min(512, hot_users.size),
+                            replace=False),
+                crng.integers(0, nu, f["touched"])]))[: f["touched"]]
+            commits.append({
+                "touched_rows": rows.tolist(),
+                "rows": (u[rows] + crng.standard_normal(
+                    (rows.size, rank), dtype=np.float32) * 0.05),
+                "cells": [], "retrain": False, "num_users": nu})
+        u2 = u + rng.standard_normal(u.shape, dtype=np.float32) * 0.05
+        m2 = m + rng.standard_normal(m.shape, dtype=np.float32) * 0.05
+        gen_s = time.perf_counter() - t_phase
+
+        def engine(uf, mf):
+            return ServeEngine(uf, mf, num_users=nu, num_movies=nm,
+                               seen_movies=seen, seen_indptr=indptr,
+                               table_dtype="float32", tile_m=s["tile_m"],
+                               serve_mode="exact", device="cuda")
+
+        lock = threading.Lock()
+        calls: dict[str, int] = {}  # K4 calls a thread, against its launches
+        captured: dict[str, list] = {}
+
+        def recording(*a, **kw):
+            out = topk_scores(*a, **kw)
+            name = threading.current_thread().name
+            with lock:
+                calls[name] = calls.get(name, 0) + 1
+                if name.startswith("cfk-replica") and len(
+                        captured.setdefault(name, [])) < 2:
+                    captured[name].append((a, kw, out))
+            return out
+
+        out: dict = dict(generate_s=gen_s, seen_cells=int(indptr[-1]),
+                         **f)
+        engine_mod.topk_scores = recording
+        bp = BrokerProcess()
+        clients = []
+        fleet = None
+        try:
+            def connect():
+                clients.append(TcpBrokerClient("127.0.0.1", bp.port))
+                return clients[-1]
+
+            t0 = time.perf_counter()
+            tampered = DeltaStreamTamper(connect(), topic=DELTAS_TOPIC,
+                                         hide=[f["hidden_offset"]])
+            fleet = ServeFleet(lambda i: engine(u, m), tampered,
+                               replicas=f["replicas"],
+                               max_batch=f["max_batch"], prewarm_k=k)
+            fleet.seed_store(u, m, num_users=nu)
+            fleet.prewarm(k, max_batch=f["max_batch"])
+            pub = DeltaPublisher(connect(), fleet.store)
+            client = ServeClient(connect(), route_by_user=True)
+            out["fleet_build_s"] = time.perf_counter() - t0
+            oracle0 = engine(u, m)
+            oracle1 = engine(u2, m2)
+            fleet.start()
+            with lock:
+                calls.clear()
+                captured.clear()
+            reset_launches()
+            # -- capacity: a closed burst, as fast as the client sends ------
+            b, out["burst_profile"] = profiled_wave(
+                lambda: fleet_wave(client, burst, float("inf"), k))
+            self.check(b["timeouts"] == 0 and len(b["pairs"]) == f["burst"],
+                       f"fleet: burst answered {len(b['pairs'])} of "
+                       f"{f['burst']}, {b['timeouts']} timeouts")
+            capacity = len(b["pairs"]) / b["wall_s"]
+            rate = f["load"] * capacity
+            out.update(capacity_qps=capacity, rate_qps=rate)
+            log(f"fleet: capacity {capacity:.0f} qps (burst of "
+                f"{f['burst']} in {b['wall_s']:.2f} s); waves at "
+                f"{rate:.0f} qps")
+            waves, crc = [], {}
+            for w in range(1, f["waves"] + 1):
+                if w == 3:
+                    for ev in commits:
+                        pub.on_commit(ev)
+                        oracle0.on_commit(ev)
+                if w == f["kill_after_wave"] + 1:
+                    t_kill = time.perf_counter()
+                    fleet.kill_replica(0)
+                    victim = int(next(x for x in traffic if x % 2 == 0))
+                    probe = client.ask([victim], k, timeout_s=30)
+                    out["failover_gap_s"] = time.perf_counter() - t_kill
+                    self.check(not next(iter(probe.values())).error,
+                               "fleet: the victim's probe was refused")
+                if w == f["epoch_before_wave"]:
+                    pub.on_commit({"retrain": True, "user_factors": u2,
+                                   "movie_factors": m2, "num_users": nu})
+                users = traffic[(w - 1) * f["wave_requests"]:
+                                w * f["wave_requests"]]
+                if w == f["profile_wave"]:
+                    res, out["wave_profile"] = profiled_wave(
+                        lambda: fleet_wave(client, users, rate, k))
+                else:
+                    res = fleet_wave(client, users, rate, k)
+                waves.append(res)
+                log(f"fleet wave {w}: {len(res['pairs'])}/{res['requests']}"
+                    f" answered in {res['wall_s']:.2f} s, p50 "
+                    f"{np.percentile(res['lat_ms'], 50):.2f} ms, p99 "
+                    f"{np.percentile(res['lat_ms'], 99):.2f} ms, "
+                    f"{res['rejections']} rejected, {res['timeouts']} "
+                    "timeouts")
+                if w == 3:  # the gap's resync has converged on both
+                    deadline = time.perf_counter() + 20
+                    want = table_crc(oracle0)
+                    while time.perf_counter() < deadline and any(
+                            table_crc(r.engine) != want
+                            for r in fleet.replicas):
+                        time.sleep(0.05)
+                    crc = {r.index: table_crc(r.engine) == want
+                           for r in fleet.replicas}
+            # the rollover may still be building: wait for its flip
+            heir = fleet.replicas[1]
+            deadline = time.perf_counter() + 30
+            while heir.rollovers == 0 and time.perf_counter() < deadline:
+                time.sleep(0.05)
+            counters = fleet.counters()
+            fleet.stop()
+            fleet_launches = topk_scores.launches
+            by_thread = dict(topk_scores.launches_by_thread)
+            large_k = topk_scores_large_k.launches
+            with lock:  # the oracles below call K4 on this thread
+                k4_calls = dict(calls)
+            # -- checks -----------------------------------------------------
+            all_pairs = [p for wv in waves for p in wv["pairs"]]
+            lat = np.concatenate([wv["lat_ms"] for wv in waves])
+            wall = sum(wv["wall_s"] for wv in waves)
+            timeouts = sum(wv["timeouts"] for wv in waves)
+            self.check(len(all_pairs) == nreq and timeouts == 0,
+                       f"fleet: answered {len(all_pairs)} of {nreq}, "
+                       f"{timeouts} timeouts")
+            self.check(all(not r.error for _, r in all_pairs),
+                       "fleet: a request was answered with an error")
+            self.check(all(r.staleness >= 0 for _, r in all_pairs),
+                       "fleet: a response without a staleness stamp")
+            gaps = [r.gaps_detected for r in fleet.replicas]
+            resyncs = [r.resyncs for r in fleet.replicas]
+            self.check(all(g >= 1 for g in gaps) and all(
+                x >= 1 for x in resyncs) and all(crc.values()),
+                f"fleet: gaps {gaps}, resyncs {resyncs}, crc equal {crc}")
+            self.check(counters["failovers"] == 1
+                       and not fleet.replicas[0].alive,
+                       f"fleet: failover {counters}")
+            late = [p for wv in waves[f["kill_after_wave"]:]
+                    for p in wv["pairs"]]
+            victim_late = sum(1 for user, _ in late if user % 2 == 0)
+            self.check(victim_late > 0, "fleet: no victim user answered "
+                       "after the kill")
+            self.check(heir.rollovers == 1 and heir.engine.epoch == 1,
+                       f"fleet: rollover {heir.rollovers}, epoch "
+                       f"{heir.engine.epoch}")
+            # every answer after the commits converged against the oracle
+            # of the epoch it is stamped with: no mixed-epoch table
+            checked = [p for wv in waves[3:] for p in wv["pairs"]]
+            epochs = {0: [], 1: []}
+            for user, resp in checked:
+                epochs.setdefault(int(resp.epoch), []).append((user, resp))
+            self.check(set(epochs) == {0, 1} and epochs[1],
+                       f"fleet: epochs served {sorted(epochs)}")
+            mixed = 0
+            worst = 0.0
+            for e, pairs in epochs.items():
+                oracle = oracle0 if e == 0 else oracle1
+                for lo in range(0, len(pairs), 256):
+                    part = pairs[lo:lo + 256]
+                    rows = np.asarray([x for x, _ in part], np.int64)
+                    ov, oi = oracle.topk(rows, k + 1)
+                    gv = np.stack([r.scores for _, r in part])
+                    gi = np.stack([r.movie_rows for _, r in part])
+                    par = compare_topk(gv, gi, ov[:, :k], oi[:, :k], ov,
+                                       tol=TOL["topk_scores"])
+                    worst = max(worst, par["rel_err"])
+                    if not par["ok"]:
+                        mixed += len(part)
+            self.check(mixed == 0, f"fleet: {mixed} answers match no "
+                       "oracle of their epoch stamp")
+            # K4 on each replica's thread (the wrapper's counts), every
+            # launch through the engine's call, and against plain
+            per_replica = {name: n for name, n in by_thread.items()
+                           if name.startswith("cfk-replica")}
+            self.check(len(per_replica) == f["replicas"] and all(
+                n > 0 for n in per_replica.values()),
+                f"fleet: K4 launches by thread {by_thread}")
+            self.check(sum(by_thread.values()) == fleet_launches
+                       and large_k == 0 and by_thread == {
+                           name: 2 * n for name, n in k4_calls.items()},
+                       f"fleet: K4 launches {by_thread} (total "
+                       f"{fleet_launches}, large-K {large_k}) against two "
+                       f"a call {k4_calls}")
+            plain = {}
+            for name, recorded in captured.items():
+                for a, kw, (gv, gi) in recorded:
+                    want = topk_scores_plain(*a, **kw)
+                    ext = topk_scores_plain(*a, **dict(kw,
+                                                       k_top=kw["k_top"] + 1))
+                    # the batch is whatever the open loop coalesced (K4
+                    # is bit-exact only at the serve phase's 16, 64, 256)
+                    par = compare_topk(gv, gi, *want, ext[0],
+                                       tol=TOL["topk_scores"])
+                    par.update(batch=int(a[0].shape[0]),
+                               bit_equal=bool(torch.equal(gv, want[0])
+                                              and torch.equal(gi, want[1])))
+                    plain.setdefault(name, []).append(par)
+                    self.check(par["ok"], f"fleet: K4 vs plain on {name} "
+                               f"{par}")
+            self.check(set(plain) == set(per_replica),
+                       f"fleet: K4 held to plain on {sorted(plain)} of "
+                       f"{sorted(per_replica)}")
+            # engine.topk alone at B = max_batch, outside the fleet (no
+            # poll, decode, staleness lookup, encode or flush)
+            eng = heir.engine
+            rows = traffic[: f["max_batch"]]
+            for _ in range(PROFILE_ATTEMPTS):  # CUPTI may miss a session
+                engine_b = device_timeline(lambda: eng.topk(rows, k), 5)
+                if engine_b.get("kernels", 0) >= 2:  # K4's two a call
+                    break
+            out.update(
+                requests=nreq, answered=len(all_pairs), timeouts=timeouts,
+                qps=len(all_pairs) / wall, wall_s=wall,
+                p50_ms=float(np.percentile(lat, 50)),
+                p99_ms=float(np.percentile(lat, 99)),
+                max_ms=float(lat.max()),
+                shed=counters["shed"],
+                client_rejections=sum(wv["rejections"] for wv in waves),
+                client_retries=sum(wv["resent"] for wv in waves),
+                batches=counters["batches"],
+                mean_batch=counters["served"] / max(counters["batches"], 1),
+                counters=counters, gaps_detected=gaps, resyncs=resyncs,
+                resync_s=[r.resync_s for r in fleet.replicas],
+                crc_equal_after_resync=crc,
+                rollover=heir.rollover_times,
+                epochs_served={e: len(v) for e, v in epochs.items()},
+                oracle_rel_err=worst, victim_answers_after_kill=victim_late,
+                k4_launches=by_thread, k4_calls=k4_calls,
+                fleet_launches=fleet_launches, k4_vs_plain=plain,
+                engine_topk_profile=engine_b,
+                waves=[{key: wv[key] for key in (
+                    "requests", "wall_s", "rejections", "resent", "timeouts")}
+                    | {"answered": len(wv["pairs"]),
+                       "p50_ms": float(np.percentile(wv["lat_ms"], 50)),
+                       "p99_ms": float(np.percentile(wv["lat_ms"], 99))}
+                    for wv in waves])
+            log(f"fleet: {out['qps']:.0f} qps, p50 {out['p50_ms']:.2f} ms, "
+                f"p99 {out['p99_ms']:.2f} ms, shed {out['shed']}, client "
+                f"retries {out['client_retries']}")
+            log(f"fleet: failover gap {out.get('failover_gap_s')} s, resync "
+                f"{out['resync_s']} s, rollover {out['rollover']}")
+            for name in ("burst_profile", "wave_profile"):
+                log(f"fleet: device timeline of the {name[:-8]} "
+                    f"(both replicas, mean batch {out['mean_batch']:.1f}): "
+                    f"{out.get(name)}")
+            log(f"fleet: engine.topk alone at B = {f['max_batch']}, outside "
+                f"the fleet: {engine_b}")
+            self.kernels.setdefault("topk_scores", {})[
+                "fleet_launches"] = fleet_launches
+        finally:
+            engine_mod.topk_scores = topk_scores
+            if fleet is not None:
+                fleet.stop()
+            for c in clients:
+                try:
+                    c.close(flush=False)
+                except OSError:
+                    pass
+            bp.terminate()
+        out["phase_s"] = time.perf_counter() - t_phase
+        self.check(out["phase_s"] <= f["budget_s"],
+                   f"fleet: the phase took {out['phase_s']:.1f} s, over its "
+                   f"{f['budget_s']} s budget")
+        self.report["fleet"] = out
+
     def implicit(self):
         import numpy as np
         import torch
@@ -4970,6 +5413,49 @@ class Smoke:
         log(f"cli stream/journal: {out}")
         return out
 
+    def cli_broker_checks(self, res, fields) -> dict:
+        """The cli phase's broker chain: every verb exit 0; ``train --data
+        tcp://`` prints the journal chain's MSE (the same flags on the
+        file); the stream over the broker ends crc-equal to the stream
+        chain's over a FileBroker; ``topics list`` names the topics; the
+        broker-fed fleet answered every request and exited 0 on SIGINT."""
+        bc = res["broker"]
+        self.check("error" not in bc, f"cli broker chain: {bc.get('error')}")
+        if "error" in bc:
+            return bc
+        for name in ("create", "produce", "train", "stream_produce",
+                     "stream", "list"):
+            self.check(bc[name].returncode == 0, f"cli broker chain: {name} "
+                       f"rc {bc[name].returncode}")
+        mse_tcp = fields(bc["train"]).get("mse")
+        mse_file = fields(res["journal"]["train"]).get("mse")
+        self.check(mse_tcp is not None and mse_tcp == mse_file,
+                   f"cli train --data tcp:// MSE {mse_tcp} != the file's "
+                   f"{mse_file}")
+        self.check(bc["stream_crc"] is not None
+                   and bc["stream_crc"] == res["stream"]["step_crc"],
+                   f"cli stream --updates tcp:// {bc['stream_crc']} != the "
+                   f"FileBroker stream's {res['stream']['step_crc']}")
+        listed = bc["list"].stdout
+        self.check("ratings\tpartitions=4" in listed
+                   and "rating-updates\tpartitions=2" in listed
+                   and "checkpoint-commits" in listed,
+                   f"cli topics list: {listed[-400:]}")
+        answers = bc.get("fleet_answers") or []
+        self.check(len(answers) == 8 and all(
+            n == 5 and not e for n, e, _ in answers),
+            f"cli serve --broker --replicas 2 answers {answers}")
+        self.check(bc.get("fleet_rc") == 0
+                   and "fleet served" in bc.get("fleet_err", ""),
+                   f"cli serve --broker --replicas 2 rc {bc.get('fleet_rc')}"
+                   f": {bc.get('fleet_err')}")
+        out = dict(train_mse=mse_tcp, file_mse=mse_file,
+                   stream_crc=bc["stream_crc"], fleet_answers=answers,
+                   fleet_rc=bc.get("fleet_rc"), broker_rc=bc["broker_rc"],
+                   fleet_err=bc.get("fleet_err"), topics=listed[-800:])
+        log(f"cli broker chain: {out}")
+        return out
+
     def cli(self):
         """Phase 8 (see the module doc): the CLI verbs as subprocesses, the
         independent ones concurrently — one chain a thread (train, then the
@@ -5024,7 +5510,7 @@ class Smoke:
             if train.returncode != 0:
                 return dict(train=train)
             preds2 = work / "predictions_from_checkpoint.csv"
-            with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            with concurrent.futures.ThreadPoolExecutor(5) as pool:
                 jobs = dict(
                     evaluate=pool.submit(cli, "evaluate", data, preds),
                     recommend=pool.submit(cli, "recommend", "--users",
@@ -5035,7 +5521,11 @@ class Smoke:
                     serve=pool.submit(cli, "serve", "-k", 10, "--tile-m", 64,
                                       "--max-batch", 32,
                                       "--loadgen-requests", 128,
-                                      "--loadgen-qps", 400, *serving))
+                                      "--loadgen-qps", 400, *serving),
+                    serve_fleet=pool.submit(
+                        cli, "serve", "-k", 10, "--tile-m", 64,
+                        "--max-batch", 32, "--loadgen-requests", 128,
+                        "--loadgen-qps", 400, "--replicas", 2, *serving))
                 out = {k: v.result() for k, v in jobs.items()}
             out["train"] = train
             out["evaluate2"] = cli("evaluate", data, preds2)
@@ -5166,6 +5656,109 @@ class Smoke:
                       "--device", "cuda")
             return dict(train=train, recommend=rec)
 
+        def broker_fleet(url):
+            """``serve --broker URL --replicas 2`` from the broker's journal
+            in the background until its fleet is up; a client's 8
+            requests; SIGINT."""
+            import select
+
+            from cfk_tpu_torch.serving import ServeClient
+            from cfk_tpu_torch.transport.tcp import TcpBrokerClient
+
+            out = {}
+            sv = subprocess.Popen(
+                [sys.executable, "-m", "cfk_tpu_torch", "serve",
+                 "--checkpoint-journal", url, "--data", str(data),
+                 "--broker", url, "--replicas", "2", "-k", "5",
+                 "--tile-m", "64", "--metrics-port", "0", "--device",
+                 "cuda"], cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, env=CLI_ENV)
+            err = []
+            deadline = time.time() + 240
+            while time.time() < deadline and sv.poll() is None:
+                ready, _, _ = select.select([sv.stderr], [], [], 1.0)
+                if ready:
+                    err.append(sv.stderr.readline())
+                    if "serving fleet" in err[-1]:
+                        break
+            try:
+                with TcpBrokerClient("127.0.0.1",
+                                     int(url.rsplit(":", 1)[1])) as c:
+                    got = ServeClient(c, route_by_user=True).ask(
+                        list(range(8)), 5, timeout_s=60)
+                out["fleet_answers"] = [(len(r.movie_rows), r.error, r.epoch)
+                                        for r in got.values()]
+            finally:
+                sv.send_signal(2)  # SIGINT: the fleet stops, exit 0
+                _, rest = sv.communicate(timeout=60)
+            out["fleet_rc"] = sv.returncode
+            out["fleet_err"] = ("".join(err) + rest)[-600:]
+            return out
+
+        def broker_chain():
+            """The port's broker as ``broker --port 0 --data-dir``:
+            ``topics create``, ``produce --append`` of the phase's ratings;
+            then, beside each other, ``train --data tcp://…/ratings
+            --checkpoint-journal tcp://…`` (the journal chain's flags)
+            followed by ``serve --broker --replicas 2`` from the broker's
+            journal in the background (a client's requests are answered,
+            SIGINT, exit 0), and ``stream --produce-csv`` then ``stream
+            --updates tcp://…`` (the stream chain's flags); last, ``topics
+            list``."""
+            import select
+
+            out = {}
+            bk = subprocess.Popen(
+                [sys.executable, "-m", "cfk_tpu_torch", "broker", "--port",
+                 "0", "--data-dir", str(work / "broker_data")], cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env=CLI_ENV)
+            try:
+                ready, _, _ = select.select([bk.stdout], [], [], 60)
+                line = bk.stdout.readline() if ready else ""
+                if "LISTENING" not in line:
+                    return dict(error=f"broker did not start: {line!r}")
+                url = f"tcp://127.0.0.1:{int(line.split()[-1])}"
+                out["create"] = cli("topics", "create", "--broker",
+                                    f"{url}/ratings", "--partitions", 4)
+                out["produce"] = cli("produce", "--broker", f"{url}/ratings",
+                                     "--data", data, "--append")
+                sargs = ["stream", "--data", data, "--updates", url,
+                         "--stream-dir", work / "tcp_stream_dir", "--rank",
+                         8, "--iterations", 3, "--batch-records", 64,
+                         "--device", "cuda"]
+
+                def stream_part():
+                    out["stream_produce"] = cli(*sargs, "--produce-csv",
+                                                updates, "--partitions", 2)
+                    out["stream"] = cli(*sargs)
+                    out["stream_crc"] = (stream_crc("tcp_stream")
+                                         if out["stream"].returncode == 0
+                                         else None)
+
+                def serve_part():
+                    out["train"] = cli(
+                        "train", "--data", f"{url}/ratings", "--layout",
+                        "auto", "--rank", 8, "--iterations", 3, "--device",
+                        "cuda", "--output", "none", "--checkpoint-journal",
+                        url, "--journal-partitions", 2)
+                    out.update(broker_fleet(url))
+
+                with concurrent.futures.ThreadPoolExecutor(2) as both:
+                    for job in [both.submit(stream_part),
+                                both.submit(serve_part)]:
+                        job.result()
+                out["list"] = cli("topics", "list", "--broker", url)
+            finally:
+                bk.send_signal(2)
+                try:
+                    bk.communicate(timeout=30)
+                except subprocess.TimeoutExpired:
+                    bk.kill()
+                    bk.communicate()
+                out["broker_rc"] = bk.returncode
+            return out
+
         def chaos():
             out = subprocess.run(
                 [sys.executable, "-m", "cfk_tpu_torch.scripts.chaos_lab",
@@ -5181,30 +5774,47 @@ class Smoke:
         pairs.update({("segment", d): ("--layout", "segment", "--rank", 8,
                                        "--chunk-elems", 64 * 4096)
                       for d in ("cuda", "cpu")})
+        chain_s = {}
+
+        def timed(key, fn, *argv):
+            """``fn(*argv)``, its wall seconds kept in ``chain_s``: the
+            longest chain sets the phase's time."""
+            t = time.perf_counter()
+            try:
+                return fn(*argv)
+            finally:
+                chain_s[str(key)] = time.perf_counter() - t
+
         with concurrent.futures.ThreadPoolExecutor(16) as pool:
             t0 = time.perf_counter()
-            jobs = {
-                "main": pool.submit(main_chain),
-                "cache": pool.submit(cache_chain),
-                "preempt": pool.submit(preempt_chain),
-                "chaos": pool.submit(chaos),
-                "telemetry": pool.submit(self.cli_telemetry, work, data),
-                "stream": pool.submit(stream_chain),
-                "stream_follow": pool.submit(stream_follow_chain),
-                "journal": pool.submit(journal_chain),
-                **{("pair",) + key: pool.submit(
+            calls = {
+                "main": (main_chain,),
+                "cache": (cache_chain,),
+                "preempt": (preempt_chain,),
+                "chaos": (chaos,),
+                "telemetry": (self.cli_telemetry, work, data),
+                "stream": (stream_chain,),
+                "stream_follow": (stream_follow_chain,),
+                "journal": (journal_chain,),
+                "broker": (broker_chain,),
+                **{("pair",) + key: (
                     cli, "train", "--data", data, *extra, "--iterations", 2,
                     "--device", key[1], "--output", "none")
                    for key, extra in pairs.items()},
-                **{("implicit", d): pool.submit(
+                **{("implicit", d): (
                     cli, "train", "--data", ml, "--format", "movielens",
                     "--implicit", "--algorithm", "ials++", "--rank", 16,
                     "--block-size", 8, "--iterations", 5, "--eval-ranking",
                     10, "--output", "none", "--device", d)
                    for d in ("cuda", "cpu")},
             }
+            jobs = {key: pool.submit(timed, key, *call)
+                    for key, call in calls.items()}
             res = {k: v.result() for k, v in jobs.items()}
             wall_s = time.perf_counter() - t0
+        log("cli chains, wall s: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in sorted(chain_s.items(),
+                                               key=lambda kv: -kv[1])))
         # The main chain: train (auto picks padded), evaluate its CSV (the
         # train MSE again), recommend, predict from the checkpoint and
         # evaluate that CSV, serve (every request answered).
@@ -5219,7 +5829,7 @@ class Smoke:
         row = {}
         if len(main) > 1:
             for verb in ("evaluate", "recommend", "predict", "serve",
-                         "evaluate2"):
+                         "serve_fleet", "evaluate2"):
                 self.check(main[verb].returncode == 0, f"cli {verb} failed")
             mse_eval = float(main["evaluate"].stdout.split("MSE:")[1].split()[0])
             self.check(abs(mse_eval - mse_train) <= 1e-4 * mse_train,
@@ -5235,6 +5845,12 @@ class Smoke:
             self.check(row["answered"] == row["requests"] == 128,
                        f"cli serve answered {row['answered']} of "
                        f"{row['requests']}")
+            frow = json.loads(
+                main["serve_fleet"].stdout.strip().splitlines()[-1])
+            row["replicas_2"] = frow
+            self.check(frow["answered"] == frow["requests"] == 128
+                       and frow["replicas"] == 2,
+                       f"cli serve --replicas 2: {frow}")
         # Above the fused kernels' cap: rank 256 on the padded layout (the
         # split schedule's ridge add and Cholesky); and the segment layout
         # (K2 and K1 a chunk); the card against the CPU.
@@ -5293,6 +5909,7 @@ class Smoke:
                    and len(pre["kept"]) <= 2,
                    f"cli preemption: {pre}")
         stream_out = self.cli_stream_checks(res, fields)
+        stream_out["broker"] = self.cli_broker_checks(res, fields)
         chaos_out = res["chaos"]
         log(f"chaos_lab --device cuda: rc={chaos_out['rc']} "
             f"{chaos_out['summary']}")
@@ -5302,7 +5919,7 @@ class Smoke:
                    f"{chaos_out['stderr']}")
         self.report.setdefault("resilience", {})["chaos_lab"] = chaos_out
         self.report["cli"] = dict(train=train.stdout.strip(),
-                                  wall_s=wall_s,
+                                  wall_s=wall_s, chain_s=chain_s,
                                   telemetry=res["telemetry"],
                                   rank256_mse=card_cpu.get("rank256"),
                                   segment_mse=card_cpu.get("segment"),
@@ -5318,8 +5935,8 @@ MAIN_PHASES = ("kernels", "binv", "breakdown", "split", "gather", "rank256",
 IMPLICIT_PHASES = ("gather_ml25m", "split_ml25m", "implicit_r256",
                    "segment_ml25m", "quant_ml25m", "pipeline_ml25m",
                    "resilience_ml25m")
-PHASES = ("main",) + MAIN_PHASES + ("serve", "implicit") + IMPLICIT_PHASES \
-    + ("small", "cli")
+PHASES = ("main",) + MAIN_PHASES + ("serve", "fleet", "implicit") \
+    + IMPLICIT_PHASES + ("small", "cli")
 
 
 def main(argv=None) -> int:
@@ -5366,6 +5983,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if built:
         run("serve")
+        run("fleet")
         if chosen & {"implicit", *IMPLICIT_PHASES}:
             implicit_out = smoke.phase("implicit", smoke.implicit)
             if implicit_out is not None:

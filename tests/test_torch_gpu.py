@@ -2206,3 +2206,106 @@ def test_quantized_table_scenario_on_the_card(cuda):
     row = Lab("cuda", "tiled").quantized_table()
     assert row["ok"], row
     assert row["split_and_gj_pinned"]
+
+
+def _fleet_on_card(replicas, seed=0, users=300, movies=2000, rank=32):
+    from cfk_tpu_torch.data.synthetic import serve_factors, serve_seen_csr
+    from cfk_tpu_torch.serving import DeltaPublisher, ServeEngine, ServeFleet
+    from cfk_tpu_torch.transport import InMemoryBroker
+
+    rng = np.random.default_rng(seed)
+    u, m = serve_factors(users, movies, rank, rng)
+    seen, indptr = serve_seen_csr(users, movies, 20 * users,
+                                  np.arange(users), rng)
+
+    def engine(uf, mf):
+        return ServeEngine(uf, mf, num_users=users, num_movies=movies,
+                           seen_movies=seen, seen_indptr=indptr, tile_m=256,
+                           device="cuda")
+
+    broker = InMemoryBroker()
+    fleet = ServeFleet(lambda i: engine(u, m), broker, replicas=replicas,
+                       max_batch=64, prewarm_k=20)
+    fleet.seed_store(u, m, num_users=users)
+    fleet.prewarm(20, max_batch=64)
+    return fleet, DeltaPublisher(broker, fleet.store), broker, engine, (u, m)
+
+
+def test_fleet_replicas_answer_as_plain_on_the_card(cuda):
+    """Two replicas on the card, each on its thread: every K4 launch of
+    each replica's thread, recorded inside its engine, agrees with the
+    plain version on its arguments (at whatever batch the replica
+    coalesced), and the answers agree with one engine's."""
+    import threading
+
+    from cfk_tpu_torch.serving import ServeClient
+    from cfk_tpu_torch.serving import engine as engine_mod
+
+    fleet, _, broker, engine, (u, m) = _fleet_on_card(2)
+    calls, lock = {}, threading.Lock()
+
+    def recording(*a, **kw):
+        out = topk_scores(*a, **kw)
+        with lock:
+            calls.setdefault(threading.current_thread().name, []).append(
+                (a, kw))
+        return out
+
+    engine_mod.topk_scores = recording
+    client = ServeClient(broker, route_by_user=True)
+    try:
+        fleet.start()
+        got = client.ask(list(range(64)), 20, timeout_s=60)
+    finally:
+        fleet.stop()
+        engine_mod.topk_scores = topk_scores
+    replica_calls = {n: c for n, c in calls.items()
+                     if n.startswith("cfk-replica")}
+    assert sorted(replica_calls) == ["cfk-replica-0", "cfk-replica-1"]
+    for name, cs in replica_calls.items():
+        for a, kw in cs:
+            _check_topk(*a, **kw)
+    oracle = engine(u, m)
+    want_v, want_i = oracle.topk(np.arange(64), 21)
+    resp = [got[rid] for rid in sorted(got)]
+    res = compare_topk(np.stack([r.scores for r in resp]),
+                       np.stack([r.movie_rows for r in resp]),
+                       want_v[:, :20], want_i[:, :20], want_v)
+    assert res["ok"], res
+
+
+def test_fleet_rollover_flip_under_load_on_the_card(cuda):
+    """A retrain epoch while a client keeps asking: the replica builds and
+    prewarms the new engine on its background thread (its table uploaded
+    on that thread's stream) and flips; every answer matches the oracle of
+    the epoch it is stamped with, and the new epoch serves."""
+    from cfk_tpu_torch.serving import ServeClient
+
+    fleet, pub, broker, engine, (u, m) = _fleet_on_card(1, seed=3)
+    rng = np.random.default_rng(4)
+    u2 = u + rng.standard_normal(u.shape, dtype=np.float32) * 0.05
+    m2 = m + rng.standard_normal(m.shape, dtype=np.float32) * 0.05
+    oracles = {0: engine(u, m), 1: engine(u2, m2)}
+    client = ServeClient(broker, route_by_user=True)
+    replica, answered = fleet.replicas[0], []
+    fleet.start()
+    try:
+        for i in range(400):
+            if i == 20:
+                pub.on_commit({"retrain": True, "user_factors": u2,
+                               "movie_factors": m2, "num_users": u.shape[0]})
+            users = [(7 * i + j) % u.shape[0] for j in range(8)]
+            got = client.ask(users, 20, timeout_s=60)
+            answered += [(users[n], got[rid])
+                         for n, rid in enumerate(sorted(got))]
+            if replica.rollovers and i > 40:
+                break
+    finally:
+        fleet.stop()
+    assert replica.rollovers == 1 and replica.engine.epoch == 1
+    assert {r.epoch for _, r in answered} == {0, 1}
+    for user, resp in answered:
+        want_v, want_i = oracles[resp.epoch].topk(np.asarray([user]), 21)
+        res = compare_topk(resp.scores[None], resp.movie_rows[None],
+                           want_v[:, :20], want_i[:, :20], want_v)
+        assert res["ok"], (user, resp.epoch, res)

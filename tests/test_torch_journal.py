@@ -219,7 +219,9 @@ def test_cli_train_and_serve_from_the_journal(tmp_path, capsys):
     """``train --checkpoint-journal DIR --journal-partitions 2`` then
     ``recommend`` / ``predict --checkpoint-journal DIR``: the same output as
     the ``--checkpoint-dir`` run's; one store exactly (exit 2 otherwise),
-    and a ``tcp://`` journal exits 2 naming the missing transport."""
+    and a ``tcp://`` target with no broker behind it is a clean error with
+    the reference's exit code (2 for a journal, 1 for ``--data``), naming
+    the broker it could not reach."""
     from cfk_tpu_torch.cli import main
 
     data, users = _netflix_file(tmp_path / "r.txt")
@@ -249,12 +251,14 @@ def test_cli_train_and_serve_from_the_journal(tmp_path, capsys):
     assert main(common + ["--checkpoint-dir", c,
                           "--checkpoint-journal", j]) == 2
     assert "mutually exclusive" in capsys.readouterr().err
-    for argv in (rec + ["--checkpoint-journal", "tcp://localhost:1"],
-                 common + ["--checkpoint-journal", "tcp://localhost:1"],
-                 ["train", "--data", "tcp://localhost:1/ratings",
-                  "--device", "cpu"]):
-        assert main(argv) == 2
-        assert "TCP broker transport" in capsys.readouterr().err
+    for argv, rc in ((rec + ["--checkpoint-journal", "tcp://localhost:1"],
+                      2),
+                     (common + ["--checkpoint-journal", "tcp://localhost:1"],
+                      2),
+                     (["train", "--data", "tcp://localhost:1/ratings",
+                       "--device", "cpu"], 1)):
+        assert main(argv) == rc
+        assert "connect to broker localhost:1" in capsys.readouterr().err
 
 
 def test_journal_commit_metadata_matches_reference(tmp_path):

@@ -647,6 +647,29 @@ def test_cli_checkpoints_on_cadence_with_retention(ratings_file, tmp_path,
     assert mgr.iterations() == [5]
 
 
+class _CommitsAtOnce(CheckpointManager):
+    """An async store whose writer commits each step, retention included,
+    before ``save_async`` returns: the interleaving a loaded machine can
+    give the writer thread."""
+
+    def save_async(self, *a, **kw):
+        super().save_async(*a, **kw)
+        self.wait_pending()
+
+
+def test_retention_sees_the_new_pin_when_the_writer_commits_first(
+        explicit, tmp_path):
+    """The loop pins a validated step before it enqueues the write, so a
+    writer that commits at once collects the old anchor with the rest."""
+    _, td, _, _ = explicit
+    mgr = _CommitsAtOnce(str(tmp_path), keep_last_n=1)
+    cfg = ALSConfig(rank=K, num_iterations=5, health_check_every=1)
+    train_als(td, cfg, device="cpu", checkpoint_manager=mgr,
+              checkpoint_every=2)
+    assert mgr.iterations() == [5]
+    assert mgr._pinned == 5
+
+
 def test_cli_unrecoverable_raise_exits_1(ratings_file, capsys):
     from cfk_tpu_torch.cli import main
 

@@ -19,8 +19,9 @@ changed ``batch_records``, a quarantined batch and escalated overrides each
 end crc-equal to a clean run; the async commit's user-table snapshot is
 isolated from the next batch's in-place update; ``prewarm`` leaves the
 first real batch no new fold-in program; an attached ``ServeEngine``
-serves every commit fresh; the ``stream`` verb drains, resumes and refuses
-``tcp://``; and the chaos lab's five new scenarios pass.
+serves every commit fresh; the ``stream`` verb drains, resumes and exits 2
+on a ``tcp://`` broker it cannot reach; and the chaos lab's five new
+scenarios pass.
 
 Fixtures follow the reference's test (``synthetic_netflix_coo(60, 30,
 900)``, rank 4), one PyTorch thread, reference sessions shared per module.
@@ -803,7 +804,7 @@ def test_stream_cli_drains_resumes_and_refuses_tcp(ds, tmp_path, capsys):
     tcp = list(argv)
     tcp[tcp.index("--updates") + 1] = "tcp://localhost:1"
     assert main(tcp) == 2
-    assert "TCP broker transport" in capsys.readouterr().err
+    assert "connect to broker localhost:1" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("scenario", [
