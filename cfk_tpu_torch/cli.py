@@ -3,8 +3,9 @@
 - ``run`` — the reference's positional form (``apps/ALSAppRunner.java:16-28``):
   ``NUM_PARTITIONS NUM_FEATURES LAMBDA NUM_ITERATIONS PATH NUM_MOVIES
   NUM_USERS``.  Entity counts come from the data (the passed ones are
-  cross-checked and warned about); NUM_PARTITIONS has no meaning on one
-  device and is ignored with a warning.
+  cross-checked and warned about); NUM_PARTITIONS > 1 trains that many
+  ranks (``parallel.spmd``; ranks may share one card, so there is no
+  fall-back to one shard).
 - ``train`` — full-flag training on a Netflix-format or MovieLens CSV file:
   explicit ALS-WR, or implicit iALS with ``--implicit`` (``--alpha``,
   leave-one-out Recall@K / MPR with ``--eval-ranking K``); the full solves
@@ -172,7 +173,7 @@ def _load_dataset(path, fmt, min_rating, build, *, cache_dir=None,
     broker — and build its ``Dataset`` (``build``: the ``Dataset.from_coo``
     keywords, ``layout`` possibly "auto", ``auto_resolver(coo)`` resolving
     it), or load it from the dataset cache ``cache_dir``.  The port of
-    ``cfk_tpu/cli.py:82-283`` ``_load_dataset`` for one shard: the cache's
+    ``cfk_tpu/cli.py:82-283`` ``_load_dataset``: the cache's
     build key is the JAX package's (the data path, or the broker URL, the
     format, the layout flags, and a content fingerprint: the file's size
     and mtime, or the topic's per-partition end offsets), so a cache either
@@ -188,11 +189,13 @@ def _load_dataset(path, fmt, min_rating, build, *, cache_dir=None,
         "data": path if tcp else os.path.abspath(path),
         "format": fmt,
         "min_rating": min_rating,
-        "num_shards": 1,
+        "num_shards": build.get("num_shards", 1),
         "pad_multiple": build["pad_multiple"],
         "layout": layout,
         "chunk_elems": build["chunk_elems"],
     }
+    if build.get("ring"):  # absent for non-ring keys, as in the JAX CLI
+        build_key["ring"] = build["ring"]
     if dense_stream and layout == "tiled":
         build_key["dense_stream"] = True
     if layout == "auto" and auto_key:
@@ -342,10 +345,8 @@ def _run_reference_form(args) -> int:
     _eprint(f"app started: {time.strftime('%Y-%m-%d %H:%M:%S')}")
     coo = parse_netflix(args.path)
     _eprint(f"producer finished: {time.strftime('%Y-%m-%d %H:%M:%S')}")
-    if args.num_partitions > 1:
-        _eprint(f"warning: NUM_PARTITIONS={args.num_partitions} ignored "
-                "(the port trains on one device)")
-    ds = Dataset.from_coo(coo)
+    num_shards = args.num_partitions
+    ds = Dataset.from_coo(coo, num_shards=num_shards)
     if ds.movie_map.num_entities != args.num_movies:
         _eprint(f"warning: NUM_MOVIES={args.num_movies} but data has "
                 f"{ds.movie_map.num_entities} rated movies (using the data)")
@@ -353,8 +354,18 @@ def _run_reference_form(args) -> int:
         _eprint(f"warning: NUM_USERS={args.num_users} but data has "
                 f"{ds.user_map.num_entities} rated users (using the data)")
     config = ALSConfig(rank=args.num_features, lam=args.lam,
-                       num_iterations=args.num_iterations)
-    model = train_als(ds, config, device=args.device)
+                       num_iterations=args.num_iterations,
+                       num_shards=num_shards)
+    if num_shards > 1:
+        # NUM_PARTITIONS → ranks (cfk_tpu/cli.py:629-662); ranks share a
+        # card when there are fewer cards, so no fall-back to one shard.
+        from cfk_tpu_torch.parallel.mesh import make_mesh
+        from cfk_tpu_torch.parallel.spmd import train_als_sharded
+
+        with make_mesh(num_shards, args.device) as mesh:
+            model = train_als_sharded(ds, config, mesh)
+    else:
+        model = train_als(ds, config, device=args.device)
     mse, rmse = mse_rmse_from_model(model, ds)
     path = _save_predictions(model, None)
     if path is not None:
@@ -428,7 +439,17 @@ def _train_impl(args, metrics) -> int:
         return 1
     dev = resolve_device(args.device)
     t0 = time.perf_counter()
+    if args.layout == "auto" and args.exchange in ("auto", "hier_ring"):
+        # The per-half and hierarchical exchanges run on the tiled ring
+        # blocks only; resolve up front so they are built.
+        args.layout = "tiled"
+    if args.layout == "auto" and args.exchange == "ring":
+        # Both ring layouts work; padded builds its ring blocks in the
+        # trainer and has no per-shard accumulator cap (cfk_tpu/cli.py:352).
+        args.layout = "padded"
     common = dict(rank=args.rank, lam=args.lam,
+                  num_shards=args.shards, exchange=args.exchange,
+                  ici_group=args.ici_group, pad_multiple=args.pad_multiple,
                   num_iterations=args.iterations, seed=args.seed,
                   solver=args.solver, hbm_chunk_elems=args.chunk_elems,
                   solve_chunk=args.solve_chunk, algorithm=args.algorithm,
@@ -458,9 +479,15 @@ def _train_impl(args, metrics) -> int:
     # The tiled layout's many-entity side as the unpadded dense stream, as
     # the JAX CLI asks (cfk_tpu/cli.py:395); the subspace optimizers run on
     # the padded and bucketed layouts, where the flag has no side to reach.
+    # A ring build carries the accum machinery on both halves, so it asks
+    # for no dense stream (cfk_tpu/cli.py:372-395).
+    ring = args.exchange in ("ring", "hier_ring")
     build = dict(layout=args.layout, chunk_elems=args.chunk_elems,
-                 pad_multiple=args.pad_multiple,
-                 dense_stream=args.algorithm not in ("als++", "ials++"))
+                 pad_multiple=args.pad_multiple, num_shards=args.shards,
+                 dense_stream=args.algorithm not in ("als++", "ials++")
+                 and not ring)
+    if args.layout == "tiled":
+        build["ring"] = "auto" if args.exchange == "auto" else ring
     ds = _load_dataset(
         args.data, args.format, args.min_rating, build,
         cache_dir=args.dataset_cache,
@@ -503,10 +530,23 @@ def _train_impl(args, metrics) -> int:
     t0 = time.perf_counter()
     trainer = train_ials if args.implicit else train_als
     with maybe_profile(args.profile_dir), guard_cm as guard:
-        model = trainer(ds, config, device=dev, metrics=metrics,
-                        checkpoint_manager=manager,
-                        checkpoint_every=args.checkpoint_every,
-                        preemption_guard=guard)
+        if args.shards > 1:
+            from cfk_tpu_torch.models.ials import train_ials_sharded
+            from cfk_tpu_torch.parallel.mesh import make_mesh
+            from cfk_tpu_torch.parallel.spmd import train_als_sharded
+
+            trainer = train_ials_sharded if args.implicit \
+                else train_als_sharded
+            with make_mesh(args.shards, args.device) as mesh:
+                model = trainer(ds, config, mesh, metrics=metrics,
+                                checkpoint_manager=manager,
+                                checkpoint_every=args.checkpoint_every,
+                                preemption_guard=guard)
+        else:
+            model = trainer(ds, config, device=dev, metrics=metrics,
+                            checkpoint_manager=manager,
+                            checkpoint_every=args.checkpoint_every,
+                            preemption_guard=guard)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
     train_s = time.perf_counter() - t0
@@ -1177,6 +1217,21 @@ def build_parser() -> argparse.ArgumentParser:
         "any skew) or accum + dense-stream tiles (tiled). Default 'auto': "
         "padded below 2M ratings, tiled above (bucketed for als++/ials++)",
     )
+    t.add_argument("--shards", type=int, default=1,
+                   help="ranks to shard the entity rows over "
+                   "(parallel.spmd; ranks share a card when there are "
+                   "fewer cards, the exchanges then staged through host "
+                   "memory)")
+    t.add_argument("--exchange",
+                   choices=["all_gather", "ring", "hier_ring", "auto"],
+                   default="all_gather",
+                   help="fixed-factor exchange between ranks; 'auto' "
+                   "(tiled layout) picks per half: ring where the Gram "
+                   "accumulator fits, all_gather elsewhere")
+    t.add_argument("--ici-group", type=int, default=None, metavar="I",
+                   help="inner-ring size of --exchange hier_ring; default: "
+                   "LOCAL_WORLD_SIZE when it divides --shards, else one "
+                   "flat ring")
     t.add_argument("--pad-multiple", type=int, default=8,
                    help="pad ragged neighbor lists to a multiple of this "
                    "(padded/bucketed widths, segment chunk capacity)")

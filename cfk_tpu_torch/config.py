@@ -20,6 +20,21 @@ class ALSConfig:
     lam: float = 0.05
     num_iterations: int = 7
     seed: int = 42
+    # Sharded training (``parallel.spmd``): entity rows block-sharded over
+    # ``num_shards`` ranks; ``exchange`` moves the fixed side between them —
+    # "all_gather" (every rank receives the whole table), "ring" (blocks
+    # rotate around the ranks, the block-to-block join), "hier_ring" (rings
+    # of ``ici_group`` ranks inside one ring of groups, tiled layout) or
+    # "auto" (per half, as the tiled blocks were built).
+    num_shards: int = 1
+    exchange: Literal["all_gather", "ring", "hier_ring", "auto"] = \
+        "all_gather"
+    ici_group: int | None = None
+    # The row quantum of the padded layout's ring blocks, which the sharded
+    # trainer builds itself (``cfk_tpu/config.py:314``, read at
+    # ``cfk_tpu/parallel/spmd.py:1394``): the value the Dataset was built
+    # with — the CLI passes its one ``--pad-multiple`` to both.
+    pad_multiple: int = 8
     # Storage dtype of the factor matrices: "bfloat16" halves their memory;
     # each half-step's Gram and solve still run float32 (the solved rows are
     # rounded to bf16 when stored), and a bf16 table is gathered as bf16
@@ -135,6 +150,40 @@ class ALSConfig:
     def _valid_algorithms(self) -> tuple[str, ...]:
         return ("als", "als++")
 
+    def _check_sharding(self) -> None:
+        """The exchange rules of ``cfk_tpu/config.py:556-620, :708``."""
+        if self.num_shards < 1:
+            raise ValueError(f"num_shards must be >= 1, got {self.num_shards}")
+        if self.exchange not in ("all_gather", "ring", "hier_ring", "auto"):
+            raise ValueError(f"unknown exchange {self.exchange!r}")
+        if self.exchange == "hier_ring" and self.layout != "tiled":
+            raise ValueError(
+                f"exchange='hier_ring' is implemented for layout='tiled' "
+                f"(the ring-built tiled blocks); layout={self.layout!r}")
+        if self.ici_group is not None:
+            if self.ici_group < 1:
+                raise ValueError(
+                    f"ici_group must be >= 1 (devices per inner ring), "
+                    f"got {self.ici_group}")
+            if self.num_shards % self.ici_group != 0:
+                raise ValueError(
+                    f"ici_group={self.ici_group} must divide "
+                    f"num_shards={self.num_shards} (the outer ring walks "
+                    "whole inner rings)")
+        if self.layout not in ("auto", "padded", "tiled") and \
+                self.exchange == "ring":
+            raise ValueError(
+                f"layout={self.layout!r} supports exchange='all_gather' only")
+        if self.exchange == "auto" and self.layout not in ("auto", "tiled"):
+            raise ValueError(
+                "exchange='auto' (per-half ring/all_gather selection) "
+                f"applies to layout='tiled'; layout={self.layout!r} should "
+                "pick 'all_gather' or 'ring' explicitly")
+        if self.algorithm not in ("als", "ials") and \
+                self.exchange != "all_gather":
+            raise ValueError(
+                f"{self.algorithm} supports exchange='all_gather' only")
+
     def chunk_cells(self) -> int:
         """The build-time gather-cell budget (1M cells when unset)."""
         return 1 << 20 if self.hbm_chunk_elems is None else self.hbm_chunk_elems
@@ -189,6 +238,7 @@ class ALSConfig:
             raise ValueError(f"num_iterations must be >= 1, got {self.num_iterations}")
         if self.lam < 0:
             raise ValueError(f"lam must be >= 0, got {self.lam}")
+        self._check_sharding()
         if self.solver not in ("auto", "cholesky"):
             raise ValueError(f"unknown solver {self.solver!r}")
         if self.layout not in ("auto", "padded", "bucketed", "segment",

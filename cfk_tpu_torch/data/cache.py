@@ -15,9 +15,9 @@ recomputation.
 Format: the object tree is walked generically — any frozen dataclass whose
 fields are ndarrays / scalars / None / tuples of dataclasses round-trips —
 so new block layouts serialize without touching this module (they only need
-registering in ``_CLASSES``).  The JAX package's ``TiledBlocks`` carries two
-fields the port's lacks (``num_shards``, ``ring``): a cache of one shard
-without the ring loads, any other is refused.  Nothing the port derives from
+registering in ``_CLASSES``).  Caches of either package load in the other,
+sharded and ring-built ones too; a class field the port does not know is
+refused.  Nothing the port derives from
 the blocks at upload (the Gram kernels' work-unit plans) is stored, so a
 loaded dataset recomputes it as a built one does.
 """
@@ -95,11 +95,6 @@ def _flatten(obj, prefix: str, arrays: dict):
     raise TypeError(f"cannot serialize {type(obj).__name__} at {prefix!r}")
 
 
-# Fields of the JAX package's classes that the port's single-device classes
-# lack, with the only value the port can train on.
-_SINGLE_DEVICE_FIELDS = {"num_shards": 1, "ring": False}
-
-
 def _unflatten(spec, arrays):
     if isinstance(spec, dict):
         if "__array__" in spec:
@@ -112,16 +107,12 @@ def _unflatten(spec, arrays):
                              "does not build")
         cls = _CLASSES[name]
         own = {f.name for f in dataclasses.fields(cls)}
-        fields = {}
-        for k, v in spec["fields"].items():
-            if k in own:
-                fields[k] = _unflatten(v, arrays)
-            elif _SINGLE_DEVICE_FIELDS.get(k, object()) != v:
-                raise ValueError(
-                    f"dataset cache holds a {name} with {k}={v!r}; the "
-                    "port trains one device — rebuild with num_shards=1 "
-                    "and no ring")
-        return cls(**fields)
+        unknown = sorted(set(spec["fields"]) - own)
+        if unknown:
+            raise ValueError(f"dataset cache holds a {name} with fields "
+                             f"{unknown} the port does not know")
+        return cls(**{k: _unflatten(v, arrays)
+                      for k, v in spec["fields"].items()})
     return spec
 
 

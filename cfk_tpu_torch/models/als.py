@@ -163,16 +163,12 @@ SEGMENT_FIELDS = ("neighbor_idx", "rating", "mask", "seg_rel",
 
 
 def _segment_to_device(blocks: SegmentBlocks, device) -> dict:
-    """Device tensors of one segment half (``cfk_tpu/models/als.py:116``)
-    and every chunk's K2 work-unit plan over its flat run — one-row tiles
+    """Device tensors of one segment half or of one rank's part of it
+    (``parallel.spmd.shard_view``; ``cfk_tpu/models/als.py:116``) and every
+    chunk's K2 work-unit plan over its flat run — one-row tiles
     owned by ``seg_rel`` (``ops.solve._segment_k2``); ``group_sizes`` (the
     entries of each chunk's segments) feeds only the bf16 iALS chunk Gram
     (``ops.solve.segment_gram_rounded``)."""
-    if blocks.num_shards != 1:
-        raise ValueError(
-            f"segment blocks were built for num_shards={blocks.num_shards}; "
-            "the port trains one device — rebuild with "
-            "Dataset.from_coo(..., layout='segment')")
     d = {f: torch.as_tensor(getattr(blocks, f), device=device)
          for f in SEGMENT_FIELDS}
     nc, cap, e_c = blocks.statics

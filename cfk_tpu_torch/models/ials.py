@@ -75,7 +75,8 @@ class IALSConfig(ALSConfig):
 def _ials_half(fixed, blk, *, lam, alpha, solver, chunks=None, entities=None,
                x_prev=None, algorithm="als", block_size=32, sweeps=1,
                fused_epilogue=None, in_kernel_gather=None,
-               reg_solve_algo=None, table_dtype=None, overlap=None):
+               reg_solve_algo=None, table_dtype=None, overlap=None,
+               gram=None):
     """Dispatch on the block layout (tuple = width buckets, a dict with
     segment ids = the flat segment run, tiled statics, else one padded
     rectangle); ``algorithm="ials++"`` runs warm-started
@@ -85,20 +86,24 @@ def _ials_half(fixed, blk, *, lam, alpha, solver, chunks=None, entities=None,
     ``reg_solve_algo`` every solve and ``table_dtype`` the gather table (the
     padded and segment layouts take its bf16 view here), ``overlap`` the
     tiled and bucketed walks' side stream (``ops.pipeline``) — as in ``models.als._half`` and
-    ``cfk_tpu/models/ials.py:85-149``."""
+    ``cfk_tpu/models/ials.py:85-149``.  ``gram`` is the shared YᵀY when
+    the caller has it (the sharded trainers' sum over ranks), else each
+    half-step sums it over ``fixed``."""
     if algorithm == "ials++":
         pp_kw = dict(block_size=block_size, sweeps=sweeps, solver=solver,
                      fused_epilogue=fused_epilogue,
                      reg_solve_algo=reg_solve_algo, table_dtype=table_dtype)
         if isinstance(blk, tuple):
             return ials_pp_half_step_bucketed(fixed, x_prev, blk, chunks,
-                                              entities, lam, alpha, **pp_kw)
+                                              entities, lam, alpha, gram=gram,
+                                              **pp_kw)
         return ials_pp_half_step(fixed, x_prev, blk["neighbor_idx"],
                                  blk["rating"], blk["mask"], lam, alpha,
-                                 **pp_kw)
+                                 gram=gram, **pp_kw)
     if isinstance(blk, tuple):
         return ials_half_step_bucketed(fixed, blk, entities, lam, alpha,
-                                       chunk_rows=chunks, solver=solver,
+                                       chunk_rows=chunks, gram=gram,
+                                       solver=solver,
                                        in_kernel_gather=in_kernel_gather,
                                        fused_epilogue=fused_epilogue,
                                        reg_solve_algo=reg_solve_algo,
@@ -106,7 +111,7 @@ def _ials_half(fixed, blk, *, lam, alpha, solver, chunks=None, entities=None,
                                        overlap=overlap)
     if chunks is not None and "seg_rel" not in blk:
         return ials_tiled_half_step(fixed, blk, chunks, entities, lam, alpha,
-                                    solver=solver,
+                                    gram=gram, solver=solver,
                                     fused_epilogue=fused_epilogue,
                                     in_kernel_gather=in_kernel_gather,
                                     reg_solve_algo=reg_solve_algo,
@@ -114,10 +119,10 @@ def _ials_half(fixed, blk, *, lam, alpha, solver, chunks=None, entities=None,
     fixed = gather_operand_view(fixed, table_dtype)
     if "seg_rel" in blk:
         return ials_half_step_segment(fixed, blk, chunks, entities, lam,
-                                      alpha, solver=solver,
+                                      alpha, gram=gram, solver=solver,
                                       reg_solve_algo=reg_solve_algo)
     return ials_half_step(fixed, blk["neighbor_idx"], blk["rating"],
-                          blk["mask"], lam, alpha, solver=solver,
+                          blk["mask"], lam, alpha, gram=gram, solver=solver,
                           reg_solve_algo=reg_solve_algo)
 
 
@@ -201,3 +206,39 @@ def train_ials(dataset: Dataset, config: IALSConfig, *,
         num_movies=dataset.movie_map.num_entities,
         pipeline=pipeline,
     )
+
+
+def make_ials_training_step(group, config: IALSConfig, sides, *,
+                            health_probe: bool = False, overrides=None):
+    """One sharded iALS iteration over a rank's device blocks
+    (``cfk_tpu/models/ials.py:510-686``): per half, YᵀY summed over the
+    ranks, the fixed table all-gathered, the local entities solved by the
+    single-device half-step of their layout (``ials++``: warm-started
+    sweeps from the side's own previous rows, no extra collective).  iALS
+    needs the whole fixed side for its global Gram, so ring-built halves
+    are refused (``parallel.spmd.train_sharded``)."""
+    from cfk_tpu_torch.parallel.spmd import make_training_step
+
+    return make_training_step(group, config, sides, implicit=True,
+                              health_probe=health_probe, overrides=overrides)
+
+
+def train_ials_sharded(dataset: Dataset, config: IALSConfig, mesh, *,
+                       warm_start=None, checkpoint_manager=None,
+                       checkpoint_every: int = 1, metrics=None,
+                       fault_injector=None, preemption_guard=None,
+                       watchdog=None) -> ALSModel:
+    """Implicit ALS over ``config.num_shards`` ranks (``cfk_tpu/models/
+    ials.py:687-``), with the resilience of ``train_als_sharded`` (the
+    probe is the factor word: the all_gather exchange has no in-flight
+    carry).  ``mesh``: a ``Mesh`` or this process's ``ShardGroup``."""
+    from cfk_tpu_torch.parallel.spmd import train_sharded
+
+    _check_nonnegative_strengths(dataset)
+    return train_sharded(dataset, config, mesh, model="ials",
+                         warm_start=warm_start,
+                         checkpoint_manager=checkpoint_manager,
+                         checkpoint_every=checkpoint_every, metrics=metrics,
+                         fault_injector=fault_injector,
+                         preemption_guard=preemption_guard,
+                         watchdog=watchdog)

@@ -325,29 +325,40 @@ def accum_grams(
     solver: str = "auto",
     in_kernel_gather: bool | None = None,
     overlap: bool | None = None,
+    chunk_range: tuple[int, int] | None = None,
+    acc: tuple[torch.Tensor, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The accum side's summed normal equations (A [E, k, k], b [E, k]):
     K2 per chunk (materialized stream: K5, the scan's fetch, then
     ``gram_tiles``), folded into one accumulator by ``index_add_``.  The
     table indices are absolute, so the stream is K5 over the whole table:
     the TPU route's per-slice gather windows (``ops/tiled.py:1083-1140``)
-    have no counterpart on either schedule."""
+    have no counterpart on either schedule.
+
+    ``chunk_range=(lo, hi)`` walks chunks lo..hi-1 only, into ``acc`` (the
+    caller's [E+1, k, k] and [E+1, k] accumulators, the trash row last):
+    one slice of a ring visit (``parallel.spmd``), whose indices are local
+    to the rotated block ``fixed_factors`` (its height = the zero row)."""
     nc, _cap, _t, _h, e_c = statics
+    lo, hi = (0, nc) if chunk_range is None else chunk_range
     k = fixed_factors.shape[-1]
     kernels = use_kernels(solver, fixed_factors.device)
     xla = resolve_gather_mode(in_kernel_gather) == "xla"
-    acc_a = fixed_factors.new_zeros((local_entities + 1, k, k),
-                                    dtype=torch.float32)
-    acc_b = fixed_factors.new_zeros((local_entities + 1, k),
-                                    dtype=torch.float32)
+    if acc is None:
+        acc = (fixed_factors.new_zeros((local_entities + 1, k, k),
+                                       dtype=torch.float32),
+               fixed_factors.new_zeros((local_entities + 1, k),
+                                       dtype=torch.float32))
+    acc_a, acc_b = acc
     ent = blk["chunk_entity"].long().view(nc, e_c)
 
     fetch, stream = _chunk_fetch(
-        fixed_factors, lambda c: accum_chunk(blk, statics, c),
+        fixed_factors, lambda c: accum_chunk(blk, statics, lo + c),
         (gather_rows if kernels else gather_rows_plain) if xla else None,
         overlap)
 
     def compute(carry, buf, _x, c):
+        c = lo + c
         g, args = buf
         args = dict(args, units=chunk_plan(blk, c))
         if g is not None:
@@ -362,7 +373,8 @@ def accum_grams(
         acc_b.index_add_(0, ent[c], b[:e_c])
         return carry, None
 
-    prefetch_scan(fetch, compute, nc, None, stream=stream)
+    if hi > lo:
+        prefetch_scan(fetch, compute, hi - lo, None, stream=stream)
     return acc_a[:local_entities], acc_b[:local_entities]
 
 

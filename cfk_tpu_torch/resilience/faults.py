@@ -64,7 +64,9 @@ class FactorCorruption:
     every pass through that iteration (a rollback replays into the same
     fault — the escalation path must fix the math); one-shot faults model
     transients that a plain rollback+retry clears.  ``rows=(lo, hi)``
-    corrupts that contiguous slice instead of seeded random rows."""
+    corrupts that contiguous slice instead of seeded random rows.  In a
+    sharded run the rows are the rank's own, and ``only_process`` corrupts
+    that rank's alone (a local fault every rank must agree on)."""
 
     iteration: int
     side: str = "u"  # "u" | "m"
@@ -74,9 +76,12 @@ class FactorCorruption:
     persistent: bool = False
     rows: tuple[int, int] | None = None
     fired: int = 0
+    only_process: int | None = None
 
     def apply(self, i: int, u, m):
         if i != self.iteration or (self.fired and not self.persistent):
+            return u, m
+        if self.only_process is not None and _rank() != self.only_process:
             return u, m
         self.fired += 1
         target = u if self.side == "u" else m
@@ -209,19 +214,32 @@ class SlowDiskCheckpointManager(_BaseCheckpointManager):
                             meta=meta)
 
 
+def _rank() -> int:
+    """This process's rank in its sharded run (0 outside one)."""
+    from cfk_tpu_torch.parallel.mesh import current_group
+
+    group = current_group()
+    return 0 if group is None else group.rank
+
+
 @dataclasses.dataclass
 class PreemptAt:
     """Deliver ``signum`` (default SIGTERM) to this very process before
     iteration ``iteration`` — the eviction notice a preempted machine gets.
     A ``PreemptionGuard`` must be armed: its handler turns the signal into
-    the graceful save-and-exit the loop polls for."""
+    the graceful save-and-exit the loop polls for.  ``only_process`` fires
+    on that rank of a sharded run only (``parallel.mesh.current_group``;
+    one process is rank 0) — with SIGKILL, the hard loss of one worker."""
 
     iteration: int
     signum: int = 15  # signal.SIGTERM
     fired: int = 0
+    only_process: int | None = None
 
     def apply(self, i: int, u, m):
         if i != self.iteration or self.fired:
+            return u, m
+        if self.only_process is not None and _rank() != self.only_process:
             return u, m
         self.fired += 1
         os.kill(os.getpid(), self.signum)

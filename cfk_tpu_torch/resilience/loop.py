@@ -97,6 +97,12 @@ def resilient_train_loop(
     device=None,
     preemption_guard=None,
     watchdog=None,
+    num_shards: int = 1,
+    resume_fn=None,
+    restore_fn=None,
+    save_fn=None,
+    probe_fn=None,
+    evict_sync_fn=None,
 ):
     """Run the stepped loop; returns the final ``(u, m)`` factors.
 
@@ -110,6 +116,17 @@ def resilient_train_loop(
     checkpoint (unless the state just failed its probe), drains the writer
     and returns resumable.  ``watchdog`` (``StallWatchdog``) is armed
     around the loop and ticked per completed iteration.
+
+    The sharded trainers (``parallel.spmd``) bind the loop to a rank
+    group through the seams of ``cfk_tpu/resilience/loop.py:95-224``:
+    ``resume_fn()`` (rank 0 reads the store and broadcasts),
+    ``restore_fn(hu, hm)`` (whole host tables → this rank's rows),
+    ``save_fn(done, u, m)`` (every rank gathers, rank 0 writes),
+    ``probe_fn(u, m)`` (the probe word agreed by every rank) and
+    ``evict_sync_fn(local) -> bool`` (the eviction agreed at the same
+    boundary: a collective, called every iteration when set); a step may
+    return ``(u, m, ring_bad)``, the ring exchange's corruption flag, which
+    sets ``RING_EXCHANGE`` in the next probe's word.
     """
     from cfk_tpu_torch.models.als import as_tensor
     from cfk_tpu_torch.transport.checkpoint import resume_state
@@ -118,17 +135,21 @@ def resilient_train_loop(
     if (step_fn is None) == (make_step is None):
         raise ValueError("pass exactly one of step_fn / make_step")
     policy = policy or RecoveryPolicy()
-    state = resume_state(manager, rank=rank, model=model,
-                         num_iterations=num_iterations, u_shape=u_shape,
-                         m_shape=m_shape, num_shards=1)
+    if resume_fn is None:
+        state = resume_state(manager, rank=rank, model=model,
+                             num_iterations=num_iterations, u_shape=u_shape,
+                             m_shape=m_shape, num_shards=num_shards)
+    else:
+        state = resume_fn()
     if state is not None:
         start_iter = state.iteration
-        if device is None:
-            device = init_fn()[0].device
+        if restore_fn is None:
+            if device is None:
+                device = init_fn()[0].device
 
-        def restore_fn(hu, hm):
-            return (as_tensor(hu, device).to(dtype),
-                    as_tensor(hm, device).to(dtype))
+            def restore_fn(hu, hm):
+                return (as_tensor(hu, device).to(dtype),
+                        as_tensor(hm, device).to(dtype))
 
         u, m = restore_fn(state.user_factors, state.movie_factors)
         resumed = _device_copy(u, m)
@@ -136,9 +157,14 @@ def resilient_train_loop(
         start_iter, resumed = 0, None
         u, m = init_fn()
 
-    def save_fn(done, u, m):
-        save_checkpoint(manager, done, u, m,
-                        meta={"rank": rank, "model": model, "num_shards": 1})
+    if save_fn is None:
+        def save_fn(done, u, m):
+            save_checkpoint(manager, done, u, m,
+                            meta={"rank": rank, "model": model,
+                                  "num_shards": num_shards})
+    if probe_fn is None and health is not None:
+        def probe_fn(u, m):
+            return _sentinel.probe_word(u, m, health.norm_limit)
 
     overrides = base_overrides or Overrides(lam=0.0)
     step = step_fn if make_step is None else make_step(overrides)
@@ -151,7 +177,8 @@ def resilient_train_loop(
             overrides=overrides, policy=policy, health=health,
             metrics=metrics, checkpoint_every=checkpoint_every,
             fault_injector=fault_injector, save_fn=save_fn, resumed=resumed,
-            init_fn=init_fn, guard=preemption_guard, watchdog=watchdog)
+            init_fn=init_fn, guard=preemption_guard, watchdog=watchdog,
+            probe_fn=probe_fn, evict_sync_fn=evict_sync_fn)
     finally:
         if watchdog is not None:
             watchdog.disarm()
@@ -163,7 +190,8 @@ def resilient_train_loop(
 def _run_loop_body(*, manager, num_iterations, start_iter, u, m, step,
                    make_step, overrides, policy, health, metrics,
                    checkpoint_every, fault_injector, save_fn, resumed,
-                   init_fn, guard=None, watchdog=None):
+                   init_fn, guard=None, watchdog=None, probe_fn=None,
+                   evict_sync_fn=None):
     from cfk_tpu_torch.transport.checkpoint import should_save
 
     # Last-good rollback anchor: (iteration, device copies), updated only
@@ -182,17 +210,22 @@ def _run_loop_body(*, manager, num_iterations, start_iter, u, m, step,
         return start_iter, init_fn()
 
     i = start_iter
+    ring_pending = False  # ring-exchange flags seen since the last probe
     while i < num_iterations:
         if fault_injector is not None:
             u, m = fault_injector.before_step(i, u, m)
         with metrics.phase("train"), span("train/iter", i=i):
-            u, m = step(u, m)
+            out = step(u, m)
+            u, m, ring_bad = out if len(out) == 3 else (*out, None)
         record_event("train", "iter", i=i)
+        ring_pending = ring_pending or bool(ring_bad)
         metrics.incr("iterations")
         done = i + 1
         if watchdog is not None:
             watchdog.tick(done)
         evicting = guard is not None and guard.triggered
+        if evict_sync_fn is not None:
+            evicting = bool(evict_sync_fn(evicting))
         # With no checkpoint store the save cadence must not drive probes
         # or snapshots — the health cadence alone does.
         saving = manager is not None and (
@@ -204,9 +237,13 @@ def _run_loop_body(*, manager, num_iterations, start_iter, u, m, step,
             # Save points force a probe so a bad state is never committed.
             with metrics.phase("health_check"), \
                     span("train/health_probe", i=done):
-                word = int(_sentinel.probe_word(u, m, health.norm_limit))
+                word = int(probe_fn(u, m))
+                if ring_pending:
+                    word |= _sentinel.RING_EXCHANGE
+            ring_pending = False
             metrics.incr("health_checks")
-        evict_reason = guard.signal_name if evicting else ""
+        evict_reason = (guard.signal_name if guard is not None
+                        and guard.triggered else "peer process signalled")
         if word and evicting:
             # Evicted at an unhealthy iteration: no time to climb the
             # ladder, and a bad state is never committed — return the

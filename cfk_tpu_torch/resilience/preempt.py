@@ -183,6 +183,17 @@ class StallWatchdog:
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
 
+    def __getstate__(self) -> dict:
+        """A disarmed copy (a sharded run hands the watchdog to its ranks,
+        each of which arms its own)."""
+        state = dict(self.__dict__)
+        state["_stop"], state["_thread"] = None, None
+        return state
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        self._stop = threading.Event()
+
     def arm(self) -> None:
         if self._thread is not None and self._thread.is_alive():
             return
@@ -206,7 +217,12 @@ class StallWatchdog:
         self.last_tick = time.monotonic()
 
     def disarm(self) -> None:
+        """Stop the watch and join its thread (bounded), so no watchdog
+        thread outlives the loop it guarded."""
         self._stop.set()
+        t = self._thread
+        if t is not None and t is not threading.current_thread():
+            t.join(timeout=5.0)
 
     def __enter__(self) -> "StallWatchdog":
         self.arm()

@@ -17,8 +17,9 @@ Two consumption modes, one probe:
   the first bad iteration — the reference's in-carry word — read once
   after the replays.
 
-``RING_EXCHANGE`` stays defined but is never set until the port shards
-across cards.
+``RING_EXCHANGE`` is set by the sharded trainers' ring half-steps
+(``parallel.spmd``): a ring-rotated factor block that went non-finite in
+flight, folded into the next probe's word by the resilient loop.
 """
 
 from __future__ import annotations

@@ -4,8 +4,8 @@ port of ``scripts/chaos_lab.py``'s ``nan``, ``inf``, ``singular_chunk``,
 ``torn_checkpoint``, ``preemption``, ``slow_disk``, ``telemetry_overhead``,
 ``quantized_table``, ``stream_duplicates``, ``stream_crash_replay``,
 ``stream_poison_batch``, ``serve_under_foldin``, ``two_stage_fallback``,
-``flaky_broker``, ``serve_replica_kill``, ``serve_delta_gap`` and
-``serve_rollover`` scenarios.  Run::
+``flaky_broker``, ``serve_replica_kill``, ``serve_delta_gap``,
+``serve_rollover`` and ``worker_kill`` scenarios.  Run::
 
     python -m cfk_tpu_torch.scripts.chaos_lab --device cpu
     python -m cfk_tpu_torch.scripts.chaos_lab --device cuda \\
@@ -44,6 +44,9 @@ client must survive dropped connections and delayed frames to the port's
 broker; and a replicated fleet (48 users x 64 movies, rank 6) must answer
 through a replica kill, resync crc-exact after a lost delta frame, and
 roll an epoch over under traffic with no mixed-epoch answer.
+``worker_kill`` SIGKILLs one of two ranks of a sharded run (the launch
+harness of ``parallel.launch``): the survivor must exit bounded with the
+store intact, and a restart must resume crc-equal to an uninterrupted run.
 """
 
 from __future__ import annotations
@@ -991,12 +994,83 @@ class Lab:
                     and not stamp_wrong and post_flip_new))
 
 
+    def worker_kill(self):
+        """One of two ranks SIGKILLed mid-run (``cfk_tpu/scripts/
+        chaos_lab.py:380-468``): the survivor must exit bounded (its next
+        collective fails, or its watchdog expires) with the checkpoint
+        store intact, and a restarted pair must resume to the factors — crc
+        — and the MSE of an uninterrupted two-rank run.  The ranks are
+        torchrun-style processes of the port's launch harness
+        (``parallel.launch``) on the lab's device; its own dataset (64 × 32
+        × 900 ratings, padded) whatever ``--layout`` says."""
+        import re
+        import signal
+        import tempfile
+
+        from cfk_tpu_torch.parallel.launch import (
+            communicate_all,
+            free_port,
+            spawn_workers,
+        )
+        from cfk_tpu_torch.resilience.preempt import STALL_EXIT_CODE
+        from cfk_tpu_torch.telemetry import record_event
+        from cfk_tpu_torch.transport.checkpoint import CheckpointManager
+
+        def pair(ckdir, drill, *extra):
+            procs = spawn_workers(free_port(), 2, ckdir, "--drill", drill,
+                                  "--device", self.device, *extra)
+            return procs, "".join(communicate_all(procs, timeout=240))
+
+        def resumed(out):
+            m = re.search(r"DRILL_RESUME mse=([0-9.]+) .*crc=(\w+)", out)
+            return (float(m.group(1)), m.group(2)) if m else (None, None)
+
+        with tempfile.TemporaryDirectory() as ck, \
+                tempfile.TemporaryDirectory() as ck_ref:
+            procs, kout = pair(ck, "kill", "--kill-iteration", "4")
+            killed = procs[1].returncode == -signal.SIGKILL
+            survivor = procs[0].returncode
+            mgr = CheckpointManager(ck)
+            steps = mgr.iterations()
+            intact = bool(steps)
+            try:
+                for it in steps:
+                    mgr.verify(it)
+            except Exception:
+                intact = False
+            rprocs, rout = pair(ck, "resume")
+            uprocs, uout = pair(ck_ref, "resume")
+        (mse, crc), (umse, ucrc) = resumed(rout), resumed(uout)
+        record_event("fault", "worker_kill_observed",
+                     victim_exit=procs[1].returncode, survivor_exit=survivor,
+                     steps_intact=intact)
+        ran = all(p.returncode == 0 for p in rprocs + uprocs)
+        recovered = bool(ran and mse is not None and umse is not None
+                         and abs(mse - umse) < 1e-4)
+        ok = bool(killed and survivor not in (0, None) and intact
+                  and recovered and crc == ucrc)
+        tails = {} if ok else {"kill": kout[-2000:], "resume": rout[-2000:],
+                               "uninterrupted": uout[-2000:]}
+        return self.stream_row(
+            "worker_kill", layout="padded", fault_fired=bool(killed),
+            detected=survivor not in (0, None), recovered=recovered,
+            crc_equal=bool(crc is not None and crc == ucrc),
+            survivor_exit=survivor,
+            survivor_graceful_stall_exit=survivor == STALL_EXIT_CODE,
+            steps_committed=steps, checkpoints_intact=intact,
+            resumed_mse=mse, uninterrupted_mse=umse,
+            exits=dict(kill=[p.returncode for p in procs],
+                       resume=[p.returncode for p in rprocs],
+                       uninterrupted=[p.returncode for p in uprocs]),
+            worker_output_tails=tails, ok=ok)
+
+
 SCENARIOS = ("nan", "inf", "singular_chunk", "torn_checkpoint", "preemption",
              "slow_disk", "telemetry_overhead", "quantized_table",
              "stream_duplicates", "stream_crash_replay",
              "stream_poison_batch", "serve_under_foldin",
              "two_stage_fallback", "flaky_broker", "serve_replica_kill",
-             "serve_delta_gap", "serve_rollover")
+             "serve_delta_gap", "serve_rollover", "worker_kill")
 # What the flight recorder's last dump must name, per scenario.
 FLIGHT_EXPECT = {
     "nan": ("nonfinite",),
@@ -1016,13 +1090,14 @@ FLIGHT_EXPECT = {
     "serve_replica_kill": ("replica_kill", "failover"),
     "serve_delta_gap": ("delta_gap", "resync"),
     "serve_rollover": ("rollover_begin", "rollover_flip"),
+    "worker_kill": ("worker_kill",),
 }
 _FLIGHT_TAIL = 50  # events searched at the dump's tail
 # Scenarios that build their own dataset whatever the layout: run once, on
 # the first layout given.
 LAYOUT_FREE = ("quantized_table", "stream_poison_batch",
                "two_stage_fallback", "flaky_broker", "serve_replica_kill",
-               "serve_delta_gap", "serve_rollover")
+               "serve_delta_gap", "serve_rollover", "worker_kill")
 
 
 def run_scenario(lab: Lab, name: str) -> dict:

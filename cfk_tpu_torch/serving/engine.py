@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import threading
 import time
+import uuid
 
 import numpy as np
 import torch
@@ -65,10 +66,11 @@ def _host_f32(x) -> np.ndarray:
     return np.asarray(x, np.float32)
 
 
-def pad_table(table: np.ndarray, tile_m: int) -> np.ndarray:
-    """Zero-pad item rows to a multiple of ``tile_m`` (the padding rows are
-    masked by the kernel's ``num_movies`` bound)."""
-    m_pad = -(-table.shape[0] // tile_m) * tile_m
+def pad_table(table: np.ndarray, tile_m: int, shards: int = 1) -> np.ndarray:
+    """Zero-pad item rows to a multiple of ``shards × tile_m`` (the padding
+    rows are masked by the kernel's global ``num_movies`` bound)."""
+    quantum = tile_m * max(shards, 1)
+    m_pad = -(-table.shape[0] // quantum) * quantum
     if m_pad == table.shape[0]:
         return table
     out = np.zeros((m_pad, table.shape[1]), table.dtype)
@@ -99,8 +101,19 @@ class ServeEngine:
         probe_clusters: int | None = None,
         metrics=None,
         device: str | torch.device = DEFAULT_DEVICE,
+        mesh=None,
     ) -> None:
         self.device = resolve_device(device)
+        # Item-axis sharding (``cfk_tpu/serving/engine.py:448-455``): with a
+        # ``Mesh`` or ``ShardGroup`` the exact scan runs
+        # ``parallel.spmd.serve_topk_sharded`` over the ranks.  A ``Mesh``'s
+        # ranks hold their table slices between batches (placed at every
+        # table change), so a batch ships only its users and seen tiles.
+        self.mesh = mesh
+        self._placed = None
+        self._table_name = f"engine-{uuid.uuid4().hex}"
+        self._table_version = 0
+        self._shards = 1 if mesh is None else int(mesh.size)
         self.serve_mode = serve_mode or "exact"
         if self.serve_mode not in ("exact", "two_stage"):
             raise ValueError(
@@ -173,9 +186,24 @@ class ServeEngine:
     def _to_device(self, x: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device)
 
+    def _publish(self, data, scale) -> None:
+        """The exact scan's table, and with a mesh its slices on the ranks
+        (a new version: the ranks keep the one before for batches already
+        under way)."""
+        self._table = (data, scale)
+        if self.mesh is not None:
+            from cfk_tpu_torch.parallel.spmd import place_table_sharded
+
+            self._table_version += 1
+            self._placed = place_table_sharded(
+                self.mesh, data, scale, tile_m=self.tile_m,
+                name=self._table_name, version=self._table_version)
+
     def _set_table(self, movie_factors_host: np.ndarray) -> None:
-        padded = pad_table(movie_factors_host.astype(np.float32), self.tile_m)
-        self._table = quantize_table(self._to_device(padded), self.table_dtype)
+        padded = pad_table(movie_factors_host.astype(np.float32), self.tile_m,
+                           self._shards)
+        self._publish(*quantize_table(self._to_device(padded),
+                                      self.table_dtype))
         if self.serve_mode == "two_stage":
             from cfk_tpu_torch.serving.cluster import build_cluster_index
 
@@ -252,7 +280,7 @@ class ServeEngine:
             if scale is not None:
                 scale = scale.clone()
                 scale[idx] = qs
-            self._table = (data, scale)
+            self._publish(data, scale)
             if self._cluster is not None:
                 index, ctable, cscale, qc, qcs = self._cluster
                 pos = self._to_device(index.positions_of(rows))
@@ -330,6 +358,7 @@ class ServeEngine:
         with span("serve/batch/assemble", n=n, b=b):
             with self._lock:
                 table, scale = self._table
+                placed = self._placed
                 cluster = self._cluster
                 u = np.zeros((b, self._u_base.shape[1]), np.float32)
                 u[:n] = self._gather_users(user_rows)
@@ -356,9 +385,16 @@ class ServeEngine:
                 num_tiles=self.table_rows // self.tile_m,
             ))
         with span("serve/batch/compute", n=n, b=b, k=k):
-            vals, ids = topk_scores(u_dev, table, scale, seen_tiles, k_top=k,
-                                    num_movies=self.num_movies,
-                                    tile_m=self.tile_m)
+            if self.mesh is not None:
+                from cfk_tpu_torch.parallel.spmd import serve_topk_sharded
+
+                vals, ids = serve_topk_sharded(
+                    self.mesh, u_dev, placed or table, scale, seen_tiles,
+                    k_top=k, num_movies=self.num_movies, tile_m=self.tile_m)
+            else:
+                vals, ids = topk_scores(u_dev, table, scale, seen_tiles,
+                                        k_top=k, num_movies=self.num_movies,
+                                        tile_m=self.tile_m)
             _SHAPES.add(("exact", b, table.shape[0],
                          0 if seen_tiles is None else seen_tiles.shape[2], k))
             vals, ids = vals[:n].cpu().numpy(), ids[:n].cpu().numpy()

@@ -58,6 +58,7 @@ import warnings
 import numpy as np
 import torch
 
+from cfk_tpu_torch.config import ALSConfig
 from cfk_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from cfk_tpu_torch.resilience import sentinel as _sentinel
 from cfk_tpu_torch.resilience.loop import drain_checkpoints, save_checkpoint
@@ -77,9 +78,8 @@ from cfk_tpu_torch.transport.serdes import decode_rating_update
 
 _STREAM_MODEL = "als-stream"
 # The padded fold-in's width quantum and the warm retrain's padding: the
-# reference config's ``pad_multiple`` default (the port's ALSConfig has no
-# such field; its datasets are built with it).
-_PAD_MULTIPLE = 8
+# config's ``pad_multiple`` default, which its datasets are built with.
+_PAD_MULTIPLE = ALSConfig.pad_multiple
 
 
 @dataclasses.dataclass(frozen=True)

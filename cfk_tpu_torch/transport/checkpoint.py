@@ -152,6 +152,43 @@ def _snapshot(x) -> _Snapshot:
     return _Snapshot(np.array(x, copy=True))
 
 
+def resume_state_synced(manager: "CheckpointManager | None", *, group=None,
+                        **kw) -> CheckpointState | None:
+    """``resume_state`` with rank 0's decision broadcast to every rank of
+    ``group`` (``cfk_tpu/transport/checkpoint.py:179``): only rank 0's store
+    is read, so ranks without a shared filesystem (or a store at all)
+    resume at the same iteration with the same factors; a checkpoint rank 0
+    refuses raises on every rank, so none is left waiting in a collective.
+    Without a group of more than one rank this is ``resume_state``."""
+    if group is None or group.size == 1:
+        return resume_state(manager, **kw)
+    state, err = None, None
+    if group.rank == 0:
+        try:
+            state = resume_state(manager, **kw)
+        except Exception as e:  # raised below, after the broadcast
+            err = e
+    msg = group.broadcast_object(
+        ("err", f"{type(err).__name__}: {err}") if err is not None else
+        ("ok", None if state is None else (
+            state.iteration, _host_copy(state.user_factors),
+            _host_copy(state.movie_factors), state.meta)))
+    if err is not None:
+        raise err
+    kind, value = msg
+    if kind == "err":
+        raise ValueError(f"rank 0 refused the checkpoint: {value}")
+    if value is None:
+        return None
+    it, u, m, meta = value
+    return CheckpointState(iteration=it, user_factors=u, movie_factors=m,
+                           meta=meta)
+
+
+def _host_copy(x):
+    return x.detach().cpu() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 def should_save(done: int, every: int, total: int) -> bool:
     """Save cadence: every ``every`` completed iterations, and always at the
     end."""
@@ -290,8 +327,32 @@ class CheckpointManager:
         self._jobs: deque = deque()
         self._inflight = 0
         self._writer_thread: threading.Thread | None = None
+        self._retired: list[threading.Thread] = []  # parked, not yet joined
         self._writer_error: BaseException | None = None
         os.makedirs(directory, exist_ok=True)
+
+    def __getstate__(self) -> dict:
+        """A store pickles as its directory and settings (a sharded run
+        hands it to its ranks); the writer's queue and thread stay here."""
+        with self._lock:
+            if self._jobs or self._inflight:
+                raise RuntimeError("cannot pickle a checkpoint store with "
+                                   "saves pending; wait_pending() first")
+        state = dict(self.__dict__)
+        for key in ("_lock", "_queue_nonfull", "_queue_empty", "_jobs",
+                    "_writer_thread", "_retired", "_writer_error"):
+            state.pop(key)
+        return state
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        self._lock = threading.Lock()
+        self._queue_nonfull = threading.Condition(self._lock)
+        self._queue_empty = threading.Condition(self._lock)
+        self._jobs = deque()
+        self._writer_thread = None
+        self._retired = []
+        self._writer_error = None
 
     def _step_dir(self, iteration: int) -> str:
         return os.path.join(self.directory, f"{_STEP_PREFIX}{iteration:07d}")
@@ -339,18 +400,28 @@ class CheckpointManager:
                 self._writer_thread.start()
 
     def wait_pending(self, timeout: float | None = None) -> bool:
-        """Barrier: block until every queued async save is committed.
-        Returns True when drained (False on timeout) and re-raises the
-        first writer error.  Safe to call with no writer running."""
+        """Barrier: block until every queued async save is committed and
+        the writer thread has ended (joined: no thread of this manager is
+        left running PyTorch code, which would abort the process if the
+        interpreter finalized under it).  Returns True when drained (False
+        on timeout) and re-raises the first writer error.  Safe to call
+        with no writer running."""
         deadline = None if timeout is None else time.monotonic() + timeout
         with self._lock:
-            while self._jobs or self._inflight:
+            while self._jobs or self._inflight or \
+                    self._writer_thread is not None:
                 remaining = (None if deadline is None
                              else deadline - time.monotonic())
                 if remaining is not None and remaining <= 0:
                     return False
                 self._queue_empty.wait(remaining)
+            retired, self._retired = self._retired, []
             self._raise_writer_error_locked()
+        for t in retired:
+            t.join(None if deadline is None
+                   else max(deadline - time.monotonic(), 0.0))
+            if t.is_alive():
+                return False
         return True
 
     def _raise_writer_error_locked(self) -> None:
@@ -362,20 +433,26 @@ class CheckpointManager:
         while True:
             with self._lock:
                 if not self._jobs:
-                    self._queue_empty.notify_all()
-                    # Park: the thread ends when idle and the next
-                    # save_async starts another.
+                    # Park: the thread ends when idle (``wait_pending``
+                    # joins it) and the next save_async starts another.
                     self._writer_thread = None
+                    self._retired.append(threading.current_thread())
+                    self._queue_empty.notify_all()
                     return
-                iteration, su, sm, meta = self._jobs.popleft()
+                job = self._jobs.popleft()
                 self._inflight += 1
             try:
+                iteration, su, sm, meta = job
                 self.save(iteration, su.value(), sm.value(), meta=meta)
             except BaseException as e:
                 with self._lock:
                     if self._writer_error is None:
                         self._writer_error = e
             finally:
+                # The job's snapshots are released while it still counts
+                # as in flight: freeing a tensor is PyTorch code, and none
+                # may run on this thread once a barrier has returned.
+                job = su = sm = None
                 with self._lock:
                     self._inflight -= 1
                     self._queue_nonfull.notify_all()

@@ -282,6 +282,31 @@ Phases, each of which must pass:
              over wave 2 with both replicas serving, and ``engine.topk``
              alone at B = 256 outside the fleet printed; the phase within
              60 s;
+5c. shards — sharded training and serving (``cfk_tpu_torch.parallel``)
+             on two ranks sharing the card (``make_mesh(2)``: gloo, every
+             exchange staged through pinned host memory — a check of the
+             per-rank launches and the protocol at full width, not a
+             multi-card measurement): the ML-25M shape (162,541 users x
+             59,047 movies x 25,000,095 synthetic ratings, seed 0), rank
+             64, λ 0.05, tiled, 2 iterations of ``train_als_sharded`` with
+             ``exchange="ring"`` (both halves ring-built: K2 on each visit's
+             rotated block, K1 at the end) and ``"auto"`` (as the builder's
+             memory rule picks per half at this shape), each from the
+             one-rank ``train_als`` run's init, held to that run (max|Δ| of
+             both tables within 1e-3 of max|x|, |ΔRMSE| ≤ 1e-4), and
+             ``"hier_ring"`` with ``ici_group=1`` bit-equal to ``ring``; on
+             rank 0 one ring visit's K2 Grams and K1 on them against their
+             plain versions (TOL); ``serve_topk_sharded`` at the serve
+             shape (rank 128, f32, B = 256, K = 100, tile_m 2048), its
+             table placed on the ranks once, bit-equal to one-rank K4 on
+             the card.  The ranks spawn while the host generates and
+             builds, and one untimed ring iteration warms them before the
+             timed runs.  Per-rank K1/K2/K3/K4 launches
+             (zeroed before, read after; the kernels line's ``shards``),
+             s/iter per exchange, the staged bytes a half-iteration and the
+             card's idle share over one profiled iteration of both ranks,
+             under the label "2 ranks on one card, exchanges staged through
+             host";
 6. implicit — implicit-feedback training at the repo's implicit
              configuration (``bench.py`` ``ials_row``/``ialspp_row``: the
              ML-25M shape, 162,541 users x 59,047 movies x 25,000,095
@@ -397,10 +422,14 @@ Phases, each of which must pass:
              ``recommend --checkpoint-journal DIR`` (the same output as the
              ``--checkpoint-dir`` chain's); ``python -m
              cfk_tpu_torch.scripts.chaos_lab --device cuda`` on the padded,
-             tiled, bucketed and segment layouts (its seventeen
+             tiled, bucketed and segment layouts (seventeen of its
              scenarios — the stream ones on each layout, ``quantized_table``,
              ``stream_poison_batch`` and the five serving ones once — each
-             fired, detected, recovered); ``serve --replicas 2`` (the
+             fired, detected, recovered) beside its ``worker_kill`` (two
+             ranks on the card, one SIGKILLed; the restart crc-equal);
+             ``train --shards 2 --exchange ring`` against one-rank
+             ``train`` (MSE within 1e-4) and ``run 2 …`` against ``run 1
+             …``, at once; ``serve --replicas 2`` (the
              in-memory load generator: every request answered); the broker
              chain: ``broker --port 0 --data-dir``, ``topics create``,
              ``produce --append``, ``train --data tcp://…/ratings
@@ -429,6 +458,7 @@ chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import os
@@ -576,6 +606,9 @@ LINE_EXTRA["gram_gather"] += ("foldin",)
 LINE_EXTRA["topk_scores"] += ("foldin",)
 # The fleet phase's K4 launches: the wrapper's own counts on every thread.
 LINE_EXTRA["topk_scores"] += ("fleet_launches",)
+# The shards phase's launches on each rank (per process: never summed).
+for _name in ("reg_solve", "gram_gather", "gram_solve_dense", "topk_scores"):
+    LINE_EXTRA[_name] += ("shards",)
 # scripts/exp_binv.py's defaults (main :187-212): k = 128, --e 334·16
 # rounded down to a multiple of the 128-system tile, λ = 0.05; the main
 # path's movie Grams at k = 64; matrix mode at the ML-25M movie count.
@@ -628,6 +661,11 @@ STREAM = dict(updates=16_384, new_users=64, partitions=4, batch_records=256,
 # and the grace window its exit must fit in.
 LAYOUTS_CHAOS = ("padded", "tiled", "bucketed", "segment")
 CLI_PREEMPT = dict(iterations=3000, every=100, grace_s=30.0)
+# The shards phase: the ML-25M ratings at the main path's rank and λ, two
+# ranks sharing the card; the serve shape for the sharded top-K.
+SHARDS = dict(ranks=2, iterations=2, chunk_elems=1 << 20,
+              ring_accum_max=1 << 17, budget_s=90.0)
+SHARDS_LABEL = "2 ranks on one card, exchanges staged through host"
 # The CLI phase's subprocesses run at once on the machine's few cores: two
 # PyTorch threads each, so the CPU runs do not oversubscribe them.
 CLI_ENV = dict(os.environ, OMP_NUM_THREADS="2")
@@ -1376,6 +1414,80 @@ def dense_route(args, kw):
         return torch.topk(torch.addmm(bias, uf, tf.T), k_top, dim=1)
 
     return call
+
+
+def shard_kernel_check(group, view, table_rows, lam: float):
+    """Run on every rank of the shards phase's mesh; on rank 0: one ring
+    visit's K2 Grams — the middle chunk of the slice rank 0 holds first
+    (its own), against its own block of ``table_rows`` — and K1 on the
+    visit's segments with their real counts, each against its plain
+    version on the same operands (launched twice: bit-equal), with their
+    ms (CUDA events over 20 launches).  Other ranks return None."""
+    import torch
+
+    from cfk_tpu_torch.models.als import as_tensor
+    from cfk_tpu_torch.ops.kernels.gram_kernel import (
+        gram_gather, gram_gather_plain)
+    from cfk_tpu_torch.ops.kernels.gram_units import chunk_plan
+    from cfk_tpu_torch.ops.kernels.solve_kernel import (
+        reg_solve, reg_solve_plain)
+    from cfk_tpu_torch.ops.tiled import accum_chunk
+    from cfk_tpu_torch.parallel.spmd import _side_to_device
+
+    if group.rank != 0:
+        return None
+    dev = group.device
+    blk, chunks, e = _side_to_device("tiled_ring", view, 0, dev,
+                                     weighted=False)
+    statics = tuple(chunks[2:])
+    nc, e_c = statics[0], statics[-1]
+    c = (blk["slice_starts"][0] + blk["slice_starts"][1]) // 2
+    table = as_tensor(table_rows, dev)
+    args = dict(accum_chunk(blk, statics, c), units=chunk_plan(blk, c))
+    a, b = gram_gather(table, **args)
+    a2, b2 = gram_gather(table, **args)
+    ap, bp = gram_gather_plain(table, **args)
+    ent = blk["chunk_entity"].view(nc, e_c)[c].long()
+    cnt = torch.cat([blk["count"], blk["count"].new_zeros(1)])[ent]
+    x = reg_solve(a[:e_c].clone(), b[:e_c].clone(), cnt, lam=lam)
+    x2 = reg_solve(a[:e_c].clone(), b[:e_c].clone(), cnt, lam=lam)
+    xp = reg_solve_plain(a[:e_c].clone(), b[:e_c].clone(), cnt, lam=lam)
+    return dict(
+        chunk=int(c), live_segments=int((ent < e).sum()),
+        k2_rel_err=max(rel_err(a, ap)[1], rel_err(b, bp)[1]),
+        k2_bit_equal=bool(torch.equal(a, a2) and torch.equal(b, b2)),
+        k1_rel_err=rel_err(x, xp)[1], k1_bit_equal=bool(torch.equal(x, x2)),
+        k2_ms=time_ms(lambda: gram_gather(table, **args), 20),
+        k1_ms=time_ms(lambda: reg_solve(a[:e_c], b[:e_c], cnt, lam=lam),
+                      20))
+
+
+def profiled_rank(group, fn, *args, **kw):
+    """``fn(group, *args, **kw)`` under torch.profiler (CUDA activity):
+    (its result, this rank's kernel / memcpy / memset intervals in µs on
+    the host's wall clock, so the ranks' intervals merge into the card's
+    timeline)."""
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn(group, *args, **kw)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    base = float(trace.get("baseTimeNanoseconds", 0)) / 1e3
+    spans = [(e["cat"], base + float(e["ts"]),
+              base + float(e["ts"]) + float(e["dur"]))
+             for e in trace["traceEvents"] if e.get("ph") == "X"
+             and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    return out, spans
 
 
 class Smoke:
@@ -3825,6 +3937,239 @@ class Smoke:
                    f"{f['budget_s']} s budget")
         self.report["fleet"] = out
 
+
+    def shards(self):
+        """Sharded training and serving on two ranks sharing the card (the
+        module doc, phase 5c); its ratings are kept for the implicit phase
+        (the same seed and shape).  Every number it prints is labelled
+        ``SHARDS_LABEL``: the exchanges are staged through host memory, so
+        none of them is a multi-card exchange."""
+        import concurrent.futures
+
+        from cfk_tpu_torch.parallel.mesh import make_mesh
+
+        c, sv = SHARDS, SERVE
+        label = f"{SHARDS_LABEL}; {card_line()}"
+        t_phase = time.perf_counter()
+        # The ranks spawn (import torch, reach the card, join the group)
+        # while this process generates, builds and trains one rank.
+        spawner = concurrent.futures.ThreadPoolExecutor(1)
+        mesh_f = spawner.submit(make_mesh, c["ranks"], "cuda")
+        spawner.shutdown(wait=False)
+        try:
+            self._shards(c, sv, label, t_phase, mesh_f)
+        finally:
+            # close() is idempotent: a mesh the phase never reached is
+            # stopped here too.
+            if mesh_f.exception() is None:
+                mesh_f.result().close()
+
+    def _shards(self, c, sv, label, t_phase, mesh_f):
+        import concurrent.futures
+
+        import numpy as np
+        import torch
+
+        from cfk_tpu_torch import ALSConfig, Dataset, train_als
+        from cfk_tpu_torch.data.synthetic import (
+            serve_factors, synthetic_netflix_coo)
+        from cfk_tpu_torch.eval.metrics import mse_rmse_from_model
+        from cfk_tpu_torch.parallel import spmd
+        from cfk_tpu_torch.serving.engine import pad_table
+        from cfk_tpu_torch.serving.topk_kernel import topk_scores
+        from cfk_tpu_torch.telemetry.metrics import Metrics
+
+        t0 = time.perf_counter()
+        coo = synthetic_netflix_coo(**ML25M, seed=0)
+        self.ml25m_coo = coo  # the implicit phase's ratings: generated once
+        gen_s = time.perf_counter() - t0
+        build = dict(layout="tiled", chunk_elems=c["chunk_elems"])
+        t0 = time.perf_counter()
+        # The three builds on threads: the host library's group-by and much
+        # of numpy run without the interpreter lock.
+        with concurrent.futures.ThreadPoolExecutor(3) as pool:
+            ds1, ds_ring, ds_auto = pool.map(lambda kw: Dataset.from_coo(
+                coo, **build, **kw), (
+                dict(dense_stream=True),
+                dict(num_shards=c["ranks"], ring=True, ring_warn=False,
+                     accum_max_entities=c["ring_accum_max"]),
+                dict(num_shards=c["ranks"], ring="auto", dense_stream=True)))
+        blocks_s = time.perf_counter() - t0
+        del coo
+        log(f"shards data: generate {gen_s:.1f} s, three tiled builds "
+            f"{blocks_s:.1f} s; auto picked movie ring="
+            f"{ds_auto.movie_blocks.ring} ({ds_auto.movie_blocks.mode}), "
+            f"user ring={ds_auto.user_blocks.ring} "
+            f"({ds_auto.user_blocks.mode})")
+        cfg = dict(rank=RANK, lam=LAM, num_iterations=c["iterations"],
+                   layout="tiled")
+        t0 = time.perf_counter()
+        one = train_als(ds1, ALSConfig(**cfg), device="cuda")
+        one_s = time.perf_counter() - t0
+        u1, m1 = (torch.as_tensor(x) for x in one.host_factors())
+        _, rmse1 = mse_rmse_from_model(one, ds1)
+        nu, nm = one.num_users, one.num_movies
+        out = dict(label=label, generate_s=gen_s, blocks_s=blocks_s,
+                   one_rank=dict(s=one_s, rmse=rmse1), runs={})
+        launches_by_run = {}
+        t0 = time.perf_counter()
+        mesh = mesh_f.result()
+        out["mesh_wait_s"] = time.perf_counter() - t0
+        with mesh:
+            out["placement"] = mesh.description
+            log(f"shards mesh: {mesh.description} ({label})")
+            self.check(mesh.backend == ("nccl" if torch.cuda.device_count()
+                                        >= c["ranks"] else "gloo"),
+                       f"shards backend {mesh.backend}")
+            models = {}
+            # One untimed ring iteration: each rank's first kernel loads
+            # and launches, so the timed runs below compare exchanges warm.
+            t0 = time.perf_counter()
+            spmd.train_als_sharded(
+                ds_ring, ALSConfig(num_shards=c["ranks"], exchange="ring",
+                                   **dict(cfg, num_iterations=1)), mesh)
+            out["warmup_s"] = time.perf_counter() - t0
+            log(f"shards mesh waited {out['mesh_wait_s']:.1f} s after the "
+                f"builds; warm-up ring iteration {out['warmup_s']:.1f} s")
+            for name, ds, extra in (
+                    ("ring", ds_ring, dict(exchange="ring")),
+                    ("auto", ds_auto, dict(exchange="auto")),
+                    ("hier_ring", ds_ring, dict(exchange="hier_ring",
+                                                ici_group=1))):
+                mesh.run(spmd.reset_kernel_launches)
+                metrics = Metrics()
+                t0 = time.perf_counter()
+                model = spmd.train_als_sharded(
+                    ds, ALSConfig(num_shards=c["ranks"], **cfg, **extra),
+                    mesh, metrics=metrics)
+                wall = time.perf_counter() - t0
+                launches = mesh.run(spmd.kernel_launches)
+                launches_by_run[name] = launches
+                models[name] = model
+                _, rmse = mse_rmse_from_model(dataclasses.replace(
+                    model, user_factors=model.user_factors.cuda(),
+                    movie_factors=model.movie_factors.cuda()), ds)
+                errs = (rel_err(model.user_factors[:nu].float(), u1[:nu])[1],
+                        rel_err(model.movie_factors[:nm].float(), m1[:nm])[1])
+                staged = model.pipeline["staged_bytes"]
+                row = dict(
+                    wall_s=wall, s_per_iter=metrics.phases["train"]
+                    / c["iterations"], rmse=rmse, rel_err_u=errs[0],
+                    rel_err_m=errs[1], exchange=model.pipeline["reason"],
+                    staged_bytes_per_half=staged / (2 * c["iterations"]),
+                    launches=launches)
+                out["runs"][name] = row
+                log(f"shards {name}: {row['s_per_iter']:.3f} s/iter, "
+                    f"rmse {rmse:.6f} (one rank {rmse1:.6f}), max|Δ| u "
+                    f"{errs[0]:.2e} m {errs[1]:.2e}, staged "
+                    f"{row['staged_bytes_per_half'] / 1e6:.2f} MB a "
+                    f"half-iteration on rank 0, launches {launches} "
+                    f"({label})")
+                if name != "hier_ring":
+                    self.check(max(errs) <= 1e-3 and abs(rmse - rmse1)
+                               <= 1e-4, f"shards {name} vs one rank: "
+                               f"max|Δ| {errs}, rmse {rmse} vs {rmse1}")
+                need = ("reg_solve", "gram_gather") + (
+                    ("gram_solve_dense",) if name == "auto"
+                    and ds_auto.user_blocks.mode == "dstream" else ())
+                for k in need:
+                    self.check(all(x[k] > 0 for x in launches),
+                               f"shards {name}: {k} launched "
+                               f"{[x[k] for x in launches]} on the ranks")
+            self.check(
+                torch.equal(models["ring"].user_factors,
+                            models["hier_ring"].user_factors)
+                and torch.equal(models["ring"].movie_factors,
+                                models["hier_ring"].movie_factors),
+                "shards hier_ring (ici_group=1) not bit-equal to ring")
+            # Rank 0's own ring visit: K2 on its slice's middle chunk
+            # against its block of the trained users; K1 on the visit.
+            s = c["ranks"]
+            rows = ds_ring.user_blocks.padded_entities // s
+            u_ring = models["ring"].user_factors
+            payloads = [(spmd.shard_view(ds_ring.movie_blocks, r, s),
+                         u_ring[r * rows:(r + 1) * rows])
+                        for r in range(s)]
+            probe = mesh.run(shard_kernel_check, per_rank=payloads,
+                             lam=LAM)[0]
+            out["rank0_kernels"] = probe
+            log(f"shards rank 0 ring visit: {probe} ({label})")
+            self.check(probe["k2_rel_err"] <= TOL["gram_gather"]
+                       and probe["k1_rel_err"] <= TOL["reg_solve"]
+                       and probe["k2_bit_equal"] and probe["k1_bit_equal"],
+                       f"shards rank 0 K2/K1 vs plain: {probe}")
+            # One profiled iteration of both ranks: the card's idle share.
+            one_iter = ALSConfig(num_shards=s, exchange="ring",
+                                 **dict(cfg, num_iterations=1))
+            pay, kw = spmd.sharded_payloads(ds_ring, one_iter, s,
+                                            model="als")
+            prof = mesh.run(profiled_rank, spmd._rank_train, per_rank=pay,
+                            **kw)
+            spans = [sp for _, sp in prof for sp in sp]
+            kernels = [(a, b) for cat, a, b in spans if cat == "kernel"]
+            lo, hi = min(a for a, _ in kernels), max(b for _, b in kernels)
+            busy = sum(b - a for a, b in _merged(
+                [(max(a, lo), min(b, hi)) for _, a, b in spans
+                 if b > lo and a < hi]))
+            out["timeline"] = dict(window_ms=(hi - lo) / 1e3,
+                                   busy_ms=busy / 1e3,
+                                   idle_share=1 - busy / (hi - lo),
+                                   kernels=len(kernels))
+            log(f"shards one ring iteration, both ranks: "
+                f"{out['timeline']} ({label})")
+            # Sharded serving at the serve shape: K4 per rank at its row
+            # offset, one gather, the merge — against one-rank K4.
+            rng = np.random.default_rng(2)
+            su, sm = serve_factors(sv["num_users"], sv["num_movies"],
+                                   sv["rank"], rng)
+            table = torch.as_tensor(pad_table(sm, sv["tile_m"], s))
+            batch = torch.as_tensor(su[:SERVE["requests"]])
+            kw4 = dict(k_top=sv["k"], num_movies=sv["num_movies"],
+                       tile_m=sv["tile_m"])
+            v1, i1 = topk_scores(batch.cuda(), table.cuda(), None, None,
+                                 **kw4)
+            # The table's slices go to the ranks once; each call then
+            # ships only the batch.
+            t0 = time.perf_counter()
+            placed = spmd.place_table_sharded(mesh, table, None,
+                                              tile_m=sv["tile_m"],
+                                              name="smoke")
+            place_s = time.perf_counter() - t0
+            mesh.run(spmd.reset_kernel_launches)
+            calls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                v2, i2 = spmd.serve_topk_sharded(mesh, batch, placed, None,
+                                                 None, **kw4)
+                calls.append(time.perf_counter() - t0)
+                equal = bool(torch.equal(v2, v1.cpu()) and
+                             torch.equal(i2, i1.cpu()))
+                if not equal:
+                    break
+            k4 = mesh.run(spmd.kernel_launches)
+            launches_by_run["serve"] = k4
+            out["serve"] = dict(bit_equal=equal, place_s=place_s,
+                                call_s=calls,
+                                launches=[x["topk_scores"] for x in k4])
+            log(f"shards serve_topk_sharded B={SERVE['requests']}: bit-"
+                f"equal {equal}, the table placed on the ranks in "
+                f"{place_s:.3f} s, then {', '.join(f'{x:.4f}' for x in calls)}"
+                f" s a call (host round trip to the ranks included), K4 "
+                f"launches {out['serve']['launches']} ({label})")
+            self.check(equal, "shards serve_topk_sharded not bit-equal to "
+                       "one-rank K4")
+            self.check(all(x["topk_scores"] > 0 for x in k4),
+                       f"shards serve: K4 launches {k4}")
+        for name in ("reg_solve", "gram_gather", "gram_solve_dense",
+                     "topk_scores"):
+            self.kernels.setdefault(name, {})["shards"] = {
+                run: [x[name] for x in per_rank]
+                for run, per_rank in launches_by_run.items()}
+        out["phase_s"] = time.perf_counter() - t_phase
+        log(f"shards phase {out['phase_s']:.1f} s (budget "
+            f"{c['budget_s']:.0f} s)")
+        self.report["shards"] = out
+
     def implicit(self):
         import numpy as np
         import torch
@@ -3845,7 +4190,10 @@ class Smoke:
                    gram_solve_gather, gram_tiles_dense_gather, gauss_solve,
                    gauss_solve_multi)
         t0 = time.perf_counter()
-        coo = synthetic_netflix_coo(**ML25M, seed=0)
+        coo = getattr(self, "ml25m_coo", None)
+        if coo is None:
+            coo = synthetic_netflix_coo(**ML25M, seed=0)
+        self.ml25m_coo = None
         gen_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         ds_t = Dataset.from_coo(coo, layout="tiled",
@@ -5759,10 +6107,46 @@ class Smoke:
                 out["broker_rc"] = bk.returncode
             return out
 
-        def chaos():
+        def shards_chain():
+            """``train --shards 2 --exchange ring`` (two ranks sharing the
+            card) beside one-rank ``train`` on the same file, and ``run``
+            with NUM_PARTITIONS 2 and 1 (in a scratch directory: ``run``
+            writes its prediction CSV under the working directory)."""
+            common = ("--data", data, "--rank", 8, "--iterations", 3,
+                      "--device", "cuda", "--output", "none")
+            nm = len(np.unique(coo.movie_raw))
+            nu = len(np.unique(coo.user_raw))
+
+            def run(parts):
+                return subprocess.run(
+                    [sys.executable, "-m", "cfk_tpu_torch", "run",
+                     str(parts), "8", "0.05", "3", str(data), str(nm),
+                     str(nu), "--device", "cuda"], cwd=work / f"run{parts}",
+                    capture_output=True, text=True, timeout=300,
+                    env=dict(CLI_ENV, PYTHONPATH=str(ROOT)))
+
+            for parts in (1, 2):
+                (work / f"run{parts}").mkdir(exist_ok=True)
+            with concurrent.futures.ThreadPoolExecutor(4) as both:
+                jobs = dict(one=both.submit(cli, "train", *common),
+                            two=both.submit(cli, "train", *common,
+                                            "--shards", 2, "--exchange",
+                                            "ring"),
+                            run1=both.submit(run, 1),
+                            run2=both.submit(run, 2))
+                return {k: v.result() for k, v in jobs.items()}
+
+        def chaos(*scenario):
+            """The chaos lab on the card: ``scenario`` (default: every
+            one but ``worker_kill``, whose four processes run as a chain
+            of their own beside it)."""
+            from cfk_tpu_torch.scripts.chaos_lab import SCENARIOS
+
+            names = scenario or [x for x in SCENARIOS if x != "worker_kill"]
             out = subprocess.run(
                 [sys.executable, "-m", "cfk_tpu_torch.scripts.chaos_lab",
-                 "--device", "cuda", "--layout", *LAYOUTS_CHAOS], cwd=ROOT,
+                 "--device", "cuda", "--layout", *LAYOUTS_CHAOS,
+                 "--scenario", *names], cwd=ROOT,
                 capture_output=True, text=True, timeout=600, env=CLI_ENV)
             rows = [json.loads(x) for x in out.stdout.splitlines()
                     if x.startswith("{")]
@@ -5792,11 +6176,13 @@ class Smoke:
                 "cache": (cache_chain,),
                 "preempt": (preempt_chain,),
                 "chaos": (chaos,),
+                "worker_kill": (chaos, "worker_kill"),
                 "telemetry": (self.cli_telemetry, work, data),
                 "stream": (stream_chain,),
                 "stream_follow": (stream_follow_chain,),
                 "journal": (journal_chain,),
                 "broker": (broker_chain,),
+                "shards": (shards_chain,),
                 **{("pair",) + key: (
                     cli, "train", "--data", data, *extra, "--iterations", 2,
                     "--device", key[1], "--output", "none")
@@ -5898,6 +6284,29 @@ class Smoke:
                    f"cli implicit ranking card {ranking['cuda']} vs CPU "
                    f"{ranking['cpu']}")
         self.check(mg < 0.4, f"cli implicit MPR {mg} not below chance")
+        # train --shards 2 --exchange ring: the one-rank MSE (the same
+        # init: drawn at the real entity count); run NUM_PARTITIONS=2: the
+        # NUM_PARTITIONS=1 MSE.
+        sh = res["shards"]
+        shard_mse = {}
+        for key in ("one", "two"):
+            self.check(sh[key].returncode == 0, f"cli train shards {key} "
+                       f"failed: {sh[key].stderr[-300:]}")
+            shard_mse[key] = float(fields(sh[key]).get("mse", "nan"))
+        for key in ("run1", "run2"):
+            self.check(sh[key].returncode == 0, f"cli {key} failed: "
+                       f"{sh[key].stderr[-300:]}")
+            shard_mse[key] = float(
+                (sh[key].stdout.split("MSE:")[1:] or ["nan"])[0].split()[0])
+        log(f"cli shards: {shard_mse} ({SHARDS_LABEL})")
+        self.check(abs(shard_mse["two"] - shard_mse["one"])
+                   <= 1e-4 * shard_mse["one"],
+                   f"cli train --shards 2 MSE {shard_mse['two']} vs one "
+                   f"rank {shard_mse['one']}")
+        self.check(abs(shard_mse["run2"] - shard_mse["run1"])
+                   <= 1e-4 * shard_mse["run1"],
+                   f"cli run NUM_PARTITIONS=2 MSE {shard_mse['run2']} vs 1 "
+                   f"{shard_mse['run1']}")
         pre = res["preempt"]
         log(f"cli train --checkpoint-dir, SIGTERM and resume: {pre}")
         self.check(pre["rc"] == 0 and pre["preempted"]
@@ -5911,14 +6320,18 @@ class Smoke:
         stream_out = self.cli_stream_checks(res, fields)
         stream_out["broker"] = self.cli_broker_checks(res, fields)
         chaos_out = res["chaos"]
-        log(f"chaos_lab --device cuda: rc={chaos_out['rc']} "
-            f"{chaos_out['summary']}")
-        self.check(chaos_out["rc"] == 0 and chaos_out["summary"] is not None
-                   and chaos_out["summary"]["chaos_lab"] == "pass",
-                   f"chaos_lab --device cuda: {chaos_out['summary']} "
-                   f"{chaos_out['stderr']}")
+        for key in ("chaos", "worker_kill"):
+            out = res[key]
+            log(f"chaos_lab --device cuda ({key}): rc={out['rc']} "
+                f"{out['summary']}")
+            self.check(out["rc"] == 0 and out["summary"] is not None
+                       and out["summary"]["chaos_lab"] == "pass",
+                       f"chaos_lab --device cuda ({key}): {out['summary']} "
+                       f"{out['stderr']}")
+        chaos_out["worker_kill"] = res["worker_kill"]
         self.report.setdefault("resilience", {})["chaos_lab"] = chaos_out
         self.report["cli"] = dict(train=train.stdout.strip(),
+                                  shards_mse=shard_mse,
                                   wall_s=wall_s, chain_s=chain_s,
                                   telemetry=res["telemetry"],
                                   rank256_mse=card_cpu.get("rank256"),
@@ -5935,7 +6348,8 @@ MAIN_PHASES = ("kernels", "binv", "breakdown", "split", "gather", "rank256",
 IMPLICIT_PHASES = ("gather_ml25m", "split_ml25m", "implicit_r256",
                    "segment_ml25m", "quant_ml25m", "pipeline_ml25m",
                    "resilience_ml25m")
-PHASES = ("main",) + MAIN_PHASES + ("serve", "fleet", "implicit") \
+PHASES = ("main",) + MAIN_PHASES + ("serve", "fleet", "shards",
+                                   "implicit") \
     + IMPLICIT_PHASES + ("small", "cli")
 
 
@@ -5984,6 +6398,7 @@ def main(argv=None) -> int:
     if built:
         run("serve")
         run("fleet")
+        run("shards")
         if chosen & {"implicit", *IMPLICIT_PHASES}:
             implicit_out = smoke.phase("implicit", smoke.implicit)
             if implicit_out is not None:

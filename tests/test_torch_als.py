@@ -268,6 +268,8 @@ def test_import_pulls_in_no_jax_and_no_cfk_tpu():
         "import cfk_tpu_torch.transport.journal\n"
         "import cfk_tpu_torch.transport.tcp, cfk_tpu_torch.serving.fleet\n"
         "import cfk_tpu_torch.offload.hot\n"
+        "import cfk_tpu_torch.parallel.mesh, cfk_tpu_torch.parallel.spmd\n"
+        "import cfk_tpu_torch.parallel.launch\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'cfk_tpu', 'ml_dtypes')]\n"
         "print(bad)\n"

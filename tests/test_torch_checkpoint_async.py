@@ -348,3 +348,52 @@ def test_writer_thread_is_lazy_and_parks(tmp_path):
     sync = CheckpointManager(str(tmp_path / "s"), async_write=False)
     sync.save_async(1, u, m)  # the synchronous A/B baseline
     assert sync.iterations() == [1] and sync._writer_thread is None
+
+
+def test_barrier_outlasts_the_writers_pytorch_work(tmp_path):
+    """The abort at exit after a preemption: a job's snapshot released on
+    the writer thread after its commit was signalled ran PyTorch code that
+    the interpreter's finalization could cut (a daemon thread re-taking
+    the GIL at exit is ended through a ``noexcept`` frame: "terminate
+    called without an active exception", SIGABRT).  A tensor whose release
+    runs a GIL-releasing op for a second forces that interleaving on every
+    run: the barrier must return only after the release and the writer
+    thread's end, and the process must exit 0."""
+    code = (
+        "import sys, time, threading, torch, numpy as np\n"
+        "torch.set_num_threads(1)\n"
+        "from cfk_tpu_torch.transport.checkpoint import CheckpointManager\n"
+        "class SlowFree(torch.Tensor):\n"
+        "    def __del__(self):\n"
+        "        a = torch.ones(128, 128)\n"
+        "        t0 = time.monotonic()\n"
+        "        while time.monotonic() - t0 < 1.0:\n"
+        "            a = a.mm(a) * 1e-3\n"
+        f"mgr = CheckpointManager({str(tmp_path)!r})\n"
+        "u = torch.ones(4, 3).as_subclass(SlowFree)\n"
+        "mgr.save_async(1, u, np.zeros((2, 3), np.float32))\n"
+        "del u\n"
+        "t0 = time.monotonic()\n"
+        "assert mgr.wait_pending()\n"
+        "alive = [t.name for t in threading.enumerate()\n"
+        "         if t.name == 'cfk-checkpoint-writer']\n"
+        "print('drained', round(time.monotonic() - t0, 1), len(alive),\n"
+        "      flush=True)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=60)
+    assert r.returncode == 0, (r.returncode, r.stderr)
+    word, waited, alive = r.stdout.split()
+    assert word == "drained" and float(waited) >= 0.9 and alive == "0"
+    assert CheckpointManager(str(tmp_path)).iterations() == [1]
+
+
+def test_watchdog_disarm_joins_its_thread():
+    from cfk_tpu_torch.resilience.preempt import StallWatchdog
+
+    dog = StallWatchdog(30.0)
+    dog.arm()
+    thread = dog._thread
+    assert thread.is_alive()
+    dog.disarm()
+    assert not thread.is_alive()

@@ -58,7 +58,8 @@ def test_reference_positional_form(ratings_file, tmp_path, monkeypatch,
                  "--device", "cpu"]) == 0
     cap = capsys.readouterr()
     assert "MSE:" in cap.out and "RMSE:" in cap.out
-    assert "NUM_PARTITIONS=4 ignored" in cap.err
+    # NUM_PARTITIONS trains that many ranks (no longer ignored).
+    assert "# mesh: 4 ranks" in cap.err and "ignored" not in cap.err
     assert "NUM_MOVIES=1 but data has 60" in cap.err
     assert (tmp_path / "predictions").is_dir()
 

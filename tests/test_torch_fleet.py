@@ -610,4 +610,4 @@ def test_chaos_lab_serving_scenarios_on_cpu(scenario, capsys):
     assert row["fault_fired"] and row["detected"] and row["recovered"]
     assert row["ok"] and row["flight_recorder"]["named_fault"]
     assert rows[-1]["chaos_lab"] == "pass"
-    assert len(chaos_lab.SCENARIOS) == 17
+    assert len(chaos_lab.SCENARIOS) == 18

@@ -2309,3 +2309,98 @@ def test_fleet_rollover_flip_under_load_on_the_card(cuda):
         res = compare_topk(resp.scores[None], resp.movie_rows[None],
                            want_v[:, :20], want_i[:, :20], want_v)
         assert res["ok"], (user, resp.epoch, res)
+
+
+# -- sharded training and serving: ranks sharing the card ---------------------
+
+
+@pytest.fixture(scope="module")
+def card_mesh():
+    """Two ranks on one card (gloo, exchanges staged through pinned host
+    memory), spawned once for the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    from cfk_tpu_torch.parallel.mesh import make_mesh
+
+    with make_mesh(2, "cuda", quiet=True) as mesh:
+        yield mesh
+
+
+@pytest.mark.parametrize("layout,exchange,build", [
+    ("padded", "all_gather", {}), ("padded", "ring", {}),
+    ("tiled", "ring", dict(ring=True, ring_warn=False)),
+    ("tiled", "all_gather", dict(dense_stream=True,
+                                 accum_max_entities=300)),
+    ("tiled", "hier_ring", dict(ring=True, ring_warn=False)),
+    ("bucketed", "all_gather", {})])
+def test_sharded_on_one_card_equals_one_rank(cuda, card_mesh, layout,
+                                             exchange, build):
+    """2 ranks on the card (staged) against the one-rank card run from the
+    same init: within 1e-4 of max|x| (the rings sum the visits in another
+    order), the launches counted per rank."""
+    from cfk_tpu_torch import ALSConfig, Dataset, train_als
+    from cfk_tpu_torch.parallel.spmd import (
+        kernel_launches,
+        reset_kernel_launches,
+        train_als_sharded,
+    )
+
+    coo = synthetic_netflix_coo(1200, 400, 30000, seed=2)
+    kw = dict(layout=layout)
+    if layout == "tiled":
+        kw.update(chunk_elems=4096)
+    one_kw = {k: v for k, v in dict(kw, **build).items()
+              if k not in ("ring", "ring_warn")}
+    one = train_als(Dataset.from_coo(coo, **one_kw),
+                    ALSConfig(rank=16, num_iterations=3, layout=layout),
+                    device="cuda")
+    ds = Dataset.from_coo(coo, num_shards=2, **kw, **build)
+    assert card_mesh.staged and card_mesh.backend == "gloo"
+    card_mesh.run(reset_kernel_launches)
+    sh = train_als_sharded(ds, ALSConfig(rank=16, num_iterations=3,
+                                         num_shards=2, layout=layout,
+                                         exchange=exchange), card_mesh)
+    counts = card_mesh.run(kernel_launches)
+    nu, nm = one.num_users, one.num_movies
+    for got, want in ((sh.user_factors[:nu], one.user_factors[:nu]),
+                      (sh.movie_factors[:nm], one.movie_factors[:nm])):
+        want = want.float().cpu()
+        assert float((got.float() - want).abs().max()) <= \
+            1e-4 * float(want.abs().max())
+    assert all(c["reg_solve"] > 0 or c["gram_solve_gather"] > 0
+               or c["gram_solve_dense"] > 0 for c in counts), counts
+    assert sh.pipeline["staged_bytes"] > 0
+
+
+def test_serve_topk_sharded_on_one_card_is_bit_equal(cuda, card_mesh):
+    """K4 on each rank's slice at its row offset, merged: ids and scores
+    equal to one-rank K4 on the card, bit for bit (exact ties included),
+    with the table shipped in the call and placed on the ranks before."""
+    from cfk_tpu_torch.parallel.spmd import (
+        kernel_launches,
+        place_table_sharded,
+        reset_kernel_launches,
+        serve_topk_sharded,
+    )
+    from cfk_tpu_torch.serving.topk_kernel import topk_scores
+
+    rng = np.random.default_rng(5)
+    nm, tile = 5000, 512
+    table = np.zeros((2 * 3 * tile * 2, 64), np.float32)[:6144]
+    table[:nm] = rng.integers(-4, 5, (nm, 64))
+    u = rng.integers(-3, 4, (32, 64)).astype(np.float32)
+    kw = dict(k_top=50, num_movies=nm, tile_m=tile)
+    one = topk_scores(torch.tensor(u, device=cuda),
+                      torch.tensor(table, device=cuda), None, None, **kw)
+    card_mesh.run(reset_kernel_launches)
+    got = serve_topk_sharded(card_mesh, torch.tensor(u), torch.tensor(table),
+                             None, None, **kw)
+    assert all(c["topk_scores"] > 0 for c in card_mesh.run(kernel_launches))
+    for a, b in zip(got, one):
+        assert torch.equal(a, b.cpu())
+    placed = place_table_sharded(card_mesh, torch.tensor(table), None,
+                                 tile_m=tile, name="gpu-test")
+    got = serve_topk_sharded(card_mesh, torch.tensor(u), placed, None, None,
+                             **kw)
+    for a, b in zip(got, one):
+        assert torch.equal(a, b.cpu())

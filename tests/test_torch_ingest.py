@@ -285,11 +285,21 @@ def test_cache_round_trip_and_reference_cache(coo, tmp_path, layout):
 
 
 def test_cache_refuses_sharded_reference_blocks(coo, tmp_path):
-    jds = jblocks.Dataset.from_coo(coo, layout="tiled", num_shards=2,
-                                   chunk_elems=512, tile_rows=16)
-    jcache.save_dataset(jds, str(tmp_path))
-    with pytest.raises(ValueError, match="num_shards=2"):
-        tcache.load_dataset(str(tmp_path))
+    """Since the port builds sharded and ring blocks, a JAX-package cache
+    of two shards (one half ring-built) loads and equals the port's own
+    build; a cache whose class carries a field the port does not know is
+    what is refused now."""
+    kw = dict(layout="tiled", num_shards=2, chunk_elems=512, tile_rows=16,
+              ring=(True, False), ring_warn=False)
+    jds = jblocks.Dataset.from_coo(coo, **kw)
+    jcache.save_dataset(jds, str(tmp_path / "j"))
+    _same_tree(tcache.load_dataset(str(tmp_path / "j")),
+               tblocks.Dataset.from_coo(coo, **kw))
+    meta = tmp_path / "j" / "meta.json"
+    text = meta.read_text()
+    meta.write_text(text.replace('"ring":', '"ring_v2":', 1))
+    with pytest.raises(ValueError, match="ring_v2"):
+        tcache.load_dataset(str(tmp_path / "j"))
 
 
 def test_cli_dataset_cache_rebuilds_on_a_changed_key(coo, tmp_path, capsys):

@@ -701,12 +701,13 @@ def test_cli_degrade_reports_in_metrics(ratings_file, capsys):
 
 @pytest.mark.parametrize("scenario", [
     "nan", "inf", "singular_chunk", "torn_checkpoint", "preemption",
-    "slow_disk", "telemetry_overhead"])
+    "slow_disk", "telemetry_overhead", "worker_kill"])
 def test_chaos_lab_scenario_on_cpu(scenario, capsys):
-    """Each single-process scenario of the port's chaos lab: fired,
-    detected, recovered — crc-equal to the fault-free run (the singular
-    one: to the same rungs applied from the rollback point) — and the
-    flight recorder names the fault."""
+    """Each training scenario of the port's chaos lab: fired, detected,
+    recovered — crc-equal to the fault-free run (the singular one: to the
+    same rungs applied from the rollback point; ``worker_kill``: the
+    resumed two-rank run to an uninterrupted one) — and the flight recorder
+    names the fault."""
     import json
 
     from cfk_tpu_torch.scripts import chaos_lab
