@@ -198,6 +198,8 @@ def _load_dataset(path, fmt, min_rating, build, *, cache_dir=None,
         build_key["ring"] = build["ring"]
     if dense_stream and layout == "tiled":
         build_key["dense_stream"] = True
+    if "accum_max_entities" in build:  # --tiled-mode stream
+        build_key["accum_max_entities"] = build["accum_max_entities"]
     if layout == "auto" and auto_key:
         build_key.update(auto_key)
     # For layout='auto' the dense flag changes the blocks only when the
@@ -447,6 +449,20 @@ def _train_impl(args, metrics) -> int:
         # Both ring layouts work; padded builds its ring blocks in the
         # trainer and has no per-shard accumulator cap (cfk_tpu/cli.py:352).
         args.layout = "padded"
+    if args.layout == "auto" and args.offload_tier == "host_window":
+        # The windowed trainers stream the tiled layout (explicit ALS) and
+        # the bucketed one (the implicit family): resolve up front so the
+        # config never refuses a flag combination the parser accepted
+        # (cfk_tpu/cli.py:360-363).
+        args.layout = "bucketed" if args.implicit else "tiled"
+    if args.tiled_mode == "stream" and (
+            args.layout != "tiled"
+            or args.exchange in ("ring", "hier_ring")):
+        _eprint("error: --tiled-mode stream builds the tiled layout's "
+                "stream blocks: it needs --layout tiled and no ring "
+                "exchange (ring blocks carry the accumulator on both "
+                "halves)")
+        return 1
     common = dict(rank=args.rank, lam=args.lam,
                   num_shards=args.shards, exchange=args.exchange,
                   ici_group=args.ici_group, pad_multiple=args.pad_multiple,
@@ -463,7 +479,10 @@ def _train_impl(args, metrics) -> int:
                   health_norm_limit=args.health_norm_limit,
                   max_recoveries=args.max_recoveries,
                   lam_escalation=args.lam_escalation,
-                  on_unrecoverable=args.on_unrecoverable)
+                  on_unrecoverable=args.on_unrecoverable,
+                  offload_tier=args.offload_tier, staging=args.staging,
+                  staging_pool_depth=args.staging_pool_depth,
+                  hot_rows=args.hot_rows)
     make_config = functools.partial(
         IALSConfig, alpha=args.alpha) if args.implicit else ALSConfig
     # Validate the flags before the (possibly long) block build; an
@@ -488,6 +507,10 @@ def _train_impl(args, metrics) -> int:
                  and not ring)
     if args.layout == "tiled":
         build["ring"] = "auto" if args.exchange == "auto" else ring
+        if args.tiled_mode == "stream":
+            # The padded stream on both halves, no accumulator: the blocks
+            # the host_window tier trains on (it rebuilds them otherwise).
+            build.update(dense_stream=False, accum_max_entities=0)
     ds = _load_dataset(
         args.data, args.format, args.min_rating, build,
         cache_dir=args.dataset_cache,
@@ -530,7 +553,7 @@ def _train_impl(args, metrics) -> int:
     t0 = time.perf_counter()
     trainer = train_ials if args.implicit else train_als
     with maybe_profile(args.profile_dir), guard_cm as guard:
-        if args.shards > 1:
+        if args.shards > 1 and args.offload_tier != "host_window":
             from cfk_tpu_torch.models.ials import train_ials_sharded
             from cfk_tpu_torch.parallel.mesh import make_mesh
             from cfk_tpu_torch.parallel.spmd import train_als_sharded
@@ -1232,6 +1255,48 @@ def build_parser() -> argparse.ArgumentParser:
                    help="inner-ring size of --exchange hier_ring; default: "
                    "LOCAL_WORLD_SIZE when it divides --shards, else one "
                    "flat ring")
+    t.add_argument(
+        "--offload-tier", choices=["auto", "device", "host_window"],
+        default="auto",
+        help="where the factor tables live: 'auto' = resident while both "
+        "tables and the blocks fit the device's memory "
+        "(offload.budget.fits_device), host_window past it; 'device' pins "
+        "the resident tables; 'host_window' pins the out-of-core tier — "
+        "host-RAM factor stores, windows staged to the card (explicit ALS "
+        "on the tiled layout, sharded too with --shards in one process; "
+        "iALS/iALS++ on the bucketed layout).  The tier changes no "
+        "block: host_window rebuilds the stream blocks it needs from the "
+        "dataset unless --tiled-mode stream built them",
+    )
+    t.add_argument(
+        "--tiled-mode", choices=["auto", "stream"], default="auto",
+        help="block mode of --layout tiled: 'auto' = the builder's choice "
+        "per half (the accumulator while the half's entities fit it, else "
+        "the unpadded dense stream); 'stream' = the padded stream on both "
+        "halves, no accumulator — the blocks the host_window tier trains "
+        "on, so the resident and windowed tiers train the same blocks to "
+        "the same bits",
+    )
+    t.add_argument(
+        "--staging", choices=["auto", "pool", "serial"], default="auto",
+        help="host staging engine of the host_window tier: 'pool' (= "
+        "'auto') stages every shard's windows ahead on a thread pool; "
+        "'serial' the one-thread double buffer.  The same factors either "
+        "way",
+    )
+    t.add_argument(
+        "--hot-rows", type=int, default=None, metavar="F",
+        help="hot-row device cache of the host_window tier: keep the top-F "
+        "most-referenced fixed-table rows (both sides) on the card so "
+        "windows stage only their cold delta.  Default: the coverage-"
+        "curve knee, clamped by the budget headroom; 0 = off; an "
+        "impossible F raises.  The same factors whatever F",
+    )
+    t.add_argument(
+        "--staging-pool-depth", type=int, default=None, metavar="D",
+        help="windows staged ahead of consumption in pool mode (default "
+        "4), clamped so D+1 worst-case windows fit the window budget",
+    )
     t.add_argument("--pad-multiple", type=int, default=8,
                    help="pad ragged neighbor lists to a multiple of this "
                    "(padded/bucketed widths, segment chunk capacity)")

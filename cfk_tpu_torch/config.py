@@ -146,9 +146,83 @@ class ALSConfig:
     # with a diagnostic report in the metrics, "raise" raises
     # ``TrainingDivergedError``.
     on_unrecoverable: Literal["degrade", "raise"] = "degrade"
+    # --- out-of-core factor tables (``cfk_tpu_torch.offload``) ------------
+    # Where the factor tables live during training
+    # (``cfk_tpu/config.py:386-402``):
+    #   "auto"        — resident while both tables + blocks fit the device
+    #                   (``offload.budget.fits_device`` at the card's own
+    #                   memory size), host_window past it;
+    #   "device"      — pin the resident tables;
+    #   "host_window" — pin the out-of-core path: host-RAM factor stores,
+    #                   windows of the fixed side staged to the card
+    #                   (``offload.windowed``: explicit ALS on the tiled
+    #                   layout, iALS/iALS++ on the bucketed one; the same
+    #                   bits as the resident trainers).
+    offload_tier: Literal["auto", "device", "host_window"] = "auto"
+    # The host staging engine of the host_window tier: "auto"/"pool" stages
+    # every shard's windows ahead of consumption on a bounded thread pool,
+    # "serial" is the one-thread double buffer (the A/B baseline).  The
+    # same factors either way.
+    staging: Literal["auto", "pool", "serial"] = "auto"
+    # Windows staged ahead of consumption (pool mode); None =
+    # ``offload.staging.DEFAULT_POOL_DEPTH``, always clamped so depth+1
+    # worst-case windows fit the window budget.
+    staging_pool_depth: int | None = None
+    # The skew-aware hot-row device cache: None = auto (the coverage-curve
+    # knee of the window plans' reference counts, clamped by the budget
+    # headroom), 0 = off (full staging), >= 1 = the pinned total resident
+    # rows of both sides (an impossible one raises).  The same factors
+    # whatever the value; only the staged bytes change.
+    hot_rows: int | None = None
 
     def _valid_algorithms(self) -> tuple[str, ...]:
         return ("als", "als++")
+
+    def _check_host_window(self) -> None:
+        """The explicit family's ``offload_tier='host_window'`` gate
+        (``cfk_tpu/config.py:474-492``): explicit ALS on the tiled layout
+        (the windowed stream and ring scans); ``IALSConfig`` overrides it
+        for the bucketed width-class windows."""
+        if self.layout != "tiled":
+            raise ValueError(
+                f"offload_tier='host_window' streams the tiled "
+                f"stream-mode layout; layout={self.layout!r}"
+            )
+        if self.algorithm != "als":
+            raise ValueError(
+                "offload_tier='host_window' supports the explicit ALS "
+                f"optimizer at layout='tiled'; algorithm="
+                f"{self.algorithm!r} (the subspace als++ windowed walk "
+                "is the documented follow-up — the implicit family's "
+                "iALS/iALS++ run out-of-core via IALSConfig)"
+            )
+
+    def _check_offload(self) -> None:
+        """The out-of-core fields' rules (``cfk_tpu/config.py:579-608``)."""
+        if self.offload_tier not in ("auto", "device", "host_window"):
+            raise ValueError(
+                f"offload_tier must be 'auto', 'device' or 'host_window', "
+                f"got {self.offload_tier!r}"
+            )
+        if self.staging not in ("auto", "pool", "serial"):
+            raise ValueError(
+                f"staging must be 'auto', 'pool' or 'serial', got "
+                f"{self.staging!r}"
+            )
+        if self.staging_pool_depth is not None and \
+                self.staging_pool_depth < 1:
+            raise ValueError(
+                f"staging_pool_depth must be >= 1 (windows staged ahead "
+                f"of consumption), got {self.staging_pool_depth}; use "
+                "staging='serial' for the unpooled baseline"
+            )
+        if self.hot_rows is not None and self.hot_rows < 0:
+            raise ValueError(
+                f"hot_rows must be None (auto), 0 (off) or a positive "
+                f"total resident row count, got {self.hot_rows}"
+            )
+        if self.offload_tier == "host_window":
+            self._check_host_window()
 
     def _check_sharding(self) -> None:
         """The exchange rules of ``cfk_tpu/config.py:556-620, :708``."""
@@ -239,6 +313,7 @@ class ALSConfig:
         if self.lam < 0:
             raise ValueError(f"lam must be >= 0, got {self.lam}")
         self._check_sharding()
+        self._check_offload()
         if self.solver not in ("auto", "cholesky"):
             raise ValueError(f"unknown solver {self.solver!r}")
         if self.layout not in ("auto", "padded", "bucketed", "segment",

@@ -668,12 +668,31 @@ def train_als(dataset: Dataset, config: ALSConfig, *,
     guard or a watchdog sends the run to the eager stepped loop; ``metrics``
     (``telemetry.Metrics``) records phases, counters and the recovery
     notes.  See ``train_loop``.
+
+    ``config.offload_tier`` ("host_window", or "auto" past the device's
+    memory — ``offload.windowed.resolve_tier``) runs the out-of-core
+    trainer ``offload.windowed.train_als_host_window`` instead, which
+    refuses the resilience arguments and ``warm_start``.
     """
     from cfk_tpu_torch.telemetry.metrics import Metrics
 
     use_kernels(config.solver, torch.device(device))  # cholesky: CPU only
     dev = resolve_device(device)
     metrics = metrics if metrics is not None else Metrics()
+    from cfk_tpu_torch.offload import windowed
+
+    if windowed.resolve_tier(dataset, config, dev) == "host_window":
+        # The out-of-core tier (``cfk_tpu/models/als.py:558-590``): the
+        # budget predicate said the resident tables cannot fit (or the
+        # config pinned the tier) — the windowed trainer, the same bits as
+        # the resident path on the same stream blocks.
+        windowed.refuse_unsupported(
+            checkpoint_manager=checkpoint_manager,
+            fault_injector=fault_injector,
+            preemption_guard=preemption_guard, watchdog=watchdog,
+            warm_start=warm_start)
+        return windowed.train_als_host_window(dataset, config, device=dev,
+                                              metrics=metrics)
     make_step, u, m = timed_steps(als_steps, dataset, config, dev,
                                   warm_start, metrics)
     u, m, pipeline = train_loop(

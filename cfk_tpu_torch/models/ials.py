@@ -9,9 +9,9 @@ half-iteration.  ``algorithm="ials++"`` swaps the full k×k solves for
 warm-started subspace sweeps (``ops.subspace``).
 
 The checkpointed/resilient stepped loop, the health sentinel and the fault
-hooks are ``models.als.train_loop``'s, shared with ``train_als``.  Left for
-later slices: the out-of-core ``host_window`` tier and
-``train_ials_sharded`` (with ``make_ials_training_step``).
+hooks are ``models.als.train_loop``'s, shared with ``train_als``; the
+out-of-core ``host_window`` tier is ``offload.windowed.
+train_ials_host_window``.
 """
 
 from __future__ import annotations
@@ -65,6 +65,18 @@ class IALSConfig(ALSConfig):
 
     def _valid_algorithms(self) -> tuple[str, ...]:
         return ("als", "ials++")
+
+    def _check_host_window(self) -> None:
+        """The implicit family's ``offload_tier='host_window'`` gate
+        (``cfk_tpu/models/ials.py:61-72``): the windowed trainer streams the
+        bucketed width-class layout (the global-Gram reduction plus
+        per-class windows), for iALS and iALS++ alike."""
+        if self.layout != "bucketed":
+            raise ValueError(
+                "offload_tier='host_window' for the implicit family "
+                "streams the bucketed width-class layout; layout="
+                f"{self.layout!r}"
+            )
 
     def __post_init__(self) -> None:
         super().__post_init__()
@@ -184,6 +196,8 @@ def train_ials(dataset: Dataset, config: IALSConfig, *,
     first movie half's warm start under ``ials++``.  ``config.overlap``
     picks the schedule, and the checkpoint, health, fault, preemption and
     watchdog arguments act, as in ``train_als`` (``models.als.train_loop``).
+    ``config.offload_tier`` sends the run to ``offload.windowed.
+    train_ials_host_window`` as ``train_als`` sends its own.
     """
     _check_nonnegative_strengths(dataset)
     from cfk_tpu_torch.telemetry.metrics import Metrics
@@ -191,6 +205,17 @@ def train_ials(dataset: Dataset, config: IALSConfig, *,
     use_kernels(config.solver, torch.device(device))  # cholesky: CPU only
     dev = resolve_device(device)
     metrics = metrics if metrics is not None else Metrics()
+    from cfk_tpu_torch.offload import windowed
+
+    if windowed.resolve_tier(dataset, config, dev) == "host_window":
+        # The out-of-core implicit tier (``cfk_tpu/models/ials.py:
+        # 332-365``): the bucketed windowed trainer.
+        windowed.refuse_unsupported(
+            checkpoint_manager=checkpoint_manager,
+            fault_injector=fault_injector,
+            preemption_guard=preemption_guard, watchdog=watchdog)
+        return windowed.train_ials_host_window(dataset, config, device=dev,
+                                               metrics=metrics)
     make_step, u, m = timed_steps(ials_steps, dataset, config, dev,
                                   warm_start, metrics)
     u, m, pipeline = train_loop(

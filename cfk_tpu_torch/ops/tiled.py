@@ -252,7 +252,8 @@ def _chunk_fetch(fixed_factors, operands, gather_fn, overlap):
 
 def _chunk_scan(fixed_factors, blk, local_entities, lam, nc, e_c, chunk,
                 mode, *, solver, implicit_reg, fused_epilogue,
-                in_kernel_gather, reg_solve_algo=None, overlap=None):
+                in_kernel_gather, reg_solve_algo=None, overlap=None,
+                return_chunk_rows=False):
     """The stream and dense-stream chunk scans: ``chunk(c)`` gives chunk
     c's operands (with its ridge counts ``reg``, carry-out row ``lseg``
     and carry flag ``cin``); per chunk the fused kernel returns (x, carry
@@ -264,7 +265,9 @@ def _chunk_scan(fixed_factors, blk, local_entities, lam, nc, e_c, chunk,
     its stream g = table[nb]·wt (K5, the scan's fetch), which the stream
     twins read (``_SCAN_KERNELS``).  Finalized rows [NC, Ec, k] are
     scattered by ``chunk_entity`` once, after the loop; non-finalized
-    positions all route to the trash row E (dropped)."""
+    positions all route to the trash row E (dropped).  ``return_chunk_rows``
+    returns the unscattered [NC·Ec, k] rows instead (the out-of-core
+    windows scatter them into the host store themselves)."""
     k = fixed_factors.shape[-1]
     fused = resolve_fused_chunk(fused_epilogue, k, reg_solve_algo)
     gather = resolve_gather_mode(in_kernel_gather)
@@ -310,6 +313,8 @@ def _chunk_scan(fixed_factors, blk, local_entities, lam, nc, e_c, chunk,
     init = (fixed_factors.new_zeros((k, k), **f32),
             fixed_factors.new_zeros((k,), **f32))
     prefetch_scan(fetch, compute, nc, init, stream=stream)
+    if return_chunk_rows:
+        return xs.view(nc * e_c, k)
     out = fixed_factors.new_zeros((local_entities + 1, k), **f32)
     out[blk["chunk_entity"].long()] = xs.view(nc * e_c, k)
     return out[:local_entities]
@@ -423,17 +428,20 @@ def als_half_step_tiled(
     in_kernel_gather: bool | None = None,
     reg_solve_algo: str | None = None,
     overlap: bool | None = None,
+    return_chunk_rows: bool = False,
 ) -> torch.Tensor:
     """Stream-mode half-iteration (``cfk_tpu/ops/tiled.py:529``): per
     chunk K6 (fused) or K2 then K1 (split) — on the materialized stream
     ``gram_solve_tiles`` or ``gram_tiles`` then K1 — the carry threaded
-    across chunks; one scatter by ``chunk_entity`` after the loop."""
+    across chunks; one scatter by ``chunk_entity`` after the loop (or, with
+    ``return_chunk_rows``, the per-chunk rows unscattered)."""
     return _chunk_scan(
         fixed_factors, blk, local_entities, lam, statics[0], statics[2],
         lambda c: stream_chunk(blk, statics, c), "stream",
         solver=solver, implicit_reg=implicit_reg,
         fused_epilogue=fused_epilogue, in_kernel_gather=in_kernel_gather,
-        reg_solve_algo=reg_solve_algo, overlap=overlap)
+        reg_solve_algo=reg_solve_algo, overlap=overlap,
+        return_chunk_rows=return_chunk_rows)
 
 
 def als_half_step_tiled_dense(

@@ -870,7 +870,24 @@ def train_als_sharded(dataset: Dataset, config: ALSConfig, mesh, *,
     boundary on every rank; only rank 0 touches the store.  Returns the
     whole factors (a ``Mesh``: CPU tensors; a ``ShardGroup``: on its
     device); ``model.pipeline`` records the exchange, the backend and the
-    bytes rank 0 staged through host memory."""
+    bytes rank 0 staged through host memory.  ``config.offload_tier``
+    ("host_window", or "auto" past one device's memory) runs every shard's
+    windows from this process instead (``offload.windowed.
+    train_als_host_window``)."""
+    from cfk_tpu_torch.offload import windowed
+
+    dev = torch.device(getattr(mesh, "device", None) or "cuda")
+    if windowed.resolve_tier(dataset, config, dev) == "host_window":
+        # The out-of-core tier, sharded (``cfk_tpu/parallel/spmd.py:
+        # 1346-1383``): per-shard windows under the all_gather scan or the
+        # ring/hier_ring visit orders, every shard driven from this process
+        # on the mesh's device — the same bits as the resident exchange.
+        windowed.refuse_unsupported(
+            checkpoint_manager=checkpoint_manager,
+            fault_injector=fault_injector,
+            preemption_guard=preemption_guard, watchdog=watchdog)
+        return windowed.train_als_host_window(dataset, config, device=dev,
+                                              metrics=metrics)
     return train_sharded(dataset, config, mesh, model="als",
                          warm_start=warm_start,
                          checkpoint_manager=checkpoint_manager,

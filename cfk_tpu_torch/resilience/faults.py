@@ -26,9 +26,15 @@ that each one is detected, rolled back and recovered:
   topic hidden for good (or truncated): the replica's gap detector and its
   snapshot resync must fire.
 
-The others (the host-window, hot-cache, staging and store faults, the
-elastic offload fleet's membership faults, the backend outage) belong to
-the slices that port what they break.
+- ``HostWindowCorruption``, ``HotCacheCorruption``, ``SlowHostFetch``,
+  ``StagingCrash``, ``StoreBitRot`` behind one ``WindowFaultInjector`` —
+  the out-of-core tier's faults (``offload.windowed``): a torn or
+  poisoned staged window, a poisoned hot-row partition on the card, a
+  slow host fetch, a crash inside a staging worker, and bit-rot in a host
+  master store.
+
+The others (the elastic offload fleet's membership faults, the backend
+outage) belong to the slices that port what they break.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ import threading
 import time
 
 import numpy as np
+import torch
 
 from cfk_tpu_torch.transport.checkpoint import (
     CheckpointManager as _BaseCheckpointManager,
@@ -136,6 +143,193 @@ class FaultInjector:
         for f in self.faults:
             u, m = f.apply(i, u, m)
         return u, m
+
+    @property
+    def fired(self) -> int:
+        return sum(f.fired for f in self.faults)
+
+
+# --- host-window faults (the out-of-core tier) -----------------------------
+
+
+@dataclasses.dataclass
+class HostWindowCorruption:
+    """Corrupt ONE staged host window in flight before it reaches the
+    device (``cfk_tpu/resilience/faults.py:178``).  Fires when the windowed
+    trainer stages ``(iteration, side, window)``; the host store stays
+    intact, so a rollback + replay (the fault is one-shot) recovers to the
+    fault-free bits.  ``kind="nan"`` poisons ``num_rows`` seeded rows;
+    ``kind="torn"`` zeroes the window's second half (finite and wrong —
+    caught by the staging checksum).  ``shard`` restricts the fault to one
+    shard's staging (None: any); ``fired_in`` names the threads it fired
+    on (a pool worker in pooled staging)."""
+
+    iteration: int
+    side: str = "m"
+    window: int = 0
+    kind: str = "nan"  # "nan" | "torn"
+    num_rows: int = 4
+    seed: int = 0
+    persistent: bool = False
+    shard: int | None = None
+    fired: int = 0
+    fired_in: list = dataclasses.field(default_factory=list)
+
+    def apply_window(self, i: int, side: str, w: int, tbl,
+                     shard: int = 0):
+        if (i != self.iteration or side != self.side or w != self.window
+                or (self.shard is not None and shard != self.shard)
+                or (self.fired and not self.persistent)):
+            return tbl
+        self.fired += 1
+        self.fired_in.append(threading.current_thread().name)
+        tbl = tbl.clone()  # never mutate the store's rows
+        if self.kind == "torn":
+            tbl[tbl.shape[0] // 2:] = 0.0
+            return tbl
+        rows = np.random.default_rng(self.seed).choice(
+            tbl.shape[0], size=min(self.num_rows, tbl.shape[0]),
+            replace=False)
+        tbl[rows] = float("nan")
+        return tbl
+
+
+@dataclasses.dataclass
+class HotCacheCorruption:
+    """Poison the DEVICE-resident hot-row partition
+    (``cfk_tpu/resilience/faults.py:231``): when the windowed trainer is
+    about to read the ``(iteration, side)`` half's fixed partition it NaNs
+    ``num_rows`` seeded positions (an int8 partition: the scale).  The host
+    master is untouched, so the sentinel's rollback and the partition
+    rebuild recover the fault-free bits."""
+
+    iteration: int
+    side: str = "m"
+    num_rows: int = 4
+    seed: int = 0
+    persistent: bool = False
+    fired: int = 0
+
+    def apply_hot(self, i: int, side: str, partition_rows: int = 0):
+        if (i != self.iteration or side != self.side or partition_rows < 1
+                or (self.fired and not self.persistent)):
+            return None
+        self.fired += 1
+        return np.random.default_rng(self.seed).choice(
+            partition_rows, size=min(self.num_rows, partition_rows),
+            replace=False)
+
+
+@dataclasses.dataclass
+class SlowHostFetch:
+    """Sleep ``delay_s`` before every ``every``-th window staging (a
+    contended host; ``cfk_tpu/resilience/faults.py:264``) — a timing fault
+    the staging engine must absorb without touching a bit.  ``fired``
+    counts delays actually injected, under a lock (pool workers stage
+    concurrently); ``only_shard`` slows one shard's staging only."""
+
+    delay_s: float = 0.01
+    every: int = 1
+    only_shard: int | None = None
+    fired: int = 0
+    calls: int = 0
+    _lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock, repr=False, compare=False)
+
+    def delay(self, i: int, side: str, w: int, shard: int = 0) -> None:
+        if self.every < 1:
+            return
+        if self.only_shard is not None and shard != self.only_shard:
+            return
+        with self._lock:
+            self.calls += 1
+            due = self.calls % self.every == 0
+            if due:
+                self.fired += 1
+        if due:
+            time.sleep(self.delay_s)
+
+
+@dataclasses.dataclass
+class StagingCrash:
+    """Raise from INSIDE one window's staging
+    (``cfk_tpu/resilience/faults.py:302``): the staging engine must hand
+    the error to the consumer (``WindowStager.take`` re-raises and cancels
+    the rest) — never a hang, never a half-staged window reaching a
+    kernel."""
+
+    iteration: int
+    side: str = "m"
+    window: int = 0
+    shard: int | None = None
+    message: str = "injected staging crash"
+    fired: int = 0
+    fired_in: list = dataclasses.field(default_factory=list)
+
+    def apply_window(self, i: int, side: str, w: int, tbl,
+                     shard: int = 0):
+        if (i != self.iteration or side != self.side or w != self.window
+                or (self.shard is not None and shard != self.shard)
+                or self.fired):
+            return tbl
+        self.fired += 1
+        self.fired_in.append(threading.current_thread().name)
+        raise RuntimeError(self.message)
+
+
+@dataclasses.dataclass
+class StoreBitRot:
+    """Flip one byte of a ``HostFactorStore`` shard after iteration
+    ``iteration`` commits (``cfk_tpu/resilience/faults.py:333``): silent
+    bit-rot in a MASTER table.  The per-shard seals must detect it
+    (``StoreIntegrityError``) and the trainer repair from the last committed
+    checkpoint."""
+
+    iteration: int
+    side: str = "u"
+    shard: int = 0
+    byte: int = 0
+    fired: int = 0
+
+    def apply_store(self, i: int, side: str, store) -> None:
+        if i != self.iteration or side != self.side or self.fired:
+            return
+        self.fired += 1
+        buf = store.shard(self.shard).view(-1).view(torch.uint8)
+        buf[self.byte % buf.numel()] ^= 0xFF
+
+
+class WindowFaultInjector:
+    """The hook ``offload.windowed`` calls while staging
+    (``cfk_tpu/resilience/faults.py:396``): applies every armed window
+    corruption, delay plan, hot-partition poison and store bit-rot."""
+
+    def __init__(self, *faults):
+        self.faults = list(faults)
+
+    def apply_window(self, i: int, side: str, w: int, tbl, shard: int = 0):
+        for f in self.faults:
+            if hasattr(f, "apply_window"):
+                tbl = f.apply_window(i, side, w, tbl, shard=shard)
+        return tbl
+
+    def delay(self, i: int, side: str, w: int, shard: int = 0) -> None:
+        for f in self.faults:
+            if hasattr(f, "delay"):
+                f.delay(i, side, w, shard=shard)
+
+    def apply_hot(self, i: int, side: str, partition_rows: int = 0):
+        for f in self.faults:
+            if hasattr(f, "apply_hot"):
+                rows = f.apply_hot(i, side, partition_rows)
+                if rows is not None:
+                    return rows
+        return None
+
+    def apply_store(self, i: int, side: str, store) -> None:
+        for f in self.faults:
+            if hasattr(f, "apply_store"):
+                f.apply_store(i, side, store)
 
     @property
     def fired(self) -> int:

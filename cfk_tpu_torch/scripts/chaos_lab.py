@@ -5,7 +5,9 @@ port of ``scripts/chaos_lab.py``'s ``nan``, ``inf``, ``singular_chunk``,
 ``quantized_table``, ``stream_duplicates``, ``stream_crash_replay``,
 ``stream_poison_batch``, ``serve_under_foldin``, ``two_stage_fallback``,
 ``flaky_broker``, ``serve_replica_kill``, ``serve_delta_gap``,
-``serve_rollover`` and ``worker_kill`` scenarios.  Run::
+``serve_rollover``, ``worker_kill``, ``offload_window``,
+``offload_window_sharded``, ``hot_cache``, ``offload_ials`` and
+``staging_pool`` scenarios.  Run::
 
     python -m cfk_tpu_torch.scripts.chaos_lab --device cpu
     python -m cfk_tpu_torch.scripts.chaos_lab --device cuda \\
@@ -47,6 +49,12 @@ roll an epoch over under traffic with no mixed-epoch answer.
 ``worker_kill`` SIGKILLs one of two ranks of a sharded run (the launch
 harness of ``parallel.launch``): the survivor must exit bounded with the
 store intact, and a restart must resume crc-equal to an uninterrupted run.
+The out-of-core scenarios (``offload_window``, ``offload_window_sharded``,
+``hot_cache``, ``offload_ials``, ``staging_pool``) corrupt staged windows,
+the hot-row partition on the device and the pooled staging engine's
+workers of the windowed trainers (``offload.windowed``) on the reference's
+60 × 30 × 900 fixture: each recovery must end crc-equal to the fault-free
+windowed run, which must equal the resident trainer's.
 """
 
 from __future__ import annotations
@@ -90,8 +98,9 @@ class Lab:
     def config(self, **kw):
         from cfk_tpu_torch.config import ALSConfig
 
+        kw = {"layout": self.layout, **kw}
         return ALSConfig(rank=4, num_iterations=6, health_check_every=1,
-                         layout=self.layout, **kw)
+                         **kw)
 
     def train(self, ds, cfg, **kw):
         from cfk_tpu_torch.models.als import train_als
@@ -392,6 +401,291 @@ class Lab:
                         base=base, rec=rec, ds=ds, crc=False, layout="tiled",
                         ok_extra=level >= 4 and pinned,
                         final_overrides=final, split_and_gj_pinned=pinned)
+
+    # -- the out-of-core tier ---------------------------------------------
+
+    def offload_dataset(self, shards=1, layout="tiled"):
+        """The reference's offload fixture: the 60 × 30 × 900 ratings as
+        stream-mode tiled blocks (or bucketed, for iALS)."""
+        from cfk_tpu_torch.data.blocks import Dataset
+        from cfk_tpu_torch.data.synthetic import synthetic_netflix_coo
+
+        coo = synthetic_netflix_coo(60, 30, 900, seed=0)
+        if layout == "bucketed":
+            return Dataset.from_coo(coo, layout="bucketed", chunk_elems=512)
+        return Dataset.from_coo(coo, num_shards=shards, layout="tiled",
+                                chunk_elems=512, tile_rows=16,
+                                accum_max_entities=0)
+
+    def windowed(self, ds, cfg, **kw):
+        from cfk_tpu_torch.offload.windowed import train_als_host_window
+
+        return train_als_host_window(ds, cfg, device=self.device,
+                                     chunks_per_window=2, **kw)
+
+    @staticmethod
+    def merge_drills(m1, m2) -> None:
+        """Fold drill 2's counters and notes into drill 1's metrics (the
+        row reads one ``Metrics``)."""
+        for k_, v in m2.counters.items():
+            m1.counters[k_] = m1.counters.get(k_, 0) + v
+        m1.notes.update({f"drill2_{k_}": v for k_, v in m2.notes.items()})
+
+    def offload_window(self):
+        """The windowed trainer recovers from staged-window faults with the
+        fault-free bits (``scripts/chaos_lab.py:1031``): a NaN window with
+        no integrity check (the sentinel trips, the ladder rolls the host
+        stores back, the one-shot fault replays clean), then a torn window
+        plus a slow host fetch (the staging checksum catches the tear
+        before any kernel reads it; the delay changes no bit) — both
+        against a fault-free windowed run that equals the resident one."""
+        from cfk_tpu_torch.resilience.faults import (
+            HostWindowCorruption,
+            SlowHostFetch,
+            WindowFaultInjector,
+        )
+        from cfk_tpu_torch.telemetry import Metrics
+
+        ds = self.offload_dataset()
+        cfg = self.config(layout="tiled")
+        base = self.windowed(ds, cfg)
+        resident = self.train(ds, cfg)
+        nan_fault = WindowFaultInjector(
+            HostWindowCorruption(iteration=1, side="m", window=0,
+                                 kind="nan"))
+        m1 = Metrics()
+        rec1 = self.windowed(ds, cfg, metrics=m1, window_faults=nan_fault,
+                             verify_windows=False)
+        torn_fault = WindowFaultInjector(
+            HostWindowCorruption(iteration=2, side="u", window=0,
+                                 kind="torn"),
+            SlowHostFetch(delay_s=0.002, every=3))
+        m2 = Metrics()
+        rec2 = self.windowed(ds, cfg, metrics=m2, window_faults=torn_fault)
+        torn_detected = m2.counters.get("health_trips", 0) >= 1
+        equal = self.crc(base) == self.crc(resident)
+        torn_exact = self.crc(rec2) == self.crc(base)
+        self.merge_drills(m1, m2)
+        return self.row(
+            "offload_window", fired=nan_fault.fired and torn_fault.fired,
+            metrics=m1, base=base, rec=rec1, ds=ds, layout="tiled",
+            ok_extra=equal and torn_exact and torn_detected,
+            windowed_equals_resident=equal, torn_bit_exact=torn_exact,
+            slow_fetch_fired=int(torn_fault.faults[1].fired))
+
+    def offload_window_sharded(self):
+        """The sharded windowed trainer recovers fleet-wide from faults on
+        ONE shard's staging (``scripts/chaos_lab.py:1133``): a NaN window on
+        shard 1 (both shards' stores roll back), a torn window on shard 0
+        caught by the per-shard checksum while shard 1's fetches straggle —
+        with the hot cache off so the faults land on staged rows, against
+        the fault-free windowed run, itself equal to the resident
+        two-rank ``train_als_sharded``."""
+        from cfk_tpu_torch.parallel.mesh import make_mesh
+        from cfk_tpu_torch.parallel.spmd import train_als_sharded
+        from cfk_tpu_torch.resilience.faults import (
+            HostWindowCorruption,
+            SlowHostFetch,
+            WindowFaultInjector,
+        )
+        from cfk_tpu_torch.telemetry import Metrics
+
+        ds = self.offload_dataset(shards=2)
+        cfg = self.config(layout="tiled", num_shards=2, hot_rows=0)
+        base = self.windowed(ds, cfg)
+        with make_mesh(2, self.device, quiet=True) as mesh:
+            resident = train_als_sharded(ds, cfg, mesh)
+        nan_fault = WindowFaultInjector(
+            HostWindowCorruption(iteration=1, side="m", window=0,
+                                 kind="nan", shard=1))
+        m1 = Metrics()
+        rec1 = self.windowed(ds, cfg, metrics=m1, window_faults=nan_fault,
+                             verify_windows=False)
+        torn_fault = WindowFaultInjector(
+            HostWindowCorruption(iteration=2, side="u", window=0,
+                                 kind="torn", shard=0),
+            SlowHostFetch(delay_s=0.002, every=2, only_shard=1))
+        m2 = Metrics()
+        rec2 = self.windowed(ds, cfg, metrics=m2, window_faults=torn_fault)
+        torn_detected = m2.counters.get("health_trips", 0) >= 1
+        equal = self.crc(base) == self.crc(resident)
+        torn_exact = self.crc(rec2) == self.crc(base)
+        self.merge_drills(m1, m2)
+        return self.row(
+            "offload_window_sharded",
+            fired=nan_fault.fired and torn_fault.fired, metrics=m1,
+            base=base, rec=rec1, ds=ds, layout="tiled",
+            ok_extra=equal and torn_exact and torn_detected,
+            windowed_equals_resident=equal,
+            torn_on_one_shard_bit_exact=torn_exact,
+            slow_fetch_fired_on_straggler=int(torn_fault.faults[1].fired))
+
+    def hot_cache(self):
+        """Faults in the hot-row device cache (``scripts/chaos_lab.py:
+        1253``), the cache resolved on (auto): NaN rows of the partition on
+        the card (rollback rebuilds it from the host master), then a torn
+        cold delta (the staging checksum catches it) — against the
+        fault-free run, which equals the cache-off and the resident runs."""
+        from cfk_tpu_torch.resilience.faults import (
+            HostWindowCorruption,
+            HotCacheCorruption,
+            WindowFaultInjector,
+        )
+        from cfk_tpu_torch.telemetry import Metrics
+
+        ds = self.offload_dataset()
+        cfg = self.config(layout="tiled")
+        m0 = Metrics()
+        base = self.windowed(ds, cfg, metrics=m0)
+        hot_resolved = int(m0.gauges.get("offload_hot_rows", 0))
+        off = self.windowed(ds, cfg, hot_rows=0)
+        resident = self.train(ds, cfg)
+        side = "m" if m0.gauges.get("offload_hot_rows_u", 0) > 0 else "u"
+        nan_fault = WindowFaultInjector(HotCacheCorruption(iteration=1,
+                                                           side=side))
+        m1 = Metrics()
+        rec1 = self.windowed(ds, cfg, metrics=m1, window_faults=nan_fault,
+                             verify_windows=False)
+        torn_fault = WindowFaultInjector(
+            HostWindowCorruption(iteration=2, side="u", window=0,
+                                 kind="torn"))
+        m2 = Metrics()
+        rec2 = self.windowed(ds, cfg, metrics=m2, window_faults=torn_fault)
+        torn_detected = m2.counters.get("health_trips", 0) >= 1
+        chain = (self.crc(base) == self.crc(off) == self.crc(resident))
+        torn_exact = self.crc(rec2) == self.crc(base)
+        self.merge_drills(m1, m2)
+        return self.row(
+            "hot_cache", fired=nan_fault.fired and torn_fault.fired,
+            metrics=m1, base=base, rec=rec1, ds=ds, layout="tiled",
+            ok_extra=(hot_resolved > 0 and chain and torn_exact
+                      and torn_detected),
+            hot_rows_resolved=hot_resolved,
+            hot_equals_off_equals_resident=chain,
+            torn_delta_bit_exact=torn_exact)
+
+    def offload_ials(self):
+        """The windowed iALS++ trainer recovers from staged width-class
+        window faults with the fault-free bits (``scripts/chaos_lab.py:
+        1370``) — the rollback rebuilds the hot partition (pinned at 16
+        rows) from the restored masters and the next half recomputes the
+        streamed Gram: a NaN window, then a torn one caught by the
+        checksum, against a fault-free run equal to the resident
+        ``train_ials``."""
+        from cfk_tpu_torch.models.ials import IALSConfig, train_ials
+        from cfk_tpu_torch.offload.windowed import train_ials_host_window
+        from cfk_tpu_torch.resilience.faults import (
+            HostWindowCorruption,
+            WindowFaultInjector,
+        )
+        from cfk_tpu_torch.telemetry import Metrics
+
+        ds = self.offload_dataset(layout="bucketed")
+        cfg = IALSConfig(rank=4, num_iterations=6, health_check_every=1,
+                         lam=0.1, alpha=40.0, layout="bucketed",
+                         algorithm="ials++", block_size=2)
+        kw = dict(device=self.device, chunks_per_window=2, hot_rows=16)
+        m0 = Metrics()
+        base = train_ials_host_window(ds, cfg, metrics=m0, **kw)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            resident = train_ials(ds, cfg, device=self.device)
+        gram_staged = float(m0.gauges.get("offload_gram_staged_mb", 0))
+        hot_resolved = int(m0.gauges.get("offload_hot_rows", 0))
+        nan_fault = WindowFaultInjector(
+            HostWindowCorruption(iteration=1, side="m", window=0,
+                                 kind="nan"))
+        m1 = Metrics()
+        rec1 = train_ials_host_window(ds, cfg, metrics=m1,
+                                      window_faults=nan_fault,
+                                      verify_windows=False, **kw)
+        torn_fault = WindowFaultInjector(
+            HostWindowCorruption(iteration=2, side="u", window=0,
+                                 kind="torn"))
+        m2 = Metrics()
+        rec2 = train_ials_host_window(ds, cfg, metrics=m2,
+                                      window_faults=torn_fault, **kw)
+        torn_detected = m2.counters.get("health_trips", 0) >= 1
+        equal = self.crc(base) == self.crc(resident)
+        torn_exact = self.crc(rec2) == self.crc(base)
+        self.merge_drills(m1, m2)
+        return self.row(
+            "offload_ials", fired=nan_fault.fired and torn_fault.fired,
+            metrics=m1, base=base, rec=rec1, ds=ds, layout="bucketed",
+            ok_extra=(equal and torn_exact and torn_detected
+                      and gram_staged > 0 and hot_resolved > 0),
+            windowed_equals_resident=equal, torn_bit_exact=torn_exact,
+            gram_staged_mb=gram_staged, hot_rows_resolved=hot_resolved)
+
+    def staging_pool(self):
+        """Faults inside the pooled staging engine (``scripts/chaos_lab.py:
+        1487``), two shards, ``staging="pool"``: a straggling shard-1 fetch
+        (the other shard keeps staging — peak in-flight >= 2 — and no bit
+        moves), a NaN window staged by a pool worker (the sentinel
+        recovers), a torn one caught by the checksum in a worker, and a
+        crash inside a worker that must surface as the run's error, not a
+        hang — against the serial engine's fault-free bits."""
+        from cfk_tpu_torch.resilience.faults import (
+            HostWindowCorruption,
+            SlowHostFetch,
+            StagingCrash,
+            WindowFaultInjector,
+        )
+        from cfk_tpu_torch.telemetry import Metrics
+
+        ds = self.offload_dataset(shards=2)
+        cfg = self.config(layout="tiled", num_shards=2)
+        serial = self.windowed(ds, cfg, staging="serial")
+        base = self.windowed(ds, cfg, staging="pool")
+        slow = WindowFaultInjector(SlowHostFetch(delay_s=0.004, every=1,
+                                                 only_shard=1))
+        m1 = Metrics()
+        rec1 = self.windowed(ds, cfg, staging="pool", metrics=m1,
+                             window_faults=slow, verify_windows=False)
+        peak = m1.gauges.get("offload_pool_peak_inflight", 0)
+        nan_fault = HostWindowCorruption(iteration=1, side="m", window=0,
+                                         kind="nan", shard=1)
+        m2 = Metrics()
+        rec2 = self.windowed(ds, cfg, staging="pool", metrics=m2,
+                             window_faults=WindowFaultInjector(nan_fault),
+                             verify_windows=False)
+        torn_fault = HostWindowCorruption(iteration=1, side="u", window=0,
+                                          kind="torn", shard=0)
+        m3 = Metrics()
+        rec3 = self.windowed(ds, cfg, staging="pool", metrics=m3,
+                             window_faults=WindowFaultInjector(torn_fault))
+        crash = StagingCrash(iteration=0, side="m", window=0,
+                             message="chaos: staging crash drill")
+        crashed = False
+        try:
+            self.windowed(ds, cfg, staging="pool",
+                          window_faults=WindowFaultInjector(crash))
+        except RuntimeError as e:
+            crashed = "staging crash drill" in str(e)
+
+        def in_worker(f):
+            return any(t.startswith("cfk-stage") for t in f.fired_in)
+
+        exact = [self.crc(r) == self.crc(base) for r in (rec1, rec2, rec3)]
+        torn_detected = m3.counters.get("health_trips", 0) >= 1
+        self.merge_drills(m2, m3)
+        self.merge_drills(m2, m1)
+        return self.row(
+            "staging_pool",
+            fired=(slow.fired and nan_fault.fired and torn_fault.fired
+                   and crash.fired),
+            metrics=m2, base=base, rec=rec2, ds=ds, layout="tiled",
+            ok_extra=(self.crc(base) == self.crc(serial) and all(exact)
+                      and peak >= 2 and in_worker(nan_fault)
+                      and in_worker(torn_fault) and torn_detected
+                      and crashed and in_worker(crash)),
+            pooled_equals_serial=self.crc(base) == self.crc(serial),
+            straggler_bit_exact=exact[0],
+            straggler_pool_peak_inflight=int(peak),
+            nan_fired_in_worker=in_worker(nan_fault),
+            torn_fired_in_worker=in_worker(torn_fault),
+            torn_from_worker_bit_exact=exact[2],
+            worker_exception_propagated=crashed)
 
     # -- streaming fold-in ------------------------------------------------
 
@@ -1070,7 +1364,9 @@ SCENARIOS = ("nan", "inf", "singular_chunk", "torn_checkpoint", "preemption",
              "stream_duplicates", "stream_crash_replay",
              "stream_poison_batch", "serve_under_foldin",
              "two_stage_fallback", "flaky_broker", "serve_replica_kill",
-             "serve_delta_gap", "serve_rollover", "worker_kill")
+             "serve_delta_gap", "serve_rollover", "worker_kill",
+             "offload_window", "offload_window_sharded", "hot_cache",
+             "offload_ials", "staging_pool")
 # What the flight recorder's last dump must name, per scenario.
 FLIGHT_EXPECT = {
     "nan": ("nonfinite",),
@@ -1091,13 +1387,20 @@ FLIGHT_EXPECT = {
     "serve_delta_gap": ("delta_gap", "resync"),
     "serve_rollover": ("rollover_begin", "rollover_flip"),
     "worker_kill": ("worker_kill",),
+    "offload_window": ("health_trip",),
+    "offload_window_sharded": ("health_trip",),
+    "hot_cache": ("hot_cache_corruption", "health_trip"),
+    "offload_ials": ("health_trip",),
+    "staging_pool": ("health_trip", "staging_error"),
 }
 _FLIGHT_TAIL = 50  # events searched at the dump's tail
 # Scenarios that build their own dataset whatever the layout: run once, on
 # the first layout given.
 LAYOUT_FREE = ("quantized_table", "stream_poison_batch",
                "two_stage_fallback", "flaky_broker", "serve_replica_kill",
-               "serve_delta_gap", "serve_rollover", "worker_kill")
+               "serve_delta_gap", "serve_rollover", "worker_kill",
+               "offload_window", "offload_window_sharded", "hot_cache",
+               "offload_ials", "staging_pool")
 
 
 def run_scenario(lab: Lab, name: str) -> dict:

@@ -37,8 +37,10 @@ batch's composition (co-members set the padded width and the batch
 shapes), which is why the exactly-once pipeline pins batch boundaries to
 log offsets (``cfk_tpu_torch.streaming.consumer``).
 
-The reference's ``fold_in_rows_windowed`` (a fold-in against a host-resident
-movie store) belongs to the out-of-core slice.
+``fold_in_rows_windowed`` is the fold-in against a host-resident movie
+store (``offload.store.HostFactorStore``, the out-of-core session): the
+batch's touched movie rows stage as one window and the padded program
+solves the same rectangle, so its rows are the resident fold-in's bits.
 """
 
 from __future__ import annotations
@@ -107,6 +109,27 @@ def fold_in_tensor(
         raise ValueError(
             f"fold-in layout must be 'padded' or 'tiled', got {layout!r}"
         )
+    neighbor_idx, rating, mask, count = _padded_rectangle(neighbor_data,
+                                                         pad_multiple)
+    e, p = neighbor_idx.shape
+    _PROGRAMS.add(("padded", e, p, float(lam), solver, reg_solve_algo,
+                   tuple(table.shape), str(table.dtype), str(table.device)))
+    dev = table.device
+    out = als_half_step(
+        table, torch.as_tensor(neighbor_idx, device=dev),
+        torch.as_tensor(rating, device=dev), torch.as_tensor(mask, device=dev),
+        torch.as_tensor(count, device=dev), float(lam),
+        solver=solver, reg_solve_algo=reg_solve_algo,
+    )
+    return out[:t].float()
+
+
+def _padded_rectangle(neighbor_data, pad_multiple: int, col_of=None):
+    """The padded fold-in's (neighbor_idx, rating, mask, count) host
+    rectangle [E, P] of the touched users (E and P the power-of-two
+    buckets); ``col_of`` maps the concatenated movie rows to the indices
+    stored (the windowed fold-in's rebase)."""
+    t = len(neighbor_data)
     width = max(int(mv.shape[0]) for mv, _ in neighbor_data)
     p = _pow2_ceil(max(width, 1), max(pad_multiple, 1))
     e = _pow2_ceil(t, 8)
@@ -120,21 +143,77 @@ def fold_in_tensor(
     mask = np.zeros((e, p), np.float32)
     count = np.zeros((e,), np.float32)
     if rows.shape[0]:
-        neighbor_idx[rows, cols] = np.concatenate(
-            [mv for mv, _ in neighbor_data])
+        mv = np.concatenate([mv for mv, _ in neighbor_data])
+        neighbor_idx[rows, cols] = mv if col_of is None else col_of(mv)
         rating[rows, cols] = np.concatenate([rt for _, rt in neighbor_data])
         mask[rows, cols] = 1.0
     count[:t] = lengths
-    _PROGRAMS.add(("padded", e, p, float(lam), solver, reg_solve_algo,
-                   tuple(table.shape), str(table.dtype), str(table.device)))
-    dev = table.device
+    return neighbor_idx, rating, mask, count
+
+
+def fold_in_rows_windowed(
+    movie_store,
+    neighbor_data,
+    *,
+    lam: float,
+    solver: str = "auto",
+    pad_multiple: int = 8,
+    reg_solve_algo: str | None = None,
+    stats: dict | None = None,
+    return_staged: bool = False,
+    device="cuda",
+):
+    """Restricted fold-in against an OUT-OF-CORE movie table
+    (``cfk_tpu/streaming/foldin.py:146``).
+
+    ``movie_store`` is a host-resident ``offload.store.HostFactorStore``;
+    the batch's touched movie rows stage to ``device`` as ONE window
+    (unique rows gathered on the host, one copy), the neighbor indices
+    rebase into it (``searchsorted``) and the padded fold-in solves the
+    identical pow2 rectangle — the same gathered values, mask-0 cells
+    exact zeros, the same shape — so the rows are the resident
+    ``fold_in_rows``' bits.  The window's row count buckets to a power of
+    two (min 8); its pad slots repeat window row 0 (masked out).
+    ``return_staged=True`` also returns the staged window (what the
+    session's probe reads); ``stats`` receives ``foldin_windows_staged`` /
+    ``foldin_staged_bytes``.  Returns float32 host rows."""
+    from cfk_tpu_torch.device import resolve_device
+    from cfk_tpu_torch.offload.staging import put_window
+
+    t = len(neighbor_data)
+    k = movie_store.rank
+    if t == 0:
+        empty = np.zeros((0, k), np.float32)
+        return (empty, None) if return_staged else empty
+    parts = [mv.astype(np.int64) for mv, _ in neighbor_data if mv.shape[0]]
+    touched = (np.unique(np.concatenate(parts)) if parts
+               else np.zeros((1,), np.int64))
+    w = _pow2_ceil(int(touched.size), 8)
+    rows = np.concatenate([touched,
+                           np.full(w - touched.size, touched[0], np.int64)])
+    window = movie_store.gather(rows)
+    if stats is not None:
+        stats["foldin_windows_staged"] = (
+            stats.get("foldin_windows_staged", 0) + 1)
+        stats["foldin_staged_bytes"] = (
+            stats.get("foldin_staged_bytes", 0)
+            + window.numel() * window.element_size())
+    dev = resolve_device(device)
+    (staged,) = put_window((window,), dev).ready()
+    neighbor_idx, rating, mask, count = _padded_rectangle(
+        neighbor_data, pad_multiple,
+        col_of=lambda mv: np.searchsorted(touched, mv.astype(np.int64)))
+    e, p = neighbor_idx.shape
+    _PROGRAMS.add(("padded_window", e, p, w, float(lam), solver,
+                   reg_solve_algo, str(staged.dtype), str(dev)))
     out = als_half_step(
-        table, torch.as_tensor(neighbor_idx, device=dev),
+        staged, torch.as_tensor(neighbor_idx, device=dev),
         torch.as_tensor(rating, device=dev), torch.as_tensor(mask, device=dev),
         torch.as_tensor(count, device=dev), float(lam),
         solver=solver, reg_solve_algo=reg_solve_algo,
     )
-    return out[:t].float()
+    solved = out[:t].float().cpu().numpy()
+    return (solved, staged) if return_staged else solved
 
 
 def tiled_blocks(neighbor_data, movie_rows: int):

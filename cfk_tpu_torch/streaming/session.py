@@ -200,6 +200,24 @@ class StreamSession:
             self.stream.foldin_layout if self.stream.foldin_layout != "auto"
             else ("tiled" if self._train_layout == "tiled" else "padded")
         )
+        # Out-of-core sessions (``cfk_tpu/streaming/session.py:163-183``):
+        # with offload_tier='host_window' the movie table lives in a host
+        # ``HostFactorStore`` and every fold-in stages the batch's touched
+        # movie rows as one window (``foldin.fold_in_rows_windowed`` — the
+        # resident fold-in's bits).  The commit protocol, the ladder and
+        # quarantine are unchanged: they see only the solved rows and the
+        # tables at commit time.
+        self._offload = getattr(config, "offload_tier",
+                                "device") == "host_window"
+        self._m_store = None
+        self._foldin_stats: dict = {}
+        if self._offload:
+            if self.stream.foldin_layout == "tiled":
+                raise ValueError(
+                    "foldin_layout='tiled' needs the device-resident movie "
+                    "table; an offload_tier='host_window' session stages "
+                    "ad-hoc windows (foldin_layout 'auto'/'padded')")
+            self._layout = "padded"
         self._overrides = Overrides(
             lam=config.lam, fused_epilogue=config.fused_epilogue,
             reg_solve_algo=(None if config.reg_solve_algo == "auto"
@@ -247,7 +265,18 @@ class StreamSession:
             from cfk_tpu_torch.models.als import as_tensor
 
             m = as_tensor(np.asarray(arr), "cpu")
+        if self._offload:
+            from cfk_tpu_torch.offload.store import HostFactorStore
+
+            self._m_store = HostFactorStore.from_array(
+                m.to(dtype=self._factor_dtype()), dtype=self.config.dtype)
+            self._m = None
+            return
         self._m = m.to(device=self.device, dtype=self._factor_dtype()).clone()
+
+    def _movie_table(self) -> torch.Tensor:
+        """The fixed movie table: on the device, or the host store's."""
+        return self._m_store.as_tensor() if self._offload else self._m
 
     def _bootstrap(self, base_model) -> None:
         if base_model is None:
@@ -405,7 +434,7 @@ class StreamSession:
 
     @property
     def movie_factors(self) -> torch.Tensor:
-        return self._m
+        return self._movie_table()
 
     def model(self):
         """Current live factors as an ``ALSModel`` (serving view) on the
@@ -415,7 +444,7 @@ class StreamSession:
         return ALSModel(
             user_factors=torch.from_numpy(self._u.copy()).to(
                 device=self.device, dtype=self._factor_dtype()),
-            movie_factors=self._m,
+            movie_factors=self._movie_table(),
             num_users=self.state.num_users,
             num_movies=self.state.num_movies,
         )
@@ -437,29 +466,52 @@ class StreamSession:
 
     def _solve_pending(self, pending, overrides: Overrides):
         """Fold-in solve of one staged batch under the given overrides;
-        returns (rows [T, k] f32, probe word int)."""
+        returns (rows [T, k] f32, probe word int).  An out-of-core session
+        solves against a staged window of its host movie store, and the
+        probe reads that window (the rows the solve consumed)."""
         neighbor_data = [
             self.state.neighbors(row, pending.cell_writes.get(row))
             for row in pending.touched_rows
         ]
         with self.metrics.phase("foldin_solve"), \
-                span("stream/batch/solve", touched=len(neighbor_data)):
-            solved = fold_in_tensor(
-                self._m, neighbor_data,
-                lam=overrides.lam,
-                solver=self.config.solver,
-                layout=self._layout,
-                pad_multiple=_PAD_MULTIPLE,
-                fused_epilogue=overrides.fused_epilogue,
-                in_kernel_gather=self.config.in_kernel_gather,
-                reg_solve_algo=overrides.reg_solve_algo,
-            )
-            rows = solved.cpu().numpy()
+                span("stream/batch/solve", touched=len(neighbor_data),
+                     offload=int(self._offload)):
+            if self._offload:
+                from cfk_tpu_torch.streaming.foldin import (
+                    fold_in_rows_windowed,
+                )
+
+                rows, m_probe = fold_in_rows_windowed(
+                    self._m_store, neighbor_data, lam=overrides.lam,
+                    solver=self.config.solver, pad_multiple=_PAD_MULTIPLE,
+                    reg_solve_algo=overrides.reg_solve_algo,
+                    stats=self._foldin_stats, return_staged=True,
+                    device=self.device)
+                solved = torch.from_numpy(rows).to(self.device)
+                self.metrics.gauge(
+                    "foldin_windows_staged",
+                    self._foldin_stats.get("foldin_windows_staged", 0))
+                self.metrics.gauge("foldin_staged_mb", round(
+                    self._foldin_stats.get("foldin_staged_bytes", 0) / 1e6,
+                    3))
+            else:
+                m_probe = self._m
+                solved = fold_in_tensor(
+                    self._m, neighbor_data,
+                    lam=overrides.lam,
+                    solver=self.config.solver,
+                    layout=self._layout,
+                    pad_multiple=_PAD_MULTIPLE,
+                    fused_epilogue=overrides.fused_epilogue,
+                    in_kernel_gather=self.config.in_kernel_gather,
+                    reg_solve_algo=overrides.reg_solve_algo,
+                )
+                rows = solved.cpu().numpy()
         word = 0
         if self.health is not None and rows.shape[0]:
             with self.metrics.phase("health_check"), \
                     span("stream/batch/probe"):
-                word = int(_sentinel.probe_word(solved, self._m,
+                word = int(_sentinel.probe_word(solved, m_probe,
                                                 self.health.norm_limit))
             self.metrics.incr("health_checks")
         return rows, word
@@ -491,8 +543,11 @@ class StreamSession:
     def _prewarm_impl(self, *, max_touched: int | None = None,
                       max_width: int | None = None) -> dict:
         t0 = time.time()
-        if self._layout != "padded":
-            note = ("skipped: tiled fold-in block statics are "
+        if self._offload or self._layout != "padded":
+            note = ("skipped: offload fold-in programs key on the staged "
+                    "window's row count, which each batch sets"
+                    if self._offload else
+                    "skipped: tiled fold-in block statics are "
                     "data-dependent")
             self.metrics.note("prewarm", note)
             return {"programs": 0, "new_traces": 0, "prewarm_s": 0.0,
@@ -587,7 +642,8 @@ class StreamSession:
         with self.metrics.phase("commit"), \
                 span("stream/batch/commit", step=self.stream_step):
             save_checkpoint(self.manager, self.stream_step,
-                            self._user_table(), self._m, meta=meta)
+                            self._user_table(), self._movie_table(),
+                            meta=meta)
         self.metrics.incr("stream_commits")
         record_event("stream", "commit", step=self.stream_step,
                      note=note or "")
@@ -826,6 +882,12 @@ class StreamSession:
         from cfk_tpu_torch.data.blocks import Dataset
         from cfk_tpu_torch.models.als import train_als
 
+        if self._offload:
+            raise NotImplementedError(
+                "warm full retrain in an offload_tier='host_window' session "
+                "needs warm_start threading through the windowed trainer "
+                "(cfk_tpu/streaming/session.py:869) — run the retrain "
+                "offline and bootstrap a fresh session from its model")
         with self.metrics.phase("retrain_build"):
             coo = self.state.to_coo()
             ds2 = Dataset.from_coo(

@@ -391,6 +391,31 @@ Phases, each of which must pass:
              iteration) from the implicit phase's u0 with NaN rows before
              iteration 1 against its fault-free call: one trip, one
              rollback, the factors bit-equal;
+6i. offload — the out-of-core tier (``cfk_tpu_torch.offload``): (a)
+             explicit stream windows at one shard on the shards phase's
+             ML-25M ratings (stream-mode tiled blocks on both halves, built
+             beside that phase's three builds — a cut of depth: the Netflix
+             shape's block build does not fit the time limit), rank 64,
+             λ 0.05, 2 iterations, ``device_budget_bytes`` pinned to six
+             worst windows with ``chunks_per_window`` set so each half runs
+             >= 8 windows: pooled staging with the hot cache auto (>= 1 hot
+             row), pooled with the cache off, then serial with the cache
+             off (one knob at a time), each crc-equal to ``train_als`` on
+             the same blocks, then an int8 table crc-equal to the resident
+             int8 run; K6's launches > 0; s/iter beside the resident's,
+             staged MB a half-iteration, the hot rows, the staging copies'
+             host-to-device rate beside a plain pinned 256 MB copy's, peak
+             device memory below the resident run's, and the card's idle
+             share over one profiled windowed call of one iteration;
+             (b) the shards phase's ring run (S = 2, ``exchange="ring"``,
+             its ring-built blocks) as windows in this process, crc-equal
+             to the two-rank run, K2 and K1 launched, s/iter beside the
+             two-rank ring's; (c) one iALS and one iALS++ call (b = 32, one
+             sweep) on the implicit phase's bucketed blocks from its u0,
+             crc-equal to the resident ``train_ials`` calls (K6; K5 and K1),
+             seconds beside theirs.  The launch counts of
+             K1, K2, rows 5, 6, 8 and K5 are zeroed before each run and
+             read after (the kernels line's ``offload``);
 7. small   — ``train_als`` on small padded, tiled (dense stream, and the
              stream mode fused and split) and bucketed datasets (ALS and
              ALS++) and ``train_ials`` on small tiled and bucketed ones (iALS
@@ -422,9 +447,10 @@ Phases, each of which must pass:
              ``recommend --checkpoint-journal DIR`` (the same output as the
              ``--checkpoint-dir`` chain's); ``python -m
              cfk_tpu_torch.scripts.chaos_lab --device cuda`` on the padded,
-             tiled, bucketed and segment layouts (seventeen of its
+             tiled, bucketed and segment layouts (twenty-two of its
              scenarios — the stream ones on each layout, ``quantized_table``,
-             ``stream_poison_batch`` and the five serving ones once — each
+             ``stream_poison_batch``, the five serving ones and the five
+             out-of-core ones once — each
              fired, detected, recovered) beside its ``worker_kill`` (two
              ranks on the card, one SIGKILLed; the restart crc-equal);
              ``train --shards 2 --exchange ring`` against one-rank
@@ -441,7 +467,11 @@ Phases, each of which must pass:
              exits 0 on SIGINT; then
              ``train --implicit --algorithm ials++ --eval-ranking 10`` on a
              small planted MovieLens-format file, whose Recall@10 and MPR
-             on the card must equal the CPU run's.
+             on the card must equal the CPU run's; ``train --layout tiled
+             --offload-tier host_window`` on the card, with and without
+             ``--tiled-mode stream``, whose MSE must equal the resident
+             tier's on ``--tiled-mode stream`` and lie within
+             ``TOL["cli_blocks_mse"]`` of the default run's.
 
 ``python3 chip_smoke.py --phases segment,resilience,cli`` runs a subset (a
 development aid; the build, and the main or implicit phase a chosen phase
@@ -548,7 +578,7 @@ TOL = {"reg_solve": 1e-3, "gram_gather": 1e-4, "gram_solve_dense": 1e-3,
        "binv_solve_reg": 1e-3, "binv_inv": 1e-3, "binv_float64": 1e-2,
        "reg_solve_float64": 2 * 6.17e-5, "topk_exact": 0.0,
        "gram_r256": 1e-5, "float64_r256": 1e-4,
-       "segment_first_half": 1e-3}
+       "segment_first_half": 1e-3, "cli_blocks_mse": 1e-5}
 # K1's relative x error against float64 on the binv phase's inputs (k = 128,
 # condition numbers to 4.5e3) when it factored one column at a time
 # (NVIDIA H100 80GB HBM3, 700 W): the blocked solve is held to twice it
@@ -609,6 +639,10 @@ LINE_EXTRA["topk_scores"] += ("fleet_launches",)
 # The shards phase's launches on each rank (per process: never summed).
 for _name in ("reg_solve", "gram_gather", "gram_solve_dense", "topk_scores"):
     LINE_EXTRA[_name] += ("shards",)
+# The offload phase's launches of each windowed run.
+for _name in ("reg_solve", "gram_gather", "gram_tiles", "gram_solve_tiles",
+              "gram_solve_gather", "gather_rows"):
+    LINE_EXTRA[_name] += ("offload",)
 # scripts/exp_binv.py's defaults (main :187-212): k = 128, --e 334·16
 # rounded down to a multiple of the 128-system tile, λ = 0.05; the main
 # path's movie Grams at k = 64; matrix mode at the ML-25M movie count.
@@ -666,6 +700,15 @@ CLI_PREEMPT = dict(iterations=3000, every=100, grace_s=30.0)
 SHARDS = dict(ranks=2, iterations=2, chunk_elems=1 << 20,
               ring_accum_max=1 << 17, budget_s=90.0)
 SHARDS_LABEL = "2 ranks on one card, exchanges staged through host"
+# The offload phase (the out-of-core tier): (a) explicit stream windows on
+# the shards phase's ML-25M ratings (stream-mode blocks built beside its
+# three builds), rank 64, λ 0.05, 2 iterations, the device budget pinned to
+# ``budget_windows`` worst windows so each half runs >= ``min_windows``
+# windows; (b) the shards phase's ring run (S = 2) in this process; (c) one
+# iALS and one iALS++ call on the implicit phase's bucketed blocks from its
+# u0.  ``copy_mb``: the plain pinned copy the staging rate is held beside.
+OFFLOAD = dict(iterations=2, min_windows=8, budget_windows=6, copy_mb=256,
+               budget_s=90.0)
 # The CLI phase's subprocesses run at once on the machine's few cores: two
 # PyTorch threads each, so the CPU runs do not oversubscribe them.
 CLI_ENV = dict(os.environ, OMP_NUM_THREADS="2")
@@ -3987,16 +4030,20 @@ class Smoke:
         t0 = time.perf_counter()
         # The three builds on threads: the host library's group-by and much
         # of numpy run without the interpreter lock.
-        with concurrent.futures.ThreadPoolExecutor(3) as pool:
-            ds1, ds_ring, ds_auto = pool.map(lambda kw: Dataset.from_coo(
-                coo, **build, **kw), (
-                dict(dense_stream=True),
-                dict(num_shards=c["ranks"], ring=True, ring_warn=False,
-                     accum_max_entities=c["ring_accum_max"]),
-                dict(num_shards=c["ranks"], ring="auto", dense_stream=True)))
+        # The fourth: the offload phase's stream-mode blocks (both halves
+        # streamed, no accumulator — the out-of-core regime's mode).
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            ds1, ds_ring, ds_auto, ds_stream = pool.map(
+                lambda kw: Dataset.from_coo(coo, **build, **kw), (
+                    dict(dense_stream=True),
+                    dict(num_shards=c["ranks"], ring=True, ring_warn=False,
+                         accum_max_entities=c["ring_accum_max"]),
+                    dict(num_shards=c["ranks"], ring="auto",
+                         dense_stream=True),
+                    dict(accum_max_entities=0)))
         blocks_s = time.perf_counter() - t0
         del coo
-        log(f"shards data: generate {gen_s:.1f} s, three tiled builds "
+        log(f"shards data: generate {gen_s:.1f} s, four tiled builds "
             f"{blocks_s:.1f} s; auto picked movie ring="
             f"{ds_auto.movie_blocks.ring} ({ds_auto.movie_blocks.mode}), "
             f"user ring={ds_auto.user_blocks.ring} "
@@ -4169,6 +4216,260 @@ class Smoke:
         log(f"shards phase {out['phase_s']:.1f} s (budget "
             f"{c['budget_s']:.0f} s)")
         self.report["shards"] = out
+        # Kept for the offload phase: its stream blocks, and the ring run
+        # its windowed ring is held to.
+        self.offload_data = dict(stream=ds_stream, ring=ds_ring,
+                                 ring_model=models["ring"], cfg=cfg)
+
+    def offload(self, ds_t, ds_b, ds_s, u0, m0, runs):
+        """The out-of-core tier (module doc, phase 7b): (a) explicit stream
+        windows at one shard on the shards phase's ML-25M stream blocks,
+        (b) its ring run (S = 2) as windows in this process, (c) one iALS
+        and one iALS++ call on the implicit phase's bucketed blocks — each
+        crc-equal to the resident run it replaces."""
+        import zlib
+
+        import numpy as np
+        import torch
+
+        from cfk_tpu_torch import ALSConfig, train_als
+        from cfk_tpu_torch.models.ials import IALSConfig
+        from cfk_tpu_torch.offload import budget, window, windowed
+        from cfk_tpu_torch.ops.kernels import gram_kernel as gk
+        from cfk_tpu_torch.ops.kernels import solve_kernel as sk
+        from cfk_tpu_torch.telemetry.metrics import Metrics
+
+        data, self.offload_data = getattr(self, "offload_data", None), None
+        self.check(data is not None, "offload: the shards phase's datasets "
+                   "are missing (it failed or did not run)")
+        if data is None:
+            return
+        c, label = OFFLOAD, card_line()
+        t_phase = time.perf_counter()
+        wrappers = {"reg_solve": sk.reg_solve, "gram_gather": gk.gram_gather,
+                    "gram_tiles": gk.gram_tiles,
+                    "gram_solve_tiles": gk.gram_solve_tiles,
+                    "gram_solve_gather": gk.gram_solve_gather,
+                    "gather_rows": gk.gather_rows}
+
+        def crc(*tables) -> int:
+            return zlib.crc32(b"".join(
+                np.ascontiguousarray(torch.as_tensor(t).float().cpu()
+                                     .numpy()).tobytes() for t in tables))
+
+        def measured(fn):
+            """fn() with the launch counts zeroed just before and read just
+            after, its seconds and its peak device memory above what was
+            allocated before it."""
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            for f in wrappers.values():
+                f.launches = 0
+            t0 = time.perf_counter()
+            model = fn()
+            torch.cuda.synchronize()
+            return model, dict(
+                s=time.perf_counter() - t0,
+                peak_mb=(torch.cuda.max_memory_allocated() - base) / 1e6,
+                launches={n: f.launches for n, f in wrappers.items()})
+
+        out = dict(label=label)
+        launches_by_run = {}
+        # -- (a) stream windows at one shard --------------------------------
+        ds = data["stream"]
+        cfg = ALSConfig(rank=RANK, lam=LAM, num_iterations=c["iterations"],
+                        layout="tiled")
+        cpw = max(1, min(ds.movie_blocks.num_chunks,
+                         ds.user_blocks.num_chunks) // c["min_windows"])
+        while True:
+            plans = (window.build_window_plan(
+                ds.movie_blocks, ds.user_blocks.padded_entities,
+                chunks_per_window=cpw), window.build_window_plan(
+                ds.user_blocks, ds.movie_blocks.padded_entities,
+                chunks_per_window=cpw))
+            if cpw == 1 or min(p.num_windows for p in plans) >= \
+                    c["min_windows"]:
+                break
+            cpw -= 1
+        worst = max(p.staged_bytes_per_window(RANK, 4) for p in plans)
+        budget_b = c["budget_windows"] * worst / budget.RESIDENT_FRACTION
+        kw = dict(device="cuda", chunks_per_window=cpw,
+                  device_budget_bytes=budget_b)
+        res, res_m = measured(lambda: train_als(ds, cfg, device="cuda"))
+        res_crc = crc(res.user_factors, res.movie_factors)
+        del res
+        rows = {}
+        for name, extra in (("pool_hot_auto", {}),
+                            ("pool_hot_off", dict(hot_rows=0)),
+                            ("serial_hot_off", dict(hot_rows=0,
+                                                    staging="serial"))):
+            metrics = Metrics()
+            model, m = measured(lambda: windowed.train_als_host_window(
+                ds, cfg, metrics=metrics, **kw, **extra))
+            g = metrics.gauges
+            m.update(
+                crc_equal=crc(model.user_factors, model.movie_factors)
+                == res_crc, s_per_iter=metrics.phases["train"]
+                / c["iterations"], windows=(g["offload_windows_m"],
+                                            g["offload_windows_u"]),
+                staged_mb_per_half=g["offload_staged_mb"]
+                / (2 * c["iterations"]),
+                staged_cold_mb_per_half=g["offload_staged_cold_mb"]
+                / (2 * c["iterations"]),
+                hot_rows=g.get("offload_hot_rows", 0),
+                hot_coverage=g.get("offload_hot_coverage"),
+                window_plan_s=metrics.phases["window_plan"],
+                pool_depth=g.get("offload_pool_depth"),
+                h2d_gb_per_s=g.get("offload_h2d_gb_per_s"),
+                stage_busy_s=g["offload_stage_busy_s"],
+                stage_stall_s=g["offload_stage_stall_s"])
+            rows[name] = m
+            launches_by_run[f"a_{name}"] = m["launches"]
+            log(f"offload (a) {name}: {m['s_per_iter']:.3f} s/iter "
+                f"(resident {res_m['s'] / c['iterations']:.3f} s/iter a "
+                f"call), windows m/u {m['windows']}, staged "
+                f"{m['staged_mb_per_half']:.1f} MB a half "
+                f"({m['staged_cold_mb_per_half']:.1f} MB of table), hot "
+                f"rows {m['hot_rows']}, peak {m['peak_mb']:.0f} MB vs "
+                f"resident {res_m['peak_mb']:.0f} MB (budget "
+                f"{budget_b / 1e6:.0f} MB), H2D {m['h2d_gb_per_s']} GB/s, "
+                f"crc-equal {m['crc_equal']}, launches {m['launches']} "
+                f"({label})")
+            self.check(m["crc_equal"], f"offload (a) {name} not crc-equal "
+                       "to the resident train_als")
+            self.check(min(m["windows"]) >= c["min_windows"],
+                       f"offload (a) {name}: windows {m['windows']}")
+            self.check(m["launches"]["gram_solve_gather"] > 0,
+                       f"offload (a) {name}: K6 launches {m['launches']}")
+            self.check(m["peak_mb"] < res_m["peak_mb"],
+                       f"offload (a) {name}: windowed peak {m['peak_mb']} MB "
+                       f"not below the resident {res_m['peak_mb']} MB")
+            del model
+        self.check(rows["pool_hot_auto"]["hot_rows"] > 0,
+                   "offload (a): the hot cache resolved 0 rows")
+        cfg8 = dataclasses.replace(cfg, table_dtype="int8")
+        res8 = train_als(ds, cfg8, device="cuda")
+        res8_crc = crc(res8.user_factors, res8.movie_factors)
+        del res8
+        model, m8 = measured(lambda: windowed.train_als_host_window(
+            ds, cfg8, **kw))
+        m8["crc_equal"] = crc(model.user_factors,
+                              model.movie_factors) == res8_crc
+        del model
+        launches_by_run["a_int8"] = m8["launches"]
+        log(f"offload (a) int8 table: crc-equal {m8['crc_equal']}, "
+            f"{m8['s'] / c['iterations']:.3f} s/iter a call, peak "
+            f"{m8['peak_mb']:.0f} MB ({label})")
+        self.check(m8["crc_equal"], "offload (a) int8 not crc-equal to the "
+                   "resident int8 run")
+        # One profiled windowed call of one iteration: the card's idle
+        # share over the call — its device time (kernels and copies) over
+        # the same call's wall time, the window plans' set-up in both.
+        one = dataclasses.replace(cfg, num_iterations=1)
+        m_one = Metrics()
+        tl = device_timeline(lambda: windowed.train_als_host_window(
+            ds, one, metrics=m_one, **kw))
+        if "device_ms" in tl:
+            tl["train_ms"] = m_one.phases["train"] * 1e3
+            tl["window_plan_ms"] = m_one.phases["window_plan"] * 1e3
+        # A plain pinned copy on the same card, for the staging rate.
+        x = torch.empty(c["copy_mb"] << 20, dtype=torch.uint8,
+                        pin_memory=True)
+        a_ev, b_ev = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        rates = []
+        for _ in range(3):
+            a_ev.record()
+            x.to("cuda", non_blocking=True)
+            b_ev.record()
+            b_ev.synchronize()
+            rates.append(x.numel() / (a_ev.elapsed_time(b_ev) / 1e3) / 1e9)
+        del x
+        out["a"] = dict(resident=dict(res_m, s_per_iter=res_m["s"]
+                                      / c["iterations"]),
+                        chunks_per_window=cpw, budget_mb=budget_b / 1e6,
+                        runs=rows, int8=m8, timeline=tl,
+                        plain_pinned_copy_gb_per_s=max(rates))
+        log(f"offload (a) one profiled windowed iteration: {tl}; a plain "
+            f"pinned {c['copy_mb']} MB copy {max(rates):.2f} GB/s beside "
+            f"the staging copies' {rows['pool_hot_auto']['h2d_gb_per_s']} "
+            f"GB/s ({label})")
+        # -- (b) the shards phase's ring run as windows ----------------------
+        ring_cfg = ALSConfig(num_shards=2, exchange="ring", **data["cfg"])
+        metrics = Metrics()
+        model, mb_ = measured(lambda: windowed.train_als_host_window(
+            data["ring"], ring_cfg, device="cuda", metrics=metrics))
+        rm = data["ring_model"]
+        mb_.update(crc_equal=crc(model.user_factors, model.movie_factors)
+                   == crc(rm.user_factors, rm.movie_factors),
+                   s_per_iter=metrics.phases["train"]
+                   / data["cfg"]["num_iterations"],
+                   resident_s_per_iter=self.report["shards"]["runs"][
+                       "ring"]["s_per_iter"],
+                   windows=(metrics.gauges["offload_windows_m"],
+                            metrics.gauges["offload_windows_u"]))
+        del model
+        launches_by_run["b_ring"] = mb_["launches"]
+        out["b"] = mb_
+        log(f"offload (b) ring S=2 in one process: crc-equal to the "
+            f"two-rank ring {mb_['crc_equal']}, {mb_['s_per_iter']:.3f} "
+            f"s/iter (the two-rank ring {mb_['resident_s_per_iter']:.3f}), "
+            f"windows m/u {mb_['windows']}, peak "
+            f"{mb_['peak_mb']:.0f} MB, launches {mb_['launches']} ({label})")
+        self.check(mb_["crc_equal"], "offload (b) windowed ring not "
+                   "crc-equal to the resident ring run")
+        for k_ in ("gram_gather", "reg_solve"):
+            self.check(mb_["launches"][k_] > 0,
+                       f"offload (b): {k_} launches {mb_['launches']}")
+        # -- (c) iALS and iALS++ windows -------------------------------------
+        ic = IMPLICIT
+        out["c"] = {}
+        for name, algorithm, need in (
+                ("ials", "als", ("gram_solve_gather",)),
+                ("ialspp", "ials++", ("gather_rows", "reg_solve"))):
+            icfg = IALSConfig(rank=ic["rank"], lam=ic["lam"],
+                              alpha=ic["alpha"], num_iterations=1,
+                              layout="bucketed", algorithm=algorithm,
+                              block_size=ic["block_size"])
+            metrics = Metrics()
+            model, mc = measured(lambda: windowed.train_ials_host_window(
+                ds_b, icfg, device="cuda", metrics=metrics,
+                warm_start=(u0, m0)))
+            want = runs["ials_bucketed" if algorithm == "als"
+                        else "ialspp_bucketed"][0]
+            mc.update(crc_equal=crc(model.user_factors, model.movie_factors)
+                      == crc(*want),
+                      windows=(metrics.gauges["offload_windows_m"],
+                               metrics.gauges["offload_windows_u"]),
+                      resident_s=self.report["implicit"][
+                          "ials_bucketed" if algorithm == "als"
+                          else "ialspp_bucketed"]["call_s"][0],
+                      gram_staged_mb=metrics.gauges.get(
+                          "offload_gram_staged_mb"),
+                      hot_rows=metrics.gauges.get("offload_hot_rows", 0))
+            del model
+            launches_by_run[f"c_{name}"] = mc["launches"]
+            out["c"][name] = mc
+            log(f"offload (c) {name}: crc-equal to the resident call "
+                f"{mc['crc_equal']}, {mc['s']:.3f} s (resident "
+                f"{mc['resident_s']:.3f} s), windows m/u "
+                f"{mc['windows']}, hot rows {mc['hot_rows']}, peak "
+                f"{mc['peak_mb']:.0f} MB, launches {mc['launches']} "
+                f"({label})")
+            self.check(mc["crc_equal"], f"offload (c) {name} not crc-equal "
+                       "to the resident train_ials call")
+            for k_ in need:
+                self.check(mc["launches"][k_] > 0,
+                           f"offload (c) {name}: {k_} launches "
+                           f"{mc['launches']}")
+        for name in wrappers:
+            self.kernels.setdefault(name, {})["offload"] = {
+                run: counts[name] for run, counts in launches_by_run.items()}
+        out["phase_s"] = time.perf_counter() - t_phase
+        log(f"offload phase {out['phase_s']:.1f} s (budget "
+            f"{c['budget_s']:.0f} s)")
+        self.report["offload"] = out
 
     def implicit(self):
         import numpy as np
@@ -6153,6 +6454,23 @@ class Smoke:
             return dict(rc=out.returncode, summary=rows[-1] if rows else None,
                         rows=rows[:-1], stderr=out.stderr[-500:])
 
+        def offload_chain():
+            """``train --layout tiled`` on the card, four runs at once: the
+            resident and the windowed tiers on ``--tiled-mode stream``
+            blocks, the windowed tier on the default blocks (it rebuilds
+            the stream blocks), and the default run."""
+            base = ("--data", data, "--layout", "tiled", "--rank", 8,
+                    "--iterations", 3, "--device", "cuda", "--output",
+                    "none")
+            stream, hw = ("--tiled-mode", "stream"), ("--offload-tier",
+                                                      "host_window")
+            runs = dict(resident=stream, host_window=stream + hw,
+                        rebuilt=hw, default=())
+            with concurrent.futures.ThreadPoolExecutor(4) as both:
+                jobs = {k: both.submit(cli, "train", *base, *extra)
+                        for k, extra in runs.items()}
+                return {k: v.result() for k, v in jobs.items()}
+
         pairs = {("rank256", d): ("--layout", "padded", "--rank", 256)
                  for d in ("cuda", "cpu")}
         pairs.update({("segment", d): ("--layout", "segment", "--rank", 8,
@@ -6187,6 +6505,7 @@ class Smoke:
                     cli, "train", "--data", data, *extra, "--iterations", 2,
                     "--device", key[1], "--output", "none")
                    for key, extra in pairs.items()},
+                "offload": (offload_chain,),
                 **{("implicit", d): (
                     cli, "train", "--data", ml, "--format", "movielens",
                     "--implicit", "--algorithm", "ials++", "--rank", 16,
@@ -6201,6 +6520,26 @@ class Smoke:
         log("cli chains, wall s: " + ", ".join(
             f"{k} {v:.1f}" for k, v in sorted(chain_s.items(),
                                                key=lambda kv: -kv[1])))
+        # The out-of-core tier on the card: on the same stream blocks the
+        # resident tier's MSE, bit for bit (rebuilt by the windowed trainer
+        # or built by --tiled-mode stream); on the default blocks within
+        # TOL["cli_blocks_mse"] of the default run (the Grams summed in
+        # another order).
+        tiers = {k: fields(v) for k, v in res["offload"].items()}
+        for k, r in res["offload"].items():
+            self.check(r.returncode == 0, f"cli train offload {k} failed")
+        mse = {k: v.get("mse") for k, v in tiers.items()}
+        for k in ("host_window", "rebuilt"):
+            self.check(mse[k] is not None and mse[k] == mse["resident"],
+                       f"cli train offload {k} MSE {mse[k]} != the "
+                       f"resident tier's {mse['resident']} on stream blocks")
+        self.check(None not in mse.values() and abs(
+            float(mse["rebuilt"]) - float(mse["default"]))
+            <= TOL["cli_blocks_mse"] * float(mse["default"]),
+            f"cli train --offload-tier host_window MSE {mse['rebuilt']} "
+            f"not within {TOL['cli_blocks_mse']} of the default run's "
+            f"{mse['default']}")
+        self.report["cli_offload"] = tiers
         # The main chain: train (auto picks padded), evaluate its CSV (the
         # train MSE again), recommend, predict from the checkpoint and
         # evaluate that CSV, serve (every request answered).
@@ -6347,7 +6686,7 @@ MAIN_PHASES = ("kernels", "binv", "breakdown", "split", "gather", "rank256",
                "segment", "quant", "pipeline", "resilience", "stream")
 IMPLICIT_PHASES = ("gather_ml25m", "split_ml25m", "implicit_r256",
                    "segment_ml25m", "quant_ml25m", "pipeline_ml25m",
-                   "resilience_ml25m")
+                   "resilience_ml25m", "offload")
 PHASES = ("main",) + MAIN_PHASES + ("serve", "fleet", "shards",
                                    "implicit") \
     + IMPLICIT_PHASES + ("small", "cli")
@@ -6368,6 +6707,8 @@ def main(argv=None) -> int:
     if chosen - set(PHASES):
         p.error(f"unknown phases {sorted(chosen - set(PHASES))}; choose "
                 f"from {PHASES}")
+    if "offload" in chosen:
+        chosen.add("shards")  # its stream blocks and its ring run
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)

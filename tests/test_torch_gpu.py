@@ -2404,3 +2404,89 @@ def test_serve_topk_sharded_on_one_card_is_bit_equal(cuda, card_mesh):
                              **kw)
     for a, b in zip(got, one):
         assert torch.equal(a, b.cpu())
+
+
+# -- the out-of-core tier on the card ----------------------------------------
+
+
+def _offload_crc(model) -> int:
+    import zlib
+
+    u, m = model.host_factors()
+    return zlib.crc32(u.tobytes() + m.tobytes())
+
+
+@pytest.fixture(scope="module")
+def offload_ds():
+    from cfk_tpu_torch import Dataset
+    from cfk_tpu_torch.data.synthetic import synthetic_netflix_coo
+
+    return Dataset.from_coo(synthetic_netflix_coo(400, 120, 12_000, seed=3),
+                            layout="tiled", chunk_elems=2048, tile_rows=16,
+                            accum_max_entities=0)
+
+
+@pytest.mark.parametrize("table_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("knobs", [
+    dict(hot_rows=None, staging="pool"), dict(hot_rows=0, staging="serial"),
+    dict(hot_rows=64, staging="pool", fused=False),
+    dict(hot_rows=64, staging="pool", gather=False),
+], ids=lambda k: "-".join(f"{a}={b}" for a, b in k.items()))
+def test_windowed_equals_resident_on_the_card(cuda, offload_ds, table_dtype,
+                                              knobs):
+    """``train_als_host_window`` on the card, windows staged through pinned
+    host memory on a side stream, against ``train_als`` on the same blocks:
+    the same bits (K6, or K2 + K1 split, or K5 + the stream twins), with
+    every window's kernels reading a table of ``window_rows`` rows."""
+    from cfk_tpu_torch import ALSConfig, train_als
+    from cfk_tpu_torch.offload.windowed import train_als_host_window
+
+    knobs = dict(knobs)
+    cfg = ALSConfig(rank=16, num_iterations=2, layout="tiled",
+                    table_dtype=table_dtype,
+                    fused_epilogue=knobs.pop("fused", None),
+                    in_kernel_gather=knobs.pop("gather", None))
+    res = train_als(offload_ds, cfg, device="cuda")
+    win = train_als_host_window(offload_ds, cfg, device="cuda",
+                                chunks_per_window=1, **knobs)
+    assert _offload_crc(win) == _offload_crc(res)
+
+
+@pytest.mark.parametrize("algorithm", ["als", "ials++"])
+@pytest.mark.parametrize("table_dtype", ["float32", "int8"])
+def test_windowed_ials_equals_resident_on_the_card(cuda, algorithm,
+                                                   table_dtype):
+    from cfk_tpu_torch import Dataset
+    from cfk_tpu_torch.data.synthetic import synthetic_netflix_coo
+    from cfk_tpu_torch.models.ials import IALSConfig, train_ials
+    from cfk_tpu_torch.offload.windowed import train_ials_host_window
+
+    ds = Dataset.from_coo(synthetic_netflix_coo(400, 120, 12_000, seed=4),
+                          layout="bucketed", chunk_elems=1024)
+    cfg = IALSConfig(rank=32, num_iterations=2, layout="bucketed",
+                     algorithm=algorithm, block_size=16,
+                     table_dtype=table_dtype)
+    res = train_ials(ds, cfg, device="cuda")
+    for hot_rows in (0, 64):
+        win = train_ials_host_window(ds, cfg, device="cuda",
+                                     chunks_per_window=2, hot_rows=hot_rows)
+        assert _offload_crc(win) == _offload_crc(res)
+
+
+def test_windowed_ring_equals_resident_on_one_card(cuda, card_mesh):
+    """The windowed ring (S = 2) in this process against the two-rank ring
+    sharing the card: the same bits (K2 per chunk into the accumulator,
+    K1 at the end)."""
+    from cfk_tpu_torch import ALSConfig, Dataset
+    from cfk_tpu_torch.data.synthetic import synthetic_netflix_coo
+    from cfk_tpu_torch.offload.windowed import train_als_host_window
+    from cfk_tpu_torch.parallel.spmd import train_als_sharded
+
+    ds = Dataset.from_coo(synthetic_netflix_coo(400, 120, 12_000, seed=3),
+                          layout="tiled", chunk_elems=2048, tile_rows=16,
+                          num_shards=2, ring=True, ring_warn=False)
+    cfg = ALSConfig(rank=16, num_iterations=2, layout="tiled",
+                    num_shards=2, exchange="ring")
+    res = train_als_sharded(ds, cfg, card_mesh)
+    win = train_als_host_window(ds, cfg, device="cuda", chunks_per_window=1)
+    assert _offload_crc(win) == _offload_crc(res)
